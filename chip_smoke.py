@@ -8,18 +8,32 @@ agrees with itself on the card.
 Phases, in order; any failure exits non-zero before the last line:
 
 1. the card: name and power limit (nvidia-smi), torch's device name;
-2. every kernel of the main path, built from csrc/ by nvcc, against its
-   plain PyTorch version on the card at the main path's shapes;
+2. every kernel of the main paths, built from csrc/ by nvcc (one nvcc
+   per source, all started together), against its plain PyTorch version
+   on the card at the main paths' shapes: the fused BiLSTM layer (K1) at
+   call_mods' 4096-row tiles; (2b) the trainable recurrence (K2, K3, K4
+   and its dW_hh) at the training batch of 512 and 509, H 128 and 256,
+   float32 and bfloat16;
 3. each kernel timed with CUDA events (median of reps after warm-up)
    beside its plain version, one PyTorch library call computing the same
-   function (a yardstick the port never calls) and its bound;
-4. the main path through the user's entry point: ``python -m
-   deepsignal_plant_tpu_torch call_mods`` on a seeded ~17.4k-row features
-   TSV with a seeded random full-width both_bilstm checkpoint. The run is
-   a fresh process, so its kernel launch counts start at 0; it prints
-   them (--verbose_stages) and they must equal 5 per forward tile. The
-   same rows then run in float32 through the kernel and through the plain
-   version on the card, which must agree;
+   function or more (a yardstick the port never calls) and its bound:
+   K1 per 4096-row forward tile, (3b) the recurrence kernels per train
+   step at batch 512 in bfloat16; (3c) one whole train step at batch 512
+   through the train loop's step function: device time, host enqueue
+   time, and a torch.profiler trace (device busy share, top kernels);
+4. the main paths through the user's entry points, each a fresh process
+   whose kernel launch counts start at 0 and which prints them
+   (--verbose_stages): ``call_mods`` on a seeded ~17.4k-row features TSV
+   with a seeded random full-width both_bilstm checkpoint (5 K1 launches
+   per forward tile; the same rows in float32 through the kernel and the
+   plain version must agree); (4b) ``train`` with its defaults (bfloat16,
+   resident plane, dropout 0.5, Adam) on a seeded learnable 16,384-row
+   TSV for 2 epochs: 5 launches of K3, K4 and dW_hh per step, 5 of K1 per
+   evaluation tile, none of K2, validation accuracy above its threshold,
+   and the best checkpoint drives ``call_mods``; (4c) float32 training
+   through the kernels against the plain version, 8 steps; (4d) inference
+   with the fused path off, through K2: 5 launches per tile, logits
+   against the K1 path;
 5. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -28,6 +42,8 @@ without the package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -36,6 +52,7 @@ import sys
 import tempfile
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -65,6 +82,43 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # call_mods rows, float32 kernel vs float32 plain: 6-decimal output
 # rounding (5e-7) plus the layer differences above carried to P1
 P1_TOL_F32 = 1e-5
+
+# the training path: batch 512; (F, H) of the five BiLSTM layers of one
+# train step. The recurrence kernels see only H (xproj is (T, 2, B, 4H)).
+TRAIN_B = 512
+TRAIN_LAYERS = {"seq": (7, 128), "signal": (16, 128), "comb0": (256, 256),
+                "comb1": (512, 256), "comb2": (512, 256)}
+REC_KERNELS = {   # wrapper -> the TPU kernel it replaces
+    "lstm_recurrence_fwd": "deepsignal_plant_tpu/ops/pallas_lstm.py:57",
+    "lstm_recurrence_fwd_save": "deepsignal_plant_tpu/ops/pallas_lstm.py:131",
+    "lstm_recurrence_bwd": "deepsignal_plant_tpu/ops/pallas_lstm.py:159",
+    "lstm_dw_hh": "deepsignal_plant_tpu/ops/pallas_lstm.py:159",
+}
+# recurrence kernels vs plain, times max(1, max |plain|). float32 as for
+# K1. bfloat16: as for K1 for h, and for dxproj because da is rounded to
+# bf16 before it feeds the next step's dh, so one flipped rounding travels
+# back through the steps. dW_hh gets identical inputs on both sides and
+# differs only in the order of its f32 sums over (T-1)*B rows.
+REC_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+DW_TOL = 1e-5
+# train data: labels shift the means and signals by +-TRAIN_SHIFT under
+# N(0, 0.3) and N(0, 0.5) noise: the mean of a row's 13 x 16 signal
+# alone separates the labels by 11 standard deviations, but the model
+# starts at chance and has to learn it; 2 epochs of Adam must reach
+TRAIN_ROWS, VALID_ROWS, TRAIN_SHIFT = 16_384, 4_096, 0.2
+TRAIN_ACC_MIN = 0.9
+# 4c: float32 kernel vs float32 plain training, 8 SGD steps (lr 0.1):
+# per-step losses and final parameters; the kernels' float32 sums differ
+# from the plain version's in order only (2e-5 per layer, above), and 8
+# clipped steps carry that into the weights
+F32_TRAIN_STEPS = 8
+F32_LOSS_TOL = 1e-4
+F32_PARAM_TOL = 1e-4
+# 4d: inference through K2 (fused path off) vs through K1, on one
+# 4096-row tile of the trained model, times max(1, max |logit|): float32
+# differs in summation order; bfloat16 also rounds xproj to bf16 on the K2
+# path, where K1 keeps the input projection in f32
+K2_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
 def fail(msg: str) -> None:
@@ -171,8 +225,9 @@ def time_kernel(torch, fused_lstm, bilstm_layer):
             xs, w_ih, b, w_hh, H, seq_out))
         plain_ms = cuda_ms(torch, lambda: bilstm_layer(
             xs, w_ih, b, w_hh, H, seq_out), reps=10)
-        # library yardstick: cuDNN's bidirectional LSTM on the concatenated
-        # input, same weights (torch layout), bf16
+        # library yardstick: torch.nn.LSTM(bidirectional) on the
+        # concatenated input, same weights (torch layout), bf16 (cuDNN
+        # takes no bf16, so ATen's own LSTM kernels run)
         lstm = torch.nn.LSTM(Fa + Fb, H, bidirectional=True).to(
             "cuda", torch.bfloat16)
         with torch.no_grad():
@@ -225,13 +280,305 @@ def time_forward(torch, ModelConfig, ModelBiLSTM, Batch, init_params):
     return out
 
 
-def write_features(path: str, n: int, seed: int) -> None:
+def rec_inputs(torch, H, B, dtype, seed=SEED):
+    """xproj ~ N(0, 1) (a layer's projected inputs), w_hh ~ U(-1/sqrt(H),
+    1/sqrt(H)) (torch's LSTM init), dys ~ N(0, 1) (a cotangent)."""
+    rng = np.random.default_rng(seed)
+    k = 1.0 / np.sqrt(H)
+
+    def dev(a):
+        return torch.tensor(a, dtype=torch.float32).to("cuda", dtype)
+
+    return (dev(rng.normal(size=(T, 2, B, 4 * H))),
+            dev(rng.uniform(-k, k, (2, H, 4 * H))),
+            dev(rng.normal(size=(T, 2, B, H))))
+
+
+def check_recurrence(torch, recurrence, plain):
+    """Phase 2b: K2, K3, K4 and dW_hh against their plain versions at the
+    training shapes. K4 and dW_hh take the plain residuals, so both sides
+    see identical inputs."""
+    errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in REC_KERNELS}
+    checked = []
+    for H in (128, 256):
+        for B in (TRAIN_B, TRAIN_B - 3):
+            for dname, dtype in (("float32", torch.float32),
+                                 ("bfloat16", torch.bfloat16)):
+                xproj, w_hh, dys = rec_inputs(torch, H, B, dtype)
+                want_ys, want_cs, want_g = plain.lstm_recurrence_fwd_save(
+                    xproj, w_hh, H)
+                want_dx = plain.lstm_recurrence_bwd_dx(dys, want_cs, want_g,
+                                                       w_hh, H)
+                want_dw = plain.lstm_dw_hh(want_ys, want_dx)
+                ys = recurrence.lstm_recurrence(xproj, w_hh, H)
+                ys_s, cs, gates = recurrence.lstm_recurrence_fwd_save(
+                    xproj, w_hh, H)
+                dx = recurrence.lstm_recurrence_bwd_dx(dys, want_cs, want_g,
+                                                       w_hh, H)
+                dw = recurrence.lstm_dw_hh(want_ys, want_dx)
+                torch.cuda.synchronize()
+                pairs = [("lstm_recurrence_fwd", "ys", ys, want_ys),
+                         ("lstm_recurrence_fwd_save", "ys", ys_s, want_ys),
+                         ("lstm_recurrence_fwd_save", "cs", cs, want_cs),
+                         ("lstm_recurrence_fwd_save", "gates", gates, want_g),
+                         ("lstm_recurrence_bwd", "dxproj", dx, want_dx),
+                         ("lstm_dw_hh", "dW_hh", dw, want_dw)]
+                line = []
+                for kernel, what, got, want in pairs:
+                    if got.shape != want.shape or got.dtype != want.dtype:
+                        fail(f"{kernel} {what}: {tuple(got.shape)} "
+                             f"{got.dtype}, plain {tuple(want.shape)} "
+                             f"{want.dtype}")
+                    if not torch.isfinite(got.float()).all():
+                        fail(f"{kernel} {what} is not finite")
+                    err = (got.float() - want.float()).abs().max().item()
+                    tol = DW_TOL if kernel == "lstm_dw_hh" else REC_TOL[dname]
+                    bound = tol * max(1.0, want.float().abs().max().item())
+                    line.append(f"{what} {err:.3g} (<= {bound:.3g})")
+                    if err > bound:
+                        fail(f"{kernel} {what} disagrees with its plain "
+                             f"version at H={H} B={B} {dname}: {err} > "
+                             f"{bound}")
+                    errs[kernel][dname] = max(errs[kernel][dname], err)
+                log(f"recurrence H={H} B={B} {dname}: max|kernel-plain| "
+                    + ", ".join(line))
+                checked.append([H, B, dname])
+                del xproj, w_hh, dys, want_ys, want_cs, want_g, want_dx
+    return errs, checked
+
+
+def rec_bound(kernel, H, B, itemsize=2, peak_flops=PEAK_BF16_FLOPS):
+    """(ms at the peak operation rate, ms at the memory rate) of one
+    recurrence launch: its products, and its compulsory bytes (each input
+    read once, each output written once)."""
+    seq = T * 2 * B * H                       # elements of ys, cs, dys
+    w = 2 * H * 4 * H                          # elements of w_hh, dW
+    if kernel in ("lstm_recurrence_fwd", "lstm_recurrence_fwd_save"):
+        flops = 2 * 2 * T * B * H * 4 * H
+        nbytes = (4 * seq + w + seq) * itemsize           # xproj, w_hh, ys
+        if kernel == "lstm_recurrence_fwd_save":
+            nbytes += seq * 4 + 4 * seq * itemsize          # cs, gates
+    elif kernel == "lstm_recurrence_bwd":
+        flops = 2 * 2 * (T - 1) * B * 4 * H * H           # dh = da @ W^T
+        nbytes = (seq + 4 * seq + w + 4 * seq) * itemsize + seq * 4
+    else:                                                  # lstm_dw_hh
+        flops = 2 * 2 * (T - 1) * B * H * 4 * H
+        step = 2 * B * H
+        nbytes = (T - 1) * step * 5 * itemsize + w * 4     # ys, dx; dW f32
+    return flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def cudnn_lstm_ms(torch, F, H, B):
+    """Yardsticks for one training layer: torch.nn.LSTM(bidirectional) on
+    a (T, B, F) input — forward without grad, forward with grad (training
+    mode) and forward + backward — in bf16 (the same inputs as the
+    kernels; cuDNN takes no bf16, so ATen's own LSTM kernels run) and in
+    fp16 (cuDNN). Each computes more than the recurrence kernels: the
+    input projection too, and in the backward its gradients."""
+    lstm = torch.nn.LSTM(F, H, bidirectional=True).to("cuda", torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    x = torch.tensor(rng.uniform(-1, 1, (T, B, F)), dtype=torch.float32
+                     ).to("cuda", torch.bfloat16).requires_grad_(True)
+    out = {}
+    for dtype, sfx in ((torch.bfloat16, ""), (torch.float16, "_fp16")):
+        lstm = lstm.to(dtype)
+        x = x.detach().to(dtype).requires_grad_(True)
+        params = [x, *lstm.parameters()]
+        gout = torch.ones(T, B, 2 * H, device="cuda", dtype=dtype)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "RNN module weights")
+            with torch.no_grad():
+                out["fwd_nograd" + sfx] = cuda_ms(torch, lambda: lstm(x))
+            out["fwd_train" + sfx] = cuda_ms(torch, lambda: lstm(x))
+            out["fwd_bwd" + sfx] = cuda_ms(torch, lambda: torch.autograd.grad(
+                lstm(x)[0], params, gout))
+    return out
+
+
+def time_recurrence(torch, recurrence, plain):
+    """Phase 3b: each recurrence kernel at B=512 in bf16, per H, and per
+    train step (two H=128 and three H=256 launches of each)."""
+    per_h = {}
+    for H in (128, 256):
+        xproj, w_hh, dys = rec_inputs(torch, H, TRAIN_B, torch.bfloat16)
+        ys, cs, gates = recurrence.lstm_recurrence_fwd_save(xproj, w_hh, H)
+        dx = recurrence.lstm_recurrence_bwd_dx(dys, cs, gates, w_hh, H)
+        calls = {
+            "lstm_recurrence_fwd": (
+                lambda: recurrence.lstm_recurrence(xproj, w_hh, H),
+                lambda: plain.lstm_recurrence(xproj, w_hh, H)),
+            "lstm_recurrence_fwd_save": (
+                lambda: recurrence.lstm_recurrence_fwd_save(xproj, w_hh, H),
+                lambda: plain.lstm_recurrence_fwd_save(xproj, w_hh, H)),
+            "lstm_recurrence_bwd": (
+                lambda: recurrence.lstm_recurrence_bwd_dx(dys, cs, gates,
+                                                          w_hh, H),
+                lambda: plain.lstm_recurrence_bwd_dx(dys, cs, gates, w_hh,
+                                                     H)),
+            "lstm_dw_hh": (lambda: recurrence.lstm_dw_hh(ys, dx),
+                           lambda: plain.lstm_dw_hh(ys, dx)),
+        }
+        rows = {}
+        for name, (kern, pl) in calls.items():
+            ops_ms, bytes_ms = rec_bound(name, H, TRAIN_B)
+            rows[name] = {"kernel_ms": cuda_ms(torch, kern),
+                          "plain_ms": cuda_ms(torch, pl, reps=10),
+                          "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+        # the same product as one library call on the stored operands
+        # (bf16 out, f32 accumulation inside cuBLAS)
+        rows["lstm_dw_hh"]["library_ms"] = cuda_ms(
+            torch, lambda: torch.einsum("sdbh,sdbg->dhg", ys[:-1], dx[1:]))
+        per_h[H] = rows
+        log(f"timing recurrence H={H} B={TRAIN_B} bf16: " + json.dumps(rows))
+        del xproj, w_hh, dys, ys, cs, gates, dx
+    library = {name: cudnn_lstm_ms(torch, F, H, TRAIN_B)
+               for name, (F, H) in TRAIN_LAYERS.items()}
+    probe = torch.empty(1, device="cuda", dtype=torch.bfloat16)
+    log("timing torch.nn.LSTM per training layer, bf16 and fp16 (cuDNN "
+        f"accepts bf16: {torch.backends.cudnn.is_acceptable(probe)}): "
+        + json.dumps(library))
+    torch.cuda.synchronize()
+
+    def per_step(kernel, key):
+        return sum(per_h[H][kernel][key] for _, H in TRAIN_LAYERS.values())
+
+    lib = {"lstm_recurrence_fwd": "fwd_nograd",
+           "lstm_recurrence_fwd_save": "fwd_train",
+           "lstm_recurrence_bwd": "fwd_bwd"}
+    out = {}
+    for kernel in REC_KERNELS:
+        ops_ms, bytes_ms = per_step(kernel, "ops_ms"), per_step(kernel,
+                                                                 "bytes_ms")
+        out[kernel] = {
+            "kernel_ms": per_step(kernel, "kernel_ms"),
+            "plain_ms": per_step(kernel, "plain_ms"),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": (per_step(kernel, "library_ms")
+                           if kernel == "lstm_dw_hh" else
+                           sum(v[lib[kernel]] for v in library.values())),
+            "per_launch": {H: per_h[H][kernel] for H in per_h}}
+    out["lstm_recurrence_bwd"]["library_note"] = (
+        "torch.nn.LSTM bf16 forward + backward (more work: the forward "
+        "and the input projection's gradients too)")
+    out["lstm_dw_hh"]["library_note"] = "torch.einsum on the bf16 operands"
+    return out
+
+
+def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
+                    init_params, optim, train_mod):
+    """Phase 3c: where the time of one training step goes, at batch 512
+    in bf16 with the train CLI's defaults (dropout 0.5, Adam), through
+    the train loop's own step function on the resident plane: its device
+    time (CUDA events) and the host's time to enqueue it, with each
+    step's rows gathered by a permutation as the loop does, and on one
+    fixed batch (in turns: fixed, gathered, gathered, fixed); then a
+    torch.profiler trace of a few gathered steps (device busy share,
+    device time by kernel)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = ModelConfig(compute_dtype="bfloat16")
+    model = ModelBiLSTM.from_params(init_params(cfg, SEED), cfg, "cuda",
+                                    trainable=True)
+    weights = list(model.parameters())
+    opt = optim.Optimizer("Adam", optim.step_decay_schedule(
+        1e-3, 32, 2, 0.1), weights)
+    rng = np.random.default_rng(SEED)
+    n = 32 * TRAIN_B
+    ds = FeatureDataset(
+        rng.integers(0, 4, (n, T)).astype(np.int32),
+        rng.normal(size=(n, T)).astype(np.float32),
+        np.abs(rng.normal(size=(n, T))).astype(np.float32),
+        rng.integers(1, 30, (n, T)).astype(np.float32),
+        rng.normal(size=(n, T, 16)).astype(np.float32),
+        rng.integers(0, 2, n).astype(np.int32))
+    dev = torch.device("cuda")
+    src = train_mod.Resident(ds, dev)
+    order = src.order(rng.permutation(n))
+    cw = torch.ones(2, device="cuda")
+
+    def gathered(i):
+        return src.batch(order[i % 32 * TRAIN_B:(i % 32 + 1) * TRAIN_B])
+
+    fixed_batch = gathered(0)
+
+    def step(i, get_batch):
+        return train_mod.train_step(
+            model, weights, opt, *get_batch(i), cw, 0.5,
+            train_mod.step_generator(SEED, i, dev))
+
+    for i in range(3):
+        step(i, gathered)
+    torch.cuda.synchronize()
+    times = {"fixed": ([], []), "gathered": ([], [])}
+    i = 3
+    for mode in ("fixed", "gathered", "gathered", "fixed"):
+        get = gathered if mode == "gathered" else lambda _: fixed_batch
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            step(i, get)
+            times[mode][1].append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            times[mode][0].append(start.elapsed_time(end))
+            i += 1
+    n_prof = 5
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for j in range(i, i + n_prof):
+            step(j, gathered)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {"B": TRAIN_B, "dtype": "bfloat16", "optimizer": "Adam",
+           "dropout_rate": cfg.dropout_rate,
+           "step_ms": statistics.median(times["gathered"][0]),
+           "host_enqueue_ms": statistics.median(times["gathered"][1]),
+           "step_ms_fixed_batch": statistics.median(times["fixed"][0]),
+           "host_enqueue_ms_fixed_batch": statistics.median(
+               times["fixed"][1]),
+           "profiled_steps": n_prof, "profiled_wall_ms": wall_ms}
+    if kernels:
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in kernels)
+        busy, cur_s, cur_e = 0.0, *spans[0]
+        for s0, e0 in spans[1:]:
+            if s0 > cur_e:
+                busy += cur_e - cur_s
+                cur_s, cur_e = s0, e0
+            else:
+                cur_e = max(cur_e, e0)
+        busy += cur_e - cur_s
+        by_name: dict = {}
+        for e in kernels:
+            k = by_name.setdefault(e.name[:60], [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us() / 1e3 / n_prof
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+        out.update({
+            "device_busy_ms_per_step": busy / 1e3 / n_prof,
+            "device_busy_share": busy / 1e3 / wall_ms,
+            "kernels_per_step": sum(v[0] for v in by_name.values()) / n_prof,
+            "top_kernels_ms_per_step": {k: round(v[1], 4) for k, v in top}})
+    else:
+        out["device_busy_share"] = "not measured (no device events)"
+    log("train step: " + json.dumps(out))
+    return out
+
+
+def write_features(path: str, n: int, seed: int, shift: float = 0.8) -> None:
     """A seeded 12-column features TSV, rows grouped by read, labels
-    alternating with a shift of the means and signals."""
+    alternating (label = (pos / 10) % 2) with a shift of the means and
+    signals by +-``shift``."""
     rng = np.random.default_rng(seed)
     bases = np.array(list("ACGT"))
     labels = np.arange(n) % 2
-    shift = np.where(labels == 1, 0.8, -0.8)
+    shift = np.where(labels == 1, shift, -shift)
     codes = rng.integers(0, 4, (n, T))
     codes[:, T // 2] = 1                                   # centre C
     means = np.around(shift[:, None] + rng.normal(0, 0.3, (n, T)), 6)
@@ -251,24 +598,32 @@ def write_features(path: str, n: int, seed: int) -> None:
                 str(labels[i])]) + "\n")
 
 
-def run_call_mods(tsv: str, ckpt: str, out: str, *extra: str) -> dict:
-    """One ``python -m deepsignal_plant_tpu_torch call_mods`` process;
-    returns its [stages] counters plus the rows it wrote."""
-    cmd = [sys.executable, "-m", "deepsignal_plant_tpu_torch", "call_mods",
-           "-i", tsv, "-m", ckpt, "-o", out, "--verbose_stages", *extra]
+def run_cli(*argv: str) -> dict:
+    """One ``python -m deepsignal_plant_tpu_torch <argv> --verbose_stages``
+    process; returns its [stages] counters and wall seconds."""
+    cmd = [sys.executable, "-m", "deepsignal_plant_tpu_torch", *argv,
+           "--verbose_stages"]
     env = dict(os.environ, PYTHONPATH=REPO)
     t0 = time.time()
     proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=600)
     if proc.returncode != 0:
-        fail("call_mods exited {}:\n{}\n{}".format(
-            proc.returncode, proc.stdout[-4000:], proc.stderr[-4000:]))
+        fail("{} exited {}:\n{}\n{}".format(
+            argv[0], proc.returncode, proc.stdout[-4000:],
+            proc.stderr[-4000:]))
     stages = [ln for ln in proc.stdout.splitlines()
               if ln.startswith("[stages] ")]
     if len(stages) != 1:
-        fail("call_mods printed no [stages] line:\n" + proc.stdout[-4000:])
+        fail(f"{argv[0]} printed no [stages] line:\n" + proc.stdout[-4000:])
     st = json.loads(stages[0][len("[stages] "):])
     st["wall_seconds"] = time.time() - t0
+    return st
+
+
+def run_call_mods(tsv: str, ckpt: str, out: str, *extra: str) -> dict:
+    """One call_mods process; its [stages] counters plus the rows it
+    wrote."""
+    st = run_cli("call_mods", "-i", tsv, "-m", ckpt, "-o", out, *extra)
     with open(out) as fh:
         st["rows"] = [ln.rstrip("\n").split("\t") for ln in fh]
     log("call_mods {}: {}".format(" ".join(extra) or "(defaults)",
@@ -342,18 +697,184 @@ def check_main_path(tmp: str, cfg_cls, init_params, save_checkpoint):
             "bf16_vs_f32_agreement": agree, "bf16_vs_f32_max_dp1": dp_bf}
 
 
+def call_accuracy(rows) -> float:
+    """Share of call_mods rows whose call equals the label that
+    write_features gave the row ((pos / 10) % 2)."""
+    return float(np.mean([int(r[8]) == (int(r[1]) // 10) % 2
+                          for r in rows]))
+
+
+def check_training(tmp: str):
+    """Phase 4b: the train CLI end to end with its defaults, then
+    call_mods with its best checkpoint."""
+    tr, va = os.path.join(tmp, "train.tsv"), os.path.join(tmp, "valid.tsv")
+    write_features(tr, TRAIN_ROWS, SEED + 1, TRAIN_SHIFT)
+    write_features(va, VALID_ROWS, SEED + 2, TRAIN_SHIFT)
+    st = run_cli("train", "--train_file", tr, "--valid_file", va,
+                 "--model_dir", os.path.join(tmp, "model"),
+                 "--max_epoch_num", "2", "--step_interval", "16")
+    log("train (defaults): " + json.dumps(
+        {k: v for k, v in st.items() if k != "step_losses"}))
+    if (st["compute_dtype"], st["recurrence"], st["plane"]) != (
+            "bfloat16", "kernel", "resident"):
+        fail(f"train defaults did not run bf16 kernels on the resident "
+             f"plane: {st}")
+    steps = 2 * -(-TRAIN_ROWS // TRAIN_B)
+    if st["steps"] != steps:
+        fail(f"train ran {st['steps']} steps, expected {steps}")
+    kl = st["kernel_launches"]
+    want = {"lstm_recurrence_fwd_save": 5 * steps,
+            "lstm_recurrence_bwd": 5 * steps, "lstm_dw_hh": 5 * steps,
+            "lstm_recurrence_fwd": 0, "fused_bilstm": 5 * st["eval_tiles"]}
+    if kl != want:
+        fail(f"train launched {kl}, expected {want} (5 per train step of "
+             f"each training kernel, 5 K1 per evaluation tile, no K2)")
+    losses = st["step_losses"]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail("train losses are missing or not finite")
+    acc = max(st["valid_accuracies"])
+    log(f"train: best valid accuracy {acc:.4f} (threshold {TRAIN_ACC_MIN}); "
+        f"loss {losses[0]:.4f} at step 1, {losses[-1]:.4g} at step {steps}")
+    if acc <= TRAIN_ACC_MIN or st["best_accuracy"] != acc:
+        fail(f"train reached valid accuracy {acc} <= {TRAIN_ACC_MIN}")
+    calls = run_call_mods(va, st["best_ckpt"],
+                          os.path.join(tmp, "valid_calls.tsv"))
+    check_rows(calls, VALID_ROWS)
+    call_acc = call_accuracy(calls["rows"])
+    log(f"call_mods with the best checkpoint: accuracy {call_acc:.4f} "
+        f"(train's {acc:.4f})")
+    if call_acc <= TRAIN_ACC_MIN:
+        fail(f"call_mods with the trained checkpoint called {call_acc} "
+             f"right <= {TRAIN_ACC_MIN}")
+    epoch_s = st["epoch_train_seconds"]
+    return {"launches": kl, "steps": steps, "eval_tiles": st["eval_tiles"],
+            "best_valid_accuracy": acc, "call_mods_accuracy": call_acc,
+            "train_seconds": st["train_seconds"],
+            "eval_seconds": st["eval_seconds"],
+            "epoch_train_seconds": epoch_s,
+            "samples_per_s": st["samples_per_s"],
+            "samples_per_s_last_epoch": TRAIN_ROWS / epoch_s[-1],
+            "ms_per_step_last_epoch": epoch_s[-1] / (steps // 2) * 1e3,
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "best_ckpt": st["best_ckpt"], "valid_tsv": va}
+
+
+def flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flat_leaves(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from flat_leaves(v, f"{prefix}/{i}")
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def check_f32_training(tmp: str, recurrence, train_entry, parser,
+                       init_params, ModelConfig):
+    """Phase 4c: float32 training through the kernels against the plain
+    version, in this process through the train entry point: the same 8
+    SGD steps, dropout 0, from the same initial weights."""
+    tr = os.path.join(tmp, "train_f32.tsv")
+    write_features(tr, F32_TRAIN_STEPS * TRAIN_B, SEED + 3, TRAIN_SHIFT)
+    va = os.path.join(tmp, "valid.tsv")
+    res = {}
+    for rec in ("kernel", "scan"):
+        args = parser.parse_args([
+            "train", "--train_file", tr, "--valid_file", va,
+            "--model_dir", os.path.join(tmp, f"f32_{rec}"),
+            "--compute_dtype", "float32", "--dropout_rate", "0",
+            "--optim_type", "SGD", "--lr", "0.1", "--max_epoch_num", "1",
+            "--step_interval", str(F32_TRAIN_STEPS), "--recurrence", rec])
+        before = dict(recurrence.launches)
+        with contextlib.redirect_stdout(io.StringIO()):
+            res[rec] = train_entry(args)
+        launched = {k: recurrence.launches[k] - before[k] for k in before}
+        want = 5 * F32_TRAIN_STEPS if rec == "kernel" else 0
+        if launched["lstm_recurrence_fwd_save"] != want or \
+                launched["lstm_recurrence_bwd"] != want:
+            fail(f"float32 {rec} training launched {launched}")
+    lk = np.array(res["kernel"]["step_losses"])
+    lp = np.array(res["scan"]["step_losses"])
+    if len(lk) != F32_TRAIN_STEPS or len(lp) != F32_TRAIN_STEPS:
+        fail("float32 training ran the wrong number of steps")
+    dloss = float(np.abs(lk - lp).max())
+    init = dict(flat_leaves(init_params(ModelConfig(dropout_rate=0.0),
+                                        1234)))
+    dparam = moved = 0.0
+    for (name, a), (_, b) in zip(flat_leaves(res["kernel"]["params"]),
+                                 flat_leaves(res["scan"]["params"])):
+        dparam = max(dparam, float(np.abs(a - b).max()))
+        moved = max(moved, float(np.abs(b - init[name]).max()))
+    log(f"float32 training, kernel vs plain, {F32_TRAIN_STEPS} SGD steps: "
+        f"max|dloss| = {dloss:.3g} (tolerance {F32_LOSS_TOL:g}; losses "
+        f"{lp[0]:.5f} -> {lp[-1]:.5f}), max|dparam| = {dparam:.3g} "
+        f"(tolerance {F32_PARAM_TOL:g}; the largest update from the "
+        f"initial weights {moved:.3g}); valid accuracy "
+        f"{res['kernel']['valid_accuracies']} vs "
+        f"{res['scan']['valid_accuracies']}")
+    if dloss > F32_LOSS_TOL or dparam > F32_PARAM_TOL:
+        fail("float32 kernel and plain training disagree")
+    return {"max_dloss": dloss, "max_dparam": dparam, "max_update": moved,
+            "losses_kernel": lk.tolist(), "losses_plain": lp.tolist()}
+
+
+def check_k2_path(torch, bilstm, recurrence, Batch, FeatureDataset,
+                  load_checkpoint, ckpt: str, valid_tsv: str):
+    """Phase 4d: inference with the fused path off runs the batch-major
+    structure, whose recurrence is K2: 5 launches per forward tile, logits
+    against the K1 path, on one 4096-row tile of the trained model."""
+    params, cfg = load_checkpoint(ckpt)
+    ds = FeatureDataset.from_file(valid_tsv)
+    b, _ = ds.batch_at(slice(0, TILE))
+    batch = Batch(*(torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+                    for a in b))
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        model = bilstm.ModelBiLSTM.from_params(
+            params, cfg.with_(compute_dtype=dname, dropout_rate=0.0), "cuda")
+        with torch.no_grad():
+            k1, _ = model(batch)
+            bilstm._FUSED_ENABLED = False
+            recurrence.launches["lstm_recurrence_fwd"] = 0
+            k2, _ = model(batch)
+            torch.cuda.synchronize()
+            n = recurrence.launches["lstm_recurrence_fwd"]
+            bilstm._FUSED_ENABLED = True
+        err = (k1 - k2).abs().max().item()
+        bound = K2_LOGIT_TOL[dname] * max(1.0, k1.abs().max().item())
+        agree = (k1.argmax(1) == k2.argmax(1)).float().mean().item()
+        log(f"K2 path, {dname}, {TILE} rows: {n} K2 launches; "
+            f"max|logits K2 path - K1 path| = {err:.3g} (<= {bound:.3g}); "
+            f"call agreement {agree:.6f}")
+        if n != 5:
+            fail(f"inference with the fused path off launched K2 {n} times "
+                 f"for one tile (expected 5)")
+        if err > bound or not torch.isfinite(k2).all():
+            fail(f"{dname} K2-path logits disagree with the K1 path")
+        out[dname] = {"launches": n, "max_dlogit": err, "agreement": agree}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one card")
     sys.path.insert(0, REPO)
     try:
+        from deepsignal_plant_tpu_torch import cli
         from deepsignal_plant_tpu_torch.config import ModelConfig
+        from deepsignal_plant_tpu_torch.io.dataset import FeatureDataset
+        from deepsignal_plant_tpu_torch.models import bilstm
         from deepsignal_plant_tpu_torch.models.bilstm import (
             Batch, ModelBiLSTM, forward_flops_per_site, init_params)
-        from deepsignal_plant_tpu_torch.models.convert import save_checkpoint
+        from deepsignal_plant_tpu_torch.models.convert import (
+            load_checkpoint, save_checkpoint)
         from deepsignal_plant_tpu_torch.ops import _build, fused_lstm
+        from deepsignal_plant_tpu_torch.ops import lstm as plain
+        from deepsignal_plant_tpu_torch.ops import optim, recurrence
         from deepsignal_plant_tpu_torch.ops.lstm import bilstm_layer
+        from deepsignal_plant_tpu_torch.pipeline import train as train_mod
     except ImportError as exc:
         fail(f"the deepsignal_plant_tpu_torch package is not beside this "
              f"script ({exc})")
@@ -368,25 +889,44 @@ def main() -> int:
     log(f"card: {smi}; torch {torch.__version__} (CUDA "
         f"{torch.version.cuda}), device 0 = {kind}")
 
-    # phase 2: build and check
+    # phase 2: build (one nvcc per source, all at once) and check
     t0 = time.time()
-    _build.load("fused_bilstm")
-    log(f"built csrc/fused_bilstm.cu in {time.time() - t0:.1f} s: "
-        + _build.library_path("fused_bilstm").with_suffix(".so.log")
-        .read_text().strip().replace("\n", " | ")[-600:])
+    sources = ("fused_bilstm", "lstm_recurrence")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builds = [pool.submit(_build.build, name) for name in sources]
+    for name, build in zip(sources, builds):
+        build.result()       # a build that failed raises here, with its log
+        _build.load(name)
+        log(f"built csrc/{name}.cu ({time.time() - t0:.1f} s for all): "
+            + _build.library_path(name).with_suffix(".so.log").read_text()
+            .strip().replace("\n", " | ")[-600:])
     errs, checked = check_kernel(torch, fused_lstm, bilstm_layer)
+    rec_errs, rec_checked = check_recurrence(torch, recurrence, plain)
 
     # phase 3: timing
     timings = time_kernel(torch, fused_lstm, bilstm_layer)
     forward = time_forward(torch, ModelConfig, ModelBiLSTM, Batch,
                            init_params)
+    rec_timings = time_recurrence(torch, recurrence, plain)
+    step_timing = time_train_step(torch, ModelConfig, ModelBiLSTM,
+                                  FeatureDataset, init_params, optim,
+                                  train_mod)
 
-    # phase 4: the main path; its counts start at 0 in the fresh process
+    # phase 4: the main paths; their counts start at 0 in fresh processes
     fused_lstm.launches = 0
+    for k in recurrence.launches:
+        recurrence.launches[k] = 0
     with tempfile.TemporaryDirectory() as tmp:
         run = check_main_path(tmp, ModelConfig, init_params, save_checkpoint)
-    if fused_lstm.launches != 0:
-        fail("phase 4 launched kernels in this process")
+        trained = check_training(tmp)
+        if fused_lstm.launches != 0 or any(recurrence.launches.values()):
+            fail("phases 4 and 4b launched kernels in this process")
+        f32_train = check_f32_training(tmp, recurrence, train_mod.train,
+                                       cli.build_parser(), init_params,
+                                       ModelConfig)
+        k2_path = check_k2_path(torch, bilstm, recurrence, Batch,
+                                FeatureDataset, load_checkpoint,
+                                trained["best_ckpt"], trained["valid_tsv"])
     flops = forward_flops_per_site(ModelConfig())
     log(f"call_mods: {run['sites_per_s']:.1f} sites/s on {smi} "
         f"({run['sites']} sites in {run['seconds']:.3f} s, of which "
@@ -414,6 +954,28 @@ def main() -> int:
         "library_ms": total("library_ms"),
         "shapes_checked": checked, "per_launch": timings,
         "model_forward": forward, "main_path": run}]}
+    # the recurrence kernels: times per train step at batch 512 in bf16
+    # (two H=128 and three H=256 launches); launches from the train run
+    # (4b), and for K2 from the fused-off inference tile (4d)
+    for name, replaces in REC_KERNELS.items():
+        t = rec_timings[name]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "deepsignal_plant_tpu_torch/csrc/lstm_recurrence.cu",
+            "replaces": replaces,
+            "launches": (k2_path["bfloat16"]["launches"]
+                         if name == "lstm_recurrence_fwd"
+                         else trained["launches"][name]),
+            "max_abs_err": max(rec_errs[name].values()),
+            "max_abs_err_float32": rec_errs[name]["float32"],
+            "max_abs_err_bfloat16": rec_errs[name]["bfloat16"],
+            "ms": t["kernel_ms"], **t, "shapes_checked": rec_checked})
+    log("train summary: " + json.dumps({
+        **trained, "f32_kernel_vs_plain": f32_train, "k2_path": k2_path,
+        "step": step_timing}))
+    log(f"train: {trained['samples_per_s_last_epoch']:.1f} samples/s in "
+        f"the last epoch ({trained['ms_per_step_last_epoch']:.2f} ms per "
+        f"{TRAIN_B}-row step with its evaluations excluded) on {smi}")
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """deepsignal_plant_tpu_torch CLI (counterpart of
-deepsignal_plant_tpu/cli.py:20-60 and :187-239).
+deepsignal_plant_tpu/cli.py:20-60, :187-239 and :314-352).
 
-Ported so far: ``call_mods`` on a features TSV. It takes the JAX
-package's flags with their defaults, plus ``--device``. Flags of planes
-that are not ported yet fail with a clear error when set away from their
-default (pipeline/call_mods.py::_refuse_unported).
+Ported so far: ``call_mods`` and ``train`` on features TSVs. They take
+the JAX package's flags with their defaults, plus ``--device`` and
+``--verbose_stages``. Flags of planes that are not ported yet fail with
+a clear error when set away from their default
+(pipeline/call_mods.py::_refuse_unported,
+pipeline/train.py::_refuse_unported).
 """
 from __future__ import annotations
 
@@ -84,12 +86,29 @@ def main_call_mods(args):
     call_mods(args)
 
 
+def main_train(args):
+    from .pipeline.train import train
+    display_args(args)
+    train(args)
+
+
+def _add_device_args(p):
+    p.add_argument("--device", type=str, default="cuda",
+                   choices=["cuda", "cpu"],
+                   help="run on the card (default) or on the CPU with the "
+                        "plain PyTorch versions of the kernels")
+    p.add_argument("--verbose_stages", action="store_true", default=False,
+                   help="print a JSON line of run counters at the end: "
+                        "kernel launches, steps or tiles, stage seconds")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="deepsignal_plant_tpu_torch",
         description="deepsignal_plant_tpu_torch detects 5mC from nanopore "
                     "reads of plants on an NVIDIA GPU:\n"
-                    "\tcall_mods: call modifications",
+                    "\tcall_mods: call modifications\n"
+                    "\ttrain: train a model",
         formatter_class=argparse.RawTextHelpFormatter)
     parser.add_argument("-v", "--version", action="version",
                         version="deepsignal_plant_tpu_torch version: {}".format(
@@ -104,10 +123,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_path", "-m", type=str, required=True,
                    help=".ckpt (torch) or .ckpt.npz (native) checkpoint")
     _add_model_args(p, dropout_default=0.0, compute_dtype_default="auto")
-    p.add_argument("--device", type=str, default="cuda",
-                   choices=["cuda", "cpu"],
-                   help="run on the card (default) or on the CPU with the "
-                        "plain PyTorch versions of the kernels")
+    _add_device_args(p)
     p.add_argument("--batch_size", "-b", type=int, default=512,
                    help="accepted for reference CLI compatibility")
     p.add_argument("--device_batch", type=int, default=None,
@@ -141,10 +157,46 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for reference CLI compatibility (unused)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="device trace directory (not yet ported)")
-    p.add_argument("--verbose_stages", action="store_true", default=False,
-                   help="print a JSON line of run counters at the end: "
-                        "forward tiles, kernel launches, stage seconds")
     p.set_defaults(func=main_call_mods)
+
+    p = subparsers.add_parser("train", description="train a model")
+    p.add_argument("--train_file", type=str, required=True,
+                   help="features TSV (plain or .gz) with labels")
+    p.add_argument("--valid_file", type=str, required=True)
+    p.add_argument("--model_dir", type=str, required=True)
+    # auto = bf16 mixed precision on the card: float32 master parameters
+    # and optimizer, bf16 products and storage, f32 gate math, cell
+    # states and gradient accumulation in the kernels
+    _add_model_args(p, dropout_default=0.5, compute_dtype_default="auto")
+    _add_device_args(p)
+    p.add_argument("--optim_type", type=str, default="Adam",
+                   choices=["Adam", "RMSprop", "SGD", "Ranger"])
+    p.add_argument("--batch_size", type=int, default=512)
+    p.add_argument("--lr", type=float, default=0.001)
+    p.add_argument("--lr_decay", type=float, default=0.1)
+    p.add_argument("--lr_decay_step", type=int, default=2)
+    p.add_argument("--max_epoch_num", type=int, default=10)
+    p.add_argument("--min_epoch_num", type=int, default=5)
+    p.add_argument("--step_interval", type=int, default=100)
+    p.add_argument("--pos_weight", type=float, default=1.0)
+    p.add_argument("--init_model", type=str, default=None)
+    p.add_argument("--resume", action="store_true", default=False,
+                   help="resume from a saved train state: not yet ported")
+    p.add_argument("--stream", type=str, default="auto",
+                   choices=["auto", "yes", "no"],
+                   help="the streaming (block-shuffled) dataset is not yet "
+                        "ported: yes fails, and so does auto on a file "
+                        "over 8GB")
+    p.add_argument("--device_resident", type=str, default="auto",
+                   choices=["auto", "never"],
+                   help="auto: upload both datasets to the device once and "
+                        "gather each step's rows there; a dataset over the "
+                        "budget (half the card's free memory) fails, as "
+                        "the spill plane is not yet ported. never: gather "
+                        "and upload each step's rows on the host")
+    p.add_argument("--tmpdir", type=str, default="/tmp",
+                   help="accepted for JAX CLI compatibility (unused)")
+    p.set_defaults(func=main_train)
     return parser
 
 

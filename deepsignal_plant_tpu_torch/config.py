@@ -110,14 +110,35 @@ class CallConfig:
             raise ValueError("device_batch must be >= 1")
 
 
-def model_config_from_args(args, device) -> ModelConfig:
-    """ModelConfig from the call_mods flags (JAX config.py:153-172)."""
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training-loop settings (JAX config.py:133-150; reference train.py
+    main args)."""
+    batch_size: int = 512
+    lr: float = 0.001
+    lr_decay: float = 0.1
+    lr_decay_step: int = 2
+    max_epoch_num: int = 10
+    min_epoch_num: int = 5
+    step_interval: int = 100
+    pos_weight: float = 1.0
+    optim_type: str = "Adam"      # Adam | RMSprop | SGD | Ranger
+    clip_grad: float = 0.5
+    seed: int = 1234
+    #: "auto": datasets that fit the device's budget are uploaded once and
+    #: every step gathers its rows there; "never": host-fed steps
+    device_resident: str = "auto"
+
+
+def model_config_from_args(args, device, dropout_rate: float) -> ModelConfig:
+    """ModelConfig from the model flags of call_mods and train (JAX
+    config.py:153-172); each entry point passes its dropout rate."""
     from .utils.bases import str2bool
     from .utils.device import resolve_compute_dtype
     return ModelConfig(
         seq_len=args.seq_len, signal_len=args.signal_len,
         num_layers_comb=args.layernum1, num_layers_branch=args.layernum2,
-        num_classes=args.class_num, dropout_rate=0.0,
+        num_classes=args.class_num, dropout_rate=dropout_rate,
         hidden_size=args.hid_rnn, vocab_size=args.n_vocab,
         embedding_size=args.n_embed, is_base=str2bool(args.is_base),
         is_signallen=str2bool(args.is_signallen), module=args.model_type,

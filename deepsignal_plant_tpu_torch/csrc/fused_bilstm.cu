@@ -71,27 +71,11 @@
 // distributed shared memory) is later work. The float32 kernel runs on
 // the CUDA cores (67 TFLOP/s peak) and serves exact-parity runs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "dsp_common.cuh"
 
-#include <cstdint>
+using namespace dsp;
 
 namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr size_t kMaxSmem = 232448;     // 227 KB, Hopper's per-block limit
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-cudaError_t set_smem(const void* kernel, size_t smem) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
 
 // ---------------------------------------------------------------------------
 // float32: CUDA-core FMAs
@@ -99,36 +83,6 @@ cudaError_t set_smem(const void* kernel, size_t smem) {
 constexpr int kRowsPerThread = 16;      // RB: rows of one thread
 constexpr int kMaxBlockThreads = 512;   // H <= 512
 constexpr int kTargetThreads = 256;
-
-// acc[g][r] += sum_k in[k][rg + r] * w[k][g*H + j] over k in [0, K)
-template <int RB>
-__device__ __forceinline__ void accumulate(float (&acc)[4][RB],
-                                           const float* __restrict__ in,
-                                           const float* __restrict__ w, int K,
-                                           int H, int BB, int rg, int j) {
-  const int G4 = 4 * H;
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    const float* wk = w + (size_t)k * G4 + j;
-    const float w0 = wk[0];
-    const float w1 = wk[H];
-    const float w2 = wk[2 * H];
-    const float w3 = wk[3 * H];
-    const float* ik = in + k * BB + rg;
-#pragma unroll
-    for (int r = 0; r < RB; r += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(ik + r);
-      acc[0][r] += v.x * w0; acc[0][r + 1] += v.y * w0;
-      acc[0][r + 2] += v.z * w0; acc[0][r + 3] += v.w * w0;
-      acc[1][r] += v.x * w1; acc[1][r + 1] += v.y * w1;
-      acc[1][r + 2] += v.z * w1; acc[1][r + 3] += v.w * w1;
-      acc[2][r] += v.x * w2; acc[2][r + 1] += v.y * w2;
-      acc[2][r + 2] += v.z * w2; acc[2][r + 3] += v.w * w2;
-      acc[3][r] += v.x * w3; acc[3][r + 1] += v.y * w3;
-      acc[3][r + 2] += v.z * w3; acc[3][r + 3] += v.w * w3;
-    }
-  }
-}
 
 template <int RB>
 __global__ void __launch_bounds__(kMaxBlockThreads)
@@ -242,11 +196,6 @@ constexpr int kMmaWarps = 8;
 // K of the packed weights: F + H rounded up to the k32 step
 inline int padded_k(int F, int H) { return (F + H + 31) / 32 * 32; }
 
-// Row stride of the shared A buffers, in elements: a multiple of 8 (16-byte
-// loads) whose byte size is an odd multiple of 64, so the 8 threads of a
-// quarter warp (two rows, 64 bytes each) cover all 32 banks once.
-inline int smem_stride(int Kp) { return Kp % 64 == 0 ? Kp + 32 : Kp; }
-
 // wt[d][n][k] = [W_ih[d]; W_hh[d]][k][n] for k < F + H, 0 up to Kp
 __global__ void pack_weights_kernel(const bf16* __restrict__ w_ih,
                                     const bf16* __restrict__ w_hh,
@@ -265,18 +214,6 @@ __global__ void pack_weights_kernel(const bf16* __restrict__ w_ih,
     else if (k < F + H) v = w_hh[((size_t)d * H + (k - F)) * G4 + n];
     wt[i] = v;
   }
-}
-
-// c += a @ b on one 16x8x16 tile; fragments as PTX's mma.m16n8k16 defines
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // x_t of the block's rows into columns [0, F) of an A buffer; rows past

@@ -1,0 +1,966 @@
+// Trainable BiLSTM recurrence for Hopper (sm_90a): the forward over a
+// precomputed input projection, with or without the residuals, and its
+// backward (BPTT), in three launchers.
+//
+// Replaces the Pallas TPU kernels of deepsignal_plant_tpu/ops/pallas_lstm.py:
+//   dsp_lstm_recurrence_fwd, save=0  <- _lstm_kernel (K2, pallas_call :94)
+//   dsp_lstm_recurrence_fwd, save=1  <- _lstm_fwd_save_kernel (K3, :225)
+//   dsp_lstm_recurrence_bwd          <- _lstm_bwd_kernel (K4, :282): the
+//                                       reverse-time recurrence
+//   dsp_lstm_dw_hh                   <- _lstm_bwd_kernel (K4): its dW_hh
+//                                       accumulation, as a kernel of its own
+//
+// Tensor contract (pallas_lstm.py:11-16): xproj (T, 2, B, 4H) holds the
+// input projections with the bias, gate order i,f,g,o, direction 1
+// already time-flipped, so step s of either direction reads xproj[s, d];
+// w_hh (2, H, 4H); ys (T, 2, B, H) per-step h in the same step order
+// (direction 1 stays flipped). The residuals are cs (T, 2, B, H) float32
+// and the activated gates (T, 2, B, 4H) in the storage type.
+//
+// Numerics contract (pallas_lstm.py:40-54, :131-208): xproj, w_hh, ys,
+// gates and dxproj are stored in float32 or bfloat16; products accumulate
+// in f32; gate math, the cell state and the dh/dc carries are f32; h is
+// rounded to the storage type after every step (the next step's
+// operand); da is rounded to the storage type before it feeds dh_{t-1} =
+// da @ W_hh^T (:204) and dW_hh = sum_t h_{t-1}^T da_t (:207).
+//
+// Design, shared with fused_bilstm.cu (K1): the TPU kernels walk T as a
+// sequential grid axis with h and c (or dh and dc) in VMEM scratch;
+// Hopper runs blocks in no order, so the time loop lives inside the
+// block: grid (ceil(B / BB), 2 directions), a block owns BB batch rows of
+// one direction for all T steps. The cell state and the carries stay in
+// f32 registers of the thread that owns their (row, unit); h (or da) is
+// exchanged through shared memory in the storage type, double-buffered,
+// so one __syncthreads() per step orders the exchange. bfloat16 runs its
+// per-step product on the tensor cores (mma.sync m16n8k16, f32
+// accumulate); float32 on the CUDA cores. One direction's W_hh is 512 KB
+// in bf16 at H=256, more than a block's 227 KB of shared memory, so it is
+// packed per launch into the caller's workspace and read from L2 at every
+// step. The ragged batch edge is masked in the kernel: rows >= B read
+// zeros and store nothing, with no padding on the host (the JAX wrapper
+// pads B to a multiple of 128, pallas_lstm.py:219-223).
+//
+// The TPU's K4 keeps a (2, H, 4H) f32 dW_hh accumulator per batch tile
+// in VMEM (1 MB per direction at H=256), which no block here can hold.
+// So dW_hh is a second pass over the stored operands: dsp_lstm_dw_hh
+// reduces over K = (T-1)*B rows inside each block, with no atomics, in a
+// fixed order (deterministic).
+
+#include "dsp_common.cuh"
+
+using namespace dsp;
+
+namespace {
+
+constexpr int kMmaWarps = 8;            // warps of a recurrence block
+constexpr int kRowsPerThread = 16;      // float32: rows of one thread
+constexpr int kTargetThreads = 256;     // float32: threads of a block
+constexpr int kMaxHidden = 512;
+
+inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+// out[d][n][k] for n < rows, k < Kp: in[d][k][n] (transpose; in is
+// (2, K, rows)) or in[d][n][k] (copy; in is (2, rows, K)) for k < K, 0
+// for K <= k < Kp.
+template <typename T>
+__global__ void pack_kernel(const T* __restrict__ in, T* __restrict__ out,
+                            int rows, int K, int Kp, int transpose) {
+  const size_t total = (size_t)2 * rows * Kp;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int k = (int)(i % Kp);
+    const size_t dn = i / Kp;
+    const int n = (int)(dn % rows);
+    const int d = (int)(dn / rows);
+    T v = T(0.f);
+    if (k < K)
+      v = transpose ? in[((size_t)d * K + k) * rows + n]
+                    : in[((size_t)d * rows + n) * K + k];
+    out[i] = v;
+  }
+}
+
+template <typename T>
+cudaError_t pack(const T* in, T* out, int rows, int K, int Kp, int transpose,
+                 cudaStream_t stream) {
+  const size_t total = (size_t)2 * rows * Kp;
+  const int blocks = (int)(total / 256 + 1 < 1024 ? total / 256 + 1 : 1024);
+  pack_kernel<T><<<blocks, 256, 0, stream>>>(in, out, rows, K, Kp, transpose);
+  return cudaGetLastError();
+}
+
+__device__ __forceinline__ float ld_f(const float* p) { return *p; }
+__device__ __forceinline__ float ld_f(const bf16* p) {
+  return __bfloat162float(*p);
+}
+// v rounded to the storage type of p, as float
+__device__ __forceinline__ float rounded(const float*, float v) { return v; }
+__device__ __forceinline__ float rounded(const bf16*, float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void st_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_f(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// ---------------------------------------------------------------------------
+// forward (K2, K3), bfloat16 on the tensor cores
+//
+// A block owns 16*MT rows. A warp owns groups of 8 hidden units; for a
+// group it accumulates four 16x8 tiles per m16 tile, one per gate, over
+// the same 8 units, so a thread's accumulator fragments hold i, f, g and
+// o of the same (row, unit) pairs and the cell update needs no exchange.
+// The accumulators start from xproj[s]. The A operand, h_{s-1} of the
+// block's rows, is double-buffered in shared memory; the B operand is
+// W_hh[d] transposed to (4H, Kp), Kp = round_up(H, 32), zero-padded by a
+// packing kernel, so one 16-byte load gives a thread its fragments of two
+// k16 steps (the k order is permuted alike in A and B; the sum is
+// unchanged).
+
+template <int GPW, int MT, bool SAVE>
+__global__ void __launch_bounds__(kMmaWarps * 32, 1)
+fwd_bf16_kernel(const bf16* __restrict__ xproj, const bf16* __restrict__ wt,
+                bf16* __restrict__ ys, float* __restrict__ cs,
+                bf16* __restrict__ gates, int T_, int B, int H, int Kp,
+                int Ks) {
+  constexpr int BB = 16 * MT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const buf0 = reinterpret_cast<bf16*>(smem_raw);
+  bf16* const buf1 = buf0 + BB * Ks;
+  const int d = blockIdx.y;
+  const int G4 = 4 * H;
+  const int b0 = blockIdx.x * BB;
+  const int nwarps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int gq = (threadIdx.x % 32) >> 2;   // groupID of the fragments
+  const int q = threadIdx.x & 3;            // thread in the group
+  const int ngroups = (H + 7) / 8;
+  const bf16* w = wt + (size_t)d * G4 * Kp;
+
+  // h_{-1} = 0 and the pad columns [H, Kp) = 0 in both buffers
+  for (int i = threadIdx.x; i < 2 * BB * Ks / 8; i += blockDim.x)
+    reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  float c[GPW][MT][4];
+#pragma unroll
+  for (int gi = 0; gi < GPW; ++gi)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[gi][mt][e] = 0.f;
+
+  for (int s = 0; s < T_; ++s) {
+    const bf16* cur = s & 1 ? buf1 : buf0;
+    bf16* nxt = s & 1 ? buf0 : buf1;
+    const size_t step = (size_t)s * 2 + d;   // (s, d) of the (T, 2, ...) arrays
+
+#pragma unroll
+    for (int gi = 0; gi < GPW; ++gi) {
+      const int grp = warp + gi * nwarps;
+      if (grp >= ngroups) break;            // the same for the whole warp
+      const int j0 = grp * 8;
+      const bool bvalid = j0 + gq < H;
+      const bf16* wrow = w + (size_t)(j0 + gq) * Kp + 8 * q;
+      // accumulator fragment element e: row gq + 8*(e/2) of the m16 tile,
+      // unit u + e%2
+      const int u = j0 + 2 * q;
+      float acc[MT][4][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = b0 + mt * 16 + gq + (e >> 1) * 8;
+          const int j = u + (e & 1);
+          const bool ok = row < B && j < H;
+          const bf16* xr = xproj + (step * B + row) * G4 + j;
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate)
+            acc[mt][gate][e] = ok ? __bfloat162float(xr[gate * H]) : 0.f;
+        }
+#pragma unroll 2
+      for (int k0 = 0; k0 < Kp; k0 += 32) {
+        uint4 bq[4];
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) {
+          bq[gate] = bvalid ? *reinterpret_cast<const uint4*>(
+                                  wrow + (size_t)gate * H * Kp + k0)
+                            : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const bf16* arow = cur + (mt * 16 + gq) * Ks + k0 + 8 * q;
+          const uint4 lo = *reinterpret_cast<const uint4*>(arow);
+          const uint4 hi = *reinterpret_cast<const uint4*>(arow + 8 * Ks);
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate) {
+            mma_bf16(acc[mt][gate], lo.x, hi.x, lo.y, hi.y, bq[gate].x,
+                     bq[gate].y);
+            mma_bf16(acc[mt][gate], lo.z, hi.z, lo.w, hi.w, bq[gate].z,
+                     bq[gate].w);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float ig = sigmoid_f(acc[mt][0][e]);
+          const float fg = sigmoid_f(acc[mt][1][e]);
+          const float gg = tanhf(acc[mt][2][e]);
+          const float og = sigmoid_f(acc[mt][3][e]);
+          c[gi][mt][e] = fg * c[gi][mt][e] + ig * gg;
+          const bf16 h = __float2bfloat16_rn(og * tanhf(c[gi][mt][e]));
+          const int r = mt * 16 + gq + (e >> 1) * 8;
+          const int j = u + (e & 1);
+          if (j < H) {
+            nxt[r * Ks + j] = h;
+            const int row = b0 + r;
+            if (row < B) {
+              const size_t hi_ = (step * B + row) * H + j;
+              ys[hi_] = h;
+              if (SAVE) {
+                cs[hi_] = c[gi][mt][e];
+                bf16* gr = gates + (step * B + row) * G4 + j;
+                gr[0] = __float2bfloat16_rn(ig);
+                gr[H] = __float2bfloat16_rn(fg);
+                gr[2 * H] = __float2bfloat16_rn(gg);
+                gr[3 * H] = __float2bfloat16_rn(og);
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                        // h_s is in nxt
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward (K2, K3), float32 on the CUDA cores
+//
+// block = (round_up(H, 32), max(1, 256 / that)) threads; thread (j, y)
+// owns unit j for RB rows; h_{s-1} is kept transposed ([k][row]) in shared
+// memory so one 16-byte load feeds four rows; two barriers per step.
+
+template <int RB, bool SAVE>
+__global__ void __launch_bounds__(kMaxHidden)
+fwd_f32_kernel(const float* __restrict__ xproj, const float* __restrict__ w_hh,
+               float* __restrict__ ys, float* __restrict__ cs,
+               float* __restrict__ gates, int T_, int B, int H) {
+  extern __shared__ __align__(16) float hs[];    // [H][BB]
+  const int d = blockIdx.y;
+  const int G4 = 4 * H;
+  const int BB = RB * blockDim.y;
+  const int b0 = blockIdx.x * BB;
+  const int j = threadIdx.x;
+  const int rg = threadIdx.y * RB;
+  const bool active = j < H;
+  const int nthreads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const float* wh = w_hh + (size_t)d * H * G4;
+
+  float c[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) c[r] = 0.f;
+  for (int i = tid; i < H * BB; i += nthreads) hs[i] = 0.f;
+  __syncthreads();
+
+  for (int s = 0; s < T_; ++s) {
+    const size_t step = (size_t)s * 2 + d;
+    float acc[4][RB];
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const int row = b0 + rg + r;
+      const bool ok = active && row < B;
+      const float* xr = xproj + (step * B + row) * G4 + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) acc[g][r] = ok ? xr[g * H] : 0.f;
+    }
+    if (active) accumulate<RB>(acc, hs, wh, H, H, BB, rg, j);
+    __syncthreads();                        // every read of h_{s-1} done
+
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float ig = sigmoid_f(acc[0][r]);
+        const float fg = sigmoid_f(acc[1][r]);
+        const float gg = tanhf(acc[2][r]);
+        const float og = sigmoid_f(acc[3][r]);
+        c[r] = fg * c[r] + ig * gg;
+        const float h = og * tanhf(c[r]);
+        hs[j * BB + rg + r] = h;
+        const int row = b0 + rg + r;
+        if (row < B) {
+          const size_t hi = (step * B + row) * H + j;
+          ys[hi] = h;
+          if (SAVE) {
+            cs[hi] = c[r];
+            float* gr = gates + (step * B + row) * G4 + j;
+            gr[0] = ig; gr[H] = fg; gr[2 * H] = gg; gr[3 * H] = og;
+          }
+        }
+      }
+    }
+    __syncthreads();                        // h_s written
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward recurrence (K4), shared elementwise part
+//
+// One (row, unit j) of step s: from the saved activated gates and cell
+// states and the incoming dy, with the carries dh (= da_{s+1} @ W_hh^T)
+// and dc, the four da's of unit j (pallas_lstm.py:181-206). Writes the
+// storage-type da to `da` (stride H between gates) and returns the
+// rounded values through `out` for the product; updates dc.
+
+template <typename S>
+__device__ __forceinline__ void bwd_cell(const S* __restrict__ gr,
+                                         float c_t, float c_prev, float dy,
+                                         float dh, float& dc,
+                                         S* __restrict__ dxr, int H,
+                                         float (&out)[4]) {
+  const float ig = ld_f(gr);
+  const float fg = ld_f(gr + H);
+  const float gg = ld_f(gr + 2 * H);
+  const float og = ld_f(gr + 3 * H);
+  const float tanh_c = tanhf(c_t);
+  const float dh_t = dy + dh;
+  const float dc_t = dc + dh_t * og * (1.f - tanh_c * tanh_c);
+  const float da[4] = {dc_t * gg * ig * (1.f - ig),
+                       dc_t * c_prev * fg * (1.f - fg),
+                       dc_t * ig * (1.f - gg * gg),
+                       dh_t * tanh_c * og * (1.f - og)};
+#pragma unroll
+  for (int g = 0; g < 4; ++g) {
+    st_f(dxr + g * H, da[g]);
+    out[g] = rounded(dxr, da[g]);           // the stored value
+  }
+  dc = dc_t * fg;
+}
+
+// ---------------------------------------------------------------------------
+// backward recurrence (K4), bfloat16 on the tensor cores
+//
+// Steps run in reverse. A thread owns the (row, unit) pairs of its
+// accumulator fragments for groups of 8 units: there it computes the four
+// da's, keeps dc, and receives dh_{s-1} = da_s @ W_hh^T from its own mma
+// tiles (M = rows, N = units, K = 4H), so the carries never leave its
+// registers. da_s of the block's rows (all 4H columns) is the A operand,
+// double-buffered in shared memory; the B operand is W_hh[d] (rows =
+// units, 4H contiguous) zero-padded to Kp = round_up(4H, 32).
+
+template <int GPW, int MT>
+__global__ void __launch_bounds__(kMmaWarps * 32, 1)
+bwd_bf16_kernel(const bf16* __restrict__ dys, const float* __restrict__ cs,
+                const bf16* __restrict__ gates, const bf16* __restrict__ wb,
+                bf16* __restrict__ dx, int T_, int B, int H, int Kp, int Ks) {
+  constexpr int BB = 16 * MT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const buf0 = reinterpret_cast<bf16*>(smem_raw);
+  bf16* const buf1 = buf0 + BB * Ks;
+  const int d = blockIdx.y;
+  const int G4 = 4 * H;
+  const int b0 = blockIdx.x * BB;
+  const int nwarps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32;
+  const int gq = (threadIdx.x % 32) >> 2;
+  const int q = threadIdx.x & 3;
+  const int ngroups = (H + 7) / 8;
+  const bf16* w = wb + (size_t)d * H * Kp;
+
+  // the pad columns [4H, Kp) stay 0 in both buffers
+  for (int i = threadIdx.x; i < 2 * BB * Ks / 8; i += blockDim.x)
+    reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+
+  float dh[GPW][MT][4], dc[GPW][MT][4];
+#pragma unroll
+  for (int gi = 0; gi < GPW; ++gi)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dh[gi][mt][e] = dc[gi][mt][e] = 0.f;
+
+  for (int s = T_ - 1; s >= 0; --s) {
+    bf16* buf = (T_ - 1 - s) & 1 ? buf1 : buf0;
+    const size_t step = (size_t)s * 2 + d;
+    const size_t prev = (size_t)(s - 1) * 2 + d;   // used only for s > 0
+
+#pragma unroll
+    for (int gi = 0; gi < GPW; ++gi) {
+      const int grp = warp + gi * nwarps;
+      if (grp >= ngroups) break;
+      const int u = grp * 8 + 2 * q;
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = mt * 16 + gq + (e >> 1) * 8;
+          const int row = b0 + r;
+          const int j = u + (e & 1);
+          if (j >= H) continue;
+          bf16* ar = buf + r * Ks + j;
+          if (row >= B) {                   // rows past the edge: da = 0
+#pragma unroll
+            for (int g = 0; g < 4; ++g) ar[g * H] = __float2bfloat16_rn(0.f);
+            continue;
+          }
+          const size_t hi = (step * B + row) * H + j;
+          const float c_prev = s > 0 ? cs[(prev * B + row) * H + j] : 0.f;
+          float da[4];
+          bwd_cell<bf16>(gates + (step * B + row) * G4 + j, cs[hi], c_prev,
+                         __bfloat162float(dys[hi]), dh[gi][mt][e],
+                         dc[gi][mt][e], dx + (step * B + row) * G4 + j, H,
+                         da);
+#pragma unroll
+          for (int g = 0; g < 4; ++g) ar[g * H] = __float2bfloat16_rn(da[g]);
+        }
+      }
+    }
+    if (s == 0) break;                      // dh_{-1} is not needed
+    __syncthreads();                        // da_s of every unit is in buf
+
+#pragma unroll
+    for (int gi = 0; gi < GPW; ++gi) {
+      const int grp = warp + gi * nwarps;
+      if (grp >= ngroups) break;
+      const int j0 = grp * 8;
+      const bool bvalid = j0 + gq < H;
+      const bf16* wrow = w + (size_t)(j0 + gq) * Kp + 8 * q;
+      float acc[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][e] = 0.f;
+#pragma unroll 4
+      for (int k0 = 0; k0 < Kp; k0 += 32) {
+        const uint4 bq = bvalid
+            ? *reinterpret_cast<const uint4*>(wrow + k0)
+            : make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const bf16* arow = buf + (mt * 16 + gq) * Ks + k0 + 8 * q;
+          const uint4 lo = *reinterpret_cast<const uint4*>(arow);
+          const uint4 hi = *reinterpret_cast<const uint4*>(arow + 8 * Ks);
+          mma_bf16(acc[mt], lo.x, hi.x, lo.y, hi.y, bq.x, bq.y);
+          mma_bf16(acc[mt], lo.z, hi.z, lo.w, hi.w, bq.z, bq.w);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dh[gi][mt][e] = acc[mt][e];
+    }
+    // no barrier: the next step writes the other buffer, and the barrier
+    // after that orders this step's reads before this buffer is reused
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward recurrence (K4), float32 on the CUDA cores
+//
+// Thread (j, y) owns unit j for RB rows; da_s is kept transposed
+// ([4H][row]) in shared memory; W_hh[d] is packed transposed to (4H, H) so
+// neighbouring threads read neighbouring weights; two barriers per step.
+
+template <int RB>
+__global__ void __launch_bounds__(kMaxHidden)
+bwd_f32_kernel(const float* __restrict__ dys, const float* __restrict__ cs,
+               const float* __restrict__ gates, const float* __restrict__ wT,
+               float* __restrict__ dx, int T_, int B, int H) {
+  extern __shared__ __align__(16) float das[];   // [4H][BB]
+  const int d = blockIdx.y;
+  const int G4 = 4 * H;
+  const int BB = RB * blockDim.y;
+  const int b0 = blockIdx.x * BB;
+  const int j = threadIdx.x;
+  const int rg = threadIdx.y * RB;
+  const bool active = j < H;
+  const float* w = wT + (size_t)d * G4 * H;
+
+  float dh[RB], dc[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) dh[r] = dc[r] = 0.f;
+
+  for (int s = T_ - 1; s >= 0; --s) {
+    const size_t step = (size_t)s * 2 + d;
+    const size_t prev = (size_t)(s - 1) * 2 + d;
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const int row = b0 + rg + r;
+        float da[4] = {0.f, 0.f, 0.f, 0.f};
+        if (row < B) {
+          const size_t hi = (step * B + row) * H + j;
+          const float c_prev = s > 0 ? cs[(prev * B + row) * H + j] : 0.f;
+          bwd_cell<float>(gates + (step * B + row) * G4 + j, cs[hi], c_prev,
+                          dys[hi], dh[r], dc[r],
+                          dx + (step * B + row) * G4 + j, H, da);
+        }
+#pragma unroll
+        for (int g = 0; g < 4; ++g) das[(g * H + j) * BB + rg + r] = da[g];
+      }
+    }
+    if (s == 0) break;
+    __syncthreads();                        // da_s of every unit is in das
+    if (active) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r) dh[r] = 0.f;
+#pragma unroll 4
+      for (int k = 0; k < G4; ++k) {
+        const float wk = w[(size_t)k * H + j];
+        const float* ak = das + k * BB + rg;
+#pragma unroll
+        for (int r = 0; r < RB; r += 4) {
+          const float4 v = *reinterpret_cast<const float4*>(ak + r);
+          dh[r] += v.x * wk; dh[r + 1] += v.y * wk;
+          dh[r + 2] += v.z * wk; dh[r + 3] += v.w * wk;
+        }
+      }
+    }
+    __syncthreads();                        // every read of das done
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dW_hh (K4): dW[d] = sum_{s >= 1, b} ys[s-1, d, b, :]^T dx[s, d, b, :],
+// (H, 4H) f32. A block computes a 64 x 64 output tile and loops over the
+// K = (T-1) * B rows in 32-row slabs, in order: no atomics, deterministic.
+
+constexpr int kDwTile = 64;
+constexpr int kDwK = 32;
+constexpr int kDwStride = kDwTile + 8;      // bf16 smem row: 144 bytes
+
+// one 32-row slab of a (rows, width) operand: rows [r0, r0+32) of
+// src[(row) * width + col0 + c], zero past `nrows` and past `width`
+template <typename S>
+__device__ __forceinline__ void stage_slab(S* __restrict__ dst, int ld,
+                                           const S* __restrict__ src,
+                                           int nrows, int width, int col0,
+                                           bool vec) {
+  if (sizeof(S) == 2 && vec) {              // 8 bf16 per 16-byte load
+    for (int i = threadIdx.x; i < kDwK * kDwTile / 8; i += blockDim.x) {
+      const int r = i / (kDwTile / 8);
+      const int c = (i % (kDwTile / 8)) * 8;
+      uint4 v = make_uint4(0, 0, 0, 0);
+      if (r < nrows && col0 + c < width)
+        v = *reinterpret_cast<const uint4*>(src + (size_t)r * width + col0 +
+                                            c);
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < kDwK * kDwTile; i += blockDim.x) {
+    const int r = i / kDwTile;
+    const int c = i % kDwTile;
+    S v = S(0.f);
+    if (r < nrows && col0 + c < width) v = src[(size_t)r * width + col0 + c];
+    dst[r * ld + c] = v;
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// bfloat16: 4 warps, a warp computes a 32 x 32 quarter as 2 x 4 mma tiles.
+// Both operands are staged as stored (k rows, m or n contiguous); the
+// transposing ldmatrix builds the row-major A and column-major B
+// fragments from them.
+__global__ void __launch_bounds__(128)
+dw_bf16_kernel(const bf16* __restrict__ ys, const bf16* __restrict__ dx,
+               float* __restrict__ dw, int T_, int B, int H, int vec) {
+  __shared__ __align__(16) bf16 As[kDwK * kDwStride];
+  __shared__ __align__(16) bf16 Bs[kDwK * kDwStride];
+  const int d = blockIdx.z;
+  const int G4 = 4 * H;
+  const int m0 = blockIdx.y * kDwTile;       // units of h_prev
+  const int n0 = blockIdx.x * kDwTile;       // gate columns
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int gq = lane >> 2, q = lane & 3;
+  const int li = lane & 7, mat = lane >> 3;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int s = 1; s < T_; ++s) {
+    const bf16* hs = ys + ((size_t)(s - 1) * 2 + d) * B * H;
+    const bf16* ds = dx + ((size_t)s * 2 + d) * B * G4;
+    for (int r0 = 0; r0 < B; r0 += kDwK) {
+      const int nrows = B - r0 < kDwK ? B - r0 : kDwK;
+      stage_slab<bf16>(As, kDwStride, hs + (size_t)r0 * H, nrows, H, m0,
+                       vec != 0);
+      stage_slab<bf16>(Bs, kDwStride, ds + (size_t)r0 * G4, nrows, G4, n0,
+                       vec != 0);
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kDwK; kk += 16) {
+        uint32_t a[2][4], b[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          ldmatrix_x4_trans(a[mt], As + (kk + li + (mat >> 1) * 8) *
+                                            kDwStride +
+                                        wm + mt * 16 + (mat & 1) * 8);
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          ldmatrix_x4_trans(b[np], Bs + (kk + li + (mat & 1) * 8) *
+                                            kDwStride +
+                                        wn + np * 16 + (mat >> 1) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_bf16(acc[mt][nt], a[mt][0], a[mt][1], a[mt][2], a[mt][3],
+                     b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + wm + mt * 16 + gq + (e >> 1) * 8;
+        const int n = n0 + wn + nt * 8 + 2 * q + (e & 1);
+        if (m < H && n < G4) dw[((size_t)d * H + m) * G4 + n] = acc[mt][nt][e];
+      }
+}
+
+// float32: 16 x 16 threads, each a 4 x 4 patch of the 64 x 64 tile
+__global__ void __launch_bounds__(256)
+dw_f32_kernel(const float* __restrict__ ys, const float* __restrict__ dx,
+              float* __restrict__ dw, int T_, int B, int H) {
+  __shared__ __align__(16) float As[kDwK * kDwTile];
+  __shared__ __align__(16) float Bs[kDwK * kDwTile];
+  const int d = blockIdx.z;
+  const int G4 = 4 * H;
+  const int m0 = blockIdx.y * kDwTile;
+  const int n0 = blockIdx.x * kDwTile;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) acc[i][n] = 0.f;
+
+  for (int s = 1; s < T_; ++s) {
+    const float* hs = ys + ((size_t)(s - 1) * 2 + d) * B * H;
+    const float* ds = dx + ((size_t)s * 2 + d) * B * G4;
+    for (int r0 = 0; r0 < B; r0 += kDwK) {
+      const int nrows = B - r0 < kDwK ? B - r0 : kDwK;
+      stage_slab<float>(As, kDwTile, hs + (size_t)r0 * H, nrows, H, m0,
+                        false);
+      stage_slab<float>(Bs, kDwTile, ds + (size_t)r0 * G4, nrows, G4, n0,
+                        false);
+      __syncthreads();
+#pragma unroll 8
+      for (int k = 0; k < kDwK; ++k) {
+        const float4 a = *reinterpret_cast<const float4*>(
+            As + k * kDwTile + ty * 4);
+        const float4 b = *reinterpret_cast<const float4*>(
+            Bs + k * kDwTile + tx * 4);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int n = 0; n < 4; ++n) acc[i][n] += av[i] * bv[n];
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int m = m0 + ty * 4 + i;
+      const int c = n0 + tx * 4 + n;
+      if (m < H && c < G4) dw[((size_t)d * H + m) * G4 + c] = acc[i][n];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// launch helpers
+
+// the fewest unit groups (of 8) per warp that keep a block at <= 8 warps
+inline int groups_per_warp(int H) {
+  const int ngroups = (H + 7) / 8;
+  int gpw = 1;
+  while (gpw * kMmaWarps < ngroups) gpw *= 2;
+  return gpw;
+}
+
+template <int GPW, int MT, bool SAVE>
+cudaError_t launch_fwd_bf16(const bf16* xproj, const bf16* wt, bf16* ys,
+                            float* cs, bf16* gates, int T_, int B, int H,
+                            int Kp, cudaStream_t stream) {
+  const int Ks = smem_stride(Kp);
+  const size_t smem = (size_t)2 * 16 * MT * Ks * sizeof(bf16);
+  auto kernel = fwd_bf16_kernel<GPW, MT, SAVE>;
+  const cudaError_t err = set_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int nwarps = ((H + 7) / 8 + GPW - 1) / GPW;
+  const dim3 grid((B + 16 * MT - 1) / (16 * MT), 2);
+  kernel<<<grid, nwarps * 32, smem, stream>>>(xproj, wt, ys, cs, gates, T_, B,
+                                              H, Kp, Ks);
+  return cudaGetLastError();
+}
+
+template <bool SAVE>
+cudaError_t fwd_bf16(const bf16* xproj, const bf16* w_hh, bf16* ys,
+                     float* cs, bf16* gates, int T_, int B, int H, bf16* wt,
+                     cudaStream_t stream) {
+  const int Kp = round_up(H, 32);
+  cudaError_t err = pack<bf16>(w_hh, wt, 4 * H, H, Kp, 1, stream);
+  if (err != cudaSuccess) return err;
+  switch (groups_per_warp(H)) {
+    case 1: return launch_fwd_bf16<1, 2, SAVE>(xproj, wt, ys, cs, gates, T_,
+                                               B, H, Kp, stream);
+    case 2: return launch_fwd_bf16<2, 2, SAVE>(xproj, wt, ys, cs, gates, T_,
+                                               B, H, Kp, stream);
+    case 4: return launch_fwd_bf16<4, 2, SAVE>(xproj, wt, ys, cs, gates, T_,
+                                               B, H, Kp, stream);
+    default: return launch_fwd_bf16<8, 2, SAVE>(xproj, wt, ys, cs, gates, T_,
+                                                B, H, Kp, stream);
+  }
+}
+
+// float32 block shape: (round_up(H, 32), by) threads, RB * by rows
+inline dim3 f32_block(int H) {
+  const int bx = round_up(H, 32);
+  return dim3(bx, bx >= kTargetThreads ? 1 : kTargetThreads / bx);
+}
+
+template <bool SAVE>
+cudaError_t fwd_f32(const float* xproj, const float* w_hh, float* ys,
+                    float* cs, float* gates, int T_, int B, int H,
+                    cudaStream_t stream) {
+  const dim3 block = f32_block(H);
+  const int BB = kRowsPerThread * block.y;
+  const size_t smem = (size_t)H * BB * sizeof(float);
+  auto kernel = fwd_f32_kernel<kRowsPerThread, SAVE>;
+  const cudaError_t err = set_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((B + BB - 1) / BB, 2), block, smem, stream>>>(
+      xproj, w_hh, ys, cs, gates, T_, B, H);
+  return cudaGetLastError();
+}
+
+template <int GPW, int MT>
+cudaError_t launch_bwd_bf16(const bf16* dys, const float* cs,
+                            const bf16* gates, const bf16* wb, bf16* dx,
+                            int T_, int B, int H, int Kp,
+                            cudaStream_t stream) {
+  const int Ks = smem_stride(Kp);
+  const size_t smem = (size_t)2 * 16 * MT * Ks * sizeof(bf16);
+  auto kernel = bwd_bf16_kernel<GPW, MT>;
+  const cudaError_t err = set_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int nwarps = ((H + 7) / 8 + GPW - 1) / GPW;
+  const dim3 grid((B + 16 * MT - 1) / (16 * MT), 2);
+  kernel<<<grid, nwarps * 32, smem, stream>>>(dys, cs, gates, wb, dx, T_, B,
+                                              H, Kp, Ks);
+  return cudaGetLastError();
+}
+
+// two m16 tiles per block where two rows of 4H bf16 fit shared memory
+// twice (H <= 256 with room to spare), one above
+template <int GPW>
+cudaError_t bwd_bf16_rows(const bf16* dys, const float* cs,
+                          const bf16* gates, const bf16* wb, bf16* dx,
+                          int T_, int B, int H, int Kp, cudaStream_t stream) {
+  if ((size_t)2 * 32 * smem_stride(Kp) * sizeof(bf16) <= kMaxSmem)
+    return launch_bwd_bf16<GPW, 2>(dys, cs, gates, wb, dx, T_, B, H, Kp,
+                                   stream);
+  return launch_bwd_bf16<GPW, 1>(dys, cs, gates, wb, dx, T_, B, H, Kp,
+                                 stream);
+}
+
+cudaError_t bwd_bf16(const bf16* dys, const float* cs, const bf16* gates,
+                     const bf16* w_hh, bf16* dx, int T_, int B, int H,
+                     bf16* wb, cudaStream_t stream) {
+  const int Kp = round_up(4 * H, 32);
+  cudaError_t err = pack<bf16>(w_hh, wb, H, 4 * H, Kp, 0, stream);
+  if (err != cudaSuccess) return err;
+  switch (groups_per_warp(H)) {
+    case 1: return bwd_bf16_rows<1>(dys, cs, gates, wb, dx, T_, B, H, Kp,
+                                    stream);
+    case 2: return bwd_bf16_rows<2>(dys, cs, gates, wb, dx, T_, B, H, Kp,
+                                    stream);
+    case 4: return bwd_bf16_rows<4>(dys, cs, gates, wb, dx, T_, B, H, Kp,
+                                    stream);
+    default: return bwd_bf16_rows<8>(dys, cs, gates, wb, dx, T_, B, H, Kp,
+                                     stream);
+  }
+}
+
+cudaError_t bwd_f32(const float* dys, const float* cs, const float* gates,
+                    const float* w_hh, float* dx, int T_, int B, int H,
+                    float* wT, cudaStream_t stream) {
+  cudaError_t err = pack<float>(w_hh, wT, 4 * H, H, H, 1, stream);
+  if (err != cudaSuccess) return err;
+  const dim3 block = f32_block(H);
+  const int BB = kRowsPerThread * block.y;
+  const size_t smem = (size_t)4 * H * BB * sizeof(float);
+  auto kernel = bwd_f32_kernel<kRowsPerThread>;
+  err = set_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((B + BB - 1) / BB, 2), block, smem, stream>>>(
+      dys, cs, gates, wT, dx, T_, B, H);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Bytes of the workspace dsp_lstm_recurrence_fwd needs: bfloat16 packs
+// W_hh transposed to (2, 4H, round_up(H, 32)); float32 reads it as is.
+size_t dsp_lstm_fwd_workspace_bytes(int H, int dtype) {
+  if (dtype != 1) return 0;
+  return (size_t)2 * 4 * H * round_up(H, 32) * sizeof(bf16);
+}
+
+// K2 (save = 0) and K3 (save = 1). xproj (T, 2, B, 4H), w_hh (2, H, 4H),
+// ys (T, 2, B, H) in the storage type (dtype 0 = float32, 1 = bfloat16);
+// with save, cs (T, 2, B, H) float32 and gates (T, 2, B, 4H) in the
+// storage type (else both may be null). Runs on `stream`, allocates
+// nothing, returns the launch's error code.
+//
+// What bounds it, at B=512, H=256, T=13 (a comb layer of the training
+// path): 2*2*T*B*H*4H = 7.0 GFLOP (7 us at the bf16 tensor-core peak)
+// against 35 MB of compulsory bytes for K2 (xproj, w_hh, ys: 10 us at
+// 3.35 TB/s) and 76 MB for K3 (+ cs, gates: 23 us): bytes bind.
+// What the simple design gives up: the grid has only 2 * B/32 = 32 blocks
+// at B=512, each re-reading its direction's 512 KB of packed W_hh from L2
+// at every step (~6.8 MB a block), so the per-SM L2 rate over 13
+// dependent steps, not the card's bytes, sets its time, and 100 of the
+// 132 SMs idle. Splitting the gate columns over a thread-block cluster
+// with the weights resident in its shared memory is later work.
+cudaError_t dsp_lstm_recurrence_fwd(const void* xproj, const void* w_hh,
+                                    void* ys, void* cs, void* gates, int T_,
+                                    int B, int H, int save, int dtype,
+                                    void* workspace, void* stream) {
+  if (T_ < 1 || B < 1 || H < 1 || H > kMaxHidden ||
+      (save && (cs == nullptr || gates == nullptr)))
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    auto x = static_cast<const float*>(xproj);
+    auto w = static_cast<const float*>(w_hh);
+    auto y = static_cast<float*>(ys);
+    return save ? fwd_f32<true>(x, w, y, static_cast<float*>(cs),
+                                static_cast<float*>(gates), T_, B, H, st)
+                : fwd_f32<false>(x, w, y, nullptr, nullptr, T_, B, H, st);
+  }
+  if (dtype == 1) {
+    if (workspace == nullptr) return cudaErrorInvalidValue;
+    auto x = static_cast<const bf16*>(xproj);
+    auto w = static_cast<const bf16*>(w_hh);
+    auto y = static_cast<bf16*>(ys);
+    auto wt = static_cast<bf16*>(workspace);
+    return save ? fwd_bf16<true>(x, w, y, static_cast<float*>(cs),
+                                 static_cast<bf16*>(gates), T_, B, H, wt, st)
+                : fwd_bf16<false>(x, w, y, nullptr, nullptr, T_, B, H, wt,
+                                  st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// Bytes of the workspace dsp_lstm_recurrence_bwd needs: bfloat16 packs
+// W_hh to (2, H, round_up(4H, 32)); float32 transposes it to (2, 4H, H).
+size_t dsp_lstm_bwd_workspace_bytes(int H, int dtype) {
+  if (dtype == 1) return (size_t)2 * H * round_up(4 * H, 32) * sizeof(bf16);
+  return (size_t)2 * 4 * H * H * sizeof(float);
+}
+
+// K4, the reverse-time recurrence: dys (T, 2, B, H) and gates
+// (T, 2, B, 4H) in the storage type, cs (T, 2, B, H) float32, w_hh
+// (2, H, 4H) -> dx = dxproj (T, 2, B, 4H) in the storage type. dh and dc
+// carries start at zero at step T-1; c_{-1} = 0.
+//
+// What bounds it, at B=512, H=256, T=13: 2*2*(T-1)*B*4H*H = 6.4 GFLOP
+// (6.5 us at the bf16 peak) against 76 MB of compulsory bytes (dys,
+// gates, cs, w_hh, dx: 23 us): bytes bind. What the simple design gives
+// up: as the forward, 32 blocks at B=512 that read their direction's
+// packed W_hh from L2 at every step, and scattered 2- and 4-byte loads of
+// the residuals in the fragment layout.
+cudaError_t dsp_lstm_recurrence_bwd(const void* dys, const void* cs,
+                                    const void* gates, const void* w_hh,
+                                    void* dx, int T_, int B, int H, int dtype,
+                                    void* workspace, void* stream) {
+  if (T_ < 1 || B < 1 || H < 1 || H > kMaxHidden || workspace == nullptr)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return bwd_f32(static_cast<const float*>(dys),
+                   static_cast<const float*>(cs),
+                   static_cast<const float*>(gates),
+                   static_cast<const float*>(w_hh), static_cast<float*>(dx),
+                   T_, B, H, static_cast<float*>(workspace), st);
+  if (dtype == 1)
+    return bwd_bf16(static_cast<const bf16*>(dys),
+                    static_cast<const float*>(cs),
+                    static_cast<const bf16*>(gates),
+                    static_cast<const bf16*>(w_hh), static_cast<bf16*>(dx),
+                    T_, B, H, static_cast<bf16*>(workspace), st);
+  return cudaErrorInvalidValue;
+}
+
+// K4, the weight gradient: dw (2, H, 4H) float32 = sum over s >= 1 and b
+// of ys[s-1, d, b, :]^T dx[s, d, b, :]; ys (T, 2, B, H) and dx
+// (T, 2, B, 4H) in the storage type. Every element of dw is written.
+//
+// What bounds it, at B=512, H=256, T=13: 2*2*(T-1)*B*H*4H = 6.4 GFLOP
+// (6.5 us) against 36 MB of compulsory bytes (ys, dx, dw: 11 us): bytes
+// bind. What the simple design gives up: 64 x 64 output tiles give only
+// 2 * 4 * 16 = 128 blocks at H=256 (32 at H=128) that each stream their
+// K = 6,144 rows through one shared-memory slab at a time, with no copy
+// in flight during the products and no split over K.
+cudaError_t dsp_lstm_dw_hh(const void* ys, const void* dx, void* dw, int T_,
+                           int B, int H, int dtype, void* stream) {
+  if (T_ < 1 || B < 1 || H < 1 || dw == nullptr) return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((4 * H + kDwTile - 1) / kDwTile, (H + kDwTile - 1) / kDwTile,
+                  2);
+  if (dtype == 0) {
+    dw_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(ys),
+                                        static_cast<const float*>(dx),
+                                        static_cast<float*>(dw), T_, B, H);
+    return cudaGetLastError();
+  }
+  if (dtype == 1) {
+    // 16-byte slab loads need 8-element rows and 16-byte aligned bases
+    const int vec = H % 8 == 0 && reinterpret_cast<uintptr_t>(ys) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+    dw_bf16_kernel<<<grid, 128, 0, st>>>(static_cast<const bf16*>(ys),
+                                         static_cast<const bf16*>(dx),
+                                         static_cast<float*>(dw), T_, B, H,
+                                         vec);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;
+}
+
+const char* dsp_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

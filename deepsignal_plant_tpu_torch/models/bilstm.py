@@ -10,12 +10,24 @@ Architecture (reference deepsignal_plant/models.py:99-240):
 - combined:      3-layer BiLSTM(H=256) -> readout cat(h_T^fwd, h_T^bwd)
                  -> Linear(512->256) -> ReLU -> Linear(256->2) -> softmax
 
-Inference only, in the JAX package's ``_forward_fused_tm`` structure:
-everything runs time-major from the raw (B, T, F<=16) inputs to the
-readout; the branch fc layers apply row-split on the (fwd, bwd) halves,
-and the comb stack's first layer reads the (out_seq, out_signal) pair
-through row-split weights, so no concatenation is built. Initial LSTM
-states are zeros (the reference draws randn h0/c0 per forward).
+Two structures, as in the JAX package:
+
+- inference (``train=False``) runs ``_forward_fused_tm``: everything
+  time-major from the raw (B, T, F<=16) inputs to the readout through the
+  fused layer (K1, ops/fused_lstm.py); the branch fc layers apply
+  row-split on the (fwd, bwd) halves, and the comb stack's first layer
+  reads the (out_seq, out_signal) pair through row-split weights, so no
+  concatenation is built;
+- training (``train=True``), and inference with ``_FUSED_ENABLED`` off,
+  runs the batch-major structure of JAX ``forward`` (:186-233): an einsum
+  input projection per layer and the trainable recurrence
+  (ops/recurrence.py: K3 with K4 as its backward under autograd, K2
+  without), the branch outputs concatenated, dropout between stacked
+  layers and before and after fc1, drawn from an explicit generator.
+
+Initial LSTM states are zeros (the reference draws randn h0/c0 per
+forward). Parameters stay float32 (the master weights in training); the
+forward casts them to the compute dtype, as JAX's ``.astype(cdt)``.
 
 Parameters keep the JAX layouts (w_ih (2, F, 4H), w_hh (2, H, 4H),
 b (2, 4H), linear w (in, out)), so a checkpoint of either package loads
@@ -31,8 +43,14 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops import lstm as plain
 from ..ops.fused_lstm import bilstm_stack_fused_tm
+from ..ops.recurrence import bilstm_recurrence_trainable
 from ..utils.device import torch_dtype
+
+#: the fused inference path (JAX models/bilstm.py:98); off, inference runs
+#: the batch-major structure, whose recurrence is K2
+_FUSED_ENABLED = True
 
 
 class Batch(NamedTuple):
@@ -100,12 +118,15 @@ class ModelBiLSTM(nn.Module):
 
     @classmethod
     def from_params(cls, params: dict[str, Any], cfg: ModelConfig,
-                    device) -> "ModelBiLSTM":
-        """An inference-ready model from the parameter pytree (numpy, JAX
-        layouts) on ``device``."""
+                    device, trainable: bool = False) -> "ModelBiLSTM":
+        """A model from the parameter pytree (numpy, JAX layouts) on
+        ``device``: frozen for inference, or with ``trainable`` its
+        float32 parameters require gradients (master weights)."""
         from .convert import params_from_numpy
         model = cls(cfg, device=device)
         model.load_state_dict(params_from_numpy(params, cfg))
+        if trainable:
+            return model
         return model.eval().requires_grad_(False)
 
     def _branch(self, x: torch.Tensor, layers, fc: Dense, H: int,
@@ -119,22 +140,38 @@ class ModelBiLSTM(nn.Module):
         w = fc.w.to(cdt)
         return torch.relu(f @ w[:H] + b @ w[H:] + fc.b.to(cdt))
 
-    def forward(self, batch: Batch) -> tuple[torch.Tensor, torch.Tensor]:
-        """-> (logits, softmax probs), both (B, num_classes) float32."""
+    def _seq_features(self, batch: Batch, cdt: torch.dtype) -> torch.Tensor:
+        """The seq branch's (B, L, seq_input_size) input in ``cdt``."""
+        cfg = self.cfg
+        L = cfg.seq_len
+        feats = [batch.base_means.reshape(-1, L, 1),
+                 batch.base_stds.reshape(-1, L, 1)]
+        if cfg.is_signallen:
+            feats.append(batch.base_signal_lens.reshape(-1, L, 1))
+        if cfg.is_base:
+            feats = [self.embed[batch.kmer.long()]] + feats
+        return torch.cat([f.to(cdt) for f in feats], dim=2)
+
+    def forward(self, batch: Batch, train: bool = False,
+                generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (logits, softmax probs), both (B, num_classes) float32.
+        ``train`` runs the batch-major training structure, with dropout
+        drawn from ``generator`` (on the model's device) when the
+        config's dropout rate is above 0."""
+        if train or not _FUSED_ENABLED:
+            return self._forward_bm(batch, train, generator)
+        return self._forward_fused_tm(batch)
+
+    def _forward_fused_tm(self, batch: Batch
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         cdt = torch_dtype(cfg.compute_dtype)
-        L = cfg.seq_len
         out_seq = out_signal = None
         if cfg.module != "signal_bilstm":
-            feats = [batch.base_means.reshape(-1, L, 1),
-                     batch.base_stds.reshape(-1, L, 1)]
-            if cfg.is_signallen:
-                feats.append(batch.base_signal_lens.reshape(-1, L, 1))
-            if cfg.is_base:
-                feats = [self.embed[batch.kmer.long()]] + feats
-            x_seq = torch.cat([f.to(cdt) for f in feats], dim=2)
-            out_seq = self._branch(x_seq, self.lstm_seq, self.fc_seq,
-                                   cfg.nhid_seq, cdt)
+            out_seq = self._branch(self._seq_features(batch, cdt),
+                                   self.lstm_seq, self.fc_seq, cfg.nhid_seq,
+                                   cdt)
         if cfg.module != "seq_bilstm":
             out_signal = self._branch(batch.signals.to(cdt),
                                       self.lstm_signal, self.fc_signal,
@@ -151,6 +188,44 @@ class ModelBiLSTM(nn.Module):
         out = torch.cat([ys_f[0], ys_b[0]], dim=-1)        # (B, 2H)
         out = torch.relu(self.fc1(out))
         logits = self.fc2(out).float()
+        return logits, torch.softmax(logits, dim=1)
+
+    def _forward_bm(self, batch: Batch, train: bool,
+                    generator: torch.Generator | None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """JAX ``forward`` (models/bilstm.py:186-233), batch-major."""
+        cfg = self.cfg
+        cdt = torch_dtype(cfg.compute_dtype)
+        rate = cfg.dropout_rate if train else 0.0
+        if rate > 0.0 and generator is None:
+            raise ValueError("training with dropout needs a generator")
+        gen = generator if rate > 0.0 else None
+        rec = (bilstm_recurrence_trainable if cfg.recurrence == "kernel"
+               else plain.lstm_recurrence)
+
+        def stack(x, layers, H, last_layer_sequence=True):
+            return plain.bilstm_stack(x, layers, H, rec, cdt,
+                                      last_layer_sequence, rate, gen)
+
+        outs = []
+        if cfg.module != "signal_bilstm":
+            out = stack(self._seq_features(batch, cdt), self.lstm_seq,
+                        cfg.nhid_seq)
+            outs.append(torch.relu(self.fc_seq(out)))
+        if cfg.module != "seq_bilstm":
+            out = stack(batch.signals.to(cdt), self.lstm_signal,
+                        cfg.nhid_signal)
+            outs.append(torch.relu(self.fc_signal(out)))
+        out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+        # the top stack returns only the final states (B, 2H)
+        out = stack(out, self.lstm_comb, cfg.hidden_size,
+                    last_layer_sequence=False)
+        if gen is not None:
+            out = plain.dropout(out, rate, gen)
+        out = self.fc1(out)
+        if gen is not None:
+            out = plain.dropout(out, rate, gen)
+        logits = self.fc2(torch.relu(out)).float()
         return logits, torch.softmax(logits, dim=1)
 
 

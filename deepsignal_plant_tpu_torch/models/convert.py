@@ -15,7 +15,8 @@ The pytree's layouts right-multiply (x @ W), direction-stacked:
     w_ih: (2, in, 4H)   w_hh: (2, H, 4H)   b: (2, 4H) = b_ih + b_hh
     linear w: (in, out)
 The port's modules keep these layouts (models/bilstm.py), so
-``params_from_numpy`` only flattens the pytree into a state dict.
+``params_from_numpy`` only flattens the pytree into a state dict and
+``params_to_numpy`` unflattens a state dict back into it.
 """
 from __future__ import annotations
 
@@ -247,3 +248,11 @@ def params_from_numpy(params: Params, cfg: ModelConfig
                        if got[k] != want[k])))
     return sd
 
+
+def params_to_numpy(model: torch.nn.Module) -> Params:
+    """Inverse of params_from_numpy: a ModelBiLSTM's parameters -> the
+    parameter pytree (numpy float32, JAX layouts) that save_checkpoint
+    writes and both packages load."""
+    flat = {k.replace(".", "/"): v.detach().to("cpu", torch.float32).numpy()
+            for k, v in model.state_dict().items()}
+    return _unflatten(flat)

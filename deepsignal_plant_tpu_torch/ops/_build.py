@@ -4,9 +4,9 @@ ctypes.
 Each ``csrc/<name>.cu`` compiles on its own, with a plain C interface
 and no PyTorch headers (seconds, not minutes), into
 ``build/kernels/<name>-<hash>.so`` beside the package. The hash covers
-the source and the flags, so an edited source rebuilds and an unchanged
-one loads what an earlier process built. A failed build raises with the
-compiler's output.
+the source, the shared headers ``csrc/*.cuh`` and the flags, so an
+edited source rebuilds and an unchanged one loads what an earlier
+process built. A failed build raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -37,9 +37,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+    """The library's path, keyed by csrc/<name>.cu, the shared headers
+    (csrc/*.cuh) and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

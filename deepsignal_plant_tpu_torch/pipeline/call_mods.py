@@ -168,7 +168,7 @@ def call_mods(args) -> CallStats:
         raise ValueError("--model_path is not set right!")
     _refuse_unported(args, input_path)
     device = resolve_device(args.device)
-    model_cfg = model_config_from_args(args, device)
+    model_cfg = model_config_from_args(args, device, args.dropout_rate)
     call_cfg = CallConfig(
         device_batch=args.device_batch or CallConfig.device_batch,
         transfer_dtype=("float16" if args.transfer_dtype == "auto"

@@ -1,5 +1,8 @@
-"""The fused BiLSTM layer kernel (csrc/fused_bilstm.cu) against its plain
-PyTorch version on the card, at the main path's layer shapes.
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card, at the main paths' shapes: the fused BiLSTM layer
+(csrc/fused_bilstm.cu) at call_mods' 4096-row tiles, and the trainable
+recurrence (csrc/lstm_recurrence.cu: K2, K3, K4 and its dW_hh) at the
+training batch of 512.
 
 Marked ``cuda``: each test skips without a card. On a machine with one
 (which need not have JAX), run them alone:
@@ -13,12 +16,20 @@ orders, and the difference compounds over 13 steps. bfloat16: 2e-2 —
 both round h to bf16 (8 significant bits, an ulp of 2^-8 just below 1)
 after every step, so a sum that lands on the other side of a rounding
 boundary moves one h by an ulp, which the following steps carry on.
+The recurrence kernels are held to REC_TOL times max(1, max |plain|):
+float32 2e-5 for the same reason; bfloat16 2e-2, as above for h, and
+for dxproj because da is rounded to bf16 before it feeds the next
+step's dh, so one flipped rounding travels back through the steps.
+dW_hh gets identical inputs on both sides and differs only in the order
+of its f32 sums over (T-1)*B rows: 1e-5 in both storage types.
 """
 import numpy as np
 import pytest
 import torch
 
 from deepsignal_plant_tpu_torch.ops import fused_lstm
+from deepsignal_plant_tpu_torch.ops import lstm as plain
+from deepsignal_plant_tpu_torch.ops import recurrence
 from deepsignal_plant_tpu_torch.ops.lstm import bilstm_layer
 
 pytestmark = pytest.mark.cuda
@@ -131,3 +142,106 @@ def test_kernel_rejects_what_it_does_not_take(device):
         fused_lstm.bilstm_layer_fused(
             (xs[0].transpose(0, 1).contiguous().transpose(0, 1),),
             w_ih, b, w_hh, 128)
+
+
+# ---------------------------------------------------------------------------
+# the trainable recurrence (K2, K3, K4, dW_hh)
+
+REC_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+DW_TOL = 1e-5
+# hidden sizes of the training path's five layers at batch 512: seq and
+# signal H=128, comb H=256
+TRAIN_H = [128, 256]
+
+
+def recurrence_inputs(H, B, dtype, device, seed=0):
+    """xproj ~ N(0, 1) (a layer's projected inputs), w_hh ~ U(-1/sqrt(H),
+    1/sqrt(H)) (torch's LSTM init), dys ~ N(0, 1) (a cotangent)."""
+    rng = np.random.default_rng(seed)
+    k = 1.0 / np.sqrt(H)
+
+    def dev(a, dt=dtype):
+        return torch.tensor(a, dtype=torch.float32).to(device, dt)
+
+    return (dev(rng.normal(size=(T, 2, B, 4 * H))),
+            dev(rng.uniform(-k, k, (2, H, 4 * H))),
+            dev(rng.normal(size=(T, 2, B, H))))
+
+
+def assert_close(name, got, want, tol):
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    assert torch.isfinite(got.float()).all(), name
+    err = (got.float() - want.float()).abs().max().item()
+    bound = tol * max(1.0, want.float().abs().max().item())
+    assert err <= bound, f"{name}: max |kernel - plain| {err} > {bound}"
+
+
+def check_recurrence(H, B, dtype, device):
+    xproj, w_hh, dys = recurrence_inputs(H, B, dtype, device)
+    before = dict(recurrence.launches)
+    ys = recurrence.lstm_recurrence(xproj, w_hh, H)
+    ys_s, cs, gates = recurrence.lstm_recurrence_fwd_save(xproj, w_hh, H)
+    torch.cuda.synchronize()
+    want_ys, want_cs, want_g = plain.lstm_recurrence_fwd_save(xproj, w_hh, H)
+    tol = REC_TOL[dtype]
+    assert_close("K2 ys", ys, want_ys, tol)
+    assert_close("K3 ys", ys_s, want_ys, tol)
+    assert_close("K3 cs", cs, want_cs, tol)
+    assert_close("K3 gates", gates, want_g, tol)
+    # K4 on the plain residuals: both sides see identical inputs
+    dx = recurrence.lstm_recurrence_bwd_dx(dys, want_cs, want_g, w_hh, H)
+    torch.cuda.synchronize()
+    want_dx = plain.lstm_recurrence_bwd_dx(dys, want_cs, want_g, w_hh, H)
+    assert_close("K4 dxproj", dx, want_dx, tol)
+    dw = recurrence.lstm_dw_hh(want_ys, want_dx)
+    torch.cuda.synchronize()
+    assert_close("K4 dW_hh", dw, plain.lstm_dw_hh(want_ys, want_dx), DW_TOL)
+    assert {k: recurrence.launches[k] - before[k] for k in before} == {
+        k: 1 for k in before}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [512, 509])
+@pytest.mark.parametrize("H", TRAIN_H)
+def test_recurrence_kernels_match_plain(device, H, B, dtype):
+    check_recurrence(H, B, dtype, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B", [1, 37])
+@pytest.mark.parametrize("H", [8, 20, 96])
+def test_recurrence_kernels_match_plain_at_odd_widths(device, H, B, dtype):
+    check_recurrence(H, B, dtype, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_autograd_function_matches_plain_autograd(device, dtype):
+    """BiLSTMRecurrence (K3 forward, K4 backward) against autograd through
+    the plain loop: the gradients of one loss."""
+    H, B = 128, 77
+    xproj, w_hh, dys = recurrence_inputs(H, B, dtype, device, seed=3)
+    grads = []
+    for fn in (recurrence.bilstm_recurrence_trainable,
+               plain.lstm_recurrence):
+        xp = xproj.clone().requires_grad_(True)
+        w = w_hh.clone().requires_grad_(True)
+        (fn(xp, w, H).float() * dys.float()).sum().backward()
+        grads.append((xp.grad, w.grad))
+    (gx, gw), (px, pw) = grads
+    assert gx.dtype == gw.dtype == dtype
+    assert_close("dxproj", gx, px, REC_TOL[dtype])
+    # the loss's dW sums bf16-rounded da's whose roundings may differ
+    assert_close("dW_hh", gw, pw, REC_TOL[dtype])
+
+
+def test_recurrence_kernels_reject_what_they_do_not_take(device):
+    xproj, w_hh, _ = recurrence_inputs(16, 8, torch.float32, device)
+    with pytest.raises(ValueError):        # w_hh of another dtype
+        recurrence.lstm_recurrence(xproj, w_hh.bfloat16(), 16)
+    with pytest.raises(TypeError):         # float16 is not a storage type
+        recurrence.lstm_recurrence(xproj.half(), w_hh.half(), 16)
+    with pytest.raises(ValueError):        # non-contiguous xproj
+        recurrence.lstm_recurrence(xproj.transpose(0, 2), w_hh, 16)

@@ -25,7 +25,9 @@ def port_modules():
 def test_every_module_is_listed():
     mods = port_modules()
     for name in ("cli", "config", "ops.fused_lstm", "ops._build",
-                 "models.bilstm", "pipeline.call_mods", "utils.device"):
+                 "ops.lstm", "ops.recurrence", "ops.optim", "io.dataset",
+                 "models.bilstm", "models.convert", "pipeline.call_mods",
+                 "pipeline.train", "utils.device", "utils.metrics"):
         assert "deepsignal_plant_tpu_torch." + name in mods
 
 

@@ -1,0 +1,173 @@
+"""The port's trainable BiLSTM recurrence against the JAX package's Pallas
+kernels (ops/pallas_lstm.py) run in interpret mode on the CPU.
+
+On CPU tensors the wrappers of ops/recurrence.py run the plain versions
+of K2, K3 and K4 (ops/lstm.py), and BiLSTMRecurrence wraps them as
+autograd does on the card. Inputs are made with numpy from a seed and
+handed to both packages. Tolerances are those of tests/test_pallas_vjp.py
+(the Pallas kernels against autodiff through the JAX scan): float32
+primal 1e-5, dxproj 2e-4, dW_hh 2e-3; bfloat16 2e-2, where both sides
+round h, the saved gates and da to bf16 at the same points, so only a
+summation order inside an f32 accumulation can move a rounding by an ulp.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deepsignal_plant_tpu.ops import pallas_lstm
+from deepsignal_plant_tpu_torch.ops import lstm as plain
+from deepsignal_plant_tpu_torch.ops import recurrence
+
+H = 16
+T = 7
+
+
+@pytest.fixture(autouse=True)
+def interpret_mode(monkeypatch):
+    monkeypatch.setattr(pallas_lstm, "_INTERPRET", True)
+
+
+def inputs(B, seed=0):
+    """xproj ~ N(0, 1), w_hh ~ U(-1/sqrt(H), 1/sqrt(H)), a cotangent
+    ~ N(0, 1), as float32 numpy arrays (the shapes of test_pallas_vjp)."""
+    rng = np.random.default_rng(seed)
+    k = 1.0 / np.sqrt(H)
+    return (rng.normal(size=(T, 2, B, 4 * H)).astype(np.float32),
+            rng.uniform(-k, k, (2, H, 4 * H)).astype(np.float32),
+            rng.normal(size=(T, 2, B, H)).astype(np.float32))
+
+
+def t(a, dtype=torch.float32):
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+def j(a, dtype=jnp.float32):
+    return jnp.asarray(a).astype(dtype)
+
+
+def f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("B", [8, 13])
+def test_k2_matches_pallas(B):
+    xproj, w_hh, _ = inputs(B)
+    want = pallas_lstm.bilstm_recurrence_pallas(j(xproj), j(w_hh), H,
+                                                interpret=True)
+    got = recurrence.lstm_recurrence(t(xproj), t(w_hh), H)
+    assert got.shape == (T, 2, B, H) and got.dtype == torch.float32
+    np.testing.assert_allclose(f32(got), f32(want), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B", [8, 13])
+def test_k3_matches_pallas(B):
+    xproj, w_hh, _ = inputs(B)
+    ys, cs, gs = pallas_lstm._recurrence_fwd_save(j(xproj), j(w_hh), H,
+                                                  interpret=True)
+    got = recurrence.lstm_recurrence_fwd_save(t(xproj), t(w_hh), H)
+    for name, g, w in zip(("ys", "cs", "gates"), got, (ys, cs, gs)):
+        assert g.dtype == torch.float32, name
+        np.testing.assert_allclose(f32(g), f32(w)[:, :, :B], atol=1e-5,
+                                   rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("B", [8, 13])
+def test_k4_matches_pallas(B):
+    """K4 on the same residuals: the JAX kernel takes B padded to its
+    128-row block; its padded rows carry zero states and cotangents."""
+    xproj, w_hh, dys = inputs(B)
+    ys, cs, gs = pallas_lstm._recurrence_fwd_save(j(xproj), j(w_hh), H,
+                                                  interpret=True)
+    Bp = ys.shape[2]
+    dys_p = jnp.pad(j(dys), ((0, 0), (0, 0), (0, Bp - B), (0, 0)))
+    dx, dw = pallas_lstm._recurrence_bwd(dys_p, ys, cs, gs, j(w_hh), H,
+                                         interpret=True)
+    got_dx, got_dw = plain.lstm_recurrence_bwd(
+        t(dys), t(f32(ys)[:, :, :B]), t(f32(cs)[:, :, :B]),
+        t(f32(gs)[:, :, :B]), t(w_hh), H)
+    np.testing.assert_allclose(f32(got_dx), f32(dx)[:, :, :B], atol=2e-4,
+                               rtol=2e-4)
+    np.testing.assert_allclose(f32(got_dw), f32(dw), atol=2e-3, rtol=2e-3)
+    # the wrappers' halves are the same two functions on CPU tensors
+    dx2 = recurrence.lstm_recurrence_bwd_dx(
+        t(dys), t(f32(cs)[:, :, :B]), t(f32(gs)[:, :, :B]), t(w_hh), H)
+    np.testing.assert_array_equal(dx2.numpy(), got_dx.numpy())
+    dw2 = recurrence.lstm_dw_hh(t(f32(ys)[:, :, :B]), dx2)
+    np.testing.assert_array_equal(dw2.numpy(), got_dw.numpy())
+
+
+def port_grads(xproj, w_hh, dys, dtype):
+    xp = t(xproj, dtype).requires_grad_(True)
+    w = t(w_hh, dtype).requires_grad_(True)
+    ys = recurrence.bilstm_recurrence_trainable(xp, w, H)
+    (ys.float() * t(dys)).sum().backward()
+    return ys.detach(), xp.grad, w.grad
+
+
+def jax_grads(xproj, w_hh, dys, dtype):
+    def loss(xp, w):
+        ys = pallas_lstm.bilstm_recurrence_trainable(xp, w, H)
+        return jnp.sum(ys.astype(jnp.float32) * j(dys))
+
+    xp, w = j(xproj, dtype), j(w_hh, dtype)
+    ys = pallas_lstm.bilstm_recurrence_trainable(xp, w, H)
+    gx, gw = jax.grad(loss, argnums=(0, 1))(xp, w)
+    return ys, gx, gw
+
+
+@pytest.mark.parametrize("B", [8, 13])
+def test_trainable_primal_and_grads_match_jax(B):
+    xproj, w_hh, dys = inputs(B)
+    ys, gx, gw = port_grads(xproj, w_hh, dys, torch.float32)
+    want_ys, want_gx, want_gw = jax_grads(xproj, w_hh, dys, jnp.float32)
+    np.testing.assert_allclose(f32(ys), f32(want_ys), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(f32(gx), f32(want_gx), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(f32(gw), f32(want_gw), atol=2e-3, rtol=2e-3)
+
+
+def test_trainable_bf16_matches_jax():
+    """bf16 storage: the primal and both gradients in bf16, dW_hh rounded
+    from its f32 sum to w_hh's dtype as the JAX backward does."""
+    xproj, w_hh, dys = inputs(13, seed=1)
+    ys, gx, gw = port_grads(xproj, w_hh, dys, torch.bfloat16)
+    assert ys.dtype == gx.dtype == gw.dtype == torch.bfloat16
+    want_ys, want_gx, want_gw = jax_grads(xproj, w_hh, dys, jnp.bfloat16)
+    assert want_gw.dtype == jnp.bfloat16
+    for name, g, w in (("ys", ys, want_ys), ("dxproj", gx, want_gx),
+                       ("dW_hh", gw, want_gw)):
+        np.testing.assert_allclose(f32(g), f32(w), atol=2e-2, rtol=2e-2,
+                                   err_msg=name)
+
+
+def test_trainable_picks_autograd_or_k2():
+    """Under autograd the recurrence is BiLSTMRecurrence (K3 forward, K4
+    backward); without grad, or with no input that needs it, it is K2,
+    the JAX custom VJP's primal. CPU tensors launch nothing."""
+    xproj, w_hh, _ = inputs(5)
+    before = dict(recurrence.launches)
+    xp = t(xproj).requires_grad_(True)
+    ys = recurrence.bilstm_recurrence_trainable(xp, t(w_hh), H)
+    assert type(ys.grad_fn).__name__ == "BiLSTMRecurrenceBackward"
+    with torch.no_grad():
+        ys0 = recurrence.bilstm_recurrence_trainable(xp, t(w_hh), H)
+    assert ys0.grad_fn is None
+    ys1 = recurrence.bilstm_recurrence_trainable(t(xproj), t(w_hh), H)
+    assert ys1.grad_fn is None
+    np.testing.assert_array_equal(ys.detach().numpy(), ys0.numpy())
+    np.testing.assert_array_equal(ys0.numpy(), ys1.numpy())
+    assert recurrence.launches == before
+
+
+def test_wrappers_reject_other_devices_and_dtypes():
+    xproj, w_hh, _ = inputs(4)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        recurrence.lstm_recurrence(t(xproj).to("meta"), t(w_hh).to("meta"),
+                                   H)
+    with pytest.raises(TypeError):
+        recurrence._dims("lstm_recurrence_fwd", t(xproj).half(), H, 4 * H)
+    with pytest.raises(ValueError):
+        recurrence._dims("lstm_recurrence_fwd", t(xproj), H, 2 * H)
