@@ -11,25 +11,31 @@ Phases, in order; any failure exits non-zero before the last line:
 2. every kernel of the main paths, built from csrc/ by nvcc (one nvcc
    per source, all started together), against its plain PyTorch version
    on the card at the main paths' shapes: the fused BiLSTM layer (K1) at
-   call_mods' 4096-row tiles; (2b) the trainable recurrence (K2, K3, K4
-   and its dW_hh) at the training batch of 512 and 509, H 128 and 256,
-   float32 and bfloat16;
+   call_mods' 4096-row tiles, in its three kernels (bfloat16 resident,
+   the main path's; bfloat16 streaming, the earlier design, which the
+   shape rule keeps for weights no cluster holds; float32); (2b) the
+   trainable recurrence (K2, K3, K4 and its split-K dW_hh, bitwise
+   reproducible and all zeros at T=1) at the training batch of 512 and
+   509, H 128 and 256, float32 and bfloat16;
 3. each kernel timed with CUDA events (median of reps after warm-up)
    beside its plain version, one PyTorch library call computing the same
    function or more (a yardstick the port never calls) and its bound:
-   K1 per 4096-row forward tile, (3b) the recurrence kernels per train
-   step at batch 512 in bfloat16; (3c) one whole train step at batch 512
+   K1's three kernels per 4096-row forward tile (the streaming kernel is
+   the earlier design's time, for reference), (3b) the recurrence
+   kernels per train step at batch 512 in bfloat16; (3c) one whole train
+   step at batch 512
    through the train loop's step function: device time, host enqueue
    time, and a torch.profiler trace (device busy share, top kernels);
 4. the main paths through the user's entry points, each a fresh process
    whose kernel launch counts start at 0 and which prints them
    (--verbose_stages): ``call_mods`` on a seeded ~17.4k-row features TSV
-   with a seeded random full-width both_bilstm checkpoint (5 K1 launches
-   per forward tile; the same rows in float32 through the kernel and the
-   plain version must agree); (4b) ``train`` with its defaults (bfloat16,
-   resident plane, dropout 0.5, Adam) on a seeded learnable 16,384-row
-   TSV for 2 epochs: 5 launches of K3, K4 and dW_hh per step, 5 of K1 per
-   evaluation tile, none of K2, validation accuracy above its threshold,
+   with a seeded random full-width both_bilstm checkpoint (5 launches of
+   K1's resident kernel per forward tile, none of the others; the same
+   rows in float32 through the float32 kernel and the plain version must
+   agree); (4b) ``train`` with its defaults (bfloat16, resident plane,
+   dropout 0.5, Adam) on a seeded learnable 16,384-row TSV for 2 epochs:
+   5 launches of K3, K4 and dW_hh per step, 5 of K1's resident kernel
+   per evaluation tile, none of K2, validation accuracy above its threshold,
    and the best checkpoint drives ``call_mods``; (4c) float32 training
    through the kernels against the plain version, 8 steps; (4d) inference
    with the fused path off, through K2: 5 launches per tile, logits
@@ -61,10 +67,15 @@ T = 13
 TILE = 4096
 N_ROWS = 17_400            # four full 4096-row forward tiles + a ragged tail
 SEED = 20261016
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores and
-# the HBM3 rate
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores,
+# float32 on the CUDA cores, and the HBM3 rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# K1's kernels: name -> (dtype, wrapper attribute of ops/fused_lstm.py)
+K1_KERNELS = {"fused_bilstm_resident": ("bfloat16", "bilstm_layer_fused"),
+              "fused_bilstm_stream": ("bfloat16", "bilstm_layer_stream"),
+              "fused_bilstm_f32": ("float32", "bilstm_layer_fused")}
 # (Fa, Fb, H, seq_out) of the five layer launches of one forward tile
 MAIN_PATH_LAYERS = {
     "seq": (7, 0, 128, True),
@@ -165,6 +176,38 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(torch, fn, reps: int = 20, warmup: int = 3):
+    """Device milliseconds of one call: ``reps`` calls captured in one
+    CUDA graph, its replays timed with CUDA events (median of 5) over
+    ``reps``, so the host's time to issue a call does not count. None
+    where the calls cannot be captured."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(reps):
+                fn()
+    except RuntimeError as exc:
+        log(f"graph capture failed ({exc}); device time not measured")
+        torch.cuda.synchronize()
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
 def layer_bound(Fa, Fb, H, seq_out, B, itemsize, peak_flops):
     """(ms at the peak operation rate, ms at the memory rate) of one
     layer: its products, and its compulsory bytes (each input read once,
@@ -178,22 +221,28 @@ def layer_bound(Fa, Fb, H, seq_out, B, itemsize, peak_flops):
 
 
 def check_kernel(torch, fused_lstm, bilstm_layer):
-    """Phase 2: the kernel against the plain version at every main-path
-    layer shape, seq_out True and False, full and ragged batch, f32 and
-    bf16."""
+    """Phase 2: K1's three kernels against the plain version at every
+    main-path layer shape, seq_out True and False, full and ragged batch;
+    each launch must go to the kernel named (its counter moves)."""
     shapes = sorted({(Fa, Fb, H) for Fa, Fb, H, _ in
                      MAIN_PATH_LAYERS.values()})
-    errs = {"float32": 0.0, "bfloat16": 0.0}
+    errs = {k: 0.0 for k in K1_KERNELS}
     checked = []
     for Fa, Fb, H in shapes:
         for B in (TILE, TILE - 3):
-            for dname, dtype in (("float32", torch.float32),
-                                 ("bfloat16", torch.bfloat16)):
+            for kernel, (dname, fn) in K1_KERNELS.items():
+                dtype = getattr(torch, dname)
                 xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, B, dtype)
                 for seq_out in (True, False):
-                    got = fused_lstm.bilstm_layer_fused(xs, w_ih, b, w_hh, H,
-                                                        seq_out)
+                    before = dict(fused_lstm.launches)
+                    got = getattr(fused_lstm, fn)(xs, w_ih, b, w_hh, H,
+                                                  seq_out)
                     torch.cuda.synchronize()
+                    moved = {k: v - before[k]
+                             for k, v in fused_lstm.launches.items()}
+                    if moved != {k: int(k == kernel) for k in moved}:
+                        fail(f"{kernel} F=({Fa},{Fb}) H={H}: launches "
+                             f"{moved}")
                     want = bilstm_layer(xs, w_ih, b, w_hh, H, seq_out)
                     out_T = T if seq_out else 1
                     err = 0.0
@@ -204,56 +253,71 @@ def check_kernel(torch, fused_lstm, bilstm_layer):
                             fail("kernel output is not finite")
                         err = max(err, (g.float() - w.float()).abs().max()
                                   .item())
-                    log(f"fused_bilstm F=({Fa},{Fb}) H={H} B={B} {dname} "
+                    log(f"{kernel} F=({Fa},{Fb}) H={H} B={B} "
                         f"seq_out={seq_out}: max|kernel-plain| = {err:.3g} "
                         f"(tolerance {TOL[dname]:g})")
                     if err > TOL[dname]:
-                        fail(f"fused_bilstm disagrees with its plain version "
+                        fail(f"{kernel} disagrees with its plain version "
                              f"by {err} > {TOL[dname]}")
-                    errs[dname] = max(errs[dname], err)
-                    checked.append([Fa, Fb, H, B, dname, seq_out])
+                    errs[kernel] = max(errs[kernel], err)
+                    checked.append([Fa, Fb, H, B, kernel, seq_out])
     return errs, checked
 
 
 def time_kernel(torch, fused_lstm, bilstm_layer):
-    """Phase 3: each main-path launch at B=4096 in bf16."""
+    """Phase 3: each main-path launch at B=4096, through each of K1's
+    kernels, beside the plain version and torch.nn.LSTM in the kernel's
+    dtype."""
     rows = []
     for name, (Fa, Fb, H, seq_out) in MAIN_PATH_LAYERS.items():
-        xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, TILE,
-                                         torch.bfloat16)
-        kernel_ms = cuda_ms(torch, lambda: fused_lstm.bilstm_layer_fused(
-            xs, w_ih, b, w_hh, H, seq_out))
-        plain_ms = cuda_ms(torch, lambda: bilstm_layer(
-            xs, w_ih, b, w_hh, H, seq_out), reps=10)
-        # library yardstick: torch.nn.LSTM(bidirectional) on the
-        # concatenated input, same weights (torch layout), bf16 (cuDNN
-        # takes no bf16, so ATen's own LSTM kernels run)
-        lstm = torch.nn.LSTM(Fa + Fb, H, bidirectional=True).to(
-            "cuda", torch.bfloat16)
-        with torch.no_grad():
-            for d, sfx in enumerate(("", "_reverse")):
-                getattr(lstm, "weight_ih_l0" + sfx).copy_(w_ih[d].t())
-                getattr(lstm, "weight_hh_l0" + sfx).copy_(w_hh[d].t())
-                getattr(lstm, "bias_ih_l0" + sfx).copy_(b[d])
-                getattr(lstm, "bias_hh_l0" + sfx).zero_()
-        x_cat = torch.cat(xs, dim=-1).contiguous()
-        # torch flattens no bf16 RNN weights (cudnn.is_acceptable takes
-        # f16/f32/f64 only), so each call also compacts the layer's
-        # weights (<= 3 MB of copies) and warns about it; the time counts
-        with torch.no_grad(), warnings.catch_warnings():
-            warnings.filterwarnings("ignore", "RNN module weights")
-            library_ms = cuda_ms(torch, lambda: lstm(x_cat))
-        ops_ms, bytes_ms = layer_bound(Fa, Fb, H, seq_out, TILE, 2,
-                                       PEAK_BF16_FLOPS)
-        row = {"layer": name, "F": [Fa, Fb], "H": H, "B": TILE,
-               "seq_out": seq_out, "dtype": "bfloat16",
-               "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "ops_ms": ops_ms,
-               "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
-               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-        log("timing " + json.dumps(row))
-        rows.append(row)
-        del lstm, x_cat, xs, w_ih, b, w_hh
+        for kernel, (dname, fn) in K1_KERNELS.items():
+            dtype = getattr(torch, dname)
+            xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, TILE, dtype)
+            packed = (fused_lstm.pack_weights(w_ih, w_hh)
+                      if dtype == torch.bfloat16 else None)
+            kernel_ms = cuda_ms(torch, lambda: getattr(fused_lstm, fn)(
+                xs, w_ih, b, w_hh, H, seq_out, packed=packed))
+            plain_ms = cuda_ms(torch, lambda: bilstm_layer(
+                xs, w_ih, b, w_hh, H, seq_out), reps=10)
+            # library yardstick: torch.nn.LSTM(bidirectional) on the
+            # concatenated input, same weights (torch layout), same dtype
+            # (cuDNN takes no bf16, so ATen's own LSTM kernels run there;
+            # float32 runs cuDNN)
+            lstm = torch.nn.LSTM(Fa + Fb, H, bidirectional=True).to(
+                "cuda", dtype)
+            with torch.no_grad():
+                for d, sfx in enumerate(("", "_reverse")):
+                    getattr(lstm, "weight_ih_l0" + sfx).copy_(w_ih[d].t())
+                    getattr(lstm, "weight_hh_l0" + sfx).copy_(w_hh[d].t())
+                    getattr(lstm, "bias_ih_l0" + sfx).copy_(b[d])
+                    getattr(lstm, "bias_hh_l0" + sfx).zero_()
+            x_cat = torch.cat(xs, dim=-1).contiguous()
+            # torch flattens no bf16 RNN weights (cudnn.is_acceptable
+            # takes f16/f32/f64 only), so each bf16 call also compacts the
+            # layer's weights (<= 3 MB of copies) and warns about it; the
+            # time counts
+            with torch.no_grad(), warnings.catch_warnings():
+                warnings.filterwarnings("ignore", "RNN module weights")
+                library_ms = cuda_ms(torch, lambda: lstm(x_cat))
+            itemsize = 2 if dtype == torch.bfloat16 else 4
+            ops_ms, bytes_ms = layer_bound(
+                Fa, Fb, H, seq_out, TILE, itemsize,
+                PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS)
+            if kernel == "fused_bilstm_resident":
+                plan = fused_lstm.resident_plan(Fa, Fb, H)
+                log(f"resident plan {name}: {plan._asdict()}, "
+                    f"{fused_lstm.resident_clusters(Fa, Fb, H)} clusters fit "
+                    f"the card at once, {16 * plan.m_tiles} rows each")
+            row = {"kernel": kernel, "layer": name, "F": [Fa, Fb], "H": H,
+                   "B": TILE, "seq_out": seq_out, "dtype": dname,
+                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "ops_ms": ops_ms,
+                   "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
+                   "bound_by": ("operations" if ops_ms >= bytes_ms
+                                else "bytes")}
+            log("timing " + json.dumps(row))
+            rows.append(row)
+            del lstm, x_cat, xs, w_ih, b, w_hh, packed
     torch.cuda.synchronize()
     return rows
 
@@ -340,6 +404,17 @@ def check_recurrence(torch, recurrence, plain):
                              f"version at H={H} B={B} {dname}: {err} > "
                              f"{bound}")
                     errs[kernel][dname] = max(errs[kernel][dname], err)
+                again = recurrence.lstm_dw_hh(want_ys, want_dx)
+                ys1 = want_ys[:1].contiguous()
+                dw1 = recurrence.lstm_dw_hh(ys1, want_dx[:1].contiguous())
+                torch.cuda.synchronize()
+                if not torch.equal(dw, again):
+                    fail(f"lstm_dw_hh is not bitwise reproducible at H={H} "
+                         f"B={B} {dname}")
+                if dw1.shape != (2, H, 4 * H) or dw1.any():
+                    fail(f"lstm_dw_hh at T=1 is not all zeros (H={H})")
+                line.append("dW_hh bitwise equal over two launches, zeros "
+                            "at T=1")
                 log(f"recurrence H={H} B={B} {dname}: max|kernel-plain| "
                     + ", ".join(line))
                 checked.append([H, B, dname])
@@ -421,13 +496,21 @@ def time_recurrence(torch, recurrence, plain):
         rows = {}
         for name, (kern, pl) in calls.items():
             ops_ms, bytes_ms = rec_bound(name, H, TRAIN_B)
+            # kernel_ms: CUDA events around each call, the host's issue
+            # time included where the device waits for it (the earlier
+            # method); device_ms: replays of a CUDA graph of the calls
             rows[name] = {"kernel_ms": cuda_ms(torch, kern),
+                          "device_ms": graph_ms(torch, kern),
                           "plain_ms": cuda_ms(torch, pl, reps=10),
                           "ops_ms": ops_ms, "bytes_ms": bytes_ms}
         # the same product as one library call on the stored operands
-        # (bf16 out, f32 accumulation inside cuBLAS)
-        rows["lstm_dw_hh"]["library_ms"] = cuda_ms(
-            torch, lambda: torch.einsum("sdbh,sdbg->dhg", ys[:-1], dx[1:]))
+        # (bf16 out, f32 accumulation inside cuBLAS), timed both ways
+
+        def einsum():
+            return torch.einsum("sdbh,sdbg->dhg", ys[:-1], dx[1:])
+
+        rows["lstm_dw_hh"]["library_ms"] = cuda_ms(torch, einsum)
+        rows["lstm_dw_hh"]["library_device_ms"] = graph_ms(torch, einsum)
         per_h[H] = rows
         log(f"timing recurrence H={H} B={TRAIN_B} bf16: " + json.dumps(rows))
         del xproj, w_hh, dys, ys, cs, gates, dx
@@ -440,7 +523,8 @@ def time_recurrence(torch, recurrence, plain):
     torch.cuda.synchronize()
 
     def per_step(kernel, key):
-        return sum(per_h[H][kernel][key] for _, H in TRAIN_LAYERS.values())
+        vals = [per_h[H][kernel][key] for _, H in TRAIN_LAYERS.values()]
+        return None if None in vals else sum(vals)
 
     lib = {"lstm_recurrence_fwd": "fwd_nograd",
            "lstm_recurrence_fwd_save": "fwd_train",
@@ -449,8 +533,13 @@ def time_recurrence(torch, recurrence, plain):
     for kernel in REC_KERNELS:
         ops_ms, bytes_ms = per_step(kernel, "ops_ms"), per_step(kernel,
                                                                  "bytes_ms")
+        device_ms = per_step(kernel, "device_ms")
         out[kernel] = {
             "kernel_ms": per_step(kernel, "kernel_ms"),
+            "device_ms": device_ms,
+            # the line's ms: device time where the graph was captured
+            "ms": device_ms if device_ms is not None else per_step(
+                kernel, "kernel_ms"),
             "plain_ms": per_step(kernel, "plain_ms"),
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -461,7 +550,12 @@ def time_recurrence(torch, recurrence, plain):
     out["lstm_recurrence_bwd"]["library_note"] = (
         "torch.nn.LSTM bf16 forward + backward (more work: the forward "
         "and the input projection's gradients too)")
-    out["lstm_dw_hh"]["library_note"] = "torch.einsum on the bf16 operands"
+    out["lstm_dw_hh"]["library_device_ms"] = per_step("lstm_dw_hh",
+                                                      "library_device_ms")
+    out["lstm_dw_hh"]["library_note"] = (
+        "torch.einsum on the bf16 operands (library_ms with the host's "
+        "issue time, as kernel_ms; library_device_ms from graph replays, "
+        "as device_ms)")
     return out
 
 
@@ -659,18 +753,22 @@ def check_main_path(tmp: str, cfg_cls, init_params, save_checkpoint):
         fail(f"defaults did not run bf16 through the kernel: {main}")
     if main["forward_tiles"] != tiles:
         fail(f"{main['forward_tiles']} forward tiles, expected {tiles}")
-    launches = main["kernel_launches"]["fused_bilstm"]
-    if launches != 5 * main["forward_tiles"]:
-        fail(f"fused_bilstm launched {launches} times for "
-             f"{main['forward_tiles']} forward tiles (expected 5 each)")
+    launches = main["kernel_launches"]
+    want = {k: 5 * tiles if k == "fused_bilstm_resident" else 0
+            for k in K1_KERNELS}
+    if launches != want:
+        fail(f"call_mods launched {launches} for {tiles} forward tiles "
+             f"(expected {want}: every layer through the resident kernel)")
 
     f32k = run_call_mods(tsv, ckpt, os.path.join(tmp, "calls_f32k.tsv"),
                          "--compute_dtype", "float32", "--recurrence",
                          "kernel")
     f32p = run_call_mods(tsv, ckpt, os.path.join(tmp, "calls_f32p.tsv"),
                          "--compute_dtype", "float32", "--recurrence", "scan")
-    if f32p["kernel_launches"]["fused_bilstm"] != 0:
-        fail("the plain (scan) run launched the kernel")
+    if any(f32p["kernel_launches"].values()):
+        fail("the plain (scan) run launched a kernel")
+    if f32k["kernel_launches"]["fused_bilstm_f32"] != 5 * tiles:
+        fail(f"the float32 kernel run launched {f32k['kernel_launches']}")
     p_k, p_p = check_rows(f32k, N_ROWS), check_rows(f32p, N_ROWS)
     for a, b in zip(f32k["rows"], f32p["rows"]):
         if a[:6] != b[:6] or a[9] != b[9]:
@@ -688,7 +786,9 @@ def check_main_path(tmp: str, cfg_cls, init_params, save_checkpoint):
     dp_bf = float(np.abs(p_main[:, 1] - p_p[:, 1]).max())
     log(f"bfloat16 kernel vs float32 plain: agreement {agree:.6f}, "
         f"max|dP1| = {dp_bf:.3g}")
-    return {"launches": launches, "forward_tiles": main["forward_tiles"],
+    return {"launches": launches["fused_bilstm_resident"],
+            "launches_by_kernel": launches,
+            "forward_tiles": main["forward_tiles"],
             "sites": main["sites"], "seconds": main["seconds"],
             "device_seconds": main["device_seconds"],
             "format_seconds": main["format_seconds"],
@@ -725,10 +825,13 @@ def check_training(tmp: str):
     kl = st["kernel_launches"]
     want = {"lstm_recurrence_fwd_save": 5 * steps,
             "lstm_recurrence_bwd": 5 * steps, "lstm_dw_hh": 5 * steps,
-            "lstm_recurrence_fwd": 0, "fused_bilstm": 5 * st["eval_tiles"]}
+            "lstm_recurrence_fwd": 0,
+            "fused_bilstm_resident": 5 * st["eval_tiles"],
+            "fused_bilstm_stream": 0, "fused_bilstm_f32": 0}
     if kl != want:
         fail(f"train launched {kl}, expected {want} (5 per train step of "
-             f"each training kernel, 5 K1 per evaluation tile, no K2)")
+             f"each training kernel, 5 of K1's resident kernel per "
+             f"evaluation tile, no K2)")
     losses = st["step_losses"]
     if len(losses) != steps or not np.isfinite(losses).all():
         fail("train losses are missing or not finite")
@@ -879,6 +982,7 @@ def main() -> int:
         fail(f"the deepsignal_plant_tpu_torch package is not beside this "
              f"script ({exc})")
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 is full f32
+    torch.backends.cudnn.allow_tf32 = False         # and so is cuDNN's LSTM
 
     # phase 1: the card
     smi = subprocess.run(
@@ -913,13 +1017,14 @@ def main() -> int:
                                   train_mod)
 
     # phase 4: the main paths; their counts start at 0 in fresh processes
-    fused_lstm.launches = 0
-    for k in recurrence.launches:
-        recurrence.launches[k] = 0
+    for counts in (fused_lstm.launches, recurrence.launches):
+        for k in counts:
+            counts[k] = 0
     with tempfile.TemporaryDirectory() as tmp:
         run = check_main_path(tmp, ModelConfig, init_params, save_checkpoint)
         trained = check_training(tmp)
-        if fused_lstm.launches != 0 or any(recurrence.launches.values()):
+        if any(fused_lstm.launches.values()) or any(
+                recurrence.launches.values()):
             fail("phases 4 and 4b launched kernels in this process")
         f32_train = check_f32_training(tmp, recurrence, train_mod.train,
                                        cli.build_parser(), init_params,
@@ -935,25 +1040,29 @@ def main() -> int:
         f"{flops / 1e9:.3f} GFLOP/site -> "
         f"{run['sites_per_s'] * flops / 1e12:.3f} TFLOP/s)")
 
-    def total(key):
-        return sum(r[key] for r in timings)
+    kernels = {"kernels": []}
+    for kernel, (dname, _) in K1_KERNELS.items():
+        rows = [r for r in timings if r["kernel"] == kernel]
 
-    kernels = {"kernels": [{
-        "name": "fused_bilstm", "route": "cuda",
-        "source": "deepsignal_plant_tpu_torch/csrc/fused_bilstm.cu",
-        "replaces": "deepsignal_plant_tpu/ops/pallas_fused.py:62",
-        "launches": run["launches"],
-        "max_abs_err": max(errs.values()),
-        "max_abs_err_float32": errs["float32"],
-        "max_abs_err_bfloat16": errs["bfloat16"],
-        # times: sums over the five launches of one 4096-row bf16 tile
-        "ms": total("kernel_ms"), "kernel_ms": total("kernel_ms"),
-        "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-        "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
-                     else "bytes"),
-        "library_ms": total("library_ms"),
-        "shapes_checked": checked, "per_launch": timings,
-        "model_forward": forward, "main_path": run}]}
+        def total(key):
+            return sum(r[key] for r in rows)
+
+        kernels["kernels"].append({
+            "name": kernel, "route": "cuda",
+            "source": "deepsignal_plant_tpu_torch/csrc/fused_bilstm.cu",
+            "replaces": "deepsignal_plant_tpu/ops/pallas_fused.py:62",
+            # from the call_mods run (phase 4): its default is bf16
+            "launches": run["launches_by_kernel"][kernel],
+            "max_abs_err": errs[kernel], "dtype": dname,
+            # times: sums over the five launches of one 4096-row tile
+            "ms": total("kernel_ms"), "kernel_ms": total("kernel_ms"),
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
+                         else "bytes"),
+            "library_ms": total("library_ms"),
+            "shapes_checked": [c for c in checked if c[4] == kernel],
+            "per_launch": rows})
+    kernels["kernels"][0].update(model_forward=forward, main_path=run)
     # the recurrence kernels: times per train step at batch 512 in bf16
     # (two H=128 and three H=256 launches); launches from the train run
     # (4b), and for K2 from the fused-off inference tile (4d)
@@ -969,7 +1078,7 @@ def main() -> int:
             "max_abs_err": max(rec_errs[name].values()),
             "max_abs_err_float32": rec_errs[name]["float32"],
             "max_abs_err_bfloat16": rec_errs[name]["bfloat16"],
-            "ms": t["kernel_ms"], **t, "shapes_checked": rec_checked})
+            **t, "shapes_checked": rec_checked})
     log("train summary: " + json.dumps({
         **trained, "f32_kernel_vs_plain": f32_train, "k2_path": k2_path,
         "step": step_timing}))

@@ -39,6 +39,24 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// 16-byte asynchronous copy global -> shared (cp.async, L2 only); with
+// `valid` false it reads nothing and writes 16 zero bytes (src must still
+// be a mapped address). Completion: cp_async_commit, then cp_async_wait.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 // Row stride of a shared bf16 operand buffer, in elements, for rows of Kp
 // (a multiple of 32) elements: a multiple of 8 (16-byte loads) whose byte
 // size is an odd multiple of 64, so the 8 threads of a quarter warp (two

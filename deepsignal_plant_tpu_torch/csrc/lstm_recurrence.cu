@@ -42,9 +42,9 @@
 //
 // The TPU's K4 keeps a (2, H, 4H) f32 dW_hh accumulator per batch tile
 // in VMEM (1 MB per direction at H=256), which no block here can hold.
-// So dW_hh is a second pass over the stored operands: dsp_lstm_dw_hh
-// reduces over K = (T-1)*B rows inside each block, with no atomics, in a
-// fixed order (deterministic).
+// So dW_hh is a second pass over the stored operands: dsp_lstm_dw_hh, a
+// split-K product over K = (T-1)*B rows whose f32 partials are summed in
+// a fixed order, with no atomics (deterministic).
 
 #include "dsp_common.cuh"
 
@@ -526,38 +526,84 @@ bwd_f32_kernel(const float* __restrict__ dys, const float* __restrict__ cs,
 
 // ---------------------------------------------------------------------------
 // dW_hh (K4): dW[d] = sum_{s >= 1, b} ys[s-1, d, b, :]^T dx[s, d, b, :],
-// (H, 4H) f32. A block computes a 64 x 64 output tile and loops over the
-// K = (T-1) * B rows in 32-row slabs, in order: no atomics, deterministic.
+// (H, 4H) f32, as a split-K product. K row k (0 <= k < (T-1)*B) is batch
+// row k % B of step 1 + k / B. The K rows are cut into `splits`
+// contiguous ranges of `rows` rows (ops/recurrence.py::dw_hh_split_plan);
+// a block computes one kDwM x kDwN output tile over one range, streaming
+// it through a ring of kDwStages shared-memory slabs that cp.async fills
+// while the previous slabs' products run, and writes an f32 partial.
+// dw_reduce_kernel then sums the partials in split order. No atomics: two
+// launches on the same inputs give the same bits.
 
-constexpr int kDwTile = 64;
-constexpr int kDwK = 32;
-constexpr int kDwStride = kDwTile + 8;      // bf16 smem row: 144 bytes
+constexpr int kDwM = 128;                   // output tile: units of h_prev
+constexpr int kDwN = 128;                   // output tile: gate columns
+constexpr int kDwStages = 3;                // slabs in the ring
+constexpr int kDwThreads = 256;
+constexpr int kDwRowAlign = 64;             // `rows` is a multiple of this
+constexpr int kDwKBf16 = 64;                // slab rows, bfloat16
+constexpr int kDwKF32 = 32;                 // slab rows, float32
+constexpr int kDwLdaBf16 = kDwM + 8;        // smem rows of 272 bytes:
+constexpr int kDwLdbBf16 = kDwN + 8;        // ldmatrix conflict-free
 
-// one 32-row slab of a (rows, width) operand: rows [r0, r0+32) of
-// src[(row) * width + col0 + c], zero past `nrows` and past `width`
-template <typename S>
-__device__ __forceinline__ void stage_slab(S* __restrict__ dst, int ld,
-                                           const S* __restrict__ src,
-                                           int nrows, int width, int col0,
-                                           bool vec) {
-  if (sizeof(S) == 2 && vec) {              // 8 bf16 per 16-byte load
-    for (int i = threadIdx.x; i < kDwK * kDwTile / 8; i += blockDim.x) {
-      const int r = i / (kDwTile / 8);
-      const int c = (i % (kDwTile / 8)) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (r < nrows && col0 + c < width)
-        v = *reinterpret_cast<const uint4*>(src + (size_t)r * width + col0 +
-                                            c);
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+// element offsets of K row k's A row (in ys) and B row (in dx)
+struct DwRow {
+  size_t a, b;
+};
+__device__ __forceinline__ DwRow dw_row(int k, int d, int B, int H) {
+  const int s = 1 + k / B;
+  const int b = k - (s - 1) * B;
+  return {(((size_t)(s - 1) * 2 + d) * B + b) * H,
+          (((size_t)s * 2 + d) * B + b) * (size_t)(4 * H)};
+}
+
+// One slab: K rows [k0, k0 + KS) of A (KS x kDwM, columns m0..) and B
+// (KS x kDwN, columns n0..), as stored (k rows; m or n contiguous). Rows
+// >= kend and columns past the operand's width read zeros. vec: 16-byte
+// cp.async (row widths a multiple of 16 bytes, 16-byte aligned bases),
+// completed by the caller's cp_async_wait; else plain loads and stores.
+template <typename S, int KS, int LDA, int LDB>
+__device__ __forceinline__ void dw_stage(S* __restrict__ As,
+                                         S* __restrict__ Bs,
+                                         const S* __restrict__ ys,
+                                         const S* __restrict__ dx, int k0,
+                                         int kend, int d, int B, int H,
+                                         int m0, int n0, bool vec) {
+  const int G4 = 4 * H;
+  if (vec) {
+    constexpr int E = 16 / sizeof(S);       // elements of a 16-byte chunk
+    constexpr int CA = kDwM / E, CB = kDwN / E;
+    for (int i = threadIdx.x; i < KS * (CA + CB); i += kDwThreads) {
+      const bool is_a = i < KS * CA;
+      const int j = is_a ? i : i - KS * CA;
+      const int C = is_a ? CA : CB;
+      const int r = j / C;
+      const int c = (j - r * C) * E;
+      const int k = k0 + r;
+      const int col = (is_a ? m0 : n0) + c;
+      const bool ok = k < kend && col < (is_a ? H : G4);
+      const S* src = is_a ? ys : dx;
+      if (ok) {
+        const DwRow o = dw_row(k, d, B, H);
+        src += (is_a ? o.a : o.b) + col;
+      }
+      cp_async16(is_a ? As + r * LDA + c : Bs + r * LDB + c, src, ok);
     }
     return;
   }
-  for (int i = threadIdx.x; i < kDwK * kDwTile; i += blockDim.x) {
-    const int r = i / kDwTile;
-    const int c = i % kDwTile;
+  for (int i = threadIdx.x; i < KS * (kDwM + kDwN); i += kDwThreads) {
+    const bool is_a = i < KS * kDwM;
+    const int j = is_a ? i : i - KS * kDwM;
+    const int W = is_a ? kDwM : kDwN;
+    const int r = j / W;
+    const int c = j - r * W;
+    const int k = k0 + r;
+    const int col = (is_a ? m0 : n0) + c;
     S v = S(0.f);
-    if (r < nrows && col0 + c < width) v = src[(size_t)r * width + col0 + c];
-    dst[r * ld + c] = v;
+    if (k < kend && col < (is_a ? H : G4)) {
+      const DwRow o = dw_row(k, d, B, H);
+      v = is_a ? ys[o.a + col] : dx[o.b + col];
+    }
+    (is_a ? As + r * LDA : Bs + r * LDB)[c] = v;
   }
 }
 
@@ -570,130 +616,188 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(a));
 }
 
-// bfloat16: 4 warps, a warp computes a 32 x 32 quarter as 2 x 4 mma tiles.
-// Both operands are staged as stored (k rows, m or n contiguous); the
-// transposing ldmatrix builds the row-major A and column-major B
-// fragments from them.
-__global__ void __launch_bounds__(128)
+// the block's K range [kbeg, kend) and slab count; grid z = 2 * split + d
+struct DwSplit {
+  int d, split, kbeg, kend, nslab;
+};
+__device__ __forceinline__ DwSplit dw_split(int K, int rows, int KS) {
+  DwSplit p;
+  p.d = blockIdx.z & 1;
+  p.split = blockIdx.z >> 1;
+  p.kbeg = p.split * rows;
+  p.kend = min(p.kbeg + rows, K);
+  p.nslab = p.kend > p.kbeg ? (p.kend - p.kbeg + KS - 1) / KS : 0;
+  return p;
+}
+
+// bfloat16: 8 warps as 2 (m) x 4 (n), each a 64 x 32 part as 4 x 4
+// mma tiles; the transposing ldmatrix builds the row-major A and
+// column-major B fragments from the slabs as stored. `out` is dW itself
+// (one split) or the workspace of partials, (splits, 2, H, 4H).
+__global__ void __launch_bounds__(kDwThreads, 2)
 dw_bf16_kernel(const bf16* __restrict__ ys, const bf16* __restrict__ dx,
-               float* __restrict__ dw, int T_, int B, int H, int vec) {
-  __shared__ __align__(16) bf16 As[kDwK * kDwStride];
-  __shared__ __align__(16) bf16 Bs[kDwK * kDwStride];
-  const int d = blockIdx.z;
+               float* __restrict__ out, int B, int H, int K, int rows,
+               int vec) {
+  constexpr int KS = kDwKBf16, LDA = kDwLdaBf16, LDB = kDwLdbBf16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* const as0 = reinterpret_cast<bf16*>(smem_raw);
+  bf16* const bs0 = as0 + kDwStages * KS * LDA;
+  const DwSplit p = dw_split(K, rows, KS);
   const int G4 = 4 * H;
-  const int m0 = blockIdx.y * kDwTile;       // units of h_prev
-  const int n0 = blockIdx.x * kDwTile;       // gate columns
+  const int m0 = blockIdx.y * kDwM;          // units of h_prev
+  const int n0 = blockIdx.x * kDwN;          // gate columns
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;
   const int gq = lane >> 2, q = lane & 3;
   const int li = lane & 7, mat = lane >> 3;
 
-  float acc[2][4][4];
+  float acc[4][4][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-  for (int s = 1; s < T_; ++s) {
-    const bf16* hs = ys + ((size_t)(s - 1) * 2 + d) * B * H;
-    const bf16* ds = dx + ((size_t)s * 2 + d) * B * G4;
-    for (int r0 = 0; r0 < B; r0 += kDwK) {
-      const int nrows = B - r0 < kDwK ? B - r0 : kDwK;
-      stage_slab<bf16>(As, kDwStride, hs + (size_t)r0 * H, nrows, H, m0,
-                       vec != 0);
-      stage_slab<bf16>(Bs, kDwStride, ds + (size_t)r0 * G4, nrows, G4, n0,
-                       vec != 0);
-      __syncthreads();
 #pragma unroll
-      for (int kk = 0; kk < kDwK; kk += 16) {
-        uint32_t a[2][4], b[2][4];
+  for (int i = 0; i < kDwStages - 1; ++i) {
+    if (i < p.nslab)
+      dw_stage<bf16, KS, LDA, LDB>(as0 + i * KS * LDA, bs0 + i * KS * LDB,
+                                   ys, dx, p.kbeg + i * KS, p.kend, p.d, B,
+                                   H, m0, n0, vec != 0);
+    cp_async_commit();
+  }
+  for (int i = 0; i < p.nslab; ++i) {
+    cp_async_wait<kDwStages - 2>();         // slab i has landed
+    __syncthreads();                        // ... and slab i-1 is consumed
+    const int nx = i + kDwStages - 1;
+    if (nx < p.nslab) {
+      const int st = nx % kDwStages;
+      dw_stage<bf16, KS, LDA, LDB>(as0 + st * KS * LDA, bs0 + st * KS * LDB,
+                                   ys, dx, p.kbeg + nx * KS, p.kend, p.d, B,
+                                   H, m0, n0, vec != 0);
+    }
+    cp_async_commit();
+    const bf16* As = as0 + (i % kDwStages) * KS * LDA;
+    const bf16* Bs = bs0 + (i % kDwStages) * KS * LDB;
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-          ldmatrix_x4_trans(a[mt], As + (kk + li + (mat >> 1) * 8) *
-                                            kDwStride +
-                                        wm + mt * 16 + (mat & 1) * 8);
+    for (int kk = 0; kk < KS; kk += 16) {
+      uint32_t a[4][4], b[2][4];
 #pragma unroll
-        for (int np = 0; np < 2; ++np)
-          ldmatrix_x4_trans(b[np], Bs + (kk + li + (mat & 1) * 8) *
-                                            kDwStride +
-                                        wn + np * 16 + (mat >> 1) * 8);
+      for (int mt = 0; mt < 4; ++mt)
+        ldmatrix_x4_trans(a[mt], As + (kk + li + (mat >> 1) * 8) * LDA + wm +
+                                     mt * 16 + (mat & 1) * 8);
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+      for (int np = 0; np < 2; ++np)
+        ldmatrix_x4_trans(b[np], Bs + (kk + li + (mat & 1) * 8) * LDB + wn +
+                                     np * 16 + (mat >> 1) * 8);
 #pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_bf16(acc[mt][nt], a[mt][0], a[mt][1], a[mt][2], a[mt][3],
-                     b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
-      }
-      __syncthreads();
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          mma_bf16(acc[mt][nt], a[mt][0], a[mt][1], a[mt][2], a[mt][3],
+                   b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
     }
   }
+  float* o = out + ((size_t)p.split * 2 + p.d) * H * G4;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int m = m0 + wm + mt * 16 + gq + (e >> 1) * 8;
         const int n = n0 + wn + nt * 8 + 2 * q + (e & 1);
-        if (m < H && n < G4) dw[((size_t)d * H + m) * G4 + n] = acc[mt][nt][e];
+        if (m < H && n < G4) o[(size_t)m * G4 + n] = acc[mt][nt][e];
       }
 }
 
-// float32: 16 x 16 threads, each a 4 x 4 patch of the 64 x 64 tile
-__global__ void __launch_bounds__(256)
+// float32 on the CUDA cores: 16 x 16 threads, each 8 rows (m) by 8
+// columns (n) of the tile, each in two runs of 4 that are 64 apart
+__global__ void __launch_bounds__(kDwThreads, 2)
 dw_f32_kernel(const float* __restrict__ ys, const float* __restrict__ dx,
-              float* __restrict__ dw, int T_, int B, int H) {
-  __shared__ __align__(16) float As[kDwK * kDwTile];
-  __shared__ __align__(16) float Bs[kDwK * kDwTile];
-  const int d = blockIdx.z;
+              float* __restrict__ out, int B, int H, int K, int rows,
+              int vec) {
+  constexpr int KS = kDwKF32, LDA = kDwM, LDB = kDwN;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* const as0 = reinterpret_cast<float*>(smem_raw);
+  float* const bs0 = as0 + kDwStages * KS * LDA;
+  const DwSplit p = dw_split(K, rows, KS);
   const int G4 = 4 * H;
-  const int m0 = blockIdx.y * kDwTile;
-  const int n0 = blockIdx.x * kDwTile;
+  const int m0 = blockIdx.y * kDwM;
+  const int n0 = blockIdx.x * kDwN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  float acc[4][4];
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int n = 0; n < 4; ++n) acc[i][n] = 0.f;
+    for (int n = 0; n < 8; ++n) acc[i][n] = 0.f;
 
-  for (int s = 1; s < T_; ++s) {
-    const float* hs = ys + ((size_t)(s - 1) * 2 + d) * B * H;
-    const float* ds = dx + ((size_t)s * 2 + d) * B * G4;
-    for (int r0 = 0; r0 < B; r0 += kDwK) {
-      const int nrows = B - r0 < kDwK ? B - r0 : kDwK;
-      stage_slab<float>(As, kDwTile, hs + (size_t)r0 * H, nrows, H, m0,
-                        false);
-      stage_slab<float>(Bs, kDwTile, ds + (size_t)r0 * G4, nrows, G4, n0,
-                        false);
-      __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kDwStages - 1; ++i) {
+    if (i < p.nslab)
+      dw_stage<float, KS, LDA, LDB>(as0 + i * KS * LDA, bs0 + i * KS * LDB,
+                                    ys, dx, p.kbeg + i * KS, p.kend, p.d, B,
+                                    H, m0, n0, vec != 0);
+    cp_async_commit();
+  }
+  for (int i = 0; i < p.nslab; ++i) {
+    cp_async_wait<kDwStages - 2>();
+    __syncthreads();
+    const int nx = i + kDwStages - 1;
+    if (nx < p.nslab) {
+      const int st = nx % kDwStages;
+      dw_stage<float, KS, LDA, LDB>(as0 + st * KS * LDA, bs0 + st * KS * LDB,
+                                    ys, dx, p.kbeg + nx * KS, p.kend, p.d, B,
+                                    H, m0, n0, vec != 0);
+    }
+    cp_async_commit();
+    const float* As = as0 + (i % kDwStages) * KS * LDA;
+    const float* Bs = bs0 + (i % kDwStages) * KS * LDB;
 #pragma unroll 8
-      for (int k = 0; k < kDwK; ++k) {
-        const float4 a = *reinterpret_cast<const float4*>(
-            As + k * kDwTile + ty * 4);
-        const float4 b = *reinterpret_cast<const float4*>(
-            Bs + k * kDwTile + tx * 4);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int k = 0; k < KS; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(As + k * LDA +
+                                                         ty * 4);
+      const float4 a1 = *reinterpret_cast<const float4*>(As + k * LDA + 64 +
+                                                         ty * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(Bs + k * LDB +
+                                                         tx * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(Bs + k * LDB + 64 +
+                                                         tx * 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int r = 0; r < 8; ++r)
 #pragma unroll
-          for (int n = 0; n < 4; ++n) acc[i][n] += av[i] * bv[n];
-      }
-      __syncthreads();
+        for (int n = 0; n < 8; ++n) acc[r][n] += av[r] * bv[n];
     }
   }
+  float* o = out + ((size_t)p.split * 2 + p.d) * H * G4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < 8; ++r)
 #pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int m = m0 + ty * 4 + i;
-      const int c = n0 + tx * 4 + n;
-      if (m < H && c < G4) dw[((size_t)d * H + m) * G4 + c] = acc[i][n];
+    for (int n = 0; n < 8; ++n) {
+      const int m = m0 + (r >> 2) * 64 + ty * 4 + (r & 3);
+      const int c = n0 + (n >> 2) * 64 + tx * 4 + (n & 3);
+      if (m < H && c < G4) o[(size_t)m * G4 + c] = acc[r][n];
     }
+}
+
+// dw[i] = sum over z = 0, 1, ..., splits-1 of ws[z][i], in that order
+__global__ void dw_reduce_kernel(const float4* __restrict__ ws,
+                                 float4* __restrict__ dw, size_t n4,
+                                 int splits) {
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float4 s = ws[i];
+    for (int z = 1; z < splits; ++z) {
+      const float4 v = ws[(size_t)z * n4 + i];
+      s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
+    }
+    dw[i] = s;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -924,39 +1028,78 @@ cudaError_t dsp_lstm_recurrence_bwd(const void* dys, const void* cs,
   return cudaErrorInvalidValue;
 }
 
+// Bytes of the workspace dsp_lstm_dw_hh needs for a plan of `splits`:
+// the f32 partials (splits, 2, H, 4H) when splits > 1, else none.
+size_t dsp_lstm_dw_hh_workspace_bytes(int H, int splits) {
+  if (splits <= 1) return 0;
+  return (size_t)splits * 2 * H * 4 * H * sizeof(float);
+}
+
 // K4, the weight gradient: dw (2, H, 4H) float32 = sum over s >= 1 and b
 // of ys[s-1, d, b, :]^T dx[s, d, b, :]; ys (T, 2, B, H) and dx
-// (T, 2, B, 4H) in the storage type. Every element of dw is written.
+// (T, 2, B, 4H) in the storage type. Every element of dw is written (all
+// zeros when T = 1). The plan (splits, rows) cuts the K = (T-1)*B rows
+// into `splits` ranges of `rows` rows, every one non-empty (one split of 0
+// rows when K = 0), `rows` a multiple of 64; with splits > 1, workspace
+// holds dsp_lstm_dw_hh_workspace_bytes(H, splits) bytes, 16-byte aligned.
+// Two launches: the split products, then the fixed-order sum of the
+// partials (none for one split).
 //
 // What bounds it, at B=512, H=256, T=13: 2*2*(T-1)*B*H*4H = 6.4 GFLOP
 // (6.5 us) against 36 MB of compulsory bytes (ys, dx, dw: 11 us): bytes
-// bind. What the simple design gives up: 64 x 64 output tiles give only
-// 2 * 4 * 16 = 128 blocks at H=256 (32 at H=128) that each stream their
-// K = 6,144 rows through one shared-memory slab at a time, with no copy
-// in flight during the products and no split over K.
+// bind. 128 x 128 output tiles give 32 tiles at H=256 (8 at H=128), too
+// few for 132 SMs; splitting K eight ways (sixteen at H=128) gives one
+// wave of 256 (128) blocks of 8 warps, two resident per SM, each keeping
+// two 64-row slabs in flight. Each operand is read H/128 or 4H/128 times
+// from L2 (100 MB at H=256, where the earlier 64 x 128 tiles read 150
+// MB); the partials add 2 * splits * 2 MB (H=256), most of it in L2.
 cudaError_t dsp_lstm_dw_hh(const void* ys, const void* dx, void* dw, int T_,
-                           int B, int H, int dtype, void* stream) {
-  if (T_ < 1 || B < 1 || H < 1 || dw == nullptr) return cudaErrorInvalidValue;
+                           int B, int H, int splits, int rows, int dtype,
+                           void* workspace, void* stream) {
+  if (T_ < 1 || B < 1 || H < 1 || dw == nullptr || splits < 1 || rows < 0 ||
+      rows % kDwRowAlign != 0 || 2 * (long long)splits > 65535)
+    return cudaErrorInvalidValue;
+  const long long K = (long long)(T_ - 1) * B;
+  const bool covers = K == 0 ? splits == 1
+                             : (long long)splits * rows >= K &&
+                                   (long long)(splits - 1) * rows < K;
+  if (!covers || K > 0x7fffffff || (splits > 1 && workspace == nullptr))
+    return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((4 * H + kDwTile - 1) / kDwTile, (H + kDwTile - 1) / kDwTile,
-                  2);
+  float* out = static_cast<float*>(splits > 1 ? workspace : dw);
+  const dim3 grid((4 * H + kDwN - 1) / kDwN, (H + kDwM - 1) / kDwM,
+                  2 * splits);
+  // 16-byte copies need rows of whole 16-byte chunks and aligned bases
+  const bool aligned = reinterpret_cast<uintptr_t>(ys) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  cudaError_t err;
   if (dtype == 0) {
-    dw_f32_kernel<<<grid, 256, 0, st>>>(static_cast<const float*>(ys),
-                                        static_cast<const float*>(dx),
-                                        static_cast<float*>(dw), T_, B, H);
-    return cudaGetLastError();
+    const size_t smem =
+        (size_t)kDwStages * kDwKF32 * (kDwM + kDwN) * sizeof(float);
+    err = set_smem((const void*)dw_f32_kernel, smem);
+    if (err != cudaSuccess) return err;
+    dw_f32_kernel<<<grid, kDwThreads, smem, st>>>(
+        static_cast<const float*>(ys), static_cast<const float*>(dx), out, B,
+        H, (int)K, rows, aligned && H % 4 == 0);
+  } else if (dtype == 1) {
+    const size_t smem = (size_t)kDwStages * kDwKBf16 *
+                        (kDwLdaBf16 + kDwLdbBf16) * sizeof(bf16);
+    err = set_smem((const void*)dw_bf16_kernel, smem);
+    if (err != cudaSuccess) return err;
+    dw_bf16_kernel<<<grid, kDwThreads, smem, st>>>(
+        static_cast<const bf16*>(ys), static_cast<const bf16*>(dx), out, B,
+        H, (int)K, rows, aligned && H % 8 == 0);
+  } else {
+    return cudaErrorInvalidValue;
   }
-  if (dtype == 1) {
-    // 16-byte slab loads need 8-element rows and 16-byte aligned bases
-    const int vec = H % 8 == 0 && reinterpret_cast<uintptr_t>(ys) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-    dw_bf16_kernel<<<grid, 128, 0, st>>>(static_cast<const bf16*>(ys),
-                                         static_cast<const bf16*>(dx),
-                                         static_cast<float*>(dw), T_, B, H,
-                                         vec);
-    return cudaGetLastError();
-  }
-  return cudaErrorInvalidValue;
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const size_t n4 = (size_t)2 * H * H;       // float4s of (2, H, 4H)
+  const int blocks = (int)(n4 / 256 + 1 < 1024 ? n4 / 256 + 1 : 1024);
+  dw_reduce_kernel<<<blocks, 256, 0, st>>>(
+      static_cast<const float4*>(workspace), static_cast<float4*>(dw), n4,
+      splits);
+  return cudaGetLastError();
 }
 
 const char* dsp_cuda_error_string(int err) {

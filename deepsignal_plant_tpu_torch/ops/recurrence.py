@@ -36,6 +36,13 @@ launches = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_save": 0,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HIDDEN = 512
 
+# dW_hh's split-K plan, as csrc/lstm_recurrence.cu tiles it: output tiles
+# of 128 units by 128 gate columns per direction, ranges of K rows in
+# multiples of 64, at most one wave of two blocks for each of the H100's
+# 132 SMs, and at most 16 splits (their f32 partials cost bytes)
+_DW_TILE_M, _DW_TILE_N, _DW_ROW_ALIGN = 128, 128, 64
+_DW_WAVE_BLOCKS, _DW_MAX_SPLITS = 264, 16
+
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
@@ -43,7 +50,7 @@ def _lib() -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.dsp_lstm_recurrence_fwd.argtypes = [P] * 5 + [I] * 5 + [P] * 2
     lib.dsp_lstm_recurrence_bwd.argtypes = [P] * 5 + [I] * 4 + [P] * 2
-    lib.dsp_lstm_dw_hh.argtypes = [P] * 3 + [I] * 4 + [P]
+    lib.dsp_lstm_dw_hh.argtypes = [P] * 3 + [I] * 6 + [P] * 2
     for fn in (lib.dsp_lstm_recurrence_fwd, lib.dsp_lstm_recurrence_bwd,
                lib.dsp_lstm_dw_hh):
         fn.restype = ctypes.c_int
@@ -51,6 +58,8 @@ def _lib() -> ctypes.CDLL:
                lib.dsp_lstm_bwd_workspace_bytes):
         fn.argtypes = [I, I]
         fn.restype = ctypes.c_size_t
+    lib.dsp_lstm_dw_hh_workspace_bytes.argtypes = [I, I]
+    lib.dsp_lstm_dw_hh_workspace_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -166,9 +175,27 @@ def lstm_recurrence_bwd_dx(dys: torch.Tensor, cs: torch.Tensor,
     return dx
 
 
+def dw_hh_split_plan(T: int, B: int, H: int) -> tuple[int, int]:
+    """(splits, rows) of the dW_hh kernel: its K = (T-1)*B rows, in step
+    order, cut into ``splits`` contiguous ranges of ``rows`` rows (the
+    last one shorter), split z covering [z*rows, min((z+1)*rows, K)).
+    As many splits as one wave of blocks holds (output tiles times
+    splits <= _DW_WAVE_BLOCKS), at most _DW_MAX_SPLITS; one split of 0
+    rows when K = 0."""
+    K = (T - 1) * B
+    if K == 0:
+        return 1, 0
+    tiles = 2 * -(-H // _DW_TILE_M) * -(-4 * H // _DW_TILE_N)
+    want = max(1, min(_DW_MAX_SPLITS, _DW_WAVE_BLOCKS // tiles))
+    rows = -(-K // want)
+    rows = -(-rows // _DW_ROW_ALIGN) * _DW_ROW_ALIGN
+    return -(-K // rows), rows
+
+
 def lstm_dw_hh(ys: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
     """K4's weight gradient: ys (T, 2, B, H), dxproj (T, 2, B, 4H) in one
-    storage dtype -> dW_hh (2, H, 4H) float32."""
+    storage dtype -> dW_hh (2, H, 4H) float32, bitwise the same from one
+    launch to the next (dw_hh_split_plan's partials summed in order)."""
     name = "lstm_dw_hh"
     if not _on_card(name, dx, ys):
         return plain.lstm_dw_hh(ys, dx)
@@ -177,9 +204,13 @@ def lstm_dw_hh(ys: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
     _check("ys", ys, (T, 2, B, H), dx.dtype)
     dw = torch.empty((2, H, 4 * H), dtype=torch.float32, device=dx.device)
     lib = _lib()
+    splits, rows = dw_hh_split_plan(T, B, H)
+    ws = torch.empty(lib.dsp_lstm_dw_hh_workspace_bytes(H, splits),
+                     dtype=torch.uint8, device=dx.device)
     with torch.cuda.device(dx.device):
         err = lib.dsp_lstm_dw_hh(ys.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                                 T, B, H, code, _stream(dx))
+                                 T, B, H, splits, rows, code,
+                                 ws.data_ptr() or None, _stream(dx))
     _build.check(lib, err, name + " launch")
     launches[name] += 1
     return dw

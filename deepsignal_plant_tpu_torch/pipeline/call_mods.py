@@ -176,7 +176,7 @@ def call_mods(args) -> CallStats:
 
     print("[main] call_mods starts..")
     t0 = time.time()
-    launches0 = fused_lstm.launches
+    launches0 = dict(fused_lstm.launches)
     engine = CallModsEngine(model_path, model_cfg, call_cfg, device)
     stats = engine.run_features_file(input_path, args.result_file,
                                      args.gzip)
@@ -189,8 +189,8 @@ def call_mods(args) -> CallStats:
             "transfer_dtype": call_cfg.transfer_dtype,
             "sites": stats.sites, "batches": stats.batches,
             "forward_tiles": stats.forward_tiles,
-            "kernel_launches": {
-                "fused_bilstm": fused_lstm.launches - launches0},
+            "kernel_launches": {k: v - launches0[k]
+                                for k, v in fused_lstm.launches.items()},
             "seconds": stats.seconds,
             "device_seconds": stats.device_seconds,
             "format_seconds": stats.format_seconds}))

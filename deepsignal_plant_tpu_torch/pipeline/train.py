@@ -348,7 +348,7 @@ def _refuse_unported(args) -> None:
 
 
 def _kernel_launches() -> dict:
-    return {"fused_bilstm": fused_lstm.launches, **recurrence.launches}
+    return {**fused_lstm.launches, **recurrence.launches}
 
 
 def train(args) -> dict:

@@ -21,7 +21,13 @@ float32 2e-5 for the same reason; bfloat16 2e-2, as above for h, and
 for dxproj because da is rounded to bf16 before it feeds the next
 step's dh, so one flipped rounding travels back through the steps.
 dW_hh gets identical inputs on both sides and differs only in the order
-of its f32 sums over (T-1)*B rows: 1e-5 in both storage types.
+of its f32 sums over (T-1)*B rows: 1e-5 in both storage types; its
+split-K partials are summed in a fixed order, so two launches on the
+same inputs agree bit for bit.
+
+K1 has three kernels (bf16 resident, bf16 streaming, float32);
+ops/fused_lstm.py::resident_plan picks the bf16 one by shape, and each
+check asserts which kernel's counter moved.
 """
 import numpy as np
 import pytest
@@ -83,12 +89,17 @@ ODD_LAYERS = {
 }
 
 
-def check_against_plain(Fa, Fb, H, seq_out, B, dtype, device):
+def check_against_plain(Fa, Fb, H, seq_out, B, dtype, device, kernel=None):
+    """One launch against the plain version; ``kernel``, where given, is
+    the variant the shape rule must pick (its counter moves, no other)."""
     xs, w_ih, b, w_hh = layer_inputs(Fa, Fb, H, B, dtype, device)
-    before = fused_lstm.launches
+    name = fused_lstm.variant(Fa, Fb, H, dtype)
+    assert kernel is None or name == kernel
+    before = dict(fused_lstm.launches)
     got = fused_lstm.bilstm_layer_fused(xs, w_ih, b, w_hh, H, seq_out)
     torch.cuda.synchronize()
-    assert fused_lstm.launches == before + 1
+    moved = {k: v - before[k] for k, v in fused_lstm.launches.items()}
+    assert moved == {k: int(k == name) for k in moved}
     want = bilstm_layer(xs, w_ih, b, w_hh, H, seq_out)
     for g, w in zip(got, want):
         assert g.shape == w.shape == ((T if seq_out else 1), B, H)
@@ -103,6 +114,37 @@ def check_against_plain(Fa, Fb, H, seq_out, B, dtype, device):
 @pytest.mark.parametrize("layer", list(MAIN_PATH_LAYERS))
 def test_kernel_matches_plain(device, layer, B, dtype):
     check_against_plain(*MAIN_PATH_LAYERS[layer], B, dtype, device)
+
+
+@pytest.mark.parametrize("B", [4096, 4093, 1, 37])
+@pytest.mark.parametrize("layer", list(MAIN_PATH_LAYERS))
+def test_resident_kernel_runs_every_main_path_layer(device, layer, B):
+    """bfloat16 at the main path's five layers goes to the resident
+    kernel, at full and ragged tiles and at fewer rows than one cluster
+    row tile."""
+    check_against_plain(*MAIN_PATH_LAYERS[layer], B, torch.bfloat16, device,
+                        kernel="fused_bilstm_resident")
+
+
+@pytest.mark.parametrize("seq_out", [True, False])
+def test_shape_rule_streams_weights_no_cluster_holds(device, seq_out):
+    """A comb layer at H=512 (6 MB of weights a direction) has no
+    resident plan: the streaming kernel runs it."""
+    check_against_plain(512, 512, 512, seq_out, 64, torch.bfloat16, device,
+                        kernel="fused_bilstm_stream")
+
+
+def test_resident_kernel_takes_packed_weights(device):
+    """The packed weights a model caches give the same outputs as packing
+    in the call, bit for bit."""
+    xs, w_ih, b, w_hh = layer_inputs(256, 256, 256, 100, torch.bfloat16,
+                                     device)
+    packed = fused_lstm.pack_weights(w_ih.float(), w_hh.float())
+    a = fused_lstm.bilstm_layer_fused(xs, w_ih, b, w_hh, 256)
+    c = fused_lstm.bilstm_layer_fused(xs, w_ih.float(), b, w_hh.float(), 256,
+                                      packed=packed)
+    for g, w in zip(a, c):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -154,7 +196,7 @@ DW_TOL = 1e-5
 TRAIN_H = [128, 256]
 
 
-def recurrence_inputs(H, B, dtype, device, seed=0):
+def recurrence_inputs(H, B, dtype, device, seed=0, steps=T):
     """xproj ~ N(0, 1) (a layer's projected inputs), w_hh ~ U(-1/sqrt(H),
     1/sqrt(H)) (torch's LSTM init), dys ~ N(0, 1) (a cotangent)."""
     rng = np.random.default_rng(seed)
@@ -163,9 +205,9 @@ def recurrence_inputs(H, B, dtype, device, seed=0):
     def dev(a, dt=dtype):
         return torch.tensor(a, dtype=torch.float32).to(device, dt)
 
-    return (dev(rng.normal(size=(T, 2, B, 4 * H))),
+    return (dev(rng.normal(size=(steps, 2, B, 4 * H))),
             dev(rng.uniform(-k, k, (2, H, 4 * H))),
-            dev(rng.normal(size=(T, 2, B, H))))
+            dev(rng.normal(size=(steps, 2, B, H))))
 
 
 def assert_close(name, got, want, tol):
@@ -214,6 +256,28 @@ def test_recurrence_kernels_match_plain(device, H, B, dtype):
 @pytest.mark.parametrize("H", [8, 20, 96])
 def test_recurrence_kernels_match_plain_at_odd_widths(device, H, B, dtype):
     check_recurrence(H, B, dtype, device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("steps", [13, 1])
+@pytest.mark.parametrize("B", [512, 509])
+@pytest.mark.parametrize("H", TRAIN_H)
+def test_dw_hh_is_reproducible_and_matches_plain(device, H, B, steps, dtype):
+    """The split-K dW_hh against the plain version, bitwise equal over two
+    launches (fixed-order sum of the partials), and all zeros at T=1."""
+    xproj, _, dys = recurrence_inputs(H, B, dtype, device, seed=5,
+                                      steps=steps)
+    ys, dx = dys, xproj                    # (T, 2, B, H), (T, 2, B, 4H)
+    before = recurrence.launches["lstm_dw_hh"]
+    first = recurrence.lstm_dw_hh(ys, dx)
+    second = recurrence.lstm_dw_hh(ys, dx)
+    torch.cuda.synchronize()
+    assert recurrence.launches["lstm_dw_hh"] == before + 2
+    assert torch.equal(first, second)
+    assert_close("dW_hh", first, plain.lstm_dw_hh(ys, dx), DW_TOL)
+    if steps == 1:
+        assert not first.any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

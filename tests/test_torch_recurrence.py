@@ -171,3 +171,53 @@ def test_wrappers_reject_other_devices_and_dtypes():
         recurrence._dims("lstm_recurrence_fwd", t(xproj).half(), H, 4 * H)
     with pytest.raises(ValueError):
         recurrence._dims("lstm_recurrence_fwd", t(xproj), H, 2 * H)
+
+
+@pytest.mark.parametrize("T,B,H", [(13, 512, 256), (13, 512, 128),
+                                   (13, 509, 256), (1, 512, 256), (2, 1, 8),
+                                   (13, 37, 20), (5, 3000, 96)])
+def test_dw_hh_split_plan_covers_every_row_once(T, B, H):
+    """The dW_hh kernel's split-K plan: ranges of K = (T-1)*B rows, in
+    order, that cover every row exactly once (one empty split when
+    K = 0); rows a multiple of the kernel's 64-row alignment."""
+    splits, rows = recurrence.dw_hh_split_plan(T, B, H)
+    K = (T - 1) * B
+    ranges = [(z * rows, min((z + 1) * rows, K)) for z in range(splits)]
+    assert [k for a, b in ranges for k in range(a, b)] == list(range(K))
+    assert rows % 64 == 0
+    if K == 0:
+        assert (splits, rows) == (1, 0)
+    else:
+        assert all(b > a for a, b in ranges)
+
+
+def test_dw_hh_split_plan_fills_the_card_at_the_training_shapes():
+    """At batch 512, one wave of blocks (at most two per SM of the H100):
+    128 x 128 output tiles per direction times the splits."""
+    for H, want_splits in ((128, 16), (256, 8)):
+        splits, rows = recurrence.dw_hh_split_plan(13, 512, H)
+        tiles = 2 * (H // 128) * (4 * H // 128)
+        assert splits == want_splits
+        assert 128 <= tiles * splits <= 264
+
+
+def test_dw_hh_partials_in_plan_order_match_plain():
+    """Summing the plan's per-split products in split order, as the
+    kernel's second pass does, gives the plain dW_hh (K row k is batch
+    row k % B of step 1 + k // B)."""
+    T, B = 7, 100
+    rng = np.random.default_rng(11)
+    ys = torch.from_numpy(rng.normal(size=(T, 2, B, H)).astype(np.float32))
+    dx = torch.from_numpy(rng.normal(size=(T, 2, B, 4 * H)).astype(
+        np.float32))
+    K = (T - 1) * B
+    a = ys[:-1].permute(1, 0, 2, 3).reshape(2, K, H)
+    b = dx[1:].permute(1, 0, 2, 3).reshape(2, K, 4 * H)
+    splits, rows = recurrence.dw_hh_split_plan(T, B, H)
+    total = torch.zeros(2, H, 4 * H)
+    for z in range(splits):
+        k0, k1 = z * rows, min((z + 1) * rows, K)
+        total += torch.einsum("dkh,dkg->dhg", a[:, k0:k1], b[:, k0:k1])
+    np.testing.assert_allclose(total.numpy(),
+                               recurrence.lstm_dw_hh(ys, dx).numpy(),
+                               rtol=1e-5, atol=1e-4)
