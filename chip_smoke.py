@@ -11,30 +11,30 @@ Phases, in order; any failure exits non-zero before the last line:
 2. every kernel of the main paths, built from csrc/ by nvcc (one nvcc
    per source, all started together), against its plain PyTorch version
    on the card at the main paths' shapes: the fused BiLSTM layer (K1) at
-   call_mods' 4096-row tiles, in its three kernels (bfloat16 resident,
-   the main path's; bfloat16 streaming, the earlier design, which the
-   shape rule keeps for weights no cluster holds; float32); (2b) the
+   call_mods' 4096-row tiles, in its two kernels (bfloat16, the main
+   path's; float32, for exact-parity runs); (2b) the
    trainable recurrence (K2, K3, K4 and its split-K dW_hh, bitwise
    reproducible and all zeros at T=1) at the training batch of 512 and
    509, H 128 and 256, float32 and bfloat16;
 3. each kernel timed with CUDA events (median of reps after warm-up)
    beside its plain version, one PyTorch library call computing the same
    function or more (a yardstick the port never calls) and its bound:
-   K1's three kernels per 4096-row forward tile (the streaming kernel is
-   the earlier design's time, for reference), (3b) the recurrence
-   kernels per train step at batch 512 in bfloat16; (3c) one whole train
-   step at batch 512
+   K1's two kernels per 4096-row forward tile, (3b) the recurrence
+   kernels per train step at batch 512 in bfloat16, each both with the
+   host's issue time (events per call) and as device time (replays of a
+   CUDA graph; a call that cannot be captured fails the run); (3c) one
+   whole train step at batch 512
    through the train loop's step function: device time, host enqueue
    time, and a torch.profiler trace (device busy share, top kernels);
 4. the main paths through the user's entry points, each a fresh process
    whose kernel launch counts start at 0 and which prints them
    (--verbose_stages): ``call_mods`` on a seeded ~17.4k-row features TSV
    with a seeded random full-width both_bilstm checkpoint (5 launches of
-   K1's resident kernel per forward tile, none of the others; the same
+   K1's bfloat16 kernel per forward tile, none of the float32 one; the same
    rows in float32 through the float32 kernel and the plain version must
    agree); (4b) ``train`` with its defaults (bfloat16, resident plane,
    dropout 0.5, Adam) on a seeded learnable 16,384-row TSV for 2 epochs:
-   5 launches of K3, K4 and dW_hh per step, 5 of K1's resident kernel
+   5 launches of K3, K4 and dW_hh per step, 5 of K1's bfloat16 kernel
    per evaluation tile, none of K2, validation accuracy above its threshold,
    and the best checkpoint drives ``call_mods``; (4c) float32 training
    through the kernels against the plain version, 8 steps; (4d) inference
@@ -66,16 +66,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 T = 13
 TILE = 4096
 N_ROWS = 17_400            # four full 4096-row forward tiles + a ragged tail
+TAIL = N_ROWS % TILE       # of 1,016 rows
 SEED = 20261016
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bf16 tensor cores,
 # float32 on the CUDA cores, and the HBM3 rate
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
-# K1's kernels: name -> (dtype, wrapper attribute of ops/fused_lstm.py)
-K1_KERNELS = {"fused_bilstm_resident": ("bfloat16", "bilstm_layer_fused"),
-              "fused_bilstm_stream": ("bfloat16", "bilstm_layer_stream"),
-              "fused_bilstm_f32": ("float32", "bilstm_layer_fused")}
+# K1's kernels (ops/fused_lstm.py::launches) -> their compute dtype
+K1_KERNELS = {"fused_bilstm_bf16": "bfloat16", "fused_bilstm_f32": "float32"}
 # (Fa, Fb, H, seq_out) of the five layer launches of one forward tile
 MAIN_PATH_LAYERS = {
     "seq": (7, 0, 128, True),
@@ -176,11 +175,11 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def graph_ms(torch, fn, reps: int = 20, warmup: int = 3):
+def graph_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     """Device milliseconds of one call: ``reps`` calls captured in one
     CUDA graph, its replays timed with CUDA events (median of 5) over
-    ``reps``, so the host's time to issue a call does not count. None
-    where the calls cannot be captured."""
+    ``reps``, so the host's time to issue a call does not count. A call
+    that cannot be captured fails the run."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -190,9 +189,7 @@ def graph_ms(torch, fn, reps: int = 20, warmup: int = 3):
             for _ in range(reps):
                 fn()
     except RuntimeError as exc:
-        log(f"graph capture failed ({exc}); device time not measured")
-        torch.cuda.synchronize()
-        return None
+        fail(f"CUDA graph capture failed: {exc}")
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -221,7 +218,7 @@ def layer_bound(Fa, Fb, H, seq_out, B, itemsize, peak_flops):
 
 
 def check_kernel(torch, fused_lstm, bilstm_layer):
-    """Phase 2: K1's three kernels against the plain version at every
+    """Phase 2: K1's two kernels against the plain version at every
     main-path layer shape, seq_out True and False, full and ragged batch;
     each launch must go to the kernel named (its counter moves)."""
     shapes = sorted({(Fa, Fb, H) for Fa, Fb, H, _ in
@@ -230,13 +227,13 @@ def check_kernel(torch, fused_lstm, bilstm_layer):
     checked = []
     for Fa, Fb, H in shapes:
         for B in (TILE, TILE - 3):
-            for kernel, (dname, fn) in K1_KERNELS.items():
+            for kernel, dname in K1_KERNELS.items():
                 dtype = getattr(torch, dname)
                 xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, B, dtype)
                 for seq_out in (True, False):
                     before = dict(fused_lstm.launches)
-                    got = getattr(fused_lstm, fn)(xs, w_ih, b, w_hh, H,
-                                                  seq_out)
+                    got = fused_lstm.bilstm_layer_fused(xs, w_ih, b, w_hh, H,
+                                                        seq_out)
                     torch.cuda.synchronize()
                     moved = {k: v - before[k]
                              for k, v in fused_lstm.launches.items()}
@@ -266,17 +263,27 @@ def check_kernel(torch, fused_lstm, bilstm_layer):
 
 def time_kernel(torch, fused_lstm, bilstm_layer):
     """Phase 3: each main-path launch at B=4096, through each of K1's
-    kernels, beside the plain version and torch.nn.LSTM in the kernel's
-    dtype."""
+    kernels (bfloat16 with its weights packed beforehand, as a model
+    caches them), beside the plain version and torch.nn.LSTM in the
+    kernel's dtype; bfloat16 also at call_mods' ragged tail tile (TAIL
+    rows: 64 blocks, fewer than the SMs, where B=4096 runs 256, two per
+    SM)."""
     rows = []
     for name, (Fa, Fb, H, seq_out) in MAIN_PATH_LAYERS.items():
-        for kernel, (dname, fn) in K1_KERNELS.items():
+        for kernel, dname in K1_KERNELS.items():
             dtype = getattr(torch, dname)
             xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, TILE, dtype)
             packed = (fused_lstm.pack_weights(w_ih, w_hh)
                       if dtype == torch.bfloat16 else None)
-            kernel_ms = cuda_ms(torch, lambda: getattr(fused_lstm, fn)(
+            kernel_ms = cuda_ms(torch, lambda: fused_lstm.bilstm_layer_fused(
                 xs, w_ih, b, w_hh, H, seq_out, packed=packed))
+            tail = {}
+            if dtype == torch.bfloat16:
+                xt = tuple(x[:, :TAIL].contiguous() for x in xs)
+                tail = {"tail_B": TAIL, "tail_kernel_ms": cuda_ms(
+                    torch, lambda: fused_lstm.bilstm_layer_fused(
+                        xt, w_ih, b, w_hh, H, seq_out, packed=packed))}
+                del xt
             plain_ms = cuda_ms(torch, lambda: bilstm_layer(
                 xs, w_ih, b, w_hh, H, seq_out), reps=10)
             # library yardstick: torch.nn.LSTM(bidirectional) on the
@@ -303,14 +310,9 @@ def time_kernel(torch, fused_lstm, bilstm_layer):
             ops_ms, bytes_ms = layer_bound(
                 Fa, Fb, H, seq_out, TILE, itemsize,
                 PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS)
-            if kernel == "fused_bilstm_resident":
-                plan = fused_lstm.resident_plan(Fa, Fb, H)
-                log(f"resident plan {name}: {plan._asdict()}, "
-                    f"{fused_lstm.resident_clusters(Fa, Fb, H)} clusters fit "
-                    f"the card at once, {16 * plan.m_tiles} rows each")
             row = {"kernel": kernel, "layer": name, "F": [Fa, Fb], "H": H,
                    "B": TILE, "seq_out": seq_out, "dtype": dname,
-                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                   "kernel_ms": kernel_ms, **tail, "plain_ms": plain_ms,
                    "library_ms": library_ms, "ops_ms": ops_ms,
                    "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
                    "bound_by": ("operations" if ops_ms >= bytes_ms
@@ -523,8 +525,7 @@ def time_recurrence(torch, recurrence, plain):
     torch.cuda.synchronize()
 
     def per_step(kernel, key):
-        vals = [per_h[H][kernel][key] for _, H in TRAIN_LAYERS.values()]
-        return None if None in vals else sum(vals)
+        return sum(per_h[H][kernel][key] for _, H in TRAIN_LAYERS.values())
 
     lib = {"lstm_recurrence_fwd": "fwd_nograd",
            "lstm_recurrence_fwd_save": "fwd_train",
@@ -537,9 +538,7 @@ def time_recurrence(torch, recurrence, plain):
         out[kernel] = {
             "kernel_ms": per_step(kernel, "kernel_ms"),
             "device_ms": device_ms,
-            # the line's ms: device time where the graph was captured
-            "ms": device_ms if device_ms is not None else per_step(
-                kernel, "kernel_ms"),
+            "ms": device_ms,                     # the line's ms: device time
             "plain_ms": per_step(kernel, "plain_ms"),
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -754,11 +753,10 @@ def check_main_path(tmp: str, cfg_cls, init_params, save_checkpoint):
     if main["forward_tiles"] != tiles:
         fail(f"{main['forward_tiles']} forward tiles, expected {tiles}")
     launches = main["kernel_launches"]
-    want = {k: 5 * tiles if k == "fused_bilstm_resident" else 0
-            for k in K1_KERNELS}
+    want = {"fused_bilstm_bf16": 5 * tiles, "fused_bilstm_f32": 0}
     if launches != want:
         fail(f"call_mods launched {launches} for {tiles} forward tiles "
-             f"(expected {want}: every layer through the resident kernel)")
+             f"(expected {want}: every layer through the bfloat16 kernel)")
 
     f32k = run_call_mods(tsv, ckpt, os.path.join(tmp, "calls_f32k.tsv"),
                          "--compute_dtype", "float32", "--recurrence",
@@ -786,7 +784,7 @@ def check_main_path(tmp: str, cfg_cls, init_params, save_checkpoint):
     dp_bf = float(np.abs(p_main[:, 1] - p_p[:, 1]).max())
     log(f"bfloat16 kernel vs float32 plain: agreement {agree:.6f}, "
         f"max|dP1| = {dp_bf:.3g}")
-    return {"launches": launches["fused_bilstm_resident"],
+    return {"launches": launches["fused_bilstm_bf16"],
             "launches_by_kernel": launches,
             "forward_tiles": main["forward_tiles"],
             "sites": main["sites"], "seconds": main["seconds"],
@@ -826,11 +824,10 @@ def check_training(tmp: str):
     want = {"lstm_recurrence_fwd_save": 5 * steps,
             "lstm_recurrence_bwd": 5 * steps, "lstm_dw_hh": 5 * steps,
             "lstm_recurrence_fwd": 0,
-            "fused_bilstm_resident": 5 * st["eval_tiles"],
-            "fused_bilstm_stream": 0, "fused_bilstm_f32": 0}
+            "fused_bilstm_bf16": 5 * st["eval_tiles"], "fused_bilstm_f32": 0}
     if kl != want:
         fail(f"train launched {kl}, expected {want} (5 per train step of "
-             f"each training kernel, 5 of K1's resident kernel per "
+             f"each training kernel, 5 of K1's bfloat16 kernel per "
              f"evaluation tile, no K2)")
     losses = st["step_losses"]
     if len(losses) != steps or not np.isfinite(losses).all():
@@ -1041,7 +1038,7 @@ def main() -> int:
         f"{run['sites_per_s'] * flops / 1e12:.3f} TFLOP/s)")
 
     kernels = {"kernels": []}
-    for kernel, (dname, _) in K1_KERNELS.items():
+    for kernel, dname in K1_KERNELS.items():
         rows = [r for r in timings if r["kernel"] == kernel]
 
         def total(key):
@@ -1056,6 +1053,8 @@ def main() -> int:
             "max_abs_err": errs[kernel], "dtype": dname,
             # times: sums over the five launches of one 4096-row tile
             "ms": total("kernel_ms"), "kernel_ms": total("kernel_ms"),
+            **({"tail_kernel_ms": total("tail_kernel_ms")}
+               if dname == "bfloat16" else {}),
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
                          else "bytes"),

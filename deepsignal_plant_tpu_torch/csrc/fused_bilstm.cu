@@ -38,27 +38,16 @@
 // 168 GFLOP against ~0.1 GB of compulsory traffic: bound by operations
 // (0.17 ms at the bf16 tensor-core peak), not by bytes (0.03 ms).
 //
-// Three kernels:
+// Two kernels:
 //
-// bfloat16, resident (the main path): the weights stay in shared memory
-//   for the whole launch, one direction's per block (branch layers, 160
-//   KB) or split by hidden unit over a thread-block cluster (comb layers,
-//   1-1.5 MB per direction); h_t goes to the cluster's blocks through
-//   distributed shared memory; clusters are persistent over row tiles.
-//   The wrapper's shape rule (ops/fused_lstm.py::resident_plan) picks the
-//   cluster size and row tile before the launch.
-// bfloat16, streaming: the earlier design, for the shapes whose weights
-//   do not fit a cluster (comb layers at H=512, or H not a multiple of
-//   8). Every block re-reads its direction's packed weights from L2 at
-//   every step, so L2 bandwidth rather than the tensor cores sets its
-//   floor (~5 GB of L2 reads per comb layer at B=4096).
+// bfloat16 (the main path): tensor cores (mma.sync) over weights packed
+//   once per model; every block re-reads its direction's packed weights
+//   from L2 at every step (below).
 // float32: CUDA-core FMAs, for exact-parity runs. block = (round_up(H,
 //   32), max(1, 256 / that)) threads; thread (j, y) owns unit j for RB =
 //   16 rows; x_t and h_{t-1} are staged as f32, transposed ([k][row]) so
 //   one 16-byte load feeds four rows; two __syncthreads() per step order
 //   the h exchange; the weights are read from global memory.
-
-#include <cooperative_groups.h>
 
 #include "dsp_common.cuh"
 
@@ -176,40 +165,46 @@ cudaError_t launch_f32(const float* xa, const float* xb, const float* w_ih,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16), two variants over the same
-// packed weights wt (2, 4H, Kp): wt[d][n][k] = [W_ih[d]; W_hh[d]][k][n]
-// for k < F + H, zero up to Kp = round_up(F + H, 32). The wrapper packs
-// them once per model (ops/fused_lstm.py::pack_weights), so one 16-byte
-// load gives a thread its fragments of two k16 steps (the k index is
-// permuted alike in A and B, which leaves the sum unchanged).
+// bfloat16: tensor cores (mma.sync m16n8k16) over the packed weights wt
+// (2, 4H, Kp): wt[d][n][k] = [W_ih[d]; W_hh[d]][k][n] for k < F + H, zero
+// up to Kp = round_up(F + H, 32). The wrapper packs them once per model
+// (ops/fused_lstm.py::pack_weights), so one 16-byte load gives a thread
+// its fragments of two k16 steps (the k index is permuted alike in A and
+// B, which leaves the sum unchanged).
 //
-// Both keep a warp's accumulator fragments on four 16x8 tiles per m16
-// tile, one per gate, over the same 8 hidden units, so a thread holds i,
-// f, g and o of the same (row, unit) pairs: the cell update needs no
-// exchange and c stays in f32 registers. The A operand, [x_t | h_{t-1}]
-// of the block's rows in bf16, is double-buffered in shared memory: step
-// s reads one buffer while h_s and x_{s+1} go into the other.
+// Grid (ceil(B / 32), 2 directions): a block owns BB = 32 rows (MT = 2
+// m16 tiles) of one direction for all T steps and reads its direction's
+// packed weights from L2 at every step (1.5 MB per block per step at a
+// comb layer). The latency of each warp's chain of those L2 loads, step
+// after step, rather than the tensor cores, sets its time (PERF.md).
+//
+// A warp's accumulator fragments are four 16x8 tiles per m16 tile, one per
+// gate, over the same 8 hidden units, so a thread holds i, f, g and o of
+// the same (row, unit) pairs: the cell update needs no exchange and c
+// stays in f32 registers. The A operand, [x_t | h_{t-1}] of the block's
+// rows in bf16, is double-buffered in shared memory: step s reads one
+// buffer while h_s and x_{s+1} go into the other.
 
-constexpr int kMmaTiles = 2;                  // MT of the streaming variant
-constexpr int kMmaRows = 16 * kMmaTiles;      // its BB
+constexpr int kMmaTiles = 2;                  // MT: m16 tiles of a block
+constexpr int kMmaRows = 16 * kMmaTiles;      // BB
 constexpr int kMmaWarps = 8;
 
 // K of the packed weights: F + H rounded up to the k32 step
 inline int padded_k(int F, int H) { return (F + H + 31) / 32 * 32; }
 
-// x_t of rows [b0, b0 + BB) into columns [0, F) of an A buffer; rows past
+// x_t of the block's rows into columns [0, F) of an A buffer; rows past
 // the batch edge read zeros. vec (widths a multiple of 8, 16-byte aligned
 // bases): 16-byte cp.async, completed by the caller's cp_async_wait; else
 // plain loads and stores.
 __device__ __forceinline__ void stage_x(bf16* __restrict__ buf,
                                         const bf16* __restrict__ xa,
                                         const bf16* __restrict__ xb, int t,
-                                        int B, int b0, int BB, int Fa, int Fb,
-                                        int Ks, bool vec) {
+                                        int B, int b0, int Fa, int Fb, int Ks,
+                                        bool vec) {
   const int F = Fa + Fb;
   if (vec) {
     const int F8 = F / 8;
-    for (int i = threadIdx.x; i < BB * F8; i += blockDim.x) {
+    for (int i = threadIdx.x; i < kMmaRows * F8; i += blockDim.x) {
       const int r = i / F8;
       const int k = (i - r * F8) * 8;
       const int row = b0 + r;
@@ -222,7 +217,7 @@ __device__ __forceinline__ void stage_x(bf16* __restrict__ buf,
     }
     return;
   }
-  for (int i = threadIdx.x; i < BB * F; i += blockDim.x) {
+  for (int i = threadIdx.x; i < kMmaRows * F; i += blockDim.x) {
     const int r = i / F;
     const int k = i - r * F;
     const int row = b0 + r;
@@ -234,49 +229,6 @@ __device__ __forceinline__ void stage_x(bf16* __restrict__ buf,
     buf[r * Ks + k] = v;
   }
 }
-
-// acc[mt][gate] += A rows (mt*16..) of `a` times the B rows of `w` for
-// units j0..j0+7 of each gate (w + gate*gstride*ldw is gate's first row),
-// over k in [0, Kp): the product shared by both variants
-template <int MTN>
-__device__ __forceinline__ void gate_products(float (&acc)[MTN][4][4],
-                                              const bf16* __restrict__ a,
-                                              int lda, int mt0,
-                                              const bf16* __restrict__ w,
-                                              int ldw, size_t gstride,
-                                              bool bvalid, int Kp, int gq,
-                                              int q) {
-  const bf16* wrow = w + (size_t)gq * ldw + 8 * q;
-#pragma unroll 2
-  for (int k0 = 0; k0 < Kp; k0 += 32) {
-    uint4 bq[4];
-#pragma unroll
-    for (int gate = 0; gate < 4; ++gate) {
-      bq[gate] = bvalid ? *reinterpret_cast<const uint4*>(
-                              wrow + gate * gstride * ldw + k0)
-                        : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int mt = 0; mt < MTN; ++mt) {
-      const bf16* arow = a + ((mt0 + mt) * 16 + gq) * lda + k0 + 8 * q;
-      const uint4 lo = *reinterpret_cast<const uint4*>(arow);
-      const uint4 hi = *reinterpret_cast<const uint4*>(arow + 8 * lda);
-#pragma unroll
-      for (int gate = 0; gate < 4; ++gate) {
-        mma_bf16(acc[mt][gate], lo.x, hi.x, lo.y, hi.y, bq[gate].x,
-                 bq[gate].y);
-        mma_bf16(acc[mt][gate], lo.z, hi.z, lo.w, hi.w, bq[gate].z,
-                 bq[gate].w);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The streaming variant (the earlier design): grid (ceil(B / 32), 2
-// directions), a block owns 32 rows of one direction for all T steps and
-// reads its direction's packed weights from L2 at every step. It serves
-// the shapes whose weights do not fit a cluster's shared memory.
 
 // GPW: unit groups (of 8) per warp; a thread keeps GPW*MT*4 cell states
 template <int GPW>
@@ -308,8 +260,7 @@ fused_bilstm_bf16_kernel(const bf16* __restrict__ xa,
   for (int i = threadIdx.x; i < 2 * kMmaRows * Ks / 8; i += blockDim.x)
     reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0, 0, 0, 0);
   __syncthreads();
-  stage_x(buf0, xa, xb, d == 0 ? 0 : T_ - 1, B, b0, kMmaRows, Fa, Fb, Ks,
-          vec != 0);
+  stage_x(buf0, xa, xb, d == 0 ? 0 : T_ - 1, B, b0, Fa, Fb, Ks, vec != 0);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -327,8 +278,8 @@ fused_bilstm_bf16_kernel(const bf16* __restrict__ xa,
     const bf16* cur = s & 1 ? buf1 : buf0;
     bf16* nxt = s & 1 ? buf0 : buf1;
     if (s + 1 < T_)
-      stage_x(nxt, xa, xb, d == 0 ? s + 1 : T_ - 2 - s, B, b0, kMmaRows, Fa,
-              Fb, Ks, vec != 0);
+      stage_x(nxt, xa, xb, d == 0 ? s + 1 : T_ - 2 - s, B, b0, Fa, Fb, Ks,
+              vec != 0);
     cp_async_commit();
     const bool store = seq_out || s == T_ - 1;
     const int t_out = seq_out ? t : 0;
@@ -351,8 +302,35 @@ fused_bilstm_bf16_kernel(const bf16* __restrict__ xa,
           acc[mt][gate][2] = b_lo; acc[mt][gate][3] = b_hi;
         }
       }
-      gate_products<MT>(acc, cur, Ks, 0, w + (size_t)j0 * Kp, Kp, H,
-                        j0 + gq < H, Kp, gq, q);
+      // B fragments: this thread loads column gate*H + j0 + gq
+      const bool bvalid = j0 + gq < H;
+      const bf16* wrow = w + (size_t)(j0 + gq) * Kp + 8 * q;
+      // k32 steps: thread q holds k = k0 + 8q .. 8q+7 of A and B; the first
+      // four feed one mma (as its k slots 2q, 2q+1, 2q+8, 2q+9), the last
+      // four the other
+#pragma unroll 2
+      for (int k0 = 0; k0 < Kp; k0 += 32) {
+        uint4 bq[4];
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) {
+          bq[gate] = bvalid ? *reinterpret_cast<const uint4*>(
+                                  wrow + (size_t)gate * H * Kp + k0)
+                            : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const bf16* arow = cur + (mt * 16 + gq) * Ks + k0 + 8 * q;
+          const uint4 lo = *reinterpret_cast<const uint4*>(arow);
+          const uint4 hi = *reinterpret_cast<const uint4*>(arow + 8 * Ks);
+#pragma unroll
+          for (int gate = 0; gate < 4; ++gate) {
+            mma_bf16(acc[mt][gate], lo.x, hi.x, lo.y, hi.y, bq[gate].x,
+                     bq[gate].y);
+            mma_bf16(acc[mt][gate], lo.z, hi.z, lo.w, hi.w, bq[gate].z,
+                     bq[gate].w);
+          }
+        }
+      }
       // fragment element e: row gq + 8*(e/2) of the tile, unit u + e%2
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
@@ -380,11 +358,10 @@ fused_bilstm_bf16_kernel(const bf16* __restrict__ xa,
 }
 
 template <int GPW>
-cudaError_t launch_stream_kernel(const bf16* xa, const bf16* xb,
-                                 const bf16* wt, const float* bias,
-                                 bf16* ys_f, bf16* ys_b, int T_, int B,
-                                 int Fa, int Fb, int H, int Kp, int seq_out,
-                                 int vec, cudaStream_t stream) {
+cudaError_t launch_bf16_kernel(const bf16* xa, const bf16* xb, const bf16* wt,
+                               const float* bias, bf16* ys_f, bf16* ys_b,
+                               int T_, int B, int Fa, int Fb, int H, int Kp,
+                               int seq_out, int vec, cudaStream_t stream) {
   const int Ks = smem_stride(Kp);
   const size_t smem = (size_t)2 * kMmaRows * Ks * sizeof(bf16);
   auto kernel = fused_bilstm_bf16_kernel<GPW>;
@@ -405,317 +382,25 @@ inline bool x_vec(const void* xa, const void* xb, int Fa, int Fb) {
          Fb % 8 == 0;
 }
 
-cudaError_t launch_stream(const bf16* xa, const bf16* xb, const bf16* wt,
-                          const float* bias, bf16* ys_f, bf16* ys_b, int T_,
-                          int B, int Fa, int Fb, int H, int seq_out,
-                          cudaStream_t stream) {
+cudaError_t launch_bf16(const bf16* xa, const bf16* xb, const bf16* wt,
+                        const float* bias, bf16* ys_f, bf16* ys_b, int T_,
+                        int B, int Fa, int Fb, int H, int seq_out,
+                        cudaStream_t stream) {
   const int Kp = padded_k(Fa + Fb, H);
   const int vec = x_vec(xa, xb, Fa, Fb);
   // the fewest unit groups per warp that keep a block at <= 8 warps
   const int ngroups = (H + 7) / 8;
   if (ngroups <= kMmaWarps)
-    return launch_stream_kernel<1>(xa, xb, wt, bias, ys_f, ys_b, T_, B, Fa,
-                                   Fb, H, Kp, seq_out, vec, stream);
-  if (ngroups <= 2 * kMmaWarps)
-    return launch_stream_kernel<2>(xa, xb, wt, bias, ys_f, ys_b, T_, B, Fa,
-                                   Fb, H, Kp, seq_out, vec, stream);
-  if (ngroups <= 4 * kMmaWarps)
-    return launch_stream_kernel<4>(xa, xb, wt, bias, ys_f, ys_b, T_, B, Fa,
-                                   Fb, H, Kp, seq_out, vec, stream);
-  return launch_stream_kernel<8>(xa, xb, wt, bias, ys_f, ys_b, T_, B, Fa, Fb,
+    return launch_bf16_kernel<1>(xa, xb, wt, bias, ys_f, ys_b, T_, B, Fa, Fb,
                                  H, Kp, seq_out, vec, stream);
-}
-
-// ---------------------------------------------------------------------------
-// The resident variant: the weights live in shared memory for the whole
-// launch.
-//
-// A thread-block cluster of CS blocks holds one direction's packed
-// weights, split by hidden unit: block r of the cluster owns units
-// [r*U, (r+1)*U), U = H / CS, and keeps the 4U weight rows of all four
-// gates of those units (4U x Kp bf16). Each step, every block computes
-// its units' gates for the cluster's BB rows from [x_t | h_{t-1}] in its
-// own A buffer, updates c in registers, writes its slice of h_t into its
-// own next A buffer and copies it into every peer's (distributed shared
-// memory, 16-byte stores); one cluster barrier per step orders the
-// exchange. Each block stages x_{t+1} into its own next buffer with
-// cp.async while the step's products run. Clusters are persistent: the
-// grid holds as many as can be resident at once, and cluster c walks the
-// work items c, c + nclusters, ... (item = direction * ntiles + row
-// tile), reloading its weights only when the direction changes, so the
-// weights cross L2 about once per cluster per launch rather than once
-// per block per step. CS = 1 (the branch layers, whose 160 KB of weights
-// fit one block) needs no exchange.
-//
-// Warps: a warp task is one group of 8 units over MTW m16 tiles of the
-// block's MT; a warp keeps TPW tasks (and their cell states) for the
-// whole launch. Shared memory: [weights 4U x Ks | A0 BB x Ks | A1 BB x
-// Ks], Ks = smem_stride(Kp).
-
-namespace cg = cooperative_groups;
-
-template <int MTW, int TPW>
-__global__ void __launch_bounds__(kMmaWarps * 32, 1)
-fused_bilstm_resident_kernel(const bf16* __restrict__ xa,
-                             const bf16* __restrict__ xb,
-                             const bf16* __restrict__ wt,
-                             const float* __restrict__ bias,
-                             bf16* __restrict__ ys_f, bf16* __restrict__ ys_b,
-                             int T_, int B, int Fa, int Fb, int H, int Kp,
-                             int Ks, int MT, int ntiles, int seq_out,
-                             int vec) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int CS = (int)cluster.num_blocks();
-  const int rank = (int)cluster.block_rank();
-  const int ncl = gridDim.x / CS;
-  const int F = Fa + Fb;
-  const int G4 = 4 * H;
-  const int U = H / CS;                     // units of this block
-  const int u0 = rank * U;
-  const int BB = 16 * MT;
-  bf16* const wsm = reinterpret_cast<bf16*>(smem_raw);
-  bf16* const buf0 = wsm + (size_t)4 * U * Ks;
-  bf16* const buf1 = buf0 + (size_t)BB * Ks;
-  const int nwarps = blockDim.x / 32;
-  const int warp = threadIdx.x / 32;
-  const int gq = (threadIdx.x % 32) >> 2;
-  const int q = threadIdx.x & 3;
-  const int mt_split = MT / MTW;            // tasks per unit group
-  const int ntasks = (U / 8) * mt_split;
-  const int nitems = 2 * ntiles;
-
-  // h_{-1} = 0 and the pad columns [F+H, Kp) = 0 in both A buffers
-  for (int i = threadIdx.x; i < 2 * BB * Ks / 8; i += blockDim.x)
-    reinterpret_cast<uint4*>(buf0)[i] = make_uint4(0, 0, 0, 0);
-  __syncthreads();
-  int item = blockIdx.x / CS;
-  if (item < nitems) {
-    const int d0 = item / ntiles;
-    stage_x(buf0, xa, xb, d0 == 0 ? 0 : T_ - 1, B, (item % ntiles) * BB,
-            BB, Fa, Fb, Ks, vec != 0);
-  }
-  cp_async_commit();
-  cluster.sync();                           // every peer is running
-
-  float bg[TPW][4][2];
-  float c[TPW][MTW][4];
-  int loaded = -1;                          // direction of the weights held
-  int gs = 0;                               // steps since the launch
-  for (; item < nitems; item += ncl) {
-    const int d = item / ntiles;
-    const int b0 = (item % ntiles) * BB;
-    bf16* ys = d == 0 ? ys_f : ys_b;
-    if (d != loaded) {
-      // this block's weight rows: gate g, unit u0 + j -> smem row g*U + j
-      const int K8 = Kp / 8;
-      for (int i = threadIdx.x; i < 4 * U * K8; i += blockDim.x) {
-        const int n = i / K8;
-        const int k = (i - n * K8) * 8;
-        const int g = n / U;
-        const bf16* src =
-            wt + ((size_t)d * G4 + (size_t)g * H + u0 + (n - g * U)) * Kp + k;
-        cp_async16(wsm + (size_t)n * Ks + k, src, true);
-      }
-      cp_async_commit();
-#pragma unroll
-      for (int ti = 0; ti < TPW; ++ti) {
-        const int task = warp + ti * nwarps;
-        const int u = u0 + (task / mt_split) * 8 + 2 * q;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          bg[ti][g][0] = task < ntasks ? bias[d * G4 + g * H + u] : 0.f;
-          bg[ti][g][1] = task < ntasks ? bias[d * G4 + g * H + u + 1] : 0.f;
-        }
-      }
-      loaded = d;
-    }
-#pragma unroll
-    for (int ti = 0; ti < TPW; ++ti)
-#pragma unroll
-      for (int mt = 0; mt < MTW; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) c[ti][mt][e] = 0.f;
-    cp_async_wait<0>();
-    __syncthreads();                        // weights and x_0 are in place
-    const int next = item + ncl;
-
-    for (int s = 0; s < T_; ++s, ++gs) {
-      const int t = d == 0 ? s : T_ - 1 - s;
-      const bf16* cur = gs & 1 ? buf1 : buf0;
-      bf16* nxt = gs & 1 ? buf0 : buf1;
-      const bool last = s + 1 == T_;
-      if (!last) {
-        stage_x(nxt, xa, xb, d == 0 ? s + 1 : T_ - 2 - s, B, b0, BB, Fa, Fb,
-                Ks, vec != 0);
-      } else if (next < nitems) {           // x_0 of the next item
-        const int dn = next / ntiles;
-        stage_x(nxt, xa, xb, dn == 0 ? 0 : T_ - 1, B, (next % ntiles) * BB,
-                BB, Fa, Fb, Ks, vec != 0);
-      }
-      cp_async_commit();
-      const bool store = seq_out || last;
-      const int t_out = seq_out ? t : 0;
-
-#pragma unroll
-      for (int ti = 0; ti < TPW; ++ti) {
-        const int task = warp + ti * nwarps;
-        if (task >= ntasks) break;          // the same for the whole warp
-        const int j0 = (task / mt_split) * 8;   // first unit, block-local
-        const int mt0 = (task % mt_split) * MTW;
-        float acc[MTW][4][4];
-#pragma unroll
-        for (int mt = 0; mt < MTW; ++mt)
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            acc[mt][g][0] = bg[ti][g][0]; acc[mt][g][1] = bg[ti][g][1];
-            acc[mt][g][2] = bg[ti][g][0]; acc[mt][g][3] = bg[ti][g][1];
-          }
-        gate_products<MTW>(acc, cur, Ks, mt0, wsm + (size_t)j0 * Ks, Ks, U,
-                           true, Kp, gq, q);
-        const int j = u0 + j0 + 2 * q;      // units j and j + 1
-#pragma unroll
-        for (int mt = 0; mt < MTW; ++mt) {
-          float h[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float ig = sigmoid_f(acc[mt][0][e]);
-            const float fg = sigmoid_f(acc[mt][1][e]);
-            const float gg = tanhf(acc[mt][2][e]);
-            const float og = sigmoid_f(acc[mt][3][e]);
-            c[ti][mt][e] = fg * c[ti][mt][e] + ig * gg;
-            h[e] = og * tanhf(c[ti][mt][e]);
-          }
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = (mt0 + mt) * 16 + gq + half * 8;
-            const __nv_bfloat162 hv =
-                __floats2bfloat162_rn(h[2 * half], h[2 * half + 1]);
-            if (!last) {
-              bf16* dst = nxt + r * Ks + F + j;
-              if (F % 2 == 0) {             // 4-byte aligned pair
-                *reinterpret_cast<__nv_bfloat162*>(dst) = hv;
-              } else {
-                dst[0] = hv.x;
-                dst[1] = hv.y;
-              }
-            }
-            if (store && b0 + r < B)
-              *reinterpret_cast<__nv_bfloat162*>(
-                  ys + ((size_t)t_out * B + b0 + r) * H + j) = hv;
-          }
-        }
-      }
-      cp_async_wait<0>();
-      __syncthreads();                      // own h_s slice and x_{s+1} in nxt
-      if (!last) {
-        if (CS > 1) {
-          // the slice [F + u0, F + u0 + U) of every row, to every peer
-          const int C8 = U / 8;
-          for (int i = threadIdx.x; i < BB * C8; i += blockDim.x) {
-            const int r = i / C8;
-            uint4* src = reinterpret_cast<uint4*>(nxt + r * Ks + F + u0 +
-                                                  (i - r * C8) * 8);
-            const uint4 v = *src;
-            for (int p = 1; p < CS; ++p)
-              *cluster.map_shared_rank(src, (rank + p) % CS) = v;
-          }
-        }
-      } else {
-        // h_{-1} = 0 for the next item (no peer writes at a last step)
-        for (int i = threadIdx.x; i < BB * H; i += blockDim.x) {
-          const int r = i / H;
-          nxt[r * Ks + F + (i - r * H)] = __float2bfloat16_rn(0.f);
-        }
-      }
-      cluster.sync();                       // h_s is in every block's nxt
-    }
-  }
-}
-
-// Launches the plan's kernel or, with `clusters` set, only stores how
-// many of its clusters fit the card at once.
-template <int MTW, int TPW>
-cudaError_t launch_resident_kernel(const bf16* xa, const bf16* xb,
-                                   const bf16* wt, const float* bias,
-                                   bf16* ys_f, bf16* ys_b, int T_, int B,
-                                   int Fa, int Fb, int H, int seq_out, int cs,
-                                   int MT, int nwarps, int* clusters,
-                                   cudaStream_t stream) {
-  const int Kp = padded_k(Fa + Fb, H);
-  const int Ks = smem_stride(Kp);
-  const int U = H / cs;
-  const size_t smem = (size_t)(4 * U + 2 * 16 * MT) * Ks * sizeof(bf16);
-  auto kernel = fused_bilstm_resident_kernel<MTW, TPW>;
-  cudaError_t err = set_smem((const void*)kernel, smem);
-  if (err != cudaSuccess) return err;
-  if (cs > 8) {
-    err = cudaFuncSetAttribute((const void*)kernel,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-    if (err != cudaSuccess) return err;
-  }
-  const int ntiles = (B + 16 * MT - 1) / (16 * MT);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cs;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.blockDim = dim3(nwarps * 32);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  cfg.gridDim = dim3(cs * 132);
-  int max_clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&max_clusters, (const void*)kernel,
-                                       &cfg);
-  if (err != cudaSuccess) return err;
-  if (clusters != nullptr) {
-    *clusters = max_clusters;
-    return cudaSuccess;
-  }
-  if (max_clusters < 1) return cudaErrorInvalidConfiguration;
-  const int nclusters = max_clusters < 2 * ntiles ? max_clusters : 2 * ntiles;
-  cfg.gridDim = dim3(cs * nclusters);
-  err = cudaLaunchKernelEx(&cfg, kernel, xa, xb, wt, bias, ys_f, ys_b, T_, B,
-                           Fa, Fb, H, Kp, Ks, MT, ntiles, seq_out,
-                           (int)x_vec(xa, xb, Fa, Fb));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-cudaError_t launch_resident(const bf16* xa, const bf16* xb, const bf16* wt,
-                            const float* bias, bf16* ys_f, bf16* ys_b,
-                            int T_, int B, int Fa, int Fb, int H, int seq_out,
-                            int cs, int MT, int mtw, int tpw, int nwarps,
-                            int* clusters, cudaStream_t stream) {
-  const int F = Fa + Fb;
-  const int Ks = smem_stride(padded_k(F, H));
-  // the plan must be one ops/fused_lstm.py::resident_plan can give
-  if (!(cs == 1 || cs == 2 || cs == 4 || cs == 8 || cs == 16) ||
-      H % (8 * cs) != 0 || (cs > 1 && F % 8 != 0) ||
-      !(MT == 2 || MT == 4) || MT % mtw != 0 || nwarps < 1 ||
-      nwarps > kMmaWarps ||
-      (size_t)nwarps * tpw < (size_t)(H / cs / 8) * (MT / mtw) ||
-      (size_t)(4 * (H / cs) + 32 * MT) * Ks * sizeof(bf16) > kMaxSmem)
-    return cudaErrorInvalidValue;
-#define DSP_RESIDENT(M, P)                                                   \
-  if (mtw == M && tpw == P)                                                  \
-    return launch_resident_kernel<M, P>(xa, xb, wt, bias, ys_f, ys_b, T_, B, \
-                                        Fa, Fb, H, seq_out, cs, MT, nwarps,  \
-                                        clusters, stream);
-  DSP_RESIDENT(1, 1)
-  DSP_RESIDENT(1, 2)
-  DSP_RESIDENT(1, 4)
-  DSP_RESIDENT(2, 1)
-  DSP_RESIDENT(2, 2)
-  DSP_RESIDENT(2, 4)
-  DSP_RESIDENT(4, 1)
-  DSP_RESIDENT(4, 2)
-#undef DSP_RESIDENT
-  return cudaErrorInvalidValue;
+  if (ngroups <= 2 * kMmaWarps)
+    return launch_bf16_kernel<2>(xa, xb, wt, bias, ys_f, ys_b, T_, B, Fa, Fb,
+                                 H, Kp, seq_out, vec, stream);
+  if (ngroups <= 4 * kMmaWarps)
+    return launch_bf16_kernel<4>(xa, xb, wt, bias, ys_f, ys_b, T_, B, Fa, Fb,
+                                 H, Kp, seq_out, vec, stream);
+  return launch_bf16_kernel<8>(xa, xb, wt, bias, ys_f, ys_b, T_, B, Fa, Fb, H,
+                               Kp, seq_out, vec, stream);
 }
 
 }  // namespace
@@ -742,52 +427,25 @@ cudaError_t dsp_fused_bilstm_f32(const void* xa, const void* xb,
                     B, Fa, Fb, H, seq_out, static_cast<cudaStream_t>(stream));
 }
 
-// bfloat16, either variant: x* (T, B, F*) and ys_f/ys_b (T or 1, B, H)
-// bf16; wt (2, 4H, round_up(Fa+Fb+H, 32)) bf16, the packed weights
-// described above, 16-byte aligned; bias (2, 4H) f32. Runs on `stream`,
-// allocates nothing, returns the launch's error code.
-//
-// The resident variant takes the wrapper's plan: cluster size `cs`, m16
-// tiles per block `m_tiles`, m16 tiles per warp task `mtw`, tasks per
-// warp `tpw` and warps per block `warps`; a plan it cannot run is
-// refused with cudaErrorInvalidValue, and cudaErrorInvalidConfiguration
-// when no cluster of that shape fits the card.
+// bfloat16: x* (T, B, F*) and ys_f/ys_b (T or 1, B, H) bf16; wt (2, 4H,
+// round_up(Fa+Fb+H, 32)) bf16, the packed weights described above,
+// 16-byte aligned; bias (2, 4H) f32. Runs on `stream`, allocates nothing,
+// returns the launch's error code.
 cudaError_t dsp_fused_bilstm_bf16(const void* xa, const void* xb,
                                   const void* wt, const void* bias,
                                   void* ys_f, void* ys_b, int T_, int B,
                                   int Fa, int Fb, int H, int seq_out,
-                                  int resident, int cs, int m_tiles, int mtw,
-                                  int tpw, int warps, void* stream) {
+                                  void* stream) {
   if (T_ < 1 || B < 1 || Fa < 1 || Fb < 0 || H < 1 ||
       H > kMaxBlockThreads || (Fb > 0 && xb == nullptr) ||
       reinterpret_cast<uintptr_t>(wt) % 16 != 0)
     return cudaErrorInvalidValue;
-  auto x0 = static_cast<const bf16*>(xa);
-  auto x1 = static_cast<const bf16*>(xb);
-  auto w = static_cast<const bf16*>(wt);
-  auto b = static_cast<const float*>(bias);
-  auto y0 = static_cast<bf16*>(ys_f);
-  auto y1 = static_cast<bf16*>(ys_b);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (resident)
-    return launch_resident(x0, x1, w, b, y0, y1, T_, B, Fa, Fb, H, seq_out,
-                           cs, m_tiles, mtw, tpw, warps, nullptr, s);
-  return launch_stream(x0, x1, w, b, y0, y1, T_, B, Fa, Fb, H, seq_out, s);
-}
-
-// How many clusters of the resident kernel's plan fit the card at once
-// (cudaOccupancyMaxActiveClusters at the plan's block and shared memory),
-// stored in *clusters; refuses a plan as dsp_fused_bilstm_bf16 does.
-cudaError_t dsp_fused_bilstm_resident_clusters(int Fa, int Fb, int H,
-                                               int cs, int m_tiles, int mtw,
-                                               int tpw, int warps,
-                                               int* clusters) {
-  if (Fa < 1 || Fb < 0 || H < 1 || H > kMaxBlockThreads ||
-      clusters == nullptr)
-    return cudaErrorInvalidValue;
-  return launch_resident(nullptr, nullptr, nullptr, nullptr, nullptr,
-                         nullptr, 1, 1, Fa, Fb, H, 1, cs, m_tiles, mtw, tpw,
-                         warps, clusters, nullptr);
+  return launch_bf16(static_cast<const bf16*>(xa),
+                     static_cast<const bf16*>(xb),
+                     static_cast<const bf16*>(wt),
+                     static_cast<const float*>(bias),
+                     static_cast<bf16*>(ys_f), static_cast<bf16*>(ys_b), T_,
+                     B, Fa, Fb, H, seq_out, static_cast<cudaStream_t>(stream));
 }
 
 const char* dsp_cuda_error_string(int err) {

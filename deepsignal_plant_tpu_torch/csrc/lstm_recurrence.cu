@@ -528,7 +528,8 @@ bwd_f32_kernel(const float* __restrict__ dys, const float* __restrict__ cs,
 // dW_hh (K4): dW[d] = sum_{s >= 1, b} ys[s-1, d, b, :]^T dx[s, d, b, :],
 // (H, 4H) f32, as a split-K product. K row k (0 <= k < (T-1)*B) is batch
 // row k % B of step 1 + k / B. The K rows are cut into `splits`
-// contiguous ranges of `rows` rows (ops/recurrence.py::dw_hh_split_plan);
+// contiguous ranges of `rows` rows (ops/recurrence.py::dw_hh_split_plan
+// chooses them for the card's SM count; any plan that covers K runs);
 // a block computes one kDwM x kDwN output tile over one range, streaming
 // it through a ring of kDwStages shared-memory slabs that cp.async fills
 // while the previous slabs' products run, and writes an f32 partial.
@@ -539,7 +540,6 @@ constexpr int kDwM = 128;                   // output tile: units of h_prev
 constexpr int kDwN = 128;                   // output tile: gate columns
 constexpr int kDwStages = 3;                // slabs in the ring
 constexpr int kDwThreads = 256;
-constexpr int kDwRowAlign = 64;             // `rows` is a multiple of this
 constexpr int kDwKBf16 = 64;                // slab rows, bfloat16
 constexpr int kDwKF32 = 32;                 // slab rows, float32
 constexpr int kDwLdaBf16 = kDwM + 8;        // smem rows of 272 bytes:
@@ -1040,7 +1040,7 @@ size_t dsp_lstm_dw_hh_workspace_bytes(int H, int splits) {
 // (T, 2, B, 4H) in the storage type. Every element of dw is written (all
 // zeros when T = 1). The plan (splits, rows) cuts the K = (T-1)*B rows
 // into `splits` ranges of `rows` rows, every one non-empty (one split of 0
-// rows when K = 0), `rows` a multiple of 64; with splits > 1, workspace
+// rows when K = 0); with splits > 1, workspace
 // holds dsp_lstm_dw_hh_workspace_bytes(H, splits) bytes, 16-byte aligned.
 // Two launches: the split products, then the fixed-order sum of the
 // partials (none for one split).
@@ -1057,7 +1057,7 @@ cudaError_t dsp_lstm_dw_hh(const void* ys, const void* dx, void* dw, int T_,
                            int B, int H, int splits, int rows, int dtype,
                            void* workspace, void* stream) {
   if (T_ < 1 || B < 1 || H < 1 || dw == nullptr || splits < 1 || rows < 0 ||
-      rows % kDwRowAlign != 0 || 2 * (long long)splits > 65535)
+      2 * (long long)splits > 65535)
     return cudaErrorInvalidValue;
   const long long K = (long long)(T_ - 1) * B;
   const bool covers = K == 0 ? splits == 1

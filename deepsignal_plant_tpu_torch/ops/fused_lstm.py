@@ -7,17 +7,11 @@ or the (fwd, bwd) halves of the previous layer, which the kernel reads
 against row-split W_ih rows — and outputs (ys_f, ys_b), each (T, B, H) in
 true time, or (1, B, H) final states when ``seq_out`` is False.
 
-Three kernels, one per variant, each with its own launch counter:
-
-- ``fused_bilstm_resident`` (bfloat16, the main path): the weights held
-  in shared memory for the whole launch, by one block or split over a
-  thread-block cluster, as ``resident_plan`` decides from the shape;
-- ``fused_bilstm_stream`` (bfloat16): the weights read from L2 at every
-  step, for the shapes ``resident_plan`` refuses (no plan fits);
-- ``fused_bilstm_f32`` (float32, exact-parity runs).
-
-The bfloat16 kernels read the weights packed once per model
-(``pack_weights``; ``packed_weights`` caches them on the layer module).
+Two kernels, one per compute dtype, each with its own launch counter:
+``fused_bilstm_bf16`` (the main path, on the tensor cores) and
+``fused_bilstm_f32`` (exact-parity runs). The bfloat16 kernel reads the
+weights packed once per model (``pack_weights``; ``packed_weights``
+caches them on the layer module).
 
 A CPU tensor takes the plain version (ops/lstm.py). A CUDA tensor
 launches a kernel, or raises: there is no fallback on the card.
@@ -26,8 +20,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
-
 import torch
 
 from . import _build
@@ -35,19 +27,10 @@ from .lstm import bilstm_layer as bilstm_layer_plain
 
 #: launches of each kernel since the last reset (set an entry to 0 to
 #: count a run); launches that raise are not counted
-launches = {"fused_bilstm_resident": 0, "fused_bilstm_stream": 0,
-            "fused_bilstm_f32": 0}
+launches = {"fused_bilstm_bf16": 0, "fused_bilstm_f32": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HIDDEN = 512
-# what the resident kernel can hold: a block's shared memory (H100: 227
-# KB), the cluster sizes it may launch (16 needs the non-portable size),
-# and its (m16 tiles per warp task, tasks per warp) instantiations
-_SMEM_MAX = 232_448
-_CLUSTER_SIZES = (1, 2, 4, 8, 16)
-_RESIDENT_INSTANCES = {(1, 1), (1, 2), (1, 4), (2, 1), (2, 2), (2, 4),
-                       (4, 1), (4, 2)}
-_MAX_WARPS = 8
 
 
 def padded_k(F: int, H: int) -> int:
@@ -55,71 +38,9 @@ def padded_k(F: int, H: int) -> int:
     return -(-(F + H) // 32) * 32
 
 
-def smem_stride(Kp: int) -> int:
-    """Row stride, in elements, of the kernels' shared bf16 buffers
-    (csrc/dsp_common.cuh::smem_stride)."""
-    return Kp + 32 if Kp % 64 == 0 else Kp
-
-
-class ResidentPlan(NamedTuple):
-    cluster: int        # blocks of a cluster, each holding H/cluster units
-    m_tiles: int        # m16 row tiles of a block: 16*m_tiles rows a tile
-    mtw: int            # m16 tiles of one warp task
-    tpw: int            # tasks of one warp
-    warps: int          # warps of a block
-
-
-def resident_plan(Fa: int, Fb: int, H: int) -> ResidentPlan | None:
-    """K1's shape rule: the resident kernel's plan for a bfloat16 layer
-    of inputs (Fa, Fb) and hidden size H, or None where its weights do not
-    fit (the streaming kernel runs those).
-
-    The smallest cluster size cs in (1, 2, 4, 8, 16) such that H is a
-    multiple of 8*cs (whole 8-unit groups per block), F = Fa + Fb is a
-    multiple of 8 when cs > 1 (16-byte h copies between blocks), and one
-    block's weight rows (4H/cs) with two A buffers of 64 rows, else 32,
-    fit 227 KB of shared memory (rows of smem_stride(padded_k(F, H)) bf16
-    elements). A warp task is one 8-unit group over all of the block's
-    m16 tiles where there are at least 8 groups, else over one; up to 8
-    warps share the tasks. The main path: seq and signal (F 7 and 16,
-    H 128) one block, 64 rows; comb0 (F 256, H 256) clusters of 8, 32
-    rows; comb1 and comb2 (F 512) clusters of 16, 32 rows."""
-    F = Fa + Fb
-    Ks = smem_stride(padded_k(F, H))
-    for cs in _CLUSTER_SIZES:
-        if H % (8 * cs) or (cs > 1 and F % 8):
-            continue
-        units = H // cs
-        groups = units // 8
-        for mt in (4, 2):
-            if (4 * units + 2 * 16 * mt) * Ks * 2 > _SMEM_MAX:
-                continue
-            if groups >= _MAX_WARPS:
-                mtw, warps, tasks = mt, _MAX_WARPS, groups
-            else:
-                mtw, tasks = 1, groups * mt
-                warps = min(_MAX_WARPS, tasks)
-            tpw = 1
-            while tpw * warps < tasks:
-                tpw *= 2
-            if (mtw, tpw) in _RESIDENT_INSTANCES:
-                return ResidentPlan(cs, mt, mtw, tpw, warps)
-    return None
-
-
-def variant(Fa: int, Fb: int, H: int, dtype: torch.dtype) -> str:
-    """The kernel (a key of ``launches``) that a CUDA launch of this shape
-    and dtype runs."""
-    if dtype == torch.float32:
-        return "fused_bilstm_f32"
-    if resident_plan(Fa, Fb, H) is not None:
-        return "fused_bilstm_resident"
-    return "fused_bilstm_stream"
-
-
 @torch.no_grad()
 def pack_weights(w_ih: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """The bfloat16 kernels' weights: (2, 4H, Kp) bf16 with
+    """The bfloat16 kernel's weights: (2, 4H, Kp) bf16 with
     wt[d, n, k] = cat(w_ih[d], w_hh[d])[k, n] for k < F + H and zeros up
     to Kp = padded_k(F, H). w_ih (2, F, 4H), w_hh (2, H, 4H), any float
     dtype. A layout transform in plain tensor ops."""
@@ -149,27 +70,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_bilstm")
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.dsp_fused_bilstm_f32.argtypes = [P] * 7 + [I] * 6 + [P]
-    lib.dsp_fused_bilstm_bf16.argtypes = [P] * 6 + [I] * 12 + [P]
-    lib.dsp_fused_bilstm_resident_clusters.argtypes = [I] * 8 + [P]
-    for fn in (lib.dsp_fused_bilstm_f32, lib.dsp_fused_bilstm_bf16,
-               lib.dsp_fused_bilstm_resident_clusters):
+    lib.dsp_fused_bilstm_bf16.argtypes = [P] * 6 + [I] * 6 + [P]
+    for fn in (lib.dsp_fused_bilstm_f32, lib.dsp_fused_bilstm_bf16):
         fn.restype = ctypes.c_int
     return lib
-
-
-def resident_clusters(Fa: int, Fb: int, H: int) -> int:
-    """How many clusters of ``resident_plan(Fa, Fb, H)`` fit the current
-    card at once (cudaOccupancyMaxActiveClusters): the resident kernel's
-    grid. Raises where there is no plan."""
-    plan = resident_plan(Fa, Fb, H)
-    if plan is None:
-        raise ValueError(f"no resident plan for F=({Fa},{Fb}) H={H}")
-    lib = _lib()
-    n = ctypes.c_int(0)
-    err = lib.dsp_fused_bilstm_resident_clusters(Fa, Fb, H, *plan,
-                                                 ctypes.byref(n))
-    _build.check(lib, err, "fused_bilstm_resident_clusters")
-    return n.value
 
 
 def _check_inputs(xs, w_ih, b, w_hh, H, packed) -> None:
@@ -218,29 +122,14 @@ def bilstm_layer_fused(xs, w_ih: torch.Tensor, b: torch.Tensor,
     """One fused BiLSTM layer, time-major. ``xs``: a (T, B, F) tensor or a
     tuple of two (their F's concatenate against w_ih's rows), in float32
     or bfloat16; w_ih (2, F, 4H) and w_hh (2, H, 4H) in that dtype (for
-    bfloat16, any float dtype: the kernels read ``packed``, their
+    bfloat16, any float dtype: the kernel reads ``packed``, their
     pack_weights, made here when not given); b (2, 4H) float32. Returns
     (ys_f, ys_b), each (T, B, H) in true time, or (1, B, H) final states
-    when ``seq_out`` is False. On the card the kernel is ``variant``'s."""
-    return _layer(xs, w_ih, b, w_hh, hidden_size, seq_out, packed, None)
-
-
-def bilstm_layer_stream(xs, w_ih: torch.Tensor, b: torch.Tensor,
-                        w_hh: torch.Tensor, hidden_size: int,
-                        seq_out: bool = True,
-                        packed: torch.Tensor | None = None
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """bilstm_layer_fused through the bfloat16 streaming kernel whatever
-    the shape: the kernel the shape rule picks where no resident plan
-    fits, called directly to measure it against the resident kernel."""
-    return _layer(xs, w_ih, b, w_hh, hidden_size, seq_out, packed,
-                  "fused_bilstm_stream")
-
-
-def _layer(xs, w_ih, b, w_hh, H, seq_out, packed, name):
+    when ``seq_out`` is False."""
     if not isinstance(xs, (tuple, list)):
         xs = (xs,)
     xs = tuple(xs)
+    H = hidden_size
     if xs[0].device.type == "cpu":
         return bilstm_layer_plain(xs, w_ih, b, w_hh, H, seq_out)
     if xs[0].device.type != "cuda":
@@ -249,10 +138,8 @@ def _layer(xs, w_ih, b, w_hh, H, seq_out, packed, name):
     _check_inputs(xs, w_ih, b, w_hh, H, packed)
     T, B, Fa = xs[0].shape
     Fb = xs[1].shape[-1] if len(xs) == 2 else 0
-    if name is None:
-        name = variant(Fa, Fb, H, xs[0].dtype)
-    elif xs[0].dtype != torch.bfloat16:
-        raise TypeError(f"{name} takes bfloat16 (got {xs[0].dtype})")
+    bf16 = xs[0].dtype == torch.bfloat16
+    name = "fused_bilstm_bf16" if bf16 else "fused_bilstm_f32"
     out_T = T if seq_out else 1
     ys_f = torch.empty((out_T, B, H), dtype=xs[0].dtype, device=xs[0].device)
     ys_b = torch.empty_like(ys_f)
@@ -260,21 +147,18 @@ def _layer(xs, w_ih, b, w_hh, H, seq_out, packed, name):
     x1 = xs[1].data_ptr() if Fb else None
     with torch.cuda.device(xs[0].device):
         stream = torch.cuda.current_stream().cuda_stream
-        if name == "fused_bilstm_f32":
+        if bf16:
+            if packed is None:
+                packed = pack_weights(w_ih, w_hh)
+            err = lib.dsp_fused_bilstm_bf16(
+                xs[0].data_ptr(), x1, packed.data_ptr(), b.data_ptr(),
+                ys_f.data_ptr(), ys_b.data_ptr(), T, B, Fa, Fb, H,
+                int(seq_out), stream)
+        else:
             err = lib.dsp_fused_bilstm_f32(
                 xs[0].data_ptr(), x1, w_ih.data_ptr(), b.data_ptr(),
                 w_hh.data_ptr(), ys_f.data_ptr(), ys_b.data_ptr(), T, B, Fa,
                 Fb, H, int(seq_out), stream)
-        else:
-            if packed is None:
-                packed = pack_weights(w_ih, w_hh)
-            resident = name == "fused_bilstm_resident"
-            plan = (resident_plan(Fa, Fb, H) if resident
-                    else ResidentPlan(0, 0, 0, 0, 0))
-            err = lib.dsp_fused_bilstm_bf16(
-                xs[0].data_ptr(), x1, packed.data_ptr(), b.data_ptr(),
-                ys_f.data_ptr(), ys_b.data_ptr(), T, B, Fa, Fb, H,
-                int(seq_out), int(resident), *plan, stream)
     _build.check(lib, err, name + " launch")
     launches[name] += 1
     return ys_f, ys_b

@@ -36,12 +36,13 @@ launches = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_save": 0,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HIDDEN = 512
 
-# dW_hh's split-K plan, as csrc/lstm_recurrence.cu tiles it: output tiles
-# of 128 units by 128 gate columns per direction, ranges of K rows in
-# multiples of 64, at most one wave of two blocks for each of the H100's
-# 132 SMs, and at most 16 splits (their f32 partials cost bytes)
+# dW_hh's split-K plan, for csrc/lstm_recurrence.cu's output tiles of 128
+# units by 128 gate columns per direction (kDwM, kDwN there): ranges of K
+# rows in multiples of 64 (the bf16 kernel's slab), at most one wave of
+# two blocks per SM of the card, and at most 16 splits (their f32
+# partials cost bytes). The kernel takes any plan that covers K.
 _DW_TILE_M, _DW_TILE_N, _DW_ROW_ALIGN = 128, 128, 64
-_DW_WAVE_BLOCKS, _DW_MAX_SPLITS = 264, 16
+_DW_BLOCKS_PER_SM, _DW_MAX_SPLITS = 2, 16
 
 
 @functools.cache
@@ -175,18 +176,18 @@ def lstm_recurrence_bwd_dx(dys: torch.Tensor, cs: torch.Tensor,
     return dx
 
 
-def dw_hh_split_plan(T: int, B: int, H: int) -> tuple[int, int]:
-    """(splits, rows) of the dW_hh kernel: its K = (T-1)*B rows, in step
-    order, cut into ``splits`` contiguous ranges of ``rows`` rows (the
-    last one shorter), split z covering [z*rows, min((z+1)*rows, K)).
-    As many splits as one wave of blocks holds (output tiles times
-    splits <= _DW_WAVE_BLOCKS), at most _DW_MAX_SPLITS; one split of 0
-    rows when K = 0."""
+def dw_hh_split_plan(T: int, B: int, H: int, sms: int) -> tuple[int, int]:
+    """(splits, rows) of the dW_hh kernel on a card of ``sms`` SMs: its
+    K = (T-1)*B rows, in step order, cut into ``splits`` contiguous ranges
+    of ``rows`` rows (the last one shorter), split z covering
+    [z*rows, min((z+1)*rows, K)). As many splits as one wave of blocks
+    holds (output tiles times splits <= _DW_BLOCKS_PER_SM * sms), at most
+    _DW_MAX_SPLITS; one split of 0 rows when K = 0."""
     K = (T - 1) * B
     if K == 0:
         return 1, 0
     tiles = 2 * -(-H // _DW_TILE_M) * -(-4 * H // _DW_TILE_N)
-    want = max(1, min(_DW_MAX_SPLITS, _DW_WAVE_BLOCKS // tiles))
+    want = max(1, min(_DW_MAX_SPLITS, _DW_BLOCKS_PER_SM * sms // tiles))
     rows = -(-K // want)
     rows = -(-rows // _DW_ROW_ALIGN) * _DW_ROW_ALIGN
     return -(-K // rows), rows
@@ -204,7 +205,8 @@ def lstm_dw_hh(ys: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
     _check("ys", ys, (T, 2, B, H), dx.dtype)
     dw = torch.empty((2, H, 4 * H), dtype=torch.float32, device=dx.device)
     lib = _lib()
-    splits, rows = dw_hh_split_plan(T, B, H)
+    sms = torch.cuda.get_device_properties(dx.device).multi_processor_count
+    splits, rows = dw_hh_split_plan(T, B, H, sms)
     ws = torch.empty(lib.dsp_lstm_dw_hh_workspace_bytes(H, splits),
                      dtype=torch.uint8, device=dx.device)
     with torch.cuda.device(dx.device):

@@ -151,15 +151,16 @@ def test_jax_stays_on_cpu():
 
 
 # ---------------------------------------------------------------------------
-# the bfloat16 kernels' packed weights and the shape rule between K1's
-# resident and streaming kernels (plain tensor code, the same on any device)
+# the bfloat16 kernel's packed weights, made once per model (plain tensor
+# code, the same on any device)
 
 def unpack_weights(wt, F, H):
     """pack_weights' inverse: (w_ih (2, F, 4H), w_hh (2, H, 4H))."""
     return (wt[:, :, :F].transpose(1, 2), wt[:, :, F:F + H].transpose(1, 2))
 
 
-@pytest.mark.parametrize("F,H", [(7, 128), (512, 256), (5, 12)])
+@pytest.mark.parametrize("F,H", [(7, 128), (16, 128), (256, 256),
+                                 (512, 256), (1024, 512), (64, 96), (5, 12)])
 def test_packed_weights_unpack_to_the_weights(F, H):
     """pack_weights lays [w_ih; w_hh] out as (2, 4H, Kp), zero-padded to
     Kp = round_up(F + H, 32); unpacking gives back the bf16 weights."""
@@ -213,47 +214,3 @@ def test_stack_passes_no_packed_weights_off_the_card():
     x = torch.zeros(3, 2, 16)
     bilstm_stack_fused_tm(x, [layer], 8, compute_dtype=torch.bfloat16)
     assert "_k1_packed" not in layer.__dict__
-
-
-# (Fa, Fb, H) -> (cluster, rows of a block's row tile), the main path's
-# five layers and the rule's edges
-PLANS = {
-    "seq": ((7, 0, 128), (1, 64)),
-    "signal": ((16, 0, 128), (1, 64)),
-    "comb0": ((128, 128, 256), (8, 32)),
-    "comb1": ((256, 256, 256), (16, 32)),
-    "narrow": ((16, 0, 8), (1, 64)),
-    "wide_split": ((24, 40, 96), (1, 64)),
-}
-
-
-@pytest.mark.parametrize("layer", list(PLANS))
-def test_resident_plan_of_each_layer(layer):
-    (Fa, Fb, H), (cs, rows) = PLANS[layer]
-    plan = fused_lstm.resident_plan(Fa, Fb, H)
-    assert plan is not None
-    assert (plan.cluster, 16 * plan.m_tiles) == (cs, rows)
-    assert fused_lstm.variant(Fa, Fb, H, torch.bfloat16) == \
-        "fused_bilstm_resident"
-    # whole 8-unit groups per block; the block's weights and its two A
-    # buffers fit shared memory; the warps cover every task
-    units = H // plan.cluster
-    assert H % plan.cluster == 0 and units % 8 == 0
-    Ks = fused_lstm.smem_stride(fused_lstm.padded_k(Fa + Fb, H))
-    assert (4 * units + 32 * plan.m_tiles) * Ks * 2 <= 232_448
-    tasks = units // 8 * (plan.m_tiles // plan.mtw)
-    assert plan.warps * plan.tpw >= tasks and plan.warps <= 8
-    assert (plan.mtw, plan.tpw) in fused_lstm._RESIDENT_INSTANCES
-
-
-@pytest.mark.parametrize("Fa,Fb,H", [(512, 512, 512), (7, 0, 20),
-                                     (5, 3, 12), (20, 0, 100)])
-def test_shapes_without_a_plan_stream(Fa, Fb, H):
-    """Weights that no cluster holds (comb at H=512: 6 MB a direction)
-    and H not a multiple of 8 go to the streaming kernel; float32 always
-    to its own."""
-    assert fused_lstm.resident_plan(Fa, Fb, H) is None
-    assert fused_lstm.variant(Fa, Fb, H, torch.bfloat16) == \
-        "fused_bilstm_stream"
-    assert fused_lstm.variant(Fa, Fb, H, torch.float32) == "fused_bilstm_f32"
-

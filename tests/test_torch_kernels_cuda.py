@@ -25,9 +25,8 @@ of its f32 sums over (T-1)*B rows: 1e-5 in both storage types; its
 split-K partials are summed in a fixed order, so two launches on the
 same inputs agree bit for bit.
 
-K1 has three kernels (bf16 resident, bf16 streaming, float32);
-ops/fused_lstm.py::resident_plan picks the bf16 one by shape, and each
-check asserts which kernel's counter moved.
+K1 has two kernels, one per compute dtype; each check asserts that the
+dtype's counter moved and no other.
 """
 import numpy as np
 import pytest
@@ -89,12 +88,12 @@ ODD_LAYERS = {
 }
 
 
-def check_against_plain(Fa, Fb, H, seq_out, B, dtype, device, kernel=None):
-    """One launch against the plain version; ``kernel``, where given, is
-    the variant the shape rule must pick (its counter moves, no other)."""
+def check_against_plain(Fa, Fb, H, seq_out, B, dtype, device):
+    """One launch against the plain version; the dtype's kernel counter
+    moves, no other."""
     xs, w_ih, b, w_hh = layer_inputs(Fa, Fb, H, B, dtype, device)
-    name = fused_lstm.variant(Fa, Fb, H, dtype)
-    assert kernel is None or name == kernel
+    name = ("fused_bilstm_bf16" if dtype == torch.bfloat16
+            else "fused_bilstm_f32")
     before = dict(fused_lstm.launches)
     got = fused_lstm.bilstm_layer_fused(xs, w_ih, b, w_hh, H, seq_out)
     torch.cuda.synchronize()
@@ -116,25 +115,23 @@ def test_kernel_matches_plain(device, layer, B, dtype):
     check_against_plain(*MAIN_PATH_LAYERS[layer], B, dtype, device)
 
 
-@pytest.mark.parametrize("B", [4096, 4093, 1, 37])
+@pytest.mark.parametrize("B", [1016, 1, 37])
 @pytest.mark.parametrize("layer", list(MAIN_PATH_LAYERS))
-def test_resident_kernel_runs_every_main_path_layer(device, layer, B):
-    """bfloat16 at the main path's five layers goes to the resident
-    kernel, at full and ragged tiles and at fewer rows than one cluster
-    row tile."""
-    check_against_plain(*MAIN_PATH_LAYERS[layer], B, torch.bfloat16, device,
-                        kernel="fused_bilstm_resident")
+def test_bf16_kernel_at_partial_row_tiles(device, layer, B):
+    """bfloat16 at the main path's five layers with fewer rows than one
+    32-row block, and call_mods' ragged tail tile (1,016 rows)."""
+    check_against_plain(*MAIN_PATH_LAYERS[layer], B, torch.bfloat16, device)
 
 
 @pytest.mark.parametrize("seq_out", [True, False])
-def test_shape_rule_streams_weights_no_cluster_holds(device, seq_out):
-    """A comb layer at H=512 (6 MB of weights a direction) has no
-    resident plan: the streaming kernel runs it."""
-    check_against_plain(512, 512, 512, seq_out, 64, torch.bfloat16, device,
-                        kernel="fused_bilstm_stream")
+@pytest.mark.parametrize("Fa,Fb,H", [(512, 512, 512), (128, 0, 512)])
+def test_bf16_kernel_at_the_widest_hidden_size(device, Fa, Fb, H, seq_out):
+    """H=512, the wrapper's largest (eight 8-unit groups per warp), at
+    a comb layer's 6 MB of weights a direction."""
+    check_against_plain(Fa, Fb, H, seq_out, 100, torch.bfloat16, device)
 
 
-def test_resident_kernel_takes_packed_weights(device):
+def test_bf16_kernel_takes_packed_weights(device):
     """The packed weights a model caches give the same outputs as packing
     in the call, bit for bit."""
     xs, w_ih, b, w_hh = layer_inputs(256, 256, 256, 100, torch.bfloat16,

@@ -179,8 +179,8 @@ def test_wrappers_reject_other_devices_and_dtypes():
 def test_dw_hh_split_plan_covers_every_row_once(T, B, H):
     """The dW_hh kernel's split-K plan: ranges of K = (T-1)*B rows, in
     order, that cover every row exactly once (one empty split when
-    K = 0); rows a multiple of the kernel's 64-row alignment."""
-    splits, rows = recurrence.dw_hh_split_plan(T, B, H)
+    K = 0); rows a multiple of the bf16 kernel's 64-row slab."""
+    splits, rows = recurrence.dw_hh_split_plan(T, B, H, sms=132)
     K = (T - 1) * B
     ranges = [(z * rows, min((z + 1) * rows, K)) for z in range(splits)]
     assert [k for a, b in ranges for k in range(a, b)] == list(range(K))
@@ -192,32 +192,24 @@ def test_dw_hh_split_plan_covers_every_row_once(T, B, H):
 
 
 def test_dw_hh_split_plan_fills_the_card_at_the_training_shapes():
-    """At batch 512, one wave of blocks (at most two per SM of the H100):
-    128 x 128 output tiles per direction times the splits."""
+    """At batch 512 on an H100 (132 SMs), one wave of blocks (at most two
+    per SM): 128 x 128 output tiles per direction times the splits."""
     for H, want_splits in ((128, 16), (256, 8)):
-        splits, rows = recurrence.dw_hh_split_plan(13, 512, H)
+        splits, rows = recurrence.dw_hh_split_plan(13, 512, H, sms=132)
         tiles = 2 * (H // 128) * (4 * H // 128)
         assert splits == want_splits
         assert 128 <= tiles * splits <= 264
 
 
-def test_dw_hh_partials_in_plan_order_match_plain():
-    """Summing the plan's per-split products in split order, as the
-    kernel's second pass does, gives the plain dW_hh (K row k is batch
-    row k % B of step 1 + k // B)."""
-    T, B = 7, 100
-    rng = np.random.default_rng(11)
-    ys = torch.from_numpy(rng.normal(size=(T, 2, B, H)).astype(np.float32))
-    dx = torch.from_numpy(rng.normal(size=(T, 2, B, 4 * H)).astype(
-        np.float32))
-    K = (T - 1) * B
-    a = ys[:-1].permute(1, 0, 2, 3).reshape(2, K, H)
-    b = dx[1:].permute(1, 0, 2, 3).reshape(2, K, 4 * H)
-    splits, rows = recurrence.dw_hh_split_plan(T, B, H)
-    total = torch.zeros(2, H, 4 * H)
-    for z in range(splits):
-        k0, k1 = z * rows, min((z + 1) * rows, K)
-        total += torch.einsum("dkh,dkg->dhg", a[:, k0:k1], b[:, k0:k1])
-    np.testing.assert_allclose(total.numpy(),
-                               recurrence.lstm_dw_hh(ys, dx).numpy(),
-                               rtol=1e-5, atol=1e-4)
+@pytest.mark.parametrize("sms", [1, 16, 66, 114, 132, 1000])
+def test_dw_hh_split_plan_follows_the_sm_count(sms):
+    """The wave is the card's: tiles times splits stay within two blocks
+    per SM (or one split when a single split's tiles already exceed it),
+    splits never fall as SMs are added, and never pass 16."""
+    T, B, H = 13, 512, 256
+    tiles = 2 * (H // 128) * (4 * H // 128)
+    splits, _ = recurrence.dw_hh_split_plan(T, B, H, sms)
+    assert 1 <= splits <= 16
+    assert splits == 1 or tiles * splits <= 2 * sms
+    more, _ = recurrence.dw_hh_split_plan(T, B, H, sms + 1)
+    assert more >= splits
