@@ -13,16 +13,20 @@ Phases, in order; any failure exits non-zero before the last line:
    on the card at the main paths' shapes: the fused BiLSTM layer (K1) at
    call_mods' 4096-row tiles, in its two kernels (bfloat16, the main
    path's; float32, for exact-parity runs); (2b) the
-   trainable recurrence (K2, K3, K4 and its split-K dW_hh, bitwise
-   reproducible and all zeros at T=1) at the training batch of 512 and
-   509, H 128 and 256, float32 and bfloat16;
+   trainable recurrence (K2, K3 and K4's recurrence on the cluster
+   kernels of the card's plan, logged with the occupancy query it read;
+   K4's bitwise reproducible; K4's split-K dW_hh, bitwise reproducible
+   and all zeros at T=1; and the bfloat16 streaming kernels the cluster
+   kernels replace) at the training batch of 512 and 509, H 128 and 256,
+   float32 and bfloat16;
 3. each kernel timed with CUDA events (median of reps after warm-up)
-   beside its plain version, one PyTorch library call computing the same
-   function or more (a yardstick the port never calls) and its bound:
-   K1's two kernels per 4096-row forward tile, (3b) the recurrence
-   kernels per train step at batch 512 in bfloat16, each both with the
-   host's issue time (events per call) and as device time (replays of a
-   CUDA graph; a call that cannot be captured fails the run); (3c) one
+   and as device time (replays of a CUDA graph; a call that cannot be
+   captured fails the run) beside its plain version, one PyTorch library
+   call computing the same function or more (a yardstick the port never
+   calls) and its bound: K1's two kernels per 4096-row forward tile and
+   per tail tile, (3b) the recurrence kernels per launch and per train
+   step at batch 512 in bfloat16, the cluster kernels and the streaming
+   kernels in turns (cluster, stream, stream, cluster); (3c) one
    whole train step at batch 512
    through the train loop's step function: device time, host enqueue
    time, and a torch.profiler trace (device busy share, top kernels);
@@ -34,12 +38,13 @@ Phases, in order; any failure exits non-zero before the last line:
    rows in float32 through the float32 kernel and the plain version must
    agree); (4b) ``train`` with its defaults (bfloat16, resident plane,
    dropout 0.5, Adam) on a seeded learnable 16,384-row TSV for 2 epochs:
-   5 launches of K3, K4 and dW_hh per step, 5 of K1's bfloat16 kernel
-   per evaluation tile, none of K2, validation accuracy above its threshold,
+   5 launches of K3, K4 and dW_hh per step (K3 and K4 on the cluster
+   kernels), 5 of K1's bfloat16 kernel per evaluation tile, none of K2
+   or of a streaming kernel, validation accuracy above its threshold,
    and the best checkpoint drives ``call_mods``; (4c) float32 training
    through the kernels against the plain version, 8 steps; (4d) inference
-   with the fused path off, through K2: 5 launches per tile, logits
-   against the K1 path;
+   with the fused path off, through K2: 5 launches per 4096- and 512-row
+   tile, logits against the K1 path;
 5. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -267,7 +272,8 @@ def time_kernel(torch, fused_lstm, bilstm_layer):
     caches them), beside the plain version and torch.nn.LSTM in the
     kernel's dtype; bfloat16 also at call_mods' ragged tail tile (TAIL
     rows: 64 blocks, fewer than the SMs, where B=4096 runs 256, two per
-    SM)."""
+    SM). The kernels both with CUDA events per call and as device time
+    (graph replays, the packed weights made before the capture)."""
     rows = []
     for name, (Fa, Fb, H, seq_out) in MAIN_PATH_LAYERS.items():
         for kernel, dname in K1_KERNELS.items():
@@ -275,14 +281,19 @@ def time_kernel(torch, fused_lstm, bilstm_layer):
             xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, TILE, dtype)
             packed = (fused_lstm.pack_weights(w_ih, w_hh)
                       if dtype == torch.bfloat16 else None)
-            kernel_ms = cuda_ms(torch, lambda: fused_lstm.bilstm_layer_fused(
-                xs, w_ih, b, w_hh, H, seq_out, packed=packed))
+            def call(x):
+                return lambda: fused_lstm.bilstm_layer_fused(
+                    x, w_ih, b, w_hh, H, seq_out, packed=packed)
+
+            kernel_ms = cuda_ms(torch, call(xs))
+            device_ms = graph_ms(torch, call(xs), reps=10)
             tail = {}
             if dtype == torch.bfloat16:
                 xt = tuple(x[:, :TAIL].contiguous() for x in xs)
-                tail = {"tail_B": TAIL, "tail_kernel_ms": cuda_ms(
-                    torch, lambda: fused_lstm.bilstm_layer_fused(
-                        xt, w_ih, b, w_hh, H, seq_out, packed=packed))}
+                tail = {"tail_B": TAIL,
+                        "tail_kernel_ms": cuda_ms(torch, call(xt)),
+                        "tail_device_ms": graph_ms(torch, call(xt),
+                                                   reps=10)}
                 del xt
             plain_ms = cuda_ms(torch, lambda: bilstm_layer(
                 xs, w_ih, b, w_hh, H, seq_out), reps=10)
@@ -312,7 +323,8 @@ def time_kernel(torch, fused_lstm, bilstm_layer):
                 PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS)
             row = {"kernel": kernel, "layer": name, "F": [Fa, Fb], "H": H,
                    "B": TILE, "seq_out": seq_out, "dtype": dname,
-                   "kernel_ms": kernel_ms, **tail, "plain_ms": plain_ms,
+                   "kernel_ms": kernel_ms, "device_ms": device_ms, **tail,
+                   "plain_ms": plain_ms,
                    "library_ms": library_ms, "ops_ms": ops_ms,
                    "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
                    "bound_by": ("operations" if ops_ms >= bytes_ms
@@ -376,6 +388,7 @@ def check_recurrence(torch, recurrence, plain):
                 want_dx = plain.lstm_recurrence_bwd_dx(dys, want_cs, want_g,
                                                        w_hh, H)
                 want_dw = plain.lstm_dw_hh(want_ys, want_dx)
+                before = dict(recurrence.launches)
                 ys = recurrence.lstm_recurrence(xproj, w_hh, H)
                 ys_s, cs, gates = recurrence.lstm_recurrence_fwd_save(
                     xproj, w_hh, H)
@@ -383,12 +396,33 @@ def check_recurrence(torch, recurrence, plain):
                                                        w_hh, H)
                 dw = recurrence.lstm_dw_hh(want_ys, want_dx)
                 torch.cuda.synchronize()
+                moved = {k: v - before[k]
+                         for k, v in recurrence.launches.items()}
+                if moved != {k: int(k in REC_KERNELS) for k in moved}:
+                    fail(f"the recurrence at H={H} B={B} {dname} did not "
+                         f"take the cluster (bf16) or float32 kernels: "
+                         f"{moved}")
                 pairs = [("lstm_recurrence_fwd", "ys", ys, want_ys),
                          ("lstm_recurrence_fwd_save", "ys", ys_s, want_ys),
                          ("lstm_recurrence_fwd_save", "cs", cs, want_cs),
                          ("lstm_recurrence_fwd_save", "gates", gates, want_g),
                          ("lstm_recurrence_bwd", "dxproj", dx, want_dx),
                          ("lstm_dw_hh", "dW_hh", dw, want_dw)]
+                if dtype == torch.bfloat16:
+                    # the streaming kernels that phase 3b times beside them
+                    s_ys, s_cs, s_g = recurrence.lstm_recurrence_fwd_save(
+                        xproj, w_hh, H, stream=True)
+                    pairs += [
+                        ("stream", "K2 ys", recurrence.lstm_recurrence(
+                            xproj, w_hh, H, stream=True), want_ys),
+                        ("stream", "K3 ys", s_ys, want_ys),
+                        ("stream", "K3 cs", s_cs, want_cs),
+                        ("stream", "K3 gates", s_g, want_g),
+                        ("stream", "K4 dxproj",
+                         recurrence.lstm_recurrence_bwd_dx(
+                             dys, want_cs, want_g, w_hh, H, stream=True),
+                         want_dx)]
+                    torch.cuda.synchronize()
                 line = []
                 for kernel, what, got, want in pairs:
                     if got.shape != want.shape or got.dtype != want.dtype:
@@ -405,7 +439,16 @@ def check_recurrence(torch, recurrence, plain):
                         fail(f"{kernel} {what} disagrees with its plain "
                              f"version at H={H} B={B} {dname}: {err} > "
                              f"{bound}")
-                    errs[kernel][dname] = max(errs[kernel][dname], err)
+                    if kernel in errs:
+                        errs[kernel][dname] = max(errs[kernel][dname], err)
+                if dtype == torch.bfloat16:
+                    dx2 = recurrence.lstm_recurrence_bwd_dx(
+                        dys, want_cs, want_g, w_hh, H)
+                    torch.cuda.synchronize()
+                    if not torch.equal(dx, dx2):
+                        fail(f"lstm_recurrence_bwd (cluster) is not bitwise "
+                             f"reproducible at H={H} B={B}")
+                    line.append("dxproj bitwise equal over two launches")
                 again = recurrence.lstm_dw_hh(want_ys, want_dx)
                 ys1 = want_ys[:1].contiguous()
                 dw1 = recurrence.lstm_dw_hh(ys1, want_dx[:1].contiguous())
@@ -422,6 +465,32 @@ def check_recurrence(torch, recurrence, plain):
                 checked.append([H, B, dname])
                 del xproj, w_hh, dys, want_ys, want_cs, want_g, want_dx
     return errs, checked
+
+
+def rec_plans(recurrence) -> dict:
+    """recurrence_plan's choice for each cluster kernel at the training
+    shapes, beside the occupancy query it read (clusters the card holds
+    at once) and the clusters the grid needs."""
+    out = {}
+    for name, kind in recurrence._KIND.items():
+        for H in (128, 256):
+            for B in (TRAIN_B, TRAIN_B - 3):
+                def cap(C, rows):
+                    return recurrence.cluster_capacity(0, kind, H, C, rows)
+                plan = recurrence.recurrence_plan(kind, B, H, cap)
+                if plan is None:
+                    fail(f"{name}: no one-wave cluster plan at H={H} B={B}")
+                C, rows = plan
+                out[f"{name} H={H} B={B}"] = {
+                    "cluster": C, "rows": rows,
+                    "clusters": 2 * -(-B // rows),
+                    "capacity": cap(C, rows),
+                    "smem_bytes": recurrence.recurrence_smem(kind, H, rows),
+                    "capacity_by_rows": {
+                        r: cap(C, r) for r in (16, 32, 48)
+                        if recurrence.recurrence_smem(kind, H, r) <= 232448}}
+    log("cluster plans (occupancy query): " + json.dumps(out))
+    return out
 
 
 def rec_bound(kernel, H, B, itemsize=2, peak_flops=PEAK_BF16_FLOPS):
@@ -495,16 +564,37 @@ def time_recurrence(torch, recurrence, plain):
             "lstm_dw_hh": (lambda: recurrence.lstm_dw_hh(ys, dx),
                            lambda: plain.lstm_dw_hh(ys, dx)),
         }
+        stream = {
+            "lstm_recurrence_fwd":
+                lambda: recurrence.lstm_recurrence(xproj, w_hh, H,
+                                                   stream=True),
+            "lstm_recurrence_fwd_save":
+                lambda: recurrence.lstm_recurrence_fwd_save(
+                    xproj, w_hh, H, stream=True),
+            "lstm_recurrence_bwd":
+                lambda: recurrence.lstm_recurrence_bwd_dx(
+                    dys, cs, gates, w_hh, H, stream=True)}
         rows = {}
         for name, (kern, pl) in calls.items():
             ops_ms, bytes_ms = rec_bound(name, H, TRAIN_B)
             # kernel_ms: CUDA events around each call, the host's issue
             # time included where the device waits for it (the earlier
-            # method); device_ms: replays of a CUDA graph of the calls
-            rows[name] = {"kernel_ms": cuda_ms(torch, kern),
-                          "device_ms": graph_ms(torch, kern),
-                          "plain_ms": cuda_ms(torch, pl, reps=10),
-                          "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+            # method); device_ms: replays of a CUDA graph of the calls.
+            # The cluster kernels and the streaming kernels they replace
+            # take turns: cluster, stream, stream, cluster.
+            row = {"kernel_ms": cuda_ms(torch, kern)}
+            if name in stream:
+                runs = [graph_ms(torch, f) for f in
+                        (kern, stream[name], stream[name], kern)]
+                row.update(device_ms=(runs[0] + runs[3]) / 2,
+                           device_ms_runs=[runs[0], runs[3]],
+                           stream_device_ms=(runs[1] + runs[2]) / 2,
+                           stream_device_ms_runs=[runs[1], runs[2]])
+            else:
+                row["device_ms"] = graph_ms(torch, kern)
+            row.update(plain_ms=cuda_ms(torch, pl, reps=10), ops_ms=ops_ms,
+                       bytes_ms=bytes_ms)
+            rows[name] = row
         # the same product as one library call on the stored operands
         # (bf16 out, f32 accumulation inside cuBLAS), timed both ways
 
@@ -546,6 +636,10 @@ def time_recurrence(torch, recurrence, plain):
                            if kernel == "lstm_dw_hh" else
                            sum(v[lib[kernel]] for v in library.values())),
             "per_launch": {H: per_h[H][kernel] for H in per_h}}
+        if kernel != "lstm_dw_hh":
+            # the streaming kernel the cluster kernel replaces, same call
+            out[kernel]["stream_device_ms"] = per_step(kernel,
+                                                       "stream_device_ms")
     out["lstm_recurrence_bwd"]["library_note"] = (
         "torch.nn.LSTM bf16 forward + backward (more work: the forward "
         "and the input projection's gradients too)")
@@ -821,14 +915,15 @@ def check_training(tmp: str):
     if st["steps"] != steps:
         fail(f"train ran {st['steps']} steps, expected {steps}")
     kl = st["kernel_launches"]
-    want = {"lstm_recurrence_fwd_save": 5 * steps,
-            "lstm_recurrence_bwd": 5 * steps, "lstm_dw_hh": 5 * steps,
-            "lstm_recurrence_fwd": 0,
-            "fused_bilstm_bf16": 5 * st["eval_tiles"], "fused_bilstm_f32": 0}
+    want = {k: 0 for k in kl}
+    want.update({"lstm_recurrence_fwd_save": 5 * steps,
+                 "lstm_recurrence_bwd": 5 * steps, "lstm_dw_hh": 5 * steps,
+                 "fused_bilstm_bf16": 5 * st["eval_tiles"]})
     if kl != want:
         fail(f"train launched {kl}, expected {want} (5 per train step of "
-             f"each training kernel, 5 of K1's bfloat16 kernel per "
-             f"evaluation tile, no K2)")
+             f"each training kernel, K3 and K4 through the plan's cluster "
+             f"kernels, 5 of K1's bfloat16 kernel per evaluation tile, no "
+             f"K2, no streaming kernel)")
     losses = st["step_losses"]
     if len(losses) != steps or not np.isfinite(losses).all():
         fail("train losses are missing or not finite")
@@ -923,36 +1018,46 @@ def check_k2_path(torch, bilstm, recurrence, Batch, FeatureDataset,
                   load_checkpoint, ckpt: str, valid_tsv: str):
     """Phase 4d: inference with the fused path off runs the batch-major
     structure, whose recurrence is K2: 5 launches per forward tile, logits
-    against the K1 path, on one 4096-row tile of the trained model."""
+    against the K1 path, on a 4096-row tile and a 512-row tile of the
+    trained model. bfloat16 K2 takes the cluster kernel at 512 rows and
+    the streaming kernel at 4096 (no cluster plan holds 4096 rows in one
+    wave; recurrence_plan); float32 its one kernel."""
     params, cfg = load_checkpoint(ckpt)
     ds = FeatureDataset.from_file(valid_tsv)
-    b, _ = ds.batch_at(slice(0, TILE))
-    batch = Batch(*(torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
-                    for a in b))
+    keys = ("lstm_recurrence_fwd", "lstm_recurrence_fwd_stream")
     out = {}
-    for dname in ("bfloat16", "float32"):
-        model = bilstm.ModelBiLSTM.from_params(
-            params, cfg.with_(compute_dtype=dname, dropout_rate=0.0), "cuda")
-        with torch.no_grad():
-            k1, _ = model(batch)
-            bilstm._FUSED_ENABLED = False
-            recurrence.launches["lstm_recurrence_fwd"] = 0
-            k2, _ = model(batch)
-            torch.cuda.synchronize()
-            n = recurrence.launches["lstm_recurrence_fwd"]
-            bilstm._FUSED_ENABLED = True
-        err = (k1 - k2).abs().max().item()
-        bound = K2_LOGIT_TOL[dname] * max(1.0, k1.abs().max().item())
-        agree = (k1.argmax(1) == k2.argmax(1)).float().mean().item()
-        log(f"K2 path, {dname}, {TILE} rows: {n} K2 launches; "
-            f"max|logits K2 path - K1 path| = {err:.3g} (<= {bound:.3g}); "
-            f"call agreement {agree:.6f}")
-        if n != 5:
-            fail(f"inference with the fused path off launched K2 {n} times "
-                 f"for one tile (expected 5)")
-        if err > bound or not torch.isfinite(k2).all():
-            fail(f"{dname} K2-path logits disagree with the K1 path")
-        out[dname] = {"launches": n, "max_dlogit": err, "agreement": agree}
+    for rows in (TILE, TRAIN_B):
+        b, _ = ds.batch_at(slice(0, rows))
+        batch = Batch(*(torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+                        for a in b))
+        for dname in ("bfloat16", "float32"):
+            model = bilstm.ModelBiLSTM.from_params(
+                params, cfg.with_(compute_dtype=dname, dropout_rate=0.0),
+                "cuda")
+            with torch.no_grad():
+                k1, _ = model(batch)
+                bilstm._FUSED_ENABLED = False
+                for k in keys:
+                    recurrence.launches[k] = 0
+                k2, _ = model(batch)
+                torch.cuda.synchronize()
+                by_kernel = {k: recurrence.launches[k] for k in keys}
+                bilstm._FUSED_ENABLED = True
+            err = (k1 - k2).abs().max().item()
+            bound = K2_LOGIT_TOL[dname] * max(1.0, k1.abs().max().item())
+            agree = (k1.argmax(1) == k2.argmax(1)).float().mean().item()
+            log(f"K2 path, {dname}, {rows} rows: K2 launches {by_kernel}; "
+                f"max|logits K2 path - K1 path| = {err:.3g} (<= "
+                f"{bound:.3g}); call agreement {agree:.6f}")
+            stream = dname == "bfloat16" and rows == TILE
+            want = {k: 5 * (k.endswith("_stream") == stream) for k in keys}
+            if by_kernel != want:
+                fail(f"inference with the fused path off launched "
+                     f"{by_kernel} for one {rows}-row tile (expected {want})")
+            if err > bound or not torch.isfinite(k2).all():
+                fail(f"{dname} K2-path logits disagree with the K1 path")
+            out[f"{dname} {rows}"] = {"launches_by_kernel": by_kernel,
+                                      "max_dlogit": err, "agreement": agree}
     return out
 
 
@@ -1002,6 +1107,7 @@ def main() -> int:
             + _build.library_path(name).with_suffix(".so.log").read_text()
             .strip().replace("\n", " | ")[-600:])
     errs, checked = check_kernel(torch, fused_lstm, bilstm_layer)
+    plans = rec_plans(recurrence)
     rec_errs, rec_checked = check_recurrence(torch, recurrence, plain)
 
     # phase 3: timing
@@ -1051,9 +1157,12 @@ def main() -> int:
             # from the call_mods run (phase 4): its default is bf16
             "launches": run["launches_by_kernel"][kernel],
             "max_abs_err": errs[kernel], "dtype": dname,
-            # times: sums over the five launches of one 4096-row tile
-            "ms": total("kernel_ms"), "kernel_ms": total("kernel_ms"),
-            **({"tail_kernel_ms": total("tail_kernel_ms")}
+            # times: sums over the five launches of one 4096-row tile; ms
+            # is device time (graph replays), kernel_ms events per call
+            "ms": total("device_ms"), "device_ms": total("device_ms"),
+            "kernel_ms": total("kernel_ms"),
+            **({"tail_kernel_ms": total("tail_kernel_ms"),
+                "tail_device_ms": total("tail_device_ms")}
                if dname == "bfloat16" else {}),
             "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
             "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
@@ -1064,16 +1173,20 @@ def main() -> int:
     kernels["kernels"][0].update(model_forward=forward, main_path=run)
     # the recurrence kernels: times per train step at batch 512 in bf16
     # (two H=128 and three H=256 launches); launches from the train run
-    # (4b), and for K2 from the fused-off inference tile (4d)
+    # (4b), and for K2 from the fused-off 512-row inference tile (4d);
+    # K2, K3 and K4's recurrence run the cluster kernels of `plans`
     for name, replaces in REC_KERNELS.items():
         t = rec_timings[name]
         kernels["kernels"].append({
             "name": name, "route": "cuda",
             "source": "deepsignal_plant_tpu_torch/csrc/lstm_recurrence.cu",
             "replaces": replaces,
-            "launches": (k2_path["bfloat16"]["launches"]
-                         if name == "lstm_recurrence_fwd"
+            "launches": (k2_path[f"bfloat16 {TRAIN_B}"]["launches_by_kernel"]
+                         [name] if name == "lstm_recurrence_fwd"
                          else trained["launches"][name]),
+            **({"plans": {k: v for k, v in plans.items()
+                          if k.startswith(name + " ")}}
+               if name != "lstm_dw_hh" else {}),
             "max_abs_err": max(rec_errs[name].values()),
             "max_abs_err_float32": rec_errs[name]["float32"],
             "max_abs_err_bfloat16": rec_errs[name]["bfloat16"],

@@ -27,18 +27,29 @@
 // Design, shared with fused_bilstm.cu (K1): the TPU kernels walk T as a
 // sequential grid axis with h and c (or dh and dc) in VMEM scratch;
 // Hopper runs blocks in no order, so the time loop lives inside the
-// block: grid (ceil(B / BB), 2 directions), a block owns BB batch rows of
-// one direction for all T steps. The cell state and the carries stay in
-// f32 registers of the thread that owns their (row, unit); h (or da) is
-// exchanged through shared memory in the storage type, double-buffered,
-// so one __syncthreads() per step orders the exchange. bfloat16 runs its
+// block: a block (or a cluster of blocks) owns BB batch rows of one
+// direction for all T steps. The cell state and the carries stay in f32
+// registers of the thread that owns their (row, unit). bfloat16 runs its
 // per-step product on the tensor cores (mma.sync m16n8k16, f32
-// accumulate); float32 on the CUDA cores. One direction's W_hh is 512 KB
-// in bf16 at H=256, more than a block's 227 KB of shared memory, so it is
-// packed per launch into the caller's workspace and read from L2 at every
-// step. The ragged batch edge is masked in the kernel: rows >= B read
-// zeros and store nothing, with no padding on the host (the JAX wrapper
-// pads B to a multiple of 128, pallas_lstm.py:219-223).
+// accumulate); float32 on the CUDA cores. The ragged batch edge is masked
+// in the kernel: rows >= B read zeros and store nothing, with no padding
+// on the host (the JAX wrapper pads B to a multiple of 128,
+// pallas_lstm.py:219-223).
+//
+// bfloat16 has two designs, chosen per launch by the wrapper's plan
+// (ops/recurrence.py::recurrence_plan):
+// - the cluster kernels (H = 128 and 256, the training path's widths): a
+//   thread-block cluster of C = H/64 blocks owns a row tile, block r owns
+//   64 hidden units and keeps their slice of W_hh[d] resident in shared
+//   memory for the whole launch; h_s (forward) or the partial sums of
+//   dh_{s-1} (backward) cross the cluster through distributed shared
+//   memory, one or two cluster barriers per step;
+// - the streaming kernels (every other H, up to 512): grid (ceil(B / BB),
+//   2), one block per row tile; one direction's W_hh (512 KB in bf16 at
+//   H=256, more than a block's 227 KB) is packed per launch into the
+//   caller's workspace and read from L2 at every step; h (or da) is
+//   exchanged through shared memory, double-buffered, one __syncthreads()
+//   per step.
 //
 // The TPU's K4 keeps a (2, H, 4H) f32 dW_hh accumulator per batch tile
 // in VMEM (1 MB per direction at H=256), which no block here can hold.
@@ -46,9 +57,12 @@
 // split-K product over K = (T-1)*B rows whose f32 partials are summed in
 // a fixed order, with no atomics (deterministic).
 
+#include <cooperative_groups.h>
+
 #include "dsp_common.cuh"
 
 using namespace dsp;
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -104,7 +118,7 @@ __device__ __forceinline__ void st_f(bf16* p, float v) {
 }
 
 // ---------------------------------------------------------------------------
-// forward (K2, K3), bfloat16 on the tensor cores
+// forward (K2, K3), bfloat16 on the tensor cores: the streaming kernel
 //
 // A block owns 16*MT rows. A warp owns groups of 8 hidden units; for a
 // group it accumulates four 16x8 tiles per m16 tile, one per gate, over
@@ -341,7 +355,8 @@ __device__ __forceinline__ void bwd_cell(const S* __restrict__ gr,
 }
 
 // ---------------------------------------------------------------------------
-// backward recurrence (K4), bfloat16 on the tensor cores
+// backward recurrence (K4), bfloat16 on the tensor cores: the streaming
+// kernel
 //
 // Steps run in reverse. A thread owns the (row, unit) pairs of its
 // accumulator fragments for groups of 8 units: there it computes the four
@@ -801,7 +816,536 @@ __global__ void dw_reduce_kernel(const float4* __restrict__ ws,
 }
 
 // ---------------------------------------------------------------------------
+// the cluster kernels (K2, K3 and K4's recurrence), bfloat16
+//
+// A cluster of C = H / kClU blocks owns BB = 16*MT rows of one direction;
+// grid (C * ceil(B / BB), 2), cluster (C, 1, 1). Block r of the cluster
+// owns the kClU hidden units [r*kClU, (r+1)*kClU) and all four gates of
+// them: the 4*kClU columns j + g*H of W_hh[d] (j one of its units, g a
+// gate). Before step 0 it copies that slice, all H rows of it, into
+// shared memory (cp.async, read from w_hh as it is), where it stays.
+// Shared layouts keep a row's 4*kClU columns in the order (8-unit group,
+// gate, unit in the group), so a warp's four gate tiles of one group are
+// 32 neighbouring columns; rows are padded by 8 elements (16 bytes), so
+// the 8 rows an ldmatrix reads fall on distinct banks.
+//
+// Forward: each step every block computes its columns' pre-activations
+// for the tile's rows, pre = xproj[s] + h_{s-1} @ W_slice, from shared
+// memory (8 warps, warp w owns group w: 4 gates x MT m16 tiles), updates
+// its units' cell states, and writes its slice of h_s (bf16) into the
+// next h buffer of every block of the cluster (distributed shared
+// memory); one cluster barrier per step. xproj[s+1] is staged by cp.async
+// while step s computes; ys is stored from shared memory in 16-byte rows.
+//
+// Backward: dh_{s-1} = da_s @ W_hh[d]^T reduces over all 4H columns, and
+// each block holds 4*kClU of them. So each block computes da_s of its own
+// (row, unit) pairs from its dh/dc carries and the residuals (bwd_cell's
+// arithmetic, 16-byte loads and stores), multiplies it by its W slice
+// transposed (BB x 4*kClU by 4*kClU x H, f32), and sends each peer p the
+// BB x kClU f32 block of the units p owns, into slot r of p's receive
+// buffer. After the cluster barrier each block sums its C slots in rank
+// order, a fixed order: two launches give the same bits. Two split
+// cluster barriers per step order the single receive buffer: one after
+// the sends (the slots are full), one after the reads (the slots may be
+// overwritten), the second's wait hidden behind the product.
+
+constexpr int kClU = 64;                    // hidden units of a block
+constexpr int kClWarps = 8;                 // one 8-unit group per warp
+constexpr int kClLdw = 4 * kClU + 8;        // W slice, xproj and da rows
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// column of (unit j < kClU, gate g) in the shared layouts
+__device__ __forceinline__ int cl_col(int j, int g) {
+  return (j >> 3) * 32 + g * 8 + (j & 7);
+}
+
+// This block's W slice: row k, column cl_col(j, g) = w_hh[d][k][g*H + u0
+// + j], for all H rows, by 16-byte cp.async (the caller commits).
+__device__ __forceinline__ void cl_load_w(bf16* __restrict__ wsm,
+                                          const bf16* __restrict__ w_hh,
+                                          int d, int H, int u0) {
+  const int G4 = 4 * H;
+  for (int i = threadIdx.x; i < H * 32; i += blockDim.x) {
+    const int k = i >> 5;
+    const int c = i & 31;                   // chunk: group c / 4, gate c % 4
+    const int g = c & 3, grp = c >> 2;
+    cp_async16(wsm + k * kClLdw + grp * 32 + g * 8,
+               w_hh + ((size_t)d * H + k) * G4 + g * H + u0 + grp * 8, true);
+  }
+}
+
+__device__ __forceinline__ void unpack8(const uint4 v, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint4 v;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  return v;
+}
+
+template <int MT, bool SAVE>
+__global__ void __launch_bounds__(kClWarps * 32, 1)
+fwd_cluster_kernel(const bf16* __restrict__ xproj,
+                   const bf16* __restrict__ w_hh, bf16* __restrict__ ys,
+                   float* __restrict__ cs, bf16* __restrict__ gates, int T_,
+                   int B, int H) {
+  constexpr int BB = 16 * MT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.y;
+  const int G4 = 4 * H;
+  const int u0 = rank * kClU;
+  const int b0 = (blockIdx.x / C) * BB;
+  const int Ldh = H + 8;
+  bf16* const wsm = reinterpret_cast<bf16*>(smem_raw);   // H x kClLdw
+  bf16* const hbuf0 = wsm + (size_t)H * kClLdw;          // BB x Ldh, twice
+  bf16* const hbuf1 = hbuf0 + BB * Ldh;
+  bf16* const xs = hbuf1 + BB * Ldh;                     // BB x kClLdw
+  const int warp = threadIdx.x / 32;                     // = its group
+  const int lane = threadIdx.x % 32;
+  const int gq = lane >> 2, q = lane & 3;
+  const int li = lane & 7, mat = lane >> 3;
+
+  // xproj[s] of this block's columns and the tile's rows into xs; rows
+  // >= B read zeros
+  auto stage_x = [&](int s) {
+    const size_t step = (size_t)s * 2 + d;
+    for (int i = threadIdx.x; i < BB * 32; i += blockDim.x) {
+      const int r = i >> 5;
+      const int c = i & 31;
+      const int g = c & 3, grp = c >> 2;
+      const int row = b0 + r;
+      const bool ok = row < B;
+      const bf16* src = ok ? xproj + (step * B + row) * G4 + g * H + u0 +
+                                 grp * 8
+                           : xproj;
+      cp_async16(xs + r * kClLdw + grp * 32 + g * 8, src, ok);
+    }
+  };
+
+  cl_load_w(wsm, w_hh, d, H, u0);
+  stage_x(0);
+  cp_async_commit();
+  for (int i = threadIdx.x; i < BB * Ldh / 8; i += blockDim.x)
+    reinterpret_cast<uint4*>(hbuf0)[i] = make_uint4(0, 0, 0, 0);  // h_{-1}
+  // the same h buffers in every block of the cluster
+  bf16* peer0[4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+    peer0[p] = p < C ? cluster.map_shared_rank(hbuf0, p) : hbuf0;
+  cp_async_wait<0>();
+  cluster_arrive();                         // every peer runs, W is in place
+  cluster_wait();
+
+  float c[MT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[mt][e] = 0.f;
+  const int jl = warp * 8 + 2 * q;          // this thread's units jl, jl+1
+
+  for (int s = 0; s < T_; ++s) {
+    const bool last = s + 1 == T_;
+    const bf16* cur = s & 1 ? hbuf1 : hbuf0;
+    const int nxt_off = (s & 1 ? 0 : BB * Ldh);   // of the next buffer
+    const size_t step = (size_t)s * 2 + d;
+
+    float acc[MT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = mt * 16 + gq + half * 8;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float2 v = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  xs + r * kClLdw + cl_col(jl, g)));
+          acc[mt][g][2 * half] = v.x;
+          acc[mt][g][2 * half + 1] = v.y;
+        }
+      }
+    __syncthreads();                        // every thread has read xs
+    if (!last) stage_x(s + 1);
+    cp_async_commit();
+
+#pragma unroll 4
+    for (int kk = 0; kk < H; kk += 16) {
+      uint32_t b[2][4];
+#pragma unroll
+      for (int np = 0; np < 2; ++np)
+        ldmatrix_x4_trans(b[np], wsm + (kk + li + (mat & 1) * 8) * kClLdw +
+                                     warp * 32 + np * 16 + (mat >> 1) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        ldmatrix_x4(a, cur + (mt * 16 + li + (mat & 1) * 8) * Ldh + kk +
+                           (mat >> 1) * 8);
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          mma_bf16(acc[mt][g], a[0], a[1], a[2], a[3],
+                   b[g >> 1][(g & 1) * 2], b[g >> 1][(g & 1) * 2 + 1]);
+      }
+    }
+
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float gv[4][2], h[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int e = 2 * half + k;
+          gv[0][k] = sigmoid_f(acc[mt][0][e]);
+          gv[1][k] = sigmoid_f(acc[mt][1][e]);
+          gv[2][k] = tanhf(acc[mt][2][e]);
+          gv[3][k] = sigmoid_f(acc[mt][3][e]);
+          c[mt][e] = gv[1][k] * c[mt][e] + gv[0][k] * gv[2][k];
+          h[k] = gv[3][k] * tanhf(c[mt][e]);
+        }
+        const int r = mt * 16 + gq + half * 8;
+        const __nv_bfloat162 hv = __floats2bfloat162_rn(h[0], h[1]);
+        const int off = nxt_off + r * Ldh + u0 + jl;
+        if (last) {
+          *reinterpret_cast<__nv_bfloat162*>(hbuf0 + off) = hv;
+        } else {
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            if (p < C) *reinterpret_cast<__nv_bfloat162*>(peer0[p] + off) = hv;
+        }
+        const int row = b0 + r;
+        if (SAVE && row < B) {
+          const size_t hi = (step * B + row) * H + u0 + jl;
+          *reinterpret_cast<float2*>(cs + hi) =
+              make_float2(c[mt][2 * half], c[mt][2 * half + 1]);
+          bf16* gr = gates + (step * B + row) * G4 + u0 + jl;
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            *reinterpret_cast<__nv_bfloat162*>(gr + g * H) =
+                __floats2bfloat162_rn(gv[g][0], gv[g][1]);
+        }
+      }
+    cp_async_wait<0>();                     // xproj[s+1] is in xs
+    if (last) {
+      __syncthreads();
+    } else {
+      cluster_arrive();                     // h_s is in every block's buffer
+      cluster_wait();
+    }
+    // ys[s] of this block's units, from its own copy of h_s
+    const bf16* hs = hbuf0 + nxt_off;
+    for (int i = threadIdx.x; i < BB * (kClU / 8); i += blockDim.x) {
+      const int r = i / (kClU / 8);
+      const int j = (i % (kClU / 8)) * 8;
+      if (b0 + r < B)
+        *reinterpret_cast<uint4*>(ys + (step * B + b0 + r) * H + u0 + j) =
+            *reinterpret_cast<const uint4*>(hs + r * Ldh + u0 + j);
+    }
+  }
+}
+
+// The residuals of one (row, 8-unit chunk) pair for one step: the four
+// activated gates, dy, and c_{s-1} (the next step's c_t).
+struct ClRes {
+  uint4 g[4];
+  uint4 dy;
+  float4 cp[2];
+};
+
+__device__ __forceinline__ ClRes cl_load_res(const bf16* __restrict__ dys,
+                                             const float* __restrict__ cs,
+                                             const bf16* __restrict__ gates,
+                                             int s, int d, int B, int H,
+                                             int row, int u) {
+  ClRes res;
+  const size_t step = (size_t)s * 2 + d;
+  const bf16* gr = gates + (step * B + row) * (size_t)(4 * H) + u;
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+    res.g[g] = *reinterpret_cast<const uint4*>(gr + g * H);
+  res.dy = *reinterpret_cast<const uint4*>(dys + (step * B + row) * H + u);
+  if (s > 0) {
+    const float4* cp = reinterpret_cast<const float4*>(
+        cs + ((step - 2) * B + row) * H + u);
+    res.cp[0] = cp[0];
+    res.cp[1] = cp[1];
+  } else {
+    res.cp[0] = res.cp[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  return res;
+}
+
+// MT: m16 tiles of the row tile; NT = C: n8 tiles of dh per warp (warp w
+// owns the 8*NT units from w*8*NT, all of one peer's 64)
+template <int MT, int NT>
+__global__ void __launch_bounds__(kClWarps * 32, 1)
+bwd_cluster_kernel(const bf16* __restrict__ dys, const float* __restrict__ cs,
+                   const bf16* __restrict__ gates,
+                   const bf16* __restrict__ w_hh, bf16* __restrict__ dx,
+                   int T_, int B) {
+  constexpr int BB = 16 * MT;
+  constexpr int C = NT;
+  constexpr int H = kClU * C;
+  constexpr int G4 = 4 * H;
+  constexpr int NCH = BB * (kClU / 8);      // (row, 8-unit chunk) pairs
+  constexpr int CPT = (NCH + kClWarps * 32 - 1) / (kClWarps * 32);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.y;
+  const int u0 = rank * kClU;
+  const int b0 = (blockIdx.x / C) * BB;
+  bf16* const wsm = reinterpret_cast<bf16*>(smem_raw);   // H x kClLdw
+  bf16* const das = wsm + (size_t)H * kClLdw;            // BB x kClLdw
+  float* const recv = reinterpret_cast<float*>(das + BB * kClLdw);
+  // recv[slot][row][unit]: C slots of BB x kClU
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane >> 2, q = lane & 3;
+  const int li = lane & 7, mat = lane >> 3;
+  const int n0 = warp * 8 * NT;             // this warp's first unit of dh
+  // slot `rank` of the receive buffer of the peer that owns unit n0
+  float* const dst = cluster.map_shared_rank(recv, n0 / kClU) +
+                     rank * BB * kClU + n0 % kClU;
+
+  cl_load_w(wsm, w_hh, d, H, u0);
+  cp_async_commit();
+
+  float dc[CPT][8], c_t[CPT][8];
+  ClRes res[CPT];
+#pragma unroll
+  for (int ci = 0; ci < CPT; ++ci) {
+    const int i = threadIdx.x + ci * kClWarps * 32;
+    const int row = b0 + i / (kClU / 8);
+    const int u = u0 + (i % (kClU / 8)) * 8;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dc[ci][k] = 0.f;
+    if (i < NCH && row < B) {
+      res[ci] = cl_load_res(dys, cs, gates, T_ - 1, d, B, H, row, u);
+      const float4* ct = reinterpret_cast<const float4*>(
+          cs + (((size_t)(T_ - 1) * 2 + d) * B + row) * H + u);
+      const float4 c0 = ct[0], c1 = ct[1];
+      const float cv[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) c_t[ci][k] = cv[k];
+    }
+  }
+  cp_async_wait<0>();
+  cluster_arrive();                         // every peer runs, W is in place
+  cluster_wait();
+
+  for (int s = T_ - 1; s >= 0; --s) {
+    const size_t step = (size_t)s * 2 + d;
+    if (s < T_ - 1) cluster_wait();         // the slots hold dh_s's parts
+#pragma unroll
+    for (int ci = 0; ci < CPT; ++ci) {
+      const int i = threadIdx.x + ci * kClWarps * 32;
+      if (i >= NCH) break;
+      const int r = i / (kClU / 8);
+      const int j = (i % (kClU / 8)) * 8;   // first unit, block-local
+      const int row = b0 + r;
+      float da[4][8];
+      if (row < B) {
+        float dh[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) dh[k] = 0.f;
+        if (s < T_ - 1) {
+          for (int p = 0; p < C; ++p) {     // rank order: deterministic
+            const float4* src = reinterpret_cast<const float4*>(
+                recv + (p * BB + r) * kClU + j);
+            const float4 a = src[0], b = src[1];
+            dh[0] += a.x; dh[1] += a.y; dh[2] += a.z; dh[3] += a.w;
+            dh[4] += b.x; dh[5] += b.y; dh[6] += b.z; dh[7] += b.w;
+          }
+        }
+        float gv[4][8], dy[8];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) unpack8(res[ci].g[g], gv[g]);
+        unpack8(res[ci].dy, dy);
+        const float cpv[8] = {res[ci].cp[0].x, res[ci].cp[0].y,
+                              res[ci].cp[0].z, res[ci].cp[0].w,
+                              res[ci].cp[1].x, res[ci].cp[1].y,
+                              res[ci].cp[1].z, res[ci].cp[1].w};
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float ig = gv[0][k], fg = gv[1][k], gg = gv[2][k],
+                      og = gv[3][k];
+          const float tanh_c = tanhf(c_t[ci][k]);
+          const float dh_t = dy[k] + dh[k];
+          const float dc_t =
+              dc[ci][k] + dh_t * og * (1.f - tanh_c * tanh_c);
+          da[0][k] = dc_t * gg * ig * (1.f - ig);
+          da[1][k] = dc_t * cpv[k] * fg * (1.f - fg);
+          da[2][k] = dc_t * ig * (1.f - gg * gg);
+          da[3][k] = dh_t * tanh_c * og * (1.f - og);
+          dc[ci][k] = dc_t * fg;
+          c_t[ci][k] = cpv[k];              // c_t of step s-1
+        }
+        bf16* dxr = dx + (step * B + row) * G4 + u0 + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const uint4 v = pack8(da[g]);     // the stored, rounded da
+          *reinterpret_cast<uint4*>(dxr + g * H) = v;
+          *reinterpret_cast<uint4*>(das + r * kClLdw + cl_col(j, g)) = v;
+        }
+        if (s > 0)                          // next step's residuals, early
+          res[ci] = cl_load_res(dys, cs, gates, s - 1, d, B, H, row, u0 + j);
+      } else {                              // rows past the edge: da = 0
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          *reinterpret_cast<uint4*>(das + r * kClLdw + cl_col(j, g)) =
+              make_uint4(0, 0, 0, 0);
+      }
+    }
+    if (s == 0) break;                      // dh_{-1} is not needed
+    cluster_arrive();                       // this block's slots are read
+    __syncthreads();                        // da_s of every unit is in das
+
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < 4 * kClU; kk += 16) {
+      uint32_t b[NT / 2][4];
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np)
+        ldmatrix_x4(b[np], wsm + (n0 + np * 16 + li + (mat >> 1) * 8) *
+                                     kClLdw + kk + (mat & 1) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        ldmatrix_x4(a, das + (mt * 16 + li + (mat & 1) * 8) * kClLdw + kk +
+                           (mat >> 1) * 8);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_bf16(acc[mt][nt], a[0], a[1], a[2], a[3],
+                   b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
+      }
+    }
+    cluster_wait();                         // every peer has read its slots
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = mt * 16 + gq + half * 8;
+          *reinterpret_cast<float2*>(dst + r * kClU + nt * 8 + 2 * q) =
+              make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+        }
+    cluster_arrive();                       // the slots hold dh_{s-1}'s parts
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch helpers
+
+// The cluster kernels' launches: kind 0 = K2, 1 = K3, 2 = K4's
+// recurrence; a plan is a cluster size and a row tile (`rows` = BB).
+
+// shared-memory bytes of a cluster kernel (the same formula as
+// ops/recurrence.py::recurrence_smem)
+inline size_t cl_smem(int kind, int H, int rows) {
+  const size_t w = (size_t)H * kClLdw * sizeof(bf16);
+  if (kind == 2)
+    return w + (size_t)rows * kClLdw * sizeof(bf16) +
+           (size_t)(H / kClU) * rows * kClU * sizeof(float);
+  return w + ((size_t)2 * rows * (H + 8) + (size_t)rows * kClLdw) *
+                 sizeof(bf16);
+}
+
+// the kernel of a plan, or null where ops/recurrence.py::recurrence_plan
+// cannot give the plan: clusters of 2 or 4 blocks of kClU units, row
+// tiles of 16, 32 or 48, within a block's shared memory
+inline const void* cl_kernel(int kind, int H, int cluster, int rows) {
+  if (!(cluster == 2 || cluster == 4) || H != cluster * kClU ||
+      rows % 16 != 0 || cl_smem(kind, H, rows) > kMaxSmem)
+    return nullptr;
+  const bool h2 = cluster == 2;
+#define DSP_CL(MT)                                                         \
+  if (rows == 16 * MT) {                                                   \
+    if (kind == 0) return (const void*)fwd_cluster_kernel<MT, false>;     \
+    if (kind == 1) return (const void*)fwd_cluster_kernel<MT, true>;      \
+    if (kind == 2)                                                         \
+      return h2 ? (const void*)bwd_cluster_kernel<MT, 2>                   \
+                : (const void*)bwd_cluster_kernel<MT, 4>;                  \
+  }
+  DSP_CL(1)
+  DSP_CL(2)
+  DSP_CL(3)
+#undef DSP_CL
+  return nullptr;
+}
+
+// the launch configuration of a plan: grid (cluster * ceil(B / rows), 2),
+// cluster (cluster, 1, 1), kClWarps warps; allows the shared memory
+inline cudaError_t cl_config(const void* kernel, int kind, int H,
+                             int cluster, int rows, int B,
+                             cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                             cudaLaunchAttribute* attr) {
+  const size_t smem = cl_smem(kind, H, rows);
+  const cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster * ((B + rows - 1) / rows), 2);
+  cfg->blockDim = dim3(kClWarps * 32);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// launches the plan's kernel with `args` (the kernel's parameters)
+inline cudaError_t cl_launch(int kind, int H, int cluster, int rows, int B,
+                             void** args, cudaStream_t stream) {
+  const void* kernel = cl_kernel(kind, H, cluster, rows);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err =
+      cl_config(kernel, kind, H, cluster, rows, B, stream, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
 // the fewest unit groups (of 8) per warp that keep a block at <= 8 warps
 inline int groups_per_warp(int H) {
@@ -935,37 +1479,66 @@ cudaError_t bwd_f32(const float* dys, const float* cs, const float* gates,
 
 extern "C" {
 
-// Bytes of the workspace dsp_lstm_recurrence_fwd needs: bfloat16 packs
-// W_hh transposed to (2, 4H, round_up(H, 32)); float32 reads it as is.
+// Bytes of the workspace dsp_lstm_recurrence_fwd needs without a cluster
+// plan: the bfloat16 streaming kernel packs W_hh transposed to
+// (2, 4H, round_up(H, 32)); float32 reads it as is.
 size_t dsp_lstm_fwd_workspace_bytes(int H, int dtype) {
   if (dtype != 1) return 0;
   return (size_t)2 * 4 * H * round_up(H, 32) * sizeof(bf16);
 }
 
+// How many clusters of a plan's kernel (kind 0 = K2, 1 = K3, 2 = K4's
+// recurrence; cluster size, row tile `rows`) the card holds at once
+// (cudaOccupancyMaxActiveClusters at the kernel's shared memory), into
+// *clusters; refuses a plan the launchers refuse.
+cudaError_t dsp_lstm_recurrence_clusters(int kind, int H, int cluster,
+                                         int rows, int* clusters) {
+  const void* kernel = cl_kernel(kind, H, cluster, rows);
+  if (kernel == nullptr || clusters == nullptr) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const cudaError_t err =
+      cl_config(kernel, kind, H, cluster, rows, rows, nullptr, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
 // K2 (save = 0) and K3 (save = 1). xproj (T, 2, B, 4H), w_hh (2, H, 4H),
 // ys (T, 2, B, H) in the storage type (dtype 0 = float32, 1 = bfloat16);
 // with save, cs (T, 2, B, H) float32 and gates (T, 2, B, 4H) in the
-// storage type (else both may be null). Runs on `stream`, allocates
-// nothing, returns the launch's error code.
+// storage type (else both may be null). `cluster` > 0 runs the bfloat16
+// cluster kernel of the plan (cluster, rows) (every pointer 16-byte
+// aligned; no workspace); 0 the streaming kernel (bfloat16: workspace of
+// dsp_lstm_fwd_workspace_bytes) or the float32 kernel. Runs on `stream`,
+// allocates nothing, returns the launch's error code.
 //
 // What bounds it, at B=512, H=256, T=13 (a comb layer of the training
 // path): 2*2*T*B*H*4H = 7.0 GFLOP (7 us at the bf16 tensor-core peak)
 // against 35 MB of compulsory bytes for K2 (xproj, w_hh, ys: 10 us at
-// 3.35 TB/s) and 76 MB for K3 (+ cs, gates: 23 us): bytes bind.
-// What the simple design gives up: the grid has only 2 * B/32 = 32 blocks
-// at B=512, each re-reading its direction's 512 KB of packed W_hh from L2
-// at every step (~6.8 MB a block), so the per-SM L2 rate over 13
-// dependent steps, not the card's bytes, sets its time, and 100 of the
-// 132 SMs idle. Splitting the gate columns over a thread-block cluster
-// with the weights resident in its shared memory is later work.
+// 3.35 TB/s) and 76 MB for K3 (+ cs, gates: 23 us): bytes bind. The
+// streaming kernel has only 2 * B/32 = 32 blocks at B=512, each walking a
+// serial chain of L2 weight loads and mma.sync per step (GPW x Kp/32
+// k-steps a warp), 100 of 132 SMs idle. The cluster kernel reads the
+// weights once per block, spreads the batch over 4x the blocks (88 at
+// H=256, 128 at H=128 on an H100), and cuts a warp's chain to MT x 4 x
+// H/16 mma.sync from shared memory; what it adds is one cluster barrier
+// and the DSMEM copies of h per step.
 cudaError_t dsp_lstm_recurrence_fwd(const void* xproj, const void* w_hh,
                                     void* ys, void* cs, void* gates, int T_,
                                     int B, int H, int save, int dtype,
-                                    void* workspace, void* stream) {
+                                    int cluster, int rows, void* workspace,
+                                    void* stream) {
   if (T_ < 1 || B < 1 || H < 1 || H > kMaxHidden ||
       (save && (cs == nullptr || gates == nullptr)))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster != 0) {
+    if (dtype != 1 || !aligned16(xproj) || !aligned16(w_hh) ||
+        !aligned16(ys) || (save && (!aligned16(cs) || !aligned16(gates))))
+      return cudaErrorInvalidValue;
+    void* args[] = {&xproj, &w_hh, &ys, &cs, &gates, &T_, &B, &H};
+    return cl_launch(save ? 1 : 0, H, cluster, rows, B, args, st);
+  }
   if (dtype == 0) {
     auto x = static_cast<const float*>(xproj);
     auto w = static_cast<const float*>(w_hh);
@@ -988,8 +1561,9 @@ cudaError_t dsp_lstm_recurrence_fwd(const void* xproj, const void* w_hh,
   return cudaErrorInvalidValue;
 }
 
-// Bytes of the workspace dsp_lstm_recurrence_bwd needs: bfloat16 packs
-// W_hh to (2, H, round_up(4H, 32)); float32 transposes it to (2, 4H, H).
+// Bytes of the workspace dsp_lstm_recurrence_bwd needs without a cluster
+// plan: the bfloat16 streaming kernel packs W_hh to (2, H, round_up(4H,
+// 32)); float32 transposes it to (2, 4H, H).
 size_t dsp_lstm_bwd_workspace_bytes(int H, int dtype) {
   if (dtype == 1) return (size_t)2 * H * round_up(4 * H, 32) * sizeof(bf16);
   return (size_t)2 * 4 * H * H * sizeof(float);
@@ -998,21 +1572,36 @@ size_t dsp_lstm_bwd_workspace_bytes(int H, int dtype) {
 // K4, the reverse-time recurrence: dys (T, 2, B, H) and gates
 // (T, 2, B, 4H) in the storage type, cs (T, 2, B, H) float32, w_hh
 // (2, H, 4H) -> dx = dxproj (T, 2, B, 4H) in the storage type. dh and dc
-// carries start at zero at step T-1; c_{-1} = 0.
+// carries start at zero at step T-1; c_{-1} = 0. `cluster` > 0 runs the
+// bfloat16 cluster kernel of the plan (cluster, rows) (every pointer
+// 16-byte aligned; no workspace); 0 the streaming or float32 kernel
+// (workspace of dsp_lstm_bwd_workspace_bytes).
 //
 // What bounds it, at B=512, H=256, T=13: 2*2*(T-1)*B*4H*H = 6.4 GFLOP
 // (6.5 us at the bf16 peak) against 76 MB of compulsory bytes (dys,
-// gates, cs, w_hh, dx: 23 us): bytes bind. What the simple design gives
-// up: as the forward, 32 blocks at B=512 that read their direction's
-// packed W_hh from L2 at every step, and scattered 2- and 4-byte loads of
-// the residuals in the fragment layout.
+// gates, cs, w_hh, dx: 23 us): bytes bind. The streaming kernel: as the
+// forward's, 32 blocks at B=512 that read their direction's packed W_hh
+// from L2 at every step, and scattered 2- and 4-byte loads of the
+// residuals in the fragment layout. The cluster kernel: weights resident,
+// 16-byte residual loads issued a step ahead, a warp's chain MT x C x
+// 4*64/16 mma.sync from shared memory; it adds the f32 partial sums (C x BB x 64
+// x 4 bytes a block) through DSMEM and two cluster barriers per step.
 cudaError_t dsp_lstm_recurrence_bwd(const void* dys, const void* cs,
                                     const void* gates, const void* w_hh,
                                     void* dx, int T_, int B, int H, int dtype,
-                                    void* workspace, void* stream) {
-  if (T_ < 1 || B < 1 || H < 1 || H > kMaxHidden || workspace == nullptr)
+                                    int cluster, int rows, void* workspace,
+                                    void* stream) {
+  if (T_ < 1 || B < 1 || H < 1 || H > kMaxHidden)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cluster != 0) {
+    if (dtype != 1 || !aligned16(dys) || !aligned16(cs) ||
+        !aligned16(gates) || !aligned16(w_hh) || !aligned16(dx))
+      return cudaErrorInvalidValue;
+    void* args[] = {&dys, &cs, &gates, &w_hh, &dx, &T_, &B};
+    return cl_launch(2, H, cluster, rows, B, args, st);
+  }
+  if (workspace == nullptr) return cudaErrorInvalidValue;
   if (dtype == 0)
     return bwd_f32(static_cast<const float*>(dys),
                    static_cast<const float*>(cs),

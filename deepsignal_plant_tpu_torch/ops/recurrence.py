@@ -17,6 +17,12 @@ bias in it and direction 1 time-flipped, w_hh (2, H, 4H), ys
 dtype); cell states float32. A CPU tensor takes the plain version
 (ops/lstm.py); a CUDA tensor launches the kernel or raises: there is no
 fallback on the card.
+
+bfloat16 K2, K3 and K4's recurrence have two kernels each: the cluster
+kernels (W_hh resident across a thread-block cluster) and the streaming
+kernels. ``recurrence_plan`` picks one per launch from the shape and the
+card's cluster capacity (``cluster_capacity``, its occupancy query);
+the launch counters say which ran.
 """
 from __future__ import annotations
 
@@ -29,12 +35,31 @@ from . import _build
 from . import lstm as plain
 
 #: launches of each kernel since the last reset (set an entry to 0 to
-#: count a run); launches that raise are not counted
+#: count a run); launches that raise are not counted. K2, K3 and K4's
+#: recurrence count under their own names where they run the bfloat16
+#: cluster kernel or the float32 kernel, and under ``<name>_stream``
+#: where they run the bfloat16 streaming kernel (recurrence_plan's other
+#: side).
 launches = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_save": 0,
-            "lstm_recurrence_bwd": 0, "lstm_dw_hh": 0}
+            "lstm_recurrence_bwd": 0, "lstm_dw_hh": 0,
+            "lstm_recurrence_fwd_stream": 0,
+            "lstm_recurrence_fwd_save_stream": 0,
+            "lstm_recurrence_bwd_stream": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HIDDEN = 512
+
+# The cluster kernels of csrc/lstm_recurrence.cu (kClU, kClLdw there): a
+# block owns 64 hidden units, a cluster of H/64 blocks one row tile of
+# 16, 32 or 48 rows of one direction; kinds 0 = K2, 1 = K3, 2 = K4's
+# recurrence.
+_CL_UNITS = 64
+_CL_LDW = 4 * _CL_UNITS + 8
+_CL_ROWS = (16, 32, 48)
+_CL_SIZES = (2, 4)
+_MAX_SMEM = 232_448                  # Hopper's shared memory per block
+_KIND = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_save": 1,
+         "lstm_recurrence_bwd": 2}
 
 # dW_hh's split-K plan, for csrc/lstm_recurrence.cu's output tiles of 128
 # units by 128 gate columns per direction (kDwM, kDwN there): ranges of K
@@ -49,11 +74,13 @@ _DW_BLOCKS_PER_SM, _DW_MAX_SPLITS = 2, 16
 def _lib() -> ctypes.CDLL:
     lib = _build.load("lstm_recurrence")
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.dsp_lstm_recurrence_fwd.argtypes = [P] * 5 + [I] * 5 + [P] * 2
-    lib.dsp_lstm_recurrence_bwd.argtypes = [P] * 5 + [I] * 4 + [P] * 2
+    lib.dsp_lstm_recurrence_fwd.argtypes = [P] * 5 + [I] * 7 + [P] * 2
+    lib.dsp_lstm_recurrence_bwd.argtypes = [P] * 5 + [I] * 6 + [P] * 2
     lib.dsp_lstm_dw_hh.argtypes = [P] * 3 + [I] * 6 + [P] * 2
+    lib.dsp_lstm_recurrence_clusters.argtypes = [I] * 4 + [
+        ctypes.POINTER(I)]
     for fn in (lib.dsp_lstm_recurrence_fwd, lib.dsp_lstm_recurrence_bwd,
-               lib.dsp_lstm_dw_hh):
+               lib.dsp_lstm_dw_hh, lib.dsp_lstm_recurrence_clusters):
         fn.restype = ctypes.c_int
     for fn in (lib.dsp_lstm_fwd_workspace_bytes,
                lib.dsp_lstm_bwd_workspace_bytes):
@@ -106,10 +133,81 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _fwd(xproj, w_hh, H, save: bool):
+def recurrence_smem(kind: int, H: int, rows: int) -> int:
+    """Shared-memory bytes of a block of the cluster kernel ``kind`` (0 =
+    K2, 1 = K3, 2 = K4's recurrence) at hidden size H and a row tile of
+    ``rows``: its W_hh slice (H rows of 4*64 columns, padded); the
+    forward's two h buffers and its xproj stage, or the backward's da
+    buffer and its receive slots (H/64 x rows x 64 f32)."""
+    w = H * _CL_LDW * 2
+    if kind == 2:
+        return w + rows * _CL_LDW * 2 + (H // _CL_UNITS) * rows * \
+            _CL_UNITS * 4
+    return w + (2 * rows * (H + 8) + rows * _CL_LDW) * 2
+
+
+def recurrence_plan(kind: int, B: int, H: int, capacity):
+    """(cluster, rows) of the bfloat16 cluster kernel ``kind`` for B
+    batch rows, or None for the streaming kernel. ``capacity(cluster,
+    rows)`` is how many clusters of that plan the card holds at once (the
+    wrapper asks the card: cudaOccupancyMaxActiveClusters). The grid is
+    2 * ceil(B / rows) clusters, row tile t covering rows [t*rows,
+    min((t+1)*rows, B)) of each direction.
+
+    The shape rule: the cluster kernels fix 64 hidden units per block (one
+    8-unit group per warp of 8) and take clusters of 2 or 4 blocks, so
+    H = 128 or 256 (the training path's widths); at H = 512 a block's
+    W_hh slice alone (512 x 264 bf16 = 270 KB) passes the 227 KB of
+    shared memory, and other H are not multiples of 64 per block. Those
+    take the streaming kernel. Among row tiles of 16, 32 and 48 the
+    smallest whose grid fits the card in one wave (shorter chains, more
+    SMs); where none does, the streaming kernel, never a second wave of
+    clusters."""
+    C = H // _CL_UNITS
+    if H % _CL_UNITS or C not in _CL_SIZES:
+        return None
+    for rows in _CL_ROWS:
+        if recurrence_smem(kind, H, rows) <= _MAX_SMEM and \
+                2 * -(-B // rows) <= capacity(C, rows):
+            return C, rows
+    return None
+
+
+@functools.cache
+def cluster_capacity(device: int, kind: int, H: int, cluster: int,
+                     rows: int) -> int:
+    """Clusters of a plan that card ``device`` holds at once (the
+    kernel's occupancy query), cached per device and plan."""
+    lib = _lib()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.dsp_lstm_recurrence_clusters(kind, H, cluster, rows,
+                                               ctypes.byref(n))
+    _build.check(lib, err, "cluster occupancy query")
+    return n.value
+
+
+def _plan(name: str, t: torch.Tensor, B: int, H: int, stream: bool):
+    """The plan a launch takes: recurrence_plan on the card's capacity,
+    or None (the streaming kernel; float32's one kernel)."""
+    if t.dtype != torch.bfloat16 or stream:
+        return None
+    kind, dev = _KIND[name], t.device.index
+    return recurrence_plan(kind, B, H, lambda C, rows: cluster_capacity(
+        dev, kind, H, C, rows))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy where it starts off a 16-byte boundary (the cluster
+    kernels read 16-byte vectors)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _fwd(xproj, w_hh, H, save: bool, stream: bool):
     name = "lstm_recurrence_fwd_save" if save else "lstm_recurrence_fwd"
     T, B, code = _dims(name, xproj, H, 4 * H)
     _check("w_hh", w_hh, (2, H, 4 * H), xproj.dtype)
+    plan = _plan(name, xproj, B, H, stream)
     dev = xproj.device
     ys = torch.empty((T, 2, B, H), dtype=xproj.dtype, device=dev)
     cs = gates = None
@@ -117,42 +215,51 @@ def _fwd(xproj, w_hh, H, save: bool):
         cs = torch.empty((T, 2, B, H), dtype=torch.float32, device=dev)
         gates = torch.empty((T, 2, B, 4 * H), dtype=xproj.dtype, device=dev)
     lib = _lib()
-    # bf16: the packed W_hh, written by the launch itself
-    ws = torch.empty(lib.dsp_lstm_fwd_workspace_bytes(H, code),
-                     dtype=torch.uint8, device=dev)
+    # the streaming bf16 kernel's workspace: W_hh packed by the launch
+    ws = torch.empty(0 if plan else lib.dsp_lstm_fwd_workspace_bytes(
+        H, code), dtype=torch.uint8, device=dev)
+    if plan:
+        xproj, w_hh = _aligned(xproj), _aligned(w_hh)
+    cluster, rows = plan or (0, 0)
     with torch.cuda.device(dev):
         err = lib.dsp_lstm_recurrence_fwd(
             xproj.data_ptr(), w_hh.data_ptr(), ys.data_ptr(),
             cs.data_ptr() if save else None,
             gates.data_ptr() if save else None, T, B, H, int(save), code,
-            ws.data_ptr() or None, _stream(xproj))
+            cluster, rows, ws.data_ptr() or None, _stream(xproj))
     _build.check(lib, err, name + " launch")
-    launches[name] += 1
+    launches[name + ("_stream" if plan is None and code == 1 else "")] += 1
     return (ys, cs, gates) if save else ys
 
 
 def lstm_recurrence(xproj: torch.Tensor, w_hh: torch.Tensor,
-                    hidden_size: int) -> torch.Tensor:
-    """K2: xproj (T, 2, B, 4H) -> ys (T, 2, B, H), in xproj's dtype."""
+                    hidden_size: int, stream: bool = False) -> torch.Tensor:
+    """K2: xproj (T, 2, B, 4H) -> ys (T, 2, B, H), in xproj's dtype.
+    bfloat16 on the card takes recurrence_plan's kernel, or with
+    ``stream`` the streaming kernel (to time or test the kernel the
+    cluster kernel replaces)."""
     if not _on_card("lstm_recurrence_fwd", xproj, w_hh):
         return plain.lstm_recurrence(xproj, w_hh, hidden_size)
-    return _fwd(xproj, w_hh, hidden_size, save=False)
+    return _fwd(xproj, w_hh, hidden_size, False, stream)
 
 
 def lstm_recurrence_fwd_save(xproj: torch.Tensor, w_hh: torch.Tensor,
-                             hidden_size: int):
+                             hidden_size: int, stream: bool = False):
     """K3: -> (ys, cs float32, activated gates), ys and gates in xproj's
-    dtype."""
+    dtype; ``stream`` as for lstm_recurrence."""
     if not _on_card("lstm_recurrence_fwd_save", xproj, w_hh):
         return plain.lstm_recurrence_fwd_save(xproj, w_hh, hidden_size)
-    return _fwd(xproj, w_hh, hidden_size, save=True)
+    return _fwd(xproj, w_hh, hidden_size, True, stream)
 
 
 def lstm_recurrence_bwd_dx(dys: torch.Tensor, cs: torch.Tensor,
                            gates: torch.Tensor, w_hh: torch.Tensor,
-                           hidden_size: int) -> torch.Tensor:
+                           hidden_size: int,
+                           stream: bool = False) -> torch.Tensor:
     """K4's recurrence: dys (T, 2, B, H) in the gates' dtype, K3's cs and
-    gates -> dxproj (T, 2, B, 4H) in the gates' dtype."""
+    gates -> dxproj (T, 2, B, 4H) in the gates' dtype; ``stream`` as for
+    lstm_recurrence. The cluster kernel sums its partial products in a
+    fixed order: two launches give the same bits."""
     name = "lstm_recurrence_bwd"
     if not _on_card(name, gates, dys, cs, w_hh):
         return plain.lstm_recurrence_bwd_dx(dys, cs, gates, w_hh,
@@ -162,17 +269,21 @@ def lstm_recurrence_bwd_dx(dys: torch.Tensor, cs: torch.Tensor,
     _check("dys", dys, (T, 2, B, H), gates.dtype)
     _check("cs", cs, (T, 2, B, H), torch.float32)
     _check("w_hh", w_hh, (2, H, 4 * H), gates.dtype)
+    plan = _plan(name, gates, B, H, stream)
     dx = torch.empty_like(gates)
     lib = _lib()
-    ws = torch.empty(lib.dsp_lstm_bwd_workspace_bytes(H, code),
-                     dtype=torch.uint8, device=gates.device)
-    with torch.cuda.device(gates.device):
+    ws = torch.empty(0 if plan else lib.dsp_lstm_bwd_workspace_bytes(
+        H, code), dtype=torch.uint8, device=gates.device)
+    if plan:
+        dys, cs, gates, w_hh = map(_aligned, (dys, cs, gates, w_hh))
+    cluster, rows = plan or (0, 0)
+    with torch.cuda.device(dx.device):
         err = lib.dsp_lstm_recurrence_bwd(
             dys.data_ptr(), cs.data_ptr(), gates.data_ptr(),
-            w_hh.data_ptr(), dx.data_ptr(), T, B, H, code, ws.data_ptr(),
-            _stream(gates))
+            w_hh.data_ptr(), dx.data_ptr(), T, B, H, code, cluster, rows,
+            ws.data_ptr() or None, _stream(dx))
     _build.check(lib, err, name + " launch")
-    launches[name] += 1
+    launches[name + ("_stream" if plan is None and code == 1 else "")] += 1
     return dx
 
 

@@ -28,6 +28,8 @@ same inputs agree bit for bit.
 K1 has two kernels, one per compute dtype; each check asserts that the
 dtype's counter moved and no other.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -215,11 +217,29 @@ def assert_close(name, got, want, tol):
     assert err <= bound, f"{name}: max |kernel - plain| {err} > {bound}"
 
 
-def check_recurrence(H, B, dtype, device):
-    xproj, w_hh, dys = recurrence_inputs(H, B, dtype, device)
+REC_NAMES = ("lstm_recurrence_fwd", "lstm_recurrence_fwd_save",
+             "lstm_recurrence_bwd")
+
+
+def expected_launches(H, dtype, stream=False):
+    """The counters one K2, K3, K4, dW_hh round moves: the bfloat16
+    cluster kernels at H = 128 and 256 (recurrence_plan's shape rule),
+    the bfloat16 streaming kernels (``<name>_stream``) elsewhere or when
+    asked for, float32's kernels under the plain names."""
+    stream = dtype == torch.bfloat16 and (stream or H not in (128, 256))
+    want = {k: 0 for k in recurrence.launches}
+    for name in REC_NAMES:
+        want[name + "_stream" if stream else name] = 1
+    want["lstm_dw_hh"] = 1
+    return want
+
+
+def check_recurrence(H, B, dtype, device, stream=False, steps=T):
+    xproj, w_hh, dys = recurrence_inputs(H, B, dtype, device, steps=steps)
     before = dict(recurrence.launches)
-    ys = recurrence.lstm_recurrence(xproj, w_hh, H)
-    ys_s, cs, gates = recurrence.lstm_recurrence_fwd_save(xproj, w_hh, H)
+    ys = recurrence.lstm_recurrence(xproj, w_hh, H, stream=stream)
+    ys_s, cs, gates = recurrence.lstm_recurrence_fwd_save(xproj, w_hh, H,
+                                                          stream=stream)
     torch.cuda.synchronize()
     want_ys, want_cs, want_g = plain.lstm_recurrence_fwd_save(xproj, w_hh, H)
     tol = REC_TOL[dtype]
@@ -228,15 +248,17 @@ def check_recurrence(H, B, dtype, device):
     assert_close("K3 cs", cs, want_cs, tol)
     assert_close("K3 gates", gates, want_g, tol)
     # K4 on the plain residuals: both sides see identical inputs
-    dx = recurrence.lstm_recurrence_bwd_dx(dys, want_cs, want_g, w_hh, H)
+    dx = recurrence.lstm_recurrence_bwd_dx(dys, want_cs, want_g, w_hh, H,
+                                           stream=stream)
     torch.cuda.synchronize()
     want_dx = plain.lstm_recurrence_bwd_dx(dys, want_cs, want_g, w_hh, H)
     assert_close("K4 dxproj", dx, want_dx, tol)
     dw = recurrence.lstm_dw_hh(want_ys, want_dx)
     torch.cuda.synchronize()
     assert_close("K4 dW_hh", dw, plain.lstm_dw_hh(want_ys, want_dx), DW_TOL)
-    assert {k: recurrence.launches[k] - before[k] for k in before} == {
-        k: 1 for k in before}
+    assert {k: recurrence.launches[k] - before[k] for k in before} == \
+        expected_launches(H, dtype, stream)
+    return dx
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -253,6 +275,87 @@ def test_recurrence_kernels_match_plain(device, H, B, dtype):
 @pytest.mark.parametrize("H", [8, 20, 96])
 def test_recurrence_kernels_match_plain_at_odd_widths(device, H, B, dtype):
     check_recurrence(H, B, dtype, device)
+
+
+@pytest.mark.parametrize("steps", [13, 1])
+@pytest.mark.parametrize("B", [512, 509, 1, 37])
+@pytest.mark.parametrize("H", TRAIN_H)
+def test_cluster_kernels_match_plain(device, H, B, steps):
+    """The bfloat16 cluster kernels (K2, K3, K4's recurrence) at the
+    training widths, full, ragged and tiny batches, T 13 and 1 (the
+    launch counters show that the cluster kernels ran)."""
+    check_recurrence(H, B, torch.bfloat16, device, steps=steps)
+
+
+@pytest.mark.parametrize("B", [512, 509])
+@pytest.mark.parametrize("H", TRAIN_H)
+def test_streaming_kernels_match_plain_at_the_training_widths(device, H, B):
+    """The bfloat16 streaming kernels, which the cluster kernels replace
+    at these widths, stay right where they are asked for."""
+    check_recurrence(H, B, torch.bfloat16, device, stream=True)
+
+
+@pytest.mark.parametrize("B", [512, 509])
+@pytest.mark.parametrize("H", TRAIN_H)
+def test_cluster_bwd_is_bitwise_reproducible(device, H, B):
+    """K4's cluster recurrence sums its C partial products in rank order:
+    two launches on the same inputs give the same bits."""
+    xproj, w_hh, dys = recurrence_inputs(H, B, torch.bfloat16, device,
+                                         seed=7)
+    _, cs, gates = plain.lstm_recurrence_fwd_save(xproj, w_hh, H)
+    before = recurrence.launches["lstm_recurrence_bwd"]
+    first = recurrence.lstm_recurrence_bwd_dx(dys, cs, gates, w_hh, H)
+    second = recurrence.lstm_recurrence_bwd_dx(dys, cs, gates, w_hh, H)
+    torch.cuda.synchronize()
+    assert recurrence.launches["lstm_recurrence_bwd"] == before + 2
+    assert torch.equal(first, second)
+
+
+def test_cluster_kernels_read_inputs_off_16_byte_alignment(device):
+    """The cluster kernels read 16-byte vectors; inputs that start off a
+    16-byte boundary (contiguous views one element into a buffer) give
+    the same outputs as aligned ones."""
+    H, B = 128, 37
+    xproj, w_hh, dys = recurrence_inputs(H, B, torch.bfloat16, device)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        return view
+
+    ys, cs, gates = recurrence.lstm_recurrence_fwd_save(xproj, w_hh, H)
+    ys2, cs2, gates2 = recurrence.lstm_recurrence_fwd_save(
+        shifted(xproj), shifted(w_hh), H)
+    dx = recurrence.lstm_recurrence_bwd_dx(dys, cs, gates, w_hh, H)
+    dx2 = recurrence.lstm_recurrence_bwd_dx(shifted(dys), shifted(cs),
+                                            shifted(gates), shifted(w_hh), H)
+    torch.cuda.synchronize()
+    for a, b in ((ys, ys2), (cs, cs2), (gates, gates2), (dx, dx2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("H", [64, 128, 192, 256, 320, 512])
+def test_shape_rule_sides(device, H):
+    """recurrence_plan's shape rule on either side of its boundaries:
+    H = 128 and 256 take the cluster kernels, 64, 192, 320 and 512 the
+    streaming ones; each right against the plain version."""
+    check_recurrence(H, 37, torch.bfloat16, device)
+
+
+@pytest.mark.parametrize("B", [512, 509])
+@pytest.mark.parametrize("H", TRAIN_H)
+def test_plan_fits_one_wave_on_this_card(device, H, B):
+    """At the training shapes every cluster kernel gets a plan whose
+    clusters the card holds at once (its occupancy query)."""
+    for name, kind in recurrence._KIND.items():
+        cap = functools.partial(recurrence.cluster_capacity, device.index
+                                or 0, kind, H)
+        plan = recurrence.recurrence_plan(kind, B, H, cap)
+        assert plan is not None, name
+        cluster, rows = plan
+        assert 2 * -(-B // rows) <= cap(cluster, rows), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -201,6 +201,126 @@ def test_dw_hh_split_plan_fills_the_card_at_the_training_shapes():
         assert 128 <= tiles * splits <= 264
 
 
+KINDS = [0, 1, 2]            # K2, K3, K4's recurrence
+
+
+def card(cap4: int, kind: int, H: int):
+    """A card's cluster capacity as the kernels' occupancy query reports
+    it, modelled on an H100's: ``cap4`` clusters of 4 blocks at one block
+    per SM (30 on the H100 measured), twice as many clusters of 2, and
+    twice again where a block's shared memory lets two share an SM."""
+    def capacity(C, rows):
+        per_sm = 2 if recurrence.recurrence_smem(kind, H, rows) <= 113_000 \
+            else 1
+        return cap4 * 4 // C * per_sm
+    return capacity
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("B", [512, 509, 1, 37, 100])
+@pytest.mark.parametrize("H", [128, 256])
+def test_recurrence_plan_covers_every_row_once(H, B, kind):
+    """The plan's row tiles, [t*rows, min((t+1)*rows, B)), cover each of
+    the B rows exactly once; the cluster holds H/64 blocks."""
+    cluster, rows = recurrence.recurrence_plan(kind, B, H, card(30, kind, H))
+    assert cluster == H // 64 and rows in (16, 32, 48)
+    tiles = -(-B // rows)
+    covered = [b for t in range(tiles)
+               for b in range(t * rows, min((t + 1) * rows, B))]
+    assert covered == list(range(B))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("H", [128, 256])
+def test_recurrence_plan_stays_within_shared_memory(H, kind):
+    """Every plan the function can give, at any capacity, keeps a block
+    at or under Hopper's 232,448 bytes of shared memory."""
+    for cap4 in (1, 8, 28, 30, 33, 1000):
+        for B in (1, 16, 37, 509, 512, 2000):
+            plan = recurrence.recurrence_plan(kind, B, H, card(cap4, kind, H))
+            if plan is not None:
+                assert recurrence.recurrence_smem(kind, H, plan[1]) <= 232_448
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("cap4", [28, 29, 30, 31, 32, 33])
+@pytest.mark.parametrize("B", [512, 509])
+@pytest.mark.parametrize("H", [128, 256])
+def test_recurrence_plan_fits_one_wave_at_the_training_shapes(H, B, cap4,
+                                                              kind):
+    """At the training batch the plan always exists and its 2 *
+    ceil(B / rows) clusters fit the card at once: a capacity of 28 to 33
+    clusters of 4 (the H100 holds 30, not 132 / 4)."""
+    capacity = card(cap4, kind, H)
+    cluster, rows = recurrence.recurrence_plan(kind, B, H, capacity)
+    assert 2 * -(-B // rows) <= capacity(cluster, rows)
+
+
+def test_recurrence_plan_on_the_measured_h100():
+    """The H100's capacities (30 clusters of 4; 66 of 2, 132 at <= 113 KB
+    a block): H=256 takes clusters of 4 with 48-row tiles (32-row tiles
+    need 32 clusters), H=128 clusters of 2 with 16-row tiles."""
+    for kind in KINDS:
+        assert recurrence.recurrence_plan(kind, 512, 256,
+                                          card(30, kind, 256)) == (4, 48)
+        assert recurrence.recurrence_plan(kind, 512, 128,
+                                          card(30, kind, 128)) == (2, 16)
+        assert recurrence.recurrence_plan(kind, 512, 256,
+                                          card(32, kind, 256)) == (4, 32)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("H", [1, 8, 20, 64, 96, 192, 320, 384, 512])
+def test_recurrence_plan_reroutes_other_widths(H, kind):
+    """The shape rule: only H = 128 and 256 (clusters of 2 and 4 blocks of
+    64 units) take the cluster kernels; every other H takes the streaming
+    kernel, whatever the card holds."""
+    assert recurrence.recurrence_plan(kind, 512, H,
+                                      lambda C, rows: 10**6) is None
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_recurrence_plan_refuses_a_second_wave(kind):
+    """Where no row tile fits the card in one wave (4096 rows at the
+    H100's capacity, or a card that holds no cluster), the plan is the
+    streaming kernel, never a second wave of clusters."""
+    for H in (128, 256):
+        assert recurrence.recurrence_plan(kind, 4096, H,
+                                          card(30, kind, H)) is None
+        assert recurrence.recurrence_plan(kind, 1, H,
+                                          lambda C, rows: 0) is None
+
+
+def test_recurrence_smem_matches_the_kernels_layout():
+    """recurrence_smem repeats csrc/lstm_recurrence.cu's cl_smem: the W_hh
+    slice (H x 264 bf16), then two h buffers (rows x (H + 8)) and the
+    xproj stage (rows x 264) forward, or the da buffer (rows x 264 bf16)
+    and H/64 receive slots (rows x 64 f32) backward."""
+    assert recurrence.recurrence_smem(1, 256, 48) == \
+        2 * (256 * 264 + 2 * 48 * 264 + 48 * 264)
+    assert recurrence.recurrence_smem(2, 256, 48) == \
+        2 * (256 * 264 + 48 * 264) + 4 * 4 * 48 * 64
+    assert recurrence.recurrence_smem(0, 128, 16) == \
+        2 * (128 * 264 + 2 * 16 * 136 + 16 * 264)
+
+
+def test_wrappers_ignore_the_stream_choice_on_the_cpu():
+    """On CPU tensors ``stream`` changes nothing: the plain versions run
+    and no counter moves."""
+    xproj, w_hh, dys = inputs(5)
+    before = dict(recurrence.launches)
+    want = recurrence.lstm_recurrence(t(xproj), t(w_hh), H)
+    got = recurrence.lstm_recurrence(t(xproj), t(w_hh), H, stream=True)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    saved = recurrence.lstm_recurrence_fwd_save(t(xproj), t(w_hh), H,
+                                                stream=True)
+    dx = recurrence.lstm_recurrence_bwd_dx(t(dys), saved[1], saved[2],
+                                           t(w_hh), H, stream=True)
+    np.testing.assert_array_equal(dx.numpy(), plain.lstm_recurrence_bwd_dx(
+        t(dys), saved[1], saved[2], t(w_hh), H).numpy())
+    assert recurrence.launches == before
+
+
 @pytest.mark.parametrize("sms", [1, 16, 66, 114, 132, 1000])
 def test_dw_hh_split_plan_follows_the_sm_count(sms):
     """The wave is the card's: tiles times splits stay within two blocks
