@@ -26,17 +26,23 @@ Phases, in order; any failure exits non-zero before the last line:
    calls) and its bound: K1's two kernels per 4096-row forward tile and
    per tail tile, (3b) the recurrence kernels per launch and per train
    step at batch 512 in bfloat16, the cluster kernels and the streaming
-   kernels in turns (cluster, stream, stream, cluster); (3c) one
+   kernels in turns (cluster, stream, stream, cluster), and their
+   float32 kernels beside cuDNN's float32 LSTM and einsum; (3c) one
    whole train step at batch 512
    through the train loop's step function: device time, host enqueue
    time, and a torch.profiler trace (device busy share, top kernels);
 4. the main paths through the user's entry points, each a fresh process
    whose kernel launch counts start at 0 and which prints them
    (--verbose_stages): ``call_mods`` on a seeded ~17.4k-row features TSV
-   with a seeded random full-width both_bilstm checkpoint (5 launches of
-   K1's bfloat16 kernel per forward tile, none of the float32 one; the same
-   rows in float32 through the float32 kernel and the plain version must
-   agree); (4b) ``train`` with its defaults (bfloat16, resident plane,
+   of unrelated windows (13 bases a site: the per-site route) with a
+   seeded random full-width both_bilstm checkpoint (5 launches of K1's
+   bfloat16 kernel per forward tile in every run, none of the float32
+   one; the same rows in float32 through the float32 kernel and the plain
+   version must agree); a seeded read-structured dense TSV (~4 bases a
+   site) through the read-packed route (--packed_wire auto) and the
+   per-site route (off), byte-identical; the rate run on 131,072 dense
+   rows (sites/s, every [stages] field, the card's busy share); (4b)
+   ``train`` with its defaults (bfloat16, resident plane,
    dropout 0.5, Adam) on a seeded learnable 16,384-row TSV for 2 epochs:
    5 launches of K3, K4 and dW_hh per step (K3 and K4 on the cluster
    kernels), 5 of K1's bfloat16 kernel per evaluation tile, none of K2
@@ -129,6 +135,12 @@ TRAIN_ACC_MIN = 0.9
 F32_TRAIN_STEPS = 8
 F32_LOSS_TOL = 1e-4
 F32_PARAM_TOL = 1e-4
+# phase 4, the read-packed route: a read-structured dense TSV (one site
+# per C, ~4 bases a site) of DENSE_ROWS rows through --packed_wire auto
+# (packed) and off (per-site), byte-identical; then the rate run on
+# RATE_ROWS dense rows (four 32768-site batches)
+DENSE_ROWS = 20_000
+RATE_ROWS = 131_072
 # 4d: inference through K2 (fused path off) vs through K1, on one
 # 4096-row tile of the trained model, times max(1, max |logit|): float32
 # differs in summation order; bfloat16 also rounds xproj to bf16 on the K2
@@ -136,13 +148,24 @@ F32_PARAM_TOL = 1e-4
 K2_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
+# the [stages] fields of call_mods that say where its time goes
+STAGE_FIELDS = ("batches", "packed_batches", "packed_sites",
+                "persite_batches", "persite_sites", "bases_uploaded",
+                "wire_bytes", "parse_seconds",
+                "parse_wait_seconds", "batch_seconds", "device_seconds",
+                "format_seconds", "upload_device_seconds", "seconds")
+
+
 def fail(msg: str) -> None:
     print(f"[chip_smoke] FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
 
 
+T0 = time.time()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    print(f"[chip_smoke +{time.time() - T0:.1f} s] {msg}", flush=True)
 
 
 def layer_inputs(torch, Fa, Fb, H, B, dtype, seed=SEED):
@@ -518,15 +541,17 @@ def cudnn_lstm_ms(torch, F, H, B):
     """Yardsticks for one training layer: torch.nn.LSTM(bidirectional) on
     a (T, B, F) input — forward without grad, forward with grad (training
     mode) and forward + backward — in bf16 (the same inputs as the
-    kernels; cuDNN takes no bf16, so ATen's own LSTM kernels run) and in
-    fp16 (cuDNN). Each computes more than the recurrence kernels: the
+    kernels; cuDNN takes no bf16, so ATen's own LSTM kernels run), in
+    fp16 (cuDNN) and in float32 (cuDNN, TF32 off: the float32 kernels'
+    yardstick). Each computes more than the recurrence kernels: the
     input projection too, and in the backward its gradients."""
     lstm = torch.nn.LSTM(F, H, bidirectional=True).to("cuda", torch.bfloat16)
     rng = np.random.default_rng(SEED)
     x = torch.tensor(rng.uniform(-1, 1, (T, B, F)), dtype=torch.float32
                      ).to("cuda", torch.bfloat16).requires_grad_(True)
     out = {}
-    for dtype, sfx in ((torch.bfloat16, ""), (torch.float16, "_fp16")):
+    for dtype, sfx in ((torch.bfloat16, ""), (torch.float16, "_fp16"),
+                       (torch.float32, "_f32")):
         lstm = lstm.to(dtype)
         x = x.detach().to(dtype).requires_grad_(True)
         params = [x, *lstm.parameters()]
@@ -606,6 +631,7 @@ def time_recurrence(torch, recurrence, plain):
         per_h[H] = rows
         log(f"timing recurrence H={H} B={TRAIN_B} bf16: " + json.dumps(rows))
         del xproj, w_hh, dys, ys, cs, gates, dx
+    f32 = time_recurrence_f32(torch, recurrence, plain)
     library = {name: cudnn_lstm_ms(torch, F, H, TRAIN_B)
                for name, (F, H) in TRAIN_LAYERS.items()}
     probe = torch.empty(1, device="cuda", dtype=torch.bfloat16)
@@ -640,6 +666,26 @@ def time_recurrence(torch, recurrence, plain):
             # the streaming kernel the cluster kernel replaces, same call
             out[kernel]["stream_device_ms"] = per_step(kernel,
                                                        "stream_device_ms")
+    for kernel in REC_KERNELS:
+        # the float32 kernels, which no main path launches (bf16 is the
+        # default of call_mods and train): device time per 512-row step
+        # beside their f32 bound and library call
+        rows = f32[kernel]
+        ops_ms = sum(rows[H]["ops_ms"] for _, H in TRAIN_LAYERS.values())
+        bytes_ms = sum(rows[H]["bytes_ms"] for _, H in TRAIN_LAYERS.values())
+        out[kernel]["float32"] = {
+            "device_ms": sum(rows[H]["device_ms"]
+                             for _, H in TRAIN_LAYERS.values()),
+            "plain_ms": sum(rows[H]["plain_ms"]
+                            for _, H in TRAIN_LAYERS.values()),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": (sum(rows[H]["library_device_ms"]
+                               for _, H in TRAIN_LAYERS.values())
+                           if kernel == "lstm_dw_hh" else
+                           sum(v[lib[kernel] + "_f32"]
+                               for v in library.values())),
+            "per_launch": rows}
     out["lstm_recurrence_bwd"]["library_note"] = (
         "torch.nn.LSTM bf16 forward + backward (more work: the forward "
         "and the input projection's gradients too)")
@@ -650,6 +696,44 @@ def time_recurrence(torch, recurrence, plain):
         "issue time, as kernel_ms; library_device_ms from graph replays, "
         "as device_ms)")
     return out
+
+
+def time_recurrence_f32(torch, recurrence, plain):
+    """Phase 3b, float32: each recurrence kernel's float32 kernel at
+    B=512, per H: device time (graph replays), the plain version (CUDA
+    events) and, for dW_hh, torch.einsum at float32 (TF32 off) as device
+    time; bounds at the float32 peak."""
+    per_h = {}
+    for H in (128, 256):
+        xproj, w_hh, dys = rec_inputs(torch, H, TRAIN_B, torch.float32)
+        ys, cs, gates = recurrence.lstm_recurrence_fwd_save(xproj, w_hh, H)
+        dx = recurrence.lstm_recurrence_bwd_dx(dys, cs, gates, w_hh, H)
+        calls = {
+            "lstm_recurrence_fwd": (
+                lambda: recurrence.lstm_recurrence(xproj, w_hh, H),
+                lambda: plain.lstm_recurrence(xproj, w_hh, H)),
+            "lstm_recurrence_fwd_save": (
+                lambda: recurrence.lstm_recurrence_fwd_save(xproj, w_hh, H),
+                lambda: plain.lstm_recurrence_fwd_save(xproj, w_hh, H)),
+            "lstm_recurrence_bwd": (
+                lambda: recurrence.lstm_recurrence_bwd_dx(dys, cs, gates,
+                                                          w_hh, H),
+                lambda: plain.lstm_recurrence_bwd_dx(dys, cs, gates, w_hh,
+                                                     H)),
+            "lstm_dw_hh": (lambda: recurrence.lstm_dw_hh(ys, dx),
+                           lambda: plain.lstm_dw_hh(ys, dx)),
+        }
+        for name, (kern, pl) in calls.items():
+            ops_ms, bytes_ms = rec_bound(name, H, TRAIN_B, 4, PEAK_F32_FLOPS)
+            per_h.setdefault(name, {})[H] = {
+                "device_ms": graph_ms(torch, kern),
+                "plain_ms": cuda_ms(torch, pl, reps=5),
+                "ops_ms": ops_ms, "bytes_ms": bytes_ms}
+        per_h["lstm_dw_hh"][H]["library_device_ms"] = graph_ms(
+            torch, lambda: torch.einsum("sdbh,sdbg->dhg", ys[:-1], dx[1:]))
+        del xproj, w_hh, dys, ys, cs, gates, dx
+    log(f"timing recurrence B={TRAIN_B} float32: " + json.dumps(per_h))
+    return per_h
 
 
 def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
@@ -758,33 +842,6 @@ def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
     return out
 
 
-def write_features(path: str, n: int, seed: int, shift: float = 0.8) -> None:
-    """A seeded 12-column features TSV, rows grouped by read, labels
-    alternating (label = (pos / 10) % 2) with a shift of the means and
-    signals by +-``shift``."""
-    rng = np.random.default_rng(seed)
-    bases = np.array(list("ACGT"))
-    labels = np.arange(n) % 2
-    shift = np.where(labels == 1, shift, -shift)
-    codes = rng.integers(0, 4, (n, T))
-    codes[:, T // 2] = 1                                   # centre C
-    means = np.around(shift[:, None] + rng.normal(0, 0.3, (n, T)), 6)
-    stds = np.around(np.abs(rng.normal(0.5, 0.1, (n, T))), 6)
-    lens = rng.integers(3, 30, (n, T))
-    sig = np.around(shift[:, None, None] + rng.normal(0, 0.5, (n, T, 16)), 6)
-    with open(path, "w") as fh:
-        for i in range(n):
-            r = i // 20
-            fh.write("\t".join([
-                "chr1", str(10 * i), "+-"[r % 2], str(10 * i),
-                f"read_{r:05d}", "t", "".join(bases[codes[i]]),
-                ",".join(map(str, means[i].tolist())),
-                ",".join(map(str, stds[i].tolist())),
-                ",".join(map(str, lens[i].tolist())),
-                ";".join(",".join(map(str, row)) for row in sig[i].tolist()),
-                str(labels[i])]) + "\n")
-
-
 def run_cli(*argv: str) -> dict:
     """One ``python -m deepsignal_plant_tpu_torch <argv> --verbose_stages``
     process; returns its [stages] counters and wall seconds."""
@@ -809,13 +866,21 @@ def run_cli(*argv: str) -> dict:
 
 def run_call_mods(tsv: str, ckpt: str, out: str, *extra: str) -> dict:
     """One call_mods process; its [stages] counters plus the rows it
-    wrote."""
+    wrote. Every call_mods run of the main path launches K1's bfloat16
+    kernel 5 times per forward tile and its float32 kernel never."""
     st = run_cli("call_mods", "-i", tsv, "-m", ckpt, "-o", out, *extra)
     with open(out) as fh:
         st["rows"] = [ln.rstrip("\n").split("\t") for ln in fh]
-    log("call_mods {}: {}".format(" ".join(extra) or "(defaults)",
-                                  json.dumps({k: v for k, v in st.items()
-                                              if k != "rows"})))
+    log("call_mods {} {}: {}".format(
+        os.path.basename(tsv), " ".join(extra) or "(defaults)",
+        json.dumps({k: v for k, v in st.items() if k != "rows"})))
+    if "--compute_dtype" not in extra:
+        want = {"fused_bilstm_bf16": 5 * st["forward_tiles"],
+                "fused_bilstm_f32": 0}
+        if st["kernel_launches"] != want:
+            fail(f"call_mods launched {st['kernel_launches']} for "
+                 f"{st['forward_tiles']} forward tiles (expected {want}: "
+                 f"every layer through the bfloat16 kernel)")
     return st
 
 
@@ -847,10 +912,9 @@ def check_main_path(tmp: str, cfg_cls, init_params, save_checkpoint):
     if main["forward_tiles"] != tiles:
         fail(f"{main['forward_tiles']} forward tiles, expected {tiles}")
     launches = main["kernel_launches"]
-    want = {"fused_bilstm_bf16": 5 * tiles, "fused_bilstm_f32": 0}
-    if launches != want:
-        fail(f"call_mods launched {launches} for {tiles} forward tiles "
-             f"(expected {want}: every layer through the bfloat16 kernel)")
+    if (main["persite_sites"], main["packed_sites"]) != (N_ROWS, 0):
+        fail("the sparse fixture (13 bases a site) did not take the "
+             f"per-site route: {main}")
 
     f32k = run_call_mods(tsv, ckpt, os.path.join(tmp, "calls_f32k.tsv"),
                          "--compute_dtype", "float32", "--recurrence",
@@ -880,13 +944,64 @@ def check_main_path(tmp: str, cfg_cls, init_params, save_checkpoint):
         f"max|dP1| = {dp_bf:.3g}")
     return {"launches": launches["fused_bilstm_bf16"],
             "launches_by_kernel": launches,
-            "forward_tiles": main["forward_tiles"],
-            "sites": main["sites"], "seconds": main["seconds"],
-            "device_seconds": main["device_seconds"],
-            "format_seconds": main["format_seconds"],
+            "stages": {k: v for k, v in main.items() if k != "rows"},
             "sites_per_s": main["sites"] / main["seconds"],
             "f32_kernel_vs_plain_max_dp1": dp_kp,
-            "bf16_vs_f32_agreement": agree, "bf16_vs_f32_max_dp1": dp_bf}
+            "bf16_vs_f32_agreement": agree, "bf16_vs_f32_max_dp1": dp_bf,
+            "dense": check_dense(tmp, ckpt)}
+
+
+def check_dense(tmp: str, ckpt: str) -> dict:
+    """Phase 4, read-packed route: a dense read-structured TSV goes the
+    packed route under --packed_wire auto and the per-site route under
+    off, with the same output bytes and ~1/3 of the wire bytes; then the
+    rate run on RATE_ROWS dense rows through call_mods_ab.py: sites/s,
+    every stage counter and the card's busy share over the run
+    (torch.profiler)."""
+    tsv = os.path.join(tmp, "dense.tsv")
+    write_dense_features(tsv, DENSE_ROWS, SEED + 5)
+    out = {w: os.path.join(tmp, f"dense_{w}.tsv") for w in ("auto", "off")}
+    auto = run_call_mods(tsv, ckpt, out["auto"])
+    off = run_call_mods(tsv, ckpt, out["off"], "--packed_wire", "off")
+    for st in (auto, off):
+        check_rows(st, DENSE_ROWS)
+    if (auto["packed_sites"], off["persite_sites"]) != (DENSE_ROWS,) * 2:
+        fail(f"dense fixture routes: auto {auto['packed_sites']} packed "
+             f"sites, off {off['persite_sites']} per-site sites, of "
+             f"{DENSE_ROWS}")
+    with open(out["auto"], "rb") as a, open(out["off"], "rb") as b:
+        if a.read() != b.read():
+            fail("--packed_wire auto and off wrote different rows")
+    ratio = auto["wire_bytes"] / off["wire_bytes"]
+    log(f"dense fixture: auto and off wrote the same bytes; packed route "
+        f"{auto['bases_uploaded'] / DENSE_ROWS:.3f} bases a site, "
+        f"{ratio:.4f} of the per-site route's wire bytes")
+    # the rate run: call_mods_ab.py on this checkout alone (a fresh
+    # process: warm-up, the run, the run again under torch.profiler)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "call_mods_ab.py"), REPO,
+         "--rows", str(RATE_ROWS)], cwd=REPO, capture_output=True,
+        text=True, timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith('{"tree"')]
+    if proc.returncode != 0 or len(lines) != 1:
+        fail("call_mods_ab.py failed:\n" + proc.stdout[-3000:]
+             + proc.stderr[-3000:])
+    rate = json.loads(lines[0])
+    st = rate["stats"]
+    want = {"fused_bilstm_bf16": 5 * st["forward_tiles"],
+            "fused_bilstm_f32": 0}
+    if (st["sites"], st["packed_sites"]) != (RATE_ROWS, RATE_ROWS) or \
+            rate["kernel_launches"] != want:
+        fail(f"the rate run did not call {RATE_ROWS} sites on the packed "
+             f"route through K1's bfloat16 kernel: {rate}")
+    log(f"call_mods rate run: {rate['sites_per_s']:.1f} sites/s, card busy "
+        f"{rate['busy_share']:.4f} of the profiled run ({RATE_ROWS} dense "
+        f"rows); " + json.dumps(rate))
+    return {"wire_ratio": ratio, "auto": {k: v for k, v in auto.items()
+                                          if k != "rows"},
+            "rate": {**st, "sites_per_s": rate["sites_per_s"]},
+            "busy_share": rate["busy_share"]}
 
 
 def call_accuracy(rows) -> float:
@@ -985,6 +1100,7 @@ def check_f32_training(tmp: str, recurrence, train_entry, parser,
         with contextlib.redirect_stdout(io.StringIO()):
             res[rec] = train_entry(args)
         launched = {k: recurrence.launches[k] - before[k] for k in before}
+        res[rec]["launches"] = launched
         want = 5 * F32_TRAIN_STEPS if rec == "kernel" else 0
         if launched["lstm_recurrence_fwd_save"] != want or \
                 launched["lstm_recurrence_bwd"] != want:
@@ -1011,7 +1127,8 @@ def check_f32_training(tmp: str, recurrence, train_entry, parser,
     if dloss > F32_LOSS_TOL or dparam > F32_PARAM_TOL:
         fail("float32 kernel and plain training disagree")
     return {"max_dloss": dloss, "max_dparam": dparam, "max_update": moved,
-            "losses_kernel": lk.tolist(), "losses_plain": lp.tolist()}
+            "losses_kernel": lk.tolist(), "losses_plain": lp.tolist(),
+            "launches": res["kernel"]["launches"]}
 
 
 def check_k2_path(torch, bilstm, recurrence, Batch, FeatureDataset,
@@ -1067,7 +1184,7 @@ def main() -> int:
         fail("no CUDA device: this smoke run needs one card")
     sys.path.insert(0, REPO)
     try:
-        from deepsignal_plant_tpu_torch import cli
+        from deepsignal_plant_tpu_torch import cli, native
         from deepsignal_plant_tpu_torch.config import ModelConfig
         from deepsignal_plant_tpu_torch.io.dataset import FeatureDataset
         from deepsignal_plant_tpu_torch.models import bilstm
@@ -1095,17 +1212,22 @@ def main() -> int:
     log(f"card: {smi}; torch {torch.__version__} (CUDA "
         f"{torch.version.cuda}), device 0 = {kind}")
 
-    # phase 2: build (one nvcc per source, all at once) and check
+    # phase 2: build (one nvcc per source and g++ for the host parser,
+    # all at once) and check
     t0 = time.time()
     sources = ("fused_bilstm", "lstm_recurrence")
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
         builds = [pool.submit(_build.build, name) for name in sources]
+        parser = pool.submit(native.load)
     for name, build in zip(sources, builds):
         build.result()       # a build that failed raises here, with its log
         _build.load(name)
         log(f"built csrc/{name}.cu ({time.time() - t0:.1f} s for all): "
             + _build.library_path(name).with_suffix(".so.log").read_text()
             .strip().replace("\n", " | ")[-600:])
+    parser.result()
+    log(f"built native/featparse.cpp with {native.CXX} "
+        f"{' '.join(native.CXX_FLAGS)}: {native.library_path().name}")
     errs, checked = check_kernel(torch, fused_lstm, bilstm_layer)
     plans = rec_plans(recurrence)
     rec_errs, rec_checked = check_recurrence(torch, recurrence, plain)
@@ -1136,12 +1258,13 @@ def main() -> int:
                                 FeatureDataset, load_checkpoint,
                                 trained["best_ckpt"], trained["valid_tsv"])
     flops = forward_flops_per_site(ModelConfig())
-    log(f"call_mods: {run['sites_per_s']:.1f} sites/s on {smi} "
-        f"({run['sites']} sites in {run['seconds']:.3f} s, of which "
-        f"{run['device_seconds']:.3f} s upload+forward+readback and "
-        f"{run['format_seconds']:.3f} s formatting; model "
-        f"{flops / 1e9:.3f} GFLOP/site -> "
-        f"{run['sites_per_s'] * flops / 1e12:.3f} TFLOP/s)")
+    for what, st in (("sparse fixture", run["stages"]),
+                     ("dense rate run", run["dense"]["rate"])):
+        log(f"call_mods, {what}: {st['sites_per_s']:.1f} sites/s on {smi} "
+            f"({st['sites']} sites in {st['seconds']:.3f} s; model "
+            f"{flops / 1e9:.3f} GFLOP/site -> "
+            f"{st['sites_per_s'] * flops / 1e12:.3f} TFLOP/s); stages "
+            + json.dumps({k: st[k] for k in STAGE_FIELDS}))
 
     kernels = {"kernels": []}
     for kernel, dname in K1_KERNELS.items():
@@ -1191,6 +1314,8 @@ def main() -> int:
             "max_abs_err_float32": rec_errs[name]["float32"],
             "max_abs_err_bfloat16": rec_errs[name]["bfloat16"],
             **t, "shapes_checked": rec_checked})
+        kernels["kernels"][-1]["float32"]["launches_f32_training"] = (
+            f32_train["launches"][name])
     log("train summary: " + json.dumps({
         **trained, "f32_kernel_vs_plain": f32_train, "k2_path": k2_path,
         "step": step_timing}))

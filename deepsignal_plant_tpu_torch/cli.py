@@ -127,7 +127,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", "-b", type=int, default=512,
                    help="accepted for reference CLI compatibility")
     p.add_argument("--device_batch", type=int, default=None,
-                   help="rows parsed, uploaded and called per step "
+                   help="sites parsed, uploaded and called per step "
                         "(default 32768); the forward runs in 4096-row "
                         "tiles")
     p.add_argument("--transfer_dtype", type=str, default="auto",
@@ -136,15 +136,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the host, upcast on the device); float32 for "
                         "exact-parity runs; int8 is not yet ported")
     p.add_argument("--parse_workers", type=int, default=None,
-                   help="accepted for JAX CLI compatibility: the port "
-                        "parses in one prefetch thread")
+                   help="native parser threads (default: the CPU count, "
+                        "2 to 4)")
     p.add_argument("--dispatch_workers", type=int, default=8,
                    help="accepted for JAX CLI compatibility: the port "
-                        "queues work on one CUDA stream")
+                        "launches every kernel from the main thread, "
+                        "which overlaps the card with the host through "
+                        "CUDA streams (the model's weight cache and "
+                        "launch counters are not thread-safe)")
     p.add_argument("--packed_wire", type=str, default="auto",
                    choices=["auto", "force", "off"],
-                   help="read-packed wire plane: not yet ported, so auto "
-                        "and off send per-site windows and force fails")
+                   help="read-packed wire of the float16 plane (per-base "
+                        "arrays uploaded once, 13-mer windows gathered on "
+                        "the card): auto packs blocks of at most 12 bases "
+                        "a site and sends the rest per site; force packs "
+                        "every block; off sends per-site windows")
     p.add_argument("--device_resident", type=str, default="never",
                    choices=["never", "always"],
                    help="always (one upload per segment) is not yet ported")

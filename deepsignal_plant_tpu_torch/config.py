@@ -95,19 +95,29 @@ def resolve_recurrence(choice: str) -> str:
 @dataclass(frozen=True)
 class CallConfig:
     """Inference-engine settings of the features-TSV plane."""
-    # rows parsed, uploaded and called per step; the forward itself runs
+    # sites parsed, uploaded and called per step; the forward itself runs
     # in COMPUTE_TILE-wide tiles (pipeline/call_mods.py::forward_tiled)
     device_batch: int = 32768
     # host->device wire: "float16" halves upload bytes (the model upcasts
     # on the device); "float32" for exact-parity runs
     transfer_dtype: str = "float16"
+    # read-packed wire of the float16 plane: "auto" packs blocks of at
+    # most PACKED_MAX_BASES_PER_SITE bases a site, "force" every block,
+    # "off" none (per-site windows)
+    packed_wire: str = "auto"
+    # parser threads; None = io.batching.default_parse_workers()
+    num_parse_workers: int | None = None
 
     def __post_init__(self):
         if self.transfer_dtype not in ("float32", "float16"):
             raise ValueError("transfer_dtype must be float32|float16 "
                              "(int8 is not yet ported)")
+        if self.packed_wire not in ("auto", "force", "off"):
+            raise ValueError("packed_wire must be auto|force|off")
         if self.device_batch < 1:
             raise ValueError("device_batch must be >= 1")
+        if self.num_parse_workers is not None and self.num_parse_workers < 1:
+            raise ValueError("num_parse_workers must be >= 1")
 
 
 @dataclass(frozen=True)

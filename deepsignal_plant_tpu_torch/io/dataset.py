@@ -1,10 +1,12 @@
 """Training dataset: a features TSV parsed once into dense host arrays
 (counterpart of deepsignal_plant_tpu/io/dataset.py:23-97).
 
-The file is parsed a single time (utils/formats.parse_feature_lines;
-labels are column 12); epochs are permutations of an index vector and
-batches are gathers. npz feature inputs and the streaming
-(block-shuffled) dataset of the JAX package are not ported yet.
+The file is parsed a single time by the native parser at float32
+(utils/fastparse.parse_feature_bytes, the same arrays as the plain
+utils/formats.parse_feature_lines; labels are column 12); epochs are
+permutations of an index vector and batches are gathers. npz feature
+inputs and the streaming (block-shuffled) dataset of the JAX package are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -15,8 +17,8 @@ from typing import Iterator
 import numpy as np
 
 from ..models.bilstm import Batch
-from ..utils.formats import parse_feature_lines
-from .batching import iter_line_blocks
+from ..utils.fastparse import parse_feature_bytes
+from .batching import iter_byte_blocks
 
 
 @dataclass
@@ -39,15 +41,17 @@ class FeatureDataset:
 
     @classmethod
     def from_file(cls, path: str, kmer_len: int = 13, signal_len: int = 16,
-                  block_lines: int = 100_000) -> "FeatureDataset":
+                  block_bytes: int = 64 << 20) -> "FeatureDataset":
         """Parse a features TSV (plain or .gz) into one dataset."""
         if path.endswith(".npz") or os.path.isdir(path):
             raise ValueError(
                 f"{path}: .npz feature inputs are not yet ported to "
                 "deepsignal_plant_tpu_torch (the JAX package "
                 "deepsignal_plant_tpu serves them)")
-        parts = [parse_feature_lines(block, kmer_len, signal_len)
-                 for block in iter_line_blocks(path, block_lines)]
+        parts = [p for p in (parse_feature_bytes(block, kmer_len,
+                                                 signal_len)
+                             for block in iter_byte_blocks(path, block_bytes))
+                 if len(p)]
         if not parts:
             z = np.zeros
             return cls(z((0, kmer_len), np.int32),

@@ -7,6 +7,8 @@ and no PyTorch headers (seconds, not minutes), into
 the source, the shared headers ``csrc/*.cuh`` and the flags, so an
 edited source rebuilds and an unchanged one loads what an earlier
 process built. A failed build raises with the compiler's output.
+``keyed_library`` and ``compile_library`` also build the host library
+of ``native/`` (with g++).
 """
 from __future__ import annotations
 
@@ -36,34 +38,56 @@ def nvcc_path() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def keyed_library(build_dir: Path, name: str, inputs: list[Path],
+                  flags: list[str]) -> Path:
+    """``build_dir/<name>-<hash>.so``, the hash over the inputs' bytes and
+    the flags."""
+    h = hashlib.sha256()
+    for path in inputs:
+        h.update(path.read_bytes())
+    h.update(" ".join(flags).encode())
+    return build_dir / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def compile_library(out: Path, cmd: list[str], what: str) -> Path:
+    """Run ``cmd -o <tmp>`` and move the result to ``out``, unless ``out``
+    exists. The compiler's report is kept in <out>.log; a failed build
+    raises with it."""
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [*cmd, "-o", tmp]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as exc:           # the compiler is not there
+        os.unlink(tmp)
+        raise RuntimeError(f"{what}: cannot run {cmd[0]} ({exc})") from exc
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError("{} failed ({}):\n{}{}".format(
+            what, " ".join(cmd), proc.stdout, proc.stderr))
+    Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)      # atomic: a concurrent build loads either
+    return out
+
+
 def library_path(name: str) -> Path:
     """The library's path, keyed by csrc/<name>.cu, the shared headers
     (csrc/*.cuh) and the flags."""
-    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC_DIR.glob("*.cuh")):
-        h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return keyed_library(BUILD_DIR, name,
+                         [CSRC_DIR / f"{name}.cu",
+                          *sorted(CSRC_DIR.glob("*.cuh"))], NVCC_FLAGS)
 
 
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless its library exists. The compiler's
     report (registers, shared memory, spills) is kept in <lib>.log."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed to build {} ({}):\n{}{}".format(
-            name, " ".join(cmd), proc.stdout, proc.stderr))
-    Path(str(out) + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)      # atomic: a concurrent build loads either
-    return out
+    return compile_library(
+        library_path(name),
+        [nvcc_path(), *NVCC_FLAGS, str(CSRC_DIR / f"{name}.cu")],
+        f"nvcc build of {name}")
 
 
 def load(name: str) -> ctypes.CDLL:

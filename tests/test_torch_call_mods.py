@@ -119,7 +119,7 @@ def test_float16_wire_stays_close_to_float32(ckpt, features, tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--transfer_dtype", "int8"], ["--device_resident", "always"],
-    ["--packed_wire", "force"], ["--profile_dir", "prof"]])
+    ["--profile_dir", "prof"]])
 def test_unported_flags_fail_clearly(ckpt, features, tmp_path, flag):
     with pytest.raises(ValueError, match="not yet ported"):
         run_port(features[0], ckpt, str(tmp_path / "x.tsv"), *flag)

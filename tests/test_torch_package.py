@@ -27,7 +27,8 @@ def test_every_module_is_listed():
     for name in ("cli", "config", "ops.fused_lstm", "ops._build",
                  "ops.lstm", "ops.recurrence", "ops.optim", "io.dataset",
                  "models.bilstm", "models.convert", "pipeline.call_mods",
-                 "pipeline.train", "utils.device", "utils.metrics"):
+                 "pipeline.train", "utils.device", "utils.metrics",
+                 "native", "utils.fastparse", "io.batching"):
         assert "deepsignal_plant_tpu_torch." + name in mods
 
 
