@@ -3,7 +3,7 @@
 checkouts of the port in turns, on one card.
 
     python3 call_mods_ab.py build/parent . . build/parent [--rows 131072]
-    python3 call_mods_ab.py . --fixture sparse --wires force off off force
+    python3 call_mods_ab.py . --fixture sparse --wires auto off
 
 Fixtures: ``dense`` (write_dense_features: read-structured, one site per
 C, ~3.9 bases a site) or ``sparse`` (write_features: unrelated 13-base
@@ -12,10 +12,11 @@ own deepsignal_plant_tpu_torch and loads one seeded random full-width
 both_bilstm checkpoint on the card (bf16, the layer kernel); then, for
 each ``--wires`` entry in turn, it makes an engine with that
 ``--packed_wire`` (``default``: the checkout's own CallConfig) and runs
-``rate_run``. Each process prints one JSON line per run; the last line is
-a JSON list of them. The checkpoint comes from this checkout's
-init_params and save_checkpoint, which every checkout of the port reads.
-Without a card it fails.
+``rate_run``: the TSV once to warm up, once under torch.profiler. Each
+process prints one JSON line per run; the last line is a JSON list of
+them. The checkpoint comes from this checkout's init_params and
+save_checkpoint, which every checkout of the port reads. Without a card
+it fails.
 
 chip_smoke.py imports the fixture writers and ``rate_run`` from here.
 """
@@ -35,7 +36,6 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 20261016
 T = 13
-WARM_ROWS = 4096
 
 
 def write_features(path: str, n: int, seed: int, shift: float = 0.8) -> None:
@@ -130,17 +130,17 @@ def busy_seconds(prof) -> tuple[float, int]:
     return busy / 1e6, len(spans)
 
 
-def rate_run(engine, tsv: str, warm_tsv: str, out: str,
-             launches: dict) -> dict:
-    """``engine.run_features_file`` on ``warm_tsv`` (CUDA's first-use
-    costs), then on ``tsv`` once under torch.profiler with CUDA activity
-    only: the rate from that run's CallStats, the card's busy share (the
-    union of its kernel and copy spans over the run's wall time), and the
-    kernel launches of that run (``launches``, the checkout's counters,
-    set to 0 just before it)."""
+def rate_run(engine, tsv: str, out: str, launches: dict) -> dict:
+    """``engine.run_features_file`` on ``tsv`` to warm up (CUDA's
+    first-use costs, the pinned ring grown to full batches, the file in
+    the page cache), then once more under torch.profiler with CUDA
+    activity only: the rate from that run's CallStats, the card's busy
+    share (the union of its kernel and copy spans over the run's wall
+    time), and the kernel launches of that run (``launches``, the
+    checkout's counters, set to 0 just before it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    engine.run_features_file(warm_tsv, out)
+    engine.run_features_file(tsv, out)
     for k in launches:
         launches[k] = 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -157,7 +157,7 @@ def rate_run(engine, tsv: str, warm_tsv: str, out: str,
             "device_events": events}
 
 
-def child(tree: str, tsv: str, warm_tsv: str, ckpt: str, tmp: str,
+def child(tree: str, tsv: str, ckpt: str, tmp: str,
           wires: list[str]) -> list[dict]:
     """One checkout's runs, in this process."""
     sys.path.insert(0, tree)
@@ -170,7 +170,7 @@ def child(tree: str, tsv: str, warm_tsv: str, ckpt: str, tmp: str,
         call = CallConfig() if wire == "default" else CallConfig(
             packed_wire=wire)
         eng = CallModsEngine(ckpt, cfg, call, device="cuda")
-        res = rate_run(eng, tsv, warm_tsv, os.path.join(tmp, "calls.tsv"),
+        res = rate_run(eng, tsv, os.path.join(tmp, "calls.tsv"),
                        fused_lstm.launches)
         out.append({"tree": tree, "wire": wire, **res})
     return out
@@ -184,8 +184,8 @@ def main() -> int:
     ap.add_argument("--wires", nargs="+", default=["default"],
                     help="--packed_wire settings, run in this order in "
                          "each checkout's process (default: its own)")
-    ap.add_argument("--child", nargs=4, help=argparse.SUPPRESS,
-                    metavar=("TSV", "WARM", "CKPT", "TMP"))
+    ap.add_argument("--child", nargs=3, help=argparse.SUPPRESS,
+                    metavar=("TSV", "CKPT", "TMP"))
     args = ap.parse_args()
     if args.child:
         for res in child(args.trees[0], *args.child, args.wires):
@@ -206,11 +206,9 @@ def main() -> int:
     write = FIXTURES[args.fixture]
     results = []
     with tempfile.TemporaryDirectory() as tmp:
-        tsv, warm = os.path.join(tmp, "in.tsv"), os.path.join(tmp,
-                                                              "warm.tsv")
+        tsv = os.path.join(tmp, "in.tsv")
         t0 = time.time()
         write(tsv, args.rows, SEED + 6)
-        write(warm, WARM_ROWS, SEED + 7)
         cfg = ModelConfig(dropout_rate=0.0)
         ckpt = os.path.join(tmp, "both_bilstm.ckpt.npz")
         save_checkpoint(ckpt, init_params(cfg, SEED), cfg)
@@ -221,7 +219,7 @@ def main() -> int:
             env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__),
-                 os.path.abspath(tree), "--child", tsv, warm, ckpt, tmp,
+                 os.path.abspath(tree), "--child", tsv, ckpt, tmp,
                  "--wires", *args.wires],
                 cwd=tree, env=env,
                 capture_output=True, text=True, timeout=1200)

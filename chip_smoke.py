@@ -34,14 +34,11 @@ Phases, in order; any failure exits non-zero before the last line:
 4. the main paths through the user's entry points, each a fresh process
    whose kernel launch counts start at 0 and which prints them
    (--verbose_stages): ``call_mods`` on a seeded ~17.4k-row features TSV
-   of unrelated windows (13 bases a site: the per-site route) with a
-   seeded random full-width both_bilstm checkpoint (5 launches of K1's
-   bfloat16 kernel per forward tile in every run, none of the float32
-   one; the same rows in float32 through the float32 kernel and the plain
-   version must agree); a seeded read-structured dense TSV (~4 bases a
-   site) through the read-packed route (--packed_wire auto) and the
-   per-site route (off), byte-identical; the rate run on 131,072 dense
-   rows (sites/s, every [stages] field, the card's busy share); (4b)
+   of unrelated windows (13 bases a site) through the read-packed route
+   with a seeded random full-width both_bilstm checkpoint (5 launches of
+   K1's bfloat16 kernel per forward tile in every run, none of the
+   float32 one; the same rows in float32 through the float32 kernel and
+   the plain version must agree); (4b)
    ``train`` with its defaults (bfloat16, resident plane,
    dropout 0.5, Adam) on a seeded learnable 16,384-row TSV for 2 epochs:
    5 launches of K3, K4 and dW_hh per step (K3 and K4 on the cluster
@@ -50,7 +47,11 @@ Phases, in order; any failure exits non-zero before the last line:
    and the best checkpoint drives ``call_mods``; (4c) float32 training
    through the kernels against the plain version, 8 steps; (4d) inference
    with the fused path off, through K2: 5 launches per 4096- and 512-row
-   tile, logits against the K1 path;
+   tile, logits against the K1 path; (4e) call_mods' engine in this
+   process on 131,072 read-structured dense rows (~3.9 bases a site;
+   call_mods_ab.rate_run: sites/s, every [stages] field, the card's busy
+   share, K1's launches), its rows byte-identical to per-site windows
+   parsed on the host and called by the same model;
 5. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -135,11 +136,9 @@ TRAIN_ACC_MIN = 0.9
 F32_TRAIN_STEPS = 8
 F32_LOSS_TOL = 1e-4
 F32_PARAM_TOL = 1e-4
-# phase 4, the read-packed route: a read-structured dense TSV (one site
-# per C, ~4 bases a site) of DENSE_ROWS rows through --packed_wire auto
-# (packed) and off (per-site), byte-identical; then the rate run on
-# RATE_ROWS dense rows (four 32768-site batches)
-DENSE_ROWS = 20_000
+# phase 4e, call_mods' rate run: a read-structured dense TSV (one site
+# per C, ~3.9 bases a site) of RATE_ROWS rows, four 32768-site batches
+# (so the pinned ring of 3 slots is reused)
 RATE_ROWS = 131_072
 # 4d: inference through K2 (fused path off) vs through K1, on one
 # 4096-row tile of the trained model, times max(1, max |logit|): float32
@@ -896,13 +895,13 @@ def check_rows(st: dict, n: int) -> np.ndarray:
     return p
 
 
-def check_main_path(tmp: str, cfg_cls, init_params, save_checkpoint):
+def check_main_path(tmp: str, ab, cfg_cls, init_params, save_checkpoint):
     """Phase 4: the CLI end to end on the card."""
     cfg = cfg_cls(dropout_rate=0.0)
     ckpt = os.path.join(tmp, "both_bilstm.ckpt.npz")
     save_checkpoint(ckpt, init_params(cfg, SEED), cfg)
     tsv = os.path.join(tmp, "features.tsv")
-    write_features(tsv, N_ROWS, SEED)
+    ab.write_features(tsv, N_ROWS, SEED)
     tiles = -(-N_ROWS // TILE)
 
     main = run_call_mods(tsv, ckpt, os.path.join(tmp, "calls.tsv"))
@@ -912,9 +911,9 @@ def check_main_path(tmp: str, cfg_cls, init_params, save_checkpoint):
     if main["forward_tiles"] != tiles:
         fail(f"{main['forward_tiles']} forward tiles, expected {tiles}")
     launches = main["kernel_launches"]
-    if (main["persite_sites"], main["packed_sites"]) != (N_ROWS, 0):
-        fail("the sparse fixture (13 bases a site) did not take the "
-             f"per-site route: {main}")
+    if (main["packed_sites"], main["persite_sites"]) != (N_ROWS, 0):
+        fail("the float16 wire did not take the read-packed route: "
+             f"{main}")
 
     f32k = run_call_mods(tsv, ckpt, os.path.join(tmp, "calls_f32k.tsv"),
                          "--compute_dtype", "float32", "--recurrence",
@@ -943,51 +942,31 @@ def check_main_path(tmp: str, cfg_cls, init_params, save_checkpoint):
     log(f"bfloat16 kernel vs float32 plain: agreement {agree:.6f}, "
         f"max|dP1| = {dp_bf:.3g}")
     return {"launches": launches["fused_bilstm_bf16"],
-            "launches_by_kernel": launches,
+            "launches_by_kernel": launches, "ckpt": ckpt,
             "stages": {k: v for k, v in main.items() if k != "rows"},
             "sites_per_s": main["sites"] / main["seconds"],
             "f32_kernel_vs_plain_max_dp1": dp_kp,
-            "bf16_vs_f32_agreement": agree, "bf16_vs_f32_max_dp1": dp_bf,
-            "dense": check_dense(tmp, ckpt)}
+            "bf16_vs_f32_agreement": agree, "bf16_vs_f32_max_dp1": dp_bf}
 
 
-def check_dense(tmp: str, ckpt: str) -> dict:
-    """Phase 4, read-packed route: a dense read-structured TSV goes the
-    packed route under --packed_wire auto and the per-site route under
-    off, with the same output bytes and ~1/3 of the wire bytes; then the
-    rate run on RATE_ROWS dense rows through call_mods_ab.py: sites/s,
-    every stage counter and the card's busy share over the run
-    (torch.profiler)."""
-    tsv = os.path.join(tmp, "dense.tsv")
-    write_dense_features(tsv, DENSE_ROWS, SEED + 5)
-    out = {w: os.path.join(tmp, f"dense_{w}.tsv") for w in ("auto", "off")}
-    auto = run_call_mods(tsv, ckpt, out["auto"])
-    off = run_call_mods(tsv, ckpt, out["off"], "--packed_wire", "off")
-    for st in (auto, off):
-        check_rows(st, DENSE_ROWS)
-    if (auto["packed_sites"], off["persite_sites"]) != (DENSE_ROWS,) * 2:
-        fail(f"dense fixture routes: auto {auto['packed_sites']} packed "
-             f"sites, off {off['persite_sites']} per-site sites, of "
-             f"{DENSE_ROWS}")
-    with open(out["auto"], "rb") as a, open(out["off"], "rb") as b:
-        if a.read() != b.read():
-            fail("--packed_wire auto and off wrote different rows")
-    ratio = auto["wire_bytes"] / off["wire_bytes"]
-    log(f"dense fixture: auto and off wrote the same bytes; packed route "
-        f"{auto['bases_uploaded'] / DENSE_ROWS:.3f} bases a site, "
-        f"{ratio:.4f} of the per-site route's wire bytes")
-    # the rate run: call_mods_ab.py on this checkout alone (a fresh
-    # process: warm-up, the run, the run again under torch.profiler)
-    proc = subprocess.run(
-        [sys.executable, os.path.join(REPO, "call_mods_ab.py"), REPO,
-         "--rows", str(RATE_ROWS)], cwd=REPO, capture_output=True,
-        text=True, timeout=900)
-    lines = [ln for ln in proc.stdout.splitlines()
-             if ln.startswith('{"tree"')]
-    if proc.returncode != 0 or len(lines) != 1:
-        fail("call_mods_ab.py failed:\n" + proc.stdout[-3000:]
-             + proc.stderr[-3000:])
-    rate = json.loads(lines[0])
+def check_rate_run(torch, ab, cm, fused_lstm, ModelConfig, tmp: str,
+                   ckpt: str) -> dict:
+    """Phase 4e, in this process: call_mods' engine with its defaults on
+    RATE_ROWS read-structured dense rows (~3.9 bases a site), through
+    call_mods_ab.rate_run (a warm-up run, then one run under
+    torch.profiler: sites/s, every stage counter, the card's busy share
+    and the launches of K1, whose counts it sets to 0 first). Its output
+    must equal, byte for byte, the rows of per-site windows parsed on the
+    host at float16 and called by the same model in the same batches, so
+    the windows gathered on the card through the pinned ring are the
+    right ones."""
+    tsv, out = (os.path.join(tmp, f) for f in ("dense.tsv", "dense_calls.tsv"))
+    ab.write_dense_features(tsv, RATE_ROWS, SEED + 5)
+    # the CLI's defaults: bf16 compute (ModelConfig's own default is f32)
+    eng = cm.CallModsEngine(
+        ckpt, ModelConfig(dropout_rate=0.0, compute_dtype="bfloat16"),
+        cm.CallConfig(), "cuda")
+    rate = ab.rate_run(eng, tsv, out, fused_lstm.launches)
     st = rate["stats"]
     want = {"fused_bilstm_bf16": 5 * st["forward_tiles"],
             "fused_bilstm_f32": 0}
@@ -995,13 +974,30 @@ def check_dense(tmp: str, ckpt: str) -> dict:
             rate["kernel_launches"] != want:
         fail(f"the rate run did not call {RATE_ROWS} sites on the packed "
              f"route through K1's bfloat16 kernel: {rate}")
+    ref = []
+    for fb in cm.batches_from_features_file(tsv, st["device_batch"],
+                                            out_dtype="float16"):
+        kmer, *feats = (torch.from_numpy(a).to("cuda") for a in (
+            fb.kmer, fb.base_means, fb.base_stds, fb.base_signal_lens,
+            fb.signals))
+        b = cm.Batch(kmer, *(a.float() for a in feats))
+        with torch.inference_mode():
+            probs = cm.forward_tiled(eng.model, b).cpu().numpy()
+        ref.append(cm.format_call_block(fb.sampleinfo, probs,
+                                        fb.kmer).encode())
+    with open(out, "rb") as fh:
+        got = fh.read()
+    if got != b"".join(ref):
+        fail("the packed route's rows differ from per-site windows "
+             "gathered on the host")
+    # bytes a site of the per-site route: 13 x (int8 code + 19 halves)
+    ratio = st["wire_bytes"] / (RATE_ROWS * T * 39)
     log(f"call_mods rate run: {rate['sites_per_s']:.1f} sites/s, card busy "
-        f"{rate['busy_share']:.4f} of the profiled run ({RATE_ROWS} dense "
-        f"rows); " + json.dumps(rate))
-    return {"wire_ratio": ratio, "auto": {k: v for k, v in auto.items()
-                                          if k != "rows"},
-            "rate": {**st, "sites_per_s": rate["sites_per_s"]},
-            "busy_share": rate["busy_share"]}
+        f"{rate['busy_share']:.4f} of the run ({RATE_ROWS} dense rows, "
+        f"{st['bases_uploaded'] / RATE_ROWS:.3f} bases a site, {ratio:.4f} "
+        f"of the per-site route's wire bytes; the same rows as per-site "
+        f"windows from the host); " + json.dumps(rate))
+    return {**rate, "wire_ratio": ratio}
 
 
 def call_accuracy(rows) -> float:
@@ -1011,12 +1007,12 @@ def call_accuracy(rows) -> float:
                           for r in rows]))
 
 
-def check_training(tmp: str):
+def check_training(tmp: str, ab):
     """Phase 4b: the train CLI end to end with its defaults, then
     call_mods with its best checkpoint."""
     tr, va = os.path.join(tmp, "train.tsv"), os.path.join(tmp, "valid.tsv")
-    write_features(tr, TRAIN_ROWS, SEED + 1, TRAIN_SHIFT)
-    write_features(va, VALID_ROWS, SEED + 2, TRAIN_SHIFT)
+    ab.write_features(tr, TRAIN_ROWS, SEED + 1, TRAIN_SHIFT)
+    ab.write_features(va, VALID_ROWS, SEED + 2, TRAIN_SHIFT)
     st = run_cli("train", "--train_file", tr, "--valid_file", va,
                  "--model_dir", os.path.join(tmp, "model"),
                  "--max_epoch_num", "2", "--step_interval", "16")
@@ -1080,13 +1076,13 @@ def flat_leaves(tree, prefix=""):
         yield prefix, np.asarray(tree)
 
 
-def check_f32_training(tmp: str, recurrence, train_entry, parser,
+def check_f32_training(tmp: str, ab, recurrence, train_entry, parser,
                        init_params, ModelConfig):
     """Phase 4c: float32 training through the kernels against the plain
     version, in this process through the train entry point: the same 8
     SGD steps, dropout 0, from the same initial weights."""
     tr = os.path.join(tmp, "train_f32.tsv")
-    write_features(tr, F32_TRAIN_STEPS * TRAIN_B, SEED + 3, TRAIN_SHIFT)
+    ab.write_features(tr, F32_TRAIN_STEPS * TRAIN_B, SEED + 3, TRAIN_SHIFT)
     va = os.path.join(tmp, "valid.tsv")
     res = {}
     for rec in ("kernel", "scan"):
@@ -1196,7 +1192,9 @@ def main() -> int:
         from deepsignal_plant_tpu_torch.ops import lstm as plain
         from deepsignal_plant_tpu_torch.ops import optim, recurrence
         from deepsignal_plant_tpu_torch.ops.lstm import bilstm_layer
+        from deepsignal_plant_tpu_torch.pipeline import call_mods
         from deepsignal_plant_tpu_torch.pipeline import train as train_mod
+        import call_mods_ab as ab
     except ImportError as exc:
         fail(f"the deepsignal_plant_tpu_torch package is not beside this "
              f"script ({exc})")
@@ -1246,12 +1244,15 @@ def main() -> int:
         for k in counts:
             counts[k] = 0
     with tempfile.TemporaryDirectory() as tmp:
-        run = check_main_path(tmp, ModelConfig, init_params, save_checkpoint)
-        trained = check_training(tmp)
+        run = check_main_path(tmp, ab, ModelConfig, init_params,
+                              save_checkpoint)
+        trained = check_training(tmp, ab)
         if any(fused_lstm.launches.values()) or any(
                 recurrence.launches.values()):
             fail("phases 4 and 4b launched kernels in this process")
-        f32_train = check_f32_training(tmp, recurrence, train_mod.train,
+        run["rate"] = check_rate_run(torch, ab, call_mods, fused_lstm,
+                                     ModelConfig, tmp, run["ckpt"])
+        f32_train = check_f32_training(tmp, ab, recurrence, train_mod.train,
                                        cli.build_parser(), init_params,
                                        ModelConfig)
         k2_path = check_k2_path(torch, bilstm, recurrence, Batch,
@@ -1259,7 +1260,9 @@ def main() -> int:
                                 trained["best_ckpt"], trained["valid_tsv"])
     flops = forward_flops_per_site(ModelConfig())
     for what, st in (("sparse fixture", run["stages"]),
-                     ("dense rate run", run["dense"]["rate"])):
+                     ("dense rate run", {**run["rate"]["stats"],
+                                         "sites_per_s":
+                                         run["rate"]["sites_per_s"]})):
         log(f"call_mods, {what}: {st['sites_per_s']:.1f} sites/s on {smi} "
             f"({st['sites']} sites in {st['seconds']:.3f} s; model "
             f"{flops / 1e9:.3f} GFLOP/site -> "

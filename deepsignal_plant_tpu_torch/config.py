@@ -101,9 +101,8 @@ class CallConfig:
     # host->device wire: "float16" halves upload bytes (the model upcasts
     # on the device); "float32" for exact-parity runs
     transfer_dtype: str = "float16"
-    # read-packed wire of the float16 plane: "auto" packs blocks of at
-    # most PACKED_MAX_BASES_PER_SITE bases a site, "force" every block,
-    # "off" none (per-site windows)
+    # accepted for JAX CLI compatibility: the float16 plane always ships
+    # the read-packed wire (pipeline/call_mods.py says why)
     packed_wire: str = "auto"
     # parser threads; None = io.batching.default_parse_workers()
     num_parse_workers: int | None = None

@@ -1,22 +1,27 @@
 """call_mods on a features TSV (counterpart of the TSV planes of
-deepsignal_plant_tpu/pipeline/call_mods.py: :106-144, :159-266, :352-377,
-:660-721, :816-1011, :1803-1918 and :1921-1967).
+deepsignal_plant_tpu/pipeline/call_mods.py: :106-144, :159-228, :280-310,
+:677-705, :721-820, :851-1011, :1803-1918 and :1921-1967).
 
 Reference behavior (call_modifications.py:532-640): read 12-column
 feature rows, run ModelBiLSTM, emit 10-column call rows.
 
-float16 wire (the default):
+float16 wire (the default), the read-packed route:
 
     byte blocks -> native parse + pack (worker threads, GIL released)
-      -> route-homogeneous batches (main thread): read-packed (per-base
-         arrays + window centres) or per-site windows
-      -> pinned ring -> upload on a copy stream -> window gather (packed
-         route) -> tiled forward through K1 (compute stream) -> readback
+      -> batches of per-base arrays + window centres (main thread)
+      -> pinned ring -> upload on a copy stream -> window gather on the
+         card -> tiled forward through K1 (compute stream) -> readback
          into pinned memory
       -> native row emission (main thread) -> writer thread
 
-float32 wire (exact-parity runs): the native parser at float32, per-site
-batches of decoded rows, and ``format_call_block``.
+The JAX package also sends float16 blocks of more than 12 bases a site
+as per-site windows, to save wire bytes to a remote device. On the card
+that route was slower on such input than the packed one (PERF.md):
+its windows are gathered on the host's main thread, and the packed
+route ships only 4 bytes a site more.
+
+float32 wire (exact-parity runs), the per-site route: the native parser
+at float32, batches of decoded rows, and ``format_call_block``.
 
 The main thread formats and writes batch k while batch k+1's upload and
 forward run on the card. Every kernel launch stays on the main thread
@@ -56,10 +61,6 @@ from ..utils.fastparse import (emit_call_rows_arrays, format_call_block,
 #: numerics of a forward no wider than this (the JAX package measured
 #: bf16 call flips in 16384-wide forwards and none at 4096)
 COMPUTE_TILE = 4096
-#: above this many bases a site the read-packed wire ships more than the
-#: per-site windows (seq_len bases a site), so --packed_wire auto sends
-#: such blocks per site
-PACKED_MAX_BASES_PER_SITE = 12.0
 #: batches on the card at once (uploaded, not yet written out)
 INFLIGHT = 2
 
@@ -88,8 +89,8 @@ class CallStats:
     # called labels matching the features' label column — meaningful only
     # on labeled features (call_modifications.py:171-173)
     label_correct: int = 0
-    # batches and sites by route: read-packed (windows gathered on the
-    # device) and per-site (windows gathered on the host)
+    # batches and sites by route: read-packed (the float16 wire; windows
+    # gathered on the device) and per-site (the float32 wire)
     packed_batches: int = 0
     packed_sites: int = 0
     persite_batches: int = 0
@@ -146,8 +147,8 @@ def _check_packed_block(pb, seq_len: int, sig_len: int):
     return pb
 
 
-def _take_packed_span(fifo, target, base_budget, seq_len, is_dense):
-    """Consume dense blocks from ``fifo`` ([PackedFeatureBlock, consumed]
+def _take_packed_span(fifo, target, base_budget, seq_len):
+    """Consume blocks from ``fifo`` ([PackedFeatureBlock, consumed]
     deque) into one packed batch: up to ``target`` sites whose covering
     base span fits ``base_budget``. Returns ((codes, means, stds, lens,
     rect, centers), segs, labels, ns, nbase) with centers rebased to the
@@ -157,7 +158,7 @@ def _take_packed_span(fifo, target, base_budget, seq_len, is_dense):
     cols = {k: [] for k in ("codes", "means", "stds", "lens",
                             "rect", "centers", "labels")}
     ns = nbase = 0
-    while fifo and ns < target and is_dense(fifo[0][0]):
+    while fifo and ns < target:
         ent = fifo[0]
         pb, lo = ent
         budget = base_budget - nbase
@@ -194,40 +195,6 @@ def _take_packed_span(fifo, target, base_budget, seq_len, is_dense):
     arrays = tuple(cat(k) for k in ("codes", "means", "stds", "lens",
                                     "rect", "centers"))
     return arrays, segs, cat("labels"), ns, nbase
-
-
-def _take_persite_span(fifo, target, is_dense):
-    """Consume sparse blocks from ``fifo`` into one per-site batch of up
-    to ``target`` sites (windows gathered on the host). Returns ((kmer,
-    means, stds, lens, rect), segs, labels, ns)."""
-    segs = []
-    cols = {k: [] for k in ("kmer", "means", "stds", "lens", "rect",
-                            "labels")}
-    ns = 0
-    while fifo and ns < target and not is_dense(fifo[0][0]):
-        ent = fifo[0]
-        pb, lo = ent
-        hi = min(pb.n, lo + (target - ns))
-        win = pb.window_index(lo, hi)
-        cols["kmer"].append(pb.codes[win])
-        cols["means"].append(pb.means[win])
-        cols["stds"].append(pb.stds[win])
-        cols["lens"].append(pb.lens[win])
-        cols["rect"].append(pb.rect[win])
-        cols["labels"].append(pb.labels[lo:hi])
-        segs.append((pb, lo, hi))
-        ns += hi - lo
-        if hi == pb.n:
-            fifo.popleft()
-        else:
-            ent[1] = hi
-
-    def cat(k):
-        p = cols[k]
-        return p[0] if len(p) == 1 else np.concatenate(p)
-    arrays = tuple(cat(k) for k in ("kmer", "means", "stds", "lens",
-                                    "rect"))
-    return arrays, segs, cat("labels"), ns
 
 
 def _emit_segments(segs, probs: np.ndarray) -> bytes:
@@ -343,15 +310,6 @@ class CallModsEngine:
             self.device)
         native.load()    # build the parser now: a failed build fails here
 
-    def packed_density_threshold(self) -> float:
-        """Most bases a site for which a block takes the read-packed
-        route."""
-        if self.call_cfg.packed_wire == "force":
-            return float("inf")
-        if self.call_cfg.packed_wire == "off":
-            return 0.0
-        return PACKED_MAX_BASES_PER_SITE
-
     def run_features_file(self, input_path: str, result_path: str,
                           is_gzip: bool = False) -> CallStats:
         """features TSV -> call_mods TSV (reference else-branch,
@@ -372,13 +330,9 @@ class CallModsEngine:
     def _packed_plane_batches(self, input_path: str, stats: CallStats
                               ) -> Iterator[_Batch]:
         """The float16 plane (JAX _run_fast_tsv and _run_fast_packed):
-        parser threads parse and pack 8 MiB byte blocks; each block
-        takes the read-packed route when it packs to at most
-        packed_density_threshold() bases a site, else the per-site
-        route. A batch closes when it holds ``device_batch`` sites, its
-        base budget is full, or the next block's route differs. Both
-        routes feed the forward the same window values, so the output
-        bytes do not depend on the route."""
+        parser threads parse and pack 8 MiB byte blocks into the
+        read-packed wire; a batch closes when it holds ``device_batch``
+        sites or its base budget is full."""
         cfg = self.model_cfg
         L, S = cfg.seq_len, cfg.signal_len
         target = stats.device_batch
@@ -393,13 +347,8 @@ class CallModsEngine:
             bounded_thread_map(parse_and_pack,
                                iter_byte_blocks(input_path, 8 << 20),
                                workers=pw, depth=2 * pw), depth=4)
-        thr = self.packed_density_threshold()
         base_budget = 1 << (target * L - 1).bit_length()
         stats.parse_seconds = 0.0
-
-        def is_dense(pb) -> bool:
-            return pb.n_bases <= thr * pb.n
-
         try:
             fifo: deque = deque()       # [pb, consumed sites]
             pending = 0
@@ -419,16 +368,10 @@ class CallModsEngine:
                         pending += pb.n
                 if not fifo:
                     return
-                if is_dense(fifo[0][0]):
-                    arrays, segs, labels, ns, nbase = _take_packed_span(
-                        fifo, target, base_budget, L, is_dense)
-                    route = "packed"
-                else:
-                    arrays, segs, labels, ns = _take_persite_span(
-                        fifo, target, is_dense)
-                    route, nbase = "persite", ns * L
+                arrays, segs, labels, ns, nbase = _take_packed_span(
+                    fifo, target, base_budget, L)
                 pending -= ns
-                yield _Batch(route, arrays, ns, nbase, labels,
+                yield _Batch("packed", arrays, ns, nbase, labels,
                              partial(_emit_segments, segs))
         finally:
             blocks.close()

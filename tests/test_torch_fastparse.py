@@ -10,6 +10,7 @@ equal the Python parse (float(str) cast to float32) bit for bit.
 import gzip
 import os
 import stat
+import threading
 
 import numpy as np
 import pytest
@@ -238,6 +239,29 @@ def test_bounded_thread_map_keeps_order():
     out = list(batching.bounded_thread_map(lambda x: x * x, range(50),
                                            workers=4, depth=3))
     assert out == [x * x for x in range(50)]
+
+
+@pytest.mark.parametrize("taken", [0, 3, 1000])
+def test_prefetch_close_stops_the_producer(taken):
+    """close() after ``taken`` items (none, some, past the end) ends the
+    prefetch thread and the parse map's workers, whose queues were full,
+    and runs the producer generator's own clean-up."""
+    before = set(threading.enumerate())
+    closed = []
+
+    def produce():
+        try:
+            yield from batching.bounded_thread_map(lambda x: x, range(200),
+                                                   workers=3, depth=6)
+        finally:
+            closed.append(True)
+
+    it = batching.PrefetchIterator(produce(), depth=2)
+    got = [x for _, x in zip(range(taken), it)]
+    it.close()
+    assert got == list(range(min(taken, 200)))
+    assert closed == [True]
+    assert [t for t in threading.enumerate() if t not in before] == []
 
 
 def test_dataset_parse_equals_the_python_parse(blocks, tmp_path):
