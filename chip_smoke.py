@@ -14,23 +14,23 @@ Phases, in order; any failure exits non-zero before the last line:
    call_mods' 4096-row tiles, in its two kernels (bfloat16, the main
    path's; float32, for exact-parity runs); (2b) the
    trainable recurrence (K2, K3 and K4's recurrence on the cluster
-   kernels of the card's plan, logged with the occupancy query it read;
-   K4's bitwise reproducible; K4's split-K dW_hh, bitwise reproducible
-   and all zeros at T=1; and the bfloat16 streaming kernels the cluster
-   kernels replace) at the training batch of 512 and 509, H 128 and 256,
-   float32 and bfloat16;
+   kernels of the card's plan in each dtype, logged with the occupancy
+   query it read; K4's bitwise reproducible; K4's split-K dW_hh, bitwise
+   reproducible and all zeros at T=1; and the streaming kernels the
+   cluster kernels replace) at the training batch of 512 and 509, H 128
+   and 256, float32 and bfloat16;
 3. each kernel timed with CUDA events (median of reps after warm-up)
    and as device time (replays of a CUDA graph; a call that cannot be
    captured fails the run) beside its plain version, one PyTorch library
    call computing the same function or more (a yardstick the port never
    calls) and its bound: K1's two kernels per 4096-row forward tile and
    per tail tile, (3b) the recurrence kernels per launch and per train
-   step at batch 512 in bfloat16, the cluster kernels and the streaming
-   kernels in turns (cluster, stream, stream, cluster), and their
-   float32 kernels beside cuDNN's float32 LSTM and einsum; (3c) one
-   whole train step at batch 512
-   through the train loop's step function: device time, host enqueue
-   time, and a torch.profiler trace (device busy share, top kernels);
+   step at batch 512, the cluster kernels and the streaming kernels in
+   turns (cluster, stream, stream, cluster), in bfloat16 and in float32
+   (beside cuDNN's float32 LSTM and einsum); (3c) one whole train step
+   at batch 512, in bfloat16 and in float32, through the train loop's
+   step function: device time, host enqueue time, and a torch.profiler
+   trace (device busy share, top kernels);
 4. the main paths through the user's entry points, each a fresh process
    whose kernel launch counts start at 0 and which prints them
    (--verbose_stages): ``call_mods`` on a seeded ~17.4k-row features TSV
@@ -45,9 +45,11 @@ Phases, in order; any failure exits non-zero before the last line:
    kernels), 5 of K1's bfloat16 kernel per evaluation tile, none of K2
    or of a streaming kernel, validation accuracy above its threshold,
    and the best checkpoint drives ``call_mods``; (4c) float32 training
-   through the kernels against the plain version, 8 steps; (4d) inference
-   with the fused path off, through K2: 5 launches per 4096- and 512-row
-   tile, logits against the K1 path; (4e) call_mods' engine in this
+   through the kernels (K3 and K4 on their float32 cluster kernels)
+   against the plain version, 8 steps; (4d) inference with the fused path
+   off, through K2: 5 launches per 4096- and 512-row tile (the cluster
+   kernels of each dtype at 512 rows), logits against the K1 path; (4e)
+   call_mods' engine in this
    process on 131,072 read-structured dense rows (~3.9 bases a site;
    call_mods_ab.rate_run: sites/s, every [stages] field, the card's busy
    share, K1's launches), its rows byte-identical to per-site windows
@@ -85,6 +87,11 @@ SEED = 20261016
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# TF32 on the tensor cores: the float32 cluster kernels run each f32
+# product as three (3xTF32), so their product bound is 3x the products at
+# this rate (165 TFLOP/s of f32 products)
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3
 # K1's kernels (ops/fused_lstm.py::launches) -> their compute dtype
 K1_KERNELS = {"fused_bilstm_bf16": "bfloat16", "fused_bilstm_f32": "float32"}
 # (Fa, Fb, H, seq_out) of the five layer launches of one forward tile
@@ -116,8 +123,14 @@ REC_KERNELS = {   # wrapper -> the TPU kernel it replaces
     "lstm_recurrence_bwd": "deepsignal_plant_tpu/ops/pallas_lstm.py:159",
     "lstm_dw_hh": "deepsignal_plant_tpu/ops/pallas_lstm.py:159",
 }
+# the float32 cluster kernels (their launch counters) -> the wrapper
+F32_KERNELS = {"lstm_recurrence_fwd_f32": "lstm_recurrence_fwd",
+               "lstm_recurrence_fwd_save_f32": "lstm_recurrence_fwd_save",
+               "lstm_recurrence_bwd_f32": "lstm_recurrence_bwd"}
 # recurrence kernels vs plain, times max(1, max |plain|). float32 as for
-# K1. bfloat16: as for K1 for h, and for dxproj because da is rounded to
+# K1, and the cluster kernels' 3xTF32 products also drop each product's
+# lo*lo term (about 2^-22 of it). bfloat16: as for K1 for h, and for
+# dxproj because da is rounded to
 # bf16 before it feeds the next step's dh, so one flipped rounding travels
 # back through the steps. dW_hh gets identical inputs on both sides and
 # differs only in the order of its f32 sums over (T-1)*B rows.
@@ -131,8 +144,9 @@ TRAIN_ROWS, VALID_ROWS, TRAIN_SHIFT = 16_384, 4_096, 0.2
 TRAIN_ACC_MIN = 0.9
 # 4c: float32 kernel vs float32 plain training, 8 SGD steps (lr 0.1):
 # per-step losses and final parameters; the kernels' float32 sums differ
-# from the plain version's in order only (2e-5 per layer, above), and 8
-# clipped steps carry that into the weights
+# from the plain version's in order (2e-5 per layer, above) and in the
+# 3xTF32 products' dropped lo*lo terms, and 8 clipped steps carry that
+# into the weights
 F32_TRAIN_STEPS = 8
 F32_LOSS_TOL = 1e-4
 F32_PARAM_TOL = 1e-4
@@ -142,8 +156,9 @@ F32_PARAM_TOL = 1e-4
 RATE_ROWS = 131_072
 # 4d: inference through K2 (fused path off) vs through K1, on one
 # 4096-row tile of the trained model, times max(1, max |logit|): float32
-# differs in summation order; bfloat16 also rounds xproj to bf16 on the K2
-# path, where K1 keeps the input projection in f32
+# differs in summation order (and K2's cluster kernel in its 3xTF32
+# products' dropped lo*lo terms); bfloat16 also rounds xproj to bf16 on
+# the K2 path, where K1 keeps the input projection in f32
 K2_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
@@ -232,16 +247,17 @@ def graph_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def layer_bound(Fa, Fb, H, seq_out, B, itemsize, peak_flops):
+def layer_bound(Fa, Fb, H, seq_out, B, itemsize, peak_flops, passes=1):
     """(ms at the peak operation rate, ms at the memory rate) of one
-    layer: its products, and its compulsory bytes (each input read once,
-    each output written once). The bound is the larger."""
+    layer: its products (each run ``passes`` times: 3 for 3xTF32), and
+    its compulsory bytes (each input read once, each output written
+    once). The bound is the larger."""
     F = Fa + Fb
     flops = 2 * 2 * T * B * (F + H) * 4 * H
     out_T = T if seq_out else 1
     nbytes = (T * B * F * itemsize + 2 * (F + H) * 4 * H * itemsize
               + 2 * 4 * H * 4 + 2 * out_T * B * H * itemsize)
-    return flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return flops * passes / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
 def check_kernel(torch, fused_lstm, bilstm_layer):
@@ -309,13 +325,13 @@ def time_kernel(torch, fused_lstm, bilstm_layer):
 
             kernel_ms = cuda_ms(torch, call(xs))
             device_ms = graph_ms(torch, call(xs), reps=10)
-            tail = {}
+            extra = {}
             if dtype == torch.bfloat16:
                 xt = tuple(x[:, :TAIL].contiguous() for x in xs)
-                tail = {"tail_B": TAIL,
-                        "tail_kernel_ms": cuda_ms(torch, call(xt)),
-                        "tail_device_ms": graph_ms(torch, call(xt),
-                                                   reps=10)}
+                extra = {"tail_B": TAIL,
+                         "tail_kernel_ms": cuda_ms(torch, call(xt)),
+                         "tail_device_ms": graph_ms(torch, call(xt),
+                                                    reps=10)}
                 del xt
             plain_ms = cuda_ms(torch, lambda: bilstm_layer(
                 xs, w_ih, b, w_hh, H, seq_out), reps=10)
@@ -340,12 +356,18 @@ def time_kernel(torch, fused_lstm, bilstm_layer):
                 warnings.filterwarnings("ignore", "RNN module weights")
                 library_ms = cuda_ms(torch, lambda: lstm(x_cat))
             itemsize = 2 if dtype == torch.bfloat16 else 4
+            # float32's bound: its products in 3xTF32 on the tensor cores
+            # (the CUDA cores' FFMA bound beside it)
             ops_ms, bytes_ms = layer_bound(
                 Fa, Fb, H, seq_out, TILE, itemsize,
-                PEAK_BF16_FLOPS if itemsize == 2 else PEAK_F32_FLOPS)
+                *((PEAK_BF16_FLOPS, 1) if itemsize == 2 else
+                  (PEAK_TF32_FLOPS, TF32_PASSES)))
+            if itemsize == 4:
+                extra["ffma_ms"] = layer_bound(Fa, Fb, H, seq_out, TILE, 4,
+                                               PEAK_F32_FLOPS)[0]
             row = {"kernel": kernel, "layer": name, "F": [Fa, Fb], "H": H,
                    "B": TILE, "seq_out": seq_out, "dtype": dname,
-                   "kernel_ms": kernel_ms, "device_ms": device_ms, **tail,
+                   "kernel_ms": kernel_ms, "device_ms": device_ms, **extra,
                    "plain_ms": plain_ms,
                    "library_ms": library_ms, "ops_ms": ops_ms,
                    "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
@@ -396,8 +418,9 @@ def rec_inputs(torch, H, B, dtype, seed=SEED):
 
 def check_recurrence(torch, recurrence, plain):
     """Phase 2b: K2, K3, K4 and dW_hh against their plain versions at the
-    training shapes. K4 and dW_hh take the plain residuals, so both sides
-    see identical inputs."""
+    training shapes, K2-K4 through the plan's cluster kernel of each dtype
+    and through the streaming kernel it replaces. K4 and dW_hh take the
+    plain residuals, so both sides see identical inputs."""
     errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in REC_KERNELS}
     checked = []
     for H in (128, 256):
@@ -420,31 +443,33 @@ def check_recurrence(torch, recurrence, plain):
                 torch.cuda.synchronize()
                 moved = {k: v - before[k]
                          for k, v in recurrence.launches.items()}
-                if moved != {k: int(k in REC_KERNELS) for k in moved}:
+                sfx = "_f32" if dtype == torch.float32 else ""
+                want = {k: 0 for k in moved}
+                want.update({k if k == "lstm_dw_hh" else k + sfx: 1
+                             for k in REC_KERNELS})
+                if moved != want:
                     fail(f"the recurrence at H={H} B={B} {dname} did not "
-                         f"take the cluster (bf16) or float32 kernels: "
-                         f"{moved}")
+                         f"take the {dname} cluster kernels: {moved}")
                 pairs = [("lstm_recurrence_fwd", "ys", ys, want_ys),
                          ("lstm_recurrence_fwd_save", "ys", ys_s, want_ys),
                          ("lstm_recurrence_fwd_save", "cs", cs, want_cs),
                          ("lstm_recurrence_fwd_save", "gates", gates, want_g),
                          ("lstm_recurrence_bwd", "dxproj", dx, want_dx),
                          ("lstm_dw_hh", "dW_hh", dw, want_dw)]
-                if dtype == torch.bfloat16:
-                    # the streaming kernels that phase 3b times beside them
-                    s_ys, s_cs, s_g = recurrence.lstm_recurrence_fwd_save(
-                        xproj, w_hh, H, stream=True)
-                    pairs += [
-                        ("stream", "K2 ys", recurrence.lstm_recurrence(
-                            xproj, w_hh, H, stream=True), want_ys),
-                        ("stream", "K3 ys", s_ys, want_ys),
-                        ("stream", "K3 cs", s_cs, want_cs),
-                        ("stream", "K3 gates", s_g, want_g),
-                        ("stream", "K4 dxproj",
-                         recurrence.lstm_recurrence_bwd_dx(
-                             dys, want_cs, want_g, w_hh, H, stream=True),
-                         want_dx)]
-                    torch.cuda.synchronize()
+                # the streaming kernels that phase 3b times beside them
+                s_ys, s_cs, s_g = recurrence.lstm_recurrence_fwd_save(
+                    xproj, w_hh, H, stream=True)
+                pairs += [
+                    ("stream", "K2 ys", recurrence.lstm_recurrence(
+                        xproj, w_hh, H, stream=True), want_ys),
+                    ("stream", "K3 ys", s_ys, want_ys),
+                    ("stream", "K3 cs", s_cs, want_cs),
+                    ("stream", "K3 gates", s_g, want_g),
+                    ("stream", "K4 dxproj",
+                     recurrence.lstm_recurrence_bwd_dx(
+                         dys, want_cs, want_g, w_hh, H, stream=True),
+                     want_dx)]
+                torch.cuda.synchronize()
                 line = []
                 for kernel, what, got, want in pairs:
                     if got.shape != want.shape or got.dtype != want.dtype:
@@ -463,14 +488,13 @@ def check_recurrence(torch, recurrence, plain):
                              f"{bound}")
                     if kernel in errs:
                         errs[kernel][dname] = max(errs[kernel][dname], err)
-                if dtype == torch.bfloat16:
-                    dx2 = recurrence.lstm_recurrence_bwd_dx(
-                        dys, want_cs, want_g, w_hh, H)
-                    torch.cuda.synchronize()
-                    if not torch.equal(dx, dx2):
-                        fail(f"lstm_recurrence_bwd (cluster) is not bitwise "
-                             f"reproducible at H={H} B={B}")
-                    line.append("dxproj bitwise equal over two launches")
+                dx2 = recurrence.lstm_recurrence_bwd_dx(dys, want_cs, want_g,
+                                                        w_hh, H)
+                torch.cuda.synchronize()
+                if not torch.equal(dx, dx2):
+                    fail(f"lstm_recurrence_bwd (cluster) is not bitwise "
+                         f"reproducible at H={H} B={B} {dname}")
+                line.append("dxproj bitwise equal over two launches")
                 again = recurrence.lstm_dw_hh(want_ys, want_dx)
                 ys1 = want_ys[:1].contiguous()
                 dw1 = recurrence.lstm_dw_hh(ys1, want_dx[:1].contiguous())
@@ -489,36 +513,47 @@ def check_recurrence(torch, recurrence, plain):
     return errs, checked
 
 
-def rec_plans(recurrence) -> dict:
-    """recurrence_plan's choice for each cluster kernel at the training
-    shapes, beside the occupancy query it read (clusters the card holds
-    at once) and the clusters the grid needs."""
+def rec_plans(torch, recurrence) -> dict:
+    """recurrence_plan's choice for each cluster kernel of each dtype at
+    the training shapes, beside the occupancy query it read (clusters the
+    card holds at once), the clusters the grid needs and the waves they
+    take (bfloat16 must take one, float32 at most two)."""
     out = {}
-    for name, kind in recurrence._KIND.items():
-        for H in (128, 256):
-            for B in (TRAIN_B, TRAIN_B - 3):
-                def cap(C, rows):
-                    return recurrence.cluster_capacity(0, kind, H, C, rows)
-                plan = recurrence.recurrence_plan(kind, B, H, cap)
-                if plan is None:
-                    fail(f"{name}: no one-wave cluster plan at H={H} B={B}")
-                C, rows = plan
-                out[f"{name} H={H} B={B}"] = {
-                    "cluster": C, "rows": rows,
-                    "clusters": 2 * -(-B // rows),
-                    "capacity": cap(C, rows),
-                    "smem_bytes": recurrence.recurrence_smem(kind, H, rows),
-                    "capacity_by_rows": {
-                        r: cap(C, r) for r in (16, 32, 48)
-                        if recurrence.recurrence_smem(kind, H, r) <= 232448}}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for name, kind in recurrence._KIND.items():
+            for H in (128, 256):
+                for B in (TRAIN_B, TRAIN_B - 3):
+                    def cap(C, rows):
+                        return recurrence.cluster_capacity(0, kind, H, C,
+                                                           rows, dtype)
+                    plan = recurrence.recurrence_plan(kind, B, H, cap, dtype)
+                    if plan is None:
+                        fail(f"{name}: no {dname} cluster plan at H={H} "
+                             f"B={B}")
+                    C, rows = plan
+                    clusters = 2 * -(-B // rows)
+                    out[f"{name} {dname} H={H} B={B}"] = {
+                        "cluster": C, "rows": rows, "clusters": clusters,
+                        "capacity": cap(C, rows),
+                        "waves": -(-clusters // cap(C, rows)),
+                        "smem_bytes": recurrence.recurrence_smem(
+                            kind, H, rows, dtype),
+                        "capacity_by_rows": {
+                            r: cap(C, r)
+                            for r in recurrence._CL_ROWS[dtype][kind]
+                            if recurrence.recurrence_smem(
+                                kind, H, r, dtype) <= 232448}}
     log("cluster plans (occupancy query): " + json.dumps(out))
     return out
 
 
-def rec_bound(kernel, H, B, itemsize=2, peak_flops=PEAK_BF16_FLOPS):
+def rec_bound(kernel, H, B, itemsize=2, peak_flops=PEAK_BF16_FLOPS,
+              passes=1):
     """(ms at the peak operation rate, ms at the memory rate) of one
-    recurrence launch: its products, and its compulsory bytes (each input
-    read once, each output written once)."""
+    recurrence launch: its products (each run ``passes`` times: 3 for
+    3xTF32), and its compulsory bytes (each input read once, each output
+    written once)."""
     seq = T * 2 * B * H                       # elements of ys, cs, dys
     w = 2 * H * 4 * H                          # elements of w_hh, dW
     if kernel in ("lstm_recurrence_fwd", "lstm_recurrence_fwd_save"):
@@ -533,7 +568,7 @@ def rec_bound(kernel, H, B, itemsize=2, peak_flops=PEAK_BF16_FLOPS):
         flops = 2 * 2 * (T - 1) * B * H * 4 * H
         step = 2 * B * H
         nbytes = (T - 1) * step * 5 * itemsize + w * 4     # ys, dx; dW f32
-    return flops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
+    return flops * passes / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
 def cudnn_lstm_ms(torch, F, H, B):
@@ -665,26 +700,41 @@ def time_recurrence(torch, recurrence, plain):
             # the streaming kernel the cluster kernel replaces, same call
             out[kernel]["stream_device_ms"] = per_step(kernel,
                                                        "stream_device_ms")
-    for kernel in REC_KERNELS:
-        # the float32 kernels, which no main path launches (bf16 is the
-        # default of call_mods and train): device time per 512-row step
-        # beside their f32 bound and library call
-        rows = f32[kernel]
-        ops_ms = sum(rows[H]["ops_ms"] for _, H in TRAIN_LAYERS.values())
-        bytes_ms = sum(rows[H]["bytes_ms"] for _, H in TRAIN_LAYERS.values())
-        out[kernel]["float32"] = {
-            "device_ms": sum(rows[H]["device_ms"]
-                             for _, H in TRAIN_LAYERS.values()),
-            "plain_ms": sum(rows[H]["plain_ms"]
-                            for _, H in TRAIN_LAYERS.values()),
-            "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": (sum(rows[H]["library_device_ms"]
-                               for _, H in TRAIN_LAYERS.values())
-                           if kernel == "lstm_dw_hh" else
-                           sum(v[lib[kernel] + "_f32"]
-                               for v in library.values())),
-            "per_launch": rows}
+
+    def f32_step(kernel, key):
+        return sum(f32[kernel][H][key] for _, H in TRAIN_LAYERS.values())
+
+    def f32_bound(kernel):
+        ops_ms, bytes_ms = f32_step(kernel, "ops_ms"), f32_step(kernel,
+                                                               "bytes_ms")
+        return {"bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                # the CUDA cores' bound (FFMA at the float32 peak), which
+                # the streaming kernels were held to
+                "ffma_bound_ms": max(f32_step(kernel, "ffma_ms"), bytes_ms)}
+
+    for name, kernel in F32_KERNELS.items():
+        # the float32 cluster kernels, per 512-row step, the streaming
+        # kernels they replace timed in turns (new, old, old, new)
+        device_ms = f32_step(kernel, "device_ms")
+        out[name] = {
+            "kernel_ms": f32_step(kernel, "kernel_ms"),
+            "device_ms": device_ms, "ms": device_ms,
+            "stream_device_ms": f32_step(kernel, "stream_device_ms"),
+            "plain_ms": f32_step(kernel, "plain_ms"), **f32_bound(kernel),
+            "library_ms": sum(v[lib[kernel] + "_f32"]
+                              for v in library.values()),
+            "library_note": "torch.nn.LSTM float32 (cuDNN, TF32 off), "
+                            + lib[kernel] + " (more work: the input "
+                            "projection too)",
+            "per_launch": f32[kernel]}
+    # dW_hh's float32 kernel, which no main path launches in bf16 training
+    out["lstm_dw_hh"]["float32"] = {
+        "device_ms": f32_step("lstm_dw_hh", "device_ms"),
+        "plain_ms": f32_step("lstm_dw_hh", "plain_ms"),
+        **f32_bound("lstm_dw_hh"),
+        "library_ms": f32_step("lstm_dw_hh", "library_device_ms"),
+        "per_launch": f32["lstm_dw_hh"]}
     out["lstm_recurrence_bwd"]["library_note"] = (
         "torch.nn.LSTM bf16 forward + backward (more work: the forward "
         "and the input projection's gradients too)")
@@ -698,10 +748,13 @@ def time_recurrence(torch, recurrence, plain):
 
 
 def time_recurrence_f32(torch, recurrence, plain):
-    """Phase 3b, float32: each recurrence kernel's float32 kernel at
-    B=512, per H: device time (graph replays), the plain version (CUDA
-    events) and, for dW_hh, torch.einsum at float32 (TF32 off) as device
-    time; bounds at the float32 peak."""
+    """Phase 3b, float32, per H at B=512: the float32 cluster kernels of
+    K2, K3 and K4 and the streaming kernels they replace in turns (new,
+    old, old, new; device time from graph replays), the cluster kernels
+    also with CUDA events per call, the plain version (CUDA events), and
+    dW_hh's float32 kernel beside torch.einsum at float32 (TF32 off) as
+    device time. Bounds: the products in 3xTF32 at the TF32 peak, or the
+    bytes, the larger; and the CUDA cores' (FFMA at the float32 peak)."""
     per_h = {}
     for H in (128, 256):
         xproj, w_hh, dys = rec_inputs(torch, H, TRAIN_B, torch.float32)
@@ -709,36 +762,52 @@ def time_recurrence_f32(torch, recurrence, plain):
         dx = recurrence.lstm_recurrence_bwd_dx(dys, cs, gates, w_hh, H)
         calls = {
             "lstm_recurrence_fwd": (
-                lambda: recurrence.lstm_recurrence(xproj, w_hh, H),
+                lambda st: recurrence.lstm_recurrence(xproj, w_hh, H,
+                                                      stream=st),
                 lambda: plain.lstm_recurrence(xproj, w_hh, H)),
             "lstm_recurrence_fwd_save": (
-                lambda: recurrence.lstm_recurrence_fwd_save(xproj, w_hh, H),
+                lambda st: recurrence.lstm_recurrence_fwd_save(
+                    xproj, w_hh, H, stream=st),
                 lambda: plain.lstm_recurrence_fwd_save(xproj, w_hh, H)),
             "lstm_recurrence_bwd": (
-                lambda: recurrence.lstm_recurrence_bwd_dx(dys, cs, gates,
-                                                          w_hh, H),
+                lambda st: recurrence.lstm_recurrence_bwd_dx(
+                    dys, cs, gates, w_hh, H, stream=st),
                 lambda: plain.lstm_recurrence_bwd_dx(dys, cs, gates, w_hh,
                                                      H)),
-            "lstm_dw_hh": (lambda: recurrence.lstm_dw_hh(ys, dx),
+            "lstm_dw_hh": (lambda st: recurrence.lstm_dw_hh(ys, dx),
                            lambda: plain.lstm_dw_hh(ys, dx)),
         }
         for name, (kern, pl) in calls.items():
-            ops_ms, bytes_ms = rec_bound(name, H, TRAIN_B, 4, PEAK_F32_FLOPS)
-            per_h.setdefault(name, {})[H] = {
-                "device_ms": graph_ms(torch, kern),
-                "plain_ms": cuda_ms(torch, pl, reps=5),
-                "ops_ms": ops_ms, "bytes_ms": bytes_ms}
-        per_h["lstm_dw_hh"][H]["library_device_ms"] = graph_ms(
-            torch, lambda: torch.einsum("sdbh,sdbg->dhg", ys[:-1], dx[1:]))
+            ops_ms, bytes_ms = rec_bound(name, H, TRAIN_B, 4,
+                                         PEAK_TF32_FLOPS, TF32_PASSES)
+            row = {"ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                   "ffma_ms": rec_bound(name, H, TRAIN_B, 4,
+                                        PEAK_F32_FLOPS)[0]}
+            if name == "lstm_dw_hh":
+                row["device_ms"] = graph_ms(torch, lambda: kern(False))
+                row["library_device_ms"] = graph_ms(
+                    torch, lambda: torch.einsum("sdbh,sdbg->dhg", ys[:-1],
+                                                dx[1:]))
+            else:
+                runs = [graph_ms(torch, lambda st=st: kern(st))
+                        for st in (False, True, True, False)]
+                row.update(device_ms=(runs[0] + runs[3]) / 2,
+                           device_ms_runs=[runs[0], runs[3]],
+                           stream_device_ms=(runs[1] + runs[2]) / 2,
+                           stream_device_ms_runs=[runs[1], runs[2]],
+                           kernel_ms=cuda_ms(torch, lambda: kern(False)))
+            row["plain_ms"] = cuda_ms(torch, pl, reps=5)
+            per_h.setdefault(name, {})[H] = row
         del xproj, w_hh, dys, ys, cs, gates, dx
     log(f"timing recurrence B={TRAIN_B} float32: " + json.dumps(per_h))
     return per_h
 
 
 def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
-                    init_params, optim, train_mod):
+                    init_params, optim, train_mod, compute_dtype):
     """Phase 3c: where the time of one training step goes, at batch 512
-    in bf16 with the train CLI's defaults (dropout 0.5, Adam), through
+    in ``compute_dtype`` (bfloat16, the train CLI's default, or float32)
+    with the train CLI's other defaults (dropout 0.5, Adam), through
     the train loop's own step function on the resident plane: its device
     time (CUDA events) and the host's time to enqueue it, with each
     step's rows gathered by a permutation as the loop does, and on one
@@ -747,7 +816,7 @@ def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
     device time by kernel)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    cfg = ModelConfig(compute_dtype="bfloat16")
+    cfg = ModelConfig(compute_dtype=compute_dtype)
     model = ModelBiLSTM.from_params(init_params(cfg, SEED), cfg, "cuda",
                                     trainable=True)
     weights = list(model.parameters())
@@ -805,7 +874,7 @@ def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    out = {"B": TRAIN_B, "dtype": "bfloat16", "optimizer": "Adam",
+    out = {"B": TRAIN_B, "dtype": compute_dtype, "optimizer": "Adam",
            "dropout_rate": cfg.dropout_rate,
            "step_ms": statistics.median(times["gathered"][0]),
            "host_enqueue_ms": statistics.median(times["gathered"][1]),
@@ -837,7 +906,7 @@ def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
             "top_kernels_ms_per_step": {k: round(v[1], 4) for k, v in top}})
     else:
         out["device_busy_share"] = "not measured (no device events)"
-    log("train step: " + json.dumps(out))
+    log(f"train step ({compute_dtype}): " + json.dumps(out))
     return out
 
 
@@ -1078,9 +1147,10 @@ def flat_leaves(tree, prefix=""):
 
 def check_f32_training(tmp: str, ab, recurrence, train_entry, parser,
                        init_params, ModelConfig):
-    """Phase 4c: float32 training through the kernels against the plain
-    version, in this process through the train entry point: the same 8
-    SGD steps, dropout 0, from the same initial weights."""
+    """Phase 4c: float32 training through the kernels (K3 and K4 on their
+    float32 cluster kernels) against the plain version, in this process
+    through the train entry point: the same 8 SGD steps, dropout 0, from
+    the same initial weights."""
     tr = os.path.join(tmp, "train_f32.tsv")
     ab.write_features(tr, F32_TRAIN_STEPS * TRAIN_B, SEED + 3, TRAIN_SHIFT)
     va = os.path.join(tmp, "valid.tsv")
@@ -1097,10 +1167,16 @@ def check_f32_training(tmp: str, ab, recurrence, train_entry, parser,
             res[rec] = train_entry(args)
         launched = {k: recurrence.launches[k] - before[k] for k in before}
         res[rec]["launches"] = launched
-        want = 5 * F32_TRAIN_STEPS if rec == "kernel" else 0
-        if launched["lstm_recurrence_fwd_save"] != want or \
-                launched["lstm_recurrence_bwd"] != want:
-            fail(f"float32 {rec} training launched {launched}")
+        # the kernel run: K3, K4 and dW_hh 5 times a step, K3 and K4 on
+        # the float32 cluster kernels; the plain run: nothing
+        want = {k: 0 for k in launched}
+        if rec == "kernel":
+            want.update({k: 5 * F32_TRAIN_STEPS for k in (
+                "lstm_recurrence_fwd_save_f32", "lstm_recurrence_bwd_f32",
+                "lstm_dw_hh")})
+        if launched != want:
+            fail(f"float32 {rec} training launched {launched}, expected "
+                 f"{want}")
     lk = np.array(res["kernel"]["step_losses"])
     lp = np.array(res["scan"]["step_losses"])
     if len(lk) != F32_TRAIN_STEPS or len(lp) != F32_TRAIN_STEPS:
@@ -1132,18 +1208,22 @@ def check_k2_path(torch, bilstm, recurrence, Batch, FeatureDataset,
     """Phase 4d: inference with the fused path off runs the batch-major
     structure, whose recurrence is K2: 5 launches per forward tile, logits
     against the K1 path, on a 4096-row tile and a 512-row tile of the
-    trained model. bfloat16 K2 takes the cluster kernel at 512 rows and
-    the streaming kernel at 4096 (no cluster plan holds 4096 rows in one
-    wave; recurrence_plan); float32 its one kernel."""
+    trained model. At 512 rows every layer takes its dtype's cluster
+    kernel; at 4096 rows the kernel of recurrence_plan on the card's
+    capacity (bfloat16: the streaming kernel, no plan holds 4096 rows in
+    one wave; float32: H=128 in two waves of clusters, H=256 streaming)."""
     params, cfg = load_checkpoint(ckpt)
     ds = FeatureDataset.from_file(valid_tsv)
-    keys = ("lstm_recurrence_fwd", "lstm_recurrence_fwd_stream")
+    keys = [k for k in recurrence.launches
+            if k.startswith("lstm_recurrence_fwd")
+            and not k.startswith("lstm_recurrence_fwd_save")]
     out = {}
     for rows in (TILE, TRAIN_B):
         b, _ = ds.batch_at(slice(0, rows))
         batch = Batch(*(torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
                         for a in b))
         for dname in ("bfloat16", "float32"):
+            dtype = getattr(torch, dname)
             model = bilstm.ModelBiLSTM.from_params(
                 params, cfg.with_(compute_dtype=dname, dropout_rate=0.0),
                 "cuda")
@@ -1162,8 +1242,17 @@ def check_k2_path(torch, bilstm, recurrence, Batch, FeatureDataset,
             log(f"K2 path, {dname}, {rows} rows: K2 launches {by_kernel}; "
                 f"max|logits K2 path - K1 path| = {err:.3g} (<= "
                 f"{bound:.3g}); call agreement {agree:.6f}")
-            stream = dname == "bfloat16" and rows == TILE
-            want = {k: 5 * (k.endswith("_stream") == stream) for k in keys}
+            want = {k: 0 for k in keys}
+            for _, _, H, _ in MAIN_PATH_LAYERS.values():
+                plan = recurrence.recurrence_plan(
+                    0, rows, H, lambda C, r, H=H: recurrence.cluster_capacity(
+                        0, 0, H, C, r, dtype), dtype)
+                if rows == TRAIN_B and plan is None:
+                    fail(f"K2 {dname} has no cluster plan at H={H}, "
+                         f"{rows} rows")
+                want["lstm_recurrence_fwd"
+                     + ("_f32" if dtype == torch.float32 else "")
+                     + ("" if plan else "_stream")] += 1
             if by_kernel != want:
                 fail(f"inference with the fused path off launched "
                      f"{by_kernel} for one {rows}-row tile (expected {want})")
@@ -1227,7 +1316,7 @@ def main() -> int:
     log(f"built native/featparse.cpp with {native.CXX} "
         f"{' '.join(native.CXX_FLAGS)}: {native.library_path().name}")
     errs, checked = check_kernel(torch, fused_lstm, bilstm_layer)
-    plans = rec_plans(recurrence)
+    plans = rec_plans(torch, recurrence)
     rec_errs, rec_checked = check_recurrence(torch, recurrence, plain)
 
     # phase 3: timing
@@ -1235,9 +1324,10 @@ def main() -> int:
     forward = time_forward(torch, ModelConfig, ModelBiLSTM, Batch,
                            init_params)
     rec_timings = time_recurrence(torch, recurrence, plain)
-    step_timing = time_train_step(torch, ModelConfig, ModelBiLSTM,
-                                  FeatureDataset, init_params, optim,
-                                  train_mod)
+    step_timing = {dt: time_train_step(torch, ModelConfig, ModelBiLSTM,
+                                       FeatureDataset, init_params, optim,
+                                       train_mod, dt)
+                   for dt in ("bfloat16", "float32")}
 
     # phase 4: the main paths; their counts start at 0 in fresh processes
     for counts in (fused_lstm.launches, recurrence.launches):
@@ -1294,6 +1384,8 @@ def main() -> int:
             "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
                          else "bytes"),
             "library_ms": total("library_ms"),
+            **({"ffma_bound_ms": max(total("ffma_ms"), total("bytes_ms"))}
+               if dname == "float32" else {}),
             "shapes_checked": [c for c in checked if c[4] == kernel],
             "per_launch": rows})
     kernels["kernels"][0].update(model_forward=forward, main_path=run)
@@ -1306,19 +1398,34 @@ def main() -> int:
         kernels["kernels"].append({
             "name": name, "route": "cuda",
             "source": "deepsignal_plant_tpu_torch/csrc/lstm_recurrence.cu",
-            "replaces": replaces,
+            "replaces": replaces, "dtype": "bfloat16",
             "launches": (k2_path[f"bfloat16 {TRAIN_B}"]["launches_by_kernel"]
                          [name] if name == "lstm_recurrence_fwd"
                          else trained["launches"][name]),
             **({"plans": {k: v for k, v in plans.items()
-                          if k.startswith(name + " ")}}
+                          if k.startswith(name + " bfloat16 ")}}
                if name != "lstm_dw_hh" else {}),
-            "max_abs_err": max(rec_errs[name].values()),
-            "max_abs_err_float32": rec_errs[name]["float32"],
-            "max_abs_err_bfloat16": rec_errs[name]["bfloat16"],
+            "max_abs_err": (max(rec_errs[name].values())
+                            if name == "lstm_dw_hh"
+                            else rec_errs[name]["bfloat16"]),
             **t, "shapes_checked": rec_checked})
-        kernels["kernels"][-1]["float32"]["launches_f32_training"] = (
-            f32_train["launches"][name])
+    kernels["kernels"][-1]["float32"]["launches_f32_training"] = (
+        f32_train["launches"]["lstm_dw_hh"])
+    # the float32 cluster kernels: times per 512-row step; launches from
+    # float32 training (4c: K3, K4) and the fused-off 512-row float32 tile
+    # (4d: K2)
+    for name, wrapper in F32_KERNELS.items():
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "deepsignal_plant_tpu_torch/csrc/lstm_recurrence.cu",
+            "replaces": REC_KERNELS[wrapper], "dtype": "float32",
+            "launches": (k2_path[f"float32 {TRAIN_B}"]["launches_by_kernel"]
+                         [name] if wrapper == "lstm_recurrence_fwd"
+                         else f32_train["launches"][name]),
+            "plans": {k: v for k, v in plans.items()
+                      if k.startswith(wrapper + " float32 ")},
+            "max_abs_err": rec_errs[wrapper]["float32"],
+            **rec_timings[name], "shapes_checked": rec_checked})
     log("train summary: " + json.dumps({
         **trained, "f32_kernel_vs_plain": f32_train, "k2_path": k2_path,
         "step": step_timing}))

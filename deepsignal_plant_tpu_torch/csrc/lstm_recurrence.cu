@@ -31,25 +31,26 @@
 // direction for all T steps. The cell state and the carries stay in f32
 // registers of the thread that owns their (row, unit). bfloat16 runs its
 // per-step product on the tensor cores (mma.sync m16n8k16, f32
-// accumulate); float32 on the CUDA cores. The ragged batch edge is masked
+// accumulate); float32 on the tensor cores in 3xTF32 (mma.sync m16n8k8,
+// three tf32 products per f32 product) in its cluster kernels, and on the
+// CUDA cores (FFMA) in its streaming kernels. The ragged batch edge is masked
 // in the kernel: rows >= B read zeros and store nothing, with no padding
 // on the host (the JAX wrapper pads B to a multiple of 128,
 // pallas_lstm.py:219-223).
 //
-// bfloat16 has two designs, chosen per launch by the wrapper's plan
-// (ops/recurrence.py::recurrence_plan):
+// Each storage type has two designs, chosen per launch by the wrapper's
+// plan (ops/recurrence.py::recurrence_plan):
 // - the cluster kernels (H = 128 and 256, the training path's widths): a
-//   thread-block cluster of C = H/64 blocks owns a row tile, block r owns
-//   64 hidden units and keeps their slice of W_hh[d] resident in shared
-//   memory for the whole launch; h_s (forward) or the partial sums of
-//   dh_{s-1} (backward) cross the cluster through distributed shared
-//   memory, one or two cluster barriers per step;
-// - the streaming kernels (every other H, up to 512): grid (ceil(B / BB),
-//   2), one block per row tile; one direction's W_hh (512 KB in bf16 at
-//   H=256, more than a block's 227 KB) is packed per launch into the
-//   caller's workspace and read from L2 at every step; h (or da) is
-//   exchanged through shared memory, double-buffered, one __syncthreads()
-//   per step.
+//   thread-block cluster of C blocks owns a row tile, block r owns H/C
+//   hidden units (64 in bfloat16, 32 in float32) and keeps their slice of
+//   W_hh[d] resident in shared memory for the whole launch; h_s (forward)
+//   or the partial sums of dh_{s-1} (backward) cross the cluster through
+//   distributed shared memory, one or two cluster barriers per step;
+// - the streaming kernels (every other H, up to 512, and shapes with no
+//   plan): grid (ceil(B / BB), 2), one block per row tile; one direction's
+//   W_hh (512 KB in bf16 at H=256, more than a block's 227 KB) is read
+//   from L2 at every step (bfloat16 packs it per launch into the caller's
+//   workspace); h (or da) is exchanged through shared memory.
 //
 // The TPU's K4 keeps a (2, H, 4H) f32 dW_hh accumulator per batch tile
 // in VMEM (1 MB per direction at H=256), which no block here can hold.
@@ -251,7 +252,7 @@ fwd_bf16_kernel(const bf16* __restrict__ xproj, const bf16* __restrict__ wt,
 }
 
 // ---------------------------------------------------------------------------
-// forward (K2, K3), float32 on the CUDA cores
+// forward (K2, K3), float32 on the CUDA cores: the streaming kernel
 //
 // block = (round_up(H, 32), max(1, 256 / that)) threads; thread (j, y)
 // owns unit j for RB rows; h_{s-1} is kept transposed ([k][row]) in shared
@@ -474,7 +475,8 @@ bwd_bf16_kernel(const bf16* __restrict__ dys, const float* __restrict__ cs,
 }
 
 // ---------------------------------------------------------------------------
-// backward recurrence (K4), float32 on the CUDA cores
+// backward recurrence (K4), float32 on the CUDA cores: the streaming
+// kernel
 //
 // Thread (j, y) owns unit j for RB rows; da_s is kept transposed
 // ([4H][row]) in shared memory; W_hh[d] is packed transposed to (4H, H) so
@@ -1266,14 +1268,464 @@ bwd_cluster_kernel(const bf16* __restrict__ dys, const float* __restrict__ cs,
 }
 
 // ---------------------------------------------------------------------------
+// the cluster kernels (K2, K3 and K4's recurrence), float32
+//
+// The bfloat16 cluster design at float32 storage. A block's W slice costs
+// twice the bytes, so a block owns kClUF = 32 hidden units (4*32 columns
+// of W_hh[d]) and a cluster holds C = H / 32 blocks: 4 at H = 128, 8 at
+// H = 256. The per-step products run on the tensor cores in 3xTF32
+// (mma.sync m16n8k8): each f32 operand is split as x = hi + lo, both
+// rounded to tf32, and hi*hi + hi*lo + lo*hi is summed into the f32
+// accumulator (lo*lo, about 2^-22 of a product, is dropped), which keeps
+// about f32's
+// accuracy at three tensor-core products per product. W is split as it
+// is read from shared memory (pre-split copies would double its bytes),
+// h (forward) and da (backward) likewise.
+//
+// Forward: W slice in shared memory with rows of kClLdwF = 136 floats
+// (column order: 8-unit group, gate, unit in the group) and one h buffer
+// (rows of H + 4 floats), so that a row tile of 80 fits a block at H=256
+// and the grid fits the card in one wave (the H100 holds 15 clusters of
+// 8). Two cluster barriers per step: the first's arrive after the
+// product (h_{s-1} read), its wait after the cell update, before h_s goes
+// to every peer's buffer; the second after those writes. xproj[s+1] is
+// read into registers while step s computes; ys, cs and the gates are
+// stored from registers. Warp w owns 8-unit group w % 4 and m16 tiles
+// w / 4, w / 4 + 2, ...: a thread's accumulators hold i, f, g and o of
+// the same (row, unit) pairs.
+// Backward: as the bfloat16 kernel, with f32 da (no rounding: the storage
+// type is f32), rows of kClLdaF = 132 floats, a (row, 4-unit chunk) pair
+// per thread, and C receive slots of rows x 32 f32; the slots are summed
+// in rank order, so two launches give the same bits.
+// The row strides make every fragment load conflict-free: a B fragment of
+// the forward reads rows q and columns gq (stride 136 = 8 mod 32 banks),
+// every other fragment rows gq and columns q (stride 4 mod 32 banks).
+
+constexpr int kClUF = 32;                   // hidden units of a block
+constexpr int kClLdwF = 4 * kClUF + 8;      // forward W slice rows
+constexpr int kClLdaF = 4 * kClUF + 4;      // backward W slice and da rows
+constexpr int kClMaxC = 8;                  // the largest cluster (H = 256)
+
+// x as hi + lo, each rounded to tf32 (to nearest, ties away from zero:
+// the values cvt.rna.tf32.f32 gives). Integer ops instead of cvt, which
+// runs on the conversion pipe at a quarter of the FP32 rate and bound
+// the kernels' steps: hi = x + half an ulp of tf32, cut to tf32's 10
+// mantissa bits; lo = x - hi is exact in f32. The tensor cores read the
+// top 19 bits of a .tf32 operand and ignore the low 13, so lo is passed
+// with half an ulp added (rounded) and its low bits left in place.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
+}
+
+// c += a @ b on one 16x8x8 tile in tf32; fragments as PTX's mma.m16n8k8
+// defines (a: rows gq, gq+8 x columns q, q+4; b: rows q, q+4 x column gq)
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a @ b in 3xTF32: the small terms first, then hi*hi
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
+// the A fragment of the m16 x k8 tile at p (row stride ld), split
+__device__ __forceinline__ void a_frag_f32(const float* p, int ld,
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+  split_tf32(p[0], hi[0], lo[0]);
+  split_tf32(p[8 * ld], hi[1], lo[1]);
+  split_tf32(p[4], hi[2], lo[2]);
+  split_tf32(p[8 * ld + 4], hi[3], lo[3]);
+}
+
+template <int MT, bool SAVE>
+__global__ void __launch_bounds__(kClWarps * 32, 1)
+fwd_cluster_f32_kernel(const float* __restrict__ xproj,
+                       const float* __restrict__ w_hh, float* __restrict__ ys,
+                       float* __restrict__ cs, float* __restrict__ gates,
+                       int T_, int B, int H) {
+  constexpr int BB = 16 * MT;
+  constexpr int MW = (MT + 1) / 2;          // m16 tiles of a warp, at most
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.y;
+  const int G4 = 4 * H;
+  const int u0 = rank * kClUF;
+  const int b0 = (blockIdx.x / C) * BB;
+  const int Ldh = H + 4;
+  float* const wsm = reinterpret_cast<float*>(smem_raw);  // H x kClLdwF
+  float* const hbuf = wsm + (size_t)H * kClLdwF;          // BB x Ldh
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane >> 2, q = lane & 3;
+  const int grp = warp & 3;                 // the warp's 8-unit group
+  const int mt0 = warp >> 2;                // its m16 tiles mt0, mt0 + 2, ..
+  const int jl = grp * 8 + 2 * q;           // this thread's units jl, jl+1
+
+  // row k, column grp*32 + g*8 + j of the slice = w_hh[d][k][g*H + u0 +
+  // grp*8 + j], by 16-byte cp.async
+  for (int i = threadIdx.x; i < H * 32; i += blockDim.x) {
+    const int k = i >> 5, c = i & 31;
+    const int gp = c >> 3, g = (c >> 1) & 3, half = c & 1;
+    cp_async16(wsm + k * kClLdwF + gp * 32 + g * 8 + half * 4,
+               w_hh + ((size_t)d * H + k) * G4 + g * H + u0 + gp * 8 +
+                   half * 4,
+               true);
+  }
+  cp_async_commit();
+
+  // xproj[s] of this thread's (row, unit) pairs, in the accumulator
+  // layout; rows >= B read zeros
+  float xn[MW][4][4];
+  auto load_x = [&](int s) {
+    const size_t step = (size_t)s * 2 + d;
+#pragma unroll
+    for (int mw = 0; mw < MW; ++mw)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = b0 + (mt0 + 2 * mw) * 16 + gq + half * 8;
+        const bool ok = mt0 + 2 * mw < MT && row < B;
+        const float* xr = xproj + (step * B + row) * G4 + u0 + jl;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float2 v = ok ? *reinterpret_cast<const float2*>(xr + g * H)
+                              : make_float2(0.f, 0.f);
+          xn[mw][g][2 * half] = v.x;
+          xn[mw][g][2 * half + 1] = v.y;
+        }
+      }
+  };
+  load_x(0);
+  for (int i = threadIdx.x; i < BB * Ldh / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(hbuf)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // the same h buffer in every block of the cluster
+  float* peer[kClMaxC];
+#pragma unroll
+  for (int p = 0; p < kClMaxC; ++p)
+    peer[p] = p < C ? cluster.map_shared_rank(hbuf, p) : hbuf;
+  cp_async_wait<0>();
+  cluster_arrive();                         // every peer runs, W is in place
+  cluster_wait();
+
+  float c[MW][4];
+#pragma unroll
+  for (int mw = 0; mw < MW; ++mw)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[mw][e] = 0.f;
+
+  for (int s = 0; s < T_; ++s) {
+    const bool last = s + 1 == T_;
+    const size_t step = (size_t)s * 2 + d;
+
+    float acc[MW][4][4];
+#pragma unroll
+    for (int mw = 0; mw < MW; ++mw)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mw][g][e] = xn[mw][g][e];
+    if (!last) load_x(s + 1);               // in flight during the product
+
+#pragma unroll 2
+    for (int kk = 0; kk < H; kk += 8) {
+      uint32_t bh[4][2], bl[4][2];
+      const float* wp = wsm + (kk + q) * kClLdwF + grp * 32 + gq;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        split_tf32(wp[g * 8], bh[g][0], bl[g][0]);
+        split_tf32(wp[4 * kClLdwF + g * 8], bh[g][1], bl[g][1]);
+      }
+#pragma unroll
+      for (int mw = 0; mw < MW; ++mw) {
+        if (mt0 + 2 * mw >= MT) break;      // the same for the whole warp
+        uint32_t ah[4], al[4];
+        a_frag_f32(hbuf + ((mt0 + 2 * mw) * 16 + gq) * Ldh + kk + q, Ldh,
+                   ah, al);
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          mma_3xtf32(acc[mw][g], ah, al, bh[g], bl[g]);
+      }
+    }
+    if (!last) cluster_arrive();            // this block read h_{s-1}
+
+    float2 hv[MW][2];
+#pragma unroll
+    for (int mw = 0; mw < MW; ++mw) {
+      if (mt0 + 2 * mw >= MT) break;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float gv[4][2], h[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int e = 2 * half + k;
+          gv[0][k] = sigmoid_f(acc[mw][0][e]);
+          gv[1][k] = sigmoid_f(acc[mw][1][e]);
+          gv[2][k] = tanhf(acc[mw][2][e]);
+          gv[3][k] = sigmoid_f(acc[mw][3][e]);
+          c[mw][e] = gv[1][k] * c[mw][e] + gv[0][k] * gv[2][k];
+          h[k] = gv[3][k] * tanhf(c[mw][e]);
+        }
+        hv[mw][half] = make_float2(h[0], h[1]);
+        const int row = b0 + (mt0 + 2 * mw) * 16 + gq + half * 8;
+        if (row < B) {
+          const size_t hi = (step * B + row) * H + u0 + jl;
+          *reinterpret_cast<float2*>(ys + hi) = hv[mw][half];
+          if (SAVE) {
+            *reinterpret_cast<float2*>(cs + hi) =
+                make_float2(c[mw][2 * half], c[mw][2 * half + 1]);
+            float* gr = gates + (step * B + row) * G4 + u0 + jl;
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              *reinterpret_cast<float2*>(gr + g * H) =
+                  make_float2(gv[g][0], gv[g][1]);
+          }
+        }
+      }
+    }
+    if (last) break;                        // h_{T-1} feeds no product
+    cluster_wait();                         // every peer read its h_{s-1}
+#pragma unroll
+    for (int mw = 0; mw < MW; ++mw) {
+      if (mt0 + 2 * mw >= MT) break;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int off = ((mt0 + 2 * mw) * 16 + gq + half * 8) * Ldh + u0 + jl;
+#pragma unroll
+        for (int p = 0; p < kClMaxC; ++p)
+          if (p < C) *reinterpret_cast<float2*>(peer[p] + off) = hv[mw][half];
+      }
+    }
+    cluster_arrive();                       // h_s is in every block's buffer
+    cluster_wait();
+  }
+}
+
+// The residuals of one (row, 4-unit chunk) pair for one step: the four
+// activated gates, dy, and c_{s-1} (the next step's c_t).
+struct ClResF {
+  float4 g[4];
+  float4 dy;
+  float4 cp;
+};
+
+__device__ __forceinline__ ClResF cl_load_res_f32(
+    const float* __restrict__ dys, const float* __restrict__ cs,
+    const float* __restrict__ gates, int s, int d, int B, int H, int row,
+    int u) {
+  ClResF res;
+  const size_t step = (size_t)s * 2 + d;
+  const float* gr = gates + (step * B + row) * (size_t)(4 * H) + u;
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+    res.g[g] = *reinterpret_cast<const float4*>(gr + g * H);
+  res.dy = *reinterpret_cast<const float4*>(dys + (step * B + row) * H + u);
+  res.cp = s > 0 ? *reinterpret_cast<const float4*>(
+                       cs + ((step - 2) * B + row) * H + u)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+  return res;
+}
+
+__device__ __forceinline__ void f4_to(const float4 v, float (&f)[4]) {
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+
+// MT: m16 tiles of the row tile; C: the cluster (H = 32 * C). Warp w
+// computes dh for the NT = H/64 n8 tiles of units from w*8*NT, all of one
+// peer's 32.
+template <int MT, int C>
+__global__ void __launch_bounds__(kClWarps * 32, 1)
+bwd_cluster_f32_kernel(const float* __restrict__ dys,
+                       const float* __restrict__ cs,
+                       const float* __restrict__ gates,
+                       const float* __restrict__ w_hh, float* __restrict__ dx,
+                       int T_, int B) {
+  constexpr int BB = 16 * MT;
+  constexpr int H = kClUF * C;
+  constexpr int G4 = 4 * H;
+  constexpr int NT = H / (8 * kClWarps);
+  constexpr int NCH = BB * (kClUF / 4);     // (row, 4-unit chunk) pairs
+  constexpr int CPT = (NCH + kClWarps * 32 - 1) / (kClWarps * 32);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.y;
+  const int u0 = rank * kClUF;
+  const int b0 = (blockIdx.x / C) * BB;
+  float* const wsm = reinterpret_cast<float*>(smem_raw);  // H x kClLdaF
+  float* const das = wsm + (size_t)H * kClLdaF;           // BB x kClLdaF
+  float* const recv = das + BB * kClLdaF;
+  // recv[slot][row][unit]: C slots of BB x kClUF
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane >> 2, q = lane & 3;
+  const int n0 = warp * 8 * NT;             // this warp's first unit of dh
+  // slot `rank` of the receive buffer of the peer that owns unit n0
+  float* const dst = cluster.map_shared_rank(recv, n0 / kClUF) +
+                     rank * BB * kClUF + n0 % kClUF;
+
+  // row k, column g*32 + j of the slice = w_hh[d][k][g*H + u0 + j]
+  for (int i = threadIdx.x; i < H * 32; i += blockDim.x) {
+    const int k = i >> 5, c = i & 31;
+    cp_async16(wsm + k * kClLdaF + c * 4,
+               w_hh + ((size_t)d * H + k) * G4 + (c >> 3) * H + u0 +
+                   (c & 7) * 4,
+               true);
+  }
+  cp_async_commit();
+
+  float dc[CPT][4], c_t[CPT][4];
+  ClResF res[CPT];
+#pragma unroll
+  for (int ci = 0; ci < CPT; ++ci) {
+    const int i = threadIdx.x + ci * kClWarps * 32;
+    const int row = b0 + i / (kClUF / 4);
+    const int u = u0 + (i % (kClUF / 4)) * 4;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) dc[ci][k] = c_t[ci][k] = 0.f;
+    if (i < NCH && row < B) {
+      res[ci] = cl_load_res_f32(dys, cs, gates, T_ - 1, d, B, H, row, u);
+      f4_to(*reinterpret_cast<const float4*>(
+                cs + (((size_t)(T_ - 1) * 2 + d) * B + row) * H + u),
+            c_t[ci]);
+    }
+  }
+  cp_async_wait<0>();
+  cluster_arrive();                         // every peer runs, W is in place
+  cluster_wait();
+
+  for (int s = T_ - 1; s >= 0; --s) {
+    const size_t step = (size_t)s * 2 + d;
+    if (s < T_ - 1) cluster_wait();         // the slots hold dh_s's parts
+#pragma unroll
+    for (int ci = 0; ci < CPT; ++ci) {
+      const int i = threadIdx.x + ci * kClWarps * 32;
+      if (i >= NCH) break;
+      const int r = i / (kClUF / 4);
+      const int j = (i % (kClUF / 4)) * 4;  // first unit, block-local
+      const int row = b0 + r;
+      float da[4][4];
+      if (row < B) {
+        float dh[4] = {0.f, 0.f, 0.f, 0.f};
+        if (s < T_ - 1) {
+          for (int p = 0; p < C; ++p) {     // rank order: deterministic
+            const float4 a = *reinterpret_cast<const float4*>(
+                recv + (p * BB + r) * kClUF + j);
+            dh[0] += a.x; dh[1] += a.y; dh[2] += a.z; dh[3] += a.w;
+          }
+        }
+        float gv[4][4], dy[4], cpv[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) f4_to(res[ci].g[g], gv[g]);
+        f4_to(res[ci].dy, dy);
+        f4_to(res[ci].cp, cpv);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float ig = gv[0][k], fg = gv[1][k], gg = gv[2][k],
+                      og = gv[3][k];
+          const float tanh_c = tanhf(c_t[ci][k]);
+          const float dh_t = dy[k] + dh[k];
+          const float dc_t =
+              dc[ci][k] + dh_t * og * (1.f - tanh_c * tanh_c);
+          da[0][k] = dc_t * gg * ig * (1.f - ig);
+          da[1][k] = dc_t * cpv[k] * fg * (1.f - fg);
+          da[2][k] = dc_t * ig * (1.f - gg * gg);
+          da[3][k] = dh_t * tanh_c * og * (1.f - og);
+          dc[ci][k] = dc_t * fg;
+          c_t[ci][k] = cpv[k];              // c_t of step s-1
+        }
+        float* dxr = dx + (step * B + row) * G4 + u0 + j;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float4 v = make_float4(da[g][0], da[g][1], da[g][2], da[g][3]);
+          *reinterpret_cast<float4*>(dxr + g * H) = v;
+          *reinterpret_cast<float4*>(das + r * kClLdaF + g * 32 + j) = v;
+        }
+        if (s > 0)                          // next step's residuals, early
+          res[ci] = cl_load_res_f32(dys, cs, gates, s - 1, d, B, H, row,
+                                    u0 + j);
+      } else {                              // rows past the edge: da = 0
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          *reinterpret_cast<float4*>(das + r * kClLdaF + g * 32 + j) =
+              make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    if (s == 0) break;                      // dh_{-1} is not needed
+    cluster_arrive();                       // this block's slots are read
+    __syncthreads();                        // da_s of every unit is in das
+
+    float acc[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < 4 * kClUF; kk += 8) {
+      uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float* wp = wsm + (n0 + nt * 8 + gq) * kClLdaF + kk + q;
+        split_tf32(wp[0], bh[nt][0], bl[nt][0]);
+        split_tf32(wp[4], bh[nt][1], bl[nt][1]);
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t ah[4], al[4];
+        a_frag_f32(das + (mt * 16 + gq) * kClLdaF + kk + q, kClLdaF, ah, al);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          mma_3xtf32(acc[mt][nt], ah, al, bh[nt], bl[nt]);
+      }
+    }
+    cluster_wait();                         // every peer has read its slots
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = mt * 16 + gq + half * 8;
+          *reinterpret_cast<float2*>(dst + r * kClUF + nt * 8 + 2 * q) =
+              make_float2(acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+        }
+    cluster_arrive();                       // the slots hold dh_{s-1}'s parts
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch helpers
 
 // The cluster kernels' launches: kind 0 = K2, 1 = K3, 2 = K4's
-// recurrence; a plan is a cluster size and a row tile (`rows` = BB).
+// recurrence; dtype 0 = float32, 1 = bfloat16; a plan is a cluster size
+// and a row tile (`rows` = BB).
 
 // shared-memory bytes of a cluster kernel (the same formula as
 // ops/recurrence.py::recurrence_smem)
-inline size_t cl_smem(int kind, int H, int rows) {
+inline size_t cl_smem(int kind, int H, int rows, int dtype) {
+  if (dtype == 0) {
+    if (kind == 2)
+      return ((size_t)(H + rows) * kClLdaF + (size_t)rows * H) *
+             sizeof(float);
+    return ((size_t)H * kClLdwF + (size_t)rows * (H + 4)) * sizeof(float);
+  }
   const size_t w = (size_t)H * kClLdw * sizeof(bf16);
   if (kind == 2)
     return w + (size_t)rows * kClLdw * sizeof(bf16) +
@@ -1283,11 +1735,34 @@ inline size_t cl_smem(int kind, int H, int rows) {
 }
 
 // the kernel of a plan, or null where ops/recurrence.py::recurrence_plan
-// cannot give the plan: clusters of 2 or 4 blocks of kClU units, row
-// tiles of 16, 32 or 48, within a block's shared memory
-inline const void* cl_kernel(int kind, int H, int cluster, int rows) {
-  if (!(cluster == 2 || cluster == 4) || H != cluster * kClU ||
-      rows % 16 != 0 || cl_smem(kind, H, rows) > kMaxSmem)
+// cannot give the plan, within a block's shared memory: bfloat16,
+// clusters of 2 or 4 blocks of kClU units and row tiles of 16, 32 or 48;
+// float32, clusters of 4 or 8 blocks of kClUF units and row tiles of 16
+// to 80 (forward) or 16 to 48 (backward)
+inline const void* cl_kernel(int kind, int H, int cluster, int rows,
+                             int dtype) {
+  if (rows % 16 != 0 || kind < 0 || kind > 2 ||
+      cl_smem(kind, H, rows, dtype) > kMaxSmem)
+    return nullptr;
+  if (dtype == 0) {
+    if (!(cluster == 4 || cluster == 8) || H != cluster * kClUF)
+      return nullptr;
+    const bool c4 = cluster == 4;
+#define DSP_FWD(MT)                                                   \
+  if (rows == 16 * MT && kind < 2)                                    \
+    return kind ? (const void*)fwd_cluster_f32_kernel<MT, true>       \
+                : (const void*)fwd_cluster_f32_kernel<MT, false>;
+#define DSP_BWD(MT)                                                   \
+  if (rows == 16 * MT && kind == 2)                                   \
+    return c4 ? (const void*)bwd_cluster_f32_kernel<MT, 4>            \
+              : (const void*)bwd_cluster_f32_kernel<MT, 8>;
+    DSP_FWD(1) DSP_FWD(2) DSP_FWD(3) DSP_FWD(4) DSP_FWD(5)
+    DSP_BWD(1) DSP_BWD(2) DSP_BWD(3)
+#undef DSP_FWD
+#undef DSP_BWD
+    return nullptr;
+  }
+  if (dtype != 1 || !(cluster == 2 || cluster == 4) || H != cluster * kClU)
     return nullptr;
   const bool h2 = cluster == 2;
 #define DSP_CL(MT)                                                         \
@@ -1307,11 +1782,10 @@ inline const void* cl_kernel(int kind, int H, int cluster, int rows) {
 
 // the launch configuration of a plan: grid (cluster * ceil(B / rows), 2),
 // cluster (cluster, 1, 1), kClWarps warps; allows the shared memory
-inline cudaError_t cl_config(const void* kernel, int kind, int H,
-                             int cluster, int rows, int B,
-                             cudaStream_t stream, cudaLaunchConfig_t* cfg,
+inline cudaError_t cl_config(const void* kernel, size_t smem, int cluster,
+                             int rows, int B, cudaStream_t stream,
+                             cudaLaunchConfig_t* cfg,
                              cudaLaunchAttribute* attr) {
-  const size_t smem = cl_smem(kind, H, rows);
   const cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -1334,13 +1808,13 @@ inline bool aligned16(const void* p) {
 
 // launches the plan's kernel with `args` (the kernel's parameters)
 inline cudaError_t cl_launch(int kind, int H, int cluster, int rows, int B,
-                             void** args, cudaStream_t stream) {
-  const void* kernel = cl_kernel(kind, H, cluster, rows);
+                             int dtype, void** args, cudaStream_t stream) {
+  const void* kernel = cl_kernel(kind, H, cluster, rows, dtype);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err =
-      cl_config(kernel, kind, H, cluster, rows, B, stream, &cfg, &attr);
+  cudaError_t err = cl_config(kernel, cl_smem(kind, H, rows, dtype), cluster,
+                              rows, B, stream, &cfg, &attr);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelExC(&cfg, kernel, args);
   if (err != cudaSuccess) return err;
@@ -1488,17 +1962,20 @@ size_t dsp_lstm_fwd_workspace_bytes(int H, int dtype) {
 }
 
 // How many clusters of a plan's kernel (kind 0 = K2, 1 = K3, 2 = K4's
-// recurrence; cluster size, row tile `rows`) the card holds at once
-// (cudaOccupancyMaxActiveClusters at the kernel's shared memory), into
-// *clusters; refuses a plan the launchers refuse.
+// recurrence; storage dtype 0 = float32, 1 = bfloat16; cluster size, row
+// tile `rows`) the card holds at once (cudaOccupancyMaxActiveClusters at
+// the kernel's shared memory), into *clusters; refuses a plan the
+// launchers refuse.
 cudaError_t dsp_lstm_recurrence_clusters(int kind, int H, int cluster,
-                                         int rows, int* clusters) {
-  const void* kernel = cl_kernel(kind, H, cluster, rows);
+                                         int rows, int dtype,
+                                         int* clusters) {
+  const void* kernel = cl_kernel(kind, H, cluster, rows, dtype);
   if (kernel == nullptr || clusters == nullptr) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  const cudaError_t err =
-      cl_config(kernel, kind, H, cluster, rows, rows, nullptr, &cfg, &attr);
+  const cudaError_t err = cl_config(kernel, cl_smem(kind, H, rows, dtype),
+                                    cluster, rows, rows, nullptr, &cfg,
+                                    &attr);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
@@ -1506,11 +1983,11 @@ cudaError_t dsp_lstm_recurrence_clusters(int kind, int H, int cluster,
 // K2 (save = 0) and K3 (save = 1). xproj (T, 2, B, 4H), w_hh (2, H, 4H),
 // ys (T, 2, B, H) in the storage type (dtype 0 = float32, 1 = bfloat16);
 // with save, cs (T, 2, B, H) float32 and gates (T, 2, B, 4H) in the
-// storage type (else both may be null). `cluster` > 0 runs the bfloat16
-// cluster kernel of the plan (cluster, rows) (every pointer 16-byte
+// storage type (else both may be null). `cluster` > 0 runs the cluster
+// kernel of the dtype and the plan (cluster, rows) (every pointer 16-byte
 // aligned; no workspace); 0 the streaming kernel (bfloat16: workspace of
-// dsp_lstm_fwd_workspace_bytes) or the float32 kernel. Runs on `stream`,
-// allocates nothing, returns the launch's error code.
+// dsp_lstm_fwd_workspace_bytes) or the float32 streaming kernel. Runs
+// on `stream`, allocates nothing, returns the launch's error code.
 //
 // What bounds it, at B=512, H=256, T=13 (a comb layer of the training
 // path): 2*2*T*B*H*4H = 7.0 GFLOP (7 us at the bf16 tensor-core peak)
@@ -1523,6 +2000,15 @@ cudaError_t dsp_lstm_recurrence_clusters(int kind, int H, int cluster,
 // H=256, 128 at H=128 on an H100), and cuts a warp's chain to MT x 4 x
 // H/16 mma.sync from shared memory; what it adds is one cluster barrier
 // and the DSMEM copies of h per step.
+//
+// float32: the same products are 3 x 7.0 GFLOP in 3xTF32 (42 us at
+// 495 TFLOP/s) against 70 MB (K2) or 138 MB (K3) of compulsory bytes (21
+// and 41 us). The float32 streaming kernel (one thread per unit, 16 rows a
+// thread, 2 x B/16 = 64 blocks at H=256) runs FFMA on the CUDA cores and
+// reads its direction's whole W_hh (1 MB) from L2 at every step. The
+// float32 cluster kernel keeps 32 units' W slice resident in each of 8
+// blocks (H=256), runs 3xTF32 mma.sync from shared memory, and spreads
+// the batch over clusters as the bfloat16 one does.
 cudaError_t dsp_lstm_recurrence_fwd(const void* xproj, const void* w_hh,
                                     void* ys, void* cs, void* gates, int T_,
                                     int B, int H, int save, int dtype,
@@ -1533,11 +2019,11 @@ cudaError_t dsp_lstm_recurrence_fwd(const void* xproj, const void* w_hh,
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cluster != 0) {
-    if (dtype != 1 || !aligned16(xproj) || !aligned16(w_hh) ||
-        !aligned16(ys) || (save && (!aligned16(cs) || !aligned16(gates))))
+    if (!aligned16(xproj) || !aligned16(w_hh) || !aligned16(ys) ||
+        (save && (!aligned16(cs) || !aligned16(gates))))
       return cudaErrorInvalidValue;
     void* args[] = {&xproj, &w_hh, &ys, &cs, &gates, &T_, &B, &H};
-    return cl_launch(save ? 1 : 0, H, cluster, rows, B, args, st);
+    return cl_launch(save ? 1 : 0, H, cluster, rows, B, dtype, args, st);
   }
   if (dtype == 0) {
     auto x = static_cast<const float*>(xproj);
@@ -1573,9 +2059,9 @@ size_t dsp_lstm_bwd_workspace_bytes(int H, int dtype) {
 // (T, 2, B, 4H) in the storage type, cs (T, 2, B, H) float32, w_hh
 // (2, H, 4H) -> dx = dxproj (T, 2, B, 4H) in the storage type. dh and dc
 // carries start at zero at step T-1; c_{-1} = 0. `cluster` > 0 runs the
-// bfloat16 cluster kernel of the plan (cluster, rows) (every pointer
-// 16-byte aligned; no workspace); 0 the streaming or float32 kernel
-// (workspace of dsp_lstm_bwd_workspace_bytes).
+// cluster kernel of the dtype and the plan (cluster, rows) (every pointer
+// 16-byte aligned; no workspace); 0 the bfloat16 or float32 streaming
+// kernel (workspace of dsp_lstm_bwd_workspace_bytes).
 //
 // What bounds it, at B=512, H=256, T=13: 2*2*(T-1)*B*4H*H = 6.4 GFLOP
 // (6.5 us at the bf16 peak) against 76 MB of compulsory bytes (dys,
@@ -1586,6 +2072,9 @@ size_t dsp_lstm_bwd_workspace_bytes(int H, int dtype) {
 // 16-byte residual loads issued a step ahead, a warp's chain MT x C x
 // 4*64/16 mma.sync from shared memory; it adds the f32 partial sums (C x BB x 64
 // x 4 bytes a block) through DSMEM and two cluster barriers per step.
+// float32: 3 x 6.4 GFLOP in 3xTF32 (39 us) against 138 MB (41 us): bytes
+// bind; the float32 cluster kernel is the bfloat16 one with f32 da, 32
+// units a block (clusters of 8 at H=256) and 3xTF32 products.
 cudaError_t dsp_lstm_recurrence_bwd(const void* dys, const void* cs,
                                     const void* gates, const void* w_hh,
                                     void* dx, int T_, int B, int H, int dtype,
@@ -1595,11 +2084,11 @@ cudaError_t dsp_lstm_recurrence_bwd(const void* dys, const void* cs,
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cluster != 0) {
-    if (dtype != 1 || !aligned16(dys) || !aligned16(cs) ||
-        !aligned16(gates) || !aligned16(w_hh) || !aligned16(dx))
+    if (!aligned16(dys) || !aligned16(cs) || !aligned16(gates) ||
+        !aligned16(w_hh) || !aligned16(dx))
       return cudaErrorInvalidValue;
     void* args[] = {&dys, &cs, &gates, &w_hh, &dx, &T_, &B};
-    return cl_launch(2, H, cluster, rows, B, args, st);
+    return cl_launch(2, H, cluster, rows, B, dtype, args, st);
   }
   if (workspace == nullptr) return cudaErrorInvalidValue;
   if (dtype == 0)

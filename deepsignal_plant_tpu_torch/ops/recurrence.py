@@ -18,11 +18,12 @@ dtype); cell states float32. A CPU tensor takes the plain version
 (ops/lstm.py); a CUDA tensor launches the kernel or raises: there is no
 fallback on the card.
 
-bfloat16 K2, K3 and K4's recurrence have two kernels each: the cluster
-kernels (W_hh resident across a thread-block cluster) and the streaming
-kernels. ``recurrence_plan`` picks one per launch from the shape and the
-card's cluster capacity (``cluster_capacity``, its occupancy query);
-the launch counters say which ran.
+K2, K3 and K4's recurrence have two kernels per storage dtype: the
+cluster kernels (W_hh resident across a thread-block cluster; float32
+runs its products in 3xTF32 on the tensor cores) and the streaming
+kernels. ``recurrence_plan`` picks one per launch from the dtype, the
+shape and the card's cluster capacity (``cluster_capacity``, its
+occupancy query); the launch counters say which ran.
 """
 from __future__ import annotations
 
@@ -37,26 +38,42 @@ from . import lstm as plain
 #: launches of each kernel since the last reset (set an entry to 0 to
 #: count a run); launches that raise are not counted. K2, K3 and K4's
 #: recurrence count under their own names where they run the bfloat16
-#: cluster kernel or the float32 kernel, and under ``<name>_stream``
-#: where they run the bfloat16 streaming kernel (recurrence_plan's other
-#: side).
+#: cluster kernel, ``<name>_f32`` the float32 cluster kernel,
+#: ``<name>_stream`` and ``<name>_f32_stream`` the bfloat16 and float32
+#: streaming kernels (recurrence_plan's other side). dW_hh has one kernel
+#: per dtype under one name.
 launches = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_save": 0,
             "lstm_recurrence_bwd": 0, "lstm_dw_hh": 0,
             "lstm_recurrence_fwd_stream": 0,
             "lstm_recurrence_fwd_save_stream": 0,
-            "lstm_recurrence_bwd_stream": 0}
+            "lstm_recurrence_bwd_stream": 0,
+            "lstm_recurrence_fwd_f32": 0,
+            "lstm_recurrence_fwd_save_f32": 0,
+            "lstm_recurrence_bwd_f32": 0,
+            "lstm_recurrence_fwd_f32_stream": 0,
+            "lstm_recurrence_fwd_save_f32_stream": 0,
+            "lstm_recurrence_bwd_f32_stream": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HIDDEN = 512
 
-# The cluster kernels of csrc/lstm_recurrence.cu (kClU, kClLdw there): a
-# block owns 64 hidden units, a cluster of H/64 blocks one row tile of
-# 16, 32 or 48 rows of one direction; kinds 0 = K2, 1 = K3, 2 = K4's
-# recurrence.
-_CL_UNITS = 64
-_CL_LDW = 4 * _CL_UNITS + 8
-_CL_ROWS = (16, 32, 48)
-_CL_SIZES = (2, 4)
+# The cluster kernels of csrc/lstm_recurrence.cu; kinds 0 = K2, 1 = K3,
+# 2 = K4's recurrence. bfloat16 (kClU, kClLdw there): a block owns 64
+# hidden units, a cluster of H/64 = 2 or 4 blocks one row tile of 16, 32
+# or 48 rows of one direction. float32 (kClUF, kClLdwF, kClLdaF): a block
+# owns 32 units, a cluster of H/32 = 4 or 8 blocks a tile of 16 to 80 rows
+# (forward) or 16 to 48 (backward).
+_CL_UNITS = {torch.bfloat16: 64, torch.float32: 32}
+_CL_SIZES = {torch.bfloat16: (2, 4), torch.float32: (4, 8)}
+_CL_ROWS = {torch.bfloat16: ((16, 32, 48),) * 3,
+            torch.float32: ((16, 32, 48, 64, 80), (16, 32, 48, 64, 80),
+                            (16, 32, 48))}
+# the waves of clusters a plan may take: bfloat16 one (else its streaming
+# kernel); float32 up to two (its streaming kernel is several times
+# slower than a second wave of clusters)
+_CL_WAVES = {torch.bfloat16: 1, torch.float32: 2}
+_CL_LDW = 4 * 64 + 8
+_CL_LDW_F32, _CL_LDA_F32 = 4 * 32 + 8, 4 * 32 + 4
 _MAX_SMEM = 232_448                  # Hopper's shared memory per block
 _KIND = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_save": 1,
          "lstm_recurrence_bwd": 2}
@@ -77,7 +94,7 @@ def _lib() -> ctypes.CDLL:
     lib.dsp_lstm_recurrence_fwd.argtypes = [P] * 5 + [I] * 7 + [P] * 2
     lib.dsp_lstm_recurrence_bwd.argtypes = [P] * 5 + [I] * 6 + [P] * 2
     lib.dsp_lstm_dw_hh.argtypes = [P] * 3 + [I] * 6 + [P] * 2
-    lib.dsp_lstm_recurrence_clusters.argtypes = [I] * 4 + [
+    lib.dsp_lstm_recurrence_clusters.argtypes = [I] * 5 + [
         ctypes.POINTER(I)]
     for fn in (lib.dsp_lstm_recurrence_fwd, lib.dsp_lstm_recurrence_bwd,
                lib.dsp_lstm_dw_hh, lib.dsp_lstm_recurrence_clusters):
@@ -133,55 +150,74 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def recurrence_smem(kind: int, H: int, rows: int) -> int:
+def recurrence_smem(kind: int, H: int, rows: int,
+                    dtype: torch.dtype = torch.bfloat16) -> int:
     """Shared-memory bytes of a block of the cluster kernel ``kind`` (0 =
-    K2, 1 = K3, 2 = K4's recurrence) at hidden size H and a row tile of
-    ``rows``: its W_hh slice (H rows of 4*64 columns, padded); the
-    forward's two h buffers and its xproj stage, or the backward's da
-    buffer and its receive slots (H/64 x rows x 64 f32)."""
+    K2, 1 = K3, 2 = K4's recurrence) in storage ``dtype`` at hidden size H
+    and a row tile of ``rows`` (csrc/lstm_recurrence.cu's cl_smem).
+    bfloat16: its W_hh slice (H rows of 4*64 columns, padded to 264); the
+    forward's two h buffers (rows x (H + 8)) and its xproj stage (rows x
+    264), or the backward's da buffer (rows x 264) and its receive slots
+    (H/64 x rows x 64 f32). float32: its W_hh slice (H rows of 4*32
+    columns, padded to 136 forward, 132 backward) and the forward's h
+    buffer (rows x (H + 4)), or the backward's da buffer (rows x 132) and
+    its receive slots (H/32 x rows x 32)."""
+    if dtype == torch.float32:
+        if kind == 2:
+            return 4 * ((H + rows) * _CL_LDA_F32 + rows * H)
+        return 4 * (H * _CL_LDW_F32 + rows * (H + 4))
     w = H * _CL_LDW * 2
     if kind == 2:
-        return w + rows * _CL_LDW * 2 + (H // _CL_UNITS) * rows * \
-            _CL_UNITS * 4
+        return w + rows * _CL_LDW * 2 + (H // 64) * rows * 64 * 4
     return w + (2 * rows * (H + 8) + rows * _CL_LDW) * 2
 
 
-def recurrence_plan(kind: int, B: int, H: int, capacity):
-    """(cluster, rows) of the bfloat16 cluster kernel ``kind`` for B
-    batch rows, or None for the streaming kernel. ``capacity(cluster,
+def recurrence_plan(kind: int, B: int, H: int, capacity,
+                    dtype: torch.dtype = torch.bfloat16):
+    """(cluster, rows) of the cluster kernel ``kind`` in storage ``dtype``
+    for B batch rows, or None for the streaming kernel. ``capacity(cluster,
     rows)`` is how many clusters of that plan the card holds at once (the
     wrapper asks the card: cudaOccupancyMaxActiveClusters). The grid is
     2 * ceil(B / rows) clusters, row tile t covering rows [t*rows,
     min((t+1)*rows, B)) of each direction.
 
-    The shape rule: the cluster kernels fix 64 hidden units per block (one
-    8-unit group per warp of 8) and take clusters of 2 or 4 blocks, so
-    H = 128 or 256 (the training path's widths); at H = 512 a block's
-    W_hh slice alone (512 x 264 bf16 = 270 KB) passes the 227 KB of
-    shared memory, and other H are not multiples of 64 per block. Those
-    take the streaming kernel. Among row tiles of 16, 32 and 48 the
-    smallest whose grid fits the card in one wave (shorter chains, more
-    SMs); where none does, the streaming kernel, never a second wave of
-    clusters."""
-    C = H // _CL_UNITS
-    if H % _CL_UNITS or C not in _CL_SIZES:
+    The shape rule: the cluster kernels fix the units of a block (64 in
+    bfloat16, 32 in float32: one W_hh slice fits a block's shared memory
+    at either) and take clusters of 2 or 4 (bfloat16) or 4 or 8 (float32)
+    blocks, so H = 128 or 256 (the training path's widths); at H = 512 the
+    cluster would pass 8 blocks (16 is not portable), and other H are not
+    multiples of a block's units. Those take the streaming kernel. Among
+    the row tiles that fit shared memory, the fewest waves of clusters
+    (``2 * ceil(B / rows) / capacity``, rounded up), and among those the
+    smallest tile (shorter chains, more SMs); bfloat16 takes one wave at
+    most, float32 two. Where no tile is within that, the streaming
+    kernel."""
+    C = H // _CL_UNITS[dtype]
+    if H % _CL_UNITS[dtype] or C not in _CL_SIZES[dtype]:
         return None
-    for rows in _CL_ROWS:
-        if recurrence_smem(kind, H, rows) <= _MAX_SMEM and \
-                2 * -(-B // rows) <= capacity(C, rows):
-            return C, rows
-    return None
+    best = None
+    for rows in _CL_ROWS[dtype][kind]:
+        if recurrence_smem(kind, H, rows, dtype) > _MAX_SMEM:
+            continue
+        cap = capacity(C, rows)
+        if cap < 1:
+            continue
+        waves = -(-2 * -(-B // rows) // cap)
+        if waves <= _CL_WAVES[dtype] and (best is None or waves < best[0]):
+            best = waves, rows
+    return None if best is None else (C, best[1])
 
 
 @functools.cache
 def cluster_capacity(device: int, kind: int, H: int, cluster: int,
-                     rows: int) -> int:
+                     rows: int, dtype: torch.dtype = torch.bfloat16) -> int:
     """Clusters of a plan that card ``device`` holds at once (the
     kernel's occupancy query), cached per device and plan."""
     lib = _lib()
     n = ctypes.c_int(0)
     with torch.cuda.device(device):
         err = lib.dsp_lstm_recurrence_clusters(kind, H, cluster, rows,
+                                               _DTYPES[dtype],
                                                ctypes.byref(n))
     _build.check(lib, err, "cluster occupancy query")
     return n.value
@@ -189,12 +225,18 @@ def cluster_capacity(device: int, kind: int, H: int, cluster: int,
 
 def _plan(name: str, t: torch.Tensor, B: int, H: int, stream: bool):
     """The plan a launch takes: recurrence_plan on the card's capacity,
-    or None (the streaming kernel; float32's one kernel)."""
-    if t.dtype != torch.bfloat16 or stream:
+    or None (the streaming kernel of the dtype)."""
+    if stream:
         return None
-    kind, dev = _KIND[name], t.device.index
+    kind, dev, dtype = _KIND[name], t.device.index, t.dtype
     return recurrence_plan(kind, B, H, lambda C, rows: cluster_capacity(
-        dev, kind, H, C, rows))
+        dev, kind, H, C, rows, dtype), dtype)
+
+
+def _counter(name: str, dtype: torch.dtype, plan) -> str:
+    """The launch counter of the kernel a launch ran."""
+    return name + ("_f32" if dtype == torch.float32 else "") + (
+        "" if plan else "_stream")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -215,7 +257,7 @@ def _fwd(xproj, w_hh, H, save: bool, stream: bool):
         cs = torch.empty((T, 2, B, H), dtype=torch.float32, device=dev)
         gates = torch.empty((T, 2, B, 4 * H), dtype=xproj.dtype, device=dev)
     lib = _lib()
-    # the streaming bf16 kernel's workspace: W_hh packed by the launch
+    # the bf16 streaming kernel's workspace: W_hh packed by the launch
     ws = torch.empty(0 if plan else lib.dsp_lstm_fwd_workspace_bytes(
         H, code), dtype=torch.uint8, device=dev)
     if plan:
@@ -228,16 +270,16 @@ def _fwd(xproj, w_hh, H, save: bool, stream: bool):
             gates.data_ptr() if save else None, T, B, H, int(save), code,
             cluster, rows, ws.data_ptr() or None, _stream(xproj))
     _build.check(lib, err, name + " launch")
-    launches[name + ("_stream" if plan is None and code == 1 else "")] += 1
+    launches[_counter(name, xproj.dtype, plan)] += 1
     return (ys, cs, gates) if save else ys
 
 
 def lstm_recurrence(xproj: torch.Tensor, w_hh: torch.Tensor,
                     hidden_size: int, stream: bool = False) -> torch.Tensor:
-    """K2: xproj (T, 2, B, 4H) -> ys (T, 2, B, H), in xproj's dtype.
-    bfloat16 on the card takes recurrence_plan's kernel, or with
-    ``stream`` the streaming kernel (to time or test the kernel the
-    cluster kernel replaces)."""
+    """K2: xproj (T, 2, B, 4H) -> ys (T, 2, B, H), in xproj's dtype. On
+    the card it takes recurrence_plan's kernel, or with ``stream`` the
+    dtype's streaming kernel (to time or test the kernel the cluster
+    kernel replaces)."""
     if not _on_card("lstm_recurrence_fwd", xproj, w_hh):
         return plain.lstm_recurrence(xproj, w_hh, hidden_size)
     return _fwd(xproj, w_hh, hidden_size, False, stream)
@@ -258,7 +300,7 @@ def lstm_recurrence_bwd_dx(dys: torch.Tensor, cs: torch.Tensor,
                            stream: bool = False) -> torch.Tensor:
     """K4's recurrence: dys (T, 2, B, H) in the gates' dtype, K3's cs and
     gates -> dxproj (T, 2, B, 4H) in the gates' dtype; ``stream`` as for
-    lstm_recurrence. The cluster kernel sums its partial products in a
+    lstm_recurrence. The cluster kernels sum their partial products in a
     fixed order: two launches give the same bits."""
     name = "lstm_recurrence_bwd"
     if not _on_card(name, gates, dys, cs, w_hh):
@@ -283,7 +325,7 @@ def lstm_recurrence_bwd_dx(dys: torch.Tensor, cs: torch.Tensor,
             w_hh.data_ptr(), dx.data_ptr(), T, B, H, code, cluster, rows,
             ws.data_ptr() or None, _stream(dx))
     _build.check(lib, err, name + " launch")
-    launches[name + ("_stream" if plan is None and code == 1 else "")] += 1
+    launches[_counter(name, gates.dtype, plan)] += 1
     return dx
 
 

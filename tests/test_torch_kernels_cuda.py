@@ -17,9 +17,11 @@ both round h to bf16 (8 significant bits, an ulp of 2^-8 just below 1)
 after every step, so a sum that lands on the other side of a rounding
 boundary moves one h by an ulp, which the following steps carry on.
 The recurrence kernels are held to REC_TOL times max(1, max |plain|):
-float32 2e-5 for the same reason; bfloat16 2e-2, as above for h, and
-for dxproj because da is rounded to bf16 before it feeds the next
-step's dh, so one flipped rounding travels back through the steps.
+float32 2e-5 for the same reason (the cluster kernels' 3xTF32 products
+also drop each product's lo*lo term, about 2^-22 of it); bfloat16 2e-2,
+as above for h, and for dxproj because da is rounded to bf16 before it
+feeds the next step's dh, so one flipped rounding travels back through
+the steps.
 dW_hh gets identical inputs on both sides and differs only in the order
 of its f32 sums over (T-1)*B rows: 1e-5 in both storage types; its
 split-K partials are summed in a fixed order, so two launches on the
@@ -28,7 +30,6 @@ same inputs agree bit for bit.
 K1 has two kernels, one per compute dtype; each check asserts that the
 dtype's counter moved and no other.
 """
-import functools
 
 import numpy as np
 import pytest
@@ -222,14 +223,15 @@ REC_NAMES = ("lstm_recurrence_fwd", "lstm_recurrence_fwd_save",
 
 
 def expected_launches(H, dtype, stream=False):
-    """The counters one K2, K3, K4, dW_hh round moves: the bfloat16
-    cluster kernels at H = 128 and 256 (recurrence_plan's shape rule),
-    the bfloat16 streaming kernels (``<name>_stream``) elsewhere or when
-    asked for, float32's kernels under the plain names."""
-    stream = dtype == torch.bfloat16 and (stream or H not in (128, 256))
+    """The counters one K2, K3, K4, dW_hh round moves: the cluster kernels
+    at H = 128 and 256 (recurrence_plan's shape rule; float32's under
+    ``<name>_f32``), the streaming kernels (``<name>_stream``,
+    ``<name>_f32_stream``) elsewhere or when asked for."""
+    stream = stream or H not in (128, 256)
+    f32 = "_f32" if dtype == torch.float32 else ""
     want = {k: 0 for k in recurrence.launches}
     for name in REC_NAMES:
-        want[name + "_stream" if stream else name] = 1
+        want[name + f32 + ("_stream" if stream else "")] = 1
     want["lstm_dw_hh"] = 1
     return want
 
@@ -277,46 +279,58 @@ def test_recurrence_kernels_match_plain_at_odd_widths(device, H, B, dtype):
     check_recurrence(H, B, dtype, device)
 
 
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                                 ids=["f32", "bf16"])
+
+
+@DTYPES
 @pytest.mark.parametrize("steps", [13, 1])
 @pytest.mark.parametrize("B", [512, 509, 1, 37])
 @pytest.mark.parametrize("H", TRAIN_H)
-def test_cluster_kernels_match_plain(device, H, B, steps):
-    """The bfloat16 cluster kernels (K2, K3, K4's recurrence) at the
-    training widths, full, ragged and tiny batches, T 13 and 1 (the
-    launch counters show that the cluster kernels ran)."""
-    check_recurrence(H, B, torch.bfloat16, device, steps=steps)
+def test_cluster_kernels_match_plain(device, H, B, steps, dtype):
+    """The cluster kernels (K2, K3, K4's recurrence; float32's in 3xTF32)
+    at the training widths, full, ragged and tiny batches, T 13 and 1
+    (the launch counters show that the cluster kernels ran)."""
+    check_recurrence(H, B, dtype, device, steps=steps)
 
 
+@DTYPES
 @pytest.mark.parametrize("B", [512, 509])
 @pytest.mark.parametrize("H", TRAIN_H)
-def test_streaming_kernels_match_plain_at_the_training_widths(device, H, B):
-    """The bfloat16 streaming kernels, which the cluster kernels replace
-    at these widths, stay right where they are asked for."""
-    check_recurrence(H, B, torch.bfloat16, device, stream=True)
+def test_streaming_kernels_match_plain_at_the_training_widths(device, H, B,
+                                                              dtype):
+    """The streaming kernels, which the cluster kernels replace at these
+    widths, stay right where they are asked for."""
+    check_recurrence(H, B, dtype, device, stream=True)
 
 
+@DTYPES
 @pytest.mark.parametrize("B", [512, 509])
 @pytest.mark.parametrize("H", TRAIN_H)
-def test_cluster_bwd_is_bitwise_reproducible(device, H, B):
+def test_cluster_bwd_is_bitwise_reproducible(device, H, B, dtype):
     """K4's cluster recurrence sums its C partial products in rank order:
     two launches on the same inputs give the same bits."""
-    xproj, w_hh, dys = recurrence_inputs(H, B, torch.bfloat16, device,
-                                         seed=7)
+    xproj, w_hh, dys = recurrence_inputs(H, B, dtype, device, seed=7)
     _, cs, gates = plain.lstm_recurrence_fwd_save(xproj, w_hh, H)
-    before = recurrence.launches["lstm_recurrence_bwd"]
+    name = "lstm_recurrence_bwd" + ("_f32" if dtype == torch.float32
+                                    else "")
+    before = recurrence.launches[name]
     first = recurrence.lstm_recurrence_bwd_dx(dys, cs, gates, w_hh, H)
     second = recurrence.lstm_recurrence_bwd_dx(dys, cs, gates, w_hh, H)
     torch.cuda.synchronize()
-    assert recurrence.launches["lstm_recurrence_bwd"] == before + 2
+    assert recurrence.launches[name] == before + 2
     assert torch.equal(first, second)
 
 
-def test_cluster_kernels_read_inputs_off_16_byte_alignment(device):
+@DTYPES
+@pytest.mark.parametrize("H", TRAIN_H)
+def test_cluster_kernels_read_inputs_off_16_byte_alignment(device, H,
+                                                           dtype):
     """The cluster kernels read 16-byte vectors; inputs that start off a
     16-byte boundary (contiguous views one element into a buffer) give
     the same outputs as aligned ones."""
-    H, B = 128, 37
-    xproj, w_hh, dys = recurrence_inputs(H, B, torch.bfloat16, device)
+    B = 37
+    xproj, w_hh, dys = recurrence_inputs(H, B, dtype, device)
 
     def shifted(t):
         buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=device)
@@ -336,26 +350,33 @@ def test_cluster_kernels_read_inputs_off_16_byte_alignment(device):
         assert torch.equal(a, b)
 
 
+@DTYPES
 @pytest.mark.parametrize("H", [64, 128, 192, 256, 320, 512])
-def test_shape_rule_sides(device, H):
+def test_shape_rule_sides(device, H, dtype):
     """recurrence_plan's shape rule on either side of its boundaries:
     H = 128 and 256 take the cluster kernels, 64, 192, 320 and 512 the
     streaming ones; each right against the plain version."""
-    check_recurrence(H, 37, torch.bfloat16, device)
+    check_recurrence(H, 37, dtype, device)
 
 
+@DTYPES
 @pytest.mark.parametrize("B", [512, 509])
 @pytest.mark.parametrize("H", TRAIN_H)
-def test_plan_fits_one_wave_on_this_card(device, H, B):
+def test_plan_fits_one_wave_on_this_card(device, H, B, dtype):
     """At the training shapes every cluster kernel gets a plan whose
-    clusters the card holds at once (its occupancy query)."""
+    clusters the card holds at once (its occupancy query) in bfloat16,
+    and in at most two waves in float32 (clusters of 8 blocks at H=256
+    leave fewer clusters on the card than the grid needs)."""
+    allowed = 1 if dtype == torch.bfloat16 else 2
     for name, kind in recurrence._KIND.items():
-        cap = functools.partial(recurrence.cluster_capacity, device.index
-                                or 0, kind, H)
-        plan = recurrence.recurrence_plan(kind, B, H, cap)
+        def cap(C, rows):
+            return recurrence.cluster_capacity(device.index or 0, kind, H,
+                                               C, rows, dtype)
+        plan = recurrence.recurrence_plan(kind, B, H, cap, dtype)
         assert plan is not None, name
         cluster, rows = plan
-        assert 2 * -(-B // rows) <= cap(cluster, rows), name
+        assert cluster == H // (64 if dtype == torch.bfloat16 else 32)
+        assert -(-2 * -(-B // rows) // cap(cluster, rows)) <= allowed, name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -202,58 +202,79 @@ def test_dw_hh_split_plan_fills_the_card_at_the_training_shapes():
 
 
 KINDS = [0, 1, 2]            # K2, K3, K4's recurrence
+# the storage dtypes, each with its cluster kernels
+DTYPES = pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                                 ids=["bf16", "f32"])
+UNITS = {torch.bfloat16: 64, torch.float32: 32}     # hidden units a block
+WAVES = {torch.bfloat16: 1, torch.float32: 2}       # waves a plan may take
 
 
-def card(cap4: int, kind: int, H: int):
+def card(cap4: int, kind: int, H: int, dtype=torch.bfloat16):
     """A card's cluster capacity as the kernels' occupancy query reports
     it, modelled on an H100's: ``cap4`` clusters of 4 blocks at one block
-    per SM (30 on the H100 measured), twice as many clusters of 2, and
-    twice again where a block's shared memory lets two share an SM."""
+    per SM (30 on the H100 measured), twice as many clusters of 2, half as
+    many of 8, and twice again where a block's shared memory lets two
+    share an SM."""
     def capacity(C, rows):
-        per_sm = 2 if recurrence.recurrence_smem(kind, H, rows) <= 113_000 \
-            else 1
+        per_sm = 2 if recurrence.recurrence_smem(kind, H, rows, dtype) <= \
+            113_000 else 1
         return cap4 * 4 // C * per_sm
     return capacity
 
 
+def waves(B, rows, cap):
+    """Waves of clusters of a grid of 2 * ceil(B / rows) clusters."""
+    return -(-2 * -(-B // rows) // cap)
+
+
+@DTYPES
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("B", [512, 509, 1, 37, 100])
 @pytest.mark.parametrize("H", [128, 256])
-def test_recurrence_plan_covers_every_row_once(H, B, kind):
+def test_recurrence_plan_covers_every_row_once(H, B, kind, dtype):
     """The plan's row tiles, [t*rows, min((t+1)*rows, B)), cover each of
-    the B rows exactly once; the cluster holds H/64 blocks."""
-    cluster, rows = recurrence.recurrence_plan(kind, B, H, card(30, kind, H))
-    assert cluster == H // 64 and rows in (16, 32, 48)
+    the B rows exactly once; the cluster holds H/64 (bfloat16) or H/32
+    (float32) blocks."""
+    cluster, rows = recurrence.recurrence_plan(
+        kind, B, H, card(30, kind, H, dtype), dtype)
+    assert cluster == H // UNITS[dtype]
+    assert rows in (16, 32, 48) or (dtype == torch.float32 and kind < 2
+                                     and rows in (64, 80))
     tiles = -(-B // rows)
     covered = [b for t in range(tiles)
                for b in range(t * rows, min((t + 1) * rows, B))]
     assert covered == list(range(B))
 
 
+@DTYPES
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("H", [128, 256])
-def test_recurrence_plan_stays_within_shared_memory(H, kind):
+def test_recurrence_plan_stays_within_shared_memory(H, kind, dtype):
     """Every plan the function can give, at any capacity, keeps a block
     at or under Hopper's 232,448 bytes of shared memory."""
     for cap4 in (1, 8, 28, 30, 33, 1000):
         for B in (1, 16, 37, 509, 512, 2000):
-            plan = recurrence.recurrence_plan(kind, B, H, card(cap4, kind, H))
+            plan = recurrence.recurrence_plan(
+                kind, B, H, card(cap4, kind, H, dtype), dtype)
             if plan is not None:
-                assert recurrence.recurrence_smem(kind, H, plan[1]) <= 232_448
+                assert recurrence.recurrence_smem(kind, H, plan[1],
+                                                  dtype) <= 232_448
 
 
+@DTYPES
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("cap4", [28, 29, 30, 31, 32, 33])
 @pytest.mark.parametrize("B", [512, 509])
 @pytest.mark.parametrize("H", [128, 256])
 def test_recurrence_plan_fits_one_wave_at_the_training_shapes(H, B, cap4,
-                                                              kind):
+                                                              kind, dtype):
     """At the training batch the plan always exists and its 2 *
-    ceil(B / rows) clusters fit the card at once: a capacity of 28 to 33
-    clusters of 4 (the H100 holds 30, not 132 / 4)."""
-    capacity = card(cap4, kind, H)
-    cluster, rows = recurrence.recurrence_plan(kind, B, H, capacity)
-    assert 2 * -(-B // rows) <= capacity(cluster, rows)
+    ceil(B / rows) clusters fit the card in the waves the dtype allows
+    (bfloat16 one, float32 two): a capacity of 28 to 33 clusters of 4 (the
+    H100 holds 30, not 132 / 4)."""
+    capacity = card(cap4, kind, H, dtype)
+    cluster, rows = recurrence.recurrence_plan(kind, B, H, capacity, dtype)
+    assert waves(B, rows, capacity(cluster, rows)) <= WAVES[dtype]
 
 
 def test_recurrence_plan_on_the_measured_h100():
@@ -269,14 +290,16 @@ def test_recurrence_plan_on_the_measured_h100():
                                           card(32, kind, 256)) == (4, 32)
 
 
+@DTYPES
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("H", [1, 8, 20, 64, 96, 192, 320, 384, 512])
-def test_recurrence_plan_reroutes_other_widths(H, kind):
+def test_recurrence_plan_reroutes_other_widths(H, kind, dtype):
     """The shape rule: only H = 128 and 256 (clusters of 2 and 4 blocks of
-    64 units) take the cluster kernels; every other H takes the streaming
-    kernel, whatever the card holds."""
-    assert recurrence.recurrence_plan(kind, 512, H,
-                                      lambda C, rows: 10**6) is None
+    64 units in bfloat16, of 4 and 8 blocks of 32 units in float32) take
+    the cluster kernels; every other H takes the streaming kernel,
+    whatever the card holds."""
+    assert recurrence.recurrence_plan(kind, 512, H, lambda C, rows: 10**6,
+                                      dtype) is None
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -291,6 +314,42 @@ def test_recurrence_plan_refuses_a_second_wave(kind):
                                           lambda C, rows: 0) is None
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_f32_recurrence_plan_refuses_a_third_wave(kind):
+    """float32 takes a second wave of clusters, never a third: at 4096
+    rows (the fused-off inference tile) on the H100's capacity H=256 takes
+    the streaming kernel, H=128 at most two waves; on a card that holds no
+    cluster, the streaming kernel."""
+    f32 = torch.float32
+    assert recurrence.recurrence_plan(kind, 4096, 256,
+                                      card(30, kind, 256, f32), f32) is None
+    for B in (4096, 8192, 100_000):
+        capacity = card(30, kind, 128, f32)
+        plan = recurrence.recurrence_plan(kind, B, 128, capacity, f32)
+        if plan is not None:
+            assert waves(B, plan[1], capacity(*plan)) <= 2
+    for H in (128, 256):
+        assert recurrence.recurrence_plan(kind, 1, H, lambda C, rows: 0,
+                                          f32) is None
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_f32_recurrence_plan_prefers_fewer_waves(kind):
+    """Among the row tiles that fit shared memory, the fewest waves, then
+    the smallest tile: on a card that holds every grid in one wave the
+    16-row tile; where only larger tiles fit one wave, the smallest of
+    those."""
+    dt = torch.float32
+    for H in (128, 256):
+        C = H // 32
+        assert recurrence.recurrence_plan(kind, 512, H, lambda c, r: 10**6,
+                                          dt) == (C, 16)
+        # 33 clusters at once: 16-row tiles (64 clusters) take two waves,
+        # 32-row tiles (32 clusters) one
+        assert recurrence.recurrence_plan(kind, 512, H, lambda c, r: 33,
+                                          dt) == (C, 32)
+
+
 def test_recurrence_smem_matches_the_kernels_layout():
     """recurrence_smem repeats csrc/lstm_recurrence.cu's cl_smem: the W_hh
     slice (H x 264 bf16), then two h buffers (rows x (H + 8)) and the
@@ -302,6 +361,23 @@ def test_recurrence_smem_matches_the_kernels_layout():
         2 * (256 * 264 + 48 * 264) + 4 * 4 * 48 * 64
     assert recurrence.recurrence_smem(0, 128, 16) == \
         2 * (128 * 264 + 2 * 16 * 136 + 16 * 264)
+
+
+def test_f32_recurrence_smem_matches_the_kernels_layout():
+    """float32's cl_smem: the W_hh slice (H x 136 f32 forward, H x 132
+    backward), then one h buffer (rows x (H + 4)) forward, or the da
+    buffer (rows x 132) and H/32 receive slots (rows x 32) backward; the
+    largest tiles fit a block, the next ones would not."""
+    f32 = torch.float32
+    assert recurrence.recurrence_smem(1, 256, 80, f32) == \
+        4 * (256 * 136 + 80 * 260) == 222_464
+    assert recurrence.recurrence_smem(0, 256, 80, f32) == 222_464
+    assert recurrence.recurrence_smem(2, 256, 48, f32) == \
+        4 * (256 * 132 + 48 * 132 + 8 * 48 * 32) == 209_664
+    assert recurrence.recurrence_smem(0, 128, 32, f32) == \
+        4 * (128 * 136 + 32 * 132)
+    assert recurrence.recurrence_smem(1, 256, 96, f32) > 232_448
+    assert recurrence.recurrence_smem(2, 256, 64, f32) > 232_448
 
 
 def test_wrappers_ignore_the_stream_choice_on_the_cpu():
