@@ -11,8 +11,12 @@ Phases, in order; any failure exits non-zero before the last line:
 2. every kernel of the main paths, built from csrc/ by nvcc (one nvcc
    per source, all started together), against its plain PyTorch version
    on the card at the main paths' shapes: the fused BiLSTM layer (K1) at
-   call_mods' 4096-row tiles, in its two kernels (bfloat16, the main
-   path's; float32, for exact-parity runs); (2b) the
+   call_mods' 4096-row tiles, its ragged neighbour and the 1,016-row
+   tail, in bfloat16 (the main path's kernel) and in float32 (for
+   exact-parity runs) through the route each layer takes and through
+   both routes called directly (the 3xTF32 projection kernel and the
+   float32 recurrence; the in-loop kernel), the two routes against each
+   other, and the projection kernel alone; (2b) the
    trainable recurrence (K2, K3 and K4's recurrence on the cluster
    kernels of the card's plan in each dtype, logged with the occupancy
    query it read; K4's bitwise reproducible; K4's split-K dW_hh, bitwise
@@ -23,8 +27,10 @@ Phases, in order; any failure exits non-zero before the last line:
    and as device time (replays of a CUDA graph; a call that cannot be
    captured fails the run) beside its plain version, one PyTorch library
    call computing the same function or more (a yardstick the port never
-   calls) and its bound: K1's two kernels per 4096-row forward tile and
-   per tail tile, (3b) the recurrence kernels per launch and per train
+   calls) and its bound: K1 per 4096-row forward tile and per tail tile
+   (float32: its two routes in turns at every layer, three pairs each,
+   and the projection kernel and K1's recurrence on their own), (3b) the
+   recurrence kernels per launch and per train
    step at batch 512, the cluster kernels and the streaming kernels in
    turns (cluster, stream, stream, cluster), in bfloat16 and in float32
    (beside cuDNN's float32 LSTM and einsum); (3c) one whole train step
@@ -48,7 +54,10 @@ Phases, in order; any failure exits non-zero before the last line:
    through the kernels (K3 and K4 on their float32 cluster kernels)
    against the plain version, 8 steps; (4d) inference with the fused path
    off, through K2: 5 launches per 4096- and 512-row tile (the cluster
-   kernels of each dtype at 512 rows), logits against the K1 path; (4e)
+   kernels of each dtype at 512 rows), logits against the K1 path; the
+   float32 call_mods run launches K1's float32 kernels as the route and
+   plan rules give each layer of each tile on this card, one route a
+   layer; (4e)
    call_mods' engine in this
    process on 131,072 read-structured dense rows (~3.9 bases a site;
    call_mods_ab.rate_run: sites/s, every [stages] field, the card's busy
@@ -92,8 +101,21 @@ PEAK_BYTES = 3.35e12
 # this rate (165 TFLOP/s of f32 products)
 PEAK_TF32_FLOPS = 495e12
 TF32_PASSES = 3
-# K1's kernels (ops/fused_lstm.py::launches) -> their compute dtype
-K1_KERNELS = {"fused_bilstm_bf16": "bfloat16", "fused_bilstm_f32": "float32"}
+# K1 in each compute dtype: bfloat16 its kernel (ops/fused_lstm.py's
+# counter); float32 the layer through the route it takes ("k1_float32" is
+# a route of two or one launches, not a kernel: the kernels line lists
+# its kernels, K1_F32_KERNELS)
+K1_KERNELS = {"fused_bilstm_bf16": "bfloat16", "k1_float32": "float32"}
+# K1's routes (float32: "split", the projection kernel and the recurrence;
+# "inloop", the in-loop kernel) -> the key their errors go under
+K1_ROUTE_KEYS = {"bf16": "fused_bilstm_bf16", "split": "fused_bilstm_rec_f32",
+                 "inloop": "fused_bilstm_f32_inloop"}
+K1_F32_KERNELS = ("fused_bilstm_proj_f32", "fused_bilstm_rec_f32",
+                  "fused_bilstm_f32_inloop")
+K1_ERR_KEYS = ("fused_bilstm_bf16", "k1_float32") + K1_F32_KERNELS
+# K1's float32 routes timed in turns (split, in-loop, in-loop, split) this
+# many times per layer and batch, to show their spread
+K1_F32_PAIRS = 3
 # (Fa, Fb, H, seq_out) of the five layer launches of one forward tile
 MAIN_PATH_LAYERS = {
     "seq": (7, 0, 128, True),
@@ -260,80 +282,243 @@ def layer_bound(Fa, Fb, H, seq_out, B, itemsize, peak_flops, passes=1):
     return flops * passes / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def check_kernel(torch, fused_lstm, bilstm_layer):
-    """Phase 2: K1's two kernels against the plain version at every
-    main-path layer shape, seq_out True and False, full and ragged batch;
-    each launch must go to the kernel named (its counter moves)."""
+def k1_moves(fused_lstm, route, plan):
+    """The counters one K1 layer moves: bfloat16 its kernel; float32
+    either the in-loop kernel or the projection kernel and the recurrence
+    kernel of the plan (cluster or streaming)."""
+    want = {k: 0 for k in fused_lstm.launches}
+    if route == "bf16":
+        want["fused_bilstm_bf16"] = 1
+        return want
+    if route == "inloop":
+        want["fused_bilstm_f32_inloop"] = 1
+    else:
+        want["fused_bilstm_proj_f32"] = 1
+        want["fused_bilstm_rec_f32" if plan else
+             "fused_bilstm_rec_f32_stream"] = 1
+    return want
+
+
+def k1_plan(torch, recurrence, B, H):
+    """K1's recurrence plan on card 0: K2's float32 recurrence_plan."""
+    return recurrence.recurrence_plan(0, B, H, lambda C, r: (
+        recurrence.cluster_capacity(0, 0, H, C, r, torch.float32)),
+        torch.float32)
+
+
+def f32_routes(fused_lstm):
+    """K1's float32 routes, called directly."""
+    return {"split": fused_lstm.layer_f32_split,
+            "inloop": fused_lstm.layer_f32_inloop}
+
+
+def f32_route(torch, fused_lstm, F, H, B):
+    """The float32 route bilstm_layer_fused takes on card 0."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return "inloop" if fused_lstm.f32_inloop(F, H, B, sms) else "split"
+
+
+def check_kernel(torch, fused_lstm, recurrence, plain):
+    """Phase 2: K1 against the plain version at every main-path layer
+    shape, seq_out True and False, full, ragged and tail batches: the
+    bfloat16 kernel, and float32 through the route it takes and through
+    both of its routes called directly (the projection kernel and the
+    recurrence; the in-loop kernel), which are also held against each
+    other; the float32 projection kernel alone against its plain version.
+    Each launch must move the counters of the kernels named."""
     shapes = sorted({(Fa, Fb, H) for Fa, Fb, H, _ in
                      MAIN_PATH_LAYERS.values()})
-    errs = {k: 0.0 for k in K1_KERNELS}
+    errs = {k: 0.0 for k in K1_ERR_KEYS}
     checked = []
     for Fa, Fb, H in shapes:
-        for B in (TILE, TILE - 3):
-            for kernel, dname in K1_KERNELS.items():
+        for B in (TILE, TILE - 3, TAIL):
+            for dname in ("bfloat16", "float32"):
                 dtype = getattr(torch, dname)
                 xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, B, dtype)
-                for seq_out in (True, False):
-                    before = dict(fused_lstm.launches)
-                    got = fused_lstm.bilstm_layer_fused(xs, w_ih, b, w_hh, H,
-                                                        seq_out)
+                if dtype == torch.float32:
+                    want_x = plain.input_projection(xs, w_ih, b)
+                    got_x = fused_lstm.input_projection(xs, w_ih, b)
                     torch.cuda.synchronize()
-                    moved = {k: v - before[k]
-                             for k, v in fused_lstm.launches.items()}
-                    if moved != {k: int(k == kernel) for k in moved}:
-                        fail(f"{kernel} F=({Fa},{Fb}) H={H}: launches "
-                             f"{moved}")
-                    want = bilstm_layer(xs, w_ih, b, w_hh, H, seq_out)
-                    out_T = T if seq_out else 1
-                    err = 0.0
-                    for g, w in zip(got, want):
-                        if g.shape != (out_T, B, H) or g.dtype != dtype:
-                            fail(f"kernel output {tuple(g.shape)} {g.dtype}")
-                        if not torch.isfinite(g.float()).all():
-                            fail("kernel output is not finite")
-                        err = max(err, (g.float() - w.float()).abs().max()
-                                  .item())
-                    log(f"{kernel} F=({Fa},{Fb}) H={H} B={B} "
-                        f"seq_out={seq_out}: max|kernel-plain| = {err:.3g} "
-                        f"(tolerance {TOL[dname]:g})")
-                    if err > TOL[dname]:
-                        fail(f"{kernel} disagrees with its plain version "
-                             f"by {err} > {TOL[dname]}")
-                    errs[kernel] = max(errs[kernel], err)
-                    checked.append([Fa, Fb, H, B, kernel, seq_out])
+                    err = (got_x - want_x).abs().max().item()
+                    log(f"fused_bilstm_proj_f32 F=({Fa},{Fb}) H={H} B={B}: "
+                        f"max|kernel-plain| = {err:.3g} (tolerance "
+                        f"{TOL[dname]:g} x max(1, {want_x.abs().max():.3g}))")
+                    if err > TOL[dname] * max(1.0, want_x.abs().max().item()):
+                        fail("the projection kernel disagrees with its plain "
+                             f"version by {err}")
+                    errs["fused_bilstm_proj_f32"] = max(
+                        errs["fused_bilstm_proj_f32"], err)
+                    checked.append([Fa, Fb, H, B, "fused_bilstm_proj_f32"])
+                    del got_x, want_x
+                plan = (k1_plan(torch, recurrence, B, H)
+                        if dtype == torch.float32 else None)
+                auto = (f32_route(torch, fused_lstm, Fa + Fb, H, B)
+                        if dtype == torch.float32 else "bf16")
+                routes = (("bf16", None),) if dtype == torch.bfloat16 else (
+                    (auto, None), ("split", "split"), ("inloop", "inloop"))
+                for seq_out in (True, False):
+                    want = plain.bilstm_layer(xs, w_ih, b, w_hh, H, seq_out)
+                    outs = {}
+                    for route, force in routes:
+                        before = dict(fused_lstm.launches)
+                        layer = (f32_routes(fused_lstm)[force] if force
+                                 else fused_lstm.bilstm_layer_fused)
+                        got = layer(xs, w_ih, b, w_hh, H, seq_out)
+                        torch.cuda.synchronize()
+                        moved = {k: v - before[k]
+                                 for k, v in fused_lstm.launches.items()}
+                        expect = k1_moves(fused_lstm, route, plan)
+                        if moved != expect:
+                            fail(f"K1 {dname} route {route} F=({Fa},{Fb}) "
+                                 f"H={H} B={B}: launches {moved}, expected "
+                                 f"{expect}")
+                        out_T = T if seq_out else 1
+                        err = 0.0
+                        for g, w in zip(got, want):
+                            if g.shape != (out_T, B, H) or g.dtype != dtype:
+                                fail(f"kernel output {tuple(g.shape)} "
+                                     f"{g.dtype}")
+                            if not torch.isfinite(g.float()).all():
+                                fail("kernel output is not finite")
+                            err = max(err, (g.float() - w.float()).abs()
+                                      .max().item())
+                        key = K1_ROUTE_KEYS[route]
+                        taken = force is None and dtype == torch.float32
+                        log(f"{key} F=({Fa},{Fb}) H={H} B={B} "
+                            f"seq_out={seq_out}{' (taken)' * taken}: "
+                            f"max|kernel-plain| = {err:.3g} (tolerance "
+                            f"{TOL[dname]:g})")
+                        if err > TOL[dname]:
+                            fail(f"{key} disagrees with its plain version "
+                                 f"by {err} > {TOL[dname]}")
+                        errs[key] = max(errs[key], err)
+                        if taken:
+                            errs["k1_float32"] = max(errs["k1_float32"], err)
+                        outs[route] = got
+                        checked.append([Fa, Fb, H, B, "k1_float32"
+                                        if taken else key, seq_out])
+                    if dtype == torch.float32:
+                        err = max((a - c).abs().max().item() for a, c in zip(
+                            outs["split"], outs["inloop"]))
+                        log(f"float32 K1 routes against each other F=({Fa},"
+                            f"{Fb}) H={H} B={B} seq_out={seq_out}: "
+                            f"max|split - inloop| = {err:.3g}")
+                        if err > TOL[dname]:
+                            fail(f"K1's float32 routes disagree by {err}")
     return errs, checked
 
 
-def time_kernel(torch, fused_lstm, bilstm_layer):
+def proj_bound(Fa, Fb, H, B):
+    """(ms at the peak operation rate, ms at the memory rate) of the
+    float32 projection kernel's work: its f32 products in 3xTF32, and x,
+    W_ih and the bias read once, xproj (T, 2, B, 4H) written once."""
+    F = Fa + Fb
+    flops = 2 * 2 * T * B * F * 4 * H * TF32_PASSES
+    nbytes = 4 * (T * B * F + 2 * F * 4 * H + 2 * 4 * H + T * 2 * B * 4 * H)
+    return flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+
+
+def time_k1_f32(torch, fused_lstm, recurrence, plain, Fa, Fb, H, seq_out,
+                xs, w_ih, b, w_hh, packed):
+    """Phase 3, K1 at float32, one main-path layer at B=4096 and at the
+    TAIL rows: its two routes in turns, K1_F32_PAIRS times (split,
+    in-loop, in-loop, split; graph replays), their means and spread, the
+    route it takes, and the split route's parts: the projection kernel
+    (beside its plain version, one torch.matmul and its bound) and the
+    recurrence on its plan (beside its plain version and its bound)."""
+    out = {}
+    routes = f32_routes(fused_lstm)
+    for B in (TILE, TAIL):
+        x = tuple(v[:, :B].contiguous() for v in xs)
+        pre = "" if B == TILE else "tail_"
+
+        def route(r):
+            if r == "split":
+                return lambda: routes[r](x, w_ih, b, w_hh, H, seq_out,
+                                         packed=packed)
+            return lambda: routes[r](x, w_ih, b, w_hh, H, seq_out)
+
+        runs = {"split": [], "inloop": []}
+        for _ in range(K1_F32_PAIRS):
+            for r in ("split", "inloop", "inloop", "split"):
+                runs[r].append(graph_ms(torch, route(r), reps=10))
+        taken = f32_route(torch, fused_lstm, Fa + Fb, H, B)
+        split_ms = statistics.mean(runs["split"])
+        inloop_ms = statistics.mean(runs["inloop"])
+        xproj = fused_lstm.input_projection(x, w_ih, b, packed)
+        x2d = torch.cat(x, dim=-1).reshape(T * B, Fa + Fb)
+        pj_ops, pj_bytes = proj_bound(Fa, Fb, H, B)
+        rc_ops, rc_bytes = rec_bound("lstm_recurrence_fwd", H, B, 4,
+                                     PEAK_TF32_FLOPS, TF32_PASSES)
+        row = {
+            "route": taken, "split_ms_runs": runs["split"],
+            "inloop_ms_runs": runs["inloop"], "split_ms": split_ms,
+            "inloop_ms": inloop_ms,
+            # in-loop minus split, pair by pair in the order timed
+            "inloop_minus_split_ms": [
+                i - s_ for i, s_ in zip(runs["inloop"], runs["split"])],
+            "device_ms": split_ms if taken == "split" else inloop_ms,
+            "kernel_ms": cuda_ms(torch, lambda: fused_lstm.bilstm_layer_fused(
+                x, w_ih, b, w_hh, H, seq_out, packed=packed)),
+            "proj_ms": graph_ms(torch, lambda: fused_lstm.input_projection(
+                x, w_ih, b, packed), reps=10),
+            "proj_plain_ms": cuda_ms(torch, lambda: plain.input_projection(
+                x, w_ih, b), reps=10),
+            # one library call of the same product (no bias, no flip):
+            # x (T*B, F) @ w_ih (2, F, 4H), float32 cuBLAS, TF32 off
+            "proj_library_ms": graph_ms(torch, lambda: torch.matmul(
+                x2d, w_ih), reps=10),
+            "proj_bound_ms": max(pj_ops, pj_bytes),
+            "proj_bound_by": "operations" if pj_ops >= pj_bytes else "bytes",
+            "rec_plan": k1_plan(torch, recurrence, B, H),
+            "rec_ms": graph_ms(torch, lambda: recurrence.lstm_recurrence_k1(
+                xproj, w_hh, H, seq_out, fused_lstm.launches), reps=10),
+            "rec_plain_ms": cuda_ms(torch, lambda: plain.k1_outputs(
+                plain.lstm_recurrence(xproj, w_hh, H), seq_out), reps=5),
+            "rec_bound_ms": max(rc_ops, rc_bytes),
+            "rec_bound_by": "operations" if rc_ops >= rc_bytes else "bytes"}
+        out.update({pre + k: v for k, v in row.items()})
+        del x, xproj, x2d
+    out["tail_B"] = TAIL
+    return out
+
+
+def time_kernel(torch, fused_lstm, recurrence, plain):
     """Phase 3: each main-path launch at B=4096, through each of K1's
-    kernels (bfloat16 with its weights packed beforehand, as a model
-    caches them), beside the plain version and torch.nn.LSTM in the
-    kernel's dtype; bfloat16 also at call_mods' ragged tail tile (TAIL
-    rows: 64 blocks, fewer than the SMs, where B=4096 runs 256, two per
-    SM). The kernels both with CUDA events per call and as device time
-    (graph replays, the packed weights made before the capture)."""
+    routes (bfloat16 with its weights packed beforehand, as a model
+    caches them; float32 also, time_k1_f32), beside the plain version
+    and torch.nn.LSTM in the kernel's dtype; bfloat16 also at call_mods'
+    ragged tail tile (TAIL rows: 64 blocks, fewer than the SMs, where
+    B=4096 runs 256, two per SM). The kernels both with CUDA events per
+    call and as device time (graph replays, the packed weights made
+    before the capture)."""
     rows = []
     for name, (Fa, Fb, H, seq_out) in MAIN_PATH_LAYERS.items():
         for kernel, dname in K1_KERNELS.items():
             dtype = getattr(torch, dname)
             xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, TILE, dtype)
             packed = (fused_lstm.pack_weights(w_ih, w_hh)
-                      if dtype == torch.bfloat16 else None)
+                      if dtype == torch.bfloat16 else
+                      fused_lstm.pack_proj_weights(w_ih, Fa))
             def call(x):
                 return lambda: fused_lstm.bilstm_layer_fused(
                     x, w_ih, b, w_hh, H, seq_out, packed=packed)
 
-            kernel_ms = cuda_ms(torch, call(xs))
-            device_ms = graph_ms(torch, call(xs), reps=10)
-            extra = {}
             if dtype == torch.bfloat16:
+                kernel_ms = cuda_ms(torch, call(xs))
+                device_ms = graph_ms(torch, call(xs), reps=10)
                 xt = tuple(x[:, :TAIL].contiguous() for x in xs)
                 extra = {"tail_B": TAIL,
                          "tail_kernel_ms": cuda_ms(torch, call(xt)),
                          "tail_device_ms": graph_ms(torch, call(xt),
                                                     reps=10)}
                 del xt
-            plain_ms = cuda_ms(torch, lambda: bilstm_layer(
+            else:
+                extra = time_k1_f32(torch, fused_lstm, recurrence, plain,
+                                    Fa, Fb, H, seq_out, xs, w_ih, b, w_hh,
+                                    packed)
+                kernel_ms, device_ms = extra["kernel_ms"], extra["device_ms"]
+            plain_ms = cuda_ms(torch, lambda: plain.bilstm_layer(
                 xs, w_ih, b, w_hh, H, seq_out), reps=10)
             # library yardstick: torch.nn.LSTM(bidirectional) on the
             # concatenated input, same weights (torch layout), same dtype
@@ -367,7 +552,7 @@ def time_kernel(torch, fused_lstm, bilstm_layer):
                                                PEAK_F32_FLOPS)[0]
             row = {"kernel": kernel, "layer": name, "F": [Fa, Fb], "H": H,
                    "B": TILE, "seq_out": seq_out, "dtype": dname,
-                   "kernel_ms": kernel_ms, "device_ms": device_ms, **extra,
+                   **extra, "kernel_ms": kernel_ms, "device_ms": device_ms,
                    "plain_ms": plain_ms,
                    "library_ms": library_ms, "ops_ms": ops_ms,
                    "bytes_ms": bytes_ms, "bound_ms": max(ops_ms, bytes_ms),
@@ -943,8 +1128,8 @@ def run_call_mods(tsv: str, ckpt: str, out: str, *extra: str) -> dict:
         os.path.basename(tsv), " ".join(extra) or "(defaults)",
         json.dumps({k: v for k, v in st.items() if k != "rows"})))
     if "--compute_dtype" not in extra:
-        want = {"fused_bilstm_bf16": 5 * st["forward_tiles"],
-                "fused_bilstm_f32": 0}
+        want = {k: 0 for k in st["kernel_launches"]}
+        want["fused_bilstm_bf16"] = 5 * st["forward_tiles"]
         if st["kernel_launches"] != want:
             fail(f"call_mods launched {st['kernel_launches']} for "
                  f"{st['forward_tiles']} forward tiles (expected {want}: "
@@ -964,8 +1149,24 @@ def check_rows(st: dict, n: int) -> np.ndarray:
     return p
 
 
-def check_main_path(tmp: str, ab, cfg_cls, init_params, save_checkpoint):
-    """Phase 4: the CLI end to end on the card."""
+def f32_call_mods_launches(torch, fused_lstm, recurrence) -> dict:
+    """K1's launches in a float32 call_mods run of N_ROWS rows: per
+    4096-row tile (and the TAIL tile) and layer, the route and plan this
+    card gives it (k1_moves)."""
+    want = {k: 0 for k in fused_lstm.launches}
+    for B in [TILE] * (N_ROWS // TILE) + [TAIL]:
+        for Fa, Fb, H, _ in MAIN_PATH_LAYERS.values():
+            route = f32_route(torch, fused_lstm, Fa + Fb, H, B)
+            plan = k1_plan(torch, recurrence, B, H)
+            for k, v in k1_moves(fused_lstm, route, plan).items():
+                want[k] += v
+    return want
+
+
+def check_main_path(tmp: str, ab, cfg_cls, init_params, save_checkpoint,
+                    f32_want: dict):
+    """Phase 4: the CLI end to end on the card; ``f32_want``: the float32
+    run's K1 launches (f32_call_mods_launches)."""
     cfg = cfg_cls(dropout_rate=0.0)
     ckpt = os.path.join(tmp, "both_bilstm.ckpt.npz")
     save_checkpoint(ckpt, init_params(cfg, SEED), cfg)
@@ -991,8 +1192,17 @@ def check_main_path(tmp: str, ab, cfg_cls, init_params, save_checkpoint):
                          "--compute_dtype", "float32", "--recurrence", "scan")
     if any(f32p["kernel_launches"].values()):
         fail("the plain (scan) run launched a kernel")
-    if f32k["kernel_launches"]["fused_bilstm_f32"] != 5 * tiles:
-        fail(f"the float32 kernel run launched {f32k['kernel_launches']}")
+    if f32k["kernel_launches"] != f32_want:
+        fail(f"the float32 kernel run launched {f32k['kernel_launches']}, "
+             f"expected {f32_want} (each layer of each tile on the route "
+             f"and plan this card gives it)")
+    # every float32 layer starts with one launch: the in-loop kernel's or
+    # the projection kernel's
+    f32_layers = (f32k["kernel_launches"]["fused_bilstm_f32_inloop"]
+                  + f32k["kernel_launches"]["fused_bilstm_proj_f32"])
+    if f32_layers != 5 * f32k["forward_tiles"]:
+        fail(f"the float32 run ran {f32_layers} K1 layers for "
+             f"{f32k['forward_tiles']} forward tiles")
     p_k, p_p = check_rows(f32k, N_ROWS), check_rows(f32p, N_ROWS)
     for a, b in zip(f32k["rows"], f32p["rows"]):
         if a[:6] != b[:6] or a[9] != b[9]:
@@ -1012,6 +1222,8 @@ def check_main_path(tmp: str, ab, cfg_cls, init_params, save_checkpoint):
         f"max|dP1| = {dp_bf:.3g}")
     return {"launches": launches["fused_bilstm_bf16"],
             "launches_by_kernel": launches, "ckpt": ckpt,
+            "f32_launches_by_kernel": f32k["kernel_launches"],
+            "f32_layers": f32_layers,
             "stages": {k: v for k, v in main.items() if k != "rows"},
             "sites_per_s": main["sites"] / main["seconds"],
             "f32_kernel_vs_plain_max_dp1": dp_kp,
@@ -1037,8 +1249,8 @@ def check_rate_run(torch, ab, cm, fused_lstm, ModelConfig, tmp: str,
         cm.CallConfig(), "cuda")
     rate = ab.rate_run(eng, tsv, out, fused_lstm.launches)
     st = rate["stats"]
-    want = {"fused_bilstm_bf16": 5 * st["forward_tiles"],
-            "fused_bilstm_f32": 0}
+    want = {k: 0 for k in fused_lstm.launches}
+    want["fused_bilstm_bf16"] = 5 * st["forward_tiles"]
     if (st["sites"], st["packed_sites"]) != (RATE_ROWS, RATE_ROWS) or \
             rate["kernel_launches"] != want:
         fail(f"the rate run did not call {RATE_ROWS} sites on the packed "
@@ -1211,7 +1423,8 @@ def check_k2_path(torch, bilstm, recurrence, Batch, FeatureDataset,
     trained model. At 512 rows every layer takes its dtype's cluster
     kernel; at 4096 rows the kernel of recurrence_plan on the card's
     capacity (bfloat16: the streaming kernel, no plan holds 4096 rows in
-    one wave; float32: H=128 in two waves of clusters, H=256 streaming)."""
+    one wave; float32: the cluster kernel in as many waves as its cost
+    rule takes, the plan of K1's recurrence)."""
     params, cfg = load_checkpoint(ckpt)
     ds = FeatureDataset.from_file(valid_tsv)
     keys = [k for k in recurrence.launches
@@ -1263,6 +1476,82 @@ def check_k2_path(torch, bilstm, recurrence, Batch, FeatureDataset,
     return out
 
 
+def k1_f32_parts(timings, errs, checked, launched) -> list:
+    """The kernels line's entries of K1's float32 kernels (K1_F32_KERNELS),
+    per 4096-row tile over the layers whose route runs each (the tail
+    tile's beside): the projection kernel and K1's recurrence on the
+    float32 cluster kernel (the split route), and the in-loop kernel.
+    ``launched``: the float32 call_mods run's counters."""
+    rows = [r for r in timings if r["kernel"] == "k1_float32"]
+    parts = []
+
+    def entry(name, source, route, ms, plain_ms, bound, library_ms):
+        use = [r for r in rows if r["route"] == route]
+        tail = [r for r in rows if r["tail_route"] == route]
+        ops = sum(bound(r)[0] for r in use)
+        nbytes = sum(bound(r)[1] for r in use)
+        parts.append({
+            "name": name, "route": "cuda",
+            "source": "deepsignal_plant_tpu_torch/csrc/" + source,
+            "replaces": "deepsignal_plant_tpu/ops/pallas_fused.py:62",
+            "launches": launched[name], "max_abs_err": errs[name],
+            "dtype": "float32", "layers": [r["layer"] for r in use],
+            "ms": sum(r[ms] for r in use),
+            "tail_layers": [r["layer"] for r in tail],
+            "tail_ms": sum(r["tail_" + ms] for r in tail),
+            "plain_ms": sum(r[plain_ms] for r in use),
+            "bound_ms": max(ops, nbytes),
+            "bound_by": "operations" if ops >= nbytes else "bytes",
+            "library_ms": (sum(r[library_ms] for r in use)
+                           if library_ms else None),
+            "shapes_checked": [c for c in checked if c[4] == name]})
+
+    entry("fused_bilstm_proj_f32", "fused_bilstm.cu", "split", "proj_ms",
+          "proj_plain_ms", lambda r: proj_bound(*r["F"], r["H"], TILE),
+          "proj_library_ms")
+    entry("fused_bilstm_rec_f32", "lstm_recurrence.cu", "split", "rec_ms",
+          "rec_plain_ms", lambda r: rec_bound(
+              "lstm_recurrence_fwd", r["H"], TILE, 4, PEAK_TF32_FLOPS,
+              TF32_PASSES), None)
+    entry("fused_bilstm_f32_inloop", "fused_bilstm.cu", "inloop",
+          "inloop_ms", "plain_ms", lambda r: (r["ops_ms"], r["bytes_ms"]),
+          "library_ms")
+    parts[1]["plans"] = {r["layer"]: [r["rec_plan"], r["tail_rec_plan"]]
+                         for r in rows}
+    return parts
+
+
+def k1_f32_tile(timings, errs, checked, layers) -> dict:
+    """K1 at float32 as a whole, a composite of its kernels' launches
+    (not a kernel): sums over the five layers of one 4096-row tile (and
+    of the tail tile) of the route each layer takes and of both routes
+    timed in turns; ``layers``: the float32 call_mods run's layer
+    count."""
+    rows = [r for r in timings if r["kernel"] == "k1_float32"]
+
+    def total(key):
+        return sum(r[key] for r in rows)
+
+    return {
+        "what": "K1 float32 per tile, a composite of its kernels",
+        "kernels": list(K1_F32_KERNELS), "layers_run": layers,
+        "routes": [r["route"] for r in rows],
+        "tail_routes": [r["tail_route"] for r in rows],
+        "device_ms": total("device_ms"), "kernel_ms": total("kernel_ms"),
+        "tail_device_ms": total("tail_device_ms"),
+        "split_ms": total("split_ms"), "inloop_ms": total("inloop_ms"),
+        "tail_split_ms": total("tail_split_ms"),
+        "tail_inloop_ms": total("tail_inloop_ms"),
+        "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+        "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
+                     else "bytes"),
+        "ffma_bound_ms": max(total("ffma_ms"), total("bytes_ms")),
+        "library_ms": total("library_ms"),
+        "max_abs_err": errs["k1_float32"],
+        "shapes_checked": [c for c in checked if c[4] == "k1_float32"],
+        "per_layer": rows}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1280,7 +1569,6 @@ def main() -> int:
         from deepsignal_plant_tpu_torch.ops import _build, fused_lstm
         from deepsignal_plant_tpu_torch.ops import lstm as plain
         from deepsignal_plant_tpu_torch.ops import optim, recurrence
-        from deepsignal_plant_tpu_torch.ops.lstm import bilstm_layer
         from deepsignal_plant_tpu_torch.pipeline import call_mods
         from deepsignal_plant_tpu_torch.pipeline import train as train_mod
         import call_mods_ab as ab
@@ -1315,12 +1603,12 @@ def main() -> int:
     parser.result()
     log(f"built native/featparse.cpp with {native.CXX} "
         f"{' '.join(native.CXX_FLAGS)}: {native.library_path().name}")
-    errs, checked = check_kernel(torch, fused_lstm, bilstm_layer)
+    errs, checked = check_kernel(torch, fused_lstm, recurrence, plain)
     plans = rec_plans(torch, recurrence)
     rec_errs, rec_checked = check_recurrence(torch, recurrence, plain)
 
     # phase 3: timing
-    timings = time_kernel(torch, fused_lstm, bilstm_layer)
+    timings = time_kernel(torch, fused_lstm, recurrence, plain)
     forward = time_forward(torch, ModelConfig, ModelBiLSTM, Batch,
                            init_params)
     rec_timings = time_recurrence(torch, recurrence, plain)
@@ -1335,7 +1623,9 @@ def main() -> int:
             counts[k] = 0
     with tempfile.TemporaryDirectory() as tmp:
         run = check_main_path(tmp, ab, ModelConfig, init_params,
-                              save_checkpoint)
+                              save_checkpoint,
+                              f32_call_mods_launches(torch, fused_lstm,
+                                                     recurrence))
         trained = check_training(tmp, ab)
         if any(fused_lstm.launches.values()) or any(
                 recurrence.launches.values()):
@@ -1360,35 +1650,37 @@ def main() -> int:
             + json.dumps({k: st[k] for k in STAGE_FIELDS}))
 
     kernels = {"kernels": []}
-    for kernel, dname in K1_KERNELS.items():
-        rows = [r for r in timings if r["kernel"] == kernel]
+    rows = [r for r in timings if r["kernel"] == "fused_bilstm_bf16"]
 
-        def total(key):
-            return sum(r[key] for r in rows)
+    def total(key):
+        return sum(r[key] for r in rows)
 
-        kernels["kernels"].append({
-            "name": kernel, "route": "cuda",
-            "source": "deepsignal_plant_tpu_torch/csrc/fused_bilstm.cu",
-            "replaces": "deepsignal_plant_tpu/ops/pallas_fused.py:62",
-            # from the call_mods run (phase 4): its default is bf16
-            "launches": run["launches_by_kernel"][kernel],
-            "max_abs_err": errs[kernel], "dtype": dname,
-            # times: sums over the five launches of one 4096-row tile; ms
-            # is device time (graph replays), kernel_ms events per call
-            "ms": total("device_ms"), "device_ms": total("device_ms"),
-            "kernel_ms": total("kernel_ms"),
-            **({"tail_kernel_ms": total("tail_kernel_ms"),
-                "tail_device_ms": total("tail_device_ms")}
-               if dname == "bfloat16" else {}),
-            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-            "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
-                         else "bytes"),
-            "library_ms": total("library_ms"),
-            **({"ffma_bound_ms": max(total("ffma_ms"), total("bytes_ms"))}
-               if dname == "float32" else {}),
-            "shapes_checked": [c for c in checked if c[4] == kernel],
-            "per_launch": rows})
-    kernels["kernels"][0].update(model_forward=forward, main_path=run)
+    kernels["kernels"].append({
+        "name": "fused_bilstm_bf16", "route": "cuda",
+        "source": "deepsignal_plant_tpu_torch/csrc/fused_bilstm.cu",
+        "replaces": "deepsignal_plant_tpu/ops/pallas_fused.py:62",
+        # from the default call_mods run (phase 4, a fresh process)
+        "launches": run["launches_by_kernel"]["fused_bilstm_bf16"],
+        "max_abs_err": errs["fused_bilstm_bf16"], "dtype": "bfloat16",
+        # times: sums over the five launches of one 4096-row tile; ms is
+        # device time (graph replays), kernel_ms events per call
+        "ms": total("device_ms"), "device_ms": total("device_ms"),
+        "kernel_ms": total("kernel_ms"),
+        "tail_device_ms": total("tail_device_ms"),
+        "tail_kernel_ms": total("tail_kernel_ms"),
+        "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+        "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
+                     else "bytes"),
+        "library_ms": total("library_ms"),
+        "shapes_checked": [c for c in checked if c[4] == "fused_bilstm_bf16"],
+        "per_launch": rows, "model_forward": forward, "main_path": run})
+    # K1's float32 kernels, launches from the float32 call_mods run; the
+    # whole float32 layer route per tile rides on the projection's entry
+    f32_parts = k1_f32_parts(timings, errs, checked,
+                             run["f32_launches_by_kernel"])
+    f32_parts[0]["k1_float32_tile"] = k1_f32_tile(timings, errs, checked,
+                                                  run["f32_layers"])
+    kernels["kernels"] += f32_parts
     # the recurrence kernels: times per train step at batch 512 in bf16
     # (two H=128 and three H=256 launches); launches from the train run
     # (4b), and for K2 from the fused-off 512-row inference tile (4d);

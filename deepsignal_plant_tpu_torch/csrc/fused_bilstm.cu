@@ -1,9 +1,10 @@
 // Fused bidirectional LSTM layer, time-major, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel deepsignal_plant_tpu/ops/pallas_fused.py
-// ::_fused_kernel (reached through _layer_fused_impl's pallas_call). One
-// launch computes one whole layer, both directions, input projection
-// included:
+// ::_fused_kernel (reached through _layer_fused_impl's pallas_call): one
+// whole layer, both directions, input projection included (one launch of
+// the bfloat16 or the float32 in-loop kernel, or the float32 projection
+// kernel and a recurrence kernel of lstm_recurrence.cu):
 //
 //     pre_d[t] = sum_i x_i[t] @ W_ih[d][rows_i] + b[d] + h_d @ W_hh[d]
 //     i,f,o = sigmoid(pre[i|f|o]), g = tanh(pre[g])   (gate order i,f,g,o)
@@ -38,16 +39,27 @@
 // 168 GFLOP against ~0.1 GB of compulsory traffic: bound by operations
 // (0.17 ms at the bf16 tensor-core peak), not by bytes (0.03 ms).
 //
-// Two kernels:
+// Three kernels:
 //
 // bfloat16 (the main path): tensor cores (mma.sync) over weights packed
 //   once per model; every block re-reads its direction's packed weights
 //   from L2 at every step (below).
-// float32: CUDA-core FMAs, for exact-parity runs. block = (round_up(H,
-//   32), max(1, 256 / that)) threads; thread (j, y) owns unit j for RB =
-//   16 rows; x_t and h_{t-1} are staged as f32, transposed ([k][row]) so
-//   one 16-byte load feeds four rows; two __syncthreads() per step order
-//   the h exchange; the weights are read from global memory.
+// float32, for exact-parity runs, two routes (ops/fused_lstm.py picks):
+// - the projection kernel (below): the input projection of all T steps
+//   as one 3xTF32 wgmma product into K2's xproj, after which
+//   lstm_recurrence.cu's float32 recurrence kernels store h as this file's
+//   kernels do. At a comb layer the in-loop design re-read [W_ih; W_hh]
+//   (3 MB a direction) from L2 at every step for every 16 rows, ~20 GB a
+//   layer at B = 4096; out of the loop the projection runs at the tensor
+//   cores' rate, and only W_hh stays in the loop, resident on clusters.
+// - the in-loop kernel: CUDA-core FMAs, the projection inside the time
+//   loop, for inputs narrower than one K slab of the projection (the
+//   branches' 7 and 16 features, whose xproj would be 32-73 times their
+//   bytes) at batches that fill the card. block = (round_up(H, 32),
+//   max(1, 256 / that)) threads; thread (j, y) owns unit j for RB = 16
+//   rows; x_t and h_{t-1} are staged as f32, transposed ([k][row]) so one
+//   16-byte load feeds four rows; two __syncthreads() per step order the
+//   h exchange; the weights are read from global memory.
 
 #include "dsp_common.cuh"
 
@@ -56,7 +68,7 @@ using namespace dsp;
 namespace {
 
 // ---------------------------------------------------------------------------
-// float32: CUDA-core FMAs
+// float32, the in-loop kernel: CUDA-core FMAs
 
 constexpr int kRowsPerThread = 16;      // RB: rows of one thread
 constexpr int kMaxBlockThreads = 512;   // H <= 512
@@ -161,6 +173,223 @@ cudaError_t launch_f32(const float* xa, const float* xb, const float* w_ih,
   kernel<<<grid, dim3(bx, by), smem, stream>>>(xa, xb, w_ih, bias, w_hh, ys_f,
                                                ys_b, T_, B, Fa, Fb, H,
                                                seq_out);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32 route: the input projection on the tensor cores in 3xTF32
+//
+//   xproj[s, d, b, :] = bias[d] + sum_i x_i[t_d(s), b, :] @ W_ih[d][rows_i]
+//   t_0(s) = s, t_1(s) = T-1-s
+//
+// K2's input contract, (T, 2, B, 4H) f32 with the bias in it and direction
+// 1 time-flipped (the flip is the epilogue's row index), over which
+// lstm_recurrence.cu's dsp_lstm_recurrence_fwd_k1 runs the recurrence.
+// Per direction one product of M = T*B rows, N = 4H, K = Fa + Fb, read
+// from the one or two row-split inputs as they are: K slabs [0, Kpa) come
+// from xa, [Kpa, Kp) from xb (Kpa = round_up(Fa, 32), Kp = Kpa +
+// round_up(Fb, 32)), and the weights are packed once per model to match
+// (ops/fused_lstm.py::pack_proj_weights): K-major (2, 4H, Kp), each
+// input's rows zero-padded to the slab, already split into tf32 hi and
+// lo planes, so only x is split here, once per element as it is staged.
+//
+// A block computes a kPjM x kPjN tile (rows x gate columns of one
+// direction) as two warpgroups of 64 rows, each product one wgmma
+// m64n128k8 from shared memory: three a k8 step (3xTF32: lo*hi + hi*lo +
+// hi*hi into f32, lo*lo dropped). Shared memory holds two buffers of
+// four planes (x hi, x lo, W hi, W lo), each a 128 x 32 tile in the
+// 128-byte swizzled layout wgmma reads. While slab k's wgmmas run, slab
+// k+1 is staged into the other buffer: the weight planes by cp.async, x
+// read into registers, split and stored. (A ring of three slabs that
+// keeps one group of wgmmas in flight across the barrier, and A split in
+// registers for the register-operand wgmma, were no faster on the H100.)
+// x widths that are not a multiple of 4 floats (the seq branch's 7) or
+// bases off 16 bytes are read by plain loads; the ragged M edge and the
+// K padding read zeros. Grid (2 * ceil(4H / kPjN), ceil(M / kPjM)): the
+// blocks that share one x tile run next to each other, so x is read from
+// device memory about once.
+//
+// What bounds it: at a comb layer (M = 53,248 at B = 4096, N = 1,024, K
+// = 512) 2 x 56 GFLOP of f32 products, 3 x that in TF32 (0.68 ms at 495
+// TFLOP/s), against 0.11 GB of x, 8 MB of weights and 0.44 GB of xproj
+// written (0.16 ms at 3.35 TB/s): operations bind. mma.sync m16n8k8 ran
+// the same products slower on the H100 (PERF.md).
+
+constexpr int kPjM = 128;                // rows of a block tile
+constexpr int kPjN = 128;                // gate columns of a block tile
+constexpr int kPjK = 32;                 // K slab: one 128-byte row
+constexpr int kPjThreads = 256;          // two warpgroups
+constexpr int kPgTile = kPjM * kPjK;     // floats of one plane tile
+static_assert(kPjK == kSwK, "a K slab is one swizzled 128-byte row");
+
+__global__ void __launch_bounds__(kPjThreads, 1)
+proj_f32_kernel(const float* __restrict__ xa, const float* __restrict__ xb,
+                const float* __restrict__ w_hi,
+                const float* __restrict__ w_lo,
+                const float* __restrict__ bias, float* __restrict__ xproj,
+                int T_, int B, int Fa, int Fb, int H, int Kpa, int Kp,
+                int vec_a, int vec_b) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* const sm = sw_align(smem_raw);     // swizzle atoms on 1,024 bytes
+  const int G4 = 4 * H;
+  const int ntn = (G4 + kPjN - 1) / kPjN;
+  const int d = blockIdx.x / ntn;
+  const int n0 = (blockIdx.x - d * ntn) * kPjN;
+  const int m0 = blockIdx.y * kPjM;
+  const int M = T_ * B;
+  const int nk = Kp / kPjK;
+  const float* whi = w_hi + (size_t)d * G4 * Kp;
+  const float* wlo = w_lo + (size_t)d * G4 * Kp;
+  const int wg = threadIdx.x / 128;
+  const int warp4 = (threadIdx.x / 32) & 3;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane >> 2, q = lane & 3;
+  // plane p (0 x hi, 1 x lo, 2 W hi, 3 W lo) of buffer b
+  auto plane = [&](int b, int p) { return sm + (b * 4 + p) * kPgTile; };
+
+  // 16-byte chunk c of a plane tile: row c >> 3, k chunk c & 7, so eight
+  // neighbouring threads read one row's 128 bytes and fill one shared
+  // row
+  float4 xr[4];
+  auto load_x = [&](int kt) {
+    const int k0 = kt * kPjK;
+    const bool from_a = k0 < Kpa;
+    const float* x = from_a ? xa : xb;
+    const int F = from_a ? Fa : Fb;
+    const int c0 = from_a ? k0 : k0 - Kpa;
+    const bool vec = from_a ? vec_a : vec_b;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = threadIdx.x + i * kPjThreads;
+      const int m = m0 + (c >> 3);
+      const int col = c0 + (c & 7) * 4;
+      const float* src = x + (size_t)m * F + col;
+      if (vec) {
+        xr[i] = m < M && col < F ? *reinterpret_cast<const float4*>(src)
+                                 : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        const bool ok = m < M;
+        xr[i] = make_float4(ok && col < F ? src[0] : 0.f,
+                            ok && col + 1 < F ? src[1] : 0.f,
+                            ok && col + 2 < F ? src[2] : 0.f,
+                            ok && col + 3 < F ? src[3] : 0.f);
+      }
+    }
+  };
+  auto store_x = [&](int b) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = threadIdx.x + i * kPjThreads;
+      const int off = sw_off(c >> 3, (c & 7) * 4);
+      uint4 hi, lo;
+      split_tf32(xr[i].x, hi.x, lo.x);
+      split_tf32(xr[i].y, hi.y, lo.y);
+      split_tf32(xr[i].z, hi.z, lo.z);
+      split_tf32(xr[i].w, hi.w, lo.w);
+      *reinterpret_cast<uint4*>(plane(b, 0) + off) = hi;
+      *reinterpret_cast<uint4*>(plane(b, 1) + off) = lo;
+    }
+  };
+  auto stage_w = [&](int kt, int b) {
+    for (int i = threadIdx.x; i < 2 * kPgTile / 4; i += kPjThreads) {
+      const int lo = i >= kPgTile / 4;
+      const int c = lo ? i - kPgTile / 4 : i;
+      const int r = c >> 3;
+      const int k = (c & 7) * 4;
+      const int n = n0 + r;
+      const bool ok = n < G4;
+      cp_async16(plane(b, 2 + lo) + sw_off(r, k),
+                 (lo ? wlo : whi) + (size_t)(ok ? n : 0) * Kp + kt * kPjK + k,
+                 ok);
+    }
+  };
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  load_x(0);
+  stage_w(0, 0);
+  cp_async_commit();
+  store_x(0);
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int b = kt & 1;
+    const bool more = kt + 1 < nk;
+    if (more) {
+      load_x(kt + 1);
+      stage_w(kt + 1, b ^ 1);
+    }
+    cp_async_commit();
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kPjK / 8; ++j) {
+      // k8 step j: 32 bytes into each 128-byte row (the swizzle applies
+      // to the address the descriptor forms)
+      const int ao = wg * 64 * kPjK + j * 8, bo = j * 8;
+      const uint64_t ah = gmma_desc(plane(b, 0) + ao);
+      const uint64_t al = gmma_desc(plane(b, 1) + ao);
+      const uint64_t bh = gmma_desc(plane(b, 2) + bo);
+      const uint64_t bl = gmma_desc(plane(b, 3) + bo);
+      wgmma_tf32_m64n128(acc, al, bh);
+      wgmma_tf32_m64n128(acc, ah, bl);
+      wgmma_tf32_m64n128(acc, ah, bh);
+    }
+    wgmma_commit();
+    if (more) store_x(b ^ 1);               // while the wgmmas run
+    wgmma_wait<0>();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+  }
+
+  // accumulator i: rows gq + 8*((i >> 1) & 1) of the warp's 16, column
+  // 8*(i >> 2) + 2q + (i & 1)
+  const float* bd = bias + (size_t)d * G4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + wg * 64 + warp4 * 16 + gq + half * 8;
+    if (m >= M) continue;
+    const int t = m / B;
+    const int bb = m - t * B;
+    const int s = d ? T_ - 1 - t : t;
+    float* orow = xproj + (((size_t)s * 2 + d) * B + bb) * G4;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int n = n0 + 8 * j + 2 * q;
+      if (n < G4)
+        *reinterpret_cast<float2*>(orow + n) =
+            make_float2(acc[4 * j + 2 * half] + bd[n],
+                        acc[4 * j + 2 * half + 1] + bd[n + 1]);
+    }
+  }
+}
+
+// K of the projection's packed weights: each input's width rounded up to
+// the K slab (ops/fused_lstm.py::proj_k)
+inline int proj_k(int F) { return (F + kPjK - 1) / kPjK * kPjK; }
+
+cudaError_t launch_proj_f32(const float* xa, const float* xb,
+                            const float* w_hi, const float* w_lo,
+                            const float* bias, float* xproj, int T_, int B,
+                            int Fa, int Fb, int H, cudaStream_t stream) {
+  const int Kpa = proj_k(Fa);
+  const int Kp = Kpa + proj_k(Fb);
+  const long long mtiles = ((long long)T_ * B + kPjM - 1) / kPjM;
+  if (mtiles > 65535) return cudaErrorInvalidValue;
+  // two buffers of four planes, and room to align them to 1,024 bytes
+  const size_t smem = (size_t)2 * 4 * kPgTile * sizeof(float) + 1024;
+  const cudaError_t err = set_smem((const void*)proj_f32_kernel, smem);
+  if (err != cudaSuccess) return err;
+  auto vec = [](const float* x, int F) {
+    return reinterpret_cast<uintptr_t>(x) % 16 == 0 && F % 4 == 0;
+  };
+  const dim3 grid(2 * ((4 * H + kPjN - 1) / kPjN), (unsigned)mtiles);
+  proj_f32_kernel<<<grid, kPjThreads, smem, stream>>>(
+      xa, xb, w_hi, w_lo, bias, xproj, T_, B, Fa, Fb, H, Kpa, Kp,
+      vec(xa, Fa), Fb > 0 && vec(xb, Fb));
   return cudaGetLastError();
 }
 
@@ -407,9 +636,9 @@ cudaError_t launch_bf16(const bf16* xa, const bf16* xb, const bf16* wt,
 
 extern "C" {
 
-// float32: x* (T, B, F*) row-major; w_ih (2, Fa+Fb, 4H); w_hh (2, H, 4H);
-// bias (2, 4H); ys_f/ys_b (T or 1, B, H). Runs on `stream`, allocates
-// nothing, returns the launch's error code.
+// float32, the in-loop kernel: x* (T, B, F*) row-major; w_ih (2, Fa+Fb,
+// 4H); w_hh (2, H, 4H); bias (2, 4H); ys_f/ys_b (T or 1, B, H). Runs on
+// `stream`, allocates nothing, returns the launch's error code.
 cudaError_t dsp_fused_bilstm_f32(const void* xa, const void* xb,
                                  const void* w_ih, const void* bias,
                                  const void* w_hh, void* ys_f, void* ys_b,
@@ -425,6 +654,31 @@ cudaError_t dsp_fused_bilstm_f32(const void* xa, const void* xb,
                     static_cast<const float*>(w_hh),
                     static_cast<float*>(ys_f), static_cast<float*>(ys_b), T_,
                     B, Fa, Fb, H, seq_out, static_cast<cudaStream_t>(stream));
+}
+
+// The float32 route's input projection: x* (T, B, F*) float32; w_hi and
+// w_lo (2, 4H, Kp) the tf32 hi and lo planes of W_ih packed as described
+// above (Kp = round_up(Fa, 32) + round_up(Fb, 32)), 16-byte aligned; bias
+// (2, 4H) f32 -> xproj (T, 2, B, 4H) f32 (T*B <= 65,535 * 128 rows). Runs
+// on `stream`, allocates nothing, returns the launch's error code.
+cudaError_t dsp_fused_bilstm_proj_f32(const void* xa, const void* xb,
+                                      const void* w_hi, const void* w_lo,
+                                      const void* bias, void* xproj, int T_,
+                                      int B, int Fa, int Fb, int H,
+                                      void* stream) {
+  if (T_ < 1 || B < 1 || Fa < 1 || Fb < 0 || H < 1 ||
+      H > kMaxBlockThreads || (Fb > 0 && xb == nullptr) ||
+      reinterpret_cast<uintptr_t>(w_hi) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w_lo) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(xproj) % 8 != 0)
+    return cudaErrorInvalidValue;
+  return launch_proj_f32(static_cast<const float*>(xa),
+                         static_cast<const float*>(xb),
+                         static_cast<const float*>(w_hi),
+                         static_cast<const float*>(w_lo),
+                         static_cast<const float*>(bias),
+                         static_cast<float*>(xproj), T_, B, Fa, Fb, H,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // bfloat16: x* (T, B, F*) and ys_f/ys_b (T or 1, B, H) bf16; wt (2, 4H,

@@ -9,6 +9,9 @@
 //                                       reverse-time recurrence
 //   dsp_lstm_dw_hh                   <- _lstm_bwd_kernel (K4): its dW_hh
 //                                       accumulation, as a kernel of its own
+//   dsp_lstm_recurrence_fwd_k1       <- the recurrence of pallas_fused.py's
+//                                       _fused_kernel (K1) at float32, over
+//                                       the projection of fused_bilstm.cu
 //
 // Tensor contract (pallas_lstm.py:11-16): xproj (T, 2, B, 4H) holds the
 // input projections with the bias, gate order i,f,g,o, direction 1
@@ -32,11 +35,11 @@
 // registers of the thread that owns their (row, unit). bfloat16 runs its
 // per-step product on the tensor cores (mma.sync m16n8k16, f32
 // accumulate); float32 on the tensor cores in 3xTF32 (mma.sync m16n8k8,
-// three tf32 products per f32 product) in its cluster kernels, and on the
-// CUDA cores (FFMA) in its streaming kernels. The ragged batch edge is masked
-// in the kernel: rows >= B read zeros and store nothing, with no padding
-// on the host (the JAX wrapper pads B to a multiple of 128,
-// pallas_lstm.py:219-223).
+// three tf32 products per f32 product) in its cluster kernels and dW_hh,
+// and on the CUDA cores (FFMA) in its streaming kernels. The ragged batch
+// edge is masked in the kernel: rows >= B read zeros and store nothing,
+// with no padding on the host (the JAX wrapper pads B to a multiple of
+// 128, pallas_lstm.py:219-223).
 //
 // Each storage type has two designs, chosen per launch by the wrapper's
 // plan (ops/recurrence.py::recurrence_plan):
@@ -252,17 +255,38 @@ fwd_bf16_kernel(const bf16* __restrict__ xproj, const bf16* __restrict__ wt,
 }
 
 // ---------------------------------------------------------------------------
+// where the float32 forward kernels store h: K2 and K3 keep ys (T, 2, B,
+// H) in step order (kYsSteps); K1's float32 route (ops/fused_lstm.py)
+// stores each direction's states as K1 does, ys_f and ys_b (T, B, H) in
+// true time (kYsTrueTime), or only the last step's as (1, B, H)
+// (kYsFinal). The address of h of step s, direction d, batch row `row`
+// (unit 0), or null where that step stores nothing.
+
+enum YsMode { kYsSteps = 0, kYsTrueTime = 1, kYsFinal = 2 };
+
+__device__ __forceinline__ float* ys_row(float* ys, float* ys_b, int mode,
+                                         int s, int d, int T_, int B, int H,
+                                         int row) {
+  if (mode == kYsSteps) return ys + (((size_t)s * 2 + d) * B + row) * H;
+  if (mode == kYsFinal && s != T_ - 1) return nullptr;
+  const int t = mode == kYsFinal ? 0 : d ? T_ - 1 - s : s;
+  return (d ? ys_b : ys) + ((size_t)t * B + row) * H;
+}
+
+// ---------------------------------------------------------------------------
 // forward (K2, K3), float32 on the CUDA cores: the streaming kernel
 //
 // block = (round_up(H, 32), max(1, 256 / that)) threads; thread (j, y)
 // owns unit j for RB rows; h_{s-1} is kept transposed ([k][row]) in shared
 // memory so one 16-byte load feeds four rows; two barriers per step.
+// ys_b and mode: ys_row (SAVE only with kYsSteps).
 
 template <int RB, bool SAVE>
 __global__ void __launch_bounds__(kMaxHidden)
 fwd_f32_kernel(const float* __restrict__ xproj, const float* __restrict__ w_hh,
-               float* __restrict__ ys, float* __restrict__ cs,
-               float* __restrict__ gates, int T_, int B, int H) {
+               float* __restrict__ ys, float* __restrict__ ys_b,
+               float* __restrict__ cs, float* __restrict__ gates, int T_,
+               int B, int H, int mode) {
   extern __shared__ __align__(16) float hs[];    // [H][BB]
   const int d = blockIdx.y;
   const int G4 = 4 * H;
@@ -308,7 +332,8 @@ fwd_f32_kernel(const float* __restrict__ xproj, const float* __restrict__ w_hh,
         const int row = b0 + rg + r;
         if (row < B) {
           const size_t hi = (step * B + row) * H + j;
-          ys[hi] = h;
+          float* yr = ys_row(ys, ys_b, mode, s, d, T_, B, H, row);
+          if (yr != nullptr) yr[j] = h;
           if (SAVE) {
             cs[hi] = c[r];
             float* gr = gates + (step * B + row) * G4 + j;
@@ -548,8 +573,9 @@ bwd_f32_kernel(const float* __restrict__ dys, const float* __restrict__ cs,
 // contiguous ranges of `rows` rows (ops/recurrence.py::dw_hh_split_plan
 // chooses them for the card's SM count; any plan that covers K runs);
 // a block computes one kDwM x kDwN output tile over one range, streaming
-// it through a ring of kDwStages shared-memory slabs that cp.async fills
-// while the previous slabs' products run, and writes an f32 partial.
+// it through shared-memory slabs (bfloat16: a ring of kDwStages that
+// cp.async fills while the previous slabs' products run; float32: two,
+// transposed as they are staged), and writes an f32 partial.
 // dw_reduce_kernel then sums the partials in split order. No atomics: two
 // launches on the same inputs give the same bits.
 
@@ -730,76 +756,130 @@ dw_bf16_kernel(const bf16* __restrict__ ys, const bf16* __restrict__ dx,
       }
 }
 
-// float32 on the CUDA cores: 16 x 16 threads, each 8 rows (m) by 8
-// columns (n) of the tile, each in two runs of 4 that are 64 apart
-__global__ void __launch_bounds__(kDwThreads, 2)
+// float32 on wgmma in 3xTF32: the split-K frame (dw_split, the fixed-order
+// sum of the partials) with the output tile as two warpgroups of 64 units
+// x 128 gate columns, one m64n128k8 wgmma per tf32 product. wgmma reads
+// tf32 operands K-major only, and both operands are stored k-slow, so a
+// slab of kDwKF32 K rows is transposed as it is staged: each thread reads
+// 16-byte runs of 4 units (A, from ys) or 4 gate columns (B, from dx) of
+// one K row, splits them into tf32 hi and lo, and writes them down a
+// column of the swizzled K-major planes (sw_off; the 32 threads of a warp
+// take the 32 K rows of one run, so their scalar stores hit 32 banks).
+// Two buffers of four planes (A hi, A lo, B hi, B lo); the next slab is
+// read into registers before the current slab's wgmmas and stored while
+// they run. One block an SM (128 KB of shared memory).
+constexpr int kDwTile = kDwM * kDwKF32;     // floats of one plane
+static_assert(kDwKF32 == kSwK && kDwM == kDwN, "dW planes: 128 x 32");
+
+__global__ void __launch_bounds__(kDwThreads, 1)
 dw_f32_kernel(const float* __restrict__ ys, const float* __restrict__ dx,
               float* __restrict__ out, int B, int H, int K, int rows,
               int vec) {
-  constexpr int KS = kDwKF32, LDA = kDwM, LDB = kDwN;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* const as0 = reinterpret_cast<float*>(smem_raw);
-  float* const bs0 = as0 + kDwStages * KS * LDA;
+  constexpr int KS = kDwKF32;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  float* const sm = sw_align(smem_raw);
   const DwSplit p = dw_split(K, rows, KS);
   const int G4 = 4 * H;
   const int m0 = blockIdx.y * kDwM;
   const int n0 = blockIdx.x * kDwN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int wg = threadIdx.x / 128;
+  const int warp4 = (threadIdx.x / 32) & 3;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane >> 2, q = lane & 3;
+  // plane i (0 A hi, 1 A lo, 2 B hi, 3 B lo) of buffer b
+  auto plane = [&](int b, int i) { return sm + (b * 4 + i) * kDwTile; };
 
-  float acc[8][8];
+  // run i of this thread: K row `lane` of the slab, units (i < 4: A) or
+  // gate columns (B) 4 * (warp + 8 * (i % 4)) .. + 3 of the tile
+  float4 v[8];
+  auto load = [&](int slab) {
+    const int k = p.kbeg + slab * KS + lane;
+    const bool krow = k < p.kend;
+    const DwRow o = krow ? dw_row(k, p.d, B, H) : DwRow{0, 0};
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 8; ++i) {
+      const bool is_a = i < 4;
+      const int c = 4 * (threadIdx.x / 32 + 8 * (i & 3));
+      const int col = (is_a ? m0 : n0) + c;
+      const int W = is_a ? H : G4;
+      const float* src = (is_a ? ys + o.a : dx + o.b) + col;
+      if (vec) {
+        v[i] = krow && col < W ? *reinterpret_cast<const float4*>(src)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+      } else {
+        v[i] = make_float4(krow && col < W ? src[0] : 0.f,
+                           krow && col + 1 < W ? src[1] : 0.f,
+                           krow && col + 2 < W ? src[2] : 0.f,
+                           krow && col + 3 < W ? src[3] : 0.f);
+      }
+    }
+  };
+  auto store = [&](int b) {
 #pragma unroll
-    for (int n = 0; n < 8; ++n) acc[i][n] = 0.f;
+    for (int i = 0; i < 8; ++i) {
+      const int c = 4 * (threadIdx.x / 32 + 8 * (i & 3));
+      float* hi = plane(b, i < 4 ? 0 : 2);
+      float* lo = plane(b, i < 4 ? 1 : 3);
+      const float e[4] = {v[i].x, v[i].y, v[i].z, v[i].w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t h, l;
+        split_tf32(e[j], h, l);
+        const int off = sw_off(c + j, lane);
+        hi[off] = __uint_as_float(h);
+        lo[off] = __uint_as_float(l);
+      }
+    }
+  };
 
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < kDwStages - 1; ++i) {
-    if (i < p.nslab)
-      dw_stage<float, KS, LDA, LDB>(as0 + i * KS * LDA, bs0 + i * KS * LDB,
-                                    ys, dx, p.kbeg + i * KS, p.kend, p.d, B,
-                                    H, m0, n0, vec != 0);
-    cp_async_commit();
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  if (p.nslab > 0) {
+    load(0);
+    store(0);
   }
+  fence_proxy_async();
+  __syncthreads();
   for (int i = 0; i < p.nslab; ++i) {
-    cp_async_wait<kDwStages - 2>();
+    const int b = i & 1;
+    const bool more = i + 1 < p.nslab;
+    if (more) load(i + 1);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < KS / 8; ++j) {
+      const int ao = wg * 64 * kSwK + j * 8, bo = j * 8;
+      const uint64_t ah = gmma_desc(plane(b, 0) + ao);
+      const uint64_t al = gmma_desc(plane(b, 1) + ao);
+      const uint64_t bh = gmma_desc(plane(b, 2) + bo);
+      const uint64_t bl = gmma_desc(plane(b, 3) + bo);
+      wgmma_tf32_m64n128(acc, al, bh);
+      wgmma_tf32_m64n128(acc, ah, bl);
+      wgmma_tf32_m64n128(acc, ah, bh);
+    }
+    wgmma_commit();
+    if (more) store(b ^ 1);                 // while the wgmmas run
+    wgmma_wait<0>();
+    fence_proxy_async();
     __syncthreads();
-    const int nx = i + kDwStages - 1;
-    if (nx < p.nslab) {
-      const int st = nx % kDwStages;
-      dw_stage<float, KS, LDA, LDB>(as0 + st * KS * LDA, bs0 + st * KS * LDB,
-                                    ys, dx, p.kbeg + nx * KS, p.kend, p.d, B,
-                                    H, m0, n0, vec != 0);
-    }
-    cp_async_commit();
-    const float* As = as0 + (i % kDwStages) * KS * LDA;
-    const float* Bs = bs0 + (i % kDwStages) * KS * LDB;
-#pragma unroll 8
-    for (int k = 0; k < KS; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(As + k * LDA +
-                                                         ty * 4);
-      const float4 a1 = *reinterpret_cast<const float4*>(As + k * LDA + 64 +
-                                                         ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(Bs + k * LDB +
-                                                         tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(Bs + k * LDB + 64 +
-                                                         tx * 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) acc[r][n] += av[r] * bv[n];
-    }
   }
+
+  // accumulator i: unit row gq + 8*((i >> 1) & 1) of the warp's 16, gate
+  // column 8*(i >> 2) + 2q + (i & 1)
   float* o = out + ((size_t)p.split * 2 + p.d) * H * G4;
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+  for (int half = 0; half < 2; ++half) {
+    const int m = m0 + wg * 64 + warp4 * 16 + gq + half * 8;
+    if (m >= H) continue;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int m = m0 + (r >> 2) * 64 + ty * 4 + (r & 3);
-      const int c = n0 + (n >> 2) * 64 + tx * 4 + (n & 3);
-      if (m < H && c < G4) o[(size_t)m * G4 + c] = acc[r][n];
+    for (int j = 0; j < 16; ++j) {
+      const int n = n0 + 8 * j + 2 * q;
+      if (n < G4)
+        *reinterpret_cast<float2*>(o + (size_t)m * G4 + n) =
+            make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
     }
+  }
 }
 
 // dw[i] = sum over z = 0, 1, ..., splits-1 of ws[z][i], in that order
@@ -1306,58 +1386,14 @@ constexpr int kClLdwF = 4 * kClUF + 8;      // forward W slice rows
 constexpr int kClLdaF = 4 * kClUF + 4;      // backward W slice and da rows
 constexpr int kClMaxC = 8;                  // the largest cluster (H = 256)
 
-// x as hi + lo, each rounded to tf32 (to nearest, ties away from zero:
-// the values cvt.rna.tf32.f32 gives). Integer ops instead of cvt, which
-// runs on the conversion pipe at a quarter of the FP32 rate and bound
-// the kernels' steps: hi = x + half an ulp of tf32, cut to tf32's 10
-// mantissa bits; lo = x - hi is exact in f32. The tensor cores read the
-// top 19 bits of a .tf32 operand and ignore the low 13, so lo is passed
-// with half an ulp added (rounded) and its low bits left in place.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-}
-
-// c += a @ b on one 16x8x8 tile in tf32; fragments as PTX's mma.m16n8k8
-// defines (a: rows gq, gq+8 x columns q, q+4; b: rows q, q+4 x column gq)
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// c += a @ b in 3xTF32: the small terms first, then hi*hi
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           const uint32_t (&bh)[2],
-                                           const uint32_t (&bl)[2]) {
-  mma_tf32(c, al, bh);
-  mma_tf32(c, ah, bl);
-  mma_tf32(c, ah, bh);
-}
-
-// the A fragment of the m16 x k8 tile at p (row stride ld), split
-__device__ __forceinline__ void a_frag_f32(const float* p, int ld,
-                                           uint32_t (&hi)[4],
-                                           uint32_t (&lo)[4]) {
-  split_tf32(p[0], hi[0], lo[0]);
-  split_tf32(p[8 * ld], hi[1], lo[1]);
-  split_tf32(p[4], hi[2], lo[2]);
-  split_tf32(p[8 * ld + 4], hi[3], lo[3]);
-}
-
+// ys_b and mode: ys_row (SAVE only with kYsSteps).
 template <int MT, bool SAVE>
 __global__ void __launch_bounds__(kClWarps * 32, 1)
 fwd_cluster_f32_kernel(const float* __restrict__ xproj,
                        const float* __restrict__ w_hh, float* __restrict__ ys,
-                       float* __restrict__ cs, float* __restrict__ gates,
-                       int T_, int B, int H) {
+                       float* __restrict__ ys_b, float* __restrict__ cs,
+                       float* __restrict__ gates, int T_, int B, int H,
+                       int mode) {
   constexpr int BB = 16 * MT;
   constexpr int MW = (MT + 1) / 2;          // m16 tiles of a warp, at most
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -1367,7 +1403,7 @@ fwd_cluster_f32_kernel(const float* __restrict__ xproj,
   const int d = blockIdx.y;
   const int G4 = 4 * H;
   const int u0 = rank * kClUF;
-  const int b0 = (blockIdx.x / C) * BB;
+  const int b0 = ((int)blockIdx.x / C) * BB;
   const int Ldh = H + 4;
   float* const wsm = reinterpret_cast<float*>(smem_raw);  // H x kClLdwF
   float* const hbuf = wsm + (size_t)H * kClLdwF;          // BB x Ldh
@@ -1485,7 +1521,9 @@ fwd_cluster_f32_kernel(const float* __restrict__ xproj,
         const int row = b0 + (mt0 + 2 * mw) * 16 + gq + half * 8;
         if (row < B) {
           const size_t hi = (step * B + row) * H + u0 + jl;
-          *reinterpret_cast<float2*>(ys + hi) = hv[mw][half];
+          float* yr = ys_row(ys, ys_b, mode, s, d, T_, B, H, row);
+          if (yr != nullptr)
+            *reinterpret_cast<float2*>(yr + u0 + jl) = hv[mw][half];
           if (SAVE) {
             *reinterpret_cast<float2*>(cs + hi) =
                 make_float2(c[mw][2 * half], c[mw][2 * half + 1]);
@@ -1780,10 +1818,11 @@ inline const void* cl_kernel(int kind, int H, int cluster, int rows,
   return nullptr;
 }
 
-// the launch configuration of a plan: grid (cluster * ceil(B / rows), 2),
-// cluster (cluster, 1, 1), kClWarps warps; allows the shared memory
+// the launch configuration of a plan over `tiles` row tiles: grid
+// (cluster * tiles, 2), cluster (cluster, 1, 1), kClWarps warps; allows
+// the shared memory
 inline cudaError_t cl_config(const void* kernel, size_t smem, int cluster,
-                             int rows, int B, cudaStream_t stream,
+                             int tiles, cudaStream_t stream,
                              cudaLaunchConfig_t* cfg,
                              cudaLaunchAttribute* attr) {
   const cudaError_t err = set_smem(kernel, smem);
@@ -1793,7 +1832,7 @@ inline cudaError_t cl_config(const void* kernel, size_t smem, int cluster,
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(cluster * ((B + rows - 1) / rows), 2);
+  cfg->gridDim = dim3(cluster * tiles, 2);
   cfg->blockDim = dim3(kClWarps * 32);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = stream;
@@ -1806,15 +1845,17 @@ inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-// launches the plan's kernel with `args` (the kernel's parameters)
-inline cudaError_t cl_launch(int kind, int H, int cluster, int rows, int B,
-                             int dtype, void** args, cudaStream_t stream) {
+// launches the plan's kernel over `tiles` row tiles with `args` (the
+// kernel's parameters)
+inline cudaError_t cl_launch(int kind, int H, int cluster, int rows,
+                             int tiles, int dtype, void** args,
+                             cudaStream_t stream) {
   const void* kernel = cl_kernel(kind, H, cluster, rows, dtype);
-  if (kernel == nullptr) return cudaErrorInvalidValue;
+  if (kernel == nullptr || tiles < 1) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = cl_config(kernel, cl_smem(kind, H, rows, dtype), cluster,
-                              rows, B, stream, &cfg, &attr);
+                              tiles, stream, &cfg, &attr);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelExC(&cfg, kernel, args);
   if (err != cudaSuccess) return err;
@@ -1872,8 +1913,8 @@ inline dim3 f32_block(int H) {
 
 template <bool SAVE>
 cudaError_t fwd_f32(const float* xproj, const float* w_hh, float* ys,
-                    float* cs, float* gates, int T_, int B, int H,
-                    cudaStream_t stream) {
+                    float* ys_b, float* cs, float* gates, int T_, int B,
+                    int H, int mode, cudaStream_t stream) {
   const dim3 block = f32_block(H);
   const int BB = kRowsPerThread * block.y;
   const size_t smem = (size_t)H * BB * sizeof(float);
@@ -1881,7 +1922,7 @@ cudaError_t fwd_f32(const float* xproj, const float* w_hh, float* ys,
   const cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((B + BB - 1) / BB, 2), block, smem, stream>>>(
-      xproj, w_hh, ys, cs, gates, T_, B, H);
+      xproj, w_hh, ys, ys_b, cs, gates, T_, B, H, mode);
   return cudaGetLastError();
 }
 
@@ -1974,8 +2015,7 @@ cudaError_t dsp_lstm_recurrence_clusters(int kind, int H, int cluster,
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   const cudaError_t err = cl_config(kernel, cl_smem(kind, H, rows, dtype),
-                                    cluster, rows, rows, nullptr, &cfg,
-                                    &attr);
+                                    cluster, 1, nullptr, &cfg, &attr);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
@@ -2022,16 +2062,27 @@ cudaError_t dsp_lstm_recurrence_fwd(const void* xproj, const void* w_hh,
     if (!aligned16(xproj) || !aligned16(w_hh) || !aligned16(ys) ||
         (save && (!aligned16(cs) || !aligned16(gates))))
       return cudaErrorInvalidValue;
+    const int tiles = (B + rows - 1) / rows;
+    if (dtype == 0) {
+      void* ys_b = nullptr;
+      int mode = kYsSteps;
+      void* args[] = {&xproj, &w_hh, &ys, &ys_b, &cs,
+                      &gates, &T_,   &B,  &H,    &mode};
+      return cl_launch(save ? 1 : 0, H, cluster, rows, tiles, dtype, args,
+                       st);
+    }
     void* args[] = {&xproj, &w_hh, &ys, &cs, &gates, &T_, &B, &H};
-    return cl_launch(save ? 1 : 0, H, cluster, rows, B, dtype, args, st);
+    return cl_launch(save ? 1 : 0, H, cluster, rows, tiles, dtype, args, st);
   }
   if (dtype == 0) {
     auto x = static_cast<const float*>(xproj);
     auto w = static_cast<const float*>(w_hh);
     auto y = static_cast<float*>(ys);
-    return save ? fwd_f32<true>(x, w, y, static_cast<float*>(cs),
-                                static_cast<float*>(gates), T_, B, H, st)
-                : fwd_f32<false>(x, w, y, nullptr, nullptr, T_, B, H, st);
+    return save ? fwd_f32<true>(x, w, y, nullptr, static_cast<float*>(cs),
+                                static_cast<float*>(gates), T_, B, H,
+                                kYsSteps, st)
+                : fwd_f32<false>(x, w, y, nullptr, nullptr, nullptr, T_, B,
+                                 H, kYsSteps, st);
   }
   if (dtype == 1) {
     if (workspace == nullptr) return cudaErrorInvalidValue;
@@ -2045,6 +2096,40 @@ cudaError_t dsp_lstm_recurrence_fwd(const void* xproj, const void* w_hh,
                                   st);
   }
   return cudaErrorInvalidValue;
+}
+
+// K1's recurrence at float32 (ops/recurrence.py::lstm_recurrence_k1, the
+// float32 route of the fused layer): K2's arithmetic over xproj
+// (T, 2, B, 4H) float32 (the projection kernel's output, fused_bilstm.cu),
+// with h stored as K1 stores it: ys_f and ys_b (T, B, H) in true time, or
+// with seq_out = 0 the (1, B, H) final states. `cluster` > 0 runs the
+// float32 cluster kernel of the plan (cluster, rows) (every pointer
+// 16-byte aligned); 0 the float32 streaming kernel. Runs on `stream`,
+// allocates nothing, returns the launch's error code.
+cudaError_t dsp_lstm_recurrence_fwd_k1(const void* xproj, const void* w_hh,
+                                       void* ys_f, void* ys_b, int T_, int B,
+                                       int H, int seq_out, int cluster,
+                                       int rows, void* stream) {
+  if (T_ < 1 || B < 1 || H < 1 || H > kMaxHidden || ys_f == nullptr ||
+      ys_b == nullptr)
+    return cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int mode = seq_out ? kYsTrueTime : kYsFinal;
+  if (cluster != 0) {
+    if (!aligned16(xproj) || !aligned16(w_hh) || !aligned16(ys_f) ||
+        !aligned16(ys_b) || rows < 1)
+      return cudaErrorInvalidValue;
+    void* cs = nullptr;
+    void* gates = nullptr;
+    void* args[] = {&xproj, &w_hh, &ys_f, &ys_b, &cs,
+                    &gates, &T_,   &B,    &H,    &mode};
+    return cl_launch(0, H, cluster, rows, (B + rows - 1) / rows, 0, args,
+                     st);
+  }
+  return fwd_f32<false>(static_cast<const float*>(xproj),
+                        static_cast<const float*>(w_hh),
+                        static_cast<float*>(ys_f), static_cast<float*>(ys_b),
+                        nullptr, nullptr, T_, B, H, mode, st);
 }
 
 // Bytes of the workspace dsp_lstm_recurrence_bwd needs without a cluster
@@ -2088,7 +2173,8 @@ cudaError_t dsp_lstm_recurrence_bwd(const void* dys, const void* cs,
         !aligned16(w_hh) || !aligned16(dx))
       return cudaErrorInvalidValue;
     void* args[] = {&dys, &cs, &gates, &w_hh, &dx, &T_, &B};
-    return cl_launch(2, H, cluster, rows, B, dtype, args, st);
+    return cl_launch(2, H, cluster, rows, (B + rows - 1) / rows, dtype, args,
+                     st);
   }
   if (workspace == nullptr) return cudaErrorInvalidValue;
   if (dtype == 0)
@@ -2131,6 +2217,12 @@ size_t dsp_lstm_dw_hh_workspace_bytes(int H, int splits) {
 // two 64-row slabs in flight. Each operand is read H/128 or 4H/128 times
 // from L2 (100 MB at H=256, where the earlier 64 x 128 tiles read 150
 // MB); the partials add 2 * splits * 2 MB (H=256), most of it in L2.
+// float32: 3 x 6.4 GFLOP in 3xTF32 (39 us at 495 TFLOP/s) against 72 MB
+// (21 us): the products bind. They run on wgmma over slabs transposed to
+// K-major as they are staged; one block an SM, so the plan's 256 blocks
+// take two waves at H=256. Fewer, longer splits would take one, but sum
+// more rows in one f32 chain: 4 splits put H=256 past the 1e-5 gate of
+// chip_smoke.py on the H100, 8 stay within it.
 cudaError_t dsp_lstm_dw_hh(const void* ys, const void* dx, void* dw, int T_,
                            int B, int H, int splits, int rows, int dtype,
                            void* workspace, void* stream) {
@@ -2152,8 +2244,8 @@ cudaError_t dsp_lstm_dw_hh(const void* ys, const void* dx, void* dw, int T_,
                        reinterpret_cast<uintptr_t>(dx) % 16 == 0;
   cudaError_t err;
   if (dtype == 0) {
-    const size_t smem =
-        (size_t)kDwStages * kDwKF32 * (kDwM + kDwN) * sizeof(float);
+    // two buffers of four planes, and room to align them to 1,024 bytes
+    const size_t smem = (size_t)2 * 4 * kDwTile * sizeof(float) + 1024;
     err = set_smem((const void*)dw_f32_kernel, smem);
     if (err != cudaSuccess) return err;
     dw_f32_kernel<<<grid, kDwThreads, smem, st>>>(

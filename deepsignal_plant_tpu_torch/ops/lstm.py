@@ -7,7 +7,9 @@ explicit loops over time. The CPU runs them, and on the card they are
 what the kernels are held against:
 
 - ``bilstm_layer``: the fused layer of csrc/fused_bilstm.cu (K1), input
-  projection included, time-major, in true time;
+  projection included, time-major, in true time; it is
+  ``input_projection`` (the float32 route's projection kernel), the
+  recurrence, and ``k1_outputs`` (the order K1 stores h in);
 - ``lstm_recurrence`` (K2), ``lstm_recurrence_fwd_save`` (K3),
   ``lstm_recurrence_bwd`` (K4, as its two halves ``lstm_recurrence_bwd_dx``
   and ``lstm_dw_hh``): the recurrence alone over a precomputed xproj
@@ -73,6 +75,18 @@ def bilstm_layer(xs: tuple[torch.Tensor, ...], w_ih: torch.Tensor,
     b (2, 4H), added in f32. Returns (ys_f, ys_b), each (T, B, H) in true
     time (the backward direction's step-t state is row T-1-t), or the
     (1, B, H) final states of each direction when ``seq_out`` is False."""
+    pre_x = input_projection(xs, w_ih, b)
+    ys = _scan(pre_x, w_hh, hidden_size, xs[0].dtype, save=False)
+    return k1_outputs(ys, seq_out)
+
+
+def input_projection(xs: tuple[torch.Tensor, ...], w_ih: torch.Tensor,
+                     b: torch.Tensor) -> torch.Tensor:
+    """K1's input projection in K2's contract (the plain version of the
+    float32 route's projection kernel, csrc/fused_bilstm.cu): xs 1 or 2
+    row-split inputs (T, B, F_i), w_ih (2, F, 4H), b (2, 4H) -> xproj
+    (T, 2, B, 4H) float32 = b[d] + sum_i x_i[t] @ w_ih[d][rows_i], where
+    step s of direction 1 reads time t = T-1-s."""
     if sum(x.shape[-1] for x in xs) != w_ih.shape[1]:
         raise ValueError("inputs have {} features, w_ih has {} rows".format(
             [x.shape[-1] for x in xs], w_ih.shape[1]))
@@ -85,8 +99,14 @@ def bilstm_layer(xs: tuple[torch.Tensor, ...], w_ih: torch.Tensor,
                                      w[:, row:row + F])
         row += F
     # step s of direction 1 reads time T-1-s
-    pre_x = torch.stack([pre_x[0], pre_x[1].flip(0)], dim=1)  # (T, 2, B, 4H)
-    ys = _scan(pre_x, w_hh, hidden_size, xs[0].dtype, save=False)
+    return torch.stack([pre_x[0], pre_x[1].flip(0)], dim=1)
+
+
+def k1_outputs(ys: torch.Tensor, seq_out: bool
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K2's ys (T, 2, B, H) in step order -> K1's outputs: (ys_f, ys_b),
+    each (T, B, H) in true time, or the (1, B, H) final states of each
+    direction when ``seq_out`` is False."""
     if not seq_out:
         return ys[-1, 0:1], ys[-1, 1:2]
     return ys[:, 0], ys[:, 1].flip(0)

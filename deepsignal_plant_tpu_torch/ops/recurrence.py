@@ -9,7 +9,10 @@ deepsignal_plant_tpu/ops/pallas_lstm.py:74-124 and :211-353).
 - ``lstm_recurrence_bwd_dx`` and ``lstm_dw_hh`` (K4): the reverse-time
   recurrence, and the weight gradient as a kernel of its own;
 - ``BiLSTMRecurrence``: K3 forward, K4 backward;
-  ``bilstm_recurrence_trainable`` picks it under autograd and K2 else.
+  ``bilstm_recurrence_trainable`` picks it under autograd and K2 else;
+- ``lstm_recurrence_k1``: K2's float32 kernels storing h as K1 does, the
+  recurrence of K1's float32 route (ops/fused_lstm.py), counted with
+  K1's kernels, not here.
 
 Tensor contract as the Pallas kernels': xproj (T, 2, B, 4H) with the
 bias in it and direction 1 time-flipped, w_hh (2, H, 4H), ys
@@ -69,8 +72,9 @@ _CL_ROWS = {torch.bfloat16: ((16, 32, 48),) * 3,
             torch.float32: ((16, 32, 48, 64, 80), (16, 32, 48, 64, 80),
                             (16, 32, 48))}
 # the waves of clusters a plan may take: bfloat16 one (else its streaming
-# kernel); float32 up to two (its streaming kernel is several times
-# slower than a second wave of clusters)
+# kernel); float32's backward up to two (its streaming kernel is several
+# times slower than a second wave of clusters); float32's forward as many
+# as the rows need (recurrence_plan)
 _CL_WAVES = {torch.bfloat16: 1, torch.float32: 2}
 _CL_LDW = 4 * 64 + 8
 _CL_LDW_F32, _CL_LDA_F32 = 4 * 32 + 8, 4 * 32 + 4
@@ -81,8 +85,10 @@ _KIND = {"lstm_recurrence_fwd": 0, "lstm_recurrence_fwd_save": 1,
 # dW_hh's split-K plan, for csrc/lstm_recurrence.cu's output tiles of 128
 # units by 128 gate columns per direction (kDwM, kDwN there): ranges of K
 # rows in multiples of 64 (the bf16 kernel's slab), at most one wave of
-# two blocks per SM of the card, and at most 16 splits (their f32
-# partials cost bytes). The kernel takes any plan that covers K.
+# two blocks per SM of the card (the float32 kernel holds one a SM, so
+# two waves), and at most 16 splits (their f32 partials cost bytes; fewer,
+# longer splits also sum more rows in one f32 chain). The kernel takes
+# any plan that covers K.
 _DW_TILE_M, _DW_TILE_N, _DW_ROW_ALIGN = 128, 128, 64
 _DW_BLOCKS_PER_SM, _DW_MAX_SPLITS = 2, 16
 
@@ -94,10 +100,12 @@ def _lib() -> ctypes.CDLL:
     lib.dsp_lstm_recurrence_fwd.argtypes = [P] * 5 + [I] * 7 + [P] * 2
     lib.dsp_lstm_recurrence_bwd.argtypes = [P] * 5 + [I] * 6 + [P] * 2
     lib.dsp_lstm_dw_hh.argtypes = [P] * 3 + [I] * 6 + [P] * 2
+    lib.dsp_lstm_recurrence_fwd_k1.argtypes = [P] * 4 + [I] * 6 + [P]
     lib.dsp_lstm_recurrence_clusters.argtypes = [I] * 5 + [
         ctypes.POINTER(I)]
     for fn in (lib.dsp_lstm_recurrence_fwd, lib.dsp_lstm_recurrence_bwd,
-               lib.dsp_lstm_dw_hh, lib.dsp_lstm_recurrence_clusters):
+               lib.dsp_lstm_dw_hh, lib.dsp_lstm_recurrence_clusters,
+               lib.dsp_lstm_recurrence_fwd_k1):
         fn.restype = ctypes.c_int
     for fn in (lib.dsp_lstm_fwd_workspace_bytes,
                lib.dsp_lstm_bwd_workspace_bytes):
@@ -186,15 +194,24 @@ def recurrence_plan(kind: int, B: int, H: int, capacity,
     at either) and take clusters of 2 or 4 (bfloat16) or 4 or 8 (float32)
     blocks, so H = 128 or 256 (the training path's widths); at H = 512 the
     cluster would pass 8 blocks (16 is not portable), and other H are not
-    multiples of a block's units. Those take the streaming kernel. Among
-    the row tiles that fit shared memory, the fewest waves of clusters
-    (``2 * ceil(B / rows) / capacity``, rounded up), and among those the
-    smallest tile (shorter chains, more SMs); bfloat16 takes one wave at
-    most, float32 two. Where no tile is within that, the streaming
-    kernel."""
+    multiples of a block's units. Those take the streaming kernel.
+
+    Among the row tiles that fit shared memory, with ``waves`` = 2 *
+    ceil(B / rows) / capacity rounded up: bfloat16, and float32's
+    backward, the fewest waves, and among those the smallest tile (shorter
+    chains, more SMs), within one wave (bfloat16) or two (float32), else
+    the streaming kernel. float32's forward (K2, K3, and K1's recurrence
+    at call_mods' 4096-row tiles) the least estimated time, waves x
+    (ceil(rows / 32) + 0.5), in as many waves as the rows need: a wave's
+    time grows with the m16 tiles each warp walks a step (the 8 warps
+    split a tile's m16 tiles two ways), plus about half a tile's worth of
+    fixed cost (the two cluster barriers and the cell update), as timed on
+    the H100 at 1,016 and 4,096 rows (PERF.md); ties take fewer waves. At
+    the training batch both rules give the same plans."""
     C = H // _CL_UNITS[dtype]
     if H % _CL_UNITS[dtype] or C not in _CL_SIZES[dtype]:
         return None
+    costed = dtype == torch.float32 and kind < 2
     best = None
     for rows in _CL_ROWS[dtype][kind]:
         if recurrence_smem(kind, H, rows, dtype) > _MAX_SMEM:
@@ -203,8 +220,14 @@ def recurrence_plan(kind: int, B: int, H: int, capacity,
         if cap < 1:
             continue
         waves = -(-2 * -(-B // rows) // cap)
-        if waves <= _CL_WAVES[dtype] and (best is None or waves < best[0]):
-            best = waves, rows
+        if costed:
+            cost = (waves * (-(-rows // 32) + 0.5), waves)
+        elif waves <= _CL_WAVES[dtype]:
+            cost = (waves,)
+        else:
+            continue
+        if best is None or cost < best[0]:
+            best = cost, rows
     return None if best is None else (C, best[1])
 
 
@@ -292,6 +315,46 @@ def lstm_recurrence_fwd_save(xproj: torch.Tensor, w_hh: torch.Tensor,
     if not _on_card("lstm_recurrence_fwd_save", xproj, w_hh):
         return plain.lstm_recurrence_fwd_save(xproj, w_hh, hidden_size)
     return _fwd(xproj, w_hh, hidden_size, True, stream)
+
+
+def lstm_recurrence_k1(xproj: torch.Tensor, w_hh: torch.Tensor,
+                       hidden_size: int, seq_out: bool, counts: dict
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1's recurrence at float32: K2 over xproj (T, 2, B, 4H) float32,
+    with h stored as K1 stores it: (ys_f, ys_b), each (T, B, H) in true
+    time, or (1, B, H) final states when ``seq_out`` is False
+    (ops/lstm.py: lstm_recurrence, then k1_outputs). On the card K2's
+    float32 kernel of recurrence_plan (its forward cost rule: call_mods'
+    4096-row tiles take 5 to 9 waves of clusters) in K1's output order.
+    The launch counts in ``counts`` (ops/fused_lstm.py::launches, with
+    K1's kernels) under ``fused_bilstm_rec_f32`` (cluster kernel) or
+    ``fused_bilstm_rec_f32_stream``, never in this module's counters,
+    which count the training path."""
+    name = "lstm_recurrence_fwd"
+    H = hidden_size
+    if not _on_card(name, xproj, w_hh):
+        return plain.k1_outputs(plain.lstm_recurrence(xproj, w_hh, H),
+                                seq_out)
+    T, B, _ = _dims(name, xproj, H, 4 * H)
+    _check("xproj", xproj, (T, 2, B, 4 * H), torch.float32)
+    _check("w_hh", w_hh, (2, H, 4 * H), torch.float32)
+    plan = _plan(name, xproj, B, H, False)
+    dev = xproj.device
+    ys_f = torch.empty((T if seq_out else 1, B, H), dtype=torch.float32,
+                       device=dev)
+    ys_b = torch.empty_like(ys_f)
+    if plan:
+        xproj, w_hh = _aligned(xproj), _aligned(w_hh)
+    cluster, rows = plan or (0, 0)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        err = lib.dsp_lstm_recurrence_fwd_k1(
+            xproj.data_ptr(), w_hh.data_ptr(), ys_f.data_ptr(),
+            ys_b.data_ptr(), T, B, H, int(seq_out), cluster, rows,
+            _stream(xproj))
+    _build.check(lib, err, "K1 recurrence launch")
+    counts["fused_bilstm_rec_f32" + ("" if plan else "_stream")] += 1
+    return ys_f, ys_b
 
 
 def lstm_recurrence_bwd_dx(dys: torch.Tensor, cs: torch.Tensor,

@@ -27,8 +27,10 @@ of its f32 sums over (T-1)*B rows: 1e-5 in both storage types; its
 split-K partials are summed in a fixed order, so two launches on the
 same inputs agree bit for bit.
 
-K1 has two kernels, one per compute dtype; each check asserts that the
-dtype's counter moved and no other.
+K1 has one kernel at bfloat16 and two routes at float32 (the 3xTF32
+projection kernel and the float32 recurrence; the in-loop kernel); each
+check asserts that the counters of the kernels the layer ran moved and
+no other.
 """
 
 import numpy as np
@@ -91,23 +93,63 @@ ODD_LAYERS = {
 }
 
 
-def check_against_plain(Fa, Fb, H, seq_out, B, dtype, device):
-    """One launch against the plain version; the dtype's kernel counter
-    moves, no other."""
+def k1_plan(H, B, device):
+    """K1's recurrence plan on this card: K2's float32 recurrence_plan."""
+    return recurrence.recurrence_plan(0, B, H, lambda C, rows: (
+        recurrence.cluster_capacity(device.index or 0, 0, H, C, rows,
+                                    torch.float32)), torch.float32)
+
+
+# K1's float32 routes, called directly
+F32_ROUTES = {"split": fused_lstm.layer_f32_split,
+              "inloop": fused_lstm.layer_f32_inloop}
+
+
+def expected_k1_launches(F, H, B, dtype, device, f32_route=None):
+    """The counters one K1 layer moves: bfloat16 its kernel; float32 the
+    kernels of its route (f32_inloop's, or the one called): the in-loop
+    kernel, or the projection kernel and the recurrence kernel of K1's
+    plan (k1_plan)."""
+    want = {k: 0 for k in fused_lstm.launches}
+    if dtype == torch.bfloat16:
+        want["fused_bilstm_bf16"] = 1
+        return want
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if f32_route is None:
+        f32_route = ("inloop" if fused_lstm.f32_inloop(F, H, B, sms)
+                     else "split")
+    if f32_route == "inloop":
+        want["fused_bilstm_f32_inloop"] = 1
+        return want
+    plan = k1_plan(H, B, device)
+    want["fused_bilstm_proj_f32"] = 1
+    want["fused_bilstm_rec_f32" if plan else
+         "fused_bilstm_rec_f32_stream"] = 1
+    return want
+
+
+def check_against_plain(Fa, Fb, H, seq_out, B, dtype, device,
+                        f32_route=None):
+    """One layer against the plain version, through bilstm_layer_fused
+    or the float32 route ``f32_route`` called directly; the counters of
+    the kernels it runs move (expected_k1_launches), no other. Returns
+    its output."""
     xs, w_ih, b, w_hh = layer_inputs(Fa, Fb, H, B, dtype, device)
-    name = ("fused_bilstm_bf16" if dtype == torch.bfloat16
-            else "fused_bilstm_f32")
     before = dict(fused_lstm.launches)
-    got = fused_lstm.bilstm_layer_fused(xs, w_ih, b, w_hh, H, seq_out)
+    layer = F32_ROUTES[f32_route] if f32_route else \
+        fused_lstm.bilstm_layer_fused
+    got = layer(xs, w_ih, b, w_hh, H, seq_out)
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in fused_lstm.launches.items()}
-    assert moved == {k: int(k == name) for k in moved}
+    assert moved == expected_k1_launches(Fa + Fb, H, B, dtype, device,
+                                         f32_route)
     want = bilstm_layer(xs, w_ih, b, w_hh, H, seq_out)
     for g, w in zip(got, want):
         assert g.shape == w.shape == ((T if seq_out else 1), B, H)
         assert g.dtype == dtype
         err = (g.float() - w.float()).abs().max().item()
         assert err <= TOL[dtype], f"F=({Fa},{Fb}) H={H} B={B} {dtype}: {err}"
+    return got
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -116,6 +158,76 @@ def check_against_plain(Fa, Fb, H, seq_out, B, dtype, device):
 @pytest.mark.parametrize("layer", list(MAIN_PATH_LAYERS))
 def test_kernel_matches_plain(device, layer, B, dtype):
     check_against_plain(*MAIN_PATH_LAYERS[layer], B, dtype, device)
+
+
+@pytest.mark.parametrize("f32_route", ["split", "inloop"])
+@pytest.mark.parametrize("B", [4096, 1016, 77])
+@pytest.mark.parametrize("layer", list(MAIN_PATH_LAYERS))
+def test_f32_routes_match_plain_and_each_other(device, layer, B, f32_route):
+    """K1 at float32 through each of its routes (the projection kernel and
+    the recurrence; the in-loop kernel) at the main path's five layers,
+    a full tile, call_mods' 1,016-row tail and a ragged 77 rows: each
+    against the plain version, the two against each other."""
+    Fa, Fb, H, seq_out = MAIN_PATH_LAYERS[layer]
+    got = check_against_plain(Fa, Fb, H, seq_out, B, torch.float32, device,
+                              f32_route)
+    other = "inloop" if f32_route == "split" else "split"
+    xs, w_ih, b, w_hh = layer_inputs(Fa, Fb, H, B, torch.float32, device)
+    alt = F32_ROUTES[other](xs, w_ih, b, w_hh, H, seq_out)
+    for g, a in zip(got, alt):
+        assert (g - a).abs().max().item() <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("B", [4096, 1016, 77, 1])
+@pytest.mark.parametrize("layer", list(MAIN_PATH_LAYERS) + ["odd", "wide"])
+def test_projection_kernel_matches_plain(device, layer, B):
+    """The float32 projection kernel alone (3xTF32 wgmma) against its
+    plain version, K2's xproj contract, at the main path's inputs and at
+    odd widths (row split 5 + 3, H=12; 24 + 40, H=96); with the packed
+    weights given or made in the call, the same bits."""
+    Fa, Fb, H, _ = {"odd": (5, 3, 12, True), "wide": (24, 40, 96, True),
+                    **MAIN_PATH_LAYERS}[layer]
+    xs, w_ih, b, _ = layer_inputs(Fa, Fb, H, B, torch.float32, device)
+    before = fused_lstm.launches["fused_bilstm_proj_f32"]
+    got = fused_lstm.input_projection(xs, w_ih, b)
+    again = fused_lstm.input_projection(
+        xs, w_ih, b, fused_lstm.pack_proj_weights(w_ih, Fa))
+    torch.cuda.synchronize()
+    assert fused_lstm.launches["fused_bilstm_proj_f32"] == before + 2
+    want = plain.input_projection(xs, w_ih, b)
+    assert got.shape == want.shape == (T, 2, B, 4 * H)
+    assert_close("xproj", got, want, REC_TOL[torch.float32])
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("B", [4096, 1016])
+@pytest.mark.parametrize("H", [128, 256])
+def test_k1_plan_covers_the_rows_on_this_card(device, H, B):
+    """K1's plan at call_mods' tiles: a cluster plan of the float32
+    kernel whose shared memory fits a block, on which K1's recurrence
+    (both output orders) and K2 agree with the plain version and with
+    each other."""
+    plan = k1_plan(H, B, device)
+    assert plan is not None and plan[0] == H // 32
+    assert recurrence.recurrence_smem(0, H, plan[1], torch.float32) <= \
+        232_448
+    xproj, w_hh, _ = recurrence_inputs(H, B, torch.float32, device)
+    before = dict(fused_lstm.launches)
+    rbefore = dict(recurrence.launches)
+    ys = recurrence.lstm_recurrence(xproj, w_hh, H)
+    for seq_out in (True, False):
+        got = recurrence.lstm_recurrence_k1(xproj, w_hh, H, seq_out,
+                                            fused_lstm.launches)
+        torch.cuda.synchronize()
+        for g, want in zip(got, plain.k1_outputs(ys, seq_out)):
+            assert torch.equal(g, want)
+    want = plain.k1_outputs(plain.lstm_recurrence(xproj, w_hh, H), True)
+    for g, w in zip(plain.k1_outputs(ys, True), want):
+        assert_close("ys", g, w, REC_TOL[torch.float32])
+    assert fused_lstm.launches["fused_bilstm_rec_f32"] == \
+        before["fused_bilstm_rec_f32"] + 2
+    assert {k: v - rbefore[k] for k, v in recurrence.launches.items()} == \
+        {k: int(k == "lstm_recurrence_fwd_f32") for k in rbefore}
 
 
 @pytest.mark.parametrize("B", [1016, 1, 37])

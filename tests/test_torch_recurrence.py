@@ -314,12 +314,12 @@ def test_recurrence_plan_refuses_a_second_wave(kind):
                                           lambda C, rows: 0) is None
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", [2])
 def test_f32_recurrence_plan_refuses_a_third_wave(kind):
-    """float32 takes a second wave of clusters, never a third: at 4096
-    rows (the fused-off inference tile) on the H100's capacity H=256 takes
-    the streaming kernel, H=128 at most two waves; on a card that holds no
-    cluster, the streaming kernel."""
+    """float32's backward takes a second wave of clusters, never a third:
+    at 4096 rows on the H100's capacity H=256 takes the streaming kernel,
+    H=128 at most two waves; on a card that holds no cluster, the
+    streaming kernel."""
     f32 = torch.float32
     assert recurrence.recurrence_plan(kind, 4096, 256,
                                       card(30, kind, 256, f32), f32) is None
@@ -333,12 +333,36 @@ def test_f32_recurrence_plan_refuses_a_third_wave(kind):
                                           f32) is None
 
 
+@pytest.mark.parametrize("kind", [0, 1])
+@pytest.mark.parametrize("H", [128, 256])
+def test_f32_forward_plan_takes_the_waves_it_needs(H, kind):
+    """float32's forward (K2, K3) takes as many waves of clusters as its
+    rows need, the least estimated time waves x (ceil(rows / 32) + 0.5):
+    at 4096 rows (call_mods' and the fused-off inference tile) on the
+    H100's capacities (15 clusters of 8; 62 of 4 up to 32-row tiles, 30
+    above) 64-row tiles in 9 waves at H=256, 32-row tiles in 5 at H=128;
+    on a card that holds no cluster, the streaming kernel."""
+    f32 = torch.float32
+
+    def h100(C, rows):
+        return 15 if C == 8 else (62 if rows <= 32 else 30)
+
+    plan = recurrence.recurrence_plan(kind, 4096, H, h100, f32)
+    assert plan == (H // 32, 64 if H == 256 else 32)
+    assert waves(4096, plan[1], h100(*plan)) == (9 if H == 256 else 5)
+    for B in (8192, 100_000):
+        plan = recurrence.recurrence_plan(kind, B, H, h100, f32)
+        assert plan is not None and plan[0] == H // 32
+    assert recurrence.recurrence_plan(kind, 1, H, lambda C, rows: 0,
+                                      f32) is None
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_f32_recurrence_plan_prefers_fewer_waves(kind):
     """Among the row tiles that fit shared memory, the fewest waves, then
-    the smallest tile: on a card that holds every grid in one wave the
-    16-row tile; where only larger tiles fit one wave, the smallest of
-    those."""
+    the smallest tile (the backward; the forward's cost rule gives the
+    same here): on a card that holds every grid in one wave the 16-row
+    tile; where only larger tiles fit one wave, the smallest of those."""
     dt = torch.float32
     for H in (128, 256):
         C = H // 32
