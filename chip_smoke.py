@@ -63,7 +63,22 @@ Phases, in order; any failure exits non-zero before the last line:
    call_mods_ab.rate_run: sites/s, every [stages] field, the card's busy
    share, K1's launches), its rows byte-identical to per-site windows
    parsed on the host and called by the same model;
-5. a ``{"kernels": [...]}`` line, the card line, and last
+5. the host paths around the engine: ``serve --once`` in a fresh process
+   over a watched directory (phase 4's sparse TSV, a 32,768-row dense TSV
+   and its .tsv.gz copy, a malformed .tsv, an .npz): each served output
+   byte-identical to the call_mods CLI's on the same file, the malformed
+   file marked .failed while the server goes on, the .npz left
+   unmarked, K1's bfloat16 kernel launched 5 times per forward tile in
+   the serving process; per request its sites/s beside the CLI's cold
+   time; then ``call_freq`` in this process on a seeded 2,000,000-row
+   call file (~250,000 sites of A. thaliana's 7 contigs) plus the served
+   outputs, as tsv, bed sorted gzip, and two contigs sorted, each on the
+   host and with --device_agg on the card, byte-identical in pairs,
+   rows/s of each; and sort_segment_reduce alone on one 8 MiB block on
+   the card (its transfers included) against np.unique on the host
+   (torch.sort and index_add_ are library calls, not kernels of the
+   port: the kernels line does not list them);
+6. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Without a card, or
@@ -72,9 +87,11 @@ without the package beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gzip
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -184,6 +201,24 @@ RATE_ROWS = 131_072
 K2_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 
+# phase 5, serve: the watched directory holds phase 4's sparse TSV, one
+# dense TSV of this many rows (call_mods_ab.write_dense_features), its
+# .tsv.gz copy, one malformed .tsv and one .npz (left unpicked)
+SERVE_DENSE_ROWS = 32_768
+# phase 5, call_freq: a plant sample's call_mods output holds tens of
+# millions of rows; this one FREQ_ROWS rows over ~FREQ_SITES sites of A.
+# thaliana's seven contigs (TAIR10 lengths), ~8 calls a site, in reads of
+# READ_SITES consecutive sites
+FREQ_ROWS = 2_000_000
+FREQ_SITES = 250_000
+READ_SITES = 40
+TAIR10 = {"Chr1": 30_427_671, "Chr2": 19_698_289, "Chr3": 23_459_830,
+          "Chr4": 18_585_056, "Chr5": 26_975_502, "ChrC": 154_478,
+          "ChrM": 366_924}
+# the call_freq runs, each on the host and with --device_agg on the card
+FREQ_RUNS = {"tsv": [], "bed, sorted, gzip": ["--bed", "--sort", "--gzip"],
+             "contigs Chr5,ChrC, sorted": ["--contigs", "Chr5,ChrC",
+                                           "--sort", "--nproc", "1"]}
 # the [stages] fields of call_mods that say where its time goes
 STAGE_FIELDS = ("batches", "packed_batches", "packed_sites",
                 "persite_batches", "persite_sites", "bases_uploaded",
@@ -1476,6 +1511,211 @@ def check_k2_path(torch, bilstm, recurrence, Batch, FeatureDataset,
     return out
 
 
+def check_serve(tmp: str, ckpt: str, main_run: dict, ab) -> dict:
+    """Phase 5, serve: the serve CLI in a fresh process (--once, the
+    full-width bf16 both_bilstm, float16 wire, the default device batch)
+    over a watched directory. Each served output must equal, byte for
+    byte, the call_mods CLI's output on the same file (phase 4's for the
+    sparse TSV; one CLI run each for the dense TSV and its .tsv.gz copy);
+    the malformed file must get a .failed marker while the server goes
+    on; the .npz must be left without a marker; and K1's bfloat16 kernel
+    must launch 5 times per forward tile of the three files in the
+    serving process, and no other kernel."""
+    watch, res = (os.path.join(tmp, d) for d in ("watch", "served"))
+    os.makedirs(watch)
+    shutil.copy(os.path.join(tmp, "features.tsv"), watch)
+    dense = os.path.join(watch, "dense.tsv")
+    ab.write_dense_features(dense, SERVE_DENSE_ROWS, SEED + 7)
+    with open(dense, "rb") as src, gzip.open(dense + ".gz", "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    with open(os.path.join(watch, "bad.tsv"), "w") as fh:
+        fh.write("this\tis\tnot\ta\tfeature\trow\n")
+    np.savez(os.path.join(watch, "batch.npz"), kmer=np.zeros((4, T)))
+    cold = {"features.tsv": (main_run["stages"],
+                             os.path.join(tmp, "calls.tsv"))}
+    for name in ("dense.tsv", "dense.tsv.gz"):
+        out = os.path.join(tmp, name + ".cli_calls.tsv")
+        st = run_call_mods(os.path.join(watch, name), ckpt, out)
+        check_rows(st, SERVE_DENSE_ROWS)
+        cold[name] = ({k: v for k, v in st.items() if k != "rows"}, out)
+    st = run_cli("serve", "--watch_dir", watch, "--result_dir", res,
+                 "--model_path", ckpt, "--once", "--poll_s", "0.2")
+    served = {r["name"]: r for r in st["requests"]}
+    if sorted(served) != sorted(cold):
+        fail(f"serve called {sorted(served)}, expected {sorted(cold)}")
+    for name, (_, cli_out) in cold.items():
+        with open(cli_out, "rb") as a, \
+                open(os.path.join(res, name + ".call_mods.tsv"), "rb") as b:
+            if a.read() != b.read():
+                fail(f"the served calls of {name} differ from the "
+                     f"call_mods CLI's")
+        if not os.path.exists(os.path.join(res, name + ".done")):
+            fail(f"serve left {name} without a .done marker")
+    if not os.path.exists(os.path.join(res, "bad.tsv.failed")) or \
+            os.path.exists(os.path.join(res, "bad.tsv.call_mods.tsv")):
+        fail("the malformed input did not get a .failed marker alone")
+    if any(f.startswith("batch.npz") for f in os.listdir(res)):
+        fail("serve marked or called the .npz input")
+    tiles = sum(c["forward_tiles"] for c, _ in cold.values())
+    want = {k: 0 for k in st["kernel_launches"]}
+    want["fused_bilstm_bf16"] = 5 * tiles
+    if st["forward_tiles"] != tiles or st["kernel_launches"] != want:
+        fail(f"the serving process ran {st['forward_tiles']} tiles and "
+             f"launched {st['kernel_launches']} (expected {tiles} tiles, "
+             f"{want})")
+    for name, (c, _) in cold.items():
+        r = served[name]
+        log(f"serve request {name}: {r['sites']} sites in "
+            f"{r['seconds']:.3f} s, {r['sites_per_s']:.1f} sites/s on one "
+            f"warm engine; the call_mods CLI, cold: {c['wall_seconds']:.3f}"
+            f" s for the process, {c['seconds']:.3f} s in its engine "
+            f"({c['sites_per_s']:.1f} sites/s)")
+    log(f"serve: engine up in {st['engine_seconds']:.3f} s; process "
+        f"{st['wall_seconds']:.3f} s for 3 requests and 2 polls 0.2 s "
+        f"apart; K1 bf16 launches {want['fused_bilstm_bf16']} = 5 x "
+        f"{tiles} tiles; bad.tsv .failed, batch.npz left unmarked")
+    return {"requests": served, "engine_seconds": st["engine_seconds"],
+            "wall_seconds": st["wall_seconds"],
+            "cold": {n: {k: c[k] for k in ("wall_seconds", "seconds",
+                                           "sites_per_s")}
+                     for n, (c, _) in cold.items()},
+            "launches": st["kernel_launches"],
+            "outputs": [os.path.join(res, n + ".call_mods.tsv")
+                        for n in sorted(cold)]}
+
+
+def write_call_rows(path: str, n_rows: int, n_sites: int, seed: int
+                    ) -> int:
+    """A seeded call_mods output of ``n_rows`` rows: ~``n_sites`` sites
+    spread over TAIR10's contigs by length, each with a random strand;
+    reads of READ_SITES consecutive sites from random starts; p1 from a
+    Beta(0.4, 0.4) (calls near 0 and 1, as a trained model gives), 6
+    decimals; pos_in_strand -1 for 5% of the rows. Returns the sites."""
+    rng = np.random.default_rng(seed)
+    lens = np.array(list(TAIR10.values()), np.float64)
+    per = np.maximum(1, np.round(n_sites * lens / lens.sum())).astype(int)
+    chrom, pos = [], []
+    for j, length in enumerate(TAIR10.values()):
+        p = np.unique(rng.integers(0, length, per[j]))
+        chrom.append(np.full(len(p), j))
+        pos.append(p)
+    chrom, pos = np.concatenate(chrom), np.concatenate(pos)
+    strand = rng.integers(0, 2, len(pos))
+    n_reads = -(-n_rows // READ_SITES)
+    starts = rng.integers(0, len(pos) - READ_SITES, n_reads)
+    site = (starts[:, None] + np.arange(READ_SITES)).reshape(-1)[:n_rows]
+    p1 = np.round(rng.beta(0.4, 0.4, n_rows), 6)
+    p0 = np.round(1 - p1, 6)
+    pis = np.where(rng.random(n_rows) < 0.05, -1, pos[site])
+    kmers = np.array(["".join(k) for k in
+                      rng.choice(list("ACGT"), (256, 5))])
+    reads = [f"{rng.integers(1 << 62):016x}-{r:07d}" for r in range(n_reads)]
+    cols = [np.array(list(TAIR10))[chrom[site]].tolist(),
+            pos[site].astype(str).tolist(),
+            np.array(["+", "-"])[strand[site]].tolist(),
+            pis.astype(str).tolist(),
+            [reads[r] for r in (np.arange(n_rows) // READ_SITES).tolist()],
+            ["t"] * n_rows, p0.astype(str).tolist(), p1.astype(str).tolist(),
+            (p1 > p0).astype(int).astype(str).tolist(),
+            kmers[rng.integers(0, len(kmers), n_rows)].tolist()]
+    with open(path, "w") as fh:
+        fh.write("\n".join("\t".join(r) for r in zip(*cols)) + "\n")
+    return len(pos)
+
+
+def check_call_freq(torch, cli, tmp: str, served: list) -> dict:
+    """Phase 5, call_freq through the CLI's entry point in this process:
+    a FREQ_ROWS-row call file plus the served outputs, each FREQ_RUNS
+    entry twice, aggregated on the host and with --device_agg on the
+    card; each pair must be byte-identical (gzip compared decompressed).
+    Then sort_segment_reduce alone on the card on the file's first 8 MiB
+    block (its upload and readback included) against np.unique on the
+    host, after a check that the card's order, segments and sums equal
+    the CPU's and np.unique's."""
+    from deepsignal_plant_tpu_torch.io.batching import iter_byte_blocks
+    from deepsignal_plant_tpu_torch.ops.segment_agg import \
+        sort_segment_reduce
+    from deepsignal_plant_tpu_torch.utils.fastparse import parse_call_bytes
+    calls = os.path.join(tmp, "calls.big.tsv")
+    t0 = time.perf_counter()
+    n_sites = write_call_rows(calls, FREQ_ROWS, FREQ_SITES, SEED + 9)
+    mb = os.path.getsize(calls) / 1e6
+    log(f"call_freq input: {FREQ_ROWS} rows over {n_sites} sites of "
+        f"{len(TAIR10)} contigs, {mb:.1f} MB, written in "
+        f"{time.perf_counter() - t0:.1f} s; plus the {len(served)} served "
+        f"outputs")
+    n_rows = FREQ_ROWS
+    for path in served:
+        with open(path, "rb") as fh:
+            n_rows += fh.read().count(b"\n")
+    inputs = ["-i", calls] + [a for p in served for a in ("-i", p)]
+    runs = {}
+    for label, extra in FREQ_RUNS.items():
+        outs = {}
+        for how, flags in (("host", []), ("device_agg", ["--device_agg"])):
+            out = os.path.join(tmp, f"freq.{len(runs)}.{how}.tsv")
+            printed = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                cli.main(["call_freq", *inputs, "-o", out, *extra, *flags])
+            dt = time.perf_counter() - t0
+            if "--gzip" in extra:
+                with gzip.open(out + ".gz", "rb") as fh:
+                    outs[how] = fh.read()
+            else:
+                with open(out, "rb") as fh:
+                    outs[how] = fh.read()
+            used = [ln for ln in printed.getvalue().splitlines()
+                    if "calls used" in ln]
+            runs[f"{label}, {how}"] = {
+                "seconds": dt, "rows_per_s": n_rows / dt,
+                "out_rows": outs[how].count(b"\n"), "report": used}
+        if not outs["host"] or outs["host"] != outs["device_agg"]:
+            fail(f"call_freq ({label}): --device_agg output differs from "
+                 f"the host's")
+        log(f"call_freq ({label}): {runs[label + ', host']['out_rows']} "
+            f"rows out, byte-identical; {n_rows} rows in: host "
+            f"{runs[label + ', host']['seconds']:.3f} s "
+            f"({runs[label + ', host']['rows_per_s']:.1f} rows/s), "
+            f"--device_agg {runs[label + ', device_agg']['seconds']:.3f} s "
+            f"({runs[label + ', device_agg']['rows_per_s']:.1f} rows/s); "
+            f"{runs[label + ', host']['report']}")
+
+    cb = parse_call_bytes(next(iter_byte_blocks(calls, 8 << 20)))
+    hi, lo, met = cb.chrom_ids.astype(np.int64), cb.pos, cb.label
+    dev = torch.device("cuda")
+    got = sort_segment_reduce(hi, lo, met, dev)
+    keys = hi * (1 << 40) + lo
+    uk, first, inv = np.unique(keys, return_index=True, return_inverse=True)
+    if not (all(np.array_equal(a, b) for a, b in zip(
+            got[:4], sort_segment_reduce(hi, lo, met, "cpu")[:4]))
+            and np.array_equal(got[0], np.argsort(keys, kind="stable"))
+            and got[4] == len(uk)
+            and np.array_equal(got[2], np.bincount(inv))):
+        fail("sort_segment_reduce on the card disagrees with the CPU's "
+             "and np.unique's")
+
+    def median_s(fn, reps=20):
+        for _ in range(3):
+            fn()
+        ts = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            ts.append(time.perf_counter() - t)
+        return statistics.median(ts)
+    dev_s = median_s(lambda: sort_segment_reduce(hi, lo, met, dev))
+    host_s = median_s(lambda: np.unique(keys, return_index=True,
+                                        return_inverse=True))
+    log(f"sort_segment_reduce on one 8 MiB block ({len(hi)} rows, "
+        f"{got[4]} sites): card {dev_s * 1e3:.3f} ms with its upload and "
+        f"readback; np.unique on the host {host_s * 1e3:.3f} ms")
+    return {"rows": n_rows, "sites": n_sites, "mb": mb, "runs": runs,
+            "block_rows": len(hi), "block_sites": int(got[4]),
+            "sort_segment_reduce_ms": dev_s * 1e3,
+            "np_unique_ms": host_s * 1e3}
+
+
 def k1_f32_parts(timings, errs, checked, launched) -> list:
     """The kernels line's entries of K1's float32 kernels (K1_F32_KERNELS),
     per 4096-row tile over the layers whose route runs each (the tail
@@ -1638,6 +1878,9 @@ def main() -> int:
         k2_path = check_k2_path(torch, bilstm, recurrence, Batch,
                                 FeatureDataset, load_checkpoint,
                                 trained["best_ckpt"], trained["valid_tsv"])
+        # phase 5: serve in a fresh process, call_freq in this one
+        serve = check_serve(tmp, run["ckpt"], run, ab)
+        freq = check_call_freq(torch, cli, tmp, serve["outputs"])
     flops = forward_flops_per_site(ModelConfig())
     for what, st in (("sparse fixture", run["stages"]),
                      ("dense rate run", {**run["rate"]["stats"],
@@ -1721,6 +1964,9 @@ def main() -> int:
     log("train summary: " + json.dumps({
         **trained, "f32_kernel_vs_plain": f32_train, "k2_path": k2_path,
         "step": step_timing}))
+    log("host paths summary on " + smi + ": " + json.dumps(
+        {"serve": {k: v for k, v in serve.items() if k != "outputs"},
+         "call_freq": freq}))
     log(f"train: {trained['samples_per_s_last_epoch']:.1f} samples/s in "
         f"the last epoch ({trained['ms_per_step_last_epoch']:.2f} ms per "
         f"{TRAIN_B}-row step with its evaluations excluded) on {smi}")

@@ -1,12 +1,13 @@
 """deepsignal_plant_tpu_torch CLI (counterpart of
-deepsignal_plant_tpu/cli.py:20-60, :187-239 and :314-352).
+deepsignal_plant_tpu/cli.py:20-60, :187-352 and :390-392).
 
-Ported so far: ``call_mods`` and ``train`` on features TSVs. They take
-the JAX package's flags with their defaults, plus ``--device`` and
-``--verbose_stages``. Flags of planes that are not ported yet fail with
-a clear error when set away from their default
-(pipeline/call_mods.py::_refuse_unported,
-pipeline/train.py::_refuse_unported).
+Ported so far: ``call_mods``, ``serve`` and ``train`` on features TSVs,
+``call_freq`` and the ``tools`` set. They take the JAX package's flags
+with their defaults, plus ``--device`` (and ``--verbose_stages`` where
+a run has counters to print). Flags of planes that are not ported yet
+fail with a clear error when set away from their default
+(``_refuse_unported`` in pipeline/call_mods.py, serve.py, train.py and
+call_freq.py).
 """
 from __future__ import annotations
 
@@ -80,10 +81,39 @@ def _add_f5_args(p):
                    choices=["even", "compat"])
 
 
+def _add_run_folder_args(p):
+    """serve's fast5 run-folder flags: not yet ported, so serve refuses
+    any value but the default (f5_defaults)."""
+    p.add_argument("--nproc", "-p", type=int, default=4,
+                   help="fast5 run-folder inputs only (not yet ported)")
+    p.add_argument("--f5_batch_size", type=int, default=30,
+                   help="fast5 run-folder inputs only (not yet ported)")
+    _add_f5_args(p)
+
+
+def f5_defaults() -> dict:
+    """serve's fast5 run-folder flags and their defaults."""
+    p = argparse.ArgumentParser()
+    _add_run_folder_args(p)
+    return vars(p.parse_args([]))
+
+
 def main_call_mods(args):
     from .pipeline.call_mods import call_mods
     display_args(args)
     call_mods(args)
+
+
+def main_serve(args):
+    from .pipeline.serve import serve
+    display_args(args)
+    serve(args)
+
+
+def main_call_freq(args):
+    from .pipeline.call_freq import call_mods_frequency_to_file
+    display_args(args)
+    call_mods_frequency_to_file(args)
 
 
 def main_train(args):
@@ -108,7 +138,10 @@ def build_parser() -> argparse.ArgumentParser:
         description="deepsignal_plant_tpu_torch detects 5mC from nanopore "
                     "reads of plants on an NVIDIA GPU:\n"
                     "\tcall_mods: call modifications\n"
-                    "\ttrain: train a model",
+                    "\tserve: call_mods over a watched directory\n"
+                    "\tcall_freq: modification frequency per site\n"
+                    "\ttrain: train a model\n"
+                    "\ttools: post-processing utilities",
         formatter_class=argparse.RawTextHelpFormatter)
     parser.add_argument("-v", "--version", action="version",
                         version="deepsignal_plant_tpu_torch version: {}".format(
@@ -165,6 +198,82 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device trace directory (not yet ported)")
     p.set_defaults(func=main_call_mods)
 
+    # ---- serve (watch-directory call_mods; not in the reference) ----
+    p = subparsers.add_parser(
+        "serve",
+        description="long-running call_mods over a watched directory: one "
+                    "warm engine (checkpoint, kernels and CUDA brought up "
+                    "once) calls each feature file (.tsv/.tsv.gz) as it "
+                    "lands; outputs + .done/.failed markers land in "
+                    "--result_dir; stable-size pickup, at-most-once "
+                    "semantics across restarts, graceful SIGTERM. .npz "
+                    "files and fast5 run-folders are not yet ported and "
+                    "are left unpicked, without a marker")
+    p.add_argument("--watch_dir", "-i", type=str, required=True)
+    p.add_argument("--result_dir", "-o", type=str, required=True)
+    p.add_argument("--model_path", "-m", type=str, required=True)
+    p.add_argument("--poll_s", type=float, default=2.0,
+                   help="poll interval seconds, default %(default)s")
+    p.add_argument("--once", action="store_true", default=False,
+                   help="process the current backlog and exit")
+    p.add_argument("--require_complete", action="store_true", default=False,
+                   help="only process inputs X with a producer-written "
+                        "X.complete marker (exact pickup for rsync/scp "
+                        "deposits); default also accepts inputs whose "
+                        "size+mtime are stable across two polls. A "
+                        "marker always makes X ready immediately")
+    p.add_argument("--batch_size", "-b", type=int, default=512,
+                   help="accepted for reference CLI compatibility")
+    p.add_argument("--device_batch", type=int, default=None,
+                   help="sites parsed, uploaded and called per step "
+                        "(default 32768)")
+    p.add_argument("--transfer_dtype", type=str, default="auto",
+                   choices=["auto", "float32", "float16", "int8"],
+                   help="host->device wire format: auto = float16; "
+                        "float32 for exact-parity runs; int8 is not yet "
+                        "ported")
+    p.add_argument("--parse_workers", type=int, default=None,
+                   help="native parser threads (default: the CPU count, "
+                        "2 to 4)")
+    p.add_argument("--dispatch_workers", type=int, default=8,
+                   help="accepted for JAX CLI compatibility (unused)")
+    p.add_argument("--packed_wire", type=str, default="auto",
+                   choices=["auto", "force", "off"],
+                   help="accepted for JAX CLI compatibility: the float16 "
+                        "wire always ships the read-packed wire")
+    p.add_argument("--gzip", action="store_true", default=False)
+    _add_model_args(p, dropout_default=0.0, compute_dtype_default="auto")
+    _add_device_args(p)
+    _add_run_folder_args(p)
+    p.set_defaults(func=main_serve)
+
+    # ---- call_freq ----
+    p = subparsers.add_parser("call_freq",
+                              description="calculate modification frequency "
+                                          "at genome level")
+    p.add_argument("--input_path", "-i", action="append", type=str,
+                   required=True)
+    p.add_argument("--file_uid", type=str, default=None)
+    p.add_argument("--result_file", "-o", type=str, required=True)
+    p.add_argument("--contigs", type=str, default=None)
+    p.add_argument("--nproc", type=int, default=1)
+    p.add_argument("--bed", action="store_true", default=False)
+    p.add_argument("--sort", action="store_true", default=False)
+    p.add_argument("--prob_cf", type=float, default=0.5)
+    p.add_argument("--gzip", action="store_true", default=False)
+    p.add_argument("--device_agg", action="store_true", default=False,
+                   help="run the per-block site sort + integer segment "
+                        "sums on --device; output is byte-identical to "
+                        "the host path")
+    p.add_argument("--device", type=str, default="cuda",
+                   choices=["cuda", "cpu"],
+                   help="the device of --device_agg (default the card); "
+                        "without --device_agg call_freq runs on the host")
+    p.add_argument("--pod_shard_inputs", type=str, default="auto",
+                   choices=["auto", "always", "never"],
+                   help="pod mode (multi-host) only: not yet ported")
+    p.set_defaults(func=main_call_freq)
+
     p = subparsers.add_parser("train", description="train a model")
     p.add_argument("--train_file", type=str, required=True,
                    help="features TSV (plain or .gz) with labels")
@@ -203,6 +312,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tmpdir", type=str, default="/tmp",
                    help="accepted for JAX CLI compatibility (unused)")
     p.set_defaults(func=main_train)
+
+    # ---- tools ----
+    from .tools import register_tools
+    register_tools(subparsers)
     return parser
 
 

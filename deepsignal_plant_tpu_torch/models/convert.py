@@ -1,4 +1,4 @@
-"""Checkpoint I/O (copy of deepsignal_plant_tpu/models/convert.py:45-263).
+"""Checkpoint I/O (copy of deepsignal_plant_tpu/models/convert.py:45-297).
 
 Both packages read and write one format: an ``.npz`` of the parameter
 pytree in the JAX layouts, with the model config as a JSON blob under
@@ -256,3 +256,38 @@ def params_to_numpy(model: torch.nn.Module) -> Params:
     flat = {k.replace(".", "/"): v.detach().to("cpu", torch.float32).numpy()
             for k, v in model.state_dict().items()}
     return _unflatten(flat)
+
+
+def params_to_torch_state_dict(params: Params, cfg: ModelConfig) -> dict:
+    """Inverse of convert_torch_state_dict (the pytree -> the reference's
+    torch layouts), for interop export. The combined bias is split evenly
+    between b_ih and b_hh; the cell computes only their sum, so this is
+    exact for inference."""
+    sd: dict[str, np.ndarray] = {}
+
+    def put_lstm(name: str, layers: list[Params]):
+        for li, layer in enumerate(layers):
+            for d, suffix in enumerate(("", "_reverse")):
+                sd[f"{name}.weight_ih_l{li}{suffix}"] = np.asarray(
+                    layer["w_ih"][d]).T.copy()
+                sd[f"{name}.weight_hh_l{li}{suffix}"] = np.asarray(
+                    layer["w_hh"][d]).T.copy()
+                half = np.asarray(layer["b"][d]) / 2.0
+                sd[f"{name}.bias_ih_l{li}{suffix}"] = half.copy()
+                sd[f"{name}.bias_hh_l{li}{suffix}"] = half.copy()
+
+    def put_linear(name: str, p: Params):
+        sd[f"{name}.weight"] = np.asarray(p["w"]).T.copy()
+        sd[f"{name}.bias"] = np.asarray(p["b"]).copy()
+
+    if cfg.module != "signal_bilstm":
+        sd["embed.weight"] = np.asarray(params["embed"]).copy()
+        put_lstm("lstm_seq", params["lstm_seq"])
+        put_linear("fc_seq", params["fc_seq"])
+    if cfg.module != "seq_bilstm":
+        put_lstm("lstm_signal", params["lstm_signal"])
+        put_linear("fc_signal", params["fc_signal"])
+    put_lstm("lstm_comb", params["lstm_comb"])
+    put_linear("fc1", params["fc1"])
+    put_linear("fc2", params["fc2"])
+    return sd

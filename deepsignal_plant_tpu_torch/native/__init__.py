@@ -43,6 +43,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
     i8p, u8p, u16p = arr(np.int8), arr(np.uint8), arr(np.uint16)
     i32p, i64p, f32p = arr(np.int32), arr(np.int64), arr(np.float32)
+    f64p = arr(np.float64)
     for name, restype, argtypes in (
             ("dsp_count_lines", i64, [c_char_p, i64]),
             ("dsp_parse_features", i64,
@@ -51,6 +52,9 @@ def _declare(lib: ctypes.CDLL) -> None:
             ("dsp_parse_features_f16", i64,
              [c_char_p, i64, i32, i32, i8p, u16p, u16p, u16p, u16p, i32p,
               i64p, i64p]),
+            ("dsp_parse_calls", i64,
+             [c_char_p, i64, i32p, i64p, u8p, i64p, f64p, f64p, i32p, i64p,
+              i32p, c_char_p, i64, ctypes.POINTER(i32)]),
             ("dsp_emit_call_rows", i64,
              [c_char_p, i64p, i64p, f32p, i8p, i64, i32, u8p]),
             ("dsp_format_call_suffixes", i64,

@@ -1,6 +1,7 @@
 // Native host codecs of the features-TSV plane of call_mods (the port's
 // own copy of the parts of deepsignal_plant_tpu/native/featparse.cpp that
-// this package calls; the rest is left for the slices that need it).
+// this package calls; the rest is left for the slices that need it), and
+// the call_mods row parser of call_freq.
 //
 // The features format (12 tab-separated columns, reference
 // extract_features.py:381-395) carries ~260 floats per row; parsing it in
@@ -16,6 +17,9 @@
 //     signal_len, kmer, means, stds, slens, signals, labels, row_starts,
 //     info_ends) -> rows parsed, or -(line_index+1) on a malformed line.
 //     The f16 variant writes the float16 wire (int8 codes, IEEE halves).
+//   dsp_parse_calls(buf, len, ...) -> call_mods rows parsed into per-row
+//     arrays with interned chromosome names, -(line+1) on a malformed
+//     line, INT64_MIN when the name table overflows.
 //   dsp_emit_call_rows(...) -> bytes of complete call_mods rows.
 //   dsp_format_call_suffixes(...) -> bytes of "\tP0\tP1\tLABEL\tKMER5\n"
 //     suffixes.
@@ -25,6 +29,8 @@
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
+#include <string_view>
+#include <unordered_map>
 
 namespace {
 
@@ -221,6 +227,131 @@ int64_t dsp_parse_features_f16(const char* buf, int64_t len, int kmer_len,
         reinterpret_cast<_Float16*>(slens),
         reinterpret_cast<_Float16*>(signals),
         labels, row_starts, info_ends);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// call_mods row parsing (the call_freq aggregation input)
+// ---------------------------------------------------------------------------
+//
+// A call_mods row has 10 tab-separated columns (reference
+// call_modifications.py:176-188 emission, consumed by
+// call_mods_freq.py:41-59):
+//   chrom  pos  strand  pos_in_strand  readname  read_strand  p0  p1
+//   called_label  kmer
+// This parser fills per-row numeric arrays and interns chromosome names
+// into a per-call table: chrom_ids[i] indexes the '\n'-joined names
+// written to chrom_buf (n_chroms_out entries). kmer strings stay in the
+// input buffer; kmer_off/kmer_len point at them.
+//
+// Returns rows parsed, -(line+1) on a malformed line, or INT64_MIN when
+// chrom_buf_cap is too small.
+
+namespace {
+
+inline int64_t parse_int(const char*& p, const char* end, bool& ok) {
+    bool neg = false;
+    if (p < end && (*p == '-' || *p == '+')) { neg = (*p == '-'); ++p; }
+    uint64_t v = 0;
+    int dig = 0;
+    while (p < end && *p >= '0' && *p <= '9') {
+        v = v * 10 + uint64_t(*p - '0'); ++p; ++dig;
+    }
+    ok = dig > 0;
+    return neg ? -int64_t(v) : int64_t(v);
+}
+
+}  // namespace
+
+extern "C" {
+
+int64_t dsp_parse_calls(const char* buf, int64_t len, int32_t* chrom_ids,
+                        int64_t* pos, uint8_t* strand,
+                        int64_t* pos_in_strand, double* p0, double* p1,
+                        int32_t* label, int64_t* kmer_off,
+                        int32_t* kmer_len, char* chrom_buf,
+                        int64_t chrom_buf_cap, int32_t* n_chroms_out) {
+    const char* p = buf;
+    const char* end = buf + len;
+    int64_t row = 0;
+    std::unordered_map<std::string_view, int32_t> interned;
+    char* cb = chrom_buf;
+    char* cb_end = chrom_buf + chrom_buf_cap;
+    std::string_view last_chrom;
+    int32_t last_id = -1;
+
+    while (p < end) {
+        const char* line_end =
+            static_cast<const char*>(memchr(p, '\n', end - p));
+        if (!line_end) line_end = end;
+        if (p == line_end) { p = line_end + 1; continue; }
+        const char* le = line_end;
+        if (le > p && le[-1] == '\r') --le;
+
+        // col 0: chrom (interned)
+        const char* tab = static_cast<const char*>(memchr(p, '\t', le - p));
+        if (!tab) return -(row + 1);
+        std::string_view chrom(p, size_t(tab - p));
+        if (chrom == last_chrom && last_id >= 0) {
+            chrom_ids[row] = last_id;
+        } else {
+            auto it = interned.find(chrom);
+            int32_t id;
+            if (it != interned.end()) {
+                id = it->second;
+            } else {
+                id = int32_t(interned.size());
+                if (cb + chrom.size() + 1 > cb_end) return INT64_MIN;
+                memcpy(cb, chrom.data(), chrom.size());
+                cb += chrom.size();
+                *cb++ = '\n';
+                interned.emplace(chrom, id);
+            }
+            chrom_ids[row] = id;
+            last_chrom = chrom;
+            last_id = id;
+        }
+        const char* q = tab + 1;
+
+        bool ok = true;
+        // col 1: pos
+        pos[row] = parse_int(q, le, ok);
+        if (!ok || q >= le || *q != '\t') return -(row + 1);
+        ++q;
+        // col 2: strand (single char)
+        strand[row] = uint8_t(*q++);
+        if (q >= le || *q != '\t') return -(row + 1);
+        ++q;
+        // col 3: pos_in_strand (may be -1)
+        pos_in_strand[row] = parse_int(q, le, ok);
+        if (!ok || q >= le || *q != '\t') return -(row + 1);
+        ++q;
+        // cols 4-5: readname, read_strand (skipped)
+        for (int t = 0; t < 2; ++t) {
+            q = static_cast<const char*>(memchr(q, '\t', le - q));
+            if (!q) return -(row + 1);
+            ++q;
+        }
+        // cols 6-7: p0, p1
+        p0[row] = parse_float(q, le, ok);
+        if (!ok || q >= le || *q != '\t') return -(row + 1);
+        ++q;
+        p1[row] = parse_float(q, le, ok);
+        if (!ok || q >= le || *q != '\t') return -(row + 1);
+        ++q;
+        // col 8: called label
+        label[row] = int32_t(parse_int(q, le, ok));
+        if (!ok || q >= le || *q != '\t') return -(row + 1);
+        ++q;
+        // col 9: kmer (to end of line)
+        kmer_off[row] = q - buf;
+        kmer_len[row] = int32_t(le - q);
+        ++row;
+        p = line_end + 1;
+    }
+    *n_chroms_out = int32_t(interned.size());
+    return row;
 }
 
 }  // extern "C"

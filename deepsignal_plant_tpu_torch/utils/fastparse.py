@@ -1,6 +1,6 @@
-"""Python side of the native features-TSV codecs (native/featparse.cpp;
-copy of deepsignal_plant_tpu/utils/fastparse.py:329-690, the parts the
-TSV plane of call_mods and the dataset call).
+"""Python side of the native codecs (native/featparse.cpp; copy of
+deepsignal_plant_tpu/utils/fastparse.py:329-633, the parts the TSV plane
+of call_mods, the dataset and call_freq call).
 
 - ``parse_feature_bytes``: a newline-terminated byte block -> FeatureBatch
   (float32, or the float16 wire: int8 codes, IEEE halves);
@@ -8,13 +8,16 @@ TSV plane of call_mods and the dataset call).
   row's 6 info columns, with no per-row Python string;
 - ``pack_raw_block``: the read-packed wire (deduplicated per-base arrays
   and int32 window centres) rebuilt from parsed rows;
-- ``emit_call_rows_arrays`` and ``format_call_block``: call_mods rows.
+- ``emit_call_rows_arrays`` and ``format_call_block``: call_mods rows;
+- ``parse_call_bytes``: call_mods rows -> CallBlock (call_freq's input).
 
 Every call builds the library if needed (native.load) and raises if it
 cannot; there is no Python fallback. utils/formats.py keeps the plain
 Python codecs, against which the tests hold these.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 
@@ -199,6 +202,65 @@ def pack_raw_block(rb: RawFeatureBlock) -> PackedFeatureBlock:
                               codes[:nb_out], means[:nb_out],
                               stds[:nb_out], lens[:nb_out], rect[:nb_out],
                               rb.labels, L)
+
+
+class CallBlock:
+    """Parsed call_mods rows (struct-of-arrays) from one byte block."""
+    __slots__ = ("chroms", "chrom_ids", "pos", "strand", "pos_in_strand",
+                 "p0", "p1", "label", "kmer_off", "kmer_len", "raw")
+
+    def __init__(self, chroms, chrom_ids, pos, strand, pos_in_strand, p0,
+                 p1, label, kmer_off, kmer_len, raw):
+        self.chroms = chroms            # list[str], block-local intern table
+        self.chrom_ids = chrom_ids      # (n,) int32 indexes into chroms
+        self.pos = pos                  # (n,) int64
+        self.strand = strand            # (n,) uint8 ('+' / '-' ordinals)
+        self.pos_in_strand = pos_in_strand  # (n,) int64
+        self.p0 = p0                    # (n,) float64
+        self.p1 = p1                    # (n,) float64
+        self.label = label              # (n,) int32 called label
+        self.kmer_off = kmer_off        # (n,) int64 offsets into raw
+        self.kmer_len = kmer_len        # (n,) int32
+        self.raw = raw                  # the input bytes (kmer storage)
+
+    def __len__(self) -> int:
+        return len(self.pos)
+
+    def kmer_at(self, i: int) -> str:
+        off = int(self.kmer_off[i])
+        return self.raw[off:off + int(self.kmer_len[i])].decode()
+
+
+def parse_call_bytes(block: bytes) -> CallBlock:
+    """Parse a newline-terminated call_mods byte block natively; raises
+    on a malformed row."""
+    lib = native.load()
+    n_max = lib.dsp_count_lines(block, len(block))
+    chrom_ids = np.empty(n_max, np.int32)
+    pos = np.empty(n_max, np.int64)
+    strand = np.empty(n_max, np.uint8)
+    pis = np.empty(n_max, np.int64)
+    p0 = np.empty(n_max, np.float64)
+    p1 = np.empty(n_max, np.float64)
+    label = np.empty(n_max, np.int32)
+    kmer_off = np.empty(n_max, np.int64)
+    kmer_len = np.empty(n_max, np.int32)
+    cap = 4 << 20
+    chrom_buf = ctypes.create_string_buffer(cap)
+    n_chroms = ctypes.c_int32(0)
+    n = lib.dsp_parse_calls(block, len(block), chrom_ids, pos, strand, pis,
+                            p0, p1, label, kmer_off, kmer_len, chrom_buf,
+                            cap, ctypes.byref(n_chroms))
+    if n == np.iinfo(np.int64).min:
+        raise ValueError("chromosome-name table exceeded 4 MiB")
+    if n < 0:
+        raise ValueError(f"malformed call_mods row at line {-n - 1}")
+    n = int(n)
+    names = chrom_buf.raw[:chrom_buf.raw.index(b"\x00")].decode()
+    chroms = names.split("\n")[:n_chroms.value] if n else []
+    return CallBlock(chroms, chrom_ids[:n], pos[:n], strand[:n], pis[:n],
+                     p0[:n], p1[:n], label[:n], kmer_off[:n], kmer_len[:n],
+                     block)
 
 
 def format_call_block(sampleinfo: list[str], probs: np.ndarray,

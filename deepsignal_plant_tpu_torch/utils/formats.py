@@ -1,5 +1,6 @@
-"""Text codecs of call_mods (copy of deepsignal_plant_tpu/utils/formats.py
-:29-104 and :344-369, the pure-Python paths).
+"""Text codecs of call_mods and call_freq (copy of
+deepsignal_plant_tpu/utils/formats.py:26-104 and :344-425, the
+pure-Python paths).
 
 - features TSV, 12 columns (extract_features.py:381-395):
     chrom, pos, strand, pos_in_strand, readname, read_strand, kmer,
@@ -8,6 +9,7 @@
 - call_mods TSV, 10 columns (call_modifications.py:176-188):
     chrom, pos, strand, pos_in_strand, readname, read_strand,
     prob_0(6dp), prob_1(6dp), called_label, center-5mer
+- freq TSV, 11 columns / bedMethyl, 11 columns (call_mods_freq.py:100-118)
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ from dataclasses import dataclass
 import numpy as np
 
 from .bases import CODE2BASE_DNA, seq_to_codes
+
+KEY_SEP = "||"
 
 
 def open_text(path: str, mode: str = "rt"):
@@ -111,3 +115,55 @@ def format_call_rows(sampleinfo: list[str], kmer_codes: np.ndarray,
         out.append("\t".join([info, str(p0n), str(p1n), str(label),
                               km[lo:hi]]))
     return out
+
+
+@dataclass
+class ModCall:
+    """One parsed call_mods row (utils/txt_formater.py:8)."""
+    chrom: str
+    pos: int
+    strand: str
+    pos_in_strand: int
+    readname: str
+    read_strand: str
+    prob0: float
+    prob1: float
+    called_label: int
+    kmer: str
+
+    @classmethod
+    def from_fields(cls, w: list[str]) -> "ModCall":
+        return cls(w[0], int(w[1]), w[2], int(w[3]), w[4], w[5],
+                   float(w[6]), float(w[7]), int(w[8]), w[9])
+
+    @property
+    def site_key(self) -> str:
+        return KEY_SEP.join([self.chrom, str(self.pos)])
+
+    def is_callable(self, prob_cf: float) -> bool:
+        """Keep non-ambiguous calls: |p0-p1| >= prob_cf (txt_formater.py:23)."""
+        return abs(self.prob0 - self.prob1) >= prob_cf
+
+
+def split_site_key(key: str) -> tuple[str, int]:
+    chrom, pos = key.split(KEY_SEP)
+    return chrom, int(pos)
+
+
+def format_freq_row(chrom: str, pos: int, strand: str, pos_in_strand: int,
+                    prob0_sum: float, prob1_sum: float, met: int, unmet: int,
+                    coverage: int, rmet: float, kmer: str) -> str:
+    """11-column freq row (call_mods_freq.py:112 printf formats)."""
+    return "%s\t%d\t%s\t%d\t%.3f\t%.3f\t%d\t%d\t%d\t%.4f\t%s" % (
+        chrom, pos, strand, pos_in_strand, prob0_sum, prob1_sum, met, unmet,
+        coverage, rmet, kmer)
+
+
+def format_bed_row(chrom: str, pos: int, strand: str, coverage: int,
+                   rmet: float) -> str:
+    """bedMethyl row (call_mods_freq.py:107-110), including the reference's
+    +0.001 rounding nudge on the percentage."""
+    pct = str(int(round(rmet * 100 + 0.001, 0)))
+    return "\t".join([chrom, str(pos), str(pos + 1), ".", str(coverage),
+                      strand, str(pos), str(pos + 1), "0,0,0", str(coverage),
+                      pct])

@@ -28,13 +28,19 @@ def test_every_module_is_listed():
                  "ops.lstm", "ops.recurrence", "ops.optim", "io.dataset",
                  "models.bilstm", "models.convert", "pipeline.call_mods",
                  "pipeline.train", "utils.device", "utils.metrics",
-                 "native", "utils.fastparse", "io.batching"):
+                 "native", "utils.fastparse", "io.batching",
+                 "ops.segment_agg", "pipeline.call_freq", "pipeline.serve",
+                 "utils.formats", "utils.bases", "utils.motifs",
+                 "utils.fasta", "utils.gff", "utils.fileio", "tools",
+                 "tools.ckpt", "tools.combiners", "tools.evaluate",
+                 "tools.fileops", "tools.splitters"):
         assert "deepsignal_plant_tpu_torch." + name in mods
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """In a fresh interpreter, importing every port module (and running
-    its CLI's parser) leaves jax and deepsignal_plant_tpu out of
+    """In a fresh interpreter, importing every port module (call_freq,
+    serve and the tools among them) and building its CLI's parser, with
+    every tools subcommand, leaves jax and deepsignal_plant_tpu out of
     sys.modules."""
     code = (
         "import importlib, sys\n"
