@@ -78,7 +78,18 @@ Phases, in order; any failure exits non-zero before the last line:
    the card (its transfers included) against np.unique on the host
    (torch.sort and index_add_ are library calls, not kernels of the
    port: the kernels line does not list them);
-6. a ``{"kernels": [...]}`` line, the card line, and last
+6. the fast5 paths, with the port's own HDF5 reader (no h5py): a seeded
+   run of 1,024 single-read tombo fast5s of 5,000 bases (reads cut from
+   5-20 kb), written by the port's writer; the reader timed alone
+   (reads/s, MB/s); ``extract`` to a TSV at --nproc 4 and 1 (the same
+   bytes, rows/s); ``call_mods`` straight on the fast5 directory (bf16,
+   float16 wire, --nproc 4: 5 launches of K1's bfloat16 kernel per
+   forward tile, rows equal, sorted, to call_mods on the extracted TSV,
+   sites/s and stages); float32 on 64 of the reads (kernel rows equal
+   to the TSV plane's; against the plain version within the phase 4
+   gate); ``serve --once`` over one run-folder of those 64 reads (bytes
+   = the CLI's, a .done marker);
+7. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Without a card, or
@@ -219,6 +230,19 @@ TAIR10 = {"Chr1": 30_427_671, "Chr2": 19_698_289, "Chr3": 23_459_830,
 FREQ_RUNS = {"tsv": [], "bed, sorted, gzip": ["--bed", "--sort", "--gzip"],
              "contigs Chr5,ChrC, sorted": ["--contigs", "Chr5,ChrC",
                                            "--sort", "--nproc", "1"]}
+# phase 6, fast5: a seeded genome of 7 contigs (~2 Mb) and FAST5_READS
+# single-read tombo fast5s of FAST5_READ_LEN bases, in the event-length
+# and DAC model of tests/make_synthetic.py synth_fast5_dir (events of
+# 3-20 samples, so bases longer than signal_len exercise the "even"
+# downsampling; DAC integers 300-699; strands alternating). Real ONT
+# reads run 5-20 kb; these are cut to 5 kb so the phase stays short.
+FAST5_GENOME = {f"chr{i + 1}": n for i, n in enumerate(
+    (420_000, 360_000, 330_000, 300_000, 290_000, 160_000, 140_000))}
+FAST5_READS = 1024
+FAST5_READ_LEN = 5_000
+FAST5_MAX_EVENT = 21          # event lengths 3-20 (integers below this)
+# the float32 comparison and the served run-folder use the first reads
+FAST5_SUB_READS = 64
 # the [stages] fields of call_mods that say where its time goes
 STAGE_FIELDS = ("batches", "packed_batches", "packed_sites",
                 "persite_batches", "persite_sites", "bases_uploaded",
@@ -1716,6 +1740,245 @@ def check_call_freq(torch, cli, tmp: str, served: list) -> dict:
             "np_unique_ms": host_s * 1e3}
 
 
+def write_fast5_run(fast5, dirpath: str, n_reads: int, read_len: int,
+                    seed: int) -> dict:
+    """A seeded fast5 run through the port's writer
+    (io/fast5.write_tombo_fast5), in synth_fast5_dir's model: each read
+    a random window of a random contig, events of 3-20 samples, DAC
+    300-699, strands alternating. Returns the run's totals."""
+    rng = np.random.default_rng(seed)
+    genome = {name: np.frombuffer(b"ACGT", np.uint8)[
+        rng.integers(0, 4, n)].tobytes().decode()
+        for name, n in FAST5_GENOME.items()}
+    names = list(genome)
+    os.makedirs(dirpath)
+    samples = 0
+    for r in range(n_reads):
+        chrom = names[r % len(names)]
+        seq = genome[chrom]
+        start = int(rng.integers(0, len(seq) - read_len))
+        bases = seq[start:start + read_len]
+        lens = rng.integers(3, FAST5_MAX_EVENT, read_len)
+        starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+        raw = rng.integers(300, 700, int(lens.sum())).astype(np.int16)
+        samples += len(raw)
+        fast5.write_tombo_fast5(
+            os.path.join(dirpath, f"smokeread_{r:05d}.fast5"),
+            readname=f"smokeread_{r:05d}", raw_signal=raw, bases=bases,
+            event_starts=starts, event_lengths=lens, chrom=chrom,
+            chrom_start=start, alignstrand="+" if r % 2 == 0 else "-")
+    nbytes = sum(os.path.getsize(os.path.join(dirpath, f))
+                 for f in os.listdir(dirpath))
+    return {"reads": n_reads, "bases": n_reads * read_len,
+            "samples": samples, "bytes": nbytes,
+            "genome_bases": sum(FAST5_GENOME.values())}
+
+
+def run_extract(*argv: str) -> dict:
+    """One ``python -m deepsignal_plant_tpu_torch extract`` process: its
+    wall seconds, the seconds it reports for extract_features, and its
+    failed-file line."""
+    cmd = [sys.executable, "-m", "deepsignal_plant_tpu_torch", "extract",
+           *argv]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.time() - t0
+    if proc.returncode != 0:
+        fail("extract exited {}:\n{}\n{}".format(
+            proc.returncode, proc.stdout[-4000:], proc.stderr[-4000:]))
+    failed = [ln for ln in proc.stdout.splitlines() if "files failed" in ln]
+    cost = [ln for ln in proc.stdout.splitlines()
+            if "extract_features costs" in ln]
+    if not failed or not failed[0].startswith("0 of ") or not cost:
+        fail("extract failed files or printed no summary:\n"
+             + proc.stdout[-2000:])
+    return {"wall_seconds": wall,
+            "seconds": float(cost[0].split("costs")[1].split()[0])}
+
+
+def file_digest(path: str) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(8 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def sorted_rows(path: str) -> list:
+    with open(path, "rb") as fh:
+        return sorted(fh.read().splitlines())
+
+
+def f32_layers(st: dict) -> int:
+    """K1 float32 layers a run launched: one in-loop or projection
+    launch each."""
+    kl = st["kernel_launches"]
+    return kl["fused_bilstm_f32_inloop"] + kl["fused_bilstm_proj_f32"]
+
+
+def check_fast5(tmp: str, ckpt: str) -> dict:
+    """Phase 6: the fast5 paths, with the port's own HDF5 reader (the
+    card machine has no h5py). A seeded run of FAST5_READS fast5s; the
+    reader timed alone; ``extract`` to a TSV with --nproc 4 and 1 (same
+    bytes); ``call_mods`` straight on the fast5 directory (bf16, float16
+    wire, --nproc 4: K1's bfloat16 kernel 5 times per forward tile, the
+    rows equal, sorted, to call_mods on the extracted TSV); float32 on
+    FAST5_SUB_READS reads (kernel vs the TSV plane byte-identical, vs
+    the plain version within P1_TOL_F32 with no call flipped); ``serve
+    --once`` over one run-folder of those reads (served bytes = the
+    CLI's, a .done marker)."""
+    from deepsignal_plant_tpu_torch.io import fast5
+    base = os.path.join(REPO, "build", "smoke_fast5")
+    shutil.rmtree(base, ignore_errors=True)
+    try:
+        return _check_fast5(fast5, base, tmp, ckpt)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def _check_fast5(fast5, base: str, tmp: str, ckpt: str) -> dict:
+    run_dir = os.path.join(base, "run")
+    t0 = time.perf_counter()
+    fix = write_fast5_run(fast5, run_dir, FAST5_READS, FAST5_READ_LEN,
+                          SEED + 11)
+    log(f"fast5 run: {fix['reads']} reads of {FAST5_READ_LEN} bases "
+        f"(cut from real ONT reads of 5-20 kb to keep this phase short), "
+        f"{fix['samples']} raw samples, {fix['bytes'] / 1e6:.1f} MB on disk, "
+        f"genome of {len(FAST5_GENOME)} contigs ({fix['genome_bases']} "
+        f"bases); written in {time.perf_counter() - t0:.1f} s by the "
+        f"port's writer")
+    files = sorted(os.path.join(run_dir, f) for f in os.listdir(run_dir))
+    t0 = time.perf_counter()
+    n_bases = 0
+    for p in files:
+        read = fast5.read_tombo_fast5(p)
+        n_bases += len(read.seq)
+    dt = time.perf_counter() - t0
+    if n_bases != fix["bases"]:
+        fail(f"the reader saw {n_bases} bases, {fix['bases']} written")
+    reader = {"seconds": dt, "reads_per_s": len(files) / dt,
+              "mb_per_s": fix["bytes"] / 1e6 / dt}
+    log(f"fast5 reader alone (io/hdf5.py, no h5py): {len(files)} reads in "
+        f"{dt:.3f} s, {reader['reads_per_s']:.1f} reads/s, "
+        f"{reader['mb_per_s']:.1f} MB/s")
+
+    # extract, --nproc 4 then 1: the same bytes
+    tsv4, tsv1 = (os.path.join(tmp, f"fast5_features.p{n}.tsv")
+                  for n in (4, 1))
+    ext = {n: run_extract("-i", run_dir, "-o", out, "--nproc", str(n))
+           for n, out in ((4, tsv4), (1, tsv1))}
+    if file_digest(tsv4) != file_digest(tsv1):
+        fail("extract wrote different bytes at --nproc 4 and 1")
+    with open(tsv1, "rb") as fh:
+        n_rows = sum(chunk.count(b"\n") for chunk in
+                     iter(lambda: fh.read(8 << 20), b""))
+    for n, e in ext.items():
+        e["rows_per_s"] = n_rows / e["seconds"]
+        log(f"extract --nproc {n}: {n_rows} rows in {e['seconds']:.1f} s "
+            f"in extract_features ({e['rows_per_s']:.1f} rows/s; process "
+            f"{e['wall_seconds']:.1f} s), "
+            f"{os.path.getsize(tsv1) / 1e6:.1f} MB of TSV; byte-identical "
+            f"across --nproc")
+
+    # call_mods on the fast5 directory (bf16, float16 wire) and on the TSV
+    fused = run_call_mods(run_dir, ckpt, os.path.join(tmp, "f5_calls.tsv"),
+                          "--nproc", "4")
+    on_tsv = run_call_mods(tsv1, ckpt, os.path.join(tmp, "f5_tsv_calls.tsv"))
+    check_rows(fused, n_rows)
+    if (fused["packed_sites"], fused["fast5_files"],
+            fused["fast5_errors"]) != (n_rows, FAST5_READS, 0):
+        fail(f"the fused run did not call every site on the packed route: "
+             f"{ {k: v for k, v in fused.items() if k != 'rows'} }")
+    if sorted_rows(os.path.join(tmp, "f5_calls.tsv")) != \
+            sorted_rows(os.path.join(tmp, "f5_tsv_calls.tsv")):
+        fail("call_mods on the fast5 directory and on its extracted TSV "
+             "wrote different rows")
+    log(f"call_mods on the fast5 directory (bf16, float16 wire, --nproc 4):"
+        f" {fused['sites']} sites, {fused['sites_per_s']:.1f} sites/s in "
+        f"the engine ({fused['seconds']:.3f} s; process "
+        f"{fused['wall_seconds']:.1f} s), K1 bf16 launches "
+        f"{fused['kernel_launches']['fused_bilstm_bf16']} = 5 x "
+        f"{fused['forward_tiles']} tiles; rows equal, sorted, to call_mods "
+        f"on the extracted TSV ({on_tsv['sites_per_s']:.1f} sites/s); "
+        f"stages " + json.dumps({k: fused[k] for k in STAGE_FIELDS}))
+
+    # float32 on the first reads: kernel (fused and TSV) against plain
+    sub = os.path.join(base, "sub")
+    os.makedirs(sub)
+    for p in files[:FAST5_SUB_READS]:
+        shutil.copy(p, sub)
+    sub_tsv = os.path.join(tmp, "fast5_sub.tsv")
+    run_extract("-i", sub, "-o", sub_tsv, "--nproc", "1")
+    f32 = ("--compute_dtype", "float32", "--transfer_dtype", "float32")
+    k_f5 = run_call_mods(sub, ckpt, os.path.join(tmp, "f5_f32k.tsv"), *f32,
+                         "--recurrence", "kernel", "--nproc", "4")
+    k_tsv = run_call_mods(sub_tsv, ckpt, os.path.join(tmp, "f5_f32t.tsv"),
+                          *f32, "--recurrence", "kernel")
+    p_f5 = run_call_mods(sub, ckpt, os.path.join(tmp, "f5_f32p.tsv"), *f32,
+                         "--recurrence", "scan", "--nproc", "4")
+    if any(p_f5["kernel_launches"].values()):
+        fail("the plain float32 fast5 run launched a kernel")
+    if f32_layers(k_f5) != 5 * k_f5["forward_tiles"] or \
+            k_f5["kernel_launches"]["fused_bilstm_bf16"]:
+        fail(f"the float32 fast5 run launched {k_f5['kernel_launches']} "
+             f"for {k_f5['forward_tiles']} forward tiles")
+    if sorted_rows(os.path.join(tmp, "f5_f32k.tsv")) != \
+            sorted_rows(os.path.join(tmp, "f5_f32t.tsv")):
+        fail("float32 call_mods on the fast5 directory and on its "
+             "extracted TSV wrote different rows")
+    pk, pp = check_rows(k_f5, k_f5["sites"]), check_rows(p_f5, k_f5["sites"])
+    for a, b in zip(k_f5["rows"], p_f5["rows"]):
+        if a[:6] != b[:6] or a[9] != b[9]:
+            fail(f"float32 fast5 kernel and plain rows differ: {a} {b}")
+    flips = int(sum(a[8] != b[8] for a, b in zip(k_f5["rows"],
+                                                 p_f5["rows"])))
+    dp = float(np.abs(pk[:, 1] - pp[:, 1]).max())
+    if flips or dp > P1_TOL_F32:
+        fail(f"float32 fast5 kernel vs plain: {flips} call differences, "
+             f"max|dP1| {dp:.3g} (bound {P1_TOL_F32:g})")
+    log(f"float32 on {FAST5_SUB_READS} fast5 reads: {k_f5['sites']} sites;"
+        f" kernel rows equal, sorted, to the TSV plane's; kernel vs plain: "
+        f"0 call differences, max|dP1| = {dp:.3g} (bound {P1_TOL_F32:g}); "
+        f"K1 float32 layers {f32_layers(k_f5)} = 5 x "
+        f"{k_f5['forward_tiles']} tiles")
+
+    # serve --once over one run-folder of the same reads
+    watch, res = (os.path.join(base, d) for d in ("watch", "served"))
+    os.makedirs(watch)
+    shutil.copytree(sub, os.path.join(watch, "run_0001"))
+    cli_sub = run_call_mods(sub, ckpt, os.path.join(tmp, "f5_sub_cli.tsv"))
+    st = run_cli("serve", "--watch_dir", watch, "--result_dir", res,
+                 "--model_path", ckpt, "--once", "--poll_s", "0.2")
+    with open(os.path.join(tmp, "f5_sub_cli.tsv"), "rb") as a, \
+            open(os.path.join(res, "run_0001.call_mods.tsv"), "rb") as b:
+        if a.read() != b.read():
+            fail("the served calls of the run-folder differ from the "
+                 "call_mods CLI's")
+    if not os.path.exists(os.path.join(res, "run_0001.done")):
+        fail("serve left the run-folder without a .done marker")
+    req = st["requests"]
+    want = {k: 0 for k in st["kernel_launches"]}
+    want["fused_bilstm_bf16"] = 5 * st["forward_tiles"]
+    if len(req) != 1 or st["kernel_launches"] != want:
+        fail(f"serve over the run-folder: {st}")
+    log(f"serve --once over a run-folder of {FAST5_SUB_READS} fast5s: "
+        f"{req[0]['sites']} sites in {req[0]['seconds']:.3f} s "
+        f"({req[0]['sites_per_s']:.1f} sites/s) on one warm engine, bytes "
+        f"= the call_mods CLI's ({cli_sub['wall_seconds']:.1f} s cold "
+        f"process), .done written; process {st['wall_seconds']:.1f} s")
+    return {"fixture": fix, "reader": reader, "extract": ext,
+            "rows": n_rows,
+            "call_mods": {k: v for k, v in fused.items() if k != "rows"},
+            "call_mods_tsv_sites_per_s": on_tsv["sites_per_s"],
+            "float32": {"sites": k_f5["sites"], "max_dp1": dp,
+                        "launches": k_f5["kernel_launches"]},
+            "serve": {"request": req[0], "wall_seconds": st["wall_seconds"],
+                      "engine_seconds": st["engine_seconds"]}}
+
+
 def k1_f32_parts(timings, errs, checked, launched) -> list:
     """The kernels line's entries of K1's float32 kernels (K1_F32_KERNELS),
     per 4096-row tile over the layers whose route runs each (the tail
@@ -1749,10 +2012,12 @@ def k1_f32_parts(timings, errs, checked, launched) -> list:
     entry("fused_bilstm_proj_f32", "fused_bilstm.cu", "split", "proj_ms",
           "proj_plain_ms", lambda r: proj_bound(*r["F"], r["H"], TILE),
           "proj_library_ms")
+    # library: torch.nn.LSTM at float32 on the same layers (cuDNN; it
+    # computes the input projection too), as K2's entry takes it
     entry("fused_bilstm_rec_f32", "lstm_recurrence.cu", "split", "rec_ms",
           "rec_plain_ms", lambda r: rec_bound(
               "lstm_recurrence_fwd", r["H"], TILE, 4, PEAK_TF32_FLOPS,
-              TF32_PASSES), None)
+              TF32_PASSES), "library_ms")
     entry("fused_bilstm_f32_inloop", "fused_bilstm.cu", "inloop",
           "inloop_ms", "plain_ms", lambda r: (r["ops_ms"], r["bytes_ms"]),
           "library_ms")
@@ -1881,6 +2146,8 @@ def main() -> int:
         # phase 5: serve in a fresh process, call_freq in this one
         serve = check_serve(tmp, run["ckpt"], run, ab)
         freq = check_call_freq(torch, cli, tmp, serve["outputs"])
+        # phase 6: extract, call_mods and serve on fast5 runs
+        fast5_run = check_fast5(tmp, run["ckpt"])
     flops = forward_flops_per_site(ModelConfig())
     for what, st in (("sparse fixture", run["stages"]),
                      ("dense rate run", {**run["rate"]["stats"],
@@ -1967,6 +2234,7 @@ def main() -> int:
     log("host paths summary on " + smi + ": " + json.dumps(
         {"serve": {k: v for k, v in serve.items() if k != "outputs"},
          "call_freq": freq}))
+    log("fast5 summary on " + smi + ": " + json.dumps(fast5_run))
     log(f"train: {trained['samples_per_s_last_epoch']:.1f} samples/s in "
         f"the last epoch ({trained['ms_per_step_last_epoch']:.2f} ms per "
         f"{TRAIN_B}-row step with its evaluations excluded) on {smi}")

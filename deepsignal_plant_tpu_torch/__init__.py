@@ -5,8 +5,14 @@ package ``deepsignal_plant_tpu`` beside it stays the reference: this
 package imports nothing of it (nor JAX) and keeps its own copies of the
 host code it needs. Checkpoints and file formats are shared.
 
-Ported so far: ``call_mods`` on a features TSV. Its BiLSTM layers run
-through a hand-written Hopper kernel (``csrc/fused_bilstm.cu``), the
-counterpart of the JAX package's Pallas kernel ``ops/pallas_fused.py``.
+Ported so far: ``extract`` (fast5 -> features TSV), ``call_mods`` on a
+features TSV or a fast5 directory, ``serve`` (features TSVs and fast5
+run-folders), ``train`` on features TSVs, ``call_freq`` and the
+``tools`` set. Fast5s are read by the package's own HDF5 reader
+(``io/hdf5.py``; no h5py). The BiLSTM layers run through hand-written
+Hopper kernels: ``csrc/fused_bilstm.cu`` (K1, the counterpart of the
+Pallas kernel ``ops/pallas_fused.py``) for inference and
+``csrc/lstm_recurrence.cu`` (K2-K4, ``ops/pallas_lstm.py``) for
+training.
 """
 from ._version import DEEPSIGNAL_PLANT_TPU_TORCH_VERSION as __version__

@@ -1,13 +1,14 @@
 """deepsignal_plant_tpu_torch CLI (counterpart of
 deepsignal_plant_tpu/cli.py:20-60, :187-352 and :390-392).
 
-Ported so far: ``call_mods``, ``serve`` and ``train`` on features TSVs,
-``call_freq`` and the ``tools`` set. They take the JAX package's flags
-with their defaults, plus ``--device`` (and ``--verbose_stages`` where
-a run has counters to print). Flags of planes that are not ported yet
-fail with a clear error when set away from their default
-(``_refuse_unported`` in pipeline/call_mods.py, serve.py, train.py and
-call_freq.py).
+Ported so far: ``extract``, ``call_mods`` and ``serve`` on features TSVs
+and fast5 directories, ``train`` on features TSVs, ``call_freq`` and the
+``tools`` set. They take the JAX package's flags with their defaults,
+plus ``--device`` (and ``--verbose_stages`` where a run has counters to
+print). Flags of planes that are not ported yet fail with a clear error
+when set away from their default (``_refuse_unported`` in
+pipeline/call_mods.py, serve.py, train.py and call_freq.py; extract's
+``--w_format npz*``).
 """
 from __future__ import annotations
 
@@ -78,24 +79,24 @@ def _add_f5_args(p):
     p.add_argument("--positions", type=str, default=None)
     p.add_argument("--reference_path", type=str, default=None)
     p.add_argument("--downsample", type=str, default="even",
-                   choices=["even", "compat"])
+                   choices=["even", "compat"],
+                   help="per-base signal downsampling: deterministic "
+                        "evenly-spaced (even) or reference-compatible "
+                        "random (compat)")
 
 
-def _add_run_folder_args(p):
-    """serve's fast5 run-folder flags: not yet ported, so serve refuses
-    any value but the default (f5_defaults)."""
-    p.add_argument("--nproc", "-p", type=int, default=4,
-                   help="fast5 run-folder inputs only (not yet ported)")
-    p.add_argument("--f5_batch_size", type=int, default=30,
-                   help="fast5 run-folder inputs only (not yet ported)")
-    _add_f5_args(p)
-
-
-def f5_defaults() -> dict:
-    """serve's fast5 run-folder flags and their defaults."""
-    p = argparse.ArgumentParser()
-    _add_run_folder_args(p)
-    return vars(p.parse_args([]))
+def main_extract(args):
+    from .pipeline.extract import (ExtractContext, extract_features,
+                                   extract_options_from_args)
+    from .utils.bases import str2bool
+    display_args(args)
+    ctx = ExtractContext.build(
+        extract_options_from_args(args, args.methy_label),
+        str2bool(args.is_dna))
+    extract_features(args.fast5_dir, str2bool(args.recursively), ctx,
+                     args.write_path, args.nproc, args.f5_batch_size,
+                     str2bool(args.w_is_dir), args.w_batch_num, args.gzip,
+                     seed=args.seed, out_format=args.w_format)
 
 
 def main_call_mods(args):
@@ -137,6 +138,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="deepsignal_plant_tpu_torch",
         description="deepsignal_plant_tpu_torch detects 5mC from nanopore "
                     "reads of plants on an NVIDIA GPU:\n"
+                    "\textract: extract features from tombo fast5s\n"
                     "\tcall_mods: call modifications\n"
                     "\tserve: call_mods over a watched directory\n"
                     "\tcall_freq: modification frequency per site\n"
@@ -148,11 +150,38 @@ def build_parser() -> argparse.ArgumentParser:
                             DEEPSIGNAL_PLANT_TPU_TORCH_VERSION))
     subparsers = parser.add_subparsers(title="modules")
 
+    # ---- extract ----
+    p = subparsers.add_parser("extract",
+                              description="extract features from corrected "
+                                          "(tombo) fast5s")
+    p.add_argument("--fast5_dir", "-i", type=str, required=True)
+    _add_f5_args(p)
+    p.add_argument("--seq_len", type=int, default=13,
+                   help="len of kmer. default 13")
+    p.add_argument("--signal_len", type=int, default=16,
+                   help="signals per base, default 16")
+    p.add_argument("--methy_label", type=int, choices=[1, 0], default=1)
+    p.add_argument("--write_path", "-o", type=str, required=True)
+    p.add_argument("--w_is_dir", type=str, default="no")
+    p.add_argument("--w_batch_num", type=int, default=200)
+    p.add_argument("--w_format", type=str, default="tsv",
+                   choices=["tsv", "npz", "npz_wire", "npz_packed"],
+                   help="tsv: reference-compatible text; the npz formats "
+                        "are not yet ported")
+    p.add_argument("--gzip", action="store_true", default=False)
+    p.add_argument("--nproc", "-p", type=int, default=4)
+    p.add_argument("--f5_batch_size", type=int, default=30)
+    p.add_argument("--seed", type=int, default=None,
+                   help="seed the per-batch RNG of --downsample compat "
+                        "for reproducible extraction")
+    p.set_defaults(func=main_extract)
+
+    # ---- call_mods ----
     p = subparsers.add_parser("call_mods", description="call modifications")
     p.add_argument("--input_path", "-i", type=str, required=True,
-                   help="features TSV (plain or .gz) from extract")
-    p.add_argument("--f5_batch_size", type=int, default=30,
-                   help="fast5 inputs only (not yet ported)")
+                   help="features TSV (plain or .gz) from extract, or a "
+                        "fast5 directory")
+    p.add_argument("--f5_batch_size", type=int, default=30)
     p.add_argument("--model_path", "-m", type=str, required=True,
                    help=".ckpt (torch) or .ckpt.npz (native) checkpoint")
     _add_model_args(p, dropout_default=0.0, compute_dtype_default="auto")
@@ -190,8 +219,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--result_file", "-o", type=str, required=True)
     p.add_argument("--gzip", action="store_true", default=False)
     _add_f5_args(p)
-    p.add_argument("--nproc", "-p", type=int, default=4,
-                   help="fast5 inputs only (not yet ported)")
+    p.add_argument("--nproc", "-p", type=int, default=4)
     p.add_argument("--nproc_gpu", type=int, default=2,
                    help="accepted for reference CLI compatibility (unused)")
     p.add_argument("--profile_dir", type=str, default=None,
@@ -206,9 +234,10 @@ def build_parser() -> argparse.ArgumentParser:
                     "once) calls each feature file (.tsv/.tsv.gz) as it "
                     "lands; outputs + .done/.failed markers land in "
                     "--result_dir; stable-size pickup, at-most-once "
-                    "semantics across restarts, graceful SIGTERM. .npz "
-                    "files and fast5 run-folders are not yet ported and "
-                    "are left unpicked, without a marker")
+                    "semantics across restarts, graceful SIGTERM; a "
+                    "directory holding fast5s is a run-folder, called "
+                    "through the fused fast5 path. .npz files are not "
+                    "yet ported and are left unpicked, without a marker")
     p.add_argument("--watch_dir", "-i", type=str, required=True)
     p.add_argument("--result_dir", "-o", type=str, required=True)
     p.add_argument("--model_path", "-m", type=str, required=True)
@@ -244,7 +273,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gzip", action="store_true", default=False)
     _add_model_args(p, dropout_default=0.0, compute_dtype_default="auto")
     _add_device_args(p)
-    _add_run_folder_args(p)
+    p.add_argument("--nproc", "-p", type=int, default=4)
+    p.add_argument("--f5_batch_size", type=int, default=30)
+    _add_f5_args(p)
     p.set_defaults(func=main_serve)
 
     # ---- call_freq ----

@@ -1,5 +1,6 @@
-"""The host library of the features-TSV plane (native/featparse.cpp),
-built with g++ at first use and loaded with ctypes.
+"""The host library of the features-TSV plane and of extraction
+(native/featparse.cpp), built with g++ at first use and loaded with
+ctypes.
 
 The library goes to ``build/native/featparse-<hash>.so`` beside the
 package, the hash over the source, the compiler and its flags, so an
@@ -43,7 +44,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
     i8p, u8p, u16p = arr(np.int8), arr(np.uint8), arr(np.uint16)
     i32p, i64p, f32p = arr(np.int32), arr(np.int64), arr(np.float32)
-    f64p = arr(np.float64)
+    f64p, u32p = arr(np.float64), arr(np.uint32)
     for name, restype, argtypes in (
             ("dsp_count_lines", i64, [c_char_p, i64]),
             ("dsp_parse_features", i64,
@@ -61,7 +62,23 @@ def _declare(lib: ctypes.CDLL) -> None:
              [f32p, i32p, i64, i32, u8p, i32p]),
             ("dsp_pack_rows", i64,
              [c_char_p, i64p, i64p, i8p, u16p, u16p, u16p, u16p, i64, i32,
-              i32, i8p, u16p, u16p, u16p, u16p, i32p])):
+              i32, i8p, u16p, u16p, u16p, u16p, i32p]),
+            ("dsp_format_feature_cols", i64,
+             [f64p, f64p, i32p, f64p, i64, i32, i32, u8p, i32p]),
+            ("dsp_format_info_rows", i64,
+             [c_char_p, i64, c_char_p, i64, c_char_p, i64, c_char_p, i64,
+              i64p, i64p, i64, u8p, i64p]),
+            ("dsp_build_rect_f16", None, [f64p, i64p, i64p, i64, i32, u16p]),
+            ("dsp_read_norm_stats", i32,
+             [f64p, i64, i64p, i64p, i64, i32, f64p, f64p, f64p, u16p, u16p,
+              u16p, u16p]),
+            ("dsp_mt_seed", None, [u32p, u32p, i64]),
+            ("dsp_mt_sample_sorted", i32, [u32p, i64, i64, i64p]),
+            ("dsp_normalize_mad", i32, [f64p, i64, f64p]),
+            ("dsp_segment_stats_exact", i32,
+             [f64p, i64p, i64p, i64, f64p, f64p]),
+            ("dsp_rect_compat", i32,
+             [f64p, i64p, i64p, i64, i32, u32p, f64p])):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = restype, argtypes
 

@@ -24,13 +24,22 @@
 //   dsp_format_call_suffixes(...) -> bytes of "\tP0\tP1\tLABEL\tKMER5\n"
 //     suffixes.
 //   dsp_pack_rows(...) -> bases of the read-packed wire, or -(row+1).
+//   extraction: dsp_format_feature_cols (feature columns 7-10 as text),
+//     dsp_read_norm_stats (MAD normalization + segment stats + float16
+//     rect of one read), dsp_build_rect_f16, dsp_format_info_rows,
+//     dsp_normalize_mad, dsp_segment_stats_exact, dsp_rect_compat and
+//     the CPython-compatible MT19937 sampler (dsp_mt_seed,
+//     dsp_mt_sample_sorted).
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
 #include <cstdlib>
 #include <cstring>
 #include <string_view>
 #include <unordered_map>
+#include <vector>
 
 namespace {
 
@@ -620,6 +629,558 @@ int64_t dsp_pack_rows(const char* buf, const int64_t* row_starts,
         have_prev = true;
     }
     return off;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// Extraction (pipeline/extract.py): feature-column text, per-read
+// normalization and segment statistics, the float16 signal rect, the
+// info columns of the packed wire, and the compat mode's CPython-
+// compatible sampler. Copies of the JAX package's library with the
+// same arithmetic.
+// ---------------------------------------------------------------------
+
+extern "C" {
+
+// means/stds/rect: float64 (UNROUNDED; rounded to 6 decimals half-even here,
+// matching np.around + str byte-for-byte for |value| < 9e12 — far beyond
+// the MAD-normalized feature domain — including "-0.0" and the
+// scientific-notation switch below 1e-4; larger or non-finite values take
+// a %g fallback); lens: int32.
+// Writes, per site, the text of feature columns 7-10:
+//   "MEANS\tSTDS\tLENS\tRECT" (no leading/trailing tab), rect rows joined
+// by ';'. out must hold >= n * (3*L + L*S) * 32 bytes (32 bytes/value:
+// 21-char fixed-point worst case, 26-byte %g window, separators).
+// out_lens[i] receives each site's byte length; returns total bytes.
+static char* write_signed6(char* p, double v) {
+    double t = v * 1e6;
+    // inf/nan/out-of-range would be UB in the int64 cast; such values are
+    // outside the feature domain, so fall back to %g (bounded output)
+    if (!(t > -9.0e18 && t < 9.0e18)) {
+        int n = snprintf(p, 26, "%g", v);
+        return p + (n > 0 && n < 26 ? n : 0);
+    }
+    double f = floor(t);
+    double frac = t - f;
+    long long r = (long long)f;
+    if (frac > 0.5) ++r;
+    else if (frac == 0.5 && (r & 1)) ++r;
+    bool neg = r < 0 || (r == 0 && std::signbit(v));
+    unsigned long long a = neg ? (unsigned long long)(-r) : (unsigned long long)r;
+    if (neg) *p++ = '-';
+    if (a > 0 && a < 100)      // |x| < 1e-4: Python repr goes scientific
+        return write_small_sci(p, a);
+    unsigned long long ip = a / 1000000ULL;
+    unsigned long long fp = a % 1000000ULL;
+    // integer part
+    char ibuf[24];
+    int ilen = 0;
+    if (ip == 0) ibuf[ilen++] = '0';
+    while (ip) { ibuf[ilen++] = char('0' + ip % 10); ip /= 10; }
+    while (ilen) *p++ = ibuf[--ilen];
+    *p++ = '.';
+    if (fp == 0) { *p++ = '0'; return p; }
+    char digits[6];
+    for (int i = 5; i >= 0; --i) { digits[i] = char('0' + fp % 10); fp /= 10; }
+    int last = 5;
+    while (last > 0 && digits[last] == '0') --last;
+    for (int i = 0; i <= last; ++i) *p++ = digits[i];
+    return p;
+}
+
+int64_t dsp_format_feature_cols(const double* means, const double* stds,
+                                const int32_t* lens, const double* rect,
+                                int64_t n, int L, int S, char* out,
+                                int32_t* out_lens) {
+    char* p = out;
+    for (int64_t i = 0; i < n; ++i) {
+        char* start = p;
+        const double* m = means + i * L;
+        const double* s = stds + i * L;
+        const int32_t* ln = lens + i * L;
+        const double* r = rect + i * int64_t(L) * S;
+        for (int j = 0; j < L; ++j) {
+            if (j) *p++ = ',';
+            p = write_signed6(p, m[j]);
+        }
+        *p++ = '\t';
+        for (int j = 0; j < L; ++j) {
+            if (j) *p++ = ',';
+            p = write_signed6(p, s[j]);
+        }
+        *p++ = '\t';
+        for (int j = 0; j < L; ++j) {
+            if (j) *p++ = ',';
+            int32_t v = ln[j];
+            char ibuf[12];
+            int il = 0;
+            uint32_t a = v < 0 ? uint32_t(-v) : uint32_t(v);
+            if (v < 0) *p++ = '-';
+            if (a == 0) ibuf[il++] = '0';
+            while (a) { ibuf[il++] = char('0' + a % 10); a /= 10; }
+            while (il) *p++ = ibuf[--il];
+        }
+        *p++ = '\t';
+        for (int j = 0; j < L; ++j) {
+            if (j) *p++ = ';';
+            for (int k = 0; k < S; ++k) {
+                if (k) *p++ = ',';
+                p = write_signed6(p, r[j * S + k]);
+            }
+        }
+        out_lens[i] = int32_t(p - start);
+    }
+    return p - out;
+}
+
+}  // extern "C"
+// ---------------------------------------------------------------------------
+// per-site info-row formatting (extraction side)
+// ---------------------------------------------------------------------------
+//
+// Builds the 6-column info prefix "chrom\tpos\tstrand\tpos_in_strand\t
+// readname\tread_strand" for every site of one read. Everything but the
+// two position columns is constant per read, so the Python genexpr this
+// replaces (str() + "\t".join + encode per site) was pure interpreter
+// overhead — ~25% of the packed extraction worker's time.
+
+namespace {
+
+inline char* write_i64(char* p, int64_t v) {
+    if (v < 0) { *p++ = '-'; v = -v; }
+    char tmp[20];
+    int k = 0;
+    do { tmp[k++] = char('0' + v % 10); v /= 10; } while (v);
+    while (k) *p++ = tmp[--k];
+    return p;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Signal-rect assembly for the packed (f16) wire: per base, either
+// evenly-spaced downsampling (length > S) or center-zero-padding
+// (length <= S), written directly as IEEE half — fuses the numpy fancy
+// gather + astype(float16) pass (python fallback:
+// pipeline/extract.py::build_signal_rect, "even" mode only; "compat"
+// random sampling stays in Python). norm values are already 6-decimal
+// rounded; double->half here uses the same round-to-nearest-even as
+// numpy's astype. Indexing is UNCHECKED: the Python wrapper
+// (fastparse.build_rect_f16) validates 0 <= start, 0 <= length and
+// start+length <= len(norm) and falls back to the clipping numpy path
+// for corrupt event tables.
+void dsp_build_rect_f16(const double* norm, const int64_t* starts,
+                        const int64_t* lengths, int64_t n, int32_t S,
+                        _Float16* rect_out) {
+    for (int64_t i = 0; i < n; ++i) {
+        const int64_t len = lengths[i];
+        const int64_t st = starts[i];
+        _Float16* row = rect_out + i * S;
+        if (len > S) {
+            for (int32_t j = 0; j < S; ++j)
+                row[j] = _Float16(norm[st + (int64_t(j) * len) / S]);
+        } else {
+            const int64_t pad = (S - len) / 2;
+            for (int64_t j = 0; j < pad; ++j) row[j] = _Float16(0.0f);
+            for (int64_t j = 0; j < len; ++j)
+                row[pad + j] = _Float16(norm[st + j]);
+            for (int64_t j = pad + len; j < S; ++j)
+                row[j] = _Float16(0.0f);
+        }
+    }
+}
+
+}  // extern "C"
+
+// Fused per-read extraction kernel (the last Python hot loop of the
+// fused fast5->call_mods path: pipeline/extract.py normalize_signals +
+// segment_stats + build_signal_rect measured ~66% of the packed
+// extraction worker). Replicates the numpy pipeline BIT-EXACTLY:
+//   norm  = around((sig - median(sig)) / (median(|sig-median|)/MAD_C), 6)
+//   cs    = sequential float64 prefix sums of norm and norm^2
+//   mean  = (cs[end]-cs[start]) / max(len,1)
+//   std   = sqrt(max(cs2diff/n - mean^2, 0))
+//   m16   = half(around(mean, 6)); s16 = half(around(std, 6))
+//   rect  = dsp_build_rect_f16 semantics ("even" downsampling)
+// numpy facts this relies on: np.median of even-length n is the exact
+// mean of the two middle order statistics; np.around(x, 6) is
+// rint(x*1e6)/1e6 (round-half-even); np.cumsum is sequential (not
+// pairwise) so a running double sum is identical; double->half uses
+// round-to-nearest-even. MAD only — np.mean/np.std (zscore mode) use
+// pairwise summation, which is NOT replicated here; the Python wrapper
+// falls back for zscore. Parity: pipeline/extract.py:40-130 and
+// reference extract_features.py:179-190,232-251,364-365.
+
+namespace {
+
+const double MAD_C = 0.6744897501960817;  // Gaussian.ppf(3/4)
+
+// exact np.median: partition, then middle element (odd) or the exact
+// mean of the two middle order statistics (even). Mutates buf.
+double median_inplace(double* buf, int64_t n) {
+    double* mid = buf + n / 2;
+    std::nth_element(buf, mid, buf + n);
+    const double hi = *mid;
+    if (n & 1) return hi;
+    const double lo = *std::max_element(buf, mid);
+    return (lo + hi) / 2.0;
+}
+
+inline double round6d(double v) {
+    return std::rint(v * 1e6) / 1e6;
+}
+
+}  // namespace
+
+extern "C" {
+
+// signal: rescaled raw signal (float64), ns samples.
+// starts/lengths: event table (int64, nb bases); caller validates
+//   0 <= start, 0 <= length, start+length <= ns (unchecked here).
+// Outputs (caller-allocated): norm_out (ns), means64/stds64 (nb,
+// unrounded — segment_stats' values for the TSV/f64 paths),
+// means16/stds16/lens16 (nb, the packed wire's rounded f16), rect16
+// (nb*S). Returns 0 on success, -1 on alloc failure.
+int32_t dsp_read_norm_stats(const double* signal, int64_t ns,
+                            const int64_t* starts, const int64_t* lengths,
+                            int64_t nb, int32_t S, double* norm_out,
+                            double* means64, double* stds64,
+                            _Float16* means16, _Float16* stds16,
+                            _Float16* lens16, _Float16* rect16) {
+    if (ns <= 0 || nb < 0) return -1;
+    // reused per thread: a fresh 2.7 MB (three ns-sized arrays at a
+    // typical read) of allocation + page faults per call measured as a
+    // visible slice of this kernel's 3.6 ms/read; the GIL is held by
+    // ctypes around the call but worker PROCESSES each get their own
+    // statics anyway
+    thread_local std::vector<double> scratch, cs, cs2;
+    try {
+        scratch.assign(signal, signal + ns);
+        cs.resize(size_t(ns) + 1);
+        cs2.resize(size_t(ns) + 1);
+    } catch (...) {
+        return -1;
+    }
+    const double med = median_inplace(scratch.data(), ns);
+    for (int64_t i = 0; i < ns; ++i)
+        scratch[size_t(i)] = std::fabs(signal[i] - med);
+    const double scale = median_inplace(scratch.data(), ns) / MAD_C;
+
+    // normalize + 6-dp round + sequential prefix sums in one pass
+    cs[0] = 0.0;
+    cs2[0] = 0.0;
+    if (scale == 0.0) {
+        for (int64_t i = 0; i < ns; ++i) {
+            const double v = round6d(signal[i]);
+            norm_out[i] = v;
+            cs[size_t(i) + 1] = cs[size_t(i)] + v;
+            cs2[size_t(i) + 1] = cs2[size_t(i)] + v * v;
+        }
+    } else {
+        for (int64_t i = 0; i < ns; ++i) {
+            const double v = round6d((signal[i] - med) / scale);
+            norm_out[i] = v;
+            cs[size_t(i) + 1] = cs[size_t(i)] + v;
+            cs2[size_t(i) + 1] = cs2[size_t(i)] + v * v;
+        }
+    }
+
+    for (int64_t i = 0; i < nb; ++i) {
+        const int64_t st = starts[i];
+        const int64_t len = lengths[i];
+        const int64_t en = st + len;
+        const double n = double(len > 1 ? len : 1);
+        const double mean = (cs[size_t(en)] - cs[size_t(st)]) / n;
+        double var = (cs2[size_t(en)] - cs2[size_t(st)]) / n - mean * mean;
+        if (var < 0.0) var = 0.0;
+        const double sd = std::sqrt(var);
+        means64[i] = mean;
+        stds64[i] = sd;
+        means16[i] = _Float16(round6d(mean));
+        stds16[i] = _Float16(round6d(sd));
+        lens16[i] = _Float16(double(len));
+    }
+    // S == 0: caller doesn't want the f16 rect (e.g. the TSV path
+    // rebuilds it in float64 for 6-dp text emission) — skip the nb*S
+    // gather entirely instead of computing values that get discarded
+    if (S > 0)
+        dsp_build_rect_f16(norm_out, starts, lengths, nb, S, rect16);
+    return 0;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// out must hold n * (chrom_len + strand_len + readname_len +
+// read_strand_len + 47) bytes: two int64 columns are <= 21 bytes each
+// (20 digits + sign) plus 5 tab separators. Writes each row's byte
+// length into row_lens. Returns total bytes written.
+int64_t dsp_format_info_rows(const char* chrom, int64_t chrom_len,
+                             const char* strand, int64_t strand_len,
+                             const char* readname, int64_t readname_len,
+                             const char* read_strand,
+                             int64_t read_strand_len, const int64_t* pos,
+                             const int64_t* pis, int64_t n, char* out,
+                             int64_t* row_lens) {
+    char* p = out;
+    for (int64_t i = 0; i < n; ++i) {
+        char* row = p;
+        memcpy(p, chrom, size_t(chrom_len));
+        p += chrom_len;
+        *p++ = '\t';
+        p = write_i64(p, pos[i]);
+        *p++ = '\t';
+        memcpy(p, strand, size_t(strand_len));
+        p += strand_len;
+        *p++ = '\t';
+        p = write_i64(p, pis[i]);
+        *p++ = '\t';
+        memcpy(p, readname, size_t(readname_len));
+        p += readname_len;
+        *p++ = '\t';
+        memcpy(p, read_strand, size_t(read_strand_len));
+        p += read_strand_len;
+        row_lens[i] = p - row;
+    }
+    return p - out;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------
+// Compat-mode extraction kernels. The reference's
+// numerics — per-event np.mean/np.std (PAIRWISE summation, not the
+// cumsum of the fast path) and random.sample sorted signal downsampling
+// (reference extract_features.py:248,364-365) — used to run as per-event
+// Python in pipeline/extract.py (segment_stats_exact,
+// build_signal_rect("compat")), making byte-parity validation on real
+// reads an order of magnitude slower than fast mode. These replicate
+// both BIT-EXACTLY:
+//   - pairwise_sum follows numpy's umath pairwise summation order
+//     (8-wide unrolled blocks of <=128, halving recursion rounded to a
+//     multiple of 8) — fuzz-verified equal to np.add.reduce on this
+//     build for every length 1..3000 (tests/test_native_compat.py);
+//   - the MT19937 + sample() pair replicates CPython's random.Random
+//     (_randommodule.c init_by_array seeding, getrandbits-based
+//     _randbelow rejection, random.py sample()'s pool-swap /
+//     rejection-set split at setsize) so a native-sampled run is
+//     byte-identical to the pure-Python chain under the same seed.
+
+namespace {
+
+double pairwise_sum(const double* a, int64_t n) {
+    if (n < 8) {
+        double res = 0.0;
+        for (int64_t i = 0; i < n; ++i) res += a[i];
+        return res;
+    }
+    if (n <= 128) {
+        double r[8];
+        for (int j = 0; j < 8; ++j) r[j] = a[j];
+        int64_t i = 8;
+        for (; i + 8 <= n; i += 8)
+            for (int j = 0; j < 8; ++j) r[j] += a[i + j];
+        double res = ((r[0] + r[1]) + (r[2] + r[3])) +
+                     ((r[4] + r[5]) + (r[6] + r[7]));
+        for (; i < n; ++i) res += a[i];
+        return res;
+    }
+    int64_t n2 = n / 2;
+    n2 -= n2 % 8;
+    return pairwise_sum(a, n2) + pairwise_sum(a + n2, n - n2);
+}
+
+// --- CPython-compatible MT19937 (state: 624 words + index) ---
+
+const int MT_N = 624;
+
+void mt_init_genrand(uint32_t* mt, uint32_t s) {
+    mt[0] = s;
+    for (int i = 1; i < MT_N; ++i)
+        mt[i] = 1812433253u * (mt[i - 1] ^ (mt[i - 1] >> 30)) + uint32_t(i);
+}
+
+uint32_t mt_next(uint32_t* mt, uint32_t* idx) {
+    const uint32_t UPPER = 0x80000000u, LOWER = 0x7fffffffu;
+    if (*idx >= uint32_t(MT_N)) {
+        for (int i = 0; i < MT_N; ++i) {
+            const uint32_t y = (mt[i] & UPPER) | (mt[(i + 1) % MT_N] & LOWER);
+            uint32_t v = mt[(i + 397) % MT_N] ^ (y >> 1);
+            if (y & 1u) v ^= 0x9908b0dfu;
+            mt[i] = v;
+        }
+        *idx = 0;
+    }
+    uint32_t y = mt[(*idx)++];
+    y ^= y >> 11;
+    y ^= (y << 7) & 0x9d2c5680u;
+    y ^= (y << 15) & 0xefc60000u;
+    y ^= y >> 18;
+    return y;
+}
+
+// _randbelow_with_getrandbits: k = n.bit_length() rejection sampling,
+// getrandbits(k<=32) = genrand_uint32() >> (32-k). Only valid for
+// n < 2^32: CPython's getrandbits(k>32) consumes multiple 32-bit words
+// and a (32-k) shift here would be negative (UB). Callers must bound n
+// (dsp_mt_sample_sorted returns -1 past the bound so the Python wrapper
+// falls back to random.sample); the clamp below is a second line of
+// defense, never a correct stream.
+int64_t mt_randbelow(uint32_t* mt, uint32_t* idx, int64_t n) {
+    int k = 0;
+    for (int64_t v = n; v; v >>= 1) ++k;
+    if (k > 32) return n - 1;  // unreachable via guarded entry points
+    for (;;) {
+        const int64_t r = int64_t(mt_next(mt, idx) >> (32 - k));
+        if (r < n) return r;
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Seed the 625-word state (624 MT words + current index) exactly like
+// random.Random(int): init_by_array over the little-endian 32-bit words
+// of abs(seed) (the Python wrapper splits the int).
+void dsp_mt_seed(uint32_t* state, const uint32_t* key, int64_t klen) {
+    uint32_t* mt = state;
+    mt_init_genrand(mt, 19650218u);
+    int64_t i = 1, j = 0;
+    int64_t k = MT_N > klen ? MT_N : klen;
+    for (; k; --k) {
+        mt[i] = (mt[i] ^ ((mt[i - 1] ^ (mt[i - 1] >> 30)) * 1664525u)) +
+                key[j] + uint32_t(j);
+        ++i; ++j;
+        if (i >= MT_N) { mt[0] = mt[MT_N - 1]; i = 1; }
+        if (j >= klen) j = 0;
+    }
+    for (k = MT_N - 1; k; --k) {
+        mt[i] = (mt[i] ^ ((mt[i - 1] ^ (mt[i - 1] >> 30)) * 1566083941u)) -
+                uint32_t(i);
+        ++i;
+        if (i >= MT_N) { mt[0] = mt[MT_N - 1]; i = 1; }
+    }
+    mt[0] = 0x80000000u;
+    state[MT_N] = MT_N;   // index: force initial twist, like CPython
+}
+
+// random.sample(range(n), k) consuming the stream exactly like
+// random.py (pool-swap for n <= setsize, rejection set otherwise),
+// then sorted ascending. Returns 0, or -1 on invalid k/n.
+int32_t dsp_mt_sample_sorted(uint32_t* state, int64_t n, int64_t k,
+                             int64_t* out) {
+    if (k < 0 || n < 0 || k > n) return -1;
+    // mt_randbelow matches CPython only for n < 2^32 (single getrandbits
+    // word); larger event counts must take the Python random.sample path
+    if (n > int64_t(0xffffffffll)) return -1;
+    uint32_t* mt = state;
+    uint32_t* idx = state + MT_N;
+    int64_t setsize = 21;
+    if (k > 5)
+        setsize += int64_t(std::pow(4.0, std::ceil(
+            std::log(double(k) * 3.0) / std::log(4.0))));
+    if (n <= setsize) {
+        thread_local std::vector<int64_t> pool;
+        try { pool.resize(size_t(n)); } catch (...) { return -1; }
+        for (int64_t t = 0; t < n; ++t) pool[size_t(t)] = t;
+        for (int64_t t = 0; t < k; ++t) {
+            const int64_t j = mt_randbelow(mt, idx, n - t);
+            out[t] = pool[size_t(j)];
+            pool[size_t(j)] = pool[size_t(n - t - 1)];
+        }
+    } else {
+        thread_local std::vector<int64_t> sel;
+        sel.clear();
+        for (int64_t t = 0; t < k; ++t) {
+            int64_t j = mt_randbelow(mt, idx, n);
+            while (std::find(sel.begin(), sel.end(), j) != sel.end())
+                j = mt_randbelow(mt, idx, n);
+            sel.push_back(j);
+            out[t] = j;
+        }
+    }
+    std::sort(out, out + k);
+    return 0;
+}
+
+// MAD normalization + 6-dp rounding only (compat mode pairs it with the
+// exact pairwise stats below instead of the fast path's cumsum stats).
+int32_t dsp_normalize_mad(const double* signal, int64_t ns,
+                          double* norm_out) {
+    if (ns <= 0) return -1;
+    thread_local std::vector<double> scratch;
+    try { scratch.assign(signal, signal + ns); } catch (...) { return -1; }
+    const double med = median_inplace(scratch.data(), ns);
+    for (int64_t i = 0; i < ns; ++i)
+        scratch[size_t(i)] = std::fabs(signal[i] - med);
+    const double scale = median_inplace(scratch.data(), ns) / MAD_C;
+    if (scale == 0.0) {
+        for (int64_t i = 0; i < ns; ++i) norm_out[i] = round6d(signal[i]);
+    } else {
+        for (int64_t i = 0; i < ns; ++i)
+            norm_out[i] = round6d((signal[i] - med) / scale);
+    }
+    return 0;
+}
+
+// Bit-exact np.mean / np.std per event segment (pairwise summation; the
+// mean-subtracted squares are materialized then pairwise-summed, the
+// exact op sequence of numpy's _var). n == 0 segments yield nan like
+// np.mean(empty) (0.0/0.0).
+int32_t dsp_segment_stats_exact(const double* norm, const int64_t* starts,
+                                const int64_t* lengths, int64_t nb,
+                                double* means, double* stds) {
+    thread_local std::vector<double> sq;
+    for (int64_t i = 0; i < nb; ++i) {
+        const int64_t len = lengths[i];
+        const double* seg = norm + starts[i];
+        const double n = double(len);
+        const double mean = pairwise_sum(seg, len) / n;
+        try { sq.resize(size_t(len > 0 ? len : 0)); } catch (...) {
+            return -1;
+        }
+        for (int64_t j = 0; j < len; ++j) {
+            const double d = seg[j] - mean;
+            sq[size_t(j)] = d * d;
+        }
+        means[i] = mean;
+        stds[i] = std::sqrt(pairwise_sum(sq.data(), len) / n);
+    }
+    return 0;
+}
+
+// build_signal_rect("compat") in one pass: short events center-
+// zero-padded (identical to the "even" path's short branch), long
+// events downsampled by a sorted random.sample drawn from ``state`` in
+// ascending row order — the exact stream order of the Python loop over
+// long_rows (pipeline/extract.py build_signal_rect).
+int32_t dsp_rect_compat(const double* norm, const int64_t* starts,
+                        const int64_t* lengths, int64_t nb, int32_t S,
+                        uint32_t* state, double* rect) {
+    thread_local std::vector<int64_t> picks;
+    try { picks.resize(size_t(S)); } catch (...) { return -1; }
+    for (int64_t i = 0; i < nb; ++i) {
+        const int64_t len = lengths[i];
+        const int64_t st = starts[i];
+        double* row = rect + i * S;
+        if (len > S) {
+            if (dsp_mt_sample_sorted(state, len, S, picks.data()) != 0)
+                return -1;
+            for (int32_t r = 0; r < S; ++r)
+                row[r] = norm[st + picks[size_t(r)]];
+        } else {
+            const int64_t pad_left = (int64_t(S) - len) / 2;
+            for (int32_t r = 0; r < S; ++r) {
+                const int64_t k = int64_t(r) - pad_left;
+                row[r] = (k >= 0 && k < len) ? norm[st + k] : 0.0;
+            }
+        }
+    }
+    return 0;
 }
 
 }  // extern "C"

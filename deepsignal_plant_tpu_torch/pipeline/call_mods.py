@@ -1,9 +1,12 @@
-"""call_mods on a features TSV (counterpart of the TSV planes of
-deepsignal_plant_tpu/pipeline/call_mods.py: :106-144, :159-228, :280-310,
-:677-705, :721-820, :851-1011, :1803-1918 and :1921-1967).
+"""call_mods on a features TSV or a fast5 directory (counterpart of the
+TSV planes of deepsignal_plant_tpu/pipeline/call_mods.py: :106-144,
+:159-228, :280-310, :677-705, :721-820, :851-1011, :1803-1918 and
+:1921-1967; the fast5 directory goes through
+pipeline/extract.py::extract_to_call_mods into ``run_blocks``).
 
 Reference behavior (call_modifications.py:532-640): read 12-column
-feature rows, run ModelBiLSTM, emit 10-column call rows.
+feature rows (or extract them from fast5s), run ModelBiLSTM, emit
+10-column call rows.
 
 float16 wire (the default), the read-packed route:
 
@@ -46,7 +49,7 @@ import torch
 
 from .. import native
 from ..config import CallConfig, ModelConfig, model_config_from_args
-from ..io.batching import (AsyncWriter, PrefetchIterator,
+from ..io.batching import (AsyncWriter, BatchAssembler, PrefetchIterator,
                            batches_from_features_file, bounded_thread_map,
                            default_parse_workers, iter_byte_blocks)
 from ..models.bilstm import Batch, ModelBiLSTM
@@ -112,6 +115,9 @@ class CallStats:
     # the uploads' time on the card's copy stream (CUDA events; None on
     # the CPU)
     upload_device_seconds: float | None = None
+    # fast5 inputs: files found, and files that failed to read or extract
+    fast5_files: int | None = None
+    fast5_errors: int | None = None
 
     @property
     def sites_per_s(self) -> float:
@@ -329,13 +335,11 @@ class CallModsEngine:
 
     def _packed_plane_batches(self, input_path: str, stats: CallStats
                               ) -> Iterator[_Batch]:
-        """The float16 plane (JAX _run_fast_tsv and _run_fast_packed):
-        parser threads parse and pack 8 MiB byte blocks into the
-        read-packed wire; a batch closes when it holds ``device_batch``
-        sites or its base budget is full."""
+        """The float16 plane of a features TSV (JAX _run_fast_tsv and
+        _run_fast_packed): parser threads parse and pack 8 MiB byte
+        blocks into the read-packed wire."""
         cfg = self.model_cfg
         L, S = cfg.seq_len, cfg.signal_len
-        target = stats.device_batch
 
         def parse_and_pack(raw: bytes):
             t = time.perf_counter()
@@ -347,60 +351,98 @@ class CallModsEngine:
             bounded_thread_map(parse_and_pack,
                                iter_byte_blocks(input_path, 8 << 20),
                                workers=pw, depth=2 * pw), depth=4)
-        base_budget = 1 << (target * L - 1).bit_length()
         stats.parse_seconds = 0.0
+
+        def timed():
+            for pb, dt in blocks:
+                stats.parse_seconds += dt
+                yield pb
         try:
-            fifo: deque = deque()       # [pb, consumed sites]
-            pending = 0
-            exhausted = False
-            while True:
-                while not exhausted and pending < target:
-                    t = time.perf_counter()
-                    item = next(blocks, None)
-                    stats.parse_wait_seconds += time.perf_counter() - t
-                    if item is None:
-                        exhausted = True
-                        break
-                    pb, dt = item
-                    stats.parse_seconds += dt
-                    if pb.n:
-                        fifo.append([_check_packed_block(pb, L, S), 0])
-                        pending += pb.n
-                if not fifo:
-                    return
-                arrays, segs, labels, ns, nbase = _take_packed_span(
-                    fifo, target, base_budget, L)
-                pending -= ns
-                yield _Batch("packed", arrays, ns, nbase, labels,
-                             partial(_emit_segments, segs))
+            yield from self._packed_batches(timed(), stats)
         finally:
             blocks.close()
 
+    def _packed_batches(self, blocks: Iterator, stats: CallStats
+                        ) -> Iterator[_Batch]:
+        """Read-packed batches from PackedFeatureBlocks: a batch closes
+        when it holds ``device_batch`` sites or its base budget is
+        full."""
+        cfg = self.model_cfg
+        L, S = cfg.seq_len, cfg.signal_len
+        target = stats.device_batch
+        base_budget = 1 << (target * L - 1).bit_length()
+        fifo: deque = deque()       # [pb, consumed sites]
+        pending = 0
+        exhausted = False
+        while True:
+            while not exhausted and pending < target:
+                t = time.perf_counter()
+                pb = next(blocks, None)
+                stats.parse_wait_seconds += time.perf_counter() - t
+                if pb is None:
+                    exhausted = True
+                    break
+                if pb.n:
+                    fifo.append([_check_packed_block(pb, L, S), 0])
+                    pending += pb.n
+            if not fifo:
+                return
+            arrays, segs, labels, ns, nbase = _take_packed_span(
+                fifo, target, base_budget, L)
+            pending -= ns
+            yield _Batch("packed", arrays, ns, nbase, labels,
+                         partial(_emit_segments, segs))
+
     def _persite_f32_batches(self, input_path: str, stats: CallStats
                              ) -> Iterator[_Batch]:
-        """The float32 plane: the native parser at float32 in parser
-        threads, batches of ``device_batch`` decoded rows."""
+        """The float32 plane of a features TSV: the native parser at
+        float32 in parser threads, batches of ``device_batch`` rows."""
         cfg = self.model_cfg
         fbs = PrefetchIterator(batches_from_features_file(
             input_path, stats.device_batch, cfg.seq_len, cfg.signal_len,
             self._parse_workers(), out_dtype="float32"), depth=4)
         try:
-            while True:
-                t = time.perf_counter()
-                fb = next(fbs, None)
-                stats.parse_wait_seconds += time.perf_counter() - t
-                if fb is None:
-                    return
-                arrays = (fb.kmer.astype(np.int8), fb.base_means,
-                          fb.base_stds, fb.base_signal_lens, fb.signals)
-
-                def emit(probs, fb=fb) -> bytes:
-                    return format_call_block(fb.sampleinfo, probs,
-                                             fb.kmer).encode()
-                yield _Batch("persite", arrays, len(fb),
-                             len(fb) * cfg.seq_len, fb.labels, emit)
+            yield from self._persite_batches(fbs, stats)
         finally:
             fbs.close()
+
+    def _persite_batches(self, fbs: Iterator, stats: CallStats
+                         ) -> Iterator[_Batch]:
+        """Per-site float32 batches from FeatureBatches of at most
+        ``device_batch`` rows."""
+        L = self.model_cfg.seq_len
+        while True:
+            t = time.perf_counter()
+            fb = next(fbs, None)
+            stats.parse_wait_seconds += time.perf_counter() - t
+            if fb is None:
+                return
+            arrays = (fb.kmer.astype(np.int8), fb.base_means,
+                      fb.base_stds, fb.base_signal_lens, fb.signals)
+
+            def emit(probs, fb=fb) -> bytes:
+                return format_call_block(fb.sampleinfo, probs,
+                                         fb.kmer).encode()
+            yield _Batch("persite", arrays, len(fb), len(fb) * L,
+                         fb.labels, emit)
+
+    def run_blocks(self, blocks: Iterator, result_path: str,
+                   is_gzip: bool = False, packed: bool = True
+                   ) -> CallStats:
+        """Call input blocks in order: PackedFeatureBlocks (``packed``,
+        the float16 plane) or float32 FeatureBatches of any size (the
+        per-site route). The fused fast5 path feeds this
+        (pipeline/extract.py::extract_to_call_mods)."""
+        stats = CallStats(device_batch=self.call_cfg.device_batch)
+        t0 = time.time()
+        if packed:
+            batches = self._packed_batches(iter(blocks), stats)
+        else:
+            batches = self._persite_batches(
+                _rechunk(iter(blocks), stats.device_batch), stats)
+        self._run_fast(batches, result_path, is_gzip, stats)
+        stats.seconds = time.time() - t0
+        return stats
 
     def _device_batch(self, route: str, tensors: list[torch.Tensor]
                       ) -> Batch:
@@ -476,6 +518,23 @@ class CallModsEngine:
             stats.persite_sites += b.n
 
 
+def _rechunk(fbs: Iterator, target: int) -> Iterator:
+    """FeatureBatches of any size re-cut into ``target``-row batches (the
+    last one shorter), in order."""
+    asm = BatchAssembler(target)
+    for fb in fbs:
+        asm.add(fb)
+        while (full := asm.pop_full()) is not None:
+            yield full
+    rest = asm.pop_rest()
+    if rest is not None:
+        yield rest
+
+
+def _holds_npz(path: str) -> bool:
+    return any(f.endswith(".npz") for f in os.listdir(path))
+
+
 def _refuse_unported(args, input_path: str) -> None:
     """Planes of the JAX call_mods that this package does not have yet
     fail here, before any work, instead of running something else."""
@@ -484,8 +543,8 @@ def _refuse_unported(args, input_path: str) -> None:
         (args.device_resident == "always", "--device_resident always"),
         (args.profile_dir is not None, "--profile_dir"),
         (input_path.endswith(".npz"), ".npz feature inputs"),
-        (os.path.isdir(input_path),
-         "directory inputs (fast5 runs or .npz batches)"),
+        (os.path.isdir(input_path) and _holds_npz(input_path),
+         "directories of .npz feature batches"),
     ]
     for hit, what in refused:
         if hit:
@@ -517,8 +576,12 @@ def call_mods(args) -> CallStats:
     t0 = time.time()
     launches0 = dict(fused_lstm.launches)
     engine = CallModsEngine(model_path, model_cfg, call_cfg, device)
-    stats = engine.run_features_file(input_path, args.result_file,
-                                     args.gzip)
+    if os.path.isdir(input_path):
+        from .extract import extract_to_call_mods
+        stats = extract_to_call_mods(engine, input_path, args)
+    else:
+        stats = engine.run_features_file(input_path, args.result_file,
+                                         args.gzip)
     if args.verbose_stages:
         print("[stages] " + json.dumps({
             "device": (torch.cuda.get_device_name(device)

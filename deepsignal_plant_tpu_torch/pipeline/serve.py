@@ -22,11 +22,14 @@ Producer-side completion markers: if ``X.complete`` exists next to input
 ``X``, ``X`` is picked up immediately (no stability wait).
 ``--require_complete`` makes the marker the only pickup signal.
 
-The port's engine calls features TSVs (``.tsv``, ``.tsv.gz``). Inputs it
-cannot call yet — ``.npz`` feature files and fast5 run-folders — are not
-picked up and get no marker, so a server of a later port that calls them
-still finds them unserved. (The JAX server takes run-folders only when
-given ``extract_args``; this one has no such option.)
+The port's engine calls features TSVs (``.tsv``, ``.tsv.gz``) and fast5
+run-folders: a directory under the watched one that holds ``.fast5``
+files anywhere below it, called through the fused fast5 path
+(pipeline/extract.py::extract_to_call_mods) with the server's extraction
+flags. A run-folder's stability signature is its file count, total
+bytes and newest mtime. ``.npz`` feature files are not picked up and
+get no marker, so a server of a later port that calls them still finds
+them unserved.
 """
 from __future__ import annotations
 
@@ -37,27 +40,50 @@ import time
 #: input extensions the port's engine accepts
 _EXTS = (".tsv", ".tsv.gz")
 #: what the JAX server also calls and this one leaves unpicked
-UNPICKED = ".npz feature files and fast5 run-folders"
+UNPICKED = ".npz feature files"
+
+
+def _holds_fast5s(path: str) -> bool:
+    for _root, _dirs, files in os.walk(path):
+        if any(f.endswith(".fast5") for f in files):
+            return True
+    return False
 
 
 def _stat_sig(path: str) -> tuple | None:
-    """Stability signature: (size, mtime)."""
+    """Stability signature: (size, mtime) for a file; (file count, total
+    bytes, newest mtime) over the tree for a run-folder."""
     try:
-        st = os.stat(path)
+        if not os.path.isdir(path):
+            st = os.stat(path)
+            return (st.st_size, st.st_mtime_ns)
+        n = total = newest = 0
+        for root, _dirs, files in os.walk(path):
+            for f in files:
+                try:
+                    st = os.stat(os.path.join(root, f))
+                except OSError:
+                    continue
+                n += 1
+                total += st.st_size
+                newest = max(newest, st.st_mtime_ns)
+        return (n, total, newest)
     except OSError:
         return None
-    return (st.st_size, st.st_mtime_ns)
 
 
 class WatchServer:
     """Poll-loop server around one warm CallModsEngine. ``served``, when
-    a list, gets one ``(name, CallStats)`` per input called."""
+    a list, gets one ``(name, CallStats)`` per input called.
+    ``extract_args`` (an argparse-like namespace with the extraction
+    flags: motifs, corrected_group, nproc, ...) enables run-folders."""
 
     def __init__(self, engine, watch_dir: str, result_dir: str,
                  poll_s: float = 2.0, is_gzip: bool = False,
                  require_complete: bool = False,
-                 served: list | None = None):
+                 served: list | None = None, extract_args=None):
         self.engine = engine
+        self.extract_args = extract_args
         self.watch_dir = watch_dir
         self.result_dir = result_dir
         self.poll_s = poll_s
@@ -103,8 +129,15 @@ class WatchServer:
                            + (".gz" if self.is_gzip else ""))
         t0 = time.time()
         try:
-            stats = self.engine.run_features_file(path, tmp,
-                                                  is_gzip=self.is_gzip)
+            if os.path.isdir(path):
+                from .extract import extract_to_call_mods
+                stats = extract_to_call_mods(self.engine, path,
+                                             self.extract_args,
+                                             result_file=tmp,
+                                             is_gzip=self.is_gzip)
+            else:
+                stats = self.engine.run_features_file(
+                    path, tmp, is_gzip=self.is_gzip)
             os.replace(tmp, final)
             with open(self._marker(name, "done"), "w") as fh:
                 fh.write(f"{stats.sites}\t{time.time() - t0:.3f}\n")
@@ -125,8 +158,10 @@ class WatchServer:
             return False
 
     def _pending(self) -> list[str]:
-        """Unprocessed candidates: files with a callable extension and no
-        marker."""
+        """Unprocessed candidates: files with a callable extension and
+        run-folders, without a marker. The marker check runs before the
+        run-folder probe, so a backlog of served run-folders costs two
+        stats each per poll, not an os.walk each."""
         out = []
         for name in sorted(os.listdir(self.watch_dir)):
             if name.startswith("."):
@@ -134,11 +169,17 @@ class WatchServer:
             # never re-ingest our own products: with result_dir ==
             # watch_dir (nothing forbids it) the output X.call_mods.tsv
             # matches _EXTS and would be re-called forever
-            if ".call_mods.tsv" in name or not name.endswith(_EXTS) or \
-                    self._is_done(name):
+            if ".call_mods.tsv" in name or \
+                    name.endswith((".done", ".failed", ".complete")):
+                continue
+            if self._is_done(name):
                 continue
             path = os.path.join(self.watch_dir, name)
             if os.path.isfile(path):
+                if name.endswith(_EXTS):
+                    out.append(path)
+            elif self.extract_args is not None and os.path.isdir(path) \
+                    and _holds_fast5s(path):
                 out.append(path)
         return out
 
@@ -181,19 +222,13 @@ class WatchServer:
 
 
 def _refuse_unported(args) -> None:
-    """Flags of planes the port's engine does not have fail here, before
-    the engine loads: the int8 wire, and the fast5 run-folder flags away
-    from their defaults."""
-    from ..cli import f5_defaults
-    refused = [(args.transfer_dtype == "int8", "--transfer_dtype int8")]
-    refused += [(getattr(args, k) != v, f"--{k} {getattr(args, k)} "
-                 "(fast5 run-folder inputs)")
-                for k, v in f5_defaults().items()]
-    for hit, what in refused:
-        if hit:
-            raise ValueError(
-                f"{what} is not yet ported to deepsignal_plant_tpu_torch "
-                "(the JAX package deepsignal_plant_tpu serves it)")
+    """The int8 wire, which the port's engine does not have, fails here,
+    before the engine loads."""
+    if args.transfer_dtype == "int8":
+        raise ValueError(
+            "--transfer_dtype int8 is not yet ported to "
+            "deepsignal_plant_tpu_torch (the JAX package "
+            "deepsignal_plant_tpu serves it)")
 
 
 def serve(args) -> list:
@@ -227,13 +262,14 @@ def serve(args) -> list:
                          os.path.abspath(args.result_dir),
                          poll_s=args.poll_s, is_gzip=args.gzip,
                          require_complete=args.require_complete,
-                         served=served)
+                         served=served, extract_args=args)
     # the caller's handlers come back when the server returns
     previous = {sig: signal.signal(sig, server.request_stop)
                 for sig in (signal.SIGTERM, signal.SIGINT)}
     print(f"[serve] watching {args.watch_dir} -> {args.result_dir} "
           f"(poll {args.poll_s}s, compute {model_cfg.compute_dtype}, "
-          f"device {device}, once={args.once}); calls {', '.join(_EXTS)}; "
+          f"device {device}, once={args.once}); calls {', '.join(_EXTS)} "
+          f"and fast5 run-folders; "
           f"not picked up (not yet ported): {UNPICKED}", flush=True)
     try:
         server.run(once=args.once)

@@ -1,6 +1,6 @@
 """Python side of the native codecs (native/featparse.cpp; copy of
-deepsignal_plant_tpu/utils/fastparse.py:329-633, the parts the TSV plane
-of call_mods, the dataset and call_freq call).
+deepsignal_plant_tpu/utils/fastparse.py:153-330 and :329-660, the parts
+call_mods, extract, the dataset and call_freq call).
 
 - ``parse_feature_bytes``: a newline-terminated byte block -> FeatureBatch
   (float32, or the float16 wire: int8 codes, IEEE halves);
@@ -9,7 +9,14 @@ of call_mods, the dataset and call_freq call).
 - ``pack_raw_block``: the read-packed wire (deduplicated per-base arrays
   and int32 window centres) rebuilt from parsed rows;
 - ``emit_call_rows_arrays`` and ``format_call_block``: call_mods rows;
-- ``parse_call_bytes``: call_mods rows -> CallBlock (call_freq's input).
+- ``parse_call_bytes``: call_mods rows -> CallBlock (call_freq's input);
+- extraction: ``extract_norm_stats`` (one read's normalization, segment
+  statistics and float16 rect in one pass), the compat mode's
+  ``normalize_mad_native``, ``segment_stats_exact_native``,
+  ``build_rect_compat`` and ``compat_sampler``, ``build_rect_f16``,
+  ``format_info_rows`` and ``format_feature_cols``. These return None on
+  a corrupt event table: extract.py then runs its numpy chain, as the
+  JAX package does.
 
 Every call builds the library if needed (native.load) and raises if it
 cannot; there is no Python fallback. utils/formats.py keeps the plain
@@ -287,3 +294,208 @@ def format_call_block(sampleinfo: list[str], probs: np.ndarray,
         parts.append(suffixes[pos:end])
         pos = end
     return "".join(parts)
+
+
+# ---------------------------------------------------------------------------
+# extraction (pipeline/extract.py; JAX utils/fastparse.py:153-330, :636)
+# ---------------------------------------------------------------------------
+
+def _event_table(norm_len: int, starts: np.ndarray, lengths: np.ndarray
+                 ) -> tuple[np.ndarray, np.ndarray] | None:
+    """The event table as contiguous int64, or None when a segment is
+    negative or runs past the signal: the C loops index unchecked, so a
+    corrupt table takes the numpy chain, which clips."""
+    starts = np.ascontiguousarray(starts, np.int64)
+    lengths = np.ascontiguousarray(lengths, np.int64)
+    if len(starts) and (int(lengths.min()) < 0 or int(starts.min()) < 0
+                        or int((starts + lengths).max()) > norm_len):
+        return None
+    return starts, lengths
+
+
+class CompatSampler:
+    """A CPython-``random.Random``-compatible MT19937 sampler in the
+    native library (dsp_mt_seed / dsp_mt_sample_sorted). From the same
+    int seed it consumes the same stream as ``random.Random`` and its
+    ``sample()`` returns the same picks, sorted, so compat-mode
+    extraction gives the same bytes whichever side draws."""
+
+    __slots__ = ("_lib", "state")
+
+    def __init__(self, lib, seed: int):
+        self._lib = lib
+        self.state = np.zeros(625, np.uint32)
+        n = abs(int(seed))
+        words = []
+        while n:
+            words.append(n & 0xFFFFFFFF)
+            n >>= 32
+        key = np.array(words or [0], np.uint32)
+        lib.dsp_mt_seed(self.state, key, len(key))
+
+    def sample(self, population, k: int) -> list:
+        """random.sample(range(n), k), sorted. ``population`` must be a
+        range starting at 0 (compat mode passes ``range(event_length)``)."""
+        n = len(population)
+        out = np.empty(k, np.int64)
+        if self._lib.dsp_mt_sample_sorted(self.state, n, k, out) != 0:
+            raise ValueError(f"sample({n}, {k}) invalid")
+        return out.tolist()
+
+
+def compat_sampler(seed: int) -> CompatSampler:
+    return CompatSampler(native.load(), seed)
+
+
+def normalize_mad_native(signal: np.ndarray) -> np.ndarray | None:
+    """MAD normalization + 6-decimal rounding, equal bit for bit to
+    pipeline.extract.normalize_signals(method="mad"); None for an empty
+    signal."""
+    lib = native.load()
+    signal = np.ascontiguousarray(signal, np.float64)
+    if len(signal) == 0:
+        return None
+    norm = np.empty(len(signal), np.float64)
+    if lib.dsp_normalize_mad(signal, len(signal), norm) != 0:
+        return None
+    return norm
+
+
+def segment_stats_exact_native(norm: np.ndarray, starts: np.ndarray,
+                               lengths: np.ndarray
+                               ) -> tuple[np.ndarray, np.ndarray] | None:
+    """np.mean/np.std per event in numpy's pairwise-summation order
+    (compat mode; reference extract_features.py:364-365), or None for an
+    empty or corrupt event table."""
+    lib = native.load()
+    norm = np.ascontiguousarray(norm, np.float64)
+    ev = _event_table(len(norm), starts, lengths)
+    if ev is None or len(ev[0]) == 0:
+        return None
+    nb = len(ev[0])
+    means = np.empty(nb, np.float64)
+    stds = np.empty(nb, np.float64)
+    if lib.dsp_segment_stats_exact(norm, *ev, nb, means, stds) != 0:
+        return None
+    return means, stds
+
+
+def build_rect_compat(norm: np.ndarray, starts: np.ndarray,
+                      lengths: np.ndarray, signal_len: int,
+                      sampler: CompatSampler) -> np.ndarray | None:
+    """build_signal_rect("compat"): short events centre-zero-padded, long
+    ones downsampled by sorted random.sample picks from ``sampler``'s
+    stream in ascending row order. The (n, signal_len) float64 rect, or
+    None for a corrupt event table."""
+    lib = native.load()
+    norm = np.ascontiguousarray(norm, np.float64)
+    ev = _event_table(len(norm), starts, lengths)
+    if ev is None:
+        return None
+    nb = len(ev[0])
+    rect = np.empty((nb, signal_len), np.float64)
+    if lib.dsp_rect_compat(norm, *ev, nb, signal_len, sampler.state,
+                           rect) != 0:
+        return None
+    return rect
+
+
+def build_rect_f16(norm: np.ndarray, starts: np.ndarray,
+                   lengths: np.ndarray, signal_len: int
+                   ) -> np.ndarray | None:
+    """The "even" signal rect straight to float16, or None for a corrupt
+    event table."""
+    lib = native.load()
+    norm = np.ascontiguousarray(norm, np.float64)
+    ev = _event_table(len(norm), starts, lengths)
+    if ev is None:
+        return None
+    rect = np.empty((len(ev[0]), signal_len), np.float16)
+    lib.dsp_build_rect_f16(norm, *ev, len(ev[0]), signal_len,
+                           rect.reshape(-1).view(np.uint16))
+    return rect
+
+
+def extract_norm_stats(signal: np.ndarray, starts: np.ndarray,
+                       lengths: np.ndarray, signal_len: int,
+                       want_rect: bool = True) -> dict | None:
+    """One read's MAD normalization, 6-decimal rounding, per-event
+    mean/std (cumulative-sum semantics), float16 rect and the packed
+    wire's rounded float16 means/stds/lens in one C pass
+    (dsp_read_norm_stats), equal bit for bit to pipeline.extract's
+    normalize_signals -> segment_stats -> build_signal_rect("even").
+    None for an empty signal or an empty or corrupt event table."""
+    lib = native.load()
+    signal = np.ascontiguousarray(signal, np.float64)
+    ns = len(signal)
+    ev = _event_table(ns, starts, lengths)
+    if ns == 0 or ev is None or len(ev[0]) == 0:
+        return None
+    nb = len(ev[0])
+    norm = np.empty(ns, np.float64)
+    means64 = np.empty(nb, np.float64)
+    stds64 = np.empty(nb, np.float64)
+    means16 = np.empty(nb, np.float16)
+    stds16 = np.empty(nb, np.float16)
+    lens16 = np.empty(nb, np.float16)
+    # S = 0 skips the rect (the TSV writer rebuilds it in float64)
+    S = signal_len if want_rect else 0
+    rect16 = np.empty((nb, S), np.float16)
+    if lib.dsp_read_norm_stats(
+            signal, ns, *ev, nb, S, norm, means64, stds64,
+            means16.view(np.uint16), stds16.view(np.uint16),
+            lens16.view(np.uint16), rect16.reshape(-1).view(np.uint16)):
+        return None
+    out = {"norm": norm, "means": means64, "stds": stds64,
+           "means16": means16, "stds16": stds16, "lens16": lens16}
+    if want_rect:
+        out["rect16"] = rect16
+    return out
+
+
+def format_info_rows(chrom: str, strand: str, readname: str,
+                     read_strand: str, pos: np.ndarray, pis: np.ndarray
+                     ) -> tuple[bytes, np.ndarray]:
+    """One read's per-site info columns
+    ``chrom\\tpos\\tstrand\\tpos_in_strand\\treadname\\tread_strand``:
+    (concatenated bytes, per-row byte lengths)."""
+    lib = native.load()
+    n = len(pos)
+    cb, sb = chrom.encode(), strand.encode()
+    rb_, rsb = readname.encode(), read_strand.encode()
+    pos = np.ascontiguousarray(pos, np.int64)
+    pis = np.ascontiguousarray(pis, np.int64)
+    cap = n * (len(cb) + len(sb) + len(rb_) + len(rsb) + 47)
+    out = np.empty(cap, np.uint8)
+    row_lens = np.empty(n, np.int64)
+    total = lib.dsp_format_info_rows(cb, len(cb), sb, len(sb), rb_,
+                                     len(rb_), rsb, len(rsb), pos, pis, n,
+                                     out, row_lens)
+    return out[:total].tobytes(), row_lens
+
+
+def format_feature_cols(means: np.ndarray, stds: np.ndarray,
+                        lens: np.ndarray, rect: np.ndarray) -> list[str]:
+    """Feature columns 7-10 of each site as text (means/stds/lens csv and
+    the ';'-joined rect), equal to np.around(..., 6) + str, -0.0
+    included."""
+    lib = native.load()
+    n, L = means.shape
+    S = rect.shape[2]
+    means = np.ascontiguousarray(means, np.float64)
+    stds = np.ascontiguousarray(stds, np.float64)
+    lens = np.ascontiguousarray(lens, np.int32)
+    rect = np.ascontiguousarray(rect, np.float64)
+    # 32 bytes a value covers the widest fixed-point and %g outputs
+    out = np.empty(n * (3 * L * 32 + L * S * 32), np.uint8)
+    out_lens = np.empty(n, np.int32)
+    total = lib.dsp_format_feature_cols(means, stds, lens, rect, n, L, S,
+                                        out, out_lens)
+    text = out[:total].tobytes().decode("ascii")
+    cols = []
+    pos = 0
+    for i in range(n):
+        end = pos + int(out_lens[i])
+        cols.append(text[pos:end])
+        pos = end
+    return cols

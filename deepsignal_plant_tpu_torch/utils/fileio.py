@@ -1,12 +1,14 @@
-"""File-level utilities of the tools: line counting and shuffled
-concatenation (copy of the parts of deepsignal_plant_tpu/utils/fileio.py
-that the tools call; fast5 discovery comes with extract, the k-mer
-sampling with denoise).
+"""File-level utilities: line counting, shuffled concatenation and fast5
+discovery (copy of the parts of deepsignal_plant_tpu/utils/fileio.py that
+the tools and extract call; the k-mer sampling comes with denoise).
 
-Behavioral parity targets: deepsignal_plant/utils/process_utils.py:198-207
-(count_line_num) and :358-390 (concat_two_files).
+Behavioral parity targets: deepsignal_plant/utils/process_utils.py:148-161
+(get_fast5s), :198-207 (count_line_num) and :358-390 (concat_two_files).
 """
 from __future__ import annotations
+
+import fnmatch
+import os
 
 import numpy as np
 
@@ -19,6 +21,21 @@ def count_lines(path: str, header: bool = False) -> int:
         for _ in rf:
             n += 1
     return n - 1 if header and n > 0 else n
+
+
+def get_fast5s(fast5_dir: str, recursive: bool = True) -> list[str]:
+    """All .fast5 files under a directory (process_utils.py:148)."""
+    fast5_dir = os.path.abspath(fast5_dir)
+    fast5s: list[str] = []
+    if recursive:
+        for root, _dirs, files in os.walk(fast5_dir):
+            for fn in fnmatch.filter(files, "*.fast5"):
+                fast5s.append(os.path.join(root, fn))
+    else:
+        for fn in os.listdir(fast5_dir):
+            if fn.endswith(".fast5"):
+                fast5s.append("/".join([fast5_dir, fn]))
+    return fast5s
 
 
 def shuffle_concat(file1: str, file2: str, out_file: str,

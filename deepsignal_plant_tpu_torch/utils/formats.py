@@ -1,6 +1,6 @@
-"""Text codecs of call_mods and call_freq (copy of
-deepsignal_plant_tpu/utils/formats.py:26-104 and :344-425, the
-pure-Python paths).
+"""Text codecs of extract, call_mods and call_freq, and the read-packed
+part files of the extraction pool (copy of
+deepsignal_plant_tpu/utils/formats.py:26-122, :278-325 and :344-425).
 
 - features TSV, 12 columns (extract_features.py:381-395):
     chrom, pos, strand, pos_in_strand, readname, read_strand, kmer,
@@ -92,6 +92,68 @@ def parse_feature_lines(lines: list[str], kmer_len: int = 13,
         n, kmer_len, signal_len)
     return FeatureBatch(sampleinfo, kmers, base_means, base_stds,
                         base_signal_lens, signals, labels)
+
+
+def format_feature_row(chrom: str, pos: int, strand: str, pos_in_strand: int,
+                       readname: str, read_strand: str, kmer: str,
+                       signal_means, signal_stds, signal_lens,
+                       signals_rect, methy_label: int) -> str:
+    """One features-TSV row, byte-identical to _features_to_str
+    (extract_features.py:381): means/stds rounded to 6dp with shortest-repr
+    float printing, signal matrix rows joined by ';'."""
+    means_text = ",".join(str(x) for x in np.around(signal_means, 6).tolist())
+    stds_text = ",".join(str(x) for x in np.around(signal_stds, 6).tolist())
+    lens_text = ",".join(str(int(x)) for x in signal_lens)
+    sig_text = ";".join(
+        ",".join(str(y) for y in row) for row in signals_rect)
+    return "\t".join([chrom, str(pos), strand, str(pos_in_strand), readname,
+                      read_strand, kmer, means_text, stds_text, lens_text,
+                      sig_text, str(methy_label)])
+
+
+def save_packed_npz(path, pb) -> None:
+    """A read-packed wire block (fastparse.PackedFeatureBlock) as the JAX
+    package's .npz v3 container: deduplicated per-base arrays, per-site
+    window centres and the info columns' bytes."""
+    np.savez(path,
+             wire_version=np.uint8(3),
+             kmer_len=np.int32(pb.kmer_len),
+             info_blob=np.frombuffer(pb.raw, np.uint8),
+             row_starts=pb.row_starts.astype(np.int64),
+             info_ends=pb.info_ends.astype(np.int64),
+             centers=pb.centers.astype(np.int32),
+             codes=pb.codes.astype(np.int8),
+             base_means=pb.means.astype(np.float16),
+             base_stds=pb.stds.astype(np.float16),
+             base_signal_lens=pb.lens.astype(np.float16),
+             signals=pb.rect.astype(np.float16),
+             labels=pb.labels.astype(np.int32))
+
+
+def load_packed_npz(path):
+    """A .npz v3 container as a fastparse.PackedFeatureBlock; raises on
+    another version or window centres outside the base axis."""
+    from .fastparse import PackedFeatureBlock
+    with np.load(path, allow_pickle=False) as npz:
+        z = {k: npz[k] for k in npz.files}
+    ver = int(z["wire_version"])
+    if ver != 3:
+        raise ValueError(f"{path} is wire-format v{ver}, not v3")
+    centers = z["centers"]
+    kmer_len = int(z["kmer_len"])
+    nb = (kmer_len - 1) // 2
+    if len(centers) > 1 and np.any(np.diff(centers) < 0):
+        raise ValueError(
+            f"{path}: packed-wire centers are not non-decreasing")
+    if len(centers) and (int(centers[0]) < nb or
+                         int(centers[-1]) + nb >= len(z["codes"])):
+        raise ValueError(f"{path}: packed-wire centers out of bounds for "
+                         "the base axis")
+    return PackedFeatureBlock(
+        z["info_blob"].tobytes(), z["row_starts"], z["info_ends"],
+        centers, z["codes"], z["base_means"], z["base_stds"],
+        z["base_signal_lens"], z["signals"],
+        z["labels"].astype(np.int32), kmer_len)
 
 
 def format_call_rows(sampleinfo: list[str], kmer_codes: np.ndarray,

@@ -33,7 +33,8 @@ def test_every_module_is_listed():
                  "utils.formats", "utils.bases", "utils.motifs",
                  "utils.fasta", "utils.gff", "utils.fileio", "tools",
                  "tools.ckpt", "tools.combiners", "tools.evaluate",
-                 "tools.fileops", "tools.splitters"):
+                 "tools.fileops", "tools.splitters", "io.hdf5", "io.fast5",
+                 "pipeline.extract"):
         assert "deepsignal_plant_tpu_torch." + name in mods
 
 
@@ -97,3 +98,46 @@ def test_chip_smoke_alone_fails_without_a_result(tmp_path):
                          timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_port_imports_no_h5py():
+    """No module of the port imports h5py (the card machine has none):
+    the source never names it in an import, and importing every module
+    leaves it out of sys.modules."""
+    pkg = os.path.join(REPO, "deepsignal_plant_tpu_torch")
+    for root, _dirs, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    src = fh.read()
+                assert "import h5py" not in src, f
+    code = (
+        "import importlib, sys\n"
+        f"for m in {port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(repr(sorted(m for m in sys.modules if m == 'h5py' or "
+        "m.startswith('h5py.'))))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_extraction_worker_imports_no_torch():
+    """A spawned extraction worker imports pipeline/extract.py and host
+    modules only: importing it and reading a fast5 leaves torch out of
+    sys.modules (torch would cost every worker a second or more)."""
+    code = (
+        "import sys\n"
+        "import deepsignal_plant_tpu_torch.pipeline.extract as e\n"
+        "import deepsignal_plant_tpu_torch.utils.fastparse\n"
+        "import deepsignal_plant_tpu_torch.io.fast5\n"
+        "print('torch' in sys.modules)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"

@@ -4,8 +4,9 @@ counterparts of tests/test_serve.py, on the port's engine with
 same checkpoint (columns 1-6 and 10 identical, probabilities within 2e-6
 at float32 wire and compute, as tests/test_torch_call_mods.py gates).
 
-The port's engine calls features TSVs only: .npz inputs and fast5
-run-folders are left unpicked, without a marker.
+The port's engine calls features TSVs and fast5 run-folders (through
+the fused fast5 path; served bytes equal the call_mods CLI's on the same
+directory); .npz inputs are left unpicked, without a marker.
 """
 import gzip
 import os
@@ -197,9 +198,9 @@ def test_serve_cli_once(tmp_path, rng, ckpt):
 
 
 def test_watch_server_run_folder_not_picked(tmp_path, rng, ckpt):
-    """A subdirectory of fast5s (a sequencer run-folder) is not picked
-    up by the port (fast5 extraction is not ported) and gets no marker;
-    nor does a plain directory."""
+    """A WatchServer built without extraction flags (``extract_args``)
+    does not pick up a subdirectory of fast5s (a sequencer run-folder),
+    as in the JAX server; nor does it pick up a plain directory."""
     from make_synthetic import synth_fast5_dir, synth_genome
 
     watch = tmp_path / "in"
@@ -284,9 +285,10 @@ def test_watch_server_same_dir_no_self_ingestion(tmp_path, rng, ckpt):
 def test_npz_and_run_folders_stay_unmarked_across_restarts(
         tmp_path, rng, ckpt, capsys):
     """Through the CLI in this process: the startup line names what is
-    left unpicked; two servers in turn call the TSV once and leave the
-    .npz and the run-folder without a marker, so a server that can call
-    them later still finds them unserved."""
+    left unpicked; two servers in turn call the TSV and the run-folder
+    once each (the run-folder since fast5 extraction was ported) and
+    leave the .npz without a marker, so a server that can call it later
+    still finds it unserved."""
     from make_synthetic import synth_fast5_dir, synth_genome
 
     watch = tmp_path / "in"
@@ -307,11 +309,13 @@ def test_npz_and_run_folders_stay_unmarked_across_restarts(
     assert [signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)] \
         == handlers
     text = capsys.readouterr().out
-    assert "not picked up (not yet ported): .npz feature files and fast5 " \
-        "run-folders" in text
+    assert "calls .tsv, .tsv.gz and fast5 run-folders; not picked up " \
+        "(not yet ported): .npz feature files" in text
     assert text.count("[serve] a.tsv: 16 sites") == 1
+    assert text.count("[serve] run_0001: ") == 1
     assert sorted(p.name for p in out.iterdir()) == \
-        ["a.tsv.call_mods.tsv", "a.tsv.done"]
+        ["a.tsv.call_mods.tsv", "a.tsv.done", "run_0001.call_mods.tsv",
+         "run_0001.done"]
 
 
 @pytest.mark.parametrize("flag", [
@@ -319,9 +323,47 @@ def test_npz_and_run_folders_stay_unmarked_across_restarts(
     ["--corrected_group", "RawGenomeCorrected_001"], ["--nproc", "8"],
     ["--reference_path", "ref.fa"]])
 def test_serve_refuses_unported_flags(tmp_path, ckpt, flag):
+    """The int8 wire is refused before the engine loads; the fast5
+    run-folder flags are live since fast5 extraction was ported, so a
+    server with them starts and serves the (empty) directory."""
     (tmp_path / "in").mkdir()
-    with pytest.raises(ValueError, match="not yet ported"):
-        cli.main(["serve", "-i", str(tmp_path / "in"), "-o",
-                  str(tmp_path / "out"), "-m", ckpt, "--hid_rnn", "32",
-                  "--once", "--device", "cpu", *flag])
-    assert not (tmp_path / "out").exists()
+    argv = ["serve", "-i", str(tmp_path / "in"), "-o",
+            str(tmp_path / "out"), "-m", ckpt, "--hid_rnn", "32",
+            "--once", "--poll_s", "0.01", "--device", "cpu", *flag]
+    if flag[0] == "--transfer_dtype":
+        with pytest.raises(ValueError, match="not yet ported"):
+            cli.main(argv)
+        assert not (tmp_path / "out").exists()
+    else:
+        assert cli.main(argv) == 0
+        assert os.listdir(tmp_path / "out") == []
+
+
+@pytest.mark.parametrize("transfer", ["float16", "float32"])
+def test_run_folder_served_bytes_equal_cli(tmp_path, rng, ckpt, transfer):
+    """A fast5 run-folder is served through the fused path, gets its
+    .done marker with the site count, and its bytes equal the call_mods
+    CLI's on the same directory with the same flags."""
+    from make_synthetic import synth_fast5_dir, synth_genome
+
+    watch = tmp_path / "in"
+    out = tmp_path / "out"
+    watch.mkdir()
+    synth_fast5_dir(str(watch / "run_7"), synth_genome(
+        rng, {"chr1": 3000, "chr2": 2000}), rng, n_reads=6, read_len=400,
+        max_event_len=25)
+    (watch / "run_7" / "nested").mkdir()
+    os.replace(watch / "run_7" / "synthread_005.fast5",
+               watch / "run_7" / "nested" / "synthread_005.fast5")
+    flags = ["--hid_rnn", "32", "--device", "cpu", "--compute_dtype",
+             "float32", "--transfer_dtype", transfer, "--nproc", "2",
+             "--f5_batch_size", "2", "--motifs", "CHG"]
+    cli.main(["serve", "-i", str(watch), "-o", str(out), "-m", ckpt,
+              "--once", "--poll_s", "0.01", *flags])
+    served = (out / "run_7.call_mods.tsv").read_bytes()
+    cli.main(["call_mods", "-i", str(watch / "run_7"), "-m", ckpt, "-o",
+              str(tmp_path / "cli.tsv"), *flags])
+    assert served == (tmp_path / "cli.tsv").read_bytes()
+    n = len(served.splitlines())
+    assert n > 50
+    assert (out / "run_7.done").read_text().split("\t")[0] == str(n)
