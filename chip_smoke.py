@@ -65,10 +65,10 @@ Phases, in order; any failure exits non-zero before the last line:
    parsed on the host and called by the same model;
 5. the host paths around the engine: ``serve --once`` in a fresh process
    over a watched directory (phase 4's sparse TSV, a 32,768-row dense TSV
-   and its .tsv.gz copy, a malformed .tsv, an .npz): each served output
-   byte-identical to the call_mods CLI's on the same file, the malformed
-   file marked .failed while the server goes on, the .npz left
-   unmarked, K1's bfloat16 kernel launched 5 times per forward tile in
+   and its .tsv.gz copy, a malformed .tsv, an .npz that is no feature
+   container): each served output byte-identical to the call_mods CLI's
+   on the same file, the malformed files marked .failed while the server
+   goes on, K1's bfloat16 kernel launched 5 times per forward tile in
    the serving process; per request its sites/s beside the CLI's cold
    time; then ``call_freq`` in this process on a seeded 2,000,000-row
    call file (~250,000 sites of A. thaliana's 7 contigs) plus the served
@@ -89,7 +89,22 @@ Phases, in order; any failure exits non-zero before the last line:
    to the TSV plane's; against the plain version within the phase 4
    gate); ``serve --once`` over one run-folder of those 64 reads (bytes
    = the CLI's, a .done marker);
-7. a ``{"kernels": [...]}`` line, the card line, and last
+7. the .npz planes, on the first 256 of those reads (~80k sites; bf16,
+   float16 wire unless stated): ``extract --w_format npz|npz_wire|
+   npz_packed`` (and TSV) at --nproc 4, rows/s each; ``call_mods`` on the
+   TSV and on each directory (v1 per-site, v2 repacked, v3 packed), in
+   one process: 5 launches of K1's bfloat16 kernel per forward tile,
+   rows equal, sorted, to the TSV plane's, sites/s and wire bytes per
+   site; ``--transfer_dtype int8`` on v3 and on the TSV (bytes per site
+   against float16, agreement with float16 reported: random weights, no
+   gate); ``--device_resident always`` on the TSV and on v3 (bytes = the
+   streaming plane's, segments, the forward's device time); float32 on
+   v3, kernel against plain within the phase 4 gate; ``--profile_dir`` on
+   one v3 file (the Chrome trace names K1's kernel and the engine's
+   stages); ``serve --once`` over one dropped v3 .npz (bytes = the CLI's,
+   a .done marker); one epoch of ``train`` on the v1 directory (5
+   launches of K3, K4 and dW_hh per step);
+8. a ``{"kernels": [...]}`` line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Without a card, or
@@ -214,7 +229,8 @@ K2_LOGIT_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 # phase 5, serve: the watched directory holds phase 4's sparse TSV, one
 # dense TSV of this many rows (call_mods_ab.write_dense_features), its
-# .tsv.gz copy, one malformed .tsv and one .npz (left unpicked)
+# .tsv.gz copy, one malformed .tsv and one .npz that is no feature
+# container (both marked .failed)
 SERVE_DENSE_ROWS = 32_768
 # phase 5, call_freq: a plant sample's call_mods output holds tens of
 # millions of rows; this one FREQ_ROWS rows over ~FREQ_SITES sites of A.
@@ -243,12 +259,18 @@ FAST5_READ_LEN = 5_000
 FAST5_MAX_EVENT = 21          # event lengths 3-20 (integers below this)
 # the float32 comparison and the served run-folder use the first reads
 FAST5_SUB_READS = 64
+# phase 7, the .npz planes: the first NPZ_READS reads of phase 6's run
+# (~80k sites), extracted into each container at --nproc 4; the fast5
+# batches of extract's default size (30 reads) give 9 files
+NPZ_READS = 256
+NPZ_FORMATS = {"npz": 0, "npz_wire": 2, "npz_packed": 3}
 # the [stages] fields of call_mods that say where its time goes
 STAGE_FIELDS = ("batches", "packed_batches", "packed_sites",
                 "persite_batches", "persite_sites", "bases_uploaded",
                 "wire_bytes", "parse_seconds",
                 "parse_wait_seconds", "batch_seconds", "device_seconds",
-                "format_seconds", "upload_device_seconds", "seconds")
+                "format_seconds", "upload_device_seconds",
+                "forward_device_seconds", "seconds")
 
 
 def fail(msg: str) -> None:
@@ -1542,9 +1564,10 @@ def check_serve(tmp: str, ckpt: str, main_run: dict, ab) -> dict:
     byte, the call_mods CLI's output on the same file (phase 4's for the
     sparse TSV; one CLI run each for the dense TSV and its .tsv.gz copy);
     the malformed file must get a .failed marker while the server goes
-    on; the .npz must be left without a marker; and K1's bfloat16 kernel
-    must launch 5 times per forward tile of the three files in the
-    serving process, and no other kernel."""
+    on; the .npz, which is no feature container, must get a .failed
+    marker too; and K1's bfloat16 kernel must launch 5 times per forward
+    tile of the three files in the serving process, and no other
+    kernel."""
     watch, res = (os.path.join(tmp, d) for d in ("watch", "served"))
     os.makedirs(watch)
     shutil.copy(os.path.join(tmp, "features.tsv"), watch)
@@ -1578,8 +1601,10 @@ def check_serve(tmp: str, ckpt: str, main_run: dict, ab) -> dict:
     if not os.path.exists(os.path.join(res, "bad.tsv.failed")) or \
             os.path.exists(os.path.join(res, "bad.tsv.call_mods.tsv")):
         fail("the malformed input did not get a .failed marker alone")
-    if any(f.startswith("batch.npz") for f in os.listdir(res)):
-        fail("serve marked or called the .npz input")
+    if not os.path.exists(os.path.join(res, "batch.npz.failed")) or \
+            os.path.exists(os.path.join(res, "batch.npz.call_mods.tsv")):
+        fail("the .npz that is no feature container did not get a "
+             ".failed marker alone")
     tiles = sum(c["forward_tiles"] for c, _ in cold.values())
     want = {k: 0 for k in st["kernel_launches"]}
     want["fused_bilstm_bf16"] = 5 * tiles
@@ -1597,7 +1622,8 @@ def check_serve(tmp: str, ckpt: str, main_run: dict, ab) -> dict:
     log(f"serve: engine up in {st['engine_seconds']:.3f} s; process "
         f"{st['wall_seconds']:.3f} s for 3 requests and 2 polls 0.2 s "
         f"apart; K1 bf16 launches {want['fused_bilstm_bf16']} = 5 x "
-        f"{tiles} tiles; bad.tsv .failed, batch.npz left unmarked")
+        f"{tiles} tiles; bad.tsv and batch.npz (no feature container) "
+        f".failed")
     return {"requests": served, "engine_seconds": st["engine_seconds"],
             "wall_seconds": st["wall_seconds"],
             "cold": {n: {k: c[k] for k in ("wall_seconds", "seconds",
@@ -1834,7 +1860,10 @@ def check_fast5(tmp: str, ckpt: str) -> dict:
     base = os.path.join(REPO, "build", "smoke_fast5")
     shutil.rmtree(base, ignore_errors=True)
     try:
-        return _check_fast5(fast5, base, tmp, ckpt)
+        out = _check_fast5(fast5, base, tmp, ckpt)
+        # phase 7 on the first NPZ_READS of the same reads
+        out["npz"] = check_npz(base, tmp, ckpt)
+        return out
     finally:
         shutil.rmtree(base, ignore_errors=True)
 
@@ -1977,6 +2006,313 @@ def _check_fast5(fast5, base: str, tmp: str, ckpt: str) -> dict:
                         "launches": k_f5["kernel_launches"]},
             "serve": {"request": req[0], "wall_seconds": st["wall_seconds"],
                       "engine_seconds": st["engine_seconds"]}}
+
+
+def run_cli_many(runs: list) -> list:
+    """Several ``python -m deepsignal_plant_tpu_torch`` invocations, each
+    with --verbose_stages, in turn in ONE fresh process (one CUDA start
+    and one model load pattern for all: the first run carries CUDA's
+    first use). Returns each run's [stages] counters (their launch
+    counts are that run's own) plus its wall seconds and output lines."""
+    code = ("import json, sys, time\n"
+            "from deepsignal_plant_tpu_torch import cli\n"
+            "for argv in json.loads(sys.argv[1]):\n"
+            "    print('[run] ' + json.dumps(argv), flush=True)\n"
+            "    t = time.time()\n"
+            "    cli.main(argv + ['--verbose_stages'])\n"
+            "    print('[run_seconds] %r' % (time.time() - t), flush=True)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code, json.dumps(runs)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=900)
+    if proc.returncode != 0:
+        fail("runs {} exited {}:\n{}\n{}".format(
+            [r[0] for r in runs], proc.returncode, proc.stdout[-4000:],
+            proc.stderr[-4000:]))
+    out = []
+    for part in proc.stdout.split("[run] ")[1:]:
+        lines = part.splitlines()
+        stages = [ln for ln in lines if ln.startswith("[stages] ")]
+        if len(stages) != 1:
+            fail("a run printed no [stages] line:\n" + part[-3000:])
+        st = json.loads(stages[0][len("[stages] "):])
+        st["wall_seconds"] = float(next(
+            ln for ln in lines if ln.startswith("[run_seconds] ")).split()[1])
+        st["lines"] = lines
+        out.append(st)
+    if len(out) != len(runs):
+        fail(f"{len(out)} of {len(runs)} runs reported")
+    return out
+
+
+def k1_only(st: dict, what: str) -> None:
+    """A bf16 call_mods run launched K1's bfloat16 kernel 5 times per
+    forward tile and nothing else."""
+    want = {k: 0 for k in st["kernel_launches"]}
+    want["fused_bilstm_bf16"] = 5 * st["forward_tiles"]
+    if st["kernel_launches"] != want or not st["forward_tiles"]:
+        fail(f"{what}: launched {st['kernel_launches']} for "
+             f"{st['forward_tiles']} forward tiles (expected {want})")
+
+
+def read_bytes(path: str) -> bytes:
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def check_npz(base: str, tmp: str, ckpt: str) -> dict:
+    """Phase 7: the .npz planes on the first NPZ_READS reads of phase 6
+    (bf16, float16 wire unless stated). ``extract`` into a TSV and into
+    each container (npz v1, npz_wire v2, npz_packed v3) at --nproc 4,
+    rows/s each; ``call_mods`` on the TSV and on each directory (K1 bf16
+    5 times per forward tile, rows equal, sorted, to the TSV plane's;
+    the engine's sites/s and wire bytes per site); --transfer_dtype int8
+    on the v3 directory and on the TSV (launches, bytes per site against
+    float16, agreement with float16 on random weights); --device_resident
+    always on the TSV and on v3 (bytes = the streaming plane's, sites/s,
+    segments, the forward's device time); float32 on v3, kernel against
+    plain within P1_TOL_F32 with no call flipped; --profile_dir on one v3
+    file (the trace names K1's kernel); ``serve --once`` over one dropped
+    v3 .npz (bytes = the CLI's, a .done marker); one epoch of ``train``
+    on the v1 directory (K3, K4 and dW_hh 5 times per step)."""
+    t_phase = time.time()
+    run = os.path.join(base, "run")
+    sub = os.path.join(base, "npz_reads")
+    os.makedirs(sub)
+    for f in sorted(os.listdir(run))[:NPZ_READS]:
+        os.symlink(os.path.join(run, f), os.path.join(sub, f))
+    tsv = os.path.join(base, "npz_reads.tsv")
+    ext = {"tsv": run_extract("-i", sub, "-o", tsv, "--nproc", "4")}
+    with open(tsv, "rb") as fh:
+        n_rows = sum(chunk.count(b"\n") for chunk in
+                     iter(lambda: fh.read(8 << 20), b""))
+    dirs = {}
+    for fmt in NPZ_FORMATS:
+        dirs[fmt] = os.path.join(base, fmt)
+        ext[fmt] = run_extract("-i", sub, "-o", dirs[fmt], "--nproc", "4",
+                               "--w_format", fmt)
+        files = sorted(os.listdir(dirs[fmt]))
+        if not files or not all(f.endswith(".npz") for f in files):
+            fail(f"extract --w_format {fmt} wrote {files}")
+        ext[fmt]["files"] = len(files)
+        ext[fmt]["mb"] = sum(os.path.getsize(os.path.join(dirs[fmt], f))
+                             for f in files) / 1e6
+    ext["tsv"]["mb"] = os.path.getsize(tsv) / 1e6
+    for k, e in ext.items():
+        e["rows_per_s"] = n_rows / e["seconds"]
+        log(f"extract --w_format {k} --nproc 4 on {NPZ_READS} reads: "
+            f"{n_rows} rows in {e['seconds']:.2f} s ({e['rows_per_s']:.1f} "
+            f"rows/s; process {e['wall_seconds']:.1f} s), "
+            f"{e['mb']:.1f} MB" + (f" in {e['files']} files"
+                                   if "files" in e else ""))
+
+    out = {k: os.path.join(tmp, f"npz_{k}.calls.tsv") for k in (
+        "warm", "tsv", *NPZ_FORMATS, "i8_v3", "i8_tsv", "res_tsv", "res_v3",
+        "f32k", "f32p", "prof")}
+    v3_file = os.path.join(dirs["npz_packed"],
+                           sorted(os.listdir(dirs["npz_packed"]))[0])
+    prof_dir = os.path.join(tmp, "npz_prof")
+    f32 = ["--compute_dtype", "float32", "--transfer_dtype", "float32"]
+    # "warm" first: the process's first run carries CUDA's first use
+    plan = [("warm", v3_file, []), ("tsv", tsv, []),
+            ("npz", dirs["npz"], []), ("npz_wire", dirs["npz_wire"], []),
+            ("npz_packed", dirs["npz_packed"], []),
+            ("i8_v3", dirs["npz_packed"], ["--transfer_dtype", "int8"]),
+            ("i8_tsv", tsv, ["--transfer_dtype", "int8"]),
+            ("res_tsv", tsv, ["--device_resident", "always"]),
+            ("res_v3", dirs["npz_packed"], ["--device_resident", "always"]),
+            ("f32k", dirs["npz_packed"], f32 + ["--recurrence", "kernel"]),
+            ("f32p", dirs["npz_packed"], f32 + ["--recurrence", "scan"]),
+            ("prof", v3_file, ["--profile_dir", prof_dir])]
+    res = dict(zip([k for k, _, _ in plan], run_cli_many(
+        [["call_mods", "-i", inp, "-m", ckpt, "-o", out[k], *extra]
+         for k, inp, extra in plan])))
+    want = sorted_rows(out["tsv"])
+    if len(want) != n_rows:
+        fail(f"call_mods on the TSV wrote {len(want)} rows for {n_rows}")
+    for k in ("tsv", *NPZ_FORMATS, "i8_v3", "i8_tsv", "res_tsv", "res_v3",
+              "prof"):
+        k1_only(res[k], f"call_mods {k}")
+    planes = {}
+    for k in ("tsv", *NPZ_FORMATS):
+        st = res[k]
+        if sorted_rows(out[k]) != want:
+            fail(f"call_mods on {k} wrote rows that differ from the TSV "
+                 f"plane's")
+        if k != "tsv" and st["npz_version"] != NPZ_FORMATS[k]:
+            fail(f"call_mods on {k} read container v{st['npz_version']}")
+        planes[k] = {"sites": st["sites"], "sites_per_s": st["sites_per_s"],
+                     "seconds": st["seconds"],
+                     "wire_bytes_per_site": st["wire_bytes"] / st["sites"],
+                     "forward_tiles": st["forward_tiles"],
+                     "k1_bf16_launches":
+                         st["kernel_launches"]["fused_bilstm_bf16"],
+                     "route": ("per-site" if st["persite_sites"]
+                               else "packed"),
+                     **{f: st[f] for f in STAGE_FIELDS}}
+        log(f"call_mods on {k} ({st['sites']} sites): "
+            f"{st['sites_per_s']:.1f} sites/s in the engine "
+            f"({st['seconds']:.3f} s; in-process run "
+            f"{st['wall_seconds']:.2f} s), "
+            f"{planes[k]['wire_bytes_per_site']:.1f} wire bytes a site on "
+            f"the {planes[k]['route']} route, K1 bf16 "
+            f"{planes[k]['k1_bf16_launches']} = 5 x {st['forward_tiles']} "
+            f"tiles; rows equal, sorted, to the TSV plane's")
+
+    # int8 against float16 (random weights: reported, not gated)
+    int8 = {}
+    for k, ref in (("i8_v3", "npz_packed"), ("i8_tsv", "tsv")):
+        st, rows = res[k], sorted_rows(out[k])
+        got = [r.split(b"\t") for r in rows]
+        base_rows = [r.split(b"\t") for r in sorted_rows(out[ref])]
+        if [g[:6] + g[9:] for g in got] != \
+                [b[:6] + b[9:] for b in base_rows]:
+            fail(f"int8 run {k} wrote other sites than the float16 run")
+        p8 = np.array([float(g[7]) for g in got])
+        p16 = np.array([float(b[7]) for b in base_rows])
+        if not np.isfinite(p8).all() or (p8 < 0).any() or (p8 > 1).any():
+            fail(f"int8 run {k}: probabilities outside [0, 1]")
+        int8[k] = {"sites": st["sites"], "sites_per_s": st["sites_per_s"],
+                   "wire_bytes_per_site": st["wire_bytes"] / st["sites"],
+                   "float16_wire_bytes_per_site":
+                       planes[ref]["wire_bytes_per_site"],
+                   "agreement": float(np.mean([g[8] == b[8] for g, b in
+                                               zip(got, base_rows)])),
+                   "max_dp1": float(np.abs(p8 - p16).max()),
+                   "k1_bf16_launches":
+                       st["kernel_launches"]["fused_bilstm_bf16"]}
+        log(f"int8 on {ref}: {st['sites_per_s']:.1f} sites/s, "
+            f"{int8[k]['wire_bytes_per_site']:.1f} wire bytes a site "
+            f"(float16 {int8[k]['float16_wire_bytes_per_site']:.1f}); "
+            f"against float16 agreement {int8[k]['agreement']:.6f}, max "
+            f"|dP1| {int8[k]['max_dp1']:.3g} (random weights: P1 ~ 0.5, no "
+            f"gate; the trained fixture is the int8 gate)")
+
+    # resident against streaming
+    resident = {}
+    for k, ref in (("res_tsv", "tsv"), ("res_v3", "npz_packed")):
+        st = res[k]
+        if read_bytes(out[k]) != read_bytes(out[ref]):
+            fail(f"--device_resident always on {ref} wrote other bytes "
+                 f"than the streaming plane")
+        fwd = st["forward_device_seconds"]
+        resident[k] = {"sites": st["sites"],
+                       "sites_per_s": st["sites_per_s"],
+                       "segments": st["resident_segments"],
+                       "k_chunks": st["resident_k_chunks"],
+                       "forward_device_seconds": fwd,
+                       "compute_window_sites_per_s": st["sites"] / fwd,
+                       "upload_device_seconds": st["upload_device_seconds"],
+                       "streaming_sites_per_s": planes[ref]["sites_per_s"],
+                       "streaming_forward_device_seconds":
+                           planes[ref]["forward_device_seconds"]}
+        log(f"--device_resident always on {ref}: bytes = the streaming "
+            f"plane's; {st['sites_per_s']:.1f} sites/s (streaming "
+            f"{planes[ref]['sites_per_s']:.1f}); {st['resident_segments']} "
+            f"segment(s) of up to {st['resident_k_chunks']} batches; "
+            f"forward {fwd:.4f} s of device time "
+            f"({st['sites'] / fwd:.1f} sites/s compute window), upload "
+            f"{st['upload_device_seconds']:.4f} s")
+
+    # float32 on v3: kernel against plain
+    k_st, p_st = res["f32k"], res["f32p"]
+    if any(p_st["kernel_launches"].values()):
+        fail("the plain float32 v3 run launched a kernel")
+    if f32_layers(k_st) != 5 * k_st["forward_tiles"] or \
+            k_st["kernel_launches"]["fused_bilstm_bf16"]:
+        fail(f"the float32 v3 run launched {k_st['kernel_launches']} for "
+             f"{k_st['forward_tiles']} forward tiles")
+    k_rows = [r.split(b"\t") for r in read_bytes(out["f32k"]).splitlines()]
+    p_rows = [r.split(b"\t") for r in read_bytes(out["f32p"]).splitlines()]
+    if len(k_rows) != n_rows or len(p_rows) != n_rows:
+        fail("the float32 v3 runs did not call every site")
+    for a, b in zip(k_rows, p_rows):
+        if a[:6] != b[:6] or a[9] != b[9]:
+            fail(f"float32 v3 kernel and plain rows differ: {a} {b}")
+    flips = int(sum(a[8] != b[8] for a, b in zip(k_rows, p_rows)))
+    dp = max(abs(float(a[7]) - float(b[7])) for a, b in zip(k_rows, p_rows))
+    if flips or dp > P1_TOL_F32:
+        fail(f"float32 v3 kernel vs plain: {flips} call differences, "
+             f"max|dP1| {dp:.3g} (bound {P1_TOL_F32:g})")
+    log(f"float32 on v3 ({k_st['sites']} sites): kernel vs plain 0 call "
+        f"differences, max|dP1| = {dp:.3g} (bound {P1_TOL_F32:g}); K1 "
+        f"float32 layers {f32_layers(k_st)} = 5 x {k_st['forward_tiles']} "
+        f"tiles")
+
+    # --profile_dir: the trace names K1's kernel
+    traces = [f for f in os.listdir(prof_dir) if f.endswith(".trace.json")]
+    if len(traces) != 1:
+        fail(f"--profile_dir wrote {traces}")
+    with open(os.path.join(prof_dir, traces[0])) as fh:
+        trace = json.load(fh)
+    names = {e.get("name", "") for e in trace["traceEvents"]}
+    k1 = sorted(n for n in names if "fused_bilstm_bf16_kernel" in n)
+    stages = sorted(n for n in names if n in (
+        "upload", "forward", "readback", "emit"))
+    if not k1 or len(stages) != 4:
+        fail(f"the trace names no K1 kernel or misses stages: {k1} "
+             f"{stages}")
+    log(f"--profile_dir: {traces[0]} "
+        f"({os.path.getsize(os.path.join(prof_dir, traces[0])) / 1e6:.1f} "
+        f"MB, {len(trace['traceEvents'])} events) names {k1[0][:60]} and "
+        f"the stages {stages}")
+
+    # serve --once over one dropped v3 .npz
+    watch, served = (os.path.join(base, d) for d in ("npz_watch",
+                                                     "npz_served"))
+    os.makedirs(watch)
+    shutil.copy(v3_file, os.path.join(watch, "drop.npz"))
+    cli_drop = run_cli_many([["call_mods", "-i",
+                              os.path.join(watch, "drop.npz"), "-m", ckpt,
+                              "-o", os.path.join(tmp, "drop_cli.tsv")]])[0]
+    st = run_cli("serve", "--watch_dir", watch, "--result_dir", served,
+                 "--model_path", ckpt, "--once", "--poll_s", "0.2")
+    if read_bytes(os.path.join(served, "drop.npz.call_mods.tsv")) != \
+            read_bytes(os.path.join(tmp, "drop_cli.tsv")):
+        fail("the served calls of the .npz drop differ from the CLI's")
+    if not os.path.exists(os.path.join(served, "drop.npz.done")):
+        fail("serve left the .npz drop without a .done marker")
+    k1_only(st, "serve over the .npz drop")
+    req = st["requests"]
+    log(f"serve --once over one v3 .npz drop: {req[0]['sites']} sites in "
+        f"{req[0]['seconds']:.3f} s ({req[0]['sites_per_s']:.1f} sites/s), "
+        f"bytes = the call_mods CLI's ({cli_drop['seconds']:.3f} s in its "
+        f"engine), .done written")
+
+    # one epoch of train on the v1 directory
+    tr = run_cli("train", "--train_file", dirs["npz"], "--valid_file",
+                 dirs["npz"], "--model_dir", os.path.join(tmp, "npz_model"),
+                 "--max_epoch_num", "1", "--min_epoch_num", "1",
+                 "--step_interval", "100000")
+    steps = -(-n_rows // TRAIN_B)
+    kl = tr["kernel_launches"]
+    want_kl = {k: 0 for k in kl}
+    want_kl.update({"lstm_recurrence_fwd_save": 5 * steps,
+                    "lstm_recurrence_bwd": 5 * steps,
+                    "lstm_dw_hh": 5 * steps,
+                    "fused_bilstm_bf16": 5 * tr["eval_tiles"]})
+    if tr["steps"] != steps or kl != want_kl or \
+            not np.isfinite(tr["step_losses"]).all():
+        fail(f"train on the v1 directory: {tr['steps']} steps, launched "
+             f"{kl} (expected {steps} steps, {want_kl})")
+    log(f"train, one epoch on the v1 .npz directory ({n_rows} rows, "
+        f"{tr['plane']} plane): {steps} steps, K3 "
+        f"{kl['lstm_recurrence_fwd_save']}, K4 {kl['lstm_recurrence_bwd']}, "
+        f"dW_hh {kl['lstm_dw_hh']} = 5 per step; "
+        f"{tr['samples_per_s']:.1f} samples/s; read "
+        f"{tr['read_seconds']:.2f} s")
+    seconds = time.time() - t_phase
+    log(f"phase 7 took {seconds:.1f} s")
+    return {"reads": NPZ_READS, "rows": n_rows, "extract": ext,
+            "call_mods": planes, "int8": int8, "resident": resident,
+            "float32": {"sites": k_st["sites"], "max_dp1": dp,
+                        "launches": k_st["kernel_launches"]},
+            "serve": {"request": req[0],
+                      "wall_seconds": st["wall_seconds"]},
+            "train": {"steps": steps, "launches": kl,
+                      "plane": tr["plane"],
+                      "samples_per_s": tr["samples_per_s"]},
+            "seconds": seconds}
 
 
 def k1_f32_parts(timings, errs, checked, launched) -> list:
@@ -2146,8 +2482,10 @@ def main() -> int:
         # phase 5: serve in a fresh process, call_freq in this one
         serve = check_serve(tmp, run["ckpt"], run, ab)
         freq = check_call_freq(torch, cli, tmp, serve["outputs"])
-        # phase 6: extract, call_mods and serve on fast5 runs
+        # phase 6: extract, call_mods and serve on fast5 runs; phase 7:
+        # the .npz planes on 256 of its reads
         fast5_run = check_fast5(tmp, run["ckpt"])
+        npz_run = fast5_run.pop("npz")
     flops = forward_flops_per_site(ModelConfig())
     for what, st in (("sparse fixture", run["stages"]),
                      ("dense rate run", {**run["rate"]["stats"],
@@ -2235,6 +2573,7 @@ def main() -> int:
         {"serve": {k: v for k, v in serve.items() if k != "outputs"},
          "call_freq": freq}))
     log("fast5 summary on " + smi + ": " + json.dumps(fast5_run))
+    log(".npz planes summary on " + smi + ": " + json.dumps(npz_run))
     log(f"train: {trained['samples_per_s_last_epoch']:.1f} samples/s in "
         f"the last epoch ({trained['ms_per_step_last_epoch']:.2f} ms per "
         f"{TRAIN_B}-row step with its evaluations excluded) on {smi}")

@@ -1,14 +1,14 @@
 """deepsignal_plant_tpu_torch CLI (counterpart of
 deepsignal_plant_tpu/cli.py:20-60, :187-352 and :390-392).
 
-Ported so far: ``extract``, ``call_mods`` and ``serve`` on features TSVs
-and fast5 directories, ``train`` on features TSVs, ``call_freq`` and the
-``tools`` set. They take the JAX package's flags with their defaults,
-plus ``--device`` (and ``--verbose_stages`` where a run has counters to
-print). Flags of planes that are not ported yet fail with a clear error
-when set away from their default (``_refuse_unported`` in
-pipeline/call_mods.py, serve.py, train.py and call_freq.py; extract's
-``--w_format npz*``).
+Ported so far: ``extract`` (TSV and the .npz containers), ``call_mods``
+and ``serve`` on features TSVs, .npz feature batches and fast5
+directories, ``train`` on features TSVs and v1 .npz batches,
+``call_freq`` and the ``tools`` set. They take the JAX package's flags
+with their defaults, plus ``--device`` (and ``--verbose_stages`` where a
+run has counters to print). Flags of planes that are not ported yet fail
+with a clear error when set away from their default
+(``_refuse_unported`` in pipeline/train.py and call_freq.py).
 """
 from __future__ import annotations
 
@@ -166,8 +166,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--w_batch_num", type=int, default=200)
     p.add_argument("--w_format", type=str, default="tsv",
                    choices=["tsv", "npz", "npz_wire", "npz_packed"],
-                   help="tsv: reference-compatible text; the npz formats "
-                        "are not yet ported")
+                   help="tsv: reference-compatible text; npz: one v1 .npz "
+                        "per fast5 batch (float32 arrays; training, tools, "
+                        "call_mods); npz_wire: v2 (the float16 wire per "
+                        "site); npz_packed: v3 (the read-packed float16 "
+                        "wire, call_mods' fastest input). The npz formats "
+                        "write a directory")
     p.add_argument("--gzip", action="store_true", default=False)
     p.add_argument("--nproc", "-p", type=int, default=4)
     p.add_argument("--f5_batch_size", type=int, default=30)
@@ -179,8 +183,9 @@ def build_parser() -> argparse.ArgumentParser:
     # ---- call_mods ----
     p = subparsers.add_parser("call_mods", description="call modifications")
     p.add_argument("--input_path", "-i", type=str, required=True,
-                   help="features TSV (plain or .gz) from extract, or a "
-                        "fast5 directory")
+                   help="features TSV (plain or .gz) from extract, an "
+                        ".npz feature batch or a directory of them (one "
+                        "container version), or a fast5 directory")
     p.add_argument("--f5_batch_size", type=int, default=30)
     p.add_argument("--model_path", "-m", type=str, required=True,
                    help=".ckpt (torch) or .ckpt.npz (native) checkpoint")
@@ -196,7 +201,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "float32", "float16", "int8"],
                    help="host->device wire format: auto = float16 (cast "
                         "on the host, upcast on the device); float32 for "
-                        "exact-parity runs; int8 is not yet ported")
+                        "exact-parity runs; int8: means, stds and signals "
+                        "quantized per batch and field (dequantized on "
+                        "the device)")
     p.add_argument("--parse_workers", type=int, default=None,
                    help="native parser threads (default: the CPU count, "
                         "2 to 4)")
@@ -215,7 +222,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "than per-site windows on sparse input")
     p.add_argument("--device_resident", type=str, default="never",
                    choices=["never", "always"],
-                   help="always (one upload per segment) is not yet ported")
+                   help="always: upload segments of up to 32 device "
+                        "batches once each, run their forwards from the "
+                        "device and read each segment's probabilities "
+                        "back once (TSV, v2 and v3 .npz inputs; v1 "
+                        "raises)")
     p.add_argument("--result_file", "-o", type=str, required=True)
     p.add_argument("--gzip", action="store_true", default=False)
     _add_f5_args(p)
@@ -223,7 +234,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--nproc_gpu", type=int, default=2,
                    help="accepted for reference CLI compatibility (unused)")
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="device trace directory (not yet ported)")
+                   help="write a torch.profiler trace of the run (Chrome "
+                        "trace JSON) into this directory")
     p.set_defaults(func=main_call_mods)
 
     # ---- serve (watch-directory call_mods; not in the reference) ----
@@ -231,13 +243,12 @@ def build_parser() -> argparse.ArgumentParser:
         "serve",
         description="long-running call_mods over a watched directory: one "
                     "warm engine (checkpoint, kernels and CUDA brought up "
-                    "once) calls each feature file (.tsv/.tsv.gz) as it "
-                    "lands; outputs + .done/.failed markers land in "
+                    "once) calls each feature file (.tsv/.npz/.tsv.gz) as "
+                    "it lands; outputs + .done/.failed markers land in "
                     "--result_dir; stable-size pickup, at-most-once "
                     "semantics across restarts, graceful SIGTERM; a "
                     "directory holding fast5s is a run-folder, called "
-                    "through the fused fast5 path. .npz files are not "
-                    "yet ported and are left unpicked, without a marker")
+                    "through the fused fast5 path")
     p.add_argument("--watch_dir", "-i", type=str, required=True)
     p.add_argument("--result_dir", "-o", type=str, required=True)
     p.add_argument("--model_path", "-m", type=str, required=True)
@@ -259,8 +270,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--transfer_dtype", type=str, default="auto",
                    choices=["auto", "float32", "float16", "int8"],
                    help="host->device wire format: auto = float16; "
-                        "float32 for exact-parity runs; int8 is not yet "
-                        "ported")
+                        "float32 for exact-parity runs; int8 quantized "
+                        "per batch and field")
     p.add_argument("--parse_workers", type=int, default=None,
                    help="native parser threads (default: the CPU count, "
                         "2 to 4)")
@@ -307,7 +318,8 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = subparsers.add_parser("train", description="train a model")
     p.add_argument("--train_file", type=str, required=True,
-                   help="features TSV (plain or .gz) with labels")
+                   help="features TSV (plain or .gz) with labels, or a v1 "
+                        ".npz batch or directory of them")
     p.add_argument("--valid_file", type=str, required=True)
     p.add_argument("--model_dir", type=str, required=True)
     # auto = bf16 mixed precision on the card: float32 master parameters

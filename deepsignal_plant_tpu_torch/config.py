@@ -94,23 +94,29 @@ def resolve_recurrence(choice: str) -> str:
 
 @dataclass(frozen=True)
 class CallConfig:
-    """Inference-engine settings of the features-TSV plane."""
+    """Inference-engine settings of call_mods and serve."""
     # sites parsed, uploaded and called per step; the forward itself runs
     # in COMPUTE_TILE-wide tiles (pipeline/call_mods.py::forward_tiled)
     device_batch: int = 32768
     # host->device wire: "float16" halves upload bytes (the model upcasts
-    # on the device); "float32" for exact-parity runs
+    # on the device); "float32" for exact-parity runs; "int8" quantizes
+    # means, stds and signals per batch and field (dequantized on the
+    # device)
     transfer_dtype: str = "float16"
     # accepted for JAX CLI compatibility: the float16 plane always ships
     # the read-packed wire (pipeline/call_mods.py says why)
     packed_wire: str = "auto"
     # parser threads; None = io.batching.default_parse_workers()
     num_parse_workers: int | None = None
+    # "always": upload segments of up to 32 device batches once each and
+    # read their probabilities back once (pipeline/call_mods.py)
+    device_resident: str = "never"
 
     def __post_init__(self):
-        if self.transfer_dtype not in ("float32", "float16"):
-            raise ValueError("transfer_dtype must be float32|float16 "
-                             "(int8 is not yet ported)")
+        if self.transfer_dtype not in ("float32", "float16", "int8"):
+            raise ValueError("transfer_dtype must be float32|float16|int8")
+        if self.device_resident not in ("never", "always"):
+            raise ValueError("device_resident must be never|always")
         if self.packed_wire not in ("auto", "force", "off"):
             raise ValueError("packed_wire must be auto|force|off")
         if self.device_batch < 1:

@@ -1,5 +1,6 @@
 """Host-side feed (copy of deepsignal_plant_tpu/io/batching.py:41-60,
-:117-122, :163-367): stream newline-aligned byte blocks, parse ahead of the device in worker threads (the native parser
+:117-143, :163-367): stream newline-aligned byte blocks (or load v1 .npz
+batches), parse ahead of the device in worker threads (the native parser
 releases the GIL), re-chunk parsed blocks into device batches, and write
 output rows on a background thread.
 
@@ -22,7 +23,8 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 
 from ..utils.fastparse import parse_feature_bytes
-from ..utils.formats import FeatureBatch, gzip_path
+from ..utils.formats import (FeatureBatch, feature_npz_paths, gzip_path,
+                             load_feature_npz)
 
 _SENTINEL = object()
 
@@ -151,14 +153,21 @@ def batches_from_features_file(path: str, device_batch: int,
                                parse_workers: int | None = None,
                                out_dtype: str = "float32",
                                ) -> Iterator[FeatureBatch]:
-    """Parse a features TSV natively in ``parse_workers`` threads into
-    FeatureBatches of exactly ``device_batch`` rows, the last one ragged
-    (not padded)."""
+    """Parse a features TSV natively in ``parse_workers`` threads, or
+    load v1 .npz batches (``path`` an .npz file or a directory of them;
+    float32 whatever ``out_dtype`` asks, as in JAX), into FeatureBatches
+    of exactly ``device_batch`` rows, the last one ragged (not
+    padded)."""
     w = parse_workers or default_parse_workers()
-    blocks = bounded_thread_map(
-        lambda raw: parse_feature_bytes(raw, kmer_len, signal_len,
-                                        out_dtype=out_dtype),
-        iter_byte_blocks(path, 4 << 20), workers=w, depth=2 * w)
+    npz_files = feature_npz_paths(path)
+    if npz_files is not None:
+        blocks = bounded_thread_map(load_feature_npz, npz_files,
+                                    workers=w, depth=2 * w)
+    else:
+        blocks = bounded_thread_map(
+            lambda raw: parse_feature_bytes(raw, kmer_len, signal_len,
+                                            out_dtype=out_dtype),
+            iter_byte_blocks(path, 4 << 20), workers=w, depth=2 * w)
     asm = BatchAssembler(device_batch)
     try:
         for fb in blocks:

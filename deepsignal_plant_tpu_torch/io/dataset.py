@@ -1,16 +1,17 @@
-"""Training dataset: a features TSV parsed once into dense host arrays
-(counterpart of deepsignal_plant_tpu/io/dataset.py:23-97).
+"""Training dataset: a features TSV, or v1 .npz feature batches, read
+once into dense host arrays (counterpart of
+deepsignal_plant_tpu/io/dataset.py:23-97).
 
-The file is parsed a single time by the native parser at float32
+A TSV is parsed a single time by the native parser at float32
 (utils/fastparse.parse_feature_bytes, the same arrays as the plain
-utils/formats.parse_feature_lines; labels are column 12); epochs are
-permutations of an index vector and batches are gathers. npz feature
-inputs and the streaming (block-shuffled) dataset of the JAX package are
-not ported yet.
+utils/formats.parse_feature_lines; labels are column 12); an .npz file
+or a directory of them loads through utils/formats.load_feature_npz
+(v1 only: a wire container raises). Epochs are permutations of an index
+vector and batches are gathers. The streaming (block-shuffled) dataset
+of the JAX package is not ported yet.
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -18,6 +19,7 @@ import numpy as np
 
 from ..models.bilstm import Batch
 from ..utils.fastparse import parse_feature_bytes
+from ..utils.formats import feature_npz_paths, load_feature_npz
 from .batching import iter_byte_blocks
 
 
@@ -42,16 +44,15 @@ class FeatureDataset:
     @classmethod
     def from_file(cls, path: str, kmer_len: int = 13, signal_len: int = 16,
                   block_bytes: int = 64 << 20) -> "FeatureDataset":
-        """Parse a features TSV (plain or .gz) into one dataset."""
-        if path.endswith(".npz") or os.path.isdir(path):
-            raise ValueError(
-                f"{path}: .npz feature inputs are not yet ported to "
-                "deepsignal_plant_tpu_torch (the JAX package "
-                "deepsignal_plant_tpu serves them)")
-        parts = [p for p in (parse_feature_bytes(block, kmer_len,
-                                                 signal_len)
-                             for block in iter_byte_blocks(path, block_bytes))
-                 if len(p)]
+        """Read a features TSV (plain or .gz), a v1 .npz file or a
+        directory of v1 .npz batches into one dataset."""
+        npz_files = feature_npz_paths(path)
+        if npz_files is not None:
+            parts = [load_feature_npz(f) for f in npz_files]
+        else:
+            parts = [parse_feature_bytes(block, kmer_len, signal_len)
+                     for block in iter_byte_blocks(path, block_bytes)]
+        parts = [p for p in parts if len(p)]
         if not parts:
             z = np.zeros
             return cls(z((0, kmer_len), np.int32),

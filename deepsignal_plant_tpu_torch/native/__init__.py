@@ -78,7 +78,11 @@ def _declare(lib: ctypes.CDLL) -> None:
             ("dsp_segment_stats_exact", i32,
              [f64p, i64p, i64p, i64, f64p, f64p]),
             ("dsp_rect_compat", i32,
-             [f64p, i64p, i64p, i64, i32, u32p, f64p])):
+             [f64p, i64p, i64p, i64, i32, u32p, f64p]),
+            ("dsp_quantize_i8_f16", ctypes.c_float, [u16p, i64, i8p]),
+            ("dsp_quantize_i8_f16_portable", ctypes.c_float,
+             [u16p, i64, i8p]),
+            ("dsp_quantize_i8_f32", ctypes.c_float, [f32p, i64, i8p])):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = restype, argtypes
 

@@ -30,6 +30,9 @@
 //     dsp_normalize_mad, dsp_segment_stats_exact, dsp_rect_compat and
 //     the CPython-compatible MT19937 sampler (dsp_mt_seed,
 //     dsp_mt_sample_sorted).
+//   dsp_quantize_i8_f16 / dsp_quantize_i8_f32(in, n, out) -> the dequant
+//     scale of a symmetric per-array int8 quantization (the int8 wire);
+//     dsp_quantize_i8_f16_portable: the f16 one without AVX-512.
 
 #include <algorithm>
 #include <cmath>
@@ -37,6 +40,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <immintrin.h>
 #include <string_view>
 #include <unordered_map>
 #include <vector>
@@ -1181,6 +1185,128 @@ int32_t dsp_rect_compat(const double* norm, const int64_t* starts,
         }
     }
     return 0;
+}
+
+}  // extern "C"
+
+
+// ---------------------------------------------------------------------------
+// int8 wire quantizers (JAX featparse.cpp:580-695)
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// Round-half-even without touching the FP environment: adding and
+// subtracting 1.5*2^23 forces the mantissa to integer granularity for
+// |x| <= 2^22 (quantized values are bounded by 127, far inside). Bit-exact
+// with np.rint on the same f32 operand.
+inline float round_even_f32(float x) {
+    const float magic = 12582912.0f;  // 1.5 * 2^23
+    float r = x + magic;
+    return r - magic;
+}
+
+// Symmetric per-array int8 quantization, bit-exact with numpy: amax
+// reduced in f32 (NaN propagating, as np.max), scale computed in f64 then
+// applied as f32, f32 division, round-half-even, clip to [-127, 127], NaN
+// to 0 (numpy's f32->int8 astype). Returns the dequant scale (amax/127,
+// or 1.0 for all-zero or empty input).
+template <typename T>
+float quantize_impl(const T* in, int64_t n, int8_t* out) {
+    float amax = 0.0f;
+    for (int64_t i = 0; i < n; ++i) {
+        float v = fabsf(float(in[i]));
+        if (v > amax || v != v) amax = v;
+    }
+    double sd = double(amax) / 127.0;
+    float s = (sd == 0.0) ? 1.0f : float(sd);
+    // division, not inverse-multiply: bit parity with numpy's a32/scale
+    for (int64_t i = 0; i < n; ++i) {
+        float r = round_even_f32(float(in[i]) / s);
+        if (r > 127.0f) r = 127.0f;
+        else if (r < -127.0f) r = -127.0f;
+        out[i] = (r != r) ? int8_t(0) : int8_t(r);
+    }
+    return s;
+}
+
+// The float16 hot path, hand-vectorized for AVX-512 and chosen at run
+// time (the library is built without -march=native, so one build serves
+// every x86-64 host): vcvtph2ps converts 16 halves an iteration, vdivps
+// keeps IEEE division, vroundscaleps rounds half-even, vpmovdb packs to
+// int8. The same bits as quantize_impl.
+__attribute__((target("avx512f,avx512bw")))
+float quantize_f16_avx512(const _Float16* in, int64_t n, int8_t* out) {
+    const __m512i abs_mask = _mm512_set1_epi32(0x7fffffff);
+    __m512 vmax = _mm512_setzero_ps();
+    __mmask16 any_nan = 0;   // vmaxps drops NaN lanes; track separately
+    int64_t i = 0;
+    for (; i + 16 <= n; i += 16) {
+        __m512 v = _mm512_cvtph_ps(
+            _mm256_loadu_si256((const __m256i*)(in + i)));
+        any_nan |= _mm512_cmp_ps_mask(v, v, _CMP_UNORD_Q);
+        // |v| by an integer AND (AVX-512F; _mm512_and_ps needs DQ)
+        vmax = _mm512_max_ps(vmax, _mm512_castsi512_ps(_mm512_and_si512(
+            _mm512_castps_si512(v), abs_mask)));
+    }
+    float amax = any_nan ? nanf("") : _mm512_reduce_max_ps(vmax);
+    for (; i < n; ++i) {
+        float v = fabsf(float(in[i]));
+        if (v > amax || v != v) amax = v;
+    }
+    double sd = double(amax) / 127.0;
+    float s = (sd == 0.0) ? 1.0f : float(sd);
+    const __m512 vs = _mm512_set1_ps(s);
+    const __m512 lo = _mm512_set1_ps(-127.0f);
+    const __m512 hi = _mm512_set1_ps(127.0f);
+    i = 0;
+    for (; i + 16 <= n; i += 16) {
+        __m512 v = _mm512_cvtph_ps(
+            _mm256_loadu_si256((const __m256i*)(in + i)));
+        __m512 r = _mm512_roundscale_ps(
+            _mm512_div_ps(v, vs),
+            _MM_FROUND_TO_NEAREST_INT | _MM_FROUND_NO_EXC);
+        // the bound as FIRST operand: vmaxps/vminps return the second
+        // source when either is NaN, so NaN survives the clamp and packs
+        // to 0 (0x80000000 truncated), as numpy's astype gives
+        r = _mm512_min_ps(hi, _mm512_max_ps(lo, r));
+        _mm_storeu_si128(
+            (__m128i*)(out + i),
+            _mm512_cvtepi32_epi8(_mm512_cvtps_epi32(r)));
+    }
+    for (; i < n; ++i) {
+        float r = round_even_f32(float(in[i]) / s);
+        if (r > 127.0f) r = 127.0f;
+        else if (r < -127.0f) r = -127.0f;
+        out[i] = (r != r) ? int8_t(0) : int8_t(r);
+    }
+    return s;
+}
+
+bool has_avx512bw() {
+    static const bool ok = __builtin_cpu_supports("avx512f") &&
+                           __builtin_cpu_supports("avx512bw");
+    return ok;
+}
+
+}  // namespace
+
+extern "C" {
+
+float dsp_quantize_i8_f16(const _Float16* in, int64_t n, int8_t* out) {
+    if (has_avx512bw()) return quantize_f16_avx512(in, n, out);
+    return quantize_impl(in, n, out);
+}
+
+float dsp_quantize_i8_f32(const float* in, int64_t n, int8_t* out) {
+    return quantize_impl(in, n, out);
+}
+
+// the portable loop of dsp_quantize_i8_f16, whatever the host has (the
+// tests hold both against the JAX library)
+float dsp_quantize_i8_f16_portable(const _Float16* in, int64_t n,
+                                   int8_t* out) {
+    return quantize_impl(in, n, out);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 """extract — per-site feature extraction from tombo-resquiggled fast5s
-(counterpart of deepsignal_plant_tpu/pipeline/extract.py:41-930), and
-the fused fast5 -> call_mods path (its :932-1205).
+into a features TSV or a directory of .npz feature batches (counterpart
+of deepsignal_plant_tpu/pipeline/extract.py:41-930), and the fused
+fast5 -> call_mods path (its :932-1205).
 
 Reference behavior (extract_features.py:277-378,589-651): per read,
 rescale + normalize the raw signal, rebuild the genome-aligned sequence and
@@ -23,10 +24,15 @@ this module and host modules: nothing here imports torch at import time.
 Arrays never cross the executor's result pipe (the JAX package measured
 it at ~15 MB/s): workers write part files and return counts. Output is
 joined in fast5-batch order, so its bytes do not depend on ``nproc`` or
-on which worker finishes first.
+on which worker finishes first. ``--w_format npz|npz_wire|npz_packed``
+writes one ``<batch index>.npz`` per fast5 batch (the v1, v2 and v3
+containers of utils/formats.py), so the files hold the same arrays at
+every ``nproc``; pooled workers save theirs through a dot-temp name and
+a rename, and a killed worker leaves no half-written ``.npz``.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import shutil
@@ -43,8 +49,9 @@ from ..io.fast5 import (MultiReadFast5Error, TomboRead, VBZPluginError,
 from ..utils.bases import seq_to_codes, str2bool
 from ..utils.fasta import get_contig2len
 from ..utils.fileio import get_fast5s
-from ..utils.formats import (FeatureBatch, gzip_path, load_packed_npz,
-                             save_packed_npz)
+from ..utils.formats import (FeatureBatch, gzip_path, load_feature_npz,
+                             load_packed_npz, save_feature_npz,
+                             save_packed_npz, save_wire_npz)
 from ..utils.motifs import (PositionIndex, expand_motifs,
                             motif_locs_in_codes, parse_region)
 
@@ -52,8 +59,9 @@ from ..utils.motifs import (PositionIndex, expand_motifs,
 # default the reference relies on (extract_features.py:183)
 _MAD_C = 0.6744897501960817
 
-#: output formats of the JAX extract that this package does not write yet
-UNPORTED_FORMATS = ("npz", "npz_wire", "npz_packed")
+#: --w_format -> the saver of its .npz container (utils/formats.py)
+NPZ_SAVERS = {"npz": save_feature_npz, "npz_wire": save_wire_npz,
+              "npz_packed": save_packed_npz}
 
 
 def normalize_signals(signals: np.ndarray, method: str = "mad") -> np.ndarray:
@@ -426,23 +434,6 @@ def features_to_packed(feats_list: list[dict]):
         np.concatenate(rect_l), np.concatenate(labels_l), kmer_len)
 
 
-def save_batch_npz(path, fb: FeatureBatch) -> None:
-    """A float32 FeatureBatch as a part file of the extraction pool (the
-    info columns as one newline-joined blob)."""
-    np.savez(path, info=np.frombuffer(
-        "\n".join(fb.sampleinfo).encode(), np.uint8), kmer=fb.kmer,
-        means=fb.base_means, stds=fb.base_stds, lens=fb.base_signal_lens,
-        signals=fb.signals, labels=fb.labels)
-
-
-def load_batch_npz(path) -> FeatureBatch:
-    with np.load(path, allow_pickle=False) as z:
-        info = z["info"].tobytes().decode()
-        return FeatureBatch(info.split("\n") if info else [], z["kmer"],
-                            z["means"], z["stds"], z["lens"], z["signals"],
-                            z["labels"])
-
-
 # ---------------------------------------------------------------------------
 # process-pool pipeline
 # ---------------------------------------------------------------------------
@@ -526,8 +517,8 @@ def _worker_block(paths: list[str], batch_idx: int = 0):
                              opts.signal_len), errors
 
 
-def part_path(part_dir: str, batch_idx: int, ext: str = ".part") -> str:
-    return os.path.join(part_dir, f"{batch_idx:06d}{ext}")
+def part_path(part_dir: str, batch_idx: int) -> str:
+    return os.path.join(part_dir, f"{batch_idx:06d}.part")
 
 
 def _worker_rows_part(paths: list[str], batch_idx: int = 0
@@ -549,20 +540,26 @@ def _worker_rows_part(paths: list[str], batch_idx: int = 0
     return len(rows), errors
 
 
-def _worker_block_part(paths: list[str], batch_idx: int = 0
+def npz_batch_path(write_dir: str, batch_idx: int) -> str:
+    return os.path.join(write_dir, f"{batch_idx:06d}.npz")
+
+
+def _worker_batch_save(paths: list[str], batch_idx: int = 0
                        ) -> tuple[int, int]:
-    """Pooled call_mods worker: extract one fast5 batch and save its
-    block as a part .npz (atomically: a worker killed mid-write leaves
-    no part), returning only (n_sites, n_errors)."""
-    (part_dir,) = _G_SINK
+    """The .npz worker (JAX extract.py:665-700) of ``extract --w_format
+    npz*`` and of the fused path's pool: extract one fast5 batch and
+    save its container under the batch's index, returning only
+    (n_sites, n_errors). The save goes through a dot-temp name that no
+    directory reader picks up (it does not end in .npz) and a rename, so
+    a worker killed mid-save leaves no truncated .npz."""
+    write_dir, out_format = _G_SINK
     blk, errors = _worker_block(paths, batch_idx)
     n = 0 if blk is None else (blk.n if _G_CTX.opts.rect_f16 else len(blk))
     if n:
-        tmp = part_path(part_dir, batch_idx, ".tmp")
+        tmp = os.path.join(write_dir, f".{batch_idx:06d}.npz.tmp")
         with open(tmp, "wb") as fh:
-            (save_packed_npz if _G_CTX.opts.rect_f16 else
-             save_batch_npz)(fh, blk)
-        os.replace(tmp, part_path(part_dir, batch_idx, ".npz"))
+            NPZ_SAVERS[out_format](fh, blk)
+        os.replace(tmp, npz_batch_path(write_dir, batch_idx))
     return n, errors
 
 
@@ -731,23 +728,46 @@ def extract_features(fast5_dir: str, is_recursive: bool,
                      w_batch_num: int = 200, is_gzip: bool = False,
                      seed: int | None = None,
                      out_format: str = "tsv") -> tuple[int, int]:
-    """Directory of fast5s -> features TSV (reference format). Returns
+    """Directory of fast5s -> features TSV (reference format), or a
+    directory of .npz feature batches (``out_format`` npz, npz_wire or
+    npz_packed: one ``<batch index>.npz`` per fast5 batch). Returns
     (n_fast5s, n_errors)."""
-    if out_format in UNPORTED_FORMATS:
-        raise ValueError(
-            f"--w_format {out_format} is not yet ported to "
-            "deepsignal_plant_tpu_torch (the JAX package "
-            "deepsignal_plant_tpu writes it)")
-    if out_format != "tsv":
+    if out_format != "tsv" and out_format not in NPZ_SAVERS:
         raise ValueError(f"unknown --w_format {out_format}")
     print("[main] extract_features starts..")
     t0 = time.time()
     if not os.path.isdir(fast5_dir):
         raise ValueError("--fast5_dir is not a directory!")
+    as_npz = out_format in NPZ_SAVERS
+    if as_npz:
+        if os.path.isfile(write_path):
+            raise FileExistsError(f"{write_path} exists as a file")
+        if out_format == "npz_packed":
+            # the packed wire is float16: the rect is assembled natively
+            # at that dtype (the same rounding)
+            ctx = dc_replace(ctx, opts=dc_replace(ctx.opts, rect_f16=True))
+        os.makedirs(write_path, exist_ok=True)
     fast5s, batches = _fast5_batches(fast5_dir, is_recursive, f5_batch_size)
     errors = 0
     nworkers = max(1, min(nproc, len(batches)))
-    if nworkers == 1:
+    if as_npz and nworkers == 1:
+        _init_worker(ctx, seed, (write_path, out_format))
+        for bi, b in enumerate(batches):
+            errors += _worker_batch_save(b, bi)[1]
+    elif as_npz:
+        results = _pool_results(batches, _worker_batch_save, nworkers,
+                                (ctx, seed, (write_path, out_format)))
+        try:
+            for bi, res in results:
+                errors += len(batches[bi]) if res is None else res[1]
+        finally:
+            results.close()
+        # a save killed before its rename leaves only its dot-temp
+        for f in os.listdir(write_path):
+            if f.startswith(".") and f.endswith(".npz.tmp"):
+                with contextlib.suppress(OSError):
+                    os.unlink(os.path.join(write_path, f))
+    elif nworkers == 1:
         writer = _RotatingWriter(write_path, w_is_dir, w_batch_num, is_gzip)
         try:
             _init_worker(ctx, seed)
@@ -803,8 +823,10 @@ def extract_to_call_mods(engine, fast5_dir: str, args,
 
     float16 wire: read-packed blocks (features_to_packed; windows
     gathered on the card, as on the TSV plane). float32 wire:
-    features_to_batch on the per-site route. Blocks reach the engine in
-    fast5-batch order, so the output does not depend on ``nproc``."""
+    features_to_batch on the per-site route. Pooled workers hand them
+    over as v3 or v1 .npz containers (_worker_batch_save). Blocks reach
+    the engine in fast5-batch order, so the output does not depend on
+    ``nproc``."""
     from ..io.batching import PrefetchIterator
 
     result_file = result_file or args.result_file
@@ -831,9 +853,10 @@ def extract_to_call_mods(engine, fast5_dir: str, args,
                 yield blk
 
     def pooled():
-        load = load_packed_npz if f16 else load_batch_npz
-        results = _pool_results(batches, _worker_block_part, nworkers,
-                                (ctx, None, (part_dir,)),
+        load = load_packed_npz if f16 else load_feature_npz
+        results = _pool_results(batches, _worker_batch_save, nworkers,
+                                (ctx, None, (part_dir, "npz_packed" if f16
+                                             else "npz")),
                                 label="fused extract")
         try:
             for bi, res in _in_batch_order(results):
@@ -843,7 +866,7 @@ def extract_to_call_mods(engine, fast5_dir: str, args,
                 n, err = res
                 errors[0] += err
                 if n:
-                    path = part_path(part_dir, bi, ".npz")
+                    path = npz_batch_path(part_dir, bi)
                     blk = load(path)
                     os.remove(path)
                     yield blk

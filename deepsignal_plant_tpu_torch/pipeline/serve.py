@@ -22,14 +22,13 @@ Producer-side completion markers: if ``X.complete`` exists next to input
 ``X``, ``X`` is picked up immediately (no stability wait).
 ``--require_complete`` makes the marker the only pickup signal.
 
-The port's engine calls features TSVs (``.tsv``, ``.tsv.gz``) and fast5
-run-folders: a directory under the watched one that holds ``.fast5``
-files anywhere below it, called through the fused fast5 path
+The server calls features TSVs (``.tsv``, ``.tsv.gz``), .npz feature
+batches (``.npz``: v1, v2 or v3 containers, as call_mods takes them) and
+fast5 run-folders: a directory under the watched one that holds
+``.fast5`` files anywhere below it, called through the fused fast5 path
 (pipeline/extract.py::extract_to_call_mods) with the server's extraction
 flags. A run-folder's stability signature is its file count, total
-bytes and newest mtime. ``.npz`` feature files are not picked up and
-get no marker, so a server of a later port that calls them still finds
-them unserved.
+bytes and newest mtime.
 """
 from __future__ import annotations
 
@@ -37,10 +36,8 @@ import os
 import signal
 import time
 
-#: input extensions the port's engine accepts
-_EXTS = (".tsv", ".tsv.gz")
-#: what the JAX server also calls and this one leaves unpicked
-UNPICKED = ".npz feature files"
+#: input file extensions the server calls (JAX serve.py:37)
+_EXTS = (".tsv", ".npz", ".tsv.gz")
 
 
 def _holds_fast5s(path: str) -> bool:
@@ -221,16 +218,6 @@ class WatchServer:
         print("[serve] stopped.", flush=True)
 
 
-def _refuse_unported(args) -> None:
-    """The int8 wire, which the port's engine does not have, fails here,
-    before the engine loads."""
-    if args.transfer_dtype == "int8":
-        raise ValueError(
-            "--transfer_dtype int8 is not yet ported to "
-            "deepsignal_plant_tpu_torch (the JAX package "
-            "deepsignal_plant_tpu serves it)")
-
-
 def serve(args) -> list:
     """CLI entry: build one warm engine and watch a directory. Returns
     ``(name, CallStats)`` of each input called."""
@@ -243,7 +230,6 @@ def serve(args) -> list:
     from ..utils.device import resolve_device
     from .call_mods import CallModsEngine
 
-    _refuse_unported(args)
     device = resolve_device(args.device)
     model_cfg = model_config_from_args(args, device, args.dropout_rate)
     call_cfg = CallConfig(
@@ -269,8 +255,7 @@ def serve(args) -> list:
     print(f"[serve] watching {args.watch_dir} -> {args.result_dir} "
           f"(poll {args.poll_s}s, compute {model_cfg.compute_dtype}, "
           f"device {device}, once={args.once}); calls {', '.join(_EXTS)} "
-          f"and fast5 run-folders; "
-          f"not picked up (not yet ported): {UNPICKED}", flush=True)
+          f"and fast5 run-folders", flush=True)
     try:
         server.run(once=args.once)
     finally:

@@ -10,6 +10,7 @@ call_mods, extract, the dataset and call_freq call).
   and int32 window centres) rebuilt from parsed rows;
 - ``emit_call_rows_arrays`` and ``format_call_block``: call_mods rows;
 - ``parse_call_bytes``: call_mods rows -> CallBlock (call_freq's input);
+- ``quantize_int8``: the int8 wire's symmetric per-array quantization;
 - extraction: ``extract_norm_stats`` (one read's normalization, segment
   statistics and float16 rect in one pass), the compat mode's
   ``normalize_mad_native``, ``segment_stats_exact_native``,
@@ -268,6 +269,28 @@ def parse_call_bytes(block: bytes) -> CallBlock:
     return CallBlock(chroms, chrom_ids[:n], pos[:n], strand[:n], pis[:n],
                      p0[:n], p1[:n], label[:n], kmer_off[:n], kmer_len[:n],
                      block)
+
+
+def quantize_int8(arr: np.ndarray, portable: bool = False
+                  ) -> tuple[np.ndarray, float]:
+    """Symmetric int8 quantization of a float16 or float32 array
+    (dsp_quantize_i8_f16 / _f32; JAX utils/fastparse.py:91): (int8 array,
+    dequant scale amax/127, 1.0 for all-zero or empty input), round half
+    even, NaN to 0. ``portable`` runs the float16 loop without AVX-512.
+    Raises on another dtype; there is no numpy path."""
+    a = np.ascontiguousarray(arr)
+    if a.dtype not in (np.float16, np.float32):
+        raise TypeError(f"quantize_int8 takes float16 or float32, not "
+                        f"{a.dtype}")
+    lib = native.load()
+    out = np.empty(a.shape, np.int8)
+    if a.dtype == np.float16:
+        fn = (lib.dsp_quantize_i8_f16_portable if portable
+              else lib.dsp_quantize_i8_f16)
+        s = fn(a.reshape(-1).view(np.uint16), a.size, out.reshape(-1))
+    else:
+        s = lib.dsp_quantize_i8_f32(a.reshape(-1), a.size, out.reshape(-1))
+    return out, float(s)
 
 
 def format_call_block(sampleinfo: list[str], probs: np.ndarray,

@@ -1,6 +1,6 @@
-"""Text codecs of extract, call_mods and call_freq, and the read-packed
-part files of the extraction pool (copy of
-deepsignal_plant_tpu/utils/formats.py:26-122, :278-325 and :344-425).
+"""Text codecs of extract, call_mods and call_freq, and the .npz feature
+containers (copy of deepsignal_plant_tpu/utils/formats.py:26-122,
+:124-340 and :344-425).
 
 - features TSV, 12 columns (extract_features.py:381-395):
     chrom, pos, strand, pos_in_strand, readname, read_strand, kmer,
@@ -10,6 +10,11 @@ deepsignal_plant_tpu/utils/formats.py:26-122, :278-325 and :344-425).
     chrom, pos, strand, pos_in_strand, readname, read_strand,
     prob_0(6dp), prob_1(6dp), called_label, center-5mer
 - freq TSV, 11 columns / bedMethyl, 11 columns (call_mods_freq.py:100-118)
+- .npz containers, one batch a file: v1 (``save_feature_npz``: float32
+  arrays and the info columns as strings; training, tools and the
+  per-site call_mods route), v2 (``save_wire_npz``: the float16 wire per
+  site and an info byte blob), v3 (``save_packed_npz``: the read-packed
+  wire). ``wire_npz_version`` tells them apart.
 """
 from __future__ import annotations
 
@@ -111,10 +116,150 @@ def format_feature_row(chrom: str, pos: int, strand: str, pos_in_strand: int,
                       sig_text, str(methy_label)])
 
 
+def save_feature_npz(path, fb: FeatureBatch, compress: bool = False
+                     ) -> None:
+    """The v1 feature container (training, tools, the per-site call_mods
+    route): one .npz per batch, compact dtypes on disk, float values
+    exact (float32). Uncompressed by default: inflating would bound the
+    plane far below the device rate."""
+    save = np.savez_compressed if compress else np.savez
+    save(path,
+         sampleinfo=np.array(fb.sampleinfo, dtype=np.bytes_),
+         kmer=fb.kmer.astype(np.int8),
+         base_means=fb.base_means.astype(np.float32),
+         base_stds=fb.base_stds.astype(np.float32),
+         base_signal_lens=fb.base_signal_lens.astype(np.int32),
+         signals=fb.signals.astype(np.float32),
+         labels=fb.labels.astype(np.int8))
+
+
+def load_feature_npz(path) -> FeatureBatch:
+    """A v1 container as a float32 FeatureBatch; a wire container (v2,
+    v3) raises: training and the tools need v1."""
+    z = _read_npz_arrays(path)
+    if "sampleinfo" not in z:
+        ver = int(z["wire_version"]) if "wire_version" in z else "?"
+        raise ValueError(
+            f"{path} is a wire-format (v{ver}) inference container; "
+            "training and tools need the v1 container "
+            "(save_feature_npz / extract --w_format npz)")
+    return FeatureBatch(
+        [s.decode() for s in z["sampleinfo"]],
+        z["kmer"].astype(np.int32),
+        z["base_means"].astype(np.float32),
+        z["base_stds"].astype(np.float32),
+        z["base_signal_lens"].astype(np.float32),
+        z["signals"].astype(np.float32),
+        z["labels"].astype(np.int32))
+
+
+def save_wire_npz(path, fb: FeatureBatch) -> None:
+    """The v2 container: the float16 wire per site (int8 base codes,
+    halves) and the info columns as one byte blob with per-row offsets;
+    it loads into a fastparse.RawFeatureBlock with no parsing."""
+    infos = [s.encode() for s in fb.sampleinfo]
+    lens = np.fromiter((len(b) for b in infos), np.int64, len(infos))
+    row_starts = np.zeros(len(infos), np.int64)
+    if len(infos) > 1:
+        np.cumsum(lens[:-1], out=row_starts[1:])
+    np.savez(path,
+             wire_version=np.uint8(2),
+             info_blob=np.frombuffer(b"".join(infos), np.uint8),
+             row_starts=row_starts,
+             info_ends=row_starts + lens,
+             kmer=fb.kmer.astype(np.int8),
+             base_means=fb.base_means.astype(np.float16),
+             base_stds=fb.base_stds.astype(np.float16),
+             base_signal_lens=fb.base_signal_lens.astype(np.float16),
+             signals=fb.signals.astype(np.float16),
+             labels=fb.labels.astype(np.int32))
+
+
+def _read_npz_arrays(path) -> dict[str, np.ndarray]:
+    """Every member of an .npz as an array, by raw zip member reads and
+    np.frombuffer (read-only views over the member bytes). The JAX
+    package measured np.load collapsing ~4x under a thread pool; this
+    reads twice as fast on one thread. A member in a .npy version other
+    than 1.0 or 2.0 goes through np.lib.format.read_array."""
+    import zipfile
+    from io import BytesIO
+    fmt = np.lib.format
+    out: dict[str, np.ndarray] = {}
+    with zipfile.ZipFile(path) as z:
+        for name in z.namelist():
+            if not name.endswith(".npy"):
+                continue
+            raw = z.read(name)
+            bio = BytesIO(raw)
+            version = fmt.read_magic(bio)
+            if version not in ((1, 0), (2, 0)):
+                bio.seek(0)
+                out[name[:-4]] = fmt.read_array(bio, allow_pickle=False)
+                continue
+            shape, fortran, dtype = (
+                fmt.read_array_header_1_0(bio) if version == (1, 0)
+                else fmt.read_array_header_2_0(bio))
+            if dtype.hasobject:
+                raise ValueError(f"{path}: object array member {name}")
+            arr = np.frombuffer(raw, dtype=dtype,
+                                count=int(np.prod(shape, dtype=np.int64)),
+                                offset=bio.tell())
+            out[name[:-4]] = arr.reshape(shape,
+                                         order="F" if fortran else "C")
+    return out
+
+
+def _check_version(path, z: dict, want: int) -> None:
+    ver = int(z["wire_version"])
+    if ver != want:
+        raise ValueError(
+            f"{path} is wire-format v{ver}, not v{want} — a directory "
+            "must not mix wire versions (regenerate with one extract "
+            "--w_format)")
+
+
+def load_wire_npz(path):
+    """A v2 container as a fastparse.RawFeatureBlock."""
+    from .fastparse import RawFeatureBlock
+    z = _read_npz_arrays(path)
+    _check_version(path, z, 2)
+    return RawFeatureBlock(
+        z["info_blob"].tobytes(), z["row_starts"], z["info_ends"],
+        z["kmer"], z["base_means"], z["base_stds"],
+        z["base_signal_lens"], z["signals"],
+        z["labels"].astype(np.int32))
+
+
+def is_wire_npz(path) -> bool:
+    """Whether an .npz is a wire container (v2 or v3): a read of the zip
+    directory only."""
+    import zipfile
+    try:
+        with zipfile.ZipFile(path) as zf:
+            return "wire_version.npy" in zf.namelist()
+    except (zipfile.BadZipFile, OSError):
+        return False
+
+
+def wire_npz_version(path) -> int:
+    """0 = v1 (plain feature arrays), 2 = per-site wire, 3 = read-packed
+    wire. Reads only the version member."""
+    import zipfile
+    from io import BytesIO
+    try:
+        with zipfile.ZipFile(path) as zf:
+            if "wire_version.npy" not in zf.namelist():
+                return 0
+            bio = BytesIO(zf.read("wire_version.npy"))
+            return int(np.lib.format.read_array(bio))
+    except zipfile.BadZipFile:
+        return 0
+
+
 def save_packed_npz(path, pb) -> None:
-    """A read-packed wire block (fastparse.PackedFeatureBlock) as the JAX
-    package's .npz v3 container: deduplicated per-base arrays, per-site
-    window centres and the info columns' bytes."""
+    """A read-packed wire block (fastparse.PackedFeatureBlock) as the v3
+    container: deduplicated per-base arrays, per-site window centres and
+    the info columns' bytes (v2's blob layout)."""
     np.savez(path,
              wire_version=np.uint8(3),
              kmer_len=np.int32(pb.kmer_len),
@@ -131,14 +276,11 @@ def save_packed_npz(path, pb) -> None:
 
 
 def load_packed_npz(path):
-    """A .npz v3 container as a fastparse.PackedFeatureBlock; raises on
-    another version or window centres outside the base axis."""
+    """A v3 container as a fastparse.PackedFeatureBlock; raises on another
+    version or window centres outside the base axis."""
     from .fastparse import PackedFeatureBlock
-    with np.load(path, allow_pickle=False) as npz:
-        z = {k: npz[k] for k in npz.files}
-    ver = int(z["wire_version"])
-    if ver != 3:
-        raise ValueError(f"{path} is wire-format v{ver}, not v3")
+    z = _read_npz_arrays(path)
+    _check_version(path, z, 3)
     centers = z["centers"]
     kmer_len = int(z["kmer_len"])
     nb = (kmer_len - 1) // 2
@@ -147,13 +289,28 @@ def load_packed_npz(path):
             f"{path}: packed-wire centers are not non-decreasing")
     if len(centers) and (int(centers[0]) < nb or
                          int(centers[-1]) + nb >= len(z["codes"])):
-        raise ValueError(f"{path}: packed-wire centers out of bounds for "
-                         "the base axis")
+        raise ValueError(
+            f"{path}: packed-wire centers out of bounds for the base "
+            "axis (corrupt or truncated container)")
     return PackedFeatureBlock(
         z["info_blob"].tobytes(), z["row_starts"], z["info_ends"],
         centers, z["codes"], z["base_means"], z["base_stds"],
         z["base_signal_lens"], z["signals"],
         z["labels"].astype(np.int32), kmer_len)
+
+
+def feature_npz_paths(path: str) -> list[str] | None:
+    """The sorted .npz files of ``path`` (an .npz file, or a directory
+    holding .npz batches), or None."""
+    import os
+    if os.path.isfile(path) and path.endswith(".npz"):
+        return [path]
+    if os.path.isdir(path):
+        files = sorted(os.path.join(path, f) for f in os.listdir(path)
+                       if f.endswith(".npz"))
+        if files:
+            return files
+    return None
 
 
 def format_call_rows(sampleinfo: list[str], kmer_codes: np.ndarray,

@@ -7,6 +7,7 @@ row are identical and both probabilities agree within 2e-6 after the
 side); any row whose called label differs is listed.
 """
 import gzip
+import os
 
 import jax
 import numpy as np
@@ -121,15 +122,37 @@ def test_float16_wire_stays_close_to_float32(ckpt, features, tmp_path):
     ["--transfer_dtype", "int8"], ["--device_resident", "always"],
     ["--profile_dir", "prof"]])
 def test_unported_flags_fail_clearly(ckpt, features, tmp_path, flag):
-    with pytest.raises(ValueError, match="not yet ported"):
-        run_port(features[0], ckpt, str(tmp_path / "x.tsv"), *flag)
+    """The flags the port used to refuse now run: every row is called,
+    with the default run's info columns and k-mers (the int8 wire's
+    probabilities differ; tests/test_torch_int8.py holds them against
+    JAX). Where JAX fails on them, the port fails clearly too: a gzipped
+    TSV under --device_resident always, before any output is opened."""
+    feat_path, n_rows = features
+    want = run_port(feat_path, ckpt, str(tmp_path / "default.tsv"))
+    flag = [str(tmp_path / a) if a == "prof" else a for a in flag]
+    got = run_port(feat_path, ckpt, str(tmp_path / "x.tsv"), *flag)
+    assert len(got) == n_rows
+    assert [r[:6] + r[9:] for r in got] == [r[:6] + r[9:] for r in want]
+    if flag[0] == "--device_resident":
+        assert got == want
+        gz = tmp_path / "f.tsv.gz"
+        with open(feat_path, "rb") as src, gzip.open(gz, "wb") as dst:
+            dst.write(src.read())
+        with pytest.raises(ValueError, match="plain features TSV"):
+            run_port(str(gz), ckpt, str(tmp_path / "y.tsv"), *flag)
+        assert not (tmp_path / "y.tsv").exists()
+    if flag[0] == "--profile_dir":
+        assert [f for f in os.listdir(flag[1]) if f.endswith(".json")]
 
 
 def test_unported_inputs_fail_clearly(ckpt, tmp_path):
+    """.npz inputs are read now; one that is not a feature container
+    fails clearly with the JAX loader's message, as a file and as a
+    directory."""
     npz = tmp_path / "batch.npz"
     np.savez(npz, x=np.zeros(1))
     for path in (str(npz), str(tmp_path)):
-        with pytest.raises(ValueError, match="not yet ported"):
+        with pytest.raises(ValueError, match="inference container"):
             run_port(path, ckpt, str(tmp_path / "x.tsv"))
 
 

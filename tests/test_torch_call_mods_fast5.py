@@ -145,10 +145,13 @@ def test_fused_counts_tiles_and_failed_files(run, ckpt, tmp_path, capsys):
 
 
 def test_npz_directory_still_refused(tmp_path, ckpt):
+    """A directory of .npz batches is a feature input, not a fast5 run:
+    call_mods reads it as one (here a container that is not a feature
+    batch, which fails with the JAX loader's message)."""
     d = tmp_path / "npzdir"
     d.mkdir()
     np.savez(d / "000000.npz", x=np.zeros(3))
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="inference container"):
         cli.main(["call_mods", "-i", str(d), "-m", ckpt, "-o",
                   str(tmp_path / "o.tsv"), "--device", "cpu",
                   *NARROW_FLAGS])

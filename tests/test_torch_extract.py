@@ -97,11 +97,21 @@ def test_extract_pooled_bytes_match_jax(run, tmp_path, case):
 
 
 def test_extract_refuses_npz_formats(run, tmp_path):
+    """The npz formats write a directory of batch files
+    (tests/test_torch_npz.py holds them against JAX); a write path that
+    is an existing file is refused and left as it was."""
     for fmt in ("npz", "npz_wire", "npz_packed"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            cli.main(["extract", "-i", run["dir"], "-o",
-                      str(tmp_path / fmt), "--w_format", fmt])
-        assert not (tmp_path / fmt).exists()
+        taken = tmp_path / f"{fmt}.taken"
+        taken.write_text("keep")
+        with pytest.raises(FileExistsError):
+            cli.main(["extract", "-i", run["dir"], "-o", str(taken),
+                      "--w_format", fmt])
+        assert taken.read_text() == "keep"
+        cli.main(["extract", "-i", run["dir"], "-o", str(tmp_path / fmt),
+                  "--w_format", fmt, "--nproc", "1", "--f5_batch_size",
+                  "4"])
+        assert sorted(os.listdir(tmp_path / fmt)) == \
+            ["000000.npz", "000001.npz", "000002.npz"]
 
 
 # --- the native functions, bitwise against the JAX library -------------

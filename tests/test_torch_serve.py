@@ -4,9 +4,9 @@ counterparts of tests/test_serve.py, on the port's engine with
 same checkpoint (columns 1-6 and 10 identical, probabilities within 2e-6
 at float32 wire and compute, as tests/test_torch_call_mods.py gates).
 
-The port's engine calls features TSVs and fast5 run-folders (through
-the fused fast5 path; served bytes equal the call_mods CLI's on the same
-directory); .npz inputs are left unpicked, without a marker.
+The port's engine calls features TSVs, .npz feature batches and fast5
+run-folders (through the fused fast5 path; served bytes equal the
+call_mods CLI's on the same directory).
 """
 import gzip
 import os
@@ -189,7 +189,7 @@ def test_serve_cli_once(tmp_path, rng, ckpt):
         env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-1500:]
     assert "compute float32" in r.stdout, r.stdout[-500:]
-    assert "not picked up (not yet ported): .npz" in r.stdout
+    assert "calls .tsv, .npz, .tsv.gz and fast5 run-folders" in r.stdout
     stages = [ln for ln in r.stdout.splitlines()
               if ln.startswith("[stages] ")]
     assert len(stages) == 1 and '"sites": 24' in stages[0]
@@ -219,8 +219,12 @@ def test_watch_server_run_folder_not_picked(tmp_path, rng, ckpt):
 
 
 def test_watch_server_gz_and_npz_inputs(tmp_path, rng, ckpt):
-    """.tsv.gz inputs call identically to the same rows as plain TSV;
-    .npz inputs are left without a marker."""
+    """.tsv.gz and .npz inputs (a v1 container of the same rows) call
+    identically to the same rows as plain TSV; an .npz that is not a
+    feature container gets a .failed marker and the server goes on."""
+    from deepsignal_plant_tpu_torch.utils.fastparse import \
+        parse_feature_bytes
+    from deepsignal_plant_tpu_torch.utils.formats import save_feature_npz
     watch = tmp_path / "in"
     out = tmp_path / "out"
     watch.mkdir()
@@ -228,7 +232,9 @@ def test_watch_server_gz_and_npz_inputs(tmp_path, rng, ckpt):
     write_feature_file(str(watch / "a.tsv"), rows)
     with gzip.open(watch / "b.tsv.gz", "wt") as fh:
         fh.write("\n".join(rows) + "\n")
-    np.savez(watch / "c.npz", kmer=np.zeros((24, 13), np.int32))
+    save_feature_npz(str(watch / "c.npz"), parse_feature_bytes(
+        ("\n".join(rows) + "\n").encode()))
+    np.savez(watch / "d.npz", kmer=np.zeros((24, 13), np.int32))
 
     server = WatchServer(_make_engine(ckpt), str(watch), str(out),
                          poll_s=0.01)
@@ -238,7 +244,10 @@ def test_watch_server_gz_and_npz_inputs(tmp_path, rng, ckpt):
     assert len(ref.splitlines()) == 24
     assert (out / "b.tsv.gz.done").exists()
     assert (out / "b.tsv.gz.call_mods.tsv").read_bytes() == ref
-    assert not [p for p in out.iterdir() if p.name.startswith("c.npz")]
+    assert (out / "c.npz.done").exists()
+    assert (out / "c.npz.call_mods.tsv").read_bytes() == ref
+    assert "inference container" in (out / "d.npz.failed").read_text()
+    assert not (out / "d.npz.call_mods.tsv").exists()
 
 
 def test_watch_server_gzip_mode(tmp_path, rng, ckpt):
@@ -284,18 +293,24 @@ def test_watch_server_same_dir_no_self_ingestion(tmp_path, rng, ckpt):
 
 def test_npz_and_run_folders_stay_unmarked_across_restarts(
         tmp_path, rng, ckpt, capsys):
-    """Through the CLI in this process: the startup line names what is
-    left unpicked; two servers in turn call the TSV and the run-folder
-    once each (the run-folder since fast5 extraction was ported) and
-    leave the .npz without a marker, so a server that can call it later
-    still finds it unserved."""
+    """Through the CLI in this process: the startup line names what the
+    server calls; two servers in turn call the TSV, the run-folder and
+    the .npz batch (a v3 container) once each: every input carries one
+    marker, and the restarted server calls nothing again."""
     from make_synthetic import synth_fast5_dir, synth_genome
+    from deepsignal_plant_tpu_torch.utils.fastparse import (
+        pack_raw_block, parse_raw_feature_block)
+    from deepsignal_plant_tpu_torch.utils.formats import save_packed_npz
 
     watch = tmp_path / "in"
     out = tmp_path / "out"
     watch.mkdir()
     write_feature_file(str(watch / "a.tsv"), synth_feature_rows(rng, 2, 8))
-    np.savez(watch / "b.npz", kmer=np.zeros((16, 13), np.int32))
+    b_tsv = write_feature_file(str(tmp_path / "b.tsv"),
+                               synth_feature_rows(rng, 2, 8))
+    with open(b_tsv, "rb") as fh:
+        save_packed_npz(str(watch / "b.npz"),
+                        pack_raw_block(parse_raw_feature_block(fh.read())))
     (watch / "b.npz.complete").touch()
     synth_fast5_dir(str(watch / "run_0001"), synth_genome(
         rng, {"chr1": 3000}), rng, n_reads=2, read_len=300)
@@ -309,13 +324,13 @@ def test_npz_and_run_folders_stay_unmarked_across_restarts(
     assert [signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)] \
         == handlers
     text = capsys.readouterr().out
-    assert "calls .tsv, .tsv.gz and fast5 run-folders; not picked up " \
-        "(not yet ported): .npz feature files" in text
+    assert "calls .tsv, .npz, .tsv.gz and fast5 run-folders" in text
     assert text.count("[serve] a.tsv: 16 sites") == 1
+    assert text.count("[serve] b.npz: 16 sites") == 1
     assert text.count("[serve] run_0001: ") == 1
     assert sorted(p.name for p in out.iterdir()) == \
-        ["a.tsv.call_mods.tsv", "a.tsv.done", "run_0001.call_mods.tsv",
-         "run_0001.done"]
+        ["a.tsv.call_mods.tsv", "a.tsv.done", "b.npz.call_mods.tsv",
+         "b.npz.done", "run_0001.call_mods.tsv", "run_0001.done"]
 
 
 @pytest.mark.parametrize("flag", [
@@ -323,20 +338,16 @@ def test_npz_and_run_folders_stay_unmarked_across_restarts(
     ["--corrected_group", "RawGenomeCorrected_001"], ["--nproc", "8"],
     ["--reference_path", "ref.fa"]])
 def test_serve_refuses_unported_flags(tmp_path, ckpt, flag):
-    """The int8 wire is refused before the engine loads; the fast5
-    run-folder flags are live since fast5 extraction was ported, so a
-    server with them starts and serves the (empty) directory."""
+    """None of these is refused any more: the int8 wire is ported, and
+    the fast5 run-folder flags are live since fast5 extraction was
+    ported, so a server with any of them starts and serves the (empty)
+    directory."""
     (tmp_path / "in").mkdir()
     argv = ["serve", "-i", str(tmp_path / "in"), "-o",
             str(tmp_path / "out"), "-m", ckpt, "--hid_rnn", "32",
             "--once", "--poll_s", "0.01", "--device", "cpu", *flag]
-    if flag[0] == "--transfer_dtype":
-        with pytest.raises(ValueError, match="not yet ported"):
-            cli.main(argv)
-        assert not (tmp_path / "out").exists()
-    else:
-        assert cli.main(argv) == 0
-        assert os.listdir(tmp_path / "out") == []
+    assert cli.main(argv) == 0
+    assert os.listdir(tmp_path / "out") == []
 
 
 @pytest.mark.parametrize("transfer", ["float16", "float32"])

@@ -227,8 +227,21 @@ def test_dataset_matches_jax(tmp_path):
         np.testing.assert_array_equal(lg, lw)
         for a, b in zip(bg, bw):
             np.testing.assert_array_equal(a, b)
-    with pytest.raises(ValueError, match="not yet ported"):
-        FeatureDataset.from_file(str(tmp_path / "f.npz"))
+    # v1 .npz batches written from the parsed TSV load to the same
+    # arrays; a wire container is refused with the JAX loader's message
+    from deepsignal_plant_tpu_torch.utils.formats import (save_feature_npz,
+                                                          save_wire_npz)
+    from deepsignal_plant_tpu_torch.utils.fastparse import \
+        parse_feature_bytes
+    with open(path, "rb") as fh:
+        fb = parse_feature_bytes(fh.read())
+    save_feature_npz(str(tmp_path / "f.npz"), fb)
+    from_npz = FeatureDataset.from_file(str(tmp_path / "f.npz"))
+    for f in fields:
+        np.testing.assert_array_equal(getattr(from_npz, f), getattr(got, f))
+    save_wire_npz(str(tmp_path / "w.npz"), fb)
+    with pytest.raises(ValueError, match="wire-format"):
+        FeatureDataset.from_file(str(tmp_path / "w.npz"))
 
 
 def test_metrics_match_jax():
