@@ -12,7 +12,8 @@ Phases, in order; any failure exits non-zero before the last line:
    per source, all started together), against its plain PyTorch version
    on the card at the main paths' shapes: the fused BiLSTM layer (K1) at
    call_mods' 4096-row tiles, its ragged neighbour and the 1,016-row
-   tail, in bfloat16 (the main path's kernel) and in float32 (for
+   tail, and at phase 8 denoise's signal_bilstm layers in 512-row tiles
+   and ragged tails, in bfloat16 (the main path's kernel) and in float32 (for
    exact-parity runs) through the route each layer takes and through
    both routes called directly (the 3xTF32 projection kernel and the
    float32 recurrence; the in-loop kernel), the two routes against each
@@ -104,7 +105,21 @@ Phases, in order; any failure exits non-zero before the last line:
    stages); ``serve --once`` over one dropped v3 .npz (bytes = the CLI's,
    a .done marker); one epoch of ``train`` on the v1 directory (5
    launches of K3, K4 and dW_hh per step);
-8. a ``{"kernels": [...]}`` line, the card line, and last
+8. denoise, resume and the streaming dataset, each a fresh CLI process:
+   ``denoise`` with its defaults (bf16, signal_bilstm at hidden 256,
+   dropout 0.5; ``--iterations 2 --rounds 1 --epoch_num 2``, an accuracy
+   check every 4 steps) on a seeded learnable 16,384-row TSV with 20% of
+   its label-0 rows flipped to 1: 4 launches of K3, K4 and dW_hh per step
+   and of K1's bfloat16 kernel per forward tile (accuracy checks and
+   scoring), label-1 purity against the true labels rising, wall time
+   and mini-trainings/s; the same denoise in float32 at dropout 0
+   through the kernels and through the plain versions (the same final
+   file, the first iteration's mean scores within 1e-3); ``train`` for
+   one epoch on phase 4b's rows, then ``--resume`` to two (it starts at
+   epoch 2 and step 32), and one epoch with ``--stream yes``: 5 launches
+   of K3, K4 and dW_hh per step, samples/s of each plane;
+9. a ``{"kernels": [...]}`` line (phase 8's launches beside each
+   kernel's main-path count), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Without a card, or
@@ -264,6 +279,27 @@ FAST5_SUB_READS = 64
 # batches of extract's default size (30 reads) give 9 files
 NPZ_READS = 256
 NPZ_FORMATS = {"npz": 0, "npz_wire": 2, "npz_packed": 3}
+# phase 8, denoise: DENOISE_ROWS rows of phase 4b's writer with labels
+# shifting the signals by +-DENOISE_SHIFT (signal_bilstm sees only the
+# signals), DENOISE_FLIP of the label-0 rows flipped to 1 by a seed; the
+# CLI's defaults (signal_bilstm, hidden 256: 1 signal-branch + 3 comb
+# layers, so 4 launches of each training kernel a step and of K1 a
+# forward tile) with --iterations 2 --rounds 1 --epoch_num 2, and an
+# accuracy check every DENOISE_CHECK steps (the early stop's input)
+DENOISE_ROWS, DENOISE_SHIFT, DENOISE_FLIP = 16_384, 0.8, 0.2
+DENOISE_CHECK = 4
+DENOISE_LAYERS = 4
+# (Fa, Fb, H) of those layers' K1 launches (signal branch; comb layer 0,
+# which reads the signal branch alone; comb layers 1-2), and the rows of
+# denoise's forward tiles: --batch_size 512 and ragged epoch tails
+DENOISE_K1_SHAPES = ((16, 0, 256), (256, 0, 256), (256, 256, 256))
+DENOISE_TILES = (512, 509, 93)
+DENOISE_ARGS = ("--iterations", "2", "--rounds", "1", "--epoch_num", "2",
+                "--step_interval", str(DENOISE_CHECK), "--seed", "77")
+# float32 denoise, kernels against the plain versions at dropout 0: the
+# first iteration's mean scores (2 x 16 steps of training apart, each
+# step's float32 sums in other orders) and the rows kept
+DENOISE_SCORE_TOL = 1e-3
 # the [stages] fields of call_mods that say where its time goes
 STAGE_FIELDS = ("batches", "packed_batches", "packed_sites",
                 "persite_batches", "persite_sites", "bases_uploaded",
@@ -400,19 +436,22 @@ def f32_route(torch, fused_lstm, F, H, B):
 
 
 def check_kernel(torch, fused_lstm, recurrence, plain):
-    """Phase 2: K1 against the plain version at every main-path layer
-    shape, seq_out True and False, full, ragged and tail batches: the
-    bfloat16 kernel, and float32 through the route it takes and through
-    both of its routes called directly (the projection kernel and the
-    recurrence; the in-loop kernel), which are also held against each
-    other; the float32 projection kernel alone against its plain version.
-    Each launch must move the counters of the kernels named."""
-    shapes = sorted({(Fa, Fb, H) for Fa, Fb, H, _ in
-                     MAIN_PATH_LAYERS.values()})
+    """Phase 2: K1 against the plain version at every layer shape of the
+    main path (full, ragged and tail 4096-row tiles) and of phase 8's
+    denoise (signal_bilstm's layers in 512-row tiles and their tails),
+    seq_out True and False: the bfloat16 kernel, and float32 through the
+    route it takes and through both of its routes called directly (the
+    projection kernel and the recurrence; the in-loop kernel), which are
+    also held against each other; the float32 projection kernel alone
+    against its plain version. Each launch must move the counters of the
+    kernels named."""
+    cases = [(shape, (TILE, TILE - 3, TAIL)) for shape in sorted(
+        {(Fa, Fb, H) for Fa, Fb, H, _ in MAIN_PATH_LAYERS.values()})]
+    cases += [(shape, DENOISE_TILES) for shape in DENOISE_K1_SHAPES]
     errs = {k: 0.0 for k in K1_ERR_KEYS}
     checked = []
-    for Fa, Fb, H in shapes:
-        for B in (TILE, TILE - 3, TAIL):
+    for (Fa, Fb, H), tiles in cases:
+        for B in tiles:
             for dname in ("bfloat16", "float32"):
                 dtype = getattr(torch, dname)
                 xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, B, dtype)
@@ -1099,7 +1138,7 @@ def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
         rng.integers(0, 2, n).astype(np.int32))
     dev = torch.device("cuda")
     src = train_mod.Resident(ds, dev)
-    order = src.order(rng.permutation(n))
+    order = torch.from_numpy(rng.permutation(n)).to(dev)
     cw = torch.ones(2, device="cuda")
 
     def gathered(i):
@@ -1110,7 +1149,7 @@ def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
     def step(i, get_batch):
         return train_mod.train_step(
             model, weights, opt, *get_batch(i), cw, 0.5,
-            train_mod.step_generator(SEED, i, dev))
+            train_mod.step_generator(SEED + 1, i, dev))
 
     for i in range(3):
         step(i, gathered)
@@ -2315,6 +2354,185 @@ def check_npz(base: str, tmp: str, ckpt: str) -> dict:
             "seconds": seconds}
 
 
+def flip_labels(src: str, dst: str, frac: float, seed: int) -> dict:
+    """Copy a features TSV with ``frac`` of its label-0 rows labelled 1
+    (seeded); returns each row's true label by position (column 2)."""
+    rng = np.random.default_rng(seed)
+    truth, flipped = {}, 0
+    with open(src) as rf, open(dst, "w") as wf:
+        for line in rf:
+            cols = line.rstrip("\n").split("\t")
+            truth[cols[1]] = cols[11]
+            if cols[11] == "0" and rng.random() < frac:
+                cols[11] = "1"
+                flipped += 1
+            wf.write("\t".join(cols) + "\n")
+    return {"truth": truth, "flipped": flipped}
+
+
+def label_purity(path: str, truth: dict) -> dict:
+    """Rows of each label, and the share of each label's rows whose true
+    label it is."""
+    n = {"0": 0, "1": 0}
+    right = {"0": 0, "1": 0}
+    with open(path) as fh:
+        for line in fh:
+            cols = line.rstrip("\n").split("\t")
+            n[cols[11]] += 1
+            right[cols[11]] += truth[cols[1]] == cols[11]
+    return {"rows": n["0"] + n["1"], "label1_rows": n["1"],
+            "label1_purity": right["1"] / max(n["1"], 1),
+            "label0_purity": right["0"] / max(n["0"], 1)}
+
+
+def run_denoise(tmp: str, name: str, noisy: str, *extra: str) -> dict:
+    """One denoise CLI process on a copy of ``noisy`` in its own
+    directory; its [stages] counters, the final file's bytes and the
+    first iteration's mean scores."""
+    d = os.path.join(tmp, name)
+    os.makedirs(d)
+    src = os.path.join(d, "noisy.tsv")
+    shutil.copy(noisy, src)
+    st = run_cli("denoise", "--train_file", src, "--fst_iter_prob",
+                 *DENOISE_ARGS, *extra)
+    st["bytes"] = read_bytes(st["final_file"])
+    with open(src + ".probs_1stiter.txt") as fh:
+        st["scores"] = np.array([float(ln.split("\t")[1]) for ln in fh])
+    log(f"denoise {name}: " + json.dumps(
+        {k: v for k, v in st.items() if k not in ("bytes", "scores")}))
+    return st
+
+
+def check_launches(what: str, got: dict, want: dict) -> None:
+    full = {k: 0 for k in got}
+    full.update(want)
+    if got != full:
+        fail(f"{what} launched {got}, expected {full}")
+
+
+def check_denoise_resume_stream(tmp: str, ab) -> dict:
+    """Phase 8: denoise at the CLI's defaults (bf16, signal_bilstm) on a
+    20%-flipped learnable TSV, then in float32 through the kernels and
+    through the plain versions; train one epoch, --resume to two, and
+    one epoch on the streamed plane. Every step is a fresh CLI process
+    whose launch counts start at 0."""
+    t_phase = time.time()
+    clean = os.path.join(tmp, "denoise_clean.tsv")
+    noisy = os.path.join(tmp, "denoise_noisy.tsv")
+    ab.write_features(clean, DENOISE_ROWS, SEED + 8, DENOISE_SHIFT)
+    flip = flip_labels(clean, noisy, DENOISE_FLIP, SEED + 9)
+    before = label_purity(noisy, flip["truth"])
+
+    bf = run_denoise(tmp, "denoise_bf16", noisy)
+    if (bf["compute_dtype"], bf["recurrence"]) != ("bfloat16", "kernel"):
+        fail(f"denoise defaults did not run bf16 kernels: {bf}")
+    check_launches("denoise (bf16)", bf["kernel_launches"], {
+        "lstm_recurrence_fwd_save": DENOISE_LAYERS * bf["steps"],
+        "lstm_recurrence_bwd": DENOISE_LAYERS * bf["steps"],
+        "lstm_dw_hh": DENOISE_LAYERS * bf["steps"],
+        "fused_bilstm_bf16": DENOISE_LAYERS * bf["forward_tiles"]})
+    after = label_purity(bf["final_file"], flip["truth"])
+    log(f"denoise purity on {DENOISE_ROWS} rows ({flip['flipped']} labels "
+        f"flipped): label-1 {before['label1_purity']:.4%} -> "
+        f"{after['label1_purity']:.4%}, label-0 "
+        f"{before['label0_purity']:.4%} -> {after['label0_purity']:.4%}, "
+        f"{after['rows']} rows kept; {bf['mini_trainings']} mini-trainings "
+        f"({bf['resident_trainings']} resident), {bf['steps']} steps, "
+        f"{bf['forward_tiles']} forward tiles in {bf['seconds']:.2f} s "
+        f"({bf['wall_seconds']:.2f} s with the process)")
+    if not after["label1_purity"] > before["label1_purity"]:
+        fail("denoise did not raise label-1 purity")
+
+    # float32, kernels against plain versions, dropout 0
+    f32 = {rec: run_denoise(tmp, f"denoise_f32_{rec}", noisy,
+                            "--compute_dtype", "float32", "--dropout_rate",
+                            "0", "--recurrence", rec)
+           for rec in ("kernel", "scan")}
+    k, p = f32["kernel"], f32["scan"]
+    k1_f32 = (k["kernel_launches"]["fused_bilstm_f32_inloop"]
+              + k["kernel_launches"]["fused_bilstm_proj_f32"])
+    if (k["kernel_launches"]["lstm_recurrence_fwd_save_f32"]
+            != DENOISE_LAYERS * k["steps"]
+            or k["kernel_launches"]["lstm_recurrence_bwd_f32"]
+            != DENOISE_LAYERS * k["steps"]
+            or k1_f32 != DENOISE_LAYERS * k["forward_tiles"]):
+        fail(f"float32 denoise launched {k['kernel_launches']} for "
+             f"{k['steps']} steps and {k['forward_tiles']} tiles")
+    check_launches("float32 denoise (plain)", p["kernel_launches"], {})
+    dscore = float(np.abs(k["scores"] - p["scores"]).max())
+    margin = float(np.abs(p["scores"] - 0.5).min())
+    log(f"float32 denoise, kernel vs plain: max |d mean score| "
+        f"{dscore:.3g} (tolerance {DENOISE_SCORE_TOL:g}; the plain run's "
+        f"smallest |mean - 0.5| {margin:.3g}); final files "
+        f"{'equal' if k['bytes'] == p['bytes'] else 'DIFFER'}; "
+        f"{k['seconds']:.2f} s vs {p['seconds']:.2f} s")
+    if dscore > DENOISE_SCORE_TOL or k["bytes"] != p["bytes"]:
+        fail("float32 denoise through the kernels and the plain versions "
+             "disagree")
+
+    # train 1 epoch, --resume to 2, and 1 epoch streamed (phase 4b's rows)
+    common = ("--train_file", os.path.join(tmp, "train.tsv"),
+              "--valid_file", os.path.join(tmp, "valid.tsv"),
+              "--step_interval", "100000", "--min_epoch_num", "2")
+    resumed = ("--model_dir", os.path.join(tmp, "resume_model"))
+    steps = -(-TRAIN_ROWS // TRAIN_B)
+    runs = {"epoch1": run_cli("train", *common, *resumed,
+                              "--max_epoch_num", "1"),
+            "resume": run_cli("train", *common, *resumed,
+                              "--max_epoch_num", "2", "--resume"),
+            "stream": run_cli("train", *common, "--model_dir",
+                              os.path.join(tmp, "stream_model"),
+                              "--max_epoch_num", "1", "--stream", "yes")}
+    for name, st in runs.items():
+        start = (1, steps) if name == "resume" else (0, 0)
+        plane = "stream" if name == "stream" else "resident"
+        ran = st["steps"] - st["start_step"]
+        check_launches(f"train ({name})", st["kernel_launches"], {
+            "lstm_recurrence_fwd_save": 5 * ran,
+            "lstm_recurrence_bwd": 5 * ran, "lstm_dw_hh": 5 * ran,
+            "fused_bilstm_bf16": 5 * st["eval_tiles"]})
+        if ((st["start_epoch"], st["start_step"]) != start or ran != steps
+                or st["plane"] != plane
+                or not np.isfinite(st["step_losses"]).all()):
+            fail(f"train ({name}): started at epoch {st['start_epoch']} "
+                 f"step {st['start_step']}, ran {ran} steps on the "
+                 f"{st['plane']} plane (expected {start}, {steps}, {plane})")
+        log(f"train ({name}, {st['plane']}): epoch {st['start_epoch'] + 1}, "
+            f"steps {st['start_step'] + 1}-{st['steps']}, "
+            f"{st['samples_per_s']:.1f} samples/s, valid accuracy "
+            f"{st['valid_accuracies']}, read {st['read_seconds']:.2f} s, "
+            f"wall {st['wall_seconds']:.2f} s")
+    seconds = time.time() - t_phase
+    log(f"phase 8 took {seconds:.1f} s")
+    keep = ("steps", "forward_tiles", "mini_trainings", "resident_trainings",
+            "accuracy_checks", "score_tiles", "kernel_launches", "seconds",
+            "train_seconds", "score_seconds", "mini_trainings_per_s",
+            "samples_per_s", "wall_seconds", "iterations_run")
+    return {"rows": DENOISE_ROWS, "flipped": flip["flipped"],
+            "purity_before": before, "purity_after": after,
+            "bf16": {k_: bf[k_] for k_ in keep},
+            "float32": {"max_abs_dscore": dscore, "margin": margin,
+                        "same_file": k["bytes"] == p["bytes"],
+                        "kernel": {k_: k[k_] for k_ in keep},
+                        "plain": {k_: p[k_] for k_ in keep}},
+            "train": {name: {k_: st[k_] for k_ in (
+                "plane", "start_epoch", "start_step", "steps",
+                "kernel_launches", "samples_per_s", "train_seconds",
+                "eval_seconds", "read_seconds", "valid_accuracies",
+                "wall_seconds")} for name, st in runs.items()},
+            "seconds": seconds}
+
+
+def phase8_launches(phase8: dict, name: str) -> dict:
+    """A kernel's launches in phase 8's runs: the bf16 and float32
+    denoise, and train's resumed and streamed epochs."""
+    runs = {"denoise": phase8["bf16"],
+            "denoise_float32": phase8["float32"]["kernel"],
+            **{f"train_{k}": v for k, v in phase8["train"].items()}}
+    return {k: v["kernel_launches"][name] for k, v in runs.items()
+            if v["kernel_launches"].get(name)}
+
+
 def k1_f32_parts(timings, errs, checked, launched) -> list:
     """The kernels line's entries of K1's float32 kernels (K1_F32_KERNELS),
     per 4096-row tile over the layers whose route runs each (the tail
@@ -2486,6 +2704,8 @@ def main() -> int:
         # the .npz planes on 256 of its reads
         fast5_run = check_fast5(tmp, run["ckpt"])
         npz_run = fast5_run.pop("npz")
+        # phase 8: denoise, train --resume and --stream
+        phase8 = check_denoise_resume_stream(tmp, ab)
     flops = forward_flops_per_site(ModelConfig())
     for what, st in (("sparse fixture", run["stages"]),
                      ("dense rate run", {**run["rate"]["stats"],
@@ -2521,6 +2741,7 @@ def main() -> int:
                      else "bytes"),
         "library_ms": total("library_ms"),
         "shapes_checked": [c for c in checked if c[4] == "fused_bilstm_bf16"],
+        "phase8_launches": phase8_launches(phase8, "fused_bilstm_bf16"),
         "per_launch": rows, "model_forward": forward, "main_path": run})
     # K1's float32 kernels, launches from the float32 call_mods run; the
     # whole float32 layer route per tile rides on the projection's entry
@@ -2528,6 +2749,8 @@ def main() -> int:
                              run["f32_launches_by_kernel"])
     f32_parts[0]["k1_float32_tile"] = k1_f32_tile(timings, errs, checked,
                                                   run["f32_layers"])
+    for part in f32_parts:
+        part["phase8_launches"] = phase8_launches(phase8, part["name"])
     kernels["kernels"] += f32_parts
     # the recurrence kernels: times per train step at batch 512 in bf16
     # (two H=128 and three H=256 launches); launches from the train run
@@ -2548,6 +2771,7 @@ def main() -> int:
             "max_abs_err": (max(rec_errs[name].values())
                             if name == "lstm_dw_hh"
                             else rec_errs[name]["bfloat16"]),
+            "phase8_launches": phase8_launches(phase8, name),
             **t, "shapes_checked": rec_checked})
     kernels["kernels"][-1]["float32"]["launches_f32_training"] = (
         f32_train["launches"]["lstm_dw_hh"])
@@ -2565,6 +2789,7 @@ def main() -> int:
             "plans": {k: v for k, v in plans.items()
                       if k.startswith(wrapper + " float32 ")},
             "max_abs_err": rec_errs[wrapper]["float32"],
+            "phase8_launches": phase8_launches(phase8, name),
             **rec_timings[name], "shapes_checked": rec_checked})
     log("train summary: " + json.dumps({
         **trained, "f32_kernel_vs_plain": f32_train, "k2_path": k2_path,
@@ -2574,6 +2799,8 @@ def main() -> int:
          "call_freq": freq}))
     log("fast5 summary on " + smi + ": " + json.dumps(fast5_run))
     log(".npz planes summary on " + smi + ": " + json.dumps(npz_run))
+    log("denoise, resume and stream summary on " + smi + ": "
+        + json.dumps(phase8))
     log(f"train: {trained['samples_per_s_last_epoch']:.1f} samples/s in "
         f"the last epoch ({trained['ms_per_step_last_epoch']:.2f} ms per "
         f"{TRAIN_B}-row step with its evaluations excluded) on {smi}")

@@ -1,14 +1,15 @@
 """deepsignal_plant_tpu_torch CLI (counterpart of
-deepsignal_plant_tpu/cli.py:20-60, :187-352 and :390-392).
+deepsignal_plant_tpu/cli.py:20-60 and :187-392).
 
-Ported so far: ``extract`` (TSV and the .npz containers), ``call_mods``
-and ``serve`` on features TSVs, .npz feature batches and fast5
-directories, ``train`` on features TSVs and v1 .npz batches,
-``call_freq`` and the ``tools`` set. They take the JAX package's flags
-with their defaults, plus ``--device`` (and ``--verbose_stages`` where a
-run has counters to print). Flags of planes that are not ported yet fail
-with a clear error when set away from their default
-(``_refuse_unported`` in pipeline/train.py and call_freq.py).
+Every subcommand is ported: ``extract`` (TSV and the .npz containers),
+``call_mods`` and ``serve`` on features TSVs, .npz feature batches and
+fast5 directories, ``train`` on features TSVs and v1 .npz batches (with
+``--resume`` and ``--stream``), ``denoise``, ``call_freq`` and the
+``tools`` set. They take the JAX package's flags with their defaults,
+plus ``--device`` (and ``--verbose_stages`` where a run has counters to
+print). What is not ported yet fails with a clear error: train's spill
+plane (pipeline/train.py) and call_freq's pod mode
+(``_refuse_unported`` in pipeline/call_freq.py).
 """
 from __future__ import annotations
 
@@ -123,6 +124,12 @@ def main_train(args):
     train(args)
 
 
+def main_denoise(args):
+    from .pipeline.denoise import denoise
+    display_args(args)
+    denoise(args)
+
+
 def _add_device_args(p):
     p.add_argument("--device", type=str, default="cuda",
                    choices=["cuda", "cpu"],
@@ -143,6 +150,7 @@ def build_parser() -> argparse.ArgumentParser:
                     "\tserve: call_mods over a watched directory\n"
                     "\tcall_freq: modification frequency per site\n"
                     "\ttrain: train a model\n"
+                    "\tdenoise: clean training samples by cross-rank\n"
                     "\ttools: post-processing utilities",
         formatter_class=argparse.RawTextHelpFormatter)
     parser.add_argument("-v", "--version", action="version",
@@ -339,12 +347,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pos_weight", type=float, default=1.0)
     p.add_argument("--init_model", type=str, default=None)
     p.add_argument("--resume", action="store_true", default=False,
-                   help="resume from a saved train state: not yet ported")
+                   help="resume from the train state in --model_dir "
+                        "(params + optimizer + epoch position), written "
+                        "after every epoch by this package or by the JAX "
+                        "package")
     p.add_argument("--stream", type=str, default="auto",
                    choices=["auto", "yes", "no"],
-                   help="the streaming (block-shuffled) dataset is not yet "
-                        "ported: yes fails, and so does auto on a file "
-                        "over 8GB")
+                   help="stream the training file in shuffled blocks "
+                        "(bounded memory); auto streams files over 8GB")
     p.add_argument("--device_resident", type=str, default="auto",
                    choices=["auto", "never"],
                    help="auto: upload both datasets to the device once and "
@@ -355,6 +365,42 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tmpdir", type=str, default="/tmp",
                    help="accepted for JAX CLI compatibility (unused)")
     p.set_defaults(func=main_train)
+
+    # ---- denoise ----
+    p = subparsers.add_parser("denoise",
+                              description="clean training samples by "
+                                          "cross-rank")
+    p.add_argument("--train_file", type=str, required=True)
+    p.add_argument("--is_filter_fn", type=str, default="no")
+    # the filter models are thrown away; only their averaged
+    # probabilities against a coarse threshold count, so auto (bf16 on
+    # the card) is the default here as everywhere
+    _add_model_args(p, dropout_default=0.5,
+                    model_type_default="signal_bilstm",
+                    compute_dtype_default="auto")
+    _add_device_args(p)
+    p.add_argument("--pos_weight", type=float, default=1.0)
+    p.add_argument("--batch_size", type=int, default=512)
+    p.add_argument("--lr", type=float, default=0.001)
+    p.add_argument("--epoch_num", type=int, default=3)
+    p.add_argument("--step_interval", type=int, default=100)
+    p.add_argument("--iterations", type=int, default=10)
+    p.add_argument("--rounds", type=int, default=3)
+    p.add_argument("--score_cf", type=float, default=0.5)
+    p.add_argument("--kept_ratio", type=float, default=0.99)
+    p.add_argument("--fst_iter_prob", action="store_true", default=False)
+    p.add_argument("--seed", type=int, default=None,
+                   help="seed every random choice of the loop (half "
+                        "splits, mini-training init, shuffles, k-mer-"
+                        "balanced negative reselection) for a "
+                        "reproducible denoise")
+    p.add_argument("--device_resident", type=str, default="auto",
+                   choices=["auto", "never"],
+                   help="auto: a mini-training uploads both halves once "
+                        "and gathers each step's rows on the device when "
+                        "they fit half the card's free memory; never: "
+                        "every step is gathered and uploaded on the host")
+    p.set_defaults(func=main_denoise)
 
     # ---- tools ----
     from .tools import register_tools

@@ -1,17 +1,21 @@
-"""Training dataset: a features TSV, or v1 .npz feature batches, read
-once into dense host arrays (counterpart of
-deepsignal_plant_tpu/io/dataset.py:23-97).
+"""Training datasets (counterpart of deepsignal_plant_tpu/io/dataset.py).
 
-A TSV is parsed a single time by the native parser at float32
-(utils/fastparse.parse_feature_bytes, the same arrays as the plain
-utils/formats.parse_feature_lines; labels are column 12); an .npz file
-or a directory of them loads through utils/formats.load_feature_npz
-(v1 only: a wire container raises). Epochs are permutations of an index
-vector and batches are gathers. The streaming (block-shuffled) dataset
-of the JAX package is not ported yet.
+``FeatureDataset`` reads a features TSV, or v1 .npz feature batches,
+once into dense host arrays. A TSV is parsed a single time by the native
+parser at float32 (utils/fastparse.parse_feature_bytes, the same arrays
+as the plain utils/formats.parse_feature_lines; labels are column 12);
+an .npz file or a directory of them loads through
+utils/formats.load_feature_npz (v1 only: a wire container raises).
+Epochs are permutations of an index vector and batches are gathers.
+
+``StreamingFeatureDataset`` holds one block of rows at a time: an epoch
+visits the blocks in a shuffled order and each block's rows in a
+shuffled order, with the JAX package's draws, so both packages give the
+same batches in the same order from the same generator.
 """
 from __future__ import annotations
 
+import gzip
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -61,6 +65,11 @@ class FeatureDataset:
                        z((0, kmer_len), np.float32),
                        z((0, kmer_len, signal_len), np.float32),
                        z((0,), np.int32))
+        return cls.concat(parts)
+
+    @classmethod
+    def concat(cls, parts: list) -> "FeatureDataset":
+        """The rows of ``parts`` (datasets or FeatureBatches), in order."""
         return cls(
             kmer=np.concatenate([p.kmer for p in parts]),
             base_means=np.concatenate([p.base_means for p in parts]),
@@ -105,3 +114,93 @@ class FeatureDataset:
                     idx = np.concatenate([idx, pad])
             batch, labels = self.batch_at(idx)
             yield batch, labels, n_valid
+
+
+class StreamingFeatureDataset:
+    """Bounded-memory training dataset over a big features TSV (plain or
+    .gz) or a directory of v1 .npz batches (JAX io/dataset.py:100-221).
+
+    A TSV is cut into blocks of ``block_rows`` lines, whose byte offsets
+    one pass records; an .npz file is a block. An epoch draws the block
+    order (one ``rng.permutation``; a .gz file keeps its order, since a
+    backward seek re-inflates the whole prefix), then per block the
+    order of its rows together with the rows the previous block left
+    over (one ``rng.permutation`` each), and yields full batches; the
+    rows that do not fill a batch carry into the next block, and the
+    last ones form the epoch's tail batch. Blocks parse with the native
+    parser.
+    """
+
+    def __init__(self, path: str, kmer_len: int = 13, signal_len: int = 16,
+                 block_rows: int = 65536):
+        self._path = path
+        self._kmer_len = kmer_len
+        self._signal_len = signal_len
+        self._block_rows = block_rows
+        self._npz_files = feature_npz_paths(path)
+        self._seekable = not path.endswith(".gz")
+        if self._npz_files is not None:
+            self._n = sum(len(load_feature_npz(f).labels)
+                          for f in self._npz_files)
+            self._offsets = None
+        else:
+            # one pass: the byte offset of every block boundary
+            offsets = [0]
+            n = 0
+            with self._open() as rf:
+                for _line in rf:
+                    n += 1
+                    if n % block_rows == 0:
+                        offsets.append(rf.tell())
+            self._n = n
+            self._offsets = offsets
+
+    def __len__(self) -> int:
+        return self._n
+
+    def _open(self):
+        return (open if self._seekable else gzip.open)(self._path, "rb")
+
+    def _iter_blocks(self, order: np.ndarray) -> Iterator[FeatureDataset]:
+        if self._npz_files is not None:
+            for bi in order:
+                yield FeatureDataset.concat(
+                    [load_feature_npz(self._npz_files[bi])])
+            return
+        with self._open() as rf:
+            for bi in order:
+                if self._seekable:
+                    rf.seek(self._offsets[bi])
+                raw_lines = []
+                for _ in range(self._block_rows):
+                    raw = rf.readline()
+                    if not raw:
+                        break
+                    raw_lines.append(raw)
+                yield FeatureDataset.concat([parse_feature_bytes(
+                    b"".join(raw_lines), self._kmer_len, self._signal_len)])
+
+    def iter_batches(self, batch_size: int, shuffle: bool,
+                     rng: np.random.Generator | None = None,
+                     ) -> Iterator[tuple[Batch, np.ndarray]]:
+        """Yield (batch, labels) for one epoch; only the tail batch is
+        short (JAX pads it; the port's step takes it as it is)."""
+        rng = rng or np.random.default_rng()
+        n_blocks = (len(self._npz_files) if self._npz_files is not None
+                    else len(self._offsets))
+        can_shuffle_blocks = shuffle and (self._npz_files is not None
+                                          or self._seekable)
+        order = (rng.permutation(n_blocks) if can_shuffle_blocks
+                 else np.arange(n_blocks))
+        carry: FeatureDataset | None = None
+        for block in self._iter_blocks(order):
+            if carry is not None and len(carry):
+                block = FeatureDataset.concat([carry, block])
+            idx = rng.permutation(len(block)) if shuffle \
+                else np.arange(len(block))
+            full = (len(idx) // batch_size) * batch_size
+            for s in range(0, full, batch_size):
+                yield block.batch_at(idx[s:s + batch_size])
+            carry = block.take(idx[full:])
+        if carry is not None and len(carry):
+            yield carry.batch_at(slice(None))

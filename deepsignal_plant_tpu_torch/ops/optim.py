@@ -26,6 +26,10 @@ import numpy as np
 import torch
 
 OPTIM_TYPES = ("Adam", "RMSprop", "SGD", "Ranger")
+#: each optimizer's state, one float32 tensor per parameter a slot, beside
+#: the update count (optax's count, the schedule's argument)
+STATE_SLOTS = {"Adam": ("mu", "nu"), "RMSprop": ("nu",), "SGD": ("trace",),
+               "Ranger": ("mu", "nu", "slow")}
 
 
 def step_decay_schedule(base_lr: float, steps_per_epoch: int,
@@ -64,6 +68,37 @@ class Optimizer:
             self.trace = zeros()
         if optim_type == "Ranger":
             self.slow = [p.detach().clone() for p in self.params]
+
+    def state_arrays(self) -> dict:
+        """The state as host arrays: ``count`` (an int64 scalar) and,
+        per slot of STATE_SLOTS, a list of float32 arrays in the
+        parameters' order."""
+        out = {"count": np.asarray(self.count, np.int64)}
+        for slot in STATE_SLOTS[self.optim_type]:
+            out[slot] = [t.detach().cpu().numpy().copy()
+                         for t in getattr(self, slot)]
+        return out
+
+    @torch.no_grad()
+    def load_state_arrays(self, state: dict) -> None:
+        """Restore ``state_arrays()``'s output (the same optimizer over
+        parameters of the same shapes); the schedule then continues at
+        the saved count."""
+        slots = STATE_SLOTS[self.optim_type]
+        if set(state) != {"count", *slots}:
+            raise ValueError(f"{self.optim_type} state needs count and "
+                             f"{slots}, got {sorted(state)}")
+        for slot in slots:
+            dst = getattr(self, slot)
+            if len(state[slot]) != len(dst):
+                raise ValueError(f"{slot}: {len(state[slot])} arrays for "
+                                 f"{len(dst)} parameters")
+            for t, a in zip(dst, state[slot]):
+                if tuple(np.shape(a)) != tuple(t.shape):
+                    raise ValueError(f"{slot}: shape {np.shape(a)} for a "
+                                     f"parameter of {tuple(t.shape)}")
+                t.copy_(torch.from_numpy(np.asarray(a, np.float32)))
+        self.count = int(state["count"])
 
     @torch.no_grad()
     def step(self, grads: list) -> None:

@@ -1,6 +1,6 @@
 """train on a features TSV, on one device (counterpart of the
 single-device branches of deepsignal_plant_tpu/pipeline/train.py:39-68,
-:673-695, :720-744, :746-799 and :802-1435).
+:673-722, :746-799 and :802-1435).
 
 Reference behavior (train.py:22-191): two datasets, one of four
 optimizers, StepLR(step=2, gamma=.1), weighted CE with pos_weight,
@@ -8,28 +8,41 @@ gradient clip 0.5, a full validation every ``step_interval`` steps, a
 checkpoint on an epoch-best accuracy within 2e-4 of the global best, and
 an early stop after ``min_epoch_num`` epochs without improvement.
 
-Two data planes, as the JAX package picks them on one device:
+Three data planes, as the JAX package picks them on one device:
 
 - device-resident (``device_resident="auto"``, the default): both
   datasets are uploaded once and every step gathers its rows on the
   device by the epoch permutation;
 - host-fed (``"never"``): every step gathers its rows on the host and
-  uploads them.
+  uploads them;
+- streamed (``--stream yes``, or ``auto`` on a file over 8 GB): the
+  training file is read block by block each epoch
+  (io/dataset.StreamingFeatureDataset) and every batch is uploaded; the
+  validation set is host-fed.
 
 A host ``numpy.random.default_rng(seed)`` draws the epoch permutations in
 the JAX package's order, so batch order is the same in both packages and
-both planes. A step's dropout masks come from a generator seeded by
-(seed + 1, global step), as JAX folds the step into its key, so both
+on every plane. A step's dropout masks come from a generator seeded by
+(seed + 1, global step), as JAX folds the step into its key, so the
 planes draw the same masks. Losses stay on the device until an eval
 boundary reads them. Batches are not padded: the tail step has fewer
 rows, which gives the loss and gradients JAX's masked padded step gives.
-The spill plane (a dataset over the resident budget), the sharded and
-multi-host planes, streaming and ``--resume`` are not ported yet.
+
+After every epoch the loop saves a train state (parameters, optimizer
+state, epoch, global step, best accuracy; ``{module}.train_state.npz``),
+and ``--resume`` continues from it, or from one the JAX package wrote.
+As in the JAX package, a resumed run starts its permutation generator
+afresh: it gives the weights of JAX's resumed run, not those of a run
+that never stopped. The spill plane (datasets over the resident budget)
+and the sharded and multi-host planes are not ported yet.
 """
 from __future__ import annotations
 
+import collections
+import io
 import json
 import os
+import pickle
 import re
 import sys
 import time
@@ -38,17 +51,17 @@ import numpy as np
 import torch
 
 from ..config import ModelConfig, TrainConfig, model_config_from_args
-from ..io.dataset import FeatureDataset
+from ..io.dataset import FeatureDataset, StreamingFeatureDataset
 from ..models.bilstm import Batch, ModelBiLSTM, init_params
-from ..models.convert import (load_any_checkpoint, params_to_numpy,
-                              save_checkpoint)
+from ..models.convert import (_flatten, _unflatten, load_any_checkpoint,
+                              params_to_numpy, save_checkpoint)
 from ..ops import fused_lstm, recurrence
-from ..ops.optim import Optimizer, step_decay_schedule
+from ..ops.optim import STATE_SLOTS, Optimizer, step_decay_schedule
 from ..utils import metrics as M
 from ..utils.device import resolve_device
 
-#: files this large would take the JAX package's streaming dataset
-#: (train.py:763-774), which is not ported yet
+#: with --stream auto, a training file over this size streams (JAX
+#: train.py:763-774)
 STREAM_MIN_BYTES = 8 << 30
 
 
@@ -85,10 +98,12 @@ def train_step(model: ModelBiLSTM, weights: list, opt: Optimizer,
     return loss.detach()
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The dropout generator of one training step, seeded by (seed + 1,
-    step) — the same masks for the same step on either data plane."""
-    state = np.random.SeedSequence([seed + 1, step]).generate_state(2)
+def step_generator(key: int, step: int, device) -> torch.Generator:
+    """The dropout generator of one training step, seeded by (key, step)
+    — the same masks for the same step on every data plane. The train
+    loop's key is seed + 1, denoise's seed + 7, as the JAX package's
+    PRNG keys."""
+    state = np.random.SeedSequence([key, step]).generate_state(2)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state[0]) << 32 | int(state[1]))
     return gen
@@ -113,32 +128,49 @@ def _upload(batch: Batch, labels: np.ndarray, device: torch.device):
 
 class HostFed:
     """Host-fed plane: each batch is gathered on the host and uploaded."""
-    resident = False
 
     def __init__(self, ds: FeatureDataset, device: torch.device):
         self.ds, self.device = ds, device
 
-    def order(self, perm: np.ndarray) -> np.ndarray:
-        return perm
-
     def batch(self, idx):
         return _upload(*self.ds.batch_at(idx), self.device)
+
+    def epoch(self, rng: np.random.Generator, batch_size: int):
+        """One epoch's (batch, labels), in the order of one permutation
+        drawn from ``rng``."""
+        perm = rng.permutation(len(self.ds))
+        for lo in range(0, len(perm), batch_size):
+            yield self.batch(perm[lo:lo + batch_size])
 
 
 class Resident:
     """Device-resident plane (JAX train.py:921-925, :1285-1316): the
     dataset is uploaded once; batches are gathered on the device."""
-    resident = True
 
     def __init__(self, ds: FeatureDataset, device: torch.device):
         self.data, self.labels = _upload(*ds.batch_at(slice(None)), device)
         self.device = device
 
-    def order(self, perm: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(perm).to(self.device)
-
     def batch(self, idx):
         return Batch(*(a[idx] for a in self.data)), self.labels[idx]
+
+    def epoch(self, rng: np.random.Generator, batch_size: int):
+        perm = torch.from_numpy(rng.permutation(len(self.labels))).to(
+            self.device)
+        for lo in range(0, len(perm), batch_size):
+            yield self.batch(perm[lo:lo + batch_size])
+
+
+class Streamed:
+    """Streamed plane (JAX train.py:1234-1249): the training file is read
+    block by block and every batch is uploaded."""
+
+    def __init__(self, ds: StreamingFeatureDataset, device: torch.device):
+        self.ds, self.device = ds, device
+
+    def epoch(self, rng: np.random.Generator, batch_size: int):
+        for batch, labels in self.ds.iter_batches(batch_size, True, rng):
+            yield _upload(batch, labels, self.device)
 
 
 def resident_budget(device: torch.device) -> int:
@@ -191,33 +223,198 @@ def clean_old_ckpts(model_dir: str, module: str) -> None:
                 pass
 
 
-def _sync(device: torch.device) -> None:
+# ---------------------------------------------------------------------------
+# the train state of --resume (JAX train.py:698-722)
+
+#: the header's ``format`` of the port's container
+TRAIN_STATE_FORMAT = "deepsignal_plant_tpu_torch.train_state"
+
+#: the optax state classes a JAX train state pickles, with their fields
+#: (optax 0.2; LookaheadState is the JAX package's own); a field named
+#: after an Optimizer slot (STATE_SLOTS) fills that slot
+_OPTAX_STATES = {
+    "ScaleByAdamState": ("count", "mu", "nu"),
+    "ScaleByRmsState": ("nu",),
+    "ScaleByScheduleState": ("count",),
+    "TraceState": ("trace",),
+    "EmptyState": (),
+    "LookaheadState": ("slow", "step"),
+}
+_OPTAX_TUPLES = {name: collections.namedtuple(name, fields)
+                 for name, fields in _OPTAX_STATES.items()}
+#: numpy's array and scalar reconstructors (JAX's state holds arrays and
+#: a float64 best accuracy), in numpy 1's and numpy 2's modules
+_NUMPY_GLOBALS = {("numpy", "ndarray"), ("numpy", "dtype")} | {
+    (f"numpy.{core}.multiarray", name) for core in ("core", "_core")
+    for name in ("_reconstruct", "scalar")}
+
+
+def train_state_path(model_dir: str, module: str) -> str:
+    """The JAX package's name of the train state."""
+    return os.path.join(model_dir, f"{module}.train_state.npz")
+
+
+def save_train_state(path: str, model: ModelBiLSTM, opt: Optimizer,
+                     epoch: int, global_step: int,
+                     best_accuracy: float) -> None:
+    """The port's container: plain npz arrays (``params/<name>``,
+    ``opt/count``, ``opt/<slot>/<name>``, with the parameter names of
+    the JAX layout) and a JSON ``header``; no pickle. Written to a
+    temporary file and renamed, so a crash leaves the last state."""
+    names = [k.replace(".", "/") for k, _ in model.named_parameters()]
+    arrays = {"params/" + k: v
+              for k, v in _flatten(params_to_numpy(model)).items()}
+    for slot, leaves in opt.state_arrays().items():
+        if slot == "count":
+            arrays["opt/count"] = leaves
+        else:
+            arrays.update({f"opt/{slot}/{n}": a
+                           for n, a in zip(names, leaves)})
+    header = {"format": TRAIN_STATE_FORMAT,
+              "optim_type": opt.optim_type, "epoch": epoch,
+              "global_step": global_step, "best_accuracy": best_accuracy}
+    arrays["header"] = np.frombuffer(json.dumps(header).encode(), np.uint8)
+    tmp = path[:-len(".npz")] + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+class _TrainStateUnpickler(pickle.Unpickler):
+    """Unpickles a JAX train state: numpy's array reconstructors, and the
+    optax state classes as namedtuples of the port's; any other global
+    raises."""
+
+    def find_class(self, module: str, name: str):
+        if (module, name) in _NUMPY_GLOBALS:
+            return super().find_class(module, name)
+        if name in _OPTAX_TUPLES and (
+                module.split(".")[0] == "optax"
+                or module == "deepsignal_plant_tpu.ops.optim"):
+            return _OPTAX_TUPLES[name]
+        raise pickle.UnpicklingError(
+            f"a train state may not name {module}.{name}")
+
+
+def _optax_slots(opt_state) -> tuple[str, dict]:
+    """(optim_type, {"count": n, slot: {name: array}}) of a JAX
+    optimizer state (the tuple make_optimizer's transforms pickle)."""
+    found: dict = {}
+    kinds: set = set()
+
+    def walk(node):
+        if type(node) in _OPTAX_TUPLES.values():
+            kinds.add(type(node).__name__)
+            for field, value in zip(node._fields, node):
+                found.setdefault(field, value)
+        elif isinstance(node, tuple):
+            for x in node:
+                walk(x)
+        else:
+            raise ValueError(f"unexpected {type(node).__name__} in a JAX "
+                             "optimizer state")
+
+    walk(opt_state)
+    optim_type = ("Ranger" if "LookaheadState" in kinds else
+                  "Adam" if "ScaleByAdamState" in kinds else
+                  "RMSprop" if "ScaleByRmsState" in kinds else
+                  "SGD" if "TraceState" in kinds else None)
+    if optim_type is None or "count" not in found:
+        raise ValueError(f"unknown JAX optimizer state {sorted(kinds)}")
+    out = {"count": int(np.asarray(found["count"]))}
+    for slot in STATE_SLOTS[optim_type]:
+        out[slot] = _flatten(found[slot])
+    return optim_type, out
+
+
+def load_train_state(path: str) -> dict:
+    """A train state written by the port or by the JAX package: {params
+    (the JAX layout), opt ({"count": n, slot: {name: array}}),
+    optim_type, epoch, global_step, best_accuracy}. The JAX package's
+    container (a pickled dict in ``train_state``) is read through an
+    unpickler that admits numpy arrays and optax states only."""
+    with np.load(path, allow_pickle=False) as z:
+        arrays = {k: z[k] for k in z.files}
+    if "train_state" in arrays:
+        st = _TrainStateUnpickler(
+            io.BytesIO(arrays["train_state"].tobytes())).load()
+        optim_type, opt = _optax_slots(st["opt_state"])
+        return {"params": st["params"], "opt": opt,
+                "optim_type": optim_type, "epoch": int(st["epoch"]),
+                "global_step": int(st["global_step"]),
+                "best_accuracy": float(st["best_accuracy"])}
+    header = json.loads(arrays.pop("header").tobytes().decode())
+    if header.get("format") != TRAIN_STATE_FORMAT:
+        raise ValueError(f"{path} is no train state")
+    opt: dict = {"count": int(arrays.pop("opt/count"))}
+    params = {}
+    for k, v in arrays.items():
+        kind, rest = k.split("/", 1)
+        if kind == "params":
+            params[rest] = v
+        else:
+            slot, name = rest.split("/", 1)
+            opt.setdefault(slot, {})[name] = v
+    return {"params": _unflatten(params), "opt": opt,
+            "optim_type": header["optim_type"], "epoch": header["epoch"],
+            "global_step": header["global_step"],
+            "best_accuracy": header["best_accuracy"]}
+
+
+def restore_optimizer(opt: Optimizer, model: ModelBiLSTM, st: dict,
+                       path: str) -> None:
+    """Load a train state's optimizer arrays into ``opt``, by parameter
+    name."""
+    if st["optim_type"] != opt.optim_type:
+        raise ValueError(f"{path} holds {st['optim_type']} state; this run "
+                         f"trains with {opt.optim_type}")
+    names = [k.replace(".", "/") for k, _ in model.named_parameters()]
+    state = {"count": st["opt"]["count"]}
+    for slot in STATE_SLOTS[opt.optim_type]:
+        leaves = st["opt"].get(slot, {})
+        if set(leaves) != set(names):
+            raise ValueError(f"{path}: the {slot} state does not match the "
+                             "model's parameters")
+        state[slot] = [leaves[n] for n in names]
+    opt.load_state_arrays(state)
+
+
+def sync_device(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
 def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
-               train_ds: FeatureDataset, valid_ds: FeatureDataset,
-               model_dir: str | None, device: torch.device,
-               init_model: str | None = None, verbose: bool = True) -> dict:
+               train_ds: FeatureDataset | StreamingFeatureDataset,
+               valid_ds: FeatureDataset, model_dir: str | None,
+               device: torch.device, init_model: str | None = None,
+               verbose: bool = True, resume: bool = False) -> dict:
     """The training loop on one device (JAX train.py:802-1435, its
-    single-device host-fed and resident branches). Returns the best
-    accuracy and checkpoint, the final parameters (numpy pytree), every
-    step's loss and every validation accuracy, and the run's counters."""
+    single-device host-fed, resident and streaming branches). With a
+    ``model_dir`` it saves the train state after every epoch, and with
+    ``resume`` it continues from that file when it exists. Returns the
+    best accuracy and checkpoint, the final parameters (numpy pytree),
+    the steps' losses and the validation accuracies of this run, and its
+    counters."""
     t_start = time.time()
     if train_cfg.device_resident not in ("auto", "never"):
         raise ValueError("device_resident must be auto|never")
-    resident = train_cfg.device_resident == "auto"
+    streamed = isinstance(train_ds, StreamingFeatureDataset)
+    resident = train_cfg.device_resident == "auto" and not streamed
     if resident and train_ds.nbytes + valid_ds.nbytes > resident_budget(
             device):
         raise ValueError(
-            "the datasets ({} bytes) exceed the device-resident budget, "
-            "where the JAX package takes its spill plane, which is not yet "
-            "ported to deepsignal_plant_tpu_torch; pass --device_resident "
-            "never for the host-fed plane".format(
+            "the datasets ({} bytes) exceed the device-resident budget; "
+            "the JAX package's spill plane for them is "
+            "not yet ported to deepsignal_plant_tpu_torch: pass "
+            "--device_resident never for the host-fed plane".format(
                 train_ds.nbytes + valid_ds.nbytes))
-    plane = Resident if resident else HostFed
-    train_src, valid_src = plane(train_ds, device), plane(valid_ds, device)
+    if streamed:
+        train_src = Streamed(train_ds, device)
+        valid_src = HostFed(valid_ds, device)
+    else:
+        plane = Resident if resident else HostFed
+        train_src, valid_src = plane(train_ds, device), plane(valid_ds,
+                                                              device)
     if verbose and resident:
         print("device-resident data plane: {} train + {} valid rows on "
               "{}".format(len(train_ds), len(valid_ds), device))
@@ -227,6 +424,13 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
     if init_model is not None:
         print(f"loading pre-trained model: {init_model}")
         params = load_any_checkpoint(init_model, model_cfg)
+    state_path = (train_state_path(model_dir, model_cfg.module)
+                  if model_dir is not None else None)
+    st = (load_train_state(state_path)
+          if resume and state_path is not None
+          and os.path.exists(state_path) else None)
+    if st is not None:
+        params = st["params"]
     model = ModelBiLSTM.from_params(params, model_cfg, device, trainable=True)
     weights = list(model.parameters())
 
@@ -242,14 +446,22 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
         print("total_step: {}".format(steps_per_epoch))
     best_accuracy = 0.0
     best_ckpt = None
-    global_step = 0
-    epochs_run = 0
+    global_step = start_epoch = 0
+    if st is not None:
+        restore_optimizer(opt, model, st, state_path)
+        start_epoch, global_step = st["epoch"], st["global_step"]
+        best_accuracy = st["best_accuracy"]
+        if verbose:
+            print("resuming training from epoch {} (step {})".format(
+                start_epoch, global_step))
+    start_step = global_step
+    epochs_run = start_epoch
     step_losses: list[float] = []
     valid_accuracies: list[float] = []
     epoch_seconds: list[float] = []
     counters = {"train_seconds": 0.0, "eval_seconds": 0.0, "eval_tiles": 0,
                 "train_rows": 0, "epoch_train_seconds": []}
-    for epoch in range(train_cfg.max_epoch_num):
+    for epoch in range(start_epoch, train_cfg.max_epoch_num):
         counters["epoch_train_seconds"].append(0.0)
         epoch_best = 0.0
         no_best_model = True
@@ -260,7 +472,7 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
             """Eval + best checkpoint + log (JAX train.py:1250-1283)."""
             nonlocal best_accuracy, epoch_best, no_best_model, best_ckpt
             nonlocal tlosses, tic, t_interval
-            _sync(device)
+            sync_device(device)
             t_eval = time.time()
             counters["train_seconds"] += t_eval - t_interval
             counters["epoch_train_seconds"][-1] += t_eval - t_interval
@@ -299,10 +511,8 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
             tic = t_interval = time.time()
             counters["eval_seconds"] += t_interval - t_eval
 
-        order = train_src.order(rng_np.permutation(len(train_ds)))
-        for i in range(steps_per_epoch):
-            batch, labels = train_src.batch(order[i * B:(i + 1) * B])
-            gen = (step_generator(train_cfg.seed, global_step, device)
+        for i, (batch, labels) in enumerate(train_src.epoch(rng_np, B)):
+            gen = (step_generator(train_cfg.seed + 1, global_step, device)
                    if model_cfg.dropout_rate > 0 else None)
             tlosses.append(train_step(model, weights, opt, batch, labels,
                                       class_weights, train_cfg.clip_grad,
@@ -314,6 +524,9 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 eval_boundary(i + 1)
         epochs_run = epoch + 1
         epoch_seconds.append(time.time() - epoch_t0)
+        if state_path is not None:
+            save_train_state(state_path, model, opt, epoch + 1, global_step,
+                             best_accuracy)
         if no_best_model and epoch >= train_cfg.min_epoch_num - 1:
             if verbose:
                 print("early stop!")
@@ -322,33 +535,33 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
     if verbose:
         print("[main] train costs {:.1f} seconds, best accuracy: {}".format(
             time.time() - t_start, best_accuracy))
+    plane_name = ("stream" if streamed else
+                  "resident" if resident else "host-fed")
     return {"best_accuracy": best_accuracy, "best_ckpt": best_ckpt,
             "epochs_run": epochs_run, "params": params_to_numpy(model),
-            "steps": global_step, "step_losses": step_losses,
+            "steps": global_step, "start_epoch": start_epoch,
+            "start_step": start_step, "step_losses": step_losses,
             "valid_accuracies": valid_accuracies,
             "epoch_seconds": epoch_seconds, "resident": resident,
-            **counters}
+            "plane": plane_name, **counters}
 
 
-def _refuse_unported(args) -> None:
-    """Planes of the JAX train that this package does not have yet fail
-    here, before any work, instead of running something else."""
-    big = os.path.getsize(args.train_file) > STREAM_MIN_BYTES
-    refused = [
-        (args.resume, "--resume"),
-        (args.stream == "yes" or (args.stream == "auto" and big),
-         "the streaming training dataset (--stream yes, or auto on a file "
-         "over 8 GB)"),
-    ]
-    for hit, what in refused:
-        if hit:
-            raise ValueError(
-                f"{what} is not yet ported to deepsignal_plant_tpu_torch "
-                "(the JAX package deepsignal_plant_tpu serves it)")
-
-
-def _kernel_launches() -> dict:
+def kernel_launches() -> dict:
     return {**fused_lstm.launches, **recurrence.launches}
+
+
+def kernel_launches_since(before: dict) -> dict:
+    """Launches of every kernel counter since the ``before`` snapshot
+    (``kernel_launches()``)."""
+    return {k: v - before[k] for k, v in kernel_launches().items()}
+
+
+def use_stream(args) -> bool:
+    """--stream yes, or auto on a training file over STREAM_MIN_BYTES
+    (JAX train.py:763-774)."""
+    return args.stream == "yes" or (
+        args.stream == "auto"
+        and os.path.getsize(args.train_file) > STREAM_MIN_BYTES)
 
 
 def train(args) -> dict:
@@ -357,7 +570,6 @@ def train(args) -> dict:
     for path in (args.train_file, args.valid_file):
         if not os.path.exists(path):
             raise ValueError(f"{path} does not exist!")
-    _refuse_unported(args)
     device = resolve_device(args.device)
     print("[main] train starts..")
     model_cfg = model_config_from_args(args, device, args.dropout_rate)
@@ -370,8 +582,13 @@ def train(args) -> dict:
 
     print("reading data..")
     t0 = time.time()
-    train_ds = FeatureDataset.from_file(args.train_file, model_cfg.seq_len,
-                                        model_cfg.signal_len)
+    if use_stream(args):
+        print("using streaming (block-shuffled) training dataset..")
+        train_ds = StreamingFeatureDataset(
+            args.train_file, model_cfg.seq_len, model_cfg.signal_len)
+    else:
+        train_ds = FeatureDataset.from_file(
+            args.train_file, model_cfg.seq_len, model_cfg.signal_len)
     valid_ds = FeatureDataset.from_file(args.valid_file, model_cfg.seq_len,
                                         model_cfg.signal_len)
     read_seconds = time.time() - t0
@@ -380,23 +597,26 @@ def train(args) -> dict:
     if model_dir != "/":
         model_dir = os.path.abspath(model_dir).rstrip("/")
         os.makedirs(model_dir, exist_ok=True)
-        clean_old_ckpts(model_dir, model_cfg.module)
+        if not args.resume:
+            clean_old_ckpts(model_dir, model_cfg.module)
     model_dir += "/"
 
-    launches0 = _kernel_launches()
+    launches0 = kernel_launches()
     res = train_loop(model_cfg, train_cfg, train_ds, valid_ds, model_dir,
-                     device, init_model=args.init_model)
+                     device, init_model=args.init_model, resume=args.resume)
     if args.verbose_stages:
         print("[stages] " + json.dumps({
             "device": (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu"),
             "compute_dtype": model_cfg.compute_dtype,
             "recurrence": model_cfg.recurrence,
-            "plane": "resident" if res["resident"] else "host-fed",
+            "plane": res["plane"],
+            "start_epoch": res["start_epoch"],
+            "start_step": res["start_step"],
+            "epochs_run": res["epochs_run"],
             "steps": res["steps"], "train_rows": res["train_rows"],
             "eval_tiles": res["eval_tiles"],
-            "kernel_launches": {k: v - launches0[k]
-                                for k, v in _kernel_launches().items()},
+            "kernel_launches": kernel_launches_since(launches0),
             "read_seconds": read_seconds,
             "train_seconds": res["train_seconds"],
             "eval_seconds": res["eval_seconds"],

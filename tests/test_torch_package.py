@@ -34,7 +34,7 @@ def test_every_module_is_listed():
                  "utils.fasta", "utils.gff", "utils.fileio", "tools",
                  "tools.ckpt", "tools.combiners", "tools.evaluate",
                  "tools.fileops", "tools.splitters", "io.hdf5", "io.fast5",
-                 "pipeline.extract", "utils.prof"):
+                 "pipeline.extract", "utils.prof", "pipeline.denoise"):
         assert "deepsignal_plant_tpu_torch." + name in mods
 
 
@@ -145,11 +145,12 @@ def test_extraction_worker_imports_no_torch():
 
 def test_only_train_and_call_freq_still_refuse():
     """What the port still refuses as "not yet ported" lives in train
-    (--resume, --stream, the spill plane) and call_freq (pod mode); the
-    refusals of call_mods, extract, serve, the dataset and the config
-    (int8, --device_resident always, --profile_dir, .npz inputs and
-    outputs) are gone. tests/test_torch_train.py and
-    tests/test_torch_call_freq.py drive the refusals that remain."""
+    (the spill plane) and call_freq (pod mode); the refusals of
+    call_mods, extract, serve, the dataset and the config (int8,
+    --device_resident always, --profile_dir, .npz inputs and outputs)
+    and of train's --resume and --stream are gone, and denoise runs.
+    tests/test_torch_train.py and tests/test_torch_call_freq.py drive
+    the refusals that remain."""
     pkg = os.path.join(REPO, "deepsignal_plant_tpu_torch")
     hits = set()
     for root, _dirs, files in os.walk(pkg):
@@ -162,5 +163,5 @@ def test_only_train_and_call_freq_still_refuse():
     assert hits == {"cli.py", "pipeline/train.py", "pipeline/call_freq.py"}
     with open(os.path.join(pkg, "cli.py")) as fh:
         lines = [ln for ln in fh if "not yet ported" in ln]
-    assert len(lines) == 3 and all(
-        k in "".join(lines) for k in ("pod mode", "resume", "spill"))
+    assert len(lines) == 2 and all(
+        k in "".join(lines) for k in ("pod mode", "spill"))

@@ -448,14 +448,13 @@ def test_resident_plane_is_bitwise_the_host_fed_plane(tmp_path, n_train,
 
 
 # ---------------------------------------------------------------------------
-# what is not ported yet fails, before any work
+# what is not ported yet fails, before any work (--resume and --stream
+# run: tests/test_torch_train_resume.py, tests/test_torch_train_stream.py)
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--resume"], "--resume"),
-    (["--stream", "yes"], "streaming"),
     (["--device_resident", "auto"], "--device_resident never"),
-], ids=["resume", "stream", "spill"])
+], ids=["spill"])
 def test_unported_planes_are_refused(tmp_path, monkeypatch, flags, match):
     monkeypatch.setattr(port_train, "resident_budget", lambda device: 0)
     tr = write_tsv(tmp_path / "t.tsv", 0, 2)

@@ -17,6 +17,10 @@ methylation reads; 4,493 held-out sites whose probabilities hug 0 and
     # 2. on the card: the port's call_mods engine on the same sites
     python torch_trained_gates.py card --gates build/trained_gates
 
+    # 3. on the card: the port's denoise on the fixture's training set
+    #    with 20% of its labels flipped (docs/DENOISE_EVAL.md's protocol)
+    python torch_trained_gates.py denoise --gates build/trained_gates
+
 Step 2 runs the port at float16 wire + bfloat16 compute (the default),
 int8 wire + bfloat16, float16 and int8 wires + float32 compute, and
 float32 wire + float32 compute, each at device_batch 32768 (one batch of
@@ -28,6 +32,16 @@ int8+f32 runs also against JAX's int8 run. It prints the table and one
 JSON line, and writes the JSON to chiprun_out/torch_trained_gates.json.
 It needs a card and imports nothing of JAX; step 1 calls the JAX
 package's CLI in a subprocess.
+
+Step 3 flips the label of each training row with probability 0.2 (numpy
+seed 77, as benchmarks/denoise_eval.py does), runs the port's ``denoise
+--iterations 3 --rounds 2 --epoch_num 3 --seed 77`` (signal_bilstm, the
+CLI's defaults otherwise) in a fresh process, and scores its output
+against the true labels, which the fixture's read names carry
+(methread_* / unmethread_*): label-1 and label-0 purity before and
+after, rows kept, wall time, the run's counters. The gate: label-1
+purity after >= 99%. It writes chiprun_out/torch_trained_gates_denoise
+.json.
 """
 from __future__ import annotations
 
@@ -37,6 +51,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -46,7 +61,13 @@ VARIANTS = {"f16+bf16": ("float16", "bfloat16"),
             "int8+f32": ("int8", "float32"),
             "f32+f32": ("float32", "float32")}
 DEVICE_BATCHES = (32768, 4096, 3477)
-GATE_FILES = ("eval_features.tsv", "model.trained.npz", "meta.json")
+GATE_FILES = ("eval_features.tsv", "model.trained.npz", "meta.json",
+              "train.tsv")
+# step 3: docs/DENOISE_EVAL.md's protocol
+DENOISE_FLIP, DENOISE_SEED = 0.2, 77
+DENOISE_ARGS = ("--iterations", "3", "--rounds", "2", "--epoch_num", "3",
+                "--seed", str(DENOISE_SEED))
+DENOISE_GATE_PCT = 99.0
 
 
 def read_calls(path: str) -> dict:
@@ -116,10 +137,7 @@ def card(gates: str) -> None:
     sys.path.insert(0, REPO)
     from deepsignal_plant_tpu_torch.config import CallConfig, ModelConfig
     from deepsignal_plant_tpu_torch.pipeline.call_mods import CallModsEngine
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_name()
     feats = os.path.join(gates, "eval_features.tsv")
     ckpt = os.path.join(gates, "model.trained.npz")
     base_calls = read_calls(os.path.join(gates, "jax_base.tsv"))
@@ -179,9 +197,97 @@ def card(gates: str) -> None:
     print(json.dumps({k: v for k, v in summary.items() if k != "gates"}))
 
 
+def card_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def flip_labels(src: str, dst: str) -> int:
+    """Flip each row's label with probability DENOISE_FLIP (one seeded
+    draw a row); returns the rows flipped."""
+    import numpy as np
+    with open(src) as fh:
+        rows = fh.read().splitlines()
+    flip = np.random.default_rng(DENOISE_SEED).random(len(rows)) \
+        < DENOISE_FLIP
+    with open(dst, "w") as fh:
+        for row, f in zip(rows, flip):
+            cols = row.split("\t")
+            if f:
+                cols[-1] = "1" if cols[-1] == "0" else "0"
+            fh.write("\t".join(cols) + "\n")
+    return int(flip.sum())
+
+
+def purity(path: str) -> dict:
+    """Rows per label column, and the share of each whose read is of
+    that cohort (methread_* is methylated)."""
+    n, right = {"0": 0, "1": 0}, {"0": 0, "1": 0}
+    with open(path) as fh:
+        for line in fh:
+            cols = line.rstrip("\n").split("\t")
+            true = "1" if cols[4].startswith("methread") else "0"
+            n[cols[-1]] += 1
+            right[cols[-1]] += true == cols[-1]
+    return {"rows": n["0"] + n["1"], "label1_rows": n["1"],
+            "label1_purity_pct": 100.0 * right["1"] / max(n["1"], 1),
+            "label0_purity_pct": 100.0 * right["0"] / max(n["0"], 1)}
+
+
+def denoise(gates: str) -> None:
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: the gate runs on the card")
+    smi = card_name()
+    with tempfile.TemporaryDirectory() as tmp:
+        noisy = os.path.join(tmp, "train_noisy.tsv")
+        flipped = flip_labels(os.path.join(gates, "train.tsv"), noisy)
+        before = purity(noisy)
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "deepsignal_plant_tpu_torch", "denoise",
+             "--train_file", noisy, *DENOISE_ARGS, "--verbose_stages"],
+            env=dict(os.environ, PYTHONPATH=REPO), cwd=REPO,
+            capture_output=True, text=True)
+        wall = time.time() - t0
+        if proc.returncode != 0:
+            raise SystemExit("denoise failed:\n" + proc.stdout[-3000:]
+                             + proc.stderr[-3000:])
+        stages = json.loads(next(
+            ln for ln in proc.stdout.splitlines()
+            if ln.startswith("[stages] "))[len("[stages] "):])
+        after = purity(stages["final_file"])
+    res = {"card": smi, "kind": torch.cuda.get_device_name(0),
+           "input_rows": before["rows"], "flipped": flipped,
+           "flip_frac": DENOISE_FLIP, "args": " ".join(DENOISE_ARGS),
+           "before": before, "after": after, "wall_seconds": wall,
+           "gate_label1_purity_pct": DENOISE_GATE_PCT,
+           "stages": {k: v for k, v in stages.items()
+                      if k != "final_file"}}
+    print(f"card: {smi}")
+    print(f"denoise {res['args']} on {before['rows']} rows "
+          f"({flipped} labels flipped): label-1 purity "
+          f"{before['label1_purity_pct']:.2f}% -> "
+          f"{after['label1_purity_pct']:.2f}%, label-0 "
+          f"{before['label0_purity_pct']:.2f}% -> "
+          f"{after['label0_purity_pct']:.2f}%, {after['rows']} rows kept "
+          f"({after['label1_rows']} label 1); {wall:.1f} s wall, "
+          f"{stages['mini_trainings']} mini-trainings")
+    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(REPO, "chiprun_out",
+                           "torch_trained_gates_denoise.json"), "w") as fh:
+        json.dump(res, fh, indent=1)
+    print(json.dumps(res))
+    if after["label1_purity_pct"] < DENOISE_GATE_PCT:
+        raise SystemExit(f"label-1 purity {after['label1_purity_pct']:.2f}%"
+                         f" < {DENOISE_GATE_PCT}%")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("step", choices=["base", "card"])
+    ap.add_argument("step", choices=["base", "card", "denoise"])
     ap.add_argument("--fixture", default=os.path.join(
         REPO, "build", "trained_fixture"))
     ap.add_argument("--gates", default=os.path.join(
@@ -189,8 +295,10 @@ def main() -> None:
     args = ap.parse_args()
     if args.step == "base":
         base(args.fixture, args.gates)
-    else:
+    elif args.step == "card":
         card(args.gates)
+    else:
+        denoise(args.gates)
 
 
 if __name__ == "__main__":
