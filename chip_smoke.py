@@ -118,8 +118,24 @@ Phases, in order; any failure exits non-zero before the last line:
    one epoch on phase 4b's rows, then ``--resume`` to two (it starts at
    epoch 2 and step 32), and one epoch with ``--stream yes``: 5 launches
    of K3, K4 and dW_hh per step, samples/s of each plane;
-9. a ``{"kernels": [...]}`` line (phase 8's launches beside each
-   kernel's main-path count), the card line, and last
+9. the spill plane and multi-process runs: (9a) ``train`` on phase 4b's
+   rows (first 1,024 validation rows) with DSP_RESIDENT_MAX_BYTES set so
+   the plane spills in 4 slabs, on the float16 and the int8 wire (5
+   launches of K3, K4 and dW_hh a step, valid accuracy within 0.05 of
+   phase 4b's, samples/s beside the resident plane's, upload seconds
+   against step seconds); (9b) two ranks on card 0 over gloo (NCCL puts
+   no two ranks on one card), one launch running four commands in turn:
+   one epoch of ``train`` (256 rows a rank a step; phase 2b logs the
+   bfloat16 cluster plans at that batch) on the
+   sharded-resident and the host-fed plane (parameters bitwise equal
+   across ranks, files from rank 0 only, the launches of each rank),
+   fused ``call_mods`` on phase 6's 64 reads (the ranks' ``.host<N>``
+   files hold one process's rows) and pod ``call_freq --device_agg`` on
+   them (one process's bytes); (9c) ``train`` under
+   ``torch.distributed.run --nproc_per_node 1``, the port's collectives
+   first run on NCCL at one rank;
+10. a ``{"kernels": [...]}`` line (phase 8's and 9's launches beside
+   each kernel's main-path count), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Without a card, or
@@ -300,6 +316,23 @@ DENOISE_ARGS = ("--iterations", "2", "--rounds", "1", "--epoch_num", "2",
 # first iteration's mean scores (2 x 16 steps of training apart, each
 # step's float32 sums in other orders) and the rows kept
 DENOISE_SCORE_TOL = 1e-3
+# phase 9a, the spill plane: phase 4b's 16,384 training rows against the
+# first SPILL_VALID_ROWS of its validation rows, with DSP_RESIDENT_MAX_BYTES
+# set per wire so that the rows go up in slabs of SPILL_SLAB_ROWS (4
+# slabs); a FeatureDataset row on the host is T int32 codes, 3 x T float32
+# features, T x 16 float32 signals and an int32 label; a row on the wire
+# is the spill plane's bytes_per_row
+SPILL_VALID_ROWS, SPILL_SLAB_ROWS = 1_024, 4_096
+HOST_ROW_BYTES = T * (4 + 3 * 4 + 16 * 4) + 4
+WIRE_ROW_BYTES = {"float16": T * (1 + 2 + 2 + 2 + 2 * 16) + 1,
+                  "int8": T * (1 + 1 + 1 + 2 + 16) + 1}
+# the spill runs' best valid accuracy against the resident run's (phase
+# 4b, all VALID_ROWS)
+SPILL_ACC_TOL = 0.05
+# phase 9b: two ranks on one card over gloo (NCCL refuses two ranks on
+# one card), one epoch of phase 4b's rows a plane at the global batch of
+# TRAIN_B (TRAIN_B / 2 a rank)
+RANKS = 2
 # the [stages] fields of call_mods that say where its time goes
 STAGE_FIELDS = ("batches", "packed_batches", "packed_sites",
                 "persite_batches", "persite_sites", "bases_uploaded",
@@ -822,17 +855,24 @@ def rec_plans(torch, recurrence) -> dict:
     """recurrence_plan's choice for each cluster kernel of each dtype at
     the training shapes, beside the occupancy query it read (clusters the
     card holds at once), the clusters the grid needs and the waves they
-    take (bfloat16 must take one, float32 at most two)."""
+    take (bfloat16 must take one, float32 at most two); in bfloat16 also
+    at phase 9b's batch of a rank (TRAIN_B / RANKS), where a missing plan
+    is logged as None (that kernel would stream)."""
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
+        batches = (TRAIN_B, TRAIN_B - 3) + (
+            (TRAIN_B // RANKS,) if dtype == torch.bfloat16 else ())
         for name, kind in recurrence._KIND.items():
             for H in (128, 256):
-                for B in (TRAIN_B, TRAIN_B - 3):
+                for B in batches:
                     def cap(C, rows):
                         return recurrence.cluster_capacity(0, kind, H, C,
                                                            rows, dtype)
                     plan = recurrence.recurrence_plan(kind, B, H, cap, dtype)
+                    if plan is None and B == TRAIN_B // RANKS:
+                        out[f"{name} {dname} H={H} B={B}"] = None
+                        continue
                     if plan is None:
                         fail(f"{name}: no {dname} cluster plan at H={H} "
                              f"B={B}")
@@ -1215,12 +1255,13 @@ def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
     return out
 
 
-def run_cli(*argv: str) -> dict:
+def run_cli(*argv: str, env: dict | None = None) -> dict:
     """One ``python -m deepsignal_plant_tpu_torch <argv> --verbose_stages``
-    process; returns its [stages] counters and wall seconds."""
+    process (``env`` added to its environment); returns its [stages]
+    counters and wall seconds."""
     cmd = [sys.executable, "-m", "deepsignal_plant_tpu_torch", *argv,
            "--verbose_stages"]
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, **(env or {}))
     t0 = time.time()
     proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=600)
@@ -2037,6 +2078,8 @@ def _check_fast5(fast5, base: str, tmp: str, ckpt: str) -> dict:
         f"({req[0]['sites_per_s']:.1f} sites/s) on one warm engine, bytes "
         f"= the call_mods CLI's ({cli_sub['wall_seconds']:.1f} s cold "
         f"process), .done written; process {st['wall_seconds']:.1f} s")
+    # phase 9 calls the same reads over two ranks after this run is gone
+    shutil.copytree(sub, os.path.join(tmp, "fast5_sub"))
     return {"fixture": fix, "reader": reader, "extract": ext,
             "rows": n_rows,
             "call_mods": {k: v for k, v in fused.items() if k != "rows"},
@@ -2533,6 +2576,338 @@ def phase8_launches(phase8: dict, name: str) -> dict:
             if v["kernel_launches"].get(name)}
 
 
+def spill_budget(wire: str) -> int:
+    """DSP_RESIDENT_MAX_BYTES that cuts the training rows into slabs of
+    SPILL_SLAB_ROWS on ``wire`` beside the SPILL_VALID_ROWS valid set:
+    the plane gives a slab (budget - 2 * valid bytes) // 3 wire bytes."""
+    bpr = WIRE_ROW_BYTES[wire]
+    return (2 * SPILL_VALID_ROWS * HOST_ROW_BYTES
+            + 3 * (SPILL_SLAB_ROWS * bpr + bpr // 2))
+
+
+def check_spill(tmp: str, trained: dict) -> dict:
+    """Phase 9a: the train CLI on the spill plane at float16 and int8, 2
+    epochs of phase 4b's rows, each a fresh process."""
+    tr, va = os.path.join(tmp, "train.tsv"), os.path.join(tmp, "valid.tsv")
+    sva = os.path.join(tmp, "spill_valid.tsv")
+    with open(va) as src, open(sva, "w") as dst:
+        for _ in range(SPILL_VALID_ROWS):
+            dst.write(src.readline())
+    steps = 2 * -(-TRAIN_ROWS // TRAIN_B)
+    slabs = -(-TRAIN_ROWS // SPILL_SLAB_ROWS)
+    out = {}
+    for wire in ("float16", "int8"):
+        budget = spill_budget(wire)
+        st = run_cli("train", "--train_file", tr, "--valid_file", sva,
+                     "--model_dir", os.path.join(tmp, f"spill_{wire}"),
+                     "--max_epoch_num", "2", "--step_interval", "16",
+                     env={"DSP_RESIDENT_MAX_BYTES": str(budget),
+                          "DSP_TRAIN_SPILL_WIRE": wire})
+        sp = st["spill"] or {}
+        if (st["plane"], sp.get("wire"), sp.get("slabs"),
+                sp.get("slab_rows"), st["steps"]) != (
+                "spill", wire, slabs, SPILL_SLAB_ROWS, steps):
+            fail(f"train with DSP_RESIDENT_MAX_BYTES={budget} on the {wire} "
+                 f"wire: {st['plane']} plane, {sp}, {st['steps']} steps "
+                 f"(expected spill, {slabs} slabs of {SPILL_SLAB_ROWS} "
+                 f"rows, {steps} steps)")
+        check_launches(f"train (spill, {wire})", st["kernel_launches"], {
+            "lstm_recurrence_fwd_save": 5 * steps,
+            "lstm_recurrence_bwd": 5 * steps, "lstm_dw_hh": 5 * steps,
+            "fused_bilstm_bf16": 5 * st["eval_tiles"]})
+        acc = max(st["valid_accuracies"])
+        if not np.isfinite(st["step_losses"]).all() or abs(
+                acc - trained["best_valid_accuracy"]) > SPILL_ACC_TOL:
+            fail(f"spill ({wire}): valid accuracy {acc} against the "
+                 f"resident plane's {trained['best_valid_accuracy']} "
+                 f"(tolerance {SPILL_ACC_TOL})")
+        out[wire] = {k: st[k] for k in (
+            "spill", "steps", "eval_tiles", "kernel_launches",
+            "samples_per_s", "train_seconds", "eval_seconds",
+            "epoch_train_seconds", "valid_accuracies", "wall_seconds")}
+        out[wire]["budget"] = budget
+        log(f"train on the spill plane ({wire} wire, budget {budget} bytes):"
+            f" {sp['slabs']} slabs of {sp['slab_rows']} rows, "
+            f"{sp['slab_uploads']} slab uploads, {sp['wire_bytes'] / 1e6:.1f}"
+            f" MB on the wire in {sp['upload_seconds']:.3f} s on the "
+            f"prefetch thread against {st['train_seconds']:.3f} s of steps; "
+            f"{st['samples_per_s']:.1f} samples/s (resident, phase 4b: "
+            f"{trained['samples_per_s']:.1f}); epochs "
+            f"{[round(x, 3) for x in st['epoch_train_seconds']]} s; best "
+            f"valid accuracy {acc:.4f} on {SPILL_VALID_ROWS} rows (resident "
+            f"{trained['best_valid_accuracy']:.4f} on {VALID_ROWS})")
+    return out
+
+
+def launch_ranks(argv: list, world: int = RANKS,
+                 timeout: int = 600) -> list:
+    """``argv`` as ``world`` ranks on this host, as torchrun starts
+    them (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK);
+    ``{rank}`` in an argument becomes the rank. Returns each rank's
+    stdout; a rank that fails fails the run."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = dict(os.environ, PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(port), WORLD_SIZE=str(world))
+    procs = []
+    try:
+        for r in range(world):
+            procs.append(subprocess.Popen(
+                [a.replace("{rank}", str(r)) for a in argv], cwd=REPO,
+                env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"rank {r} exited {p.returncode}:\n{o[-4000:]}")
+    return outs
+
+
+def rank_stages(outs: list) -> list:
+    """Each rank's [stages] counters."""
+    got = []
+    for r, o in enumerate(outs):
+        lines = [ln for ln in o.splitlines() if ln.startswith("[stages] ")]
+        if len(lines) != 1:
+            fail(f"rank {r} printed no [stages] line:\n{o[-3000:]}")
+        got.append(json.loads(lines[0][len("[stages] "):]))
+    return got
+
+
+def rank_runs(runs: list) -> list:
+    """``runs`` ([params file or None, CLI argv] each) in turn by RANKS
+    ranks on card 0 over gloo: one launch of this script's rank_worker,
+    the group started once. Per run, each rank's part of its output."""
+    outs = launch_ranks([sys.executable, os.path.abspath(__file__),
+                         "--rank-worker", json.dumps(runs)])
+    parts = [o.split("[rank-worker] run ")[1:] for o in outs]
+    if any(len(p) != len(runs) for p in parts):
+        fail("a rank did not reach every run:\n" + outs[0][-3000:])
+    return [[p[i] for p in parts] for i in range(len(runs))]
+
+
+def check_ranks(tmp: str, trained: dict, ckpt: str) -> dict:
+    """Phase 9b: two ranks on card 0 over gloo (an explicit device and
+    backend: NCCL puts no two ranks on one card), in one launch. One
+    epoch of full-width training on the sharded-resident and the
+    host-fed plane: the ranks' parameters bitwise equal, files from rank
+    0 only, 5 launches of K3, K4 and dW_hh a step on each rank; the
+    fused fast5 call_mods on phase 6's 64 reads, the union of the ranks'
+    .host<N> files equal, sorted, to one process's rows; pod call_freq
+    over those files equal to one process's."""
+    t_phase = time.time()
+    tr, va = os.path.join(tmp, "train.tsv"), os.path.join(tmp, "valid.tsv")
+    local_b = TRAIN_B // RANKS
+    shard = -(-TRAIN_ROWS // RANKS)         # the most rows a rank holds
+    steps = -(-shard // local_b)
+    dev = ["--device", "cuda:0"]
+    planes = (("sharded", "auto"), ("host-fed", "never"))
+    calls = os.path.join(tmp, "ranks_calls.tsv")
+    hosts = [os.path.join(tmp, f"ranks_calls.host{r}.tsv")
+             for r in range(RANKS)]
+    freq = os.path.join(tmp, "ranks_freq.tsv")
+    runs = [[os.path.join(tmp, f"ranks_{plane}", "params{rank}.npz"),
+             ["train", "--train_file", tr, "--valid_file", va, "--model_dir",
+              os.path.join(tmp, f"ranks_{plane}", "m{rank}"),
+              "--max_epoch_num", "1", "--min_epoch_num", "1",
+              "--step_interval", "100000", "--device_resident", resident,
+              *dev, "--verbose_stages"]] for plane, resident in planes]
+    runs.append([None, ["call_mods", "-i", os.path.join(tmp, "fast5_sub"),
+                        "-m", ckpt, "-o", calls, *dev, "--verbose_stages"]])
+    runs.append([None, ["call_freq", *sum((["-i", h] for h in hosts), []),
+                        "-o", freq, "--sort", "--prob_cf", "0",
+                        "--device_agg", *dev]])
+    for plane, _ in planes:
+        os.makedirs(os.path.join(tmp, f"ranks_{plane}"))
+    outs = rank_runs(runs)
+    out = {"train": {}, "launch_seconds": time.time() - t_phase}
+
+    for (plane, _), run_outs in zip(planes, outs):
+        d = os.path.join(tmp, f"ranks_{plane}")
+        sts = rank_stages(run_outs)
+        for r, st in enumerate(sts):
+            if (st["plane"], st["rank"], st["world_size"], st["local_batch"],
+                    st["steps"]) != (plane, r, RANKS, local_b, steps):
+                fail(f"rank {r} trained {st['plane']} (rank {st['rank']} of "
+                     f"{st['world_size']}, {st['local_batch']} rows a step, "
+                     f"{st['steps']} steps; expected {plane}, {local_b}, "
+                     f"{steps})")
+            check_launches(f"rank {r} ({plane})", st["kernel_launches"], {
+                "lstm_recurrence_fwd_save": 5 * steps,
+                "lstm_recurrence_bwd": 5 * steps, "lstm_dw_hh": 5 * steps,
+                "fused_bilstm_bf16": 5 * st["eval_tiles"]})
+        params = []
+        for r in range(RANKS):
+            with np.load(os.path.join(d, f"params{r}.npz")) as z:
+                params.append({k: z[k] for k in z.files})
+        if sorted(params[0]) != sorted(params[1]) or any(
+                not np.array_equal(params[0][k], params[1][k])
+                for k in params[0]):
+            fail(f"the ranks' parameters differ after a {plane} epoch")
+        written = [sorted(os.listdir(os.path.join(d, f"m{r}")))
+                   for r in range(RANKS)]
+        if written[1] or "both_bilstm.train_state.npz" not in written[0]:
+            fail(f"{plane}: rank 0 wrote {written[0]}, rank 1 {written[1]}")
+        if sts[0]["valid_accuracies"] != sts[1]["valid_accuracies"]:
+            fail(f"{plane}: the ranks evaluated apart: "
+                 f"{[s['valid_accuracies'] for s in sts]}")
+        out["train"][plane] = [{k: st[k] for k in (
+            "kernel_launches", "eval_tiles", "train_rows", "samples_per_s",
+            "train_seconds", "eval_seconds", "epoch_train_seconds",
+            "valid_accuracies", "read_seconds")} for st in sts]
+        log(f"train at {RANKS} ranks on card 0 over gloo, {plane} plane: "
+            f"{steps} steps of {local_b} rows a rank, parameters bitwise "
+            f"equal, files from rank 0 only ({written[0]}); per rank "
+            + ", ".join(f"{st['samples_per_s']:.1f} samples/s "
+                        f"({st['train_rows']} rows in "
+                        f"{st['train_seconds']:.3f} s)" for st in sts)
+            + f"; valid accuracy {sts[0]['valid_accuracies']}")
+
+    # fused fast5 call_mods on phase 6's 64 reads, then pod call_freq
+    sts = rank_stages(outs[2])
+    for r, st in enumerate(sts):
+        check_launches(f"call_mods rank {r}", st["kernel_launches"],
+                       {"fused_bilstm_bf16": 5 * st["forward_tiles"]})
+    one = os.path.join(tmp, "f5_sub_cli.tsv")   # phase 6, one process
+    merged = sorted(ln for h in hosts for ln in open(h).read().splitlines())
+    if os.path.exists(calls) or merged != sorted(
+            open(one).read().splitlines()):
+        fail("the ranks' call_mods rows differ from one process's")
+    out["call_mods"] = [{k: st[k] for k in ("sites", "forward_tiles",
+                                            "fast5_files", "sites_per_s",
+                                            "seconds", "kernel_launches")}
+                        for st in sts]
+    log(f"call_mods at {RANKS} ranks on {FAST5_SUB_READS} fast5s: "
+        + ", ".join(f"rank {r} {st['fast5_files']} files, {st['sites']} "
+                    f"sites, {st['sites_per_s']:.1f} sites/s"
+                    for r, st in enumerate(sts))
+        + "; the .host<N> files hold one process's rows (phase 6)")
+    if "shared input list" not in outs[3][0]:
+        fail("pod call_freq did not see a shared list:\n"
+             + outs[3][0][-2000:])
+    from deepsignal_plant_tpu_torch import cli
+    one_freq = os.path.join(tmp, "ranks_freq_one.tsv")
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["call_freq", *sum((["-i", h] for h in hosts), []), "-o",
+                  one_freq, "--sort", "--prob_cf", "0"])
+    if not os.path.getsize(one_freq) or read_bytes(freq) != read_bytes(
+            one_freq):
+        fail("pod call_freq differs from one process's call_freq")
+    log(f"pod call_freq at {RANKS} ranks (--prob_cf 0: every call of the "
+        f"random checkpoint counts; --device_agg on card 0, the merge on "
+        f"rank 0): {os.path.getsize(freq)} bytes, equal to one process's")
+    out["seconds"] = time.time() - t_phase
+    return out
+
+
+def check_nccl(tmp: str) -> dict:
+    """Phase 9c: the train CLI under ``torch.distributed.run
+    --nproc_per_node 1`` (one rank: the default backend, NCCL, runs the
+    collectives on card 0), 1 epoch of phase 4b's rows."""
+    tr, va = os.path.join(tmp, "train.tsv"), os.path.join(tmp, "valid.tsv")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__),
+           "--nccl-worker", "train", "--train_file", tr, "--valid_file", va,
+           "--model_dir", os.path.join(tmp, "nccl_model"), "--max_epoch_num",
+           "1", "--min_epoch_num", "1", "--step_interval", "100000",
+           "--verbose_stages"]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=REPO))
+    if proc.returncode != 0 or "NCCL collectives ok" not in proc.stdout:
+        fail(f"the NCCL run exited {proc.returncode}:\n"
+             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    st = rank_stages([proc.stdout])[0]
+    steps = -(-TRAIN_ROWS // TRAIN_B)
+    if (st["plane"], st["world_size"], st["steps"]) != ("resident", 1,
+                                                        steps):
+        fail(f"the NCCL run trained {st['plane']} at world size "
+             f"{st['world_size']}, {st['steps']} steps")
+    check_launches("train (torchrun, NCCL)", st["kernel_launches"], {
+        "lstm_recurrence_fwd_save": 5 * steps,
+        "lstm_recurrence_bwd": 5 * steps, "lstm_dw_hh": 5 * steps,
+        "fused_bilstm_bf16": 5 * st["eval_tiles"]})
+    log(f"train under torch.distributed.run --nproc_per_node 1 (NCCL "
+        f"collectives on card 0 checked first): {st['samples_per_s']:.1f} "
+        f"samples/s, {time.time() - t0:.1f} s with the launcher")
+    return {k: st[k] for k in ("kernel_launches", "samples_per_s",
+                               "train_seconds", "valid_accuracies")}
+
+
+def rank_worker(spec: str) -> int:
+    """``--rank-worker RUNS``: one rank of the runs in the JSON list RUNS
+    ([params file or None, CLI argv] each, ``{rank}`` replaced by the
+    launcher) over gloo, in turn, every rank at a barrier before each
+    (phase 9b). A trained run's parameters go to its file."""
+    sys.path.insert(0, REPO)
+    import torch.distributed as tdist
+    from deepsignal_plant_tpu_torch import cli
+    from deepsignal_plant_tpu_torch.models.convert import _flatten
+    from deepsignal_plant_tpu_torch.parallel import dist
+    if not dist.init_distributed(backend="gloo"):
+        fail("no multi-process launch to join")
+    try:
+        for i, (out, argv) in enumerate(json.loads(spec)):
+            tdist.barrier()
+            print(f"[rank-worker] run {i}", flush=True)
+            args = cli.build_parser().parse_args(argv)
+            res = args.func(args)
+            if out is not None:
+                np.savez(out, **_flatten(res["params"]))
+    finally:
+        dist.destroy()
+    return 0
+
+
+def nccl_worker(argv: list) -> int:
+    """``--nccl-worker <cli argv>`` under torch.distributed.run with one
+    process (phase 9c): an NCCL group of that rank runs the port's
+    collectives on its card, then the CLI command runs in it."""
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, REPO)
+    from deepsignal_plant_tpu_torch import cli
+    from deepsignal_plant_tpu_torch.parallel import multihost
+    if os.environ.get("WORLD_SIZE") != "1":
+        fail("the NCCL worker runs as the one rank of torch.distributed.run")
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    tdist.init_process_group("nccl", init_method="env://")
+    try:
+        if multihost.comm_device().type != "cuda":
+            fail("NCCL collectives do not run on the card")
+        g, = multihost.all_sum([torch.arange(6.0, device="cuda")])
+        if g.tolist() != [0.0, 1.0, 2.0, 3.0, 4.0, 5.0] or \
+                multihost.allgather_bytes(b"x" * 300, chunk_bytes=128) != \
+                [b"x" * 300] or multihost.broadcast_arrays(
+                    {"a": np.arange(3)})["a"].tolist() != [0, 1, 2]:
+            fail("NCCL collectives returned wrong values")
+        print("NCCL collectives ok", flush=True)
+        cli.main(argv)
+    finally:
+        tdist.destroy_process_group()
+    return 0
+
+
+def phase9_launches(phase9: dict, name: str) -> dict:
+    """A kernel's launches in phase 9's runs: the spill runs, each rank
+    of the two-rank runs, and the NCCL run."""
+    runs = {f"spill_{w}": st for w, st in phase9["spill"].items()}
+    for plane, ranks in phase9["ranks"]["train"].items():
+        runs.update({f"{plane}_rank{r}": st for r, st in enumerate(ranks)})
+    runs.update({f"call_mods_rank{r}": st for r, st in
+                 enumerate(phase9["ranks"]["call_mods"])})
+    runs["nccl"] = phase9["nccl"]
+    return {k: v["kernel_launches"][name] for k, v in runs.items()
+            if v["kernel_launches"].get(name)}
+
+
 def k1_f32_parts(timings, errs, checked, launched) -> list:
     """The kernels line's entries of K1's float32 kernels (K1_F32_KERNELS),
     per 4096-row tile over the layers whose route runs each (the tail
@@ -2706,6 +3081,14 @@ def main() -> int:
         npz_run = fast5_run.pop("npz")
         # phase 8: denoise, train --resume and --stream
         phase8 = check_denoise_resume_stream(tmp, ab)
+        # phase 9: the spill plane; two ranks on card 0 over gloo; one
+        # rank under torch.distributed.run (NCCL)
+        t9 = time.time()
+        phase9 = {"spill": check_spill(tmp, trained),
+                  "ranks": check_ranks(tmp, trained, run["ckpt"]),
+                  "nccl": check_nccl(tmp)}
+        phase9["seconds"] = time.time() - t9
+        log(f"phase 9 took {phase9['seconds']:.1f} s")
     flops = forward_flops_per_site(ModelConfig())
     for what, st in (("sparse fixture", run["stages"]),
                      ("dense rate run", {**run["rate"]["stats"],
@@ -2742,6 +3125,7 @@ def main() -> int:
         "library_ms": total("library_ms"),
         "shapes_checked": [c for c in checked if c[4] == "fused_bilstm_bf16"],
         "phase8_launches": phase8_launches(phase8, "fused_bilstm_bf16"),
+        "phase9_launches": phase9_launches(phase9, "fused_bilstm_bf16"),
         "per_launch": rows, "model_forward": forward, "main_path": run})
     # K1's float32 kernels, launches from the float32 call_mods run; the
     # whole float32 layer route per tile rides on the projection's entry
@@ -2772,6 +3156,7 @@ def main() -> int:
                             if name == "lstm_dw_hh"
                             else rec_errs[name]["bfloat16"]),
             "phase8_launches": phase8_launches(phase8, name),
+            "phase9_launches": phase9_launches(phase9, name),
             **t, "shapes_checked": rec_checked})
     kernels["kernels"][-1]["float32"]["launches_f32_training"] = (
         f32_train["launches"]["lstm_dw_hh"])
@@ -2801,6 +3186,8 @@ def main() -> int:
     log(".npz planes summary on " + smi + ": " + json.dumps(npz_run))
     log("denoise, resume and stream summary on " + smi + ": "
         + json.dumps(phase8))
+    log("spill, ranks and NCCL summary on " + smi + ": "
+        + json.dumps(phase9))
     log(f"train: {trained['samples_per_s_last_epoch']:.1f} samples/s in "
         f"the last epoch ({trained['ms_per_step_last_epoch']:.2f} ms per "
         f"{TRAIN_B}-row step with its evaluations excluded) on {smi}")
@@ -2813,4 +3200,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--nccl-worker"]:
+        sys.exit(nccl_worker(sys.argv[2:]))
     sys.exit(main())

@@ -5,10 +5,10 @@ package ``deepsignal_plant_tpu`` beside it stays the reference: this
 package imports nothing of it (nor JAX) and keeps its own copies of the
 host code it needs. Checkpoints and file formats are shared.
 
-Ported so far: ``extract`` (fast5 -> features TSV), ``call_mods`` on a
-features TSV or a fast5 directory, ``serve`` (features TSVs and fast5
-run-folders), ``train`` on features TSVs, ``call_freq`` and the
-``tools`` set. Fast5s are read by the package's own HDF5 reader
+Every subcommand of the JAX package is ported: ``extract``,
+``call_mods``, ``serve``, ``train``, ``denoise``, ``call_freq`` and the
+``tools`` set, on one card or one process per card under ``torchrun``
+(``parallel/``). Fast5s are read by the package's own HDF5 reader
 (``io/hdf5.py``; no h5py). The BiLSTM layers run through hand-written
 Hopper kernels: ``csrc/fused_bilstm.cu`` (K1, the counterpart of the
 Pallas kernel ``ops/pallas_fused.py``) for inference and

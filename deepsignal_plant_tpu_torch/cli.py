@@ -4,12 +4,13 @@ deepsignal_plant_tpu/cli.py:20-60 and :187-392).
 Every subcommand is ported: ``extract`` (TSV and the .npz containers),
 ``call_mods`` and ``serve`` on features TSVs, .npz feature batches and
 fast5 directories, ``train`` on features TSVs and v1 .npz batches (with
-``--resume`` and ``--stream``), ``denoise``, ``call_freq`` and the
-``tools`` set. They take the JAX package's flags with their defaults,
-plus ``--device`` (and ``--verbose_stages`` where a run has counters to
-print). What is not ported yet fails with a clear error: train's spill
-plane (pipeline/train.py) and call_freq's pod mode
-(``_refuse_unported`` in pipeline/call_freq.py).
+``--resume``, ``--stream`` and the spill plane), ``denoise``,
+``call_freq`` and the ``tools`` set. They take the JAX package's flags
+with their defaults, plus ``--device`` (and ``--verbose_stages`` where a
+run has counters to print). Under a multi-process launch (``torchrun``,
+WORLD_SIZE > 1) ``main`` starts the process group before the subcommand
+and ends it after (parallel/dist.py): NCCL for a command on the card,
+gloo for one on the CPU or the host alone.
 """
 from __future__ import annotations
 
@@ -17,6 +18,16 @@ import argparse
 import sys
 
 from ._version import DEEPSIGNAL_PLANT_TPU_TORCH_VERSION
+
+
+def device_arg(value: str) -> str:
+    """argparse type of ``--device``: cuda, cuda:<n> or cpu
+    (utils/device.resolve_device reads it)."""
+    if value in ("cuda", "cpu") or (value.startswith("cuda:")
+                                    and value[5:].isdigit()):
+        return value
+    raise argparse.ArgumentTypeError(
+        f"invalid device {value!r} (choose cuda, cuda:<n> or cpu)")
 
 
 def display_args(args):
@@ -94,47 +105,49 @@ def main_extract(args):
     ctx = ExtractContext.build(
         extract_options_from_args(args, args.methy_label),
         str2bool(args.is_dna))
-    extract_features(args.fast5_dir, str2bool(args.recursively), ctx,
-                     args.write_path, args.nproc, args.f5_batch_size,
-                     str2bool(args.w_is_dir), args.w_batch_num, args.gzip,
-                     seed=args.seed, out_format=args.w_format)
+    return extract_features(
+        args.fast5_dir, str2bool(args.recursively), ctx, args.write_path,
+        args.nproc, args.f5_batch_size, str2bool(args.w_is_dir),
+        args.w_batch_num, args.gzip, seed=args.seed,
+        out_format=args.w_format)
 
 
 def main_call_mods(args):
     from .pipeline.call_mods import call_mods
     display_args(args)
-    call_mods(args)
+    return call_mods(args)
 
 
 def main_serve(args):
     from .pipeline.serve import serve
     display_args(args)
-    serve(args)
+    return serve(args)
 
 
 def main_call_freq(args):
     from .pipeline.call_freq import call_mods_frequency_to_file
     display_args(args)
-    call_mods_frequency_to_file(args)
+    return call_mods_frequency_to_file(args)
 
 
 def main_train(args):
     from .pipeline.train import train
     display_args(args)
-    train(args)
+    return train(args)
 
 
 def main_denoise(args):
     from .pipeline.denoise import denoise
     display_args(args)
-    denoise(args)
+    return denoise(args)
 
 
 def _add_device_args(p):
-    p.add_argument("--device", type=str, default="cuda",
-                   choices=["cuda", "cpu"],
-                   help="run on the card (default) or on the CPU with the "
-                        "plain PyTorch versions of the kernels")
+    p.add_argument("--device", type=device_arg, default="cuda",
+                   help="run on the card (default; cuda:<LOCAL_RANK> under "
+                        "a multi-process launch, or the card named by "
+                        "cuda:<n>) or on the CPU (cpu) with the plain "
+                        "PyTorch versions of the kernels")
     p.add_argument("--verbose_stages", action="store_true", default=False,
                    help="print a JSON line of run counters at the end: "
                         "kernel launches, steps or tiles, stage seconds")
@@ -315,13 +328,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the per-block site sort + integer segment "
                         "sums on --device; output is byte-identical to "
                         "the host path")
-    p.add_argument("--device", type=str, default="cuda",
-                   choices=["cuda", "cpu"],
+    p.add_argument("--device", type=device_arg, default="cuda",
                    help="the device of --device_agg (default the card); "
                         "without --device_agg call_freq runs on the host")
     p.add_argument("--pod_shard_inputs", type=str, default="auto",
                    choices=["auto", "always", "never"],
-                   help="pod mode (multi-host) only: not yet ported")
+                   help="pod mode (WORLD_SIZE > 1) only: shard the input "
+                        "list over ranks (always: a shared filesystem), "
+                        "keep each rank's own list (never: disjoint "
+                        "per-rank inputs), or decide by comparing the "
+                        "ranks' lists (auto)")
     p.set_defaults(func=main_call_freq)
 
     p = subparsers.add_parser("train", description="train a model")
@@ -358,10 +374,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device_resident", type=str, default="auto",
                    choices=["auto", "never"],
                    help="auto: upload both datasets to the device once and "
-                        "gather each step's rows there; a dataset over the "
-                        "budget (half the card's free memory) fails, as "
-                        "the spill plane is not yet ported. never: gather "
-                        "and upload each step's rows on the host")
+                        "gather each step's rows there (each rank its row "
+                        "block under a multi-process launch); datasets "
+                        "over the budget (half the card's free memory, at "
+                        "most DSP_RESIDENT_MAX_BYTES) train on the spill "
+                        "plane, slab by slab. never: gather and upload "
+                        "each step's rows on the host")
     p.add_argument("--tmpdir", type=str, default="/tmp",
                    help="accepted for JAX CLI compatibility (unused)")
     p.set_defaults(func=main_train)
@@ -408,13 +426,28 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def run_device(args) -> str:
+    """The device a parsed command runs on: ``--device``, except that
+    call_freq uses it only with --device_agg and extract and the tools
+    run on the host."""
+    if args.func is main_call_freq and not args.device_agg:
+        return "cpu"
+    return getattr(args, "device", "cpu")
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if hasattr(args, "func"):
-        args.func(args)
-    else:
+    if not hasattr(args, "func"):
         parser.print_help()
+        return 0
+    from .parallel import dist
+    started = dist.init_distributed(device=run_device(args))
+    try:
+        args.func(args)
+    finally:
+        if started:
+            dist.destroy()
     return 0
 
 

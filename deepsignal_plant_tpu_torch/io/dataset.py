@@ -96,22 +96,20 @@ class FeatureDataset:
 
     def iter_batches(self, batch_size: int, shuffle: bool,
                      rng: np.random.Generator | None = None,
-                     drop_last: bool = False, pad_to_batch: bool = False,
+                     pad_to_batch: bool = False,
                      ) -> Iterator[tuple[Batch, np.ndarray, int]]:
         """Yield (batch, labels, n_valid). With ``pad_to_batch`` every
-        batch has ``batch_size`` rows, the tail padded with row 0."""
+        batch has ``batch_size`` rows, the tail padded with row 0 (a
+        multi-rank run's host-fed plane masks it)."""
         n = len(self)
         order = (rng or np.random.default_rng()).permutation(n) \
             if shuffle else np.arange(n)
         for s in range(0, n, batch_size):
             idx = order[s:s + batch_size]
             n_valid = len(idx)
-            if n_valid < batch_size:
-                if drop_last:
-                    return
-                if pad_to_batch:
-                    pad = np.zeros(batch_size - n_valid, dtype=idx.dtype)
-                    idx = np.concatenate([idx, pad])
+            if n_valid < batch_size and pad_to_batch:
+                pad = np.zeros(batch_size - n_valid, dtype=idx.dtype)
+                idx = np.concatenate([idx, pad])
             batch, labels = self.batch_at(idx)
             yield batch, labels, n_valid
 

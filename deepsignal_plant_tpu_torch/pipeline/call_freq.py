@@ -1,6 +1,5 @@
 """call_freq — genome-level methylation frequency aggregation (counterpart
-of deepsignal_plant_tpu/pipeline/call_freq.py:38-240, :317-420 and
-:508-597).
+of deepsignal_plant_tpu/pipeline/call_freq.py:38-597).
 
 Reference behavior (call_mods_freq.py:29-296): stream call_mods rows, drop
 ambiguous calls (|p0-p1| < prob_cf), accumulate per-site probability sums /
@@ -21,11 +20,18 @@ the device (ops/segment_agg.py; the card unless ``--device cpu``); the
 float64 probability sums stay on the host in file order within a site,
 so the output is byte-identical. Without it call_freq is host-only and
 needs no card. Contig-parallel mode (``-p > 1``, several contigs) runs a
-spawn process pool over contigs on the host. Pod mode (the JAX package's
-multi-host merge) is not yet ported.
+spawn process pool over contigs on the host.
+
+Pod mode (a multi-process launch, WORLD_SIZE > 1): each rank aggregates
+its share of the inputs (``--pod_shard_inputs``, _pod_resolve_inputs)
+and rank 0 merges the ranks' site tables in rank order and writes the
+one output (merge_across_hosts); with ``--contigs`` the ranks share out
+the contigs instead and each writes ``<root>.host<RANK><ext>``.
 """
 from __future__ import annotations
 
+import hashlib
+import io
 import os
 import time
 import uuid
@@ -33,6 +39,7 @@ import uuid
 import numpy as np
 
 from ..io.batching import iter_byte_blocks
+from ..parallel.dist import host_output_path, process_info, shard_for_host
 from ..utils.fasta import get_contig_names, is_genome_fasta
 from ..utils.fastparse import parse_call_bytes
 from ..utils.formats import (format_bed_row, format_freq_row, gzip_path,
@@ -205,6 +212,40 @@ class FreqAccumulator:
         self._met[g_of_u] += met_seg
         self._coverage[g_of_u] += cov_seg
 
+    def merge_table(self, chroms: list[str], gid, pos, strand, pis, prob0,
+                    prob1, met, coverage, kmers: list[str]) -> None:
+        """Merge a per-site table (one row a site, keys unique within the
+        table): the cross-rank reduction step."""
+        if len(pos) == 0:
+            return
+        gids = self._intern_chroms(list(chroms))[np.asarray(gid)]
+        keys = gids * _KEY_SHIFT + np.asarray(pos)
+        g_of = self._resolve_and_append(
+            keys, np.arange(len(keys)), gids, np.asarray(pos),
+            np.asarray(strand), np.asarray(pis), lambda j: str(kmers[j]))
+        np.add.at(self._prob0, g_of, prob0)
+        np.add.at(self._prob1, g_of, prob1)
+        np.add.at(self._met, g_of, met)
+        np.add.at(self._coverage, g_of, coverage)
+
+    def payload_bytes(self) -> bytes:
+        """The aggregation state as npz bytes of fixed-dtype arrays (the
+        JAX package's ``state_payload``, without pickle)."""
+        n = self.n_sites
+        fh = io.BytesIO()
+        np.savez(fh, chroms=np.array(self._chroms, dtype=str),
+                 gid=self._gid[:n], pos=self._pos[:n],
+                 strand=self._strand[:n], pis=self._pis[:n],
+                 prob0=self._prob0[:n], prob1=self._prob1[:n],
+                 met=self._met[:n], coverage=self._coverage[:n],
+                 kmers=np.array(self._kmers, dtype=str))
+        return fh.getvalue()
+
+    def merge_payload(self, raw: bytes) -> None:
+        """Merge another accumulator's ``payload_bytes``."""
+        with np.load(io.BytesIO(raw), allow_pickle=False) as z:
+            self.merge_table(**{k: z[k] for k in z.files})
+
     def report(self) -> str:
         pct = self.used / float(self.count) * 100 if self.count else 0.0
         tag = "" if self.contig is None else f" for {self.contig}"
@@ -317,35 +358,97 @@ def collect_mods_files(input_paths: list[str],
     return mods_files
 
 
-def multi_process_env() -> bool:
-    """True when a multi-process launch is configured: torch.distributed's
-    environment (WORLD_SIZE > 1) or the JAX package's pod environment
-    (JAX_COORDINATOR_ADDRESS with JAX_NUM_PROCESSES > 1)."""
-    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    jax_pod = bool(os.environ.get("JAX_COORDINATOR_ADDRESS")) and \
-        int(os.environ.get("JAX_NUM_PROCESSES", "0") or 0) > 1
-    return world > 1 or jax_pod
+def merge_across_hosts(acc: FreqAccumulator) -> FreqAccumulator:
+    """Reduce the ranks' accumulators over collectives (JAX
+    call_freq.py:242-276): every rank's site table goes out in one
+    chunked all-gather (parallel/multihost.allgather_bytes) and rank 0,
+    the one writer, merges them in rank order, so first-seen metadata and
+    the unsorted row order do not depend on timing. The other ranks never
+    hold the others' tables; they return an accumulator that carries
+    only the exact global count and used, so ``report()`` agrees on every
+    rank."""
+    rank, world = process_info()
+    if world == 1:
+        return acc
+    from ..parallel.multihost import allgather_bytes, global_sum
+    payloads = allgather_bytes(acc.payload_bytes(), keep=rank == 0)
+    merged = FreqAccumulator(prob_cf=acc.prob_cf, contig=acc.contig)
+    for raw in payloads:
+        merged.merge_payload(raw)
+    # float64 sums of integer counts are exact below 2**53 calls
+    count, used = global_sum([acc.count, acc.used])
+    merged.count, merged.used = int(count), int(used)
+    return merged
 
 
-def _refuse_unported(args) -> None:
-    """Pod mode (the cross-host merge and input partitioning) is not
-    ported: it fails here instead of every host writing a whole-genome
-    output of its own inputs."""
-    refused = [
-        (getattr(args, "pod_shard_inputs", "auto") != "auto",
-         "--pod_shard_inputs " + str(getattr(args, "pod_shard_inputs", ""))),
-        (multi_process_env(), "pod mode (a multi-process environment)"),
-    ]
-    for hit, what in refused:
-        if hit:
-            raise ValueError(
-                f"{what} is not yet ported to deepsignal_plant_tpu_torch "
-                "(the JAX package deepsignal_plant_tpu serves it)")
+def _pod_input_fingerprint(f: str) -> str:
+    """A file's identity for the shared-list check (JAX
+    call_freq.py:422-455): its absolute path, size and a content hash
+    (whole up to 512 KiB; else head, six interior chunks and tail), so
+    that same-path files of equal size but other content (per-rank local
+    shards written to one path) do not pass as one shared file."""
+    size = os.path.getsize(f)
+    h = hashlib.sha256()
+    chunk = 65536
+    with open(f, "rb") as fh:
+        if size <= 8 * chunk:
+            for blk in iter(lambda: fh.read(chunk), b""):
+                h.update(blk)
+        else:
+            h.update(fh.read(chunk))
+            for i in range(1, 7):
+                fh.seek(chunk + (size - 2 * chunk) * i // 7)
+                h.update(fh.read(chunk))
+            fh.seek(-chunk, os.SEEK_END)
+            h.update(fh.read(chunk))
+    return "{}\t{}\t{}".format(os.path.abspath(f), size,
+                               h.hexdigest()[:16])
+
+
+def _pod_resolve_inputs(mods_files: list[str], mode: str) -> tuple[
+        list[str], bool]:
+    """This rank's input list in pod mode -> (files, shared_fs) (JAX
+    call_freq.py:458-505). On a shared filesystem every rank sees every
+    file, so the list is sharded (or every count would be multiplied by
+    the world size); on per-rank disjoint inputs each rank keeps its
+    own. ``mode``: ``always`` shards, ``never`` keeps, ``auto`` gathers
+    every rank's fingerprints and shards when all lists match, keeps
+    them when their paths are pairwise disjoint, and raises on a partial
+    overlap."""
+    if mode == "always":
+        return shard_for_host(mods_files), True
+    if mode == "never":
+        return list(mods_files), False
+    from ..parallel.multihost import allgather_bytes
+    ident = "\n".join(_pod_input_fingerprint(f) for f in sorted(mods_files))
+    payloads = allgather_bytes(ident.encode())
+    sets = [set(p.decode().splitlines()) if p else set() for p in payloads]
+    if all(s == sets[0] for s in sets):
+        out = shard_for_host(mods_files)
+        print("pod mode: shared input list; this rank aggregates {} of {} "
+              "file(s)".format(len(out), len(mods_files)))
+        return out, True
+    # disjointness is judged on paths alone: one path seen with two
+    # fingerprints (a file mid-write, per-rank local files at one path)
+    # is not two disjoint files
+    path_sets = [set(line.split("\t", 1)[0] for line in s) for s in sets]
+    if sum(len(s) for s in path_sets) == len(set().union(*path_sets)):
+        print("pod mode: disjoint per-rank inputs; this rank aggregates "
+              "all {} local file(s)".format(len(mods_files)))
+        return list(mods_files), False
+    raise ValueError(
+        "pod call_freq: the ranks' input lists neither match exactly "
+        "(same paths, sizes and content samples) nor are pairwise "
+        "disjoint: a partially overlapping partition, a shared file seen "
+        "mid-write, or per-rank local files at one path. Refusing to "
+        "guess the partition (counts would be dropped or double-counted). "
+        "Pass --pod_shard_inputs always (shared filesystem) or never "
+        "(disjoint per-rank inputs) to assert the layout.")
 
 
 def call_mods_frequency_to_file(args) -> None:
-    """CLI entry, mirroring call_mods_freq.py:218."""
-    _refuse_unported(args)
+    """CLI entry, mirroring call_mods_freq.py:218; pod mode under a
+    multi-process launch (JAX call_freq.py:508-597)."""
     print("[main]call_freq starts..")
     t0 = time.time()
     mods_files = collect_mods_files(args.input_path, args.file_uid)
@@ -353,16 +456,40 @@ def call_mods_frequency_to_file(args) -> None:
     contigs = resolve_contigs(args.contigs)
     device_agg = args.device_agg
     device = args.device
+    pod = process_info()[1] > 1
 
     if contigs is None:
+        if pod:
+            mods_files, _ = _pod_resolve_inputs(mods_files,
+                                                args.pod_shard_inputs)
         acc = FreqAccumulator(prob_cf=args.prob_cf, device_agg=device_agg,
                               device=device)
         for f in mods_files:
             acc.add_file(f)
+        if pod:
+            acc = merge_across_hosts(acc)
         print(acc.report())
-        write_freq(acc, args.result_file, args.sort, args.bed, args.gzip)
+        if process_info()[0] == 0:
+            write_freq(acc, args.result_file, args.sort, args.bed,
+                       args.gzip)
     else:
         result_file = args.result_file
+        if pod:
+            # a shared list shares out the contigs over ranks, each over
+            # every file; disjoint per-rank inputs keep every contig (a
+            # contig's rows may sit in any rank's files). Either way each
+            # rank writes its own suffixed output (merge downstream with
+            # `tools combine_freq_files`).
+            mods_files, shared_fs = _pod_resolve_inputs(
+                mods_files, args.pod_shard_inputs)
+            if shared_fs:
+                mods_files = collect_mods_files(args.input_path,
+                                                args.file_uid)
+                contigs = shard_for_host(contigs)
+            result_file = host_output_path(result_file)
+            print("pod mode: this rank takes {} contig(s) over {} file(s) "
+                  "-> {}".format(len(contigs), len(mods_files),
+                                 result_file))
         print("start processing {} contigs..".format(len(contigs)))
         import multiprocessing as mp
         from concurrent.futures import ProcessPoolExecutor

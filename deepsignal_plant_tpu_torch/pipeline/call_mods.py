@@ -80,6 +80,7 @@ from ..io.batching import (AsyncWriter, BatchAssembler, PrefetchIterator,
 from ..models.bilstm import Batch, ModelBiLSTM
 from ..models.convert import load_any_checkpoint
 from ..ops import fused_lstm
+from ..parallel.dist import host_output_path
 from ..utils.device import resolve_device
 from ..utils.fastparse import (emit_call_rows_arrays, format_call_block,
                                pack_raw_block, parse_raw_feature_block,
@@ -915,13 +916,18 @@ def call_mods(args) -> CallStats:
     t0 = time.time()
     launches0 = dict(fused_lstm.launches)
     engine = CallModsEngine(model_path, model_cfg, call_cfg, device)
+    # under a multi-process launch each rank writes <root>.host<RANK><ext>
+    # (a fast5 directory is shared out over ranks; a features input is
+    # called whole by every rank, as in the JAX package)
+    result_file = host_output_path(args.result_file)
     with device_trace(args.profile_dir, device.type == "cuda"):
         if os.path.isdir(input_path) and \
                 feature_npz_paths(input_path) is None:
             from .extract import extract_to_call_mods
-            stats = extract_to_call_mods(engine, input_path, args)
+            stats = extract_to_call_mods(engine, input_path, args,
+                                         result_file)
         else:  # a features TSV, an .npz file or a directory of them
-            stats = engine.run_features_file(input_path, args.result_file,
+            stats = engine.run_features_file(input_path, result_file,
                                              args.gzip)
     if args.verbose_stages:
         print("[stages] " + json.dumps({

@@ -116,7 +116,8 @@ class CrossRankTrainer:
         gstep = 0
         for epoch in range(epoch_num):
             epoch_accs: list[float] = []
-            for i, (batch, labels) in enumerate(train_src.epoch(rng_np, B)):
+            for i, (batch, labels, _, _) in enumerate(
+                    train_src.epoch(rng_np, B)):
                 gen = (step_generator(seed + 7, gstep, dev)
                        if cfg.dropout_rate > 0 else None)
                 loss = train_step(model, weights, opt, batch, labels,

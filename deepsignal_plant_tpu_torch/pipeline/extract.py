@@ -46,6 +46,7 @@ import numpy as np
 
 from ..io.fast5 import (MultiReadFast5Error, TomboRead, VBZPluginError,
                         read_tombo_fast5)
+from ..parallel.dist import host_output_path, shard_for_host
 from ..utils.bases import seq_to_codes, str2bool
 from ..utils.fasta import get_contig2len
 from ..utils.fileio import get_fast5s
@@ -716,8 +717,10 @@ class _PartConcatWriter(_RotatingSinkBase):
 
 
 def _fast5_batches(fast5_dir: str, recursive: bool, f5_batch_size: int):
-    fast5s = get_fast5s(fast5_dir, recursive)
-    print("{} fast5 files in total..".format(len(fast5s)))
+    """This rank's share of the fast5 list (all of it in one process;
+    parallel/dist.shard_for_host), cut into batches."""
+    fast5s = shard_for_host(get_fast5s(fast5_dir, recursive))
+    print("{} fast5 files in total (this rank)..".format(len(fast5s)))
     return fast5s, [fast5s[i:i + f5_batch_size]
                     for i in range(0, len(fast5s), f5_batch_size)]
 
@@ -731,9 +734,12 @@ def extract_features(fast5_dir: str, is_recursive: bool,
     """Directory of fast5s -> features TSV (reference format), or a
     directory of .npz feature batches (``out_format`` npz, npz_wire or
     npz_packed: one ``<batch index>.npz`` per fast5 batch). Returns
-    (n_fast5s, n_errors)."""
+    (n_fast5s, n_errors). Under a multi-process launch each rank takes
+    its share of the fast5s and writes ``host_output_path(write_path)``
+    (a ``.host<RANK>`` file or directory)."""
     if out_format != "tsv" and out_format not in NPZ_SAVERS:
         raise ValueError(f"unknown --w_format {out_format}")
+    write_path = host_output_path(write_path)
     print("[main] extract_features starts..")
     t0 = time.time()
     if not os.path.isdir(fast5_dir):

@@ -1,6 +1,6 @@
-"""train on a features TSV, on one device (counterpart of the
-single-device branches of deepsignal_plant_tpu/pipeline/train.py:39-68,
-:673-722, :746-799 and :802-1435).
+"""train on a features TSV, on one card or on many (counterpart of
+deepsignal_plant_tpu/pipeline/train.py:39-127, :320-335, :574-622,
+:673-722 and :746-1435).
 
 Reference behavior (train.py:22-191): two datasets, one of four
 optimizers, StepLR(step=2, gamma=.1), weighted CE with pos_weight,
@@ -8,33 +8,55 @@ gradient clip 0.5, a full validation every ``step_interval`` steps, a
 checkpoint on an epoch-best accuracy within 2e-4 of the global best, and
 an early stop after ``min_epoch_num`` epochs without improvement.
 
-Three data planes, as the JAX package picks them on one device:
+Data planes, as the JAX package picks them:
 
 - device-resident (``device_resident="auto"``, the default): both
   datasets are uploaded once and every step gathers its rows on the
   device by the epoch permutation;
-- host-fed (``"never"``): every step gathers its rows on the host and
-  uploads them;
+- spill (``auto`` on one card when the datasets exceed the resident
+  budget but the validation set fits a quarter of it): the training set
+  goes up slab by slab in float16 or int8, the next slab on a copy
+  stream while the current one trains; two-level shuffle (slab order,
+  then rows within a slab);
+- host-fed (``"never"``, or datasets too big for both): every step
+  gathers its rows on the host and uploads them;
 - streamed (``--stream yes``, or ``auto`` on a file over 8 GB): the
   training file is read block by block each epoch
   (io/dataset.StreamingFeatureDataset) and every batch is uploaded; the
   validation set is host-fed.
 
-A host ``numpy.random.default_rng(seed)`` draws the epoch permutations in
-the JAX package's order, so batch order is the same in both packages and
-on every plane. A step's dropout masks come from a generator seeded by
-(seed + 1, global step), as JAX folds the step into its key, so the
-planes draw the same masks. Losses stay on the device until an eval
-boundary reads them. Batches are not padded: the tail step has fewer
-rows, which gives the loss and gradients JAX's masked padded step gives.
+Under a multi-process launch (WORLD_SIZE > 1; parallel/dist.py) rank r
+is device r of JAX's data-parallel axis: the global batch is rounded up
+to a multiple of the world size and each rank takes its share
+(``local_B``) for ``ceil(ceil(N / world) / local_B)`` steps an epoch.
+The resident plane becomes the sharded one (``Sharded``: contiguous
+row blocks, every rank drawing every rank's block permutation from the
+one seeded stream) and the host-fed plane takes a strided row shard
+(``ShardedHostFed``: each rank permutes its own shard). Short and empty
+steps are padded with row 0 and masked, so every rank runs the same
+collectives. A step sums the weighted-CE denominator over ranks before
+the backward, back-propagates its numerator over that sum, sums the
+gradients and the loss over ranks, and every rank applies the same
+clipped update: the parameters stay bitwise equal across ranks.
+Evaluation sums the loss terms and the prediction counts. Only rank 0
+writes checkpoints, the train state and the log lines; ``--resume``
+reads the state on rank 0 and broadcasts it. A streaming dataset under
+a launch raises, as in the JAX package.
+
+A host ``numpy.random.default_rng(seed)`` draws the permutations in the
+JAX package's order, so batch order is the same in both packages. A
+step's dropout masks come from a generator seeded by (seed + 1, global
+step[, rank]), as JAX folds the step (and its axis index) into its key.
+Losses stay on the device until an eval boundary reads them. On one
+card batches are not padded: the tail step has fewer rows, which gives
+the loss and gradients JAX's masked padded step gives.
 
 After every epoch the loop saves a train state (parameters, optimizer
 state, epoch, global step, best accuracy; ``{module}.train_state.npz``),
 and ``--resume`` continues from it, or from one the JAX package wrote.
 As in the JAX package, a resumed run starts its permutation generator
 afresh: it gives the weights of JAX's resumed run, not those of a run
-that never stopped. The spill plane (datasets over the resident budget)
-and the sharded and multi-host planes are not ported yet.
+that never stopped.
 """
 from __future__ import annotations
 
@@ -46,6 +68,7 @@ import pickle
 import re
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -57,6 +80,8 @@ from ..models.convert import (_flatten, _unflatten, load_any_checkpoint,
                               params_to_numpy, save_checkpoint)
 from ..ops import fused_lstm, recurrence
 from ..ops.optim import STATE_SLOTS, Optimizer, step_decay_schedule
+from ..parallel.dist import process_info
+from ..parallel.multihost import all_sum, broadcast_arrays, host_row_shard
 from ..utils import metrics as M
 from ..utils.device import resolve_device
 
@@ -65,14 +90,27 @@ from ..utils.device import resolve_device
 STREAM_MIN_BYTES = 8 << 30
 
 
+def masked_ce_terms(logits: torch.Tensor, labels: torch.Tensor,
+                    class_weights: torch.Tensor,
+                    mask: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum of w[y] * ce, sum of w[y]) over the rows ``mask`` keeps (JAX
+    train.py:39-50): the loss every plane shares; a multi-rank step sums
+    both over ranks before dividing."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ce = -logp.gather(1, labels[:, None])[:, 0]
+    w = class_weights[labels]
+    if mask is not None:
+        w = w * mask
+    return (w * ce).sum(), w.sum()
+
+
 def weighted_ce(logits: torch.Tensor, labels: torch.Tensor,
                 class_weights: torch.Tensor) -> torch.Tensor:
     """torch nn.CrossEntropyLoss(weight=w) semantics (reference
     train.py:78): sum(w[y] * ce) / sum(w[y]), in float32."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ce = -logp.gather(1, labels[:, None])[:, 0]
-    w = class_weights[labels]
-    return (w * ce).sum() / torch.clamp(w.sum(), min=1e-12)
+    num, den = masked_ce_terms(logits, labels, class_weights)
+    return num / torch.clamp(den, min=1e-12)
 
 
 def clip_by_global_norm(grads: list, clip: float) -> list:
@@ -87,23 +125,38 @@ def clip_by_global_norm(grads: list, clip: float) -> list:
 def train_step(model: ModelBiLSTM, weights: list, opt: Optimizer,
                batch: Batch, labels: torch.Tensor,
                class_weights: torch.Tensor, clip: float,
-               generator: torch.Generator | None) -> torch.Tensor:
-    """One update (JAX make_train_step, single device): the training
-    forward, the weighted CE, its gradients, the clip and the optimizer
-    step. Returns the loss, left on the device."""
+               generator: torch.Generator | None,
+               mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One update (JAX make_train_step): the training forward, the
+    weighted CE, its gradients, the clip and the optimizer step. Returns
+    the loss, left on the device. With a ``mask`` (a multi-rank step,
+    JAX's shard_map step, train.py:104-127) the weight sum is summed over
+    ranks before the backward, this rank's numerator is divided by it,
+    and the gradients and the loss are summed over ranks (not averaged,
+    as DDP would: ranks' weight sums differ)."""
     logits, _ = model(batch, train=True, generator=generator)
-    loss = weighted_ce(logits, labels, class_weights)
-    grads = torch.autograd.grad(loss, weights)
+    if mask is None:
+        loss = weighted_ce(logits, labels, class_weights)
+        grads = torch.autograd.grad(loss, weights)
+    else:
+        num, den = masked_ce_terms(logits, labels, class_weights, mask)
+        den, = all_sum([den])
+        loss = num / torch.clamp(den, min=1e-12)
+        grads = torch.autograd.grad(loss, weights)
+        *grads, loss = all_sum([*grads, loss])
     opt.step(clip_by_global_norm(grads, clip))
     return loss.detach()
 
 
-def step_generator(key: int, step: int, device) -> torch.Generator:
+def step_generator(key: int, step: int, device,
+                   rank: int | None = None) -> torch.Generator:
     """The dropout generator of one training step, seeded by (key, step)
-    — the same masks for the same step on every data plane. The train
-    loop's key is seed + 1, denoise's seed + 7, as the JAX package's
-    PRNG keys."""
-    state = np.random.SeedSequence([key, step]).generate_state(2)
+    — the same masks for the same step on every data plane — and, in a
+    multi-rank run, by the rank, so ranks draw distinct masks (JAX folds
+    in the axis index). The train loop's key is seed + 1, denoise's
+    seed + 7, as the JAX package's PRNG keys."""
+    entropy = [key, step] if rank is None else [key, step, rank]
+    state = np.random.SeedSequence(entropy).generate_state(2)
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state[0]) << 32 | int(state[1]))
     return gen
@@ -126,7 +179,24 @@ def _upload(batch: Batch, labels: np.ndarray, device: torch.device):
             up(labels, np.int64))
 
 
-class HostFed:
+class Plane:
+    """A data plane. ``epoch(rng, batch_size)`` yields one epoch's steps
+    as (batch, labels, mask, rows): ``mask`` is None where every row
+    counts (one card) and a float mask over padded rows otherwise;
+    ``rows`` is the count of rows that count. ``batch(idx)`` serves the
+    single-card evaluation and denoise's scoring."""
+
+    def evaluates_after(self, step: int, steps: int, interval: int) -> bool:
+        """Whether an evaluation follows the epoch's ``step``-th step:
+        every ``interval`` steps and at the epoch's end (JAX
+        train.py:1402-1404)."""
+        return step % interval == 0 or step == steps
+
+    def close(self) -> None:
+        """Release what the plane holds beyond its tensors."""
+
+
+class HostFed(Plane):
     """Host-fed plane: each batch is gathered on the host and uploaded."""
 
     def __init__(self, ds: FeatureDataset, device: torch.device):
@@ -136,14 +206,15 @@ class HostFed:
         return _upload(*self.ds.batch_at(idx), self.device)
 
     def epoch(self, rng: np.random.Generator, batch_size: int):
-        """One epoch's (batch, labels), in the order of one permutation
-        drawn from ``rng``."""
+        """One epoch's steps, in the order of one permutation drawn from
+        ``rng``."""
         perm = rng.permutation(len(self.ds))
         for lo in range(0, len(perm), batch_size):
-            yield self.batch(perm[lo:lo + batch_size])
+            idx = perm[lo:lo + batch_size]
+            yield (*self.batch(idx), None, len(idx))
 
 
-class Resident:
+class Resident(Plane):
     """Device-resident plane (JAX train.py:921-925, :1285-1316): the
     dataset is uploaded once; batches are gathered on the device."""
 
@@ -158,10 +229,11 @@ class Resident:
         perm = torch.from_numpy(rng.permutation(len(self.labels))).to(
             self.device)
         for lo in range(0, len(perm), batch_size):
-            yield self.batch(perm[lo:lo + batch_size])
+            idx = perm[lo:lo + batch_size]
+            yield (*self.batch(idx), None, len(idx))
 
 
-class Streamed:
+class Streamed(Plane):
     """Streamed plane (JAX train.py:1234-1249): the training file is read
     block by block and every batch is uploaded."""
 
@@ -170,17 +242,294 @@ class Streamed:
 
     def epoch(self, rng: np.random.Generator, batch_size: int):
         for batch, labels in self.ds.iter_batches(batch_size, True, rng):
-            yield _upload(batch, labels, self.device)
+            yield (*_upload(batch, labels, self.device), None, len(labels))
+
+
+def shard_rows(n: int, world: int) -> int:
+    """The most rows a rank holds: ceil(n / world)."""
+    return -(-n // world)
+
+
+def _prefix_mask(n_valid: int, batch_size: int,
+                 device: torch.device) -> torch.Tensor:
+    """1.0 on the first ``n_valid`` of ``batch_size`` rows, 0.0 after."""
+    return (torch.arange(batch_size, device=device)
+            < n_valid).to(torch.float32)
+
+
+class Sharded(Plane):
+    """The sharded-resident plane of a multi-rank run (JAX
+    train.py:574-622 and its scan chunks, :410-560, at ndev = world
+    size): rank r keeps rows [r * R, (r + 1) * R) on its card, R =
+    ceil(N / world), the last block padded with row 0 and masked by a
+    row-valid vector. Every rank draws every rank's block permutation
+    from the one seeded stream and keeps its own, zero-padded to
+    ``steps * batch_size``; a step gathers ``batch_size`` rows of it."""
+
+    def __init__(self, ds: FeatureDataset, device: torch.device, rank: int,
+                 world: int, steps: int | None = None):
+        n = len(ds)
+        self.rows = shard_rows(n, world)
+        lo = min(rank * self.rows, n)
+        hi = min(lo + self.rows, n)
+        idx = np.concatenate([np.arange(lo, hi),
+                              np.zeros(self.rows - (hi - lo), np.int64)])
+        self.valid_np = np.zeros(self.rows, np.float32)
+        self.valid_np[:hi - lo] = 1.0
+        self.data, self.labels = _upload(*ds.batch_at(idx), device)
+        self.valid = torch.from_numpy(self.valid_np).to(device)
+        self.device, self.rank, self.world, self.steps = (device, rank,
+                                                          world, steps)
+
+    def _step(self, idx: torch.Tensor, n_valid: int, batch_size: int):
+        mask = _prefix_mask(n_valid, batch_size, self.device) \
+            * self.valid[idx]
+        return Batch(*(a[idx] for a in self.data)), self.labels[idx], mask
+
+    def epoch(self, rng: np.random.Generator, batch_size: int):
+        width = self.steps * batch_size
+        for r in range(self.world):
+            p = rng.permutation(self.rows)
+            if r == self.rank:
+                perm = np.concatenate([p, np.zeros(
+                    max(width - self.rows, 0), np.int64)])[:width]
+        perm_t = torch.from_numpy(perm).to(self.device)
+        for s in range(self.steps):
+            lo = s * batch_size
+            nv = min(max(self.rows - lo, 0), batch_size)
+            rows = int(self.valid_np[perm[lo:lo + nv]].sum())
+            yield (*self._step(perm_t[lo:lo + batch_size], nv, batch_size),
+                   rows)
+
+    def eval_steps(self, batch_size: int):
+        """The evaluation's steps over this rank's block (JAX
+        make_eval_chunk_sharded): ceil(R / batch_size) slices."""
+        for s in range(max(1, -(-self.rows // batch_size))):
+            lo = s * batch_size
+            idx = torch.clamp(torch.arange(lo, lo + batch_size),
+                              max=self.rows - 1).to(self.device)
+            yield self._step(idx, min(max(self.rows - lo, 0), batch_size),
+                             batch_size)
+
+
+class ShardedHostFed(Plane):
+    """The host-fed plane of a multi-rank run (JAX train.py:825-880,
+    :1234-1246 with pcount = world size): rank r holds rows r, r + world,
+    ... of the dataset, draws one permutation of them an epoch and runs
+    ``steps`` steps; short and missing batches are padded with row 0
+    and masked."""
+
+    def __init__(self, ds: FeatureDataset, device: torch.device, rank: int,
+                 world: int, steps: int | None = None):
+        if len(ds) < world:
+            raise ValueError(f"{len(ds)} rows cannot be shared out over "
+                             f"{world} ranks")
+        self.ds = ds.take(host_row_shard(len(ds), rank, world))
+        self.n_global, self.world = len(ds), world
+        self.device, self.steps = device, steps
+
+    def _padded(self, batches, n_steps: int, batch_size: int):
+        done = 0
+        for batch, labels, nv in batches:
+            done += 1
+            yield (*_upload(batch, labels, self.device),
+                   _prefix_mask(nv, batch_size, self.device), nv)
+        for _ in range(done, n_steps):
+            batch, labels = self.ds.batch_at(np.zeros(batch_size, np.int64))
+            yield (*_upload(batch, labels, self.device),
+                   _prefix_mask(0, batch_size, self.device), 0)
+
+    def epoch(self, rng: np.random.Generator, batch_size: int):
+        yield from self._padded(self.ds.iter_batches(
+            batch_size, shuffle=True, rng=rng, pad_to_batch=True),
+            self.steps, batch_size)
+
+    def eval_steps(self, batch_size: int):
+        """The evaluation's steps (JAX train.py:891-916): every rank runs
+        ceil(ceil(N / world) / batch_size) of them."""
+        steps = max(1, -(-shard_rows(self.n_global, self.world)
+                         // batch_size))
+        for batch, labels, mask, _ in self._padded(self.ds.iter_batches(
+                batch_size, shuffle=False, pad_to_batch=True), steps,
+                batch_size):
+            yield batch, labels, mask
+
+
+class Spill(Plane):
+    """The spill (chunked-resident) plane (JAX train.py:1006-1175,
+    :1317-1400): one card, a training set over the resident budget. The
+    rows go up in slabs sized in wire bytes to a third of what the
+    resident validation set leaves of the budget, whole batches each,
+    on the wire ``DSP_TRAIN_SPILL_WIRE`` names (auto or float16: float16
+    features; int8: the int8 wire with per-slab, per-field scales,
+    dequantised after the gather on the card). Slab wires are built on
+    the host once and cached up to ``DSP_SPILL_HOST_CACHE_BYTES``. One
+    prefetch thread uploads the next slab on a copy stream while the
+    current one trains, the next epoch's first slab included. An epoch
+    draws the slab order, then per slab the order of its rows; before
+    the last slab's rows it draws the next epoch's slab order when
+    another epoch follows. Evaluations come at the first boundary of
+    ``step_interval``-step chunks where the steps since the last one
+    reach the interval, and at the epoch's end."""
+
+    def __init__(self, ds: FeatureDataset, device: torch.device,
+                 batch_size: int, budget: int, valid_bytes: int,
+                 step_interval: int, epochs: int):
+        wire = os.environ.get("DSP_TRAIN_SPILL_WIRE", "auto")
+        if wire not in ("auto", "float16", "int8"):
+            raise ValueError(f"DSP_TRAIN_SPILL_WIRE must be auto, float16 "
+                             f"or int8 (got {wire!r})")
+        # auto: float16, as --transfer_dtype auto (no remote link here)
+        self.wire = "int8" if wire == "int8" else "float16"
+        L, S = ds.signals.shape[1], ds.signals.shape[2]
+        if self.wire == "int8":     # int8 codes/means/stds/signals, f16 lens
+            bytes_per_row = L * (1 + 1 + 1 + 2 + S) + 1
+        else:                       # int8 codes, f16 floats
+            bytes_per_row = L * (1 + 2 + 2 + 2 + 2 * S) + 1
+        B, n = batch_size, len(ds)
+        slab_budget = max(B * bytes_per_row, (budget - 2 * valid_bytes) // 3)
+        slab_rows = min(n, max(B, slab_budget // bytes_per_row))
+        self.slab_rows = max(B, slab_rows - slab_rows % B)
+        self.n_slabs = -(-n // self.slab_rows)
+        self.ds, self.device, self.batch_size = ds, device, B
+        self.step_interval, self._epochs_left = step_interval, epochs
+        self._cache: dict = {}
+        self._cache_cap = int(os.environ.get("DSP_SPILL_HOST_CACHE_BYTES",
+                                             "") or 4 << 30)
+        self._pool = ThreadPoolExecutor(1, thread_name_prefix="spill")
+        self._fut = self._fut_si = self._next_order = None
+        self._copy = (torch.cuda.Stream(device) if device.type == "cuda"
+                      else None)
+        self._eval_steps: set = set()
+        self.counters = {"slabs": self.n_slabs, "slab_rows": self.slab_rows,
+                         "wire": self.wire, "slab_uploads": 0,
+                         "upload_seconds": 0.0, "wire_bytes": 0}
+
+    def _slab_n(self, si: int) -> int:
+        return min(self.slab_rows, len(self.ds) - si * self.slab_rows)
+
+    def _slab_wire(self, si: int):
+        """(kmer, means, stds, lens, signals, labels) of slab ``si`` on
+        the wire, and the int8 wire's (3,) scales."""
+        hit = self._cache.get(si)
+        if hit is not None:
+            return hit
+        lo = si * self.slab_rows
+        b, labels = self.ds.batch_at(slice(lo, lo + self._slab_n(si)))
+        if self.wire == "int8":
+            from .call_mods import quantize_for_wire
+            b, scales = quantize_for_wire(b)
+        else:
+            scales = None
+            b = Batch(np.asarray(b.kmer, np.int8),
+                      *(np.asarray(a, np.float16) for a in b[1:]))
+        out = ((*b, np.asarray(labels, np.int8)), scales)
+        used = sum(a.nbytes for w, _ in self._cache.values() for a in w)
+        if used + sum(a.nbytes for a in out[0]) <= self._cache_cap:
+            self._cache[si] = out
+        return out
+
+    def _upload_slab(self, si: int):
+        """Runs on the prefetch thread: the slab's wire on the card, its
+        copy finished when this returns."""
+        t0 = time.perf_counter()
+        arrays, scales = self._slab_wire(si)
+        host = [torch.from_numpy(a) for a in arrays]
+        if scales is not None:
+            host.append(torch.from_numpy(scales))
+        if self._copy is not None:
+            with torch.cuda.stream(self._copy):
+                dev = [t.pin_memory().to(self.device, non_blocking=True)
+                       for t in host]
+            self._copy.synchronize()
+        else:
+            dev = host
+        c = self.counters
+        c["slab_uploads"] += 1
+        c["wire_bytes"] += sum(a.nbytes for a in arrays)
+        c["upload_seconds"] += time.perf_counter() - t0
+        return dev
+
+    def _prefetch(self, si: int | None) -> None:
+        self._fut_si = si
+        self._fut = None if si is None else self._pool.submit(
+            self._upload_slab, si)
+
+    def _eval_points(self, order) -> set:
+        """The epoch's steps after which an evaluation runs (JAX
+        train.py:1377-1397)."""
+        points, step, carry, interval = set(), 0, 0, self.step_interval
+        for si in order:
+            steps_slab = -(-self._slab_n(int(si)) // self.batch_size)
+            s0 = 0
+            while s0 < steps_slab:
+                k = min(interval, steps_slab - s0)
+                s0, step, carry = s0 + k, step + k, carry + k
+                if carry >= interval:
+                    carry = 0
+                    points.add(step)
+        if carry:
+            points.add(step)
+        return points
+
+    def evaluates_after(self, step: int, steps: int, interval: int) -> bool:
+        return step in self._eval_steps
+
+    def _gather(self, dev: list, idx: torch.Tensor):
+        kmer, means, stds, lens, sig, labels = (a[idx] for a in dev[:6])
+        means, stds, sig = means.float(), stds.float(), sig.float()
+        if self.wire == "int8":
+            scales = dev[6]
+            means, stds, sig = (means * scales[0], stds * scales[1],
+                                sig * scales[2])
+        return (Batch(kmer.int(), means, stds, lens.float(), sig),
+                labels.long())
+
+    def epoch(self, rng: np.random.Generator, batch_size: int):
+        if self._next_order is not None:
+            order, self._next_order = self._next_order, None
+        else:
+            order = rng.permutation(self.n_slabs)
+        more = self._epochs_left > 1
+        self._epochs_left -= 1
+        self._eval_steps = self._eval_points(order)
+        if self._fut is None or self._fut_si != int(order[0]):
+            self._prefetch(int(order[0]))
+        for oi in range(self.n_slabs):
+            dev = self._fut.result()
+            if self._copy is not None:
+                for t in dev:     # freed on the train stream, not the copy's
+                    t.record_stream(torch.cuda.current_stream(self.device))
+            if oi + 1 < self.n_slabs:
+                self._prefetch(int(order[oi + 1]))
+            elif more:
+                self._next_order = rng.permutation(self.n_slabs)
+                self._prefetch(int(self._next_order[0]))
+            else:
+                self._prefetch(None)
+            n_sl = len(dev[5])
+            perm = torch.from_numpy(rng.permutation(n_sl)).to(self.device)
+            for lo in range(0, n_sl, batch_size):
+                idx = perm[lo:lo + batch_size]
+                yield (*self._gather(dev, idx), None, len(idx))
+            del dev
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True)
+        self._fut = None
 
 
 def resident_budget(device: torch.device) -> int:
     """Bytes of datasets the resident plane may keep on the device: half
     of the card's free memory, leaving the rest to the model, its
-    activations and the optimizer. The CPU holds them where they are."""
+    activations and the optimizer (the CPU holds them where they are),
+    and at most ``DSP_RESIDENT_MAX_BYTES`` where that is set (the JAX
+    package's knob)."""
+    cap = int(os.environ.get("DSP_RESIDENT_MAX_BYTES", "") or sys.maxsize)
     if device.type != "cuda":
-        return sys.maxsize
+        return cap
     free, _ = torch.cuda.mem_get_info(device)
-    return free // 2
+    return min(free // 2, cap)
 
 
 @torch.no_grad()
@@ -202,6 +551,39 @@ def evaluate(model: ModelBiLSTM, source, labels: np.ndarray,
             "precision": M.precision(labels, pred),
             "recall": M.recall(labels, pred),
             "batches": len(losses)}
+
+
+@torch.no_grad()
+def evaluate_ranks(model: ModelBiLSTM, source, batch_size: int,
+                   class_weights: torch.Tensor) -> dict:
+    """Validation metrics of a multi-rank run (JAX train.py:320-335 and
+    its eval-counts steps): per step, the weighted CE of the rows every
+    rank holds (numerators and weight sums summed over ranks), averaged
+    over steps; accuracy, precision and recall from the five prediction
+    counts [correct, total, tp, fp, fn] summed over ranks. One
+    all-reduce at the end."""
+    nums, dens = [], []
+    counts = torch.zeros(5, dtype=torch.float32, device=class_weights.device)
+    for batch, y, mask in source.eval_steps(batch_size):
+        logits, probs = model(batch)
+        num, den = masked_ce_terms(logits, y, class_weights, mask)
+        nums.append(num)
+        dens.append(den)
+        pred, valid = torch.argmax(probs, dim=1), mask > 0
+        counts += torch.stack([
+            ((pred == y) & valid).sum(), valid.sum(),
+            (valid & (pred == 1) & (y == 1)).sum(),
+            (valid & (pred == 1) & (y == 0)).sum(),
+            (valid & (pred == 0) & (y == 1)).sum()]).float()
+    num, den, counts = all_sum([torch.stack(nums), torch.stack(dens),
+                                counts])
+    loss = (num / torch.clamp(den, min=1e-12)).cpu().numpy()
+    correct, total, tp, fp, fn = counts.cpu().numpy().astype(np.float64)
+    return {"loss": float(np.mean(loss.astype(np.float64))),
+            "accuracy": correct / total if total else 0.0,
+            "precision": tp / (tp + fp) if tp + fp else 0.0,
+            "recall": tp / (tp + fn) if tp + fn else 0.0,
+            "batches": len(nums)}
 
 
 def ckpt_name(model_dir: str, module: str, seq_len: int, signal_len: int,
@@ -326,14 +708,22 @@ def _optax_slots(opt_state) -> tuple[str, dict]:
     return optim_type, out
 
 
-def load_train_state(path: str) -> dict:
+def read_train_state_arrays(path: str) -> dict:
+    """The arrays of a train state file, either container, unparsed."""
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def load_train_state(path: str, arrays: dict | None = None) -> dict:
     """A train state written by the port or by the JAX package: {params
     (the JAX layout), opt ({"count": n, slot: {name: array}}),
     optim_type, epoch, global_step, best_accuracy}. The JAX package's
     container (a pickled dict in ``train_state``) is read through an
-    unpickler that admits numpy arrays and optax states only."""
-    with np.load(path, allow_pickle=False) as z:
-        arrays = {k: z[k] for k in z.files}
+    unpickler that admits numpy arrays and optax states only. ``arrays``:
+    the file's arrays, read already (a multi-rank resume broadcasts
+    them)."""
+    arrays = dict(read_train_state_arrays(path) if arrays is None
+                  else arrays)
     if "train_state" in arrays:
         st = _TrainStateUnpickler(
             io.BytesIO(arrays["train_state"].tobytes())).load()
@@ -360,6 +750,24 @@ def load_train_state(path: str) -> dict:
             "best_accuracy": header["best_accuracy"]}
 
 
+def resume_state(path: str | None, rank: int, world: int) -> dict | None:
+    """The train state to resume from, or None when there is none. In a
+    multi-rank run rank 0 reads the file and broadcasts its arrays
+    (JAX train.py:1185-1224): every rank starts from the same
+    parameters, optimizer state, epoch, step and best accuracy, whatever
+    its own model_dir holds."""
+    if path is None:
+        return None
+    if world == 1:
+        return load_train_state(path) if os.path.exists(path) else None
+    arrays = None
+    if rank == 0:
+        arrays = read_train_state_arrays(path) if os.path.exists(path) \
+            else {}
+    arrays = broadcast_arrays(arrays)
+    return load_train_state(path, arrays) if arrays else None
+
+
 def restore_optimizer(opt: Optimizer, model: ModelBiLSTM, st: dict,
                        path: str) -> None:
     """Load a train state's optimizer arrays into ``opt``, by parameter
@@ -383,67 +791,69 @@ def sync_device(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def pick_plane(train_cfg: TrainConfig, train_ds, valid_ds,
+               device: torch.device, world: int) -> str:
+    """The data plane the JAX package takes for these datasets (JAX
+    train.py:825-1021): stream, resident, sharded, spill or host-fed."""
+    if isinstance(train_ds, StreamingFeatureDataset):
+        return "stream"
+    if train_cfg.device_resident != "auto":
+        return "host-fed"
+    budget = resident_budget(device)
+    total = train_ds.nbytes + valid_ds.nbytes
+    if world > 1:
+        return "sharded" if total // world <= budget else "host-fed"
+    if total <= budget:
+        return "resident"
+    return "spill" if valid_ds.nbytes * 4 <= budget else "host-fed"
+
+
 def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
                train_ds: FeatureDataset | StreamingFeatureDataset,
                valid_ds: FeatureDataset, model_dir: str | None,
                device: torch.device, init_model: str | None = None,
                verbose: bool = True, resume: bool = False) -> dict:
-    """The training loop on one device (JAX train.py:802-1435, its
-    single-device host-fed, resident and streaming branches). With a
-    ``model_dir`` it saves the train state after every epoch, and with
-    ``resume`` it continues from that file when it exists. Returns the
-    best accuracy and checkpoint, the final parameters (numpy pytree),
-    the steps' losses and the validation accuracies of this run, and its
-    counters."""
+    """The training loop (JAX train.py:802-1435), on one card or as one
+    rank of a multi-process launch (parallel/dist.py). With a
+    ``model_dir`` rank 0 saves the train state after every epoch, and
+    with ``resume`` the run continues from that file when it exists.
+    Returns the best accuracy and checkpoint (rank 0), the final
+    parameters (numpy pytree), the steps' losses and the validation
+    accuracies of this run, and its counters."""
     t_start = time.time()
     if train_cfg.device_resident not in ("auto", "never"):
         raise ValueError("device_resident must be auto|never")
-    streamed = isinstance(train_ds, StreamingFeatureDataset)
-    resident = train_cfg.device_resident == "auto" and not streamed
-    if resident and train_ds.nbytes + valid_ds.nbytes > resident_budget(
-            device):
-        raise ValueError(
-            "the datasets ({} bytes) exceed the device-resident budget; "
-            "the JAX package's spill plane for them is "
-            "not yet ported to deepsignal_plant_tpu_torch: pass "
-            "--device_resident never for the host-fed plane".format(
-                train_ds.nbytes + valid_ds.nbytes))
-    if streamed:
-        train_src = Streamed(train_ds, device)
-        valid_src = HostFed(valid_ds, device)
-    else:
-        plane = Resident if resident else HostFed
-        train_src, valid_src = plane(train_ds, device), plane(valid_ds,
-                                                              device)
-    if verbose and resident:
-        print("device-resident data plane: {} train + {} valid rows on "
-              "{}".format(len(train_ds), len(valid_ds), device))
+    rank, world = process_info()
+    if world > 1 and isinstance(train_ds, StreamingFeatureDataset):
+        raise ValueError("streaming datasets are single-host only; "
+                         "pre-shard the file per host instead")
+    verbose = verbose and rank == 0
+    plane = pick_plane(train_cfg, train_ds, valid_ds, device, world)
 
     rng_np = np.random.default_rng(train_cfg.seed)
     params = init_params(model_cfg, train_cfg.seed)
     if init_model is not None:
-        print(f"loading pre-trained model: {init_model}")
+        if verbose:
+            print(f"loading pre-trained model: {init_model}")
         params = load_any_checkpoint(init_model, model_cfg)
     state_path = (train_state_path(model_dir, model_cfg.module)
                   if model_dir is not None else None)
-    st = (load_train_state(state_path)
-          if resume and state_path is not None
-          and os.path.exists(state_path) else None)
+    st = resume_state(state_path, rank, world) if resume else None
     if st is not None:
         params = st["params"]
     model = ModelBiLSTM.from_params(params, model_cfg, device, trainable=True)
     weights = list(model.parameters())
 
-    B = train_cfg.batch_size
-    steps_per_epoch = max(1, -(-len(train_ds) // B))
+    # the global batch rounded up to a multiple of the ranks, each rank
+    # its share; equal step counts on every rank (JAX train.py:826-862)
+    B = -(-train_cfg.batch_size // world)
+    steps_per_epoch = max(1, -(-shard_rows(len(train_ds), world) // B))
     opt = Optimizer(train_cfg.optim_type, step_decay_schedule(
         train_cfg.lr, steps_per_epoch, train_cfg.lr_decay_step,
         train_cfg.lr_decay), weights)
     class_weights = torch.tensor([1.0, train_cfg.pos_weight],
                                  dtype=torch.float32, device=device)
 
-    if verbose:
-        print("total_step: {}".format(steps_per_epoch))
     best_accuracy = 0.0
     best_ckpt = None
     global_step = start_epoch = 0
@@ -454,6 +864,43 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
         if verbose:
             print("resuming training from epoch {} (step {})".format(
                 start_epoch, global_step))
+
+    if plane == "stream":
+        train_src, valid_src = (Streamed(train_ds, device),
+                                HostFed(valid_ds, device))
+    elif plane == "spill":
+        train_src = Spill(train_ds, device, B, resident_budget(device),
+                          valid_ds.nbytes, train_cfg.step_interval,
+                          train_cfg.max_epoch_num - start_epoch)
+        valid_src = Resident(valid_ds, device)
+    elif world > 1:
+        cls = Sharded if plane == "sharded" else ShardedHostFed
+        train_src = cls(train_ds, device, rank, world, steps_per_epoch)
+        valid_src = cls(valid_ds, device, rank, world)
+    else:
+        cls = Resident if plane == "resident" else HostFed
+        train_src, valid_src = cls(train_ds, device), cls(valid_ds, device)
+    if verbose:
+        if plane == "spill":
+            c = train_src.counters
+            print("chunked-resident (spill) data plane: {} train rows in {} "
+                  "slab(s) of <= {} rows ({} wire), {} valid rows on "
+                  "{}".format(len(train_ds), c["slabs"], c["slab_rows"],
+                              c["wire"], len(valid_ds), device))
+        elif plane in ("resident", "sharded"):
+            print("{}device-resident data plane: {} train + {} valid rows "
+                  "on {}{}".format(
+                      "sharded " if world > 1 else "", len(train_ds),
+                      len(valid_ds), device,
+                      f" (each of {world} ranks its block)"
+                      if world > 1 else ""))
+        print("total_step: {}".format(steps_per_epoch))
+
+    def run_eval() -> dict:
+        if world > 1:
+            return evaluate_ranks(model, valid_src, B, class_weights)
+        return evaluate(model, valid_src, valid_ds.labels, B, class_weights)
+
     start_step = global_step
     epochs_run = start_epoch
     step_losses: list[float] = []
@@ -461,89 +908,96 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
     epoch_seconds: list[float] = []
     counters = {"train_seconds": 0.0, "eval_seconds": 0.0, "eval_tiles": 0,
                 "train_rows": 0, "epoch_train_seconds": []}
-    for epoch in range(start_epoch, train_cfg.max_epoch_num):
-        counters["epoch_train_seconds"].append(0.0)
-        epoch_best = 0.0
-        no_best_model = True
-        tlosses: list[torch.Tensor] = []
-        tic = epoch_t0 = t_interval = time.time()
+    try:
+        for epoch in range(start_epoch, train_cfg.max_epoch_num):
+            counters["epoch_train_seconds"].append(0.0)
+            epoch_best = 0.0
+            no_best_model = True
+            tlosses: list[torch.Tensor] = []
+            tic = epoch_t0 = t_interval = time.time()
 
-        def eval_boundary(step_in_epoch: int):
-            """Eval + best checkpoint + log (JAX train.py:1250-1283)."""
-            nonlocal best_accuracy, epoch_best, no_best_model, best_ckpt
-            nonlocal tlosses, tic, t_interval
-            sync_device(device)
-            t_eval = time.time()
-            counters["train_seconds"] += t_eval - t_interval
-            counters["epoch_train_seconds"][-1] += t_eval - t_interval
-            losses = torch.stack(tlosses).cpu().numpy().tolist()
-            step_losses.extend(losses)
-            stats = evaluate(model, valid_src, valid_ds.labels, B,
-                             class_weights)
-            counters["eval_tiles"] += stats["batches"]
-            v_acc = stats["accuracy"]
-            valid_accuracies.append(v_acc)
-            if v_acc > epoch_best:
-                epoch_best = v_acc
-                if epoch_best > best_accuracy - 0.0002:
-                    if model_dir is not None:
-                        best_ckpt = ckpt_name(model_dir, model_cfg.module,
-                                              model_cfg.seq_len,
-                                              model_cfg.signal_len,
-                                              epoch + 1)
-                        save_checkpoint(best_ckpt, params_to_numpy(model),
-                                        model_cfg)
-                    if epoch_best > best_accuracy:
-                        best_accuracy = epoch_best
-                        no_best_model = False
-            if verbose:
-                print("Epoch [{}/{}], Step [{}/{}], TrainLoss: {:.4f}; "
-                      "ValidLoss: {:.4f}, Accuracy: {:.4f}, "
-                      "Precision: {:.4f}, Recall: {:.4f}, "
-                      "curr_epoch_best_accuracy: {:.4f}; Time: {:.2f}s"
-                      .format(epoch + 1, train_cfg.max_epoch_num,
-                              step_in_epoch, steps_per_epoch,
-                              float(np.mean(losses)), stats["loss"], v_acc,
-                              stats["precision"], stats["recall"],
-                              epoch_best, time.time() - tic))
-                sys.stdout.flush()
-            tlosses = []
-            tic = t_interval = time.time()
-            counters["eval_seconds"] += t_interval - t_eval
+            def eval_boundary(step_in_epoch: int):
+                """Eval + best checkpoint + log (JAX train.py:1250-1283)."""
+                nonlocal best_accuracy, epoch_best, no_best_model, best_ckpt
+                nonlocal tlosses, tic, t_interval
+                sync_device(device)
+                t_eval = time.time()
+                counters["train_seconds"] += t_eval - t_interval
+                counters["epoch_train_seconds"][-1] += t_eval - t_interval
+                losses = torch.stack(tlosses).cpu().numpy().tolist()
+                step_losses.extend(losses)
+                stats = run_eval()
+                counters["eval_tiles"] += stats["batches"]
+                v_acc = stats["accuracy"]
+                valid_accuracies.append(v_acc)
+                if v_acc > epoch_best:
+                    epoch_best = v_acc
+                    if epoch_best > best_accuracy - 0.0002:
+                        if model_dir is not None and rank == 0:
+                            best_ckpt = ckpt_name(
+                                model_dir, model_cfg.module,
+                                model_cfg.seq_len, model_cfg.signal_len,
+                                epoch + 1)
+                            save_checkpoint(best_ckpt,
+                                            params_to_numpy(model),
+                                            model_cfg)
+                        if epoch_best > best_accuracy:
+                            best_accuracy = epoch_best
+                            no_best_model = False
+                if verbose:
+                    print("Epoch [{}/{}], Step [{}/{}], TrainLoss: {:.4f}; "
+                          "ValidLoss: {:.4f}, Accuracy: {:.4f}, "
+                          "Precision: {:.4f}, Recall: {:.4f}, "
+                          "curr_epoch_best_accuracy: {:.4f}; Time: {:.2f}s"
+                          .format(epoch + 1, train_cfg.max_epoch_num,
+                                  step_in_epoch, steps_per_epoch,
+                                  float(np.mean(losses)), stats["loss"],
+                                  v_acc, stats["precision"],
+                                  stats["recall"], epoch_best,
+                                  time.time() - tic))
+                    sys.stdout.flush()
+                tlosses = []
+                tic = t_interval = time.time()
+                counters["eval_seconds"] += t_interval - t_eval
 
-        for i, (batch, labels) in enumerate(train_src.epoch(rng_np, B)):
-            gen = (step_generator(train_cfg.seed + 1, global_step, device)
-                   if model_cfg.dropout_rate > 0 else None)
-            tlosses.append(train_step(model, weights, opt, batch, labels,
-                                      class_weights, train_cfg.clip_grad,
-                                      gen))
-            counters["train_rows"] += len(labels)
-            global_step += 1
-            if (i + 1) % train_cfg.step_interval == 0 \
-                    or (i + 1) == steps_per_epoch:
-                eval_boundary(i + 1)
-        epochs_run = epoch + 1
-        epoch_seconds.append(time.time() - epoch_t0)
-        if state_path is not None:
-            save_train_state(state_path, model, opt, epoch + 1, global_step,
-                             best_accuracy)
-        if no_best_model and epoch >= train_cfg.min_epoch_num - 1:
-            if verbose:
-                print("early stop!")
-            break
+            for i, (batch, labels, mask, rows) in enumerate(
+                    train_src.epoch(rng_np, B)):
+                gen = (step_generator(train_cfg.seed + 1, global_step,
+                                      device, rank if world > 1 else None)
+                       if model_cfg.dropout_rate > 0 else None)
+                tlosses.append(train_step(model, weights, opt, batch, labels,
+                                          class_weights, train_cfg.clip_grad,
+                                          gen, mask))
+                counters["train_rows"] += rows
+                global_step += 1
+                if train_src.evaluates_after(i + 1, steps_per_epoch,
+                                             train_cfg.step_interval):
+                    eval_boundary(i + 1)
+            epochs_run = epoch + 1
+            epoch_seconds.append(time.time() - epoch_t0)
+            if state_path is not None and rank == 0:
+                save_train_state(state_path, model, opt, epoch + 1,
+                                 global_step, best_accuracy)
+            if no_best_model and epoch >= train_cfg.min_epoch_num - 1:
+                if verbose:
+                    print("early stop!")
+                break
+    finally:
+        train_src.close()
 
     if verbose:
         print("[main] train costs {:.1f} seconds, best accuracy: {}".format(
             time.time() - t_start, best_accuracy))
-    plane_name = ("stream" if streamed else
-                  "resident" if resident else "host-fed")
     return {"best_accuracy": best_accuracy, "best_ckpt": best_ckpt,
             "epochs_run": epochs_run, "params": params_to_numpy(model),
             "steps": global_step, "start_epoch": start_epoch,
             "start_step": start_step, "step_losses": step_losses,
             "valid_accuracies": valid_accuracies,
-            "epoch_seconds": epoch_seconds, "resident": resident,
-            "plane": plane_name, **counters}
+            "epoch_seconds": epoch_seconds,
+            "resident": plane in ("resident", "sharded"), "plane": plane,
+            "rank": rank, "world_size": world, "local_batch": B,
+            "spill": (train_src.counters if plane == "spill" else None),
+            **counters}
 
 
 def kernel_launches() -> dict:
@@ -557,10 +1011,10 @@ def kernel_launches_since(before: dict) -> dict:
 
 
 def use_stream(args) -> bool:
-    """--stream yes, or auto on a training file over STREAM_MIN_BYTES
-    (JAX train.py:763-774)."""
+    """--stream yes, or auto on a training file over STREAM_MIN_BYTES in
+    a single-process run (JAX train.py:763-774)."""
     return args.stream == "yes" or (
-        args.stream == "auto"
+        args.stream == "auto" and process_info()[1] == 1
         and os.path.getsize(args.train_file) > STREAM_MIN_BYTES)
 
 
@@ -597,7 +1051,7 @@ def train(args) -> dict:
     if model_dir != "/":
         model_dir = os.path.abspath(model_dir).rstrip("/")
         os.makedirs(model_dir, exist_ok=True)
-        if not args.resume:
+        if not args.resume and process_info()[0] == 0:
             clean_old_ckpts(model_dir, model_cfg.module)
     model_dir += "/"
 
@@ -611,6 +1065,8 @@ def train(args) -> dict:
             "compute_dtype": model_cfg.compute_dtype,
             "recurrence": model_cfg.recurrence,
             "plane": res["plane"],
+            "rank": res["rank"], "world_size": res["world_size"],
+            "local_batch": res["local_batch"], "spill": res["spill"],
             "start_epoch": res["start_epoch"],
             "start_step": res["start_step"],
             "epochs_run": res["epochs_run"],

@@ -285,14 +285,28 @@ def test_call_freq_needs_no_card_without_device_agg(tmp_path, calls):
 
 @pytest.mark.parametrize("how", ["flag", "torch env", "jax env"])
 def test_pod_mode_is_refused(tmp_path, calls, monkeypatch, how):
+    """Pod mode runs under a complete torch.distributed launch
+    (tests/test_torch_dist_pod.py). Outside one, --pod_shard_inputs
+    changes nothing, as in the JAX package; an incomplete launch
+    environment (WORLD_SIZE without MASTER_ADDR and the rest) and the
+    JAX package's pod variables are refused before any work, naming the
+    variables to set."""
     argv = ["call_freq", "-i", calls["a"], "-o", str(tmp_path / "x.tsv")]
     if how == "flag":
-        argv += ["--pod_shard_inputs", "always"]
-    elif how == "torch env":
+        cli.main(argv + ["--pod_shard_inputs", "always"])
+        cli.main(["call_freq", "-i", calls["a"], "-o",
+                  str(tmp_path / "y.tsv")])
+        assert (tmp_path / "x.tsv").read_bytes() == \
+            (tmp_path / "y.tsv").read_bytes()
+        return
+    if how == "torch env":
         monkeypatch.setenv("WORLD_SIZE", "2")
+        for v in ("MASTER_ADDR", "MASTER_PORT", "RANK", "LOCAL_RANK"):
+            monkeypatch.delenv(v, raising=False)
     else:
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
         monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
         monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
-    with pytest.raises(ValueError, match="not yet ported"):
+    with pytest.raises(ValueError, match="MASTER_ADDR, MASTER_PORT"):
         cli.main(argv)
     assert not os.path.exists(tmp_path / "x.tsv")

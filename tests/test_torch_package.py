@@ -144,13 +144,12 @@ def test_extraction_worker_imports_no_torch():
 
 
 def test_only_train_and_call_freq_still_refuse():
-    """What the port still refuses as "not yet ported" lives in train
-    (the spill plane) and call_freq (pod mode); the refusals of
-    call_mods, extract, serve, the dataset and the config (int8,
-    --device_resident always, --profile_dir, .npz inputs and outputs)
-    and of train's --resume and --stream are gone, and denoise runs.
-    tests/test_torch_train.py and tests/test_torch_call_freq.py drive
-    the refusals that remain."""
+    """Nothing of the port is refused as "not yet ported" any more: the
+    last two refusals, train's spill plane and call_freq's pod mode, are
+    gone (their paths run in tests/test_torch_spill.py and
+    tests/test_torch_dist_pod.py), as are the earlier ones of call_mods,
+    extract, serve, the dataset, the config and train's --resume and
+    --stream."""
     pkg = os.path.join(REPO, "deepsignal_plant_tpu_torch")
     hits = set()
     for root, _dirs, files in os.walk(pkg):
@@ -160,8 +159,4 @@ def test_only_train_and_call_freq_still_refuse():
                 with open(path) as fh:
                     if "not yet ported" in fh.read():
                         hits.add(os.path.relpath(path, pkg))
-    assert hits == {"cli.py", "pipeline/train.py", "pipeline/call_freq.py"}
-    with open(os.path.join(pkg, "cli.py")) as fh:
-        lines = [ln for ln in fh if "not yet ported" in ln]
-    assert len(lines) == 2 and all(
-        k in "".join(lines) for k in ("pod mode", "spill"))
+    assert hits == set()

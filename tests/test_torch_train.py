@@ -448,20 +448,25 @@ def test_resident_plane_is_bitwise_the_host_fed_plane(tmp_path, n_train,
 
 
 # ---------------------------------------------------------------------------
-# what is not ported yet fails, before any work (--resume and --stream
-# run: tests/test_torch_train_resume.py, tests/test_torch_train_stream.py)
+# the planes past the resident budget (the spill plane against JAX's:
+# tests/test_torch_spill.py; --resume and --stream:
+# tests/test_torch_train_resume.py, tests/test_torch_train_stream.py)
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--device_resident", "auto"], "--device_resident never"),
+    (["--device_resident", "auto"], "host-fed"),
 ], ids=["spill"])
 def test_unported_planes_are_refused(tmp_path, monkeypatch, flags, match):
+    """Nothing is refused any more past the resident budget: with a
+    budget of 0 bytes, where the validation set does not fit a quarter
+    of it either, the train CLI takes the host-fed plane, as the JAX
+    package does (the spill plane takes budgets between)."""
     monkeypatch.setattr(port_train, "resident_budget", lambda device: 0)
     tr = write_tsv(tmp_path / "t.tsv", 0, 2)
     args = cli.build_parser().parse_args([
         "train", "--train_file", tr, "--valid_file", tr, "--model_dir",
-        str(tmp_path / "m"), "--device", "cpu", *NARROW_FLAGS, *flags])
-    with pytest.raises(ValueError, match=match):
-        port_train.train(args)
-    assert not (tmp_path / "m").exists() or not any(
-        (tmp_path / "m").iterdir())
+        str(tmp_path / "m"), "--device", "cpu", "--max_epoch_num", "1",
+        "--min_epoch_num", "1", *NARROW_FLAGS, *flags])
+    res = port_train.train(args)
+    assert res["plane"] == match and res["steps"] == 1
+    assert any((tmp_path / "m").iterdir())
