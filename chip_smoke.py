@@ -125,15 +125,19 @@ Phases, in order; any failure exits non-zero before the last line:
    phase 4b's, samples/s beside the resident plane's, upload seconds
    against step seconds); (9b) two ranks on card 0 over gloo (NCCL puts
    no two ranks on one card), one launch running four commands in turn:
-   one epoch of ``train`` (256 rows a rank a step; phase 2b logs the
-   bfloat16 cluster plans at that batch) on the
+   one epoch of ``train`` (256 rows a rank a step; phases 2 and 2b hold
+   K1-K4 and dW_hh against their plain versions at that batch) on the
    sharded-resident and the host-fed plane (parameters bitwise equal
    across ranks, files from rank 0 only, the launches of each rank),
    fused ``call_mods`` on phase 6's 64 reads (the ranks' ``.host<N>``
    files hold one process's rows) and pod ``call_freq --device_agg`` on
-   them (one process's bytes); (9c) ``train`` under
-   ``torch.distributed.run --nproc_per_node 1``, the port's collectives
-   first run on NCCL at one rank;
+   them (one process's bytes); (9c) under ``torch.distributed.run
+   --nproc_per_node 1``, a one-rank NCCL group started by the port's
+   ``parallel.dist.start_group``: the train step and evaluation through
+   it bitwise those without it, a padded and masked step's update
+   against the step on the rows kept, the port's collectives, then
+   ``train`` in the group (every step and evaluation all-reducing over
+   NCCL);
 10. a ``{"kernels": [...]}`` line (phase 8's and 9's launches beside
    each kernel's main-path count), the card line, and last
    ``{"ok": true, "device": {...}}``.
@@ -333,6 +337,10 @@ SPILL_ACC_TOL = 0.05
 # one card), one epoch of phase 4b's rows a plane at the global batch of
 # TRAIN_B (TRAIN_B / 2 a rank)
 RANKS = 2
+# phase 9c: the step on a rank's rows with the last eighth padded and
+# masked against the step on the rows kept, in bfloat16 (SGD's first
+# update is the clipped gradient): max|difference| over max|update|
+NCCL_UPDATE_TOL = 1e-2
 # the [stages] fields of call_mods that say where its time goes
 STAGE_FIELDS = ("batches", "packed_batches", "packed_sites",
                 "persite_batches", "persite_sites", "bases_uploaded",
@@ -470,15 +478,18 @@ def f32_route(torch, fused_lstm, F, H, B):
 
 def check_kernel(torch, fused_lstm, recurrence, plain):
     """Phase 2: K1 against the plain version at every layer shape of the
-    main path (full, ragged and tail 4096-row tiles) and of phase 8's
-    denoise (signal_bilstm's layers in 512-row tiles and their tails),
+    main path (full, ragged and tail 4096-row tiles; the 512-row tiles
+    of training's evaluations and the 256-row tiles of a rank's in phase
+    9b's) and of phase 8's denoise (signal_bilstm's layers in 512-row
+    tiles and their tails),
     seq_out True and False: the bfloat16 kernel, and float32 through the
     route it takes and through both of its routes called directly (the
     projection kernel and the recurrence; the in-loop kernel), which are
     also held against each other; the float32 projection kernel alone
     against its plain version. Each launch must move the counters of the
     kernels named."""
-    cases = [(shape, (TILE, TILE - 3, TAIL)) for shape in sorted(
+    cases = [(shape, (TILE, TILE - 3, TAIL, TRAIN_B, TRAIN_B // RANKS))
+             for shape in sorted(
         {(Fa, Fb, H) for Fa, Fb, H, _ in MAIN_PATH_LAYERS.values()})]
     cases += [(shape, DENOISE_TILES) for shape in DENOISE_K1_SHAPES]
     errs = {k: 0.0 for k in K1_ERR_KEYS}
@@ -756,13 +767,14 @@ def rec_inputs(torch, H, B, dtype, seed=SEED):
 
 def check_recurrence(torch, recurrence, plain):
     """Phase 2b: K2, K3, K4 and dW_hh against their plain versions at the
-    training shapes, K2-K4 through the plan's cluster kernel of each dtype
-    and through the streaming kernel it replaces. K4 and dW_hh take the
+    training shapes (batch 512, a ragged 509, and phase 9b's 256 rows of
+    a rank), K2-K4 through the plan's cluster kernel of each dtype and
+    through the streaming kernel it replaces. K4 and dW_hh take the
     plain residuals, so both sides see identical inputs."""
     errs = {k: {"float32": 0.0, "bfloat16": 0.0} for k in REC_KERNELS}
     checked = []
     for H in (128, 256):
-        for B in (TRAIN_B, TRAIN_B - 3):
+        for B in (TRAIN_B, TRAIN_B - 3, TRAIN_B // RANKS):
             for dname, dtype in (("float32", torch.float32),
                                  ("bfloat16", torch.bfloat16)):
                 xproj, w_hh, dys = rec_inputs(torch, H, B, dtype)
@@ -855,14 +867,12 @@ def rec_plans(torch, recurrence) -> dict:
     """recurrence_plan's choice for each cluster kernel of each dtype at
     the training shapes, beside the occupancy query it read (clusters the
     card holds at once), the clusters the grid needs and the waves they
-    take (bfloat16 must take one, float32 at most two); in bfloat16 also
-    at phase 9b's batch of a rank (TRAIN_B / RANKS), where a missing plan
-    is logged as None (that kernel would stream)."""
+    take (bfloat16 must take one, float32 at most two), also at phase
+    9b's batch of a rank (TRAIN_B / RANKS). A missing plan fails."""
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        batches = (TRAIN_B, TRAIN_B - 3) + (
-            (TRAIN_B // RANKS,) if dtype == torch.bfloat16 else ())
+        batches = (TRAIN_B, TRAIN_B - 3, TRAIN_B // RANKS)
         for name, kind in recurrence._KIND.items():
             for H in (128, 256):
                 for B in batches:
@@ -870,9 +880,6 @@ def rec_plans(torch, recurrence) -> dict:
                         return recurrence.cluster_capacity(0, kind, H, C,
                                                            rows, dtype)
                     plan = recurrence.recurrence_plan(kind, B, H, cap, dtype)
-                    if plan is None and B == TRAIN_B // RANKS:
-                        out[f"{name} {dname} H={H} B={B}"] = None
-                        continue
                     if plan is None:
                         fail(f"{name}: no {dname} cluster plan at H={H} "
                              f"B={B}")
@@ -2639,35 +2646,23 @@ def check_spill(tmp: str, trained: dict) -> dict:
     return out
 
 
-def launch_ranks(argv: list, world: int = RANKS,
-                 timeout: int = 600) -> list:
-    """``argv`` as ``world`` ranks on this host, as torchrun starts
-    them (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK);
-    ``{rank}`` in an argument becomes the rank. Returns each rank's
-    stdout; a rank that fails fails the run."""
-    import socket
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    base = dict(os.environ, PYTHONPATH=REPO, MASTER_ADDR="127.0.0.1",
-                MASTER_PORT=str(port), WORLD_SIZE=str(world))
-    procs = []
-    try:
-        for r in range(world):
-            procs.append(subprocess.Popen(
-                [a.replace("{rank}", str(r)) for a in argv], cwd=REPO,
-                env=dict(base, RANK=str(r), LOCAL_RANK=str(r)),
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, o) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            fail(f"rank {r} exited {p.returncode}:\n{o[-4000:]}")
-    return outs
+def torch_launch():
+    """tests/torch_launch.py: the launcher the port's tests start ranks
+    with, and the one-rank group check."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_launch as tl
+    return tl
+
+
+def launch_ranks(argv: list, world: int = RANKS) -> list:
+    """``argv`` as ``world`` ranks on this host, as torchrun starts them
+    (tests/torch_launch.launch); each rank's output. A rank that fails
+    fails the run."""
+    outs = torch_launch().launch(argv, world, timeout=600)
+    for r, (rc, o) in enumerate(outs):
+        if rc != 0:
+            fail(f"rank {r} exited {rc}:\n{o[-4000:]}")
+    return [o for _, o in outs]
 
 
 def rank_stages(outs: list) -> list:
@@ -2683,11 +2678,11 @@ def rank_stages(outs: list) -> list:
 
 def rank_runs(runs: list) -> list:
     """``runs`` ([params file or None, CLI argv] each) in turn by RANKS
-    ranks on card 0 over gloo: one launch of this script's rank_worker,
-    the group started once. Per run, each rank's part of its output."""
-    outs = launch_ranks([sys.executable, os.path.abspath(__file__),
-                         "--rank-worker", json.dumps(runs)])
-    parts = [o.split("[rank-worker] run ")[1:] for o in outs]
+    ranks on card 0 over gloo: one launch of tests/torch_launch.py as a
+    rank, the group started once. Per run, each rank's part of its
+    output."""
+    outs = launch_ranks(torch_launch().rank_runs(runs))
+    parts = [o.split("[rank] run ")[1:] for o in outs]
     if any(len(p) != len(runs) for p in parts):
         fail("a rank did not reach every run:\n" + outs[0][-3000:])
     return [[p[i] for p in parts] for i in range(len(runs))]
@@ -2746,7 +2741,8 @@ def check_ranks(tmp: str, trained: dict, ckpt: str) -> dict:
         params = []
         for r in range(RANKS):
             with np.load(os.path.join(d, f"params{r}.npz")) as z:
-                params.append({k: z[k] for k in z.files})
+                params.append({k: z[k] for k in z.files
+                               if k.startswith("params/")})
         if sorted(params[0]) != sorted(params[1]) or any(
                 not np.array_equal(params[0][k], params[1][k])
                 for k in params[0]):
@@ -2808,9 +2804,10 @@ def check_ranks(tmp: str, trained: dict, ckpt: str) -> dict:
 
 
 def check_nccl(tmp: str) -> dict:
-    """Phase 9c: the train CLI under ``torch.distributed.run
-    --nproc_per_node 1`` (one rank: the default backend, NCCL, runs the
-    collectives on card 0), 1 epoch of phase 4b's rows."""
+    """Phase 9c: under ``torch.distributed.run --nproc_per_node 1``, a
+    one-rank NCCL group on card 0 (nccl_worker): the train step through
+    it against the step without it, then 1 epoch of phase 4b's rows by
+    the train CLI in it."""
     tr, va = os.path.join(tmp, "train.tsv"), os.path.join(tmp, "valid.tsv")
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc_per_node", "1", os.path.abspath(__file__),
@@ -2824,6 +2821,9 @@ def check_nccl(tmp: str) -> dict:
     if proc.returncode != 0 or "NCCL collectives ok" not in proc.stdout:
         fail(f"the NCCL run exited {proc.returncode}:\n"
              f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    step = json.loads(next(
+        ln for ln in proc.stdout.splitlines()
+        if ln.startswith("NCCL step check: "))[len("NCCL step check: "):])
     st = rank_stages([proc.stdout])[0]
     steps = -(-TRAIN_ROWS // TRAIN_B)
     if (st["plane"], st["world_size"], st["steps"]) != ("resident", 1,
@@ -2834,52 +2834,45 @@ def check_nccl(tmp: str) -> dict:
         "lstm_recurrence_fwd_save": 5 * steps,
         "lstm_recurrence_bwd": 5 * steps, "lstm_dw_hh": 5 * steps,
         "fused_bilstm_bf16": 5 * st["eval_tiles"]})
-    log(f"train under torch.distributed.run --nproc_per_node 1 (NCCL "
-        f"collectives on card 0 checked first): {st['samples_per_s']:.1f} "
-        f"samples/s, {time.time() - t0:.1f} s with the launcher")
-    return {k: st[k] for k in ("kernel_launches", "samples_per_s",
-                               "train_seconds", "valid_accuracies")}
-
-
-def rank_worker(spec: str) -> int:
-    """``--rank-worker RUNS``: one rank of the runs in the JSON list RUNS
-    ([params file or None, CLI argv] each, ``{rank}`` replaced by the
-    launcher) over gloo, in turn, every rank at a barrier before each
-    (phase 9b). A trained run's parameters go to its file."""
-    sys.path.insert(0, REPO)
-    import torch.distributed as tdist
-    from deepsignal_plant_tpu_torch import cli
-    from deepsignal_plant_tpu_torch.models.convert import _flatten
-    from deepsignal_plant_tpu_torch.parallel import dist
-    if not dist.init_distributed(backend="gloo"):
-        fail("no multi-process launch to join")
-    try:
-        for i, (out, argv) in enumerate(json.loads(spec)):
-            tdist.barrier()
-            print(f"[rank-worker] run {i}", flush=True)
-            args = cli.build_parser().parse_args(argv)
-            res = args.func(args)
-            if out is not None:
-                np.savez(out, **_flatten(res["params"]))
-    finally:
-        dist.destroy()
-    return 0
+    log(f"NCCL group of one rank on card 0 (parallel.dist.start_group): "
+        f"the train step through it is the step without it, bitwise (loss "
+        f"{step['loss']:.6f}, evaluation {step['eval']}); with "
+        f"{step['rows'] - step['kept']} of {step['rows']} rows padded and "
+        f"masked, max|update - update on the {step['kept']} rows kept| = "
+        f"{step['masked_update_err']:.3g} of {step['update_scale']:.3g} "
+        f"(tolerance {NCCL_UPDATE_TOL:g}), loss {step['masked_loss']:.6f} "
+        f"against {step['kept_loss']:.6f}")
+    log(f"train under torch.distributed.run --nproc_per_node 1 (every step "
+        f"and evaluation all-reducing over NCCL): "
+        f"{st['samples_per_s']:.1f} samples/s, {time.time() - t0:.1f} s "
+        f"with the launcher")
+    return {"step_check": step, **{k: st[k] for k in (
+        "kernel_launches", "samples_per_s", "train_seconds",
+        "valid_accuracies")}}
 
 
 def nccl_worker(argv: list) -> int:
     """``--nccl-worker <cli argv>`` under torch.distributed.run with one
-    process (phase 9c): an NCCL group of that rank runs the port's
-    collectives on its card, then the CLI command runs in it."""
+    process (phase 9c): parallel.dist.start_group starts the NCCL group
+    of that rank on its card (the branch init_distributed takes under a
+    launch of more than one rank), the train step and the evaluation
+    through it are held against the same calls before it started
+    (tests/torch_launch.one_rank_group_check: at full width in bfloat16,
+    a rank's 256 rows), the port's collectives run on the card, then the
+    CLI command runs in the group: its steps and evaluations all-reduce
+    over NCCL."""
     import torch
-    import torch.distributed as tdist
     sys.path.insert(0, REPO)
     from deepsignal_plant_tpu_torch import cli
-    from deepsignal_plant_tpu_torch.parallel import multihost
+    from deepsignal_plant_tpu_torch.config import ModelConfig
+    from deepsignal_plant_tpu_torch.parallel import dist, multihost
     if os.environ.get("WORLD_SIZE") != "1":
         fail("the NCCL worker runs as the one rank of torch.distributed.run")
-    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
-    tdist.init_process_group("nccl", init_method="env://")
     try:
+        got = torch_launch().one_rank_group_check(
+            "cuda", "nccl", ModelConfig(compute_dtype="bfloat16"),
+            TRAIN_B // RANKS, NCCL_UPDATE_TOL, SEED)
+        print("NCCL step check: " + json.dumps(got), flush=True)
         if multihost.comm_device().type != "cuda":
             fail("NCCL collectives do not run on the card")
         g, = multihost.all_sum([torch.arange(6.0, device="cuda")])
@@ -2891,7 +2884,7 @@ def nccl_worker(argv: list) -> int:
         print("NCCL collectives ok", flush=True)
         cli.main(argv)
     finally:
-        tdist.destroy_process_group()
+        dist.destroy()
     return 0
 
 
@@ -3200,8 +3193,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--rank-worker"]:
-        sys.exit(rank_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--nccl-worker"]:
         sys.exit(nccl_worker(sys.argv[2:]))
     sys.exit(main())

@@ -73,10 +73,21 @@ def init_distributed(backend: str | None = None,
                 "torch.distributed: set MASTER_ADDR, MASTER_PORT, "
                 "WORLD_SIZE, RANK and LOCAL_RANK (torchrun sets them)")
         return False
-    import torch
     import torch.distributed as tdist
     if tdist.is_available() and tdist.is_initialized():
         return False
+    start_group(backend or ("gloo" if device == "cpu" else "nccl"))
+    return True
+
+
+def start_group(backend: str) -> None:
+    """Join the process group the launch environment describes, on
+    ``backend``, at any world size (a one-rank group included). Under
+    NCCL this rank's card is ``cuda:<LOCAL_RANK>`` and becomes current;
+    a missing NCCL or a ``LOCAL_RANK`` without a card raises."""
+    import torch
+    import torch.distributed as tdist
+    world = _env_int("WORLD_SIZE", 1)
     missing = [v for v in LAUNCH_VARS if not os.environ.get(v)]
     if missing:
         raise ValueError(
@@ -85,7 +96,6 @@ def init_distributed(backend: str | None = None,
             .format(world, ", ".join(missing)))
     if not tdist.is_available():
         raise RuntimeError("this torch build has no torch.distributed")
-    backend = backend or ("gloo" if device == "cpu" else "nccl")
     if backend == "nccl":
         if not tdist.is_nccl_available():
             raise RuntimeError(
@@ -101,7 +111,6 @@ def init_distributed(backend: str | None = None,
         backend, init_method="tcp://{}:{}".format(
             os.environ["MASTER_ADDR"], os.environ["MASTER_PORT"]),
         world_size=world, rank=_env_int("RANK", 0))
-    return True
 
 
 def group_running() -> bool:
@@ -133,6 +142,18 @@ def process_info() -> tuple[int, int]:
             "is not initialized: call parallel.dist.init_distributed() "
             "first (the CLI does)")
     return 0, 1
+
+
+def refuse_launch(command: str) -> None:
+    """Raise under a multi-process launch: ``command`` runs as one
+    process (denoise trains one model on all of its file and writes
+    files beside it; serve watches one directory), so N ranks would each
+    run the whole job and write the same paths."""
+    rank, world = process_info()
+    if world > 1:
+        raise ValueError(
+            f"{command} runs as one process on one card; this launch has "
+            f"WORLD_SIZE={world} (rank {rank}): run it without torchrun")
 
 
 def shard_for_host(items: Sequence[T], pid: int | None = None,

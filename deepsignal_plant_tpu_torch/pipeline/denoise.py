@@ -36,6 +36,7 @@ from ..config import ModelConfig, TrainConfig, model_config_from_args
 from ..io.dataset import FeatureDataset
 from ..models.bilstm import ModelBiLSTM, init_params
 from ..ops.optim import Optimizer, step_decay_schedule
+from ..parallel.dist import refuse_launch
 from ..utils import metrics as M
 from ..utils.bases import str2bool
 from ..utils.device import resolve_device
@@ -162,6 +163,7 @@ def denoise(args) -> str:
     """CLI entry mirroring reference denoise(args) (denoise.py:318).
     Returns the path of the final denoised training file."""
     total_start = time.time()
+    refuse_launch("denoise")
     device = resolve_device(args.device)
     model_cfg = model_config_from_args(args, device, args.dropout_rate)
     train_cfg = TrainConfig(batch_size=args.batch_size, lr=args.lr,

@@ -227,9 +227,11 @@ def serve(args) -> list:
 
     from ..config import CallConfig, model_config_from_args
     from ..ops import fused_lstm
+    from ..parallel.dist import refuse_launch
     from ..utils.device import resolve_device
     from .call_mods import CallModsEngine
 
+    refuse_launch("serve")
     device = resolve_device(args.device)
     model_cfg = model_config_from_args(args, device, args.dropout_rate)
     call_cfg = CallConfig(

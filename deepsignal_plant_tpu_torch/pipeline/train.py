@@ -82,7 +82,6 @@ from ..ops import fused_lstm, recurrence
 from ..ops.optim import STATE_SLOTS, Optimizer, step_decay_schedule
 from ..parallel.dist import process_info
 from ..parallel.multihost import all_sum, broadcast_arrays, host_row_shard
-from ..utils import metrics as M
 from ..utils.device import resolve_device
 
 #: with --stream auto, a training file over this size streams (JAX
@@ -127,23 +126,20 @@ def train_step(model: ModelBiLSTM, weights: list, opt: Optimizer,
                class_weights: torch.Tensor, clip: float,
                generator: torch.Generator | None,
                mask: torch.Tensor | None = None) -> torch.Tensor:
-    """One update (JAX make_train_step): the training forward, the
-    weighted CE, its gradients, the clip and the optimizer step. Returns
-    the loss, left on the device. With a ``mask`` (a multi-rank step,
-    JAX's shard_map step, train.py:104-127) the weight sum is summed over
-    ranks before the backward, this rank's numerator is divided by it,
-    and the gradients and the loss are summed over ranks (not averaged,
-    as DDP would: ranks' weight sums differ)."""
+    """One update (JAX make_train_step and its shard_map step,
+    train.py:104-127): the training forward, the weighted-CE terms of the
+    rows ``mask`` keeps (all rows without one), the weight sum summed over
+    ranks before the backward, the gradients of this rank's numerator
+    over it, the gradients and the loss summed over ranks (not averaged,
+    as DDP would: ranks' weight sums differ), the clip and the optimizer
+    step. Without a process group the sums are this rank's own. Returns
+    the loss, left on the device."""
     logits, _ = model(batch, train=True, generator=generator)
-    if mask is None:
-        loss = weighted_ce(logits, labels, class_weights)
-        grads = torch.autograd.grad(loss, weights)
-    else:
-        num, den = masked_ce_terms(logits, labels, class_weights, mask)
-        den, = all_sum([den])
-        loss = num / torch.clamp(den, min=1e-12)
-        grads = torch.autograd.grad(loss, weights)
-        *grads, loss = all_sum([*grads, loss])
+    num, den = masked_ce_terms(logits, labels, class_weights, mask)
+    den, = all_sum([den])
+    loss = num / torch.clamp(den, min=1e-12)
+    grads = torch.autograd.grad(loss, weights)
+    *grads, loss = all_sum([*grads, loss])
     opt.step(clip_by_global_norm(grads, clip))
     return loss.detach()
 
@@ -183,14 +179,21 @@ class Plane:
     """A data plane. ``epoch(rng, batch_size)`` yields one epoch's steps
     as (batch, labels, mask, rows): ``mask`` is None where every row
     counts (one card) and a float mask over padded rows otherwise;
-    ``rows`` is the count of rows that count. ``batch(idx)`` serves the
-    single-card evaluation and denoise's scoring."""
+    ``rows`` is the count of rows that count. ``eval_steps(batch_size)``
+    yields the evaluation's steps as (batch, labels, mask).
+    ``batch(idx)`` serves denoise's scoring."""
 
     def evaluates_after(self, step: int, steps: int, interval: int) -> bool:
         """Whether an evaluation follows the epoch's ``step``-th step:
         every ``interval`` steps and at the epoch's end (JAX
         train.py:1402-1404)."""
         return step % interval == 0 or step == steps
+
+    def eval_steps(self, batch_size: int):
+        """One card's evaluation: consecutive slices of ``batch_size``
+        rows, the last one short, every row kept."""
+        for lo in range(0, len(self), batch_size):
+            yield (*self.batch(slice(lo, lo + batch_size)), None)
 
     def close(self) -> None:
         """Release what the plane holds beyond its tensors."""
@@ -201,6 +204,9 @@ class HostFed(Plane):
 
     def __init__(self, ds: FeatureDataset, device: torch.device):
         self.ds, self.device = ds, device
+
+    def __len__(self) -> int:
+        return len(self.ds)
 
     def batch(self, idx):
         return _upload(*self.ds.batch_at(idx), self.device)
@@ -221,6 +227,9 @@ class Resident(Plane):
     def __init__(self, ds: FeatureDataset, device: torch.device):
         self.data, self.labels = _upload(*ds.batch_at(slice(None)), device)
         self.device = device
+
+    def __len__(self) -> int:
+        return len(self.labels)
 
     def batch(self, idx):
         return Batch(*(a[idx] for a in self.data)), self.labels[idx]
@@ -533,35 +542,15 @@ def resident_budget(device: torch.device) -> int:
 
 
 @torch.no_grad()
-def evaluate(model: ModelBiLSTM, source, labels: np.ndarray,
-             batch_size: int, class_weights: torch.Tensor) -> dict:
-    """Validation metrics (JAX train.py:673-695): the weighted CE of each
-    batch averaged over batches, accuracy, precision and recall. One
-    inference forward per batch; one read of the results at the end."""
-    preds, losses = [], []
-    for lo in range(0, len(labels), batch_size):
-        batch, y = source.batch(slice(lo, lo + batch_size))
-        logits, probs = model(batch)
-        preds.append(torch.argmax(probs, dim=1))
-        losses.append(weighted_ce(logits, y, class_weights))
-    pred = torch.cat(preds).cpu().numpy() if preds else np.empty(0, np.int64)
-    loss = torch.stack(losses).cpu().numpy() if losses else np.zeros(1)
-    return {"loss": float(np.mean(loss.astype(np.float64))),
-            "accuracy": M.accuracy(labels, pred),
-            "precision": M.precision(labels, pred),
-            "recall": M.recall(labels, pred),
-            "batches": len(losses)}
-
-
-@torch.no_grad()
-def evaluate_ranks(model: ModelBiLSTM, source, batch_size: int,
-                   class_weights: torch.Tensor) -> dict:
-    """Validation metrics of a multi-rank run (JAX train.py:320-335 and
-    its eval-counts steps): per step, the weighted CE of the rows every
-    rank holds (numerators and weight sums summed over ranks), averaged
-    over steps; accuracy, precision and recall from the five prediction
-    counts [correct, total, tp, fp, fn] summed over ranks. One
-    all-reduce at the end."""
+def evaluate(model: ModelBiLSTM, source: Plane, batch_size: int,
+             class_weights: torch.Tensor) -> dict:
+    """Validation metrics (JAX train.py:673-695, and :320-335 with its
+    eval-counts steps under a launch): per step of ``source.eval_steps``,
+    the weighted CE of the rows it keeps (numerator and weight sum
+    summed over ranks), averaged over steps; accuracy, precision and
+    recall from the five prediction counts [correct, total, tp, fp, fn]
+    summed over ranks. One inference forward a step; one all-reduce and
+    one read of the results at the end."""
     nums, dens = [], []
     counts = torch.zeros(5, dtype=torch.float32, device=class_weights.device)
     for batch, y, mask in source.eval_steps(batch_size):
@@ -569,12 +558,17 @@ def evaluate_ranks(model: ModelBiLSTM, source, batch_size: int,
         num, den = masked_ce_terms(logits, y, class_weights, mask)
         nums.append(num)
         dens.append(den)
-        pred, valid = torch.argmax(probs, dim=1), mask > 0
+        pred = torch.argmax(probs, dim=1)
+        valid = torch.ones_like(y, dtype=torch.bool) if mask is None \
+            else mask > 0
         counts += torch.stack([
             ((pred == y) & valid).sum(), valid.sum(),
             (valid & (pred == 1) & (y == 1)).sum(),
             (valid & (pred == 1) & (y == 0)).sum(),
             (valid & (pred == 0) & (y == 1)).sum()]).float()
+    if not nums:
+        return {"loss": 0.0, "accuracy": 0.0, "precision": 0.0,
+                "recall": 0.0, "batches": 0}
     num, den, counts = all_sum([torch.stack(nums), torch.stack(dens),
                                 counts])
     loss = (num / torch.clamp(den, min=1e-12)).cpu().numpy()
@@ -897,9 +891,7 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
         print("total_step: {}".format(steps_per_epoch))
 
     def run_eval() -> dict:
-        if world > 1:
-            return evaluate_ranks(model, valid_src, B, class_weights)
-        return evaluate(model, valid_src, valid_ds.labels, B, class_weights)
+        return evaluate(model, valid_src, B, class_weights)
 
     start_step = global_step
     epochs_run = start_epoch

@@ -2,13 +2,14 @@
 utils/device.py) against the JAX package's helpers (the counterparts of
 tests/test_dist.py), and its collectives at 2 ranks on the CPU (gloo;
 tests/torch_launch.py starts them as torchrun would)."""
+import os
 import sys
 
 import numpy as np
 import pytest
 import torch
 
-from torch_launch import launch
+from torch_launch import cli, free_port, launch, one_rank_group_check
 
 from deepsignal_plant_tpu.parallel import dist as jax_dist
 from deepsignal_plant_tpu_torch.parallel import dist
@@ -141,3 +142,53 @@ def test_collectives_at_two_ranks():
     outs = launch([sys.executable, "-c", _COLLECTIVES], 2, timeout=120)
     for r, (rc, out) in enumerate(outs):
         assert rc == 0 and f"COLLECTIVES rank={r} ok" in out, out[-3000:]
+
+
+def test_nccl_group_needs_a_card(monkeypatch):
+    """start_group's NCCL branch: a LOCAL_RANK with no card raises before
+    any group starts (never a fallback to gloo)."""
+    import torch.distributed as tdist
+    for k, v in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "1"),
+                 ("WORLD_SIZE", "2"), ("RANK", "1"), ("LOCAL_RANK", "1")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(tdist, "is_nccl_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="LOCAL_RANK 1 has no card"):
+        dist.init_distributed()
+    assert not dist.group_running()
+
+
+def test_one_rank_group_gives_the_steps_bytes(monkeypatch):
+    """The train step and the evaluation sum over a running group even at
+    one rank (as chip_smoke.py's NCCL run starts it): a mask of ones gives
+    the bytes of the step without a group, a padded and masked step the
+    update of the step on the rows kept (float32 on the CPU: 1e-5 of
+    max|update|)."""
+    from deepsignal_plant_tpu_torch.config import ModelConfig
+    for k, v in (("MASTER_ADDR", "127.0.0.1"),
+                 ("MASTER_PORT", str(free_port())), ("WORLD_SIZE", "1"),
+                 ("RANK", "0"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    try:
+        got = one_rank_group_check(
+            "cpu", "gloo", ModelConfig(hidden_size=16, num_layers_comb=2,
+                                       compute_dtype="float32"), 64, 1e-5)
+        assert dist.process_info() == (0, 1)
+    finally:
+        dist.destroy()
+    assert got["kept"] == 56 and got["update_scale"] > 0
+    assert abs(got["masked_loss"] - got["kept_loss"]) <= 1e-6
+
+
+@pytest.mark.parametrize("argv", [
+    ["denoise", "--train_file", "t.tsv", "--device", "cpu"],
+    ["serve", "-i", "watch", "-o", "out", "-m", "m.ckpt.npz", "--device",
+     "cpu"]], ids=["denoise", "serve"])
+def test_one_process_commands_refuse_a_launch(argv, tmp_path):
+    """denoise and serve run as one process: at 2 ranks every rank
+    raises before it reads or writes anything."""
+    outs = launch(cli(*argv), 2, timeout=120, cwd=str(tmp_path))
+    for rc, out in outs:
+        assert rc != 0 and "runs as one process on one card" in out, \
+            out[-3000:]
+    assert os.listdir(tmp_path) == []

@@ -1,13 +1,19 @@
-"""Launch the port's ranks on the CPU, as torchrun would (gloo): one
-process per rank with MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK and
-LOCAL_RANK set. Imported by tests/test_torch_dist*.py; run as a script
-it is a rank that trains and writes what it ended with:
+"""Launch the port's ranks as torchrun would: one process per rank with
+MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK and LOCAL_RANK set (gloo on
+the CPU in tests/test_torch_dist*.py; chip_smoke.py launches its ranks
+on the card with it too). ``one_rank_group_check`` holds the train
+step and the evaluation in a one-rank process group against the same
+calls without one. Run as a script, this file is one rank that runs CLI
+commands in turn in one gloo group (on the CPU, or on a card named by
+``--device``), every rank at a barrier before each:
 
-    python tests/torch_launch.py train OUT.npz -- <train CLI flags>
+    python tests/torch_launch.py '[[OUT.npz or null, [<CLI argv>]], ...]'
 
-(the parameters as flat arrays and a ``result`` JSON of the run's
-counters: steps, losses, accuracies, plane, start epoch).
+A train command with an OUT writes what it ended with there: the
+parameters as ``params/<name>`` arrays and a ``result`` JSON of the
+run's counters (steps, losses, accuracies, plane, start epoch).
 """
+import dataclasses
 import json
 import os
 import socket
@@ -57,37 +63,132 @@ def cli(*args) -> list:
     return [sys.executable, "-m", "deepsignal_plant_tpu_torch", *args]
 
 
+def rank_runs(runs: list) -> list:
+    """argv of one rank of this script running ``runs`` ([OUT or None,
+    CLI argv] each) in turn."""
+    return [sys.executable, os.path.abspath(__file__), json.dumps(runs)]
+
+
 def train_rank(out: str, *flags) -> list:
-    """argv of one rank of this script's ``train`` mode."""
-    return [sys.executable, os.path.abspath(__file__), "train", out, "--",
-            *flags]
+    """argv of one rank of this script training once, its result to
+    ``out``."""
+    return rank_runs([[out, ["train", *flags]]])
 
 
-def _train_main(out: str, flags: list) -> None:
+def one_rank_group_check(device: str, backend: str, model_cfg, rows: int,
+                         grad_tol: float, seed: int = 0) -> dict:
+    """The port's train step and evaluation in a one-rank process group
+    on ``backend`` (started by parallel.dist.start_group from the launch
+    environment, which must be set) against the same calls made before
+    the group starts, on ``rows`` random rows at ``model_cfg``'s widths
+    and dropout 0: with a mask of ones the step's loss and parameters and
+    the evaluation are the bytes of the step without a mask; with the
+    last eighth of the rows replaced by row 0 and masked (as the sharded
+    plane pads), the first step's update (SGD, so the update is the
+    clipped gradient) is within ``grad_tol`` of max|update| of the step
+    on the rows kept. The group is left running for the caller to use
+    and end (parallel.dist.destroy). Returns the numbers compared."""
     import numpy as np
+    import torch
+
+    from deepsignal_plant_tpu_torch.io.dataset import FeatureDataset
+    from deepsignal_plant_tpu_torch.models.bilstm import (ModelBiLSTM,
+                                                          init_params)
+    from deepsignal_plant_tpu_torch.ops.optim import (Optimizer,
+                                                      step_decay_schedule)
+    from deepsignal_plant_tpu_torch.parallel import dist
+    from deepsignal_plant_tpu_torch.pipeline import train as T
+    model_cfg = dataclasses.replace(model_cfg, dropout_rate=0.0)
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed)
+    L, S = model_cfg.seq_len, model_cfg.signal_len
+    src = T.Resident(FeatureDataset(
+        rng.integers(0, 4, (rows, L)).astype(np.int32),
+        rng.normal(size=(rows, L)).astype(np.float32),
+        np.abs(rng.normal(size=(rows, L))).astype(np.float32),
+        rng.integers(1, 30, (rows, L)).astype(np.float32),
+        rng.normal(size=(rows, L, S)).astype(np.float32),
+        rng.integers(0, 2, rows).astype(np.int32)), dev)
+    keep = rows - rows // 8
+    pad = torch.cat([torch.arange(keep), torch.zeros(rows - keep,
+                                                     dtype=torch.int64)])
+    mask = (torch.arange(rows) < keep).float().to(dev)
+    params = init_params(model_cfg, seed)
+    cw = torch.tensor([1.0, 1.5], device=dev)
+
+    def step(optim, idx, mask=None):
+        model = ModelBiLSTM.from_params(params, model_cfg, dev,
+                                        trainable=True)
+        weights = list(model.parameters())
+        before = [w.detach().clone() for w in weights]
+        opt = Optimizer(optim, step_decay_schedule(1e-2, 10, 2, 0.1),
+                        weights)
+        loss = T.train_step(model, weights, opt, *src.batch(idx.to(dev)),
+                            cw, 0.5, None, mask)
+        return {"loss": loss.cpu(),
+                "update": [(w.detach() - b).cpu()
+                           for w, b in zip(weights, before)],
+                "eval": T.evaluate(model, src, rows, cw)}
+
+    every = torch.arange(rows)
+    alone = step("Adam", every)
+    kept = step("SGD", torch.arange(keep))
+    dist.start_group(backend)
+    grouped = step("Adam", every, torch.ones(rows, device=dev))
+    masked = step("SGD", pad, mask)
+    same = (torch.equal(alone["loss"], grouped["loss"])
+            and all(torch.equal(a, b) for a, b in zip(alone["update"],
+                                                     grouped["update"]))
+            and alone["eval"] == grouped["eval"])
+    scale = max(u.abs().max().item() for u in kept["update"])
+    err = max((a - b).abs().max().item()
+              for a, b in zip(kept["update"], masked["update"]))
+    assert same, ("the step in a one-rank group differs from the step "
+                  f"without one: {alone['loss']} {grouped['loss']} "
+                  f"{alone['eval']} {grouped['eval']}")
+    assert err <= grad_tol * scale, (
+        f"the masked step's update is {err} from the step on the rows "
+        f"kept (max|update| {scale}, tolerance {grad_tol})")
+    return {"rows": rows, "kept": keep, "loss": float(alone["loss"]),
+            "masked_loss": float(masked["loss"]),
+            "kept_loss": float(kept["loss"]),
+            "masked_update_err": err, "update_scale": scale,
+            "eval": grouped["eval"]}
+
+
+#: the train counters a run's OUT keeps
+RESULT_KEYS = ("steps", "start_epoch", "start_step", "epochs_run", "plane",
+               "rank", "world_size", "local_batch", "step_losses",
+               "valid_accuracies", "best_accuracy", "best_ckpt",
+               "train_rows", "eval_tiles")
+
+
+def _rank_main(runs: list) -> None:
+    import numpy as np
+    import torch.distributed as tdist
 
     from deepsignal_plant_tpu_torch import cli as port_cli
     from deepsignal_plant_tpu_torch.models.convert import _flatten
     from deepsignal_plant_tpu_torch.parallel import dist
-    from deepsignal_plant_tpu_torch.pipeline.train import train
-    args = port_cli.build_parser().parse_args(["train", *flags])
-    started = dist.init_distributed(device=port_cli.run_device(args))
+    if not dist.init_distributed(backend="gloo"):
+        sys.exit("no multi-process launch to join")
     try:
-        res = train(args)
+        for i, (out, argv) in enumerate(runs):
+            tdist.barrier()
+            print(f"[rank] run {i}", flush=True)
+            args = port_cli.build_parser().parse_args(argv)
+            res = args.func(args)
+            if out is not None:
+                result = json.dumps({k: res[k] for k in RESULT_KEYS})
+                np.savez(out, result=np.frombuffer(result.encode(),
+                                                   np.uint8),
+                         **{"params/" + k: v
+                            for k, v in _flatten(res["params"]).items()})
     finally:
-        if started:
-            dist.destroy()
-    keep = ("steps", "start_epoch", "start_step", "epochs_run", "plane",
-            "rank", "world_size", "local_batch", "step_losses",
-            "valid_accuracies", "best_accuracy", "best_ckpt", "train_rows",
-            "eval_tiles")
-    result = json.dumps({k: res[k] for k in keep})
-    np.savez(out, result=np.frombuffer(result.encode(), np.uint8),
-             **{"params/" + k: v for k, v in _flatten(res["params"]).items()})
+        dist.destroy()
 
 
 if __name__ == "__main__":
-    if sys.argv[1] == "train" and sys.argv[3] == "--":
-        _train_main(sys.argv[2], sys.argv[4:])
-    else:
-        sys.exit(f"usage: {sys.argv[0]} train OUT.npz -- <train flags>")
+    if len(sys.argv) != 2:
+        sys.exit(f"usage: {sys.argv[0]} '[[OUT or null, [CLI argv]], ...]'")
+    _rank_main(json.loads(sys.argv[1]))
