@@ -89,7 +89,16 @@ Phases, in order; any failure exits non-zero before the last line:
    sites/s and stages); float32 on 64 of the reads (kernel rows equal
    to the TSV plane's; against the plain version within the phase 4
    gate); ``serve --once`` over one run-folder of those 64 reads (bytes
-   = the CLI's, a .done marker);
+   = the CLI's, a .done marker); (6c) VBZ: ``libzstd.so.1`` loads (its
+   ``ZSTD_versionNumber`` printed), twins of the first 256 reads written
+   by the port's writer with Signal in chunks of 10,000 samples, VBZ
+   (tests/torch_vbz.py, as MinKNOW writes it) and gzip, each read as the
+   original; the reader's reads/s and MB/s on each (two passes in
+   turns); ``extract --nproc 4`` on the VBZ twin writes the original's
+   bytes; fused ``call_mods`` on the original and both twins in one
+   process after a warm-up run on the original (rows equal, 5
+   launches of K1's bfloat16 kernel per forward tile, sites/s and
+   parse_wait_seconds);
 7. the .npz planes, on the first 256 of those reads (~80k sites; bf16,
    float16 wire unless stated): ``extract --w_format npz|npz_wire|
    npz_packed`` (and TSV) at --nproc 4, rows/s each; ``call_mods`` on the
@@ -138,8 +147,8 @@ Phases, in order; any failure exits non-zero before the last line:
    against the step on the rows kept, the port's collectives, then
    ``train`` in the group (every step and evaluation all-reducing over
    NCCL);
-10. a ``{"kernels": [...]}`` line (phase 8's and 9's launches beside
-   each kernel's main-path count), the card line, and last
+10. a ``{"kernels": [...]}`` line (phase 6c's, 8's and 9's launches
+   beside each kernel's main-path count), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Without a card, or
@@ -294,6 +303,12 @@ FAST5_READ_LEN = 5_000
 FAST5_MAX_EVENT = 21          # event lengths 3-20 (integers below this)
 # the float32 comparison and the served run-folder use the first reads
 FAST5_SUB_READS = 64
+# phase 6c, VBZ: twins of phase 6's first VBZ_READS reads, Signal in
+# chunks of VBZ_CHUNK samples (several a read, the last partial), once
+# VBZ-encoded as MinKNOW writes it (tests/torch_vbz.py, client data
+# values 0, 2, 1, 1) and once gzip (deflate level 4)
+VBZ_READS = 256
+VBZ_CHUNK = 10_000
 # phase 7, the .npz planes: the first NPZ_READS reads of phase 6's run
 # (~80k sites), extracted into each container at --nproc 4; the fast5
 # batches of extract's default size (30 reads) give 9 files
@@ -1854,11 +1869,13 @@ def check_call_freq(torch, cli, tmp: str, served: list) -> dict:
 
 
 def write_fast5_run(fast5, dirpath: str, n_reads: int, read_len: int,
-                    seed: int) -> dict:
+                    seed: int, **signal) -> dict:
     """A seeded fast5 run through the port's writer
     (io/fast5.write_tombo_fast5), in synth_fast5_dir's model: each read
     a random window of a random contig, events of 3-20 samples, DAC
-    300-699, strands alternating. Returns the run's totals."""
+    300-699, strands alternating; ``signal`` the writer's Signal storage
+    keywords. A seed gives the same first reads at any ``n_reads``.
+    Returns the run's totals."""
     rng = np.random.default_rng(seed)
     genome = {name: np.frombuffer(b"ACGT", np.uint8)[
         rng.integers(0, 4, n)].tobytes().decode()
@@ -1879,7 +1896,8 @@ def write_fast5_run(fast5, dirpath: str, n_reads: int, read_len: int,
             os.path.join(dirpath, f"smokeread_{r:05d}.fast5"),
             readname=f"smokeread_{r:05d}", raw_signal=raw, bases=bases,
             event_starts=starts, event_lengths=lens, chrom=chrom,
-            chrom_start=start, alignstrand="+" if r % 2 == 0 else "-")
+            chrom_start=start, alignstrand="+" if r % 2 == 0 else "-",
+            **signal)
     nbytes = sum(os.path.getsize(os.path.join(dirpath, f))
                  for f in os.listdir(dirpath))
     return {"reads": n_reads, "bases": n_reads * read_len,
@@ -1948,6 +1966,8 @@ def check_fast5(tmp: str, ckpt: str) -> dict:
     shutil.rmtree(base, ignore_errors=True)
     try:
         out = _check_fast5(fast5, base, tmp, ckpt)
+        # phase 6c: VBZ and gzip twins of the first VBZ_READS reads
+        out["vbz"] = check_vbz(fast5, base, tmp, ckpt, out)
         # phase 7 on the first NPZ_READS of the same reads
         out["npz"] = check_npz(base, tmp, ckpt)
         return out
@@ -2095,6 +2115,130 @@ def _check_fast5(fast5, base: str, tmp: str, ckpt: str) -> dict:
                         "launches": k_f5["kernel_launches"]},
             "serve": {"request": req[0], "wall_seconds": st["wall_seconds"],
                       "engine_seconds": st["engine_seconds"]}}
+
+
+def time_reader(fast5, files: list) -> dict:
+    """read_tombo_fast5 over ``files`` in turn: reads/s and MB/s (file
+    bytes)."""
+    nbytes = sum(os.path.getsize(p) for p in files)
+    t0 = time.perf_counter()
+    for p in files:
+        fast5.read_tombo_fast5(p)
+    dt = time.perf_counter() - t0
+    return {"seconds": dt, "reads_per_s": len(files) / dt,
+            "mb_per_s": nbytes / 1e6 / dt, "mb": nbytes / 1e6}
+
+
+def check_vbz(fast5, base: str, tmp: str, ckpt: str, phase6: dict
+              ) -> dict:
+    """Phase 6c: VBZ (HDF5 filter 32020) on the card's machine, which
+    has no h5py and no vbz plugin. libzstd.so.1 loads (its version
+    printed); the first VBZ_READS reads of phase 6 are written again by
+    the port's writer with Signal chunked, VBZ-encoded by
+    tests/torch_vbz.py and gzip; every twin reads as the original; the
+    reader's reads/s and MB/s on each (two passes in turns, the faster
+    kept); ``extract --nproc 4`` on the VBZ twin writes the original's
+    TSV bytes; fused ``call_mods`` (bf16, float16 wire, --nproc 4) on
+    the original and on both twins in one process after a warm-up run:
+    rows equal, K1's bfloat16 kernel 5 times per forward tile, sites/s
+    and parse_wait_seconds."""
+    t_phase = time.time()
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import torch_vbz
+    from deepsignal_plant_tpu_torch.io import vbz
+    zver = int(vbz.libzstd().ZSTD_versionNumber())
+    log(f"phase 6c: {vbz.ZSTD_LIBRARY} loaded, ZSTD_versionNumber {zver}")
+    run = os.path.join(base, "run")
+    orig = os.path.join(base, "vbz_orig")
+    os.makedirs(orig)
+    for f in sorted(os.listdir(run))[:VBZ_READS]:
+        os.symlink(os.path.join(run, f), os.path.join(orig, f))
+    twins = {"vbz": dict(signal_chunks=VBZ_CHUNK,
+                         signal_filters=[(32020, torch_vbz.MINKNOW)],
+                         signal_encode=torch_vbz.chunk_encoder()),
+             "gzip": dict(signal_chunks=VBZ_CHUNK,
+                          signal_filters=[(1, (4,))])}
+    dirs = {"orig": orig}
+    for name, kw in twins.items():
+        dirs[name] = os.path.join(base, f"twin_{name}")
+        t0 = time.perf_counter()
+        write_fast5_run(fast5, dirs[name], VBZ_READS, FAST5_READ_LEN,
+                        SEED + 11, **kw)
+        log(f"{name} twin of {VBZ_READS} reads written by the port's writer"
+            f" in {time.perf_counter() - t0:.1f} s")
+    files = {k: sorted(os.path.join(d, f) for f in os.listdir(d))
+             for k, d in dirs.items()}
+    for i, p in enumerate(files["orig"]):
+        want = fast5.read_tombo_fast5(p)
+        for name in twins:
+            got = fast5.read_tombo_fast5(files[name][i])
+            if got.readname != want.readname or not np.array_equal(
+                    got.raw_signal, want.raw_signal) or not np.array_equal(
+                    got.event_starts, want.event_starts) or \
+                    got.seq != want.seq:
+                fail(f"the {name} twin of {os.path.basename(p)} reads "
+                     "differently from the original")
+    # in turns (orig, vbz, gzip, gzip, vbz, orig); the faster pass kept
+    order = list(files) + list(files)[::-1]
+    reader = {}
+    for k in order:
+        r = time_reader(fast5, files[k])
+        if k not in reader or r["seconds"] < reader[k]["seconds"]:
+            reader[k] = r
+    for k, r in reader.items():
+        log(f"fast5 reader alone on the {k} reads: {VBZ_READS} reads "
+            f"({r['mb']:.1f} MB) in {r['seconds']:.3f} s, "
+            f"{r['reads_per_s']:.1f} reads/s, {r['mb_per_s']:.1f} MB/s")
+
+    tsv = {k: os.path.join(tmp, f"vbz_{k}.tsv") for k in ("orig", "vbz")}
+    ext = {k: run_extract("-i", dirs[k], "-o", tsv[k], "--nproc", "4")
+           for k in tsv}
+    if file_digest(tsv["vbz"]) != file_digest(tsv["orig"]):
+        fail("extract --nproc 4 on the VBZ twin wrote other bytes than on "
+             "the contiguous original")
+    with open(tsv["orig"], "rb") as fh:
+        n_rows = fh.read().count(b"\n")
+    for k, e in ext.items():
+        e["rows_per_s"] = n_rows / e["seconds"]
+        log(f"extract --nproc 4 on the {k} reads: {n_rows} rows in "
+            f"{e['seconds']:.2f} s ({e['rows_per_s']:.1f} rows/s; process "
+            f"{e['wall_seconds']:.1f} s); VBZ bytes = the original's")
+
+    # a first run on the original carries the process's CUDA start and
+    # kernel loads, so the three compared runs are warm alike
+    calls = {k: os.path.join(tmp, f"vbz_{k}.calls.tsv")
+             for k in ("warm", *dirs)}
+    sts = dict(zip(calls, run_cli_many(
+        [["call_mods", "-i", dirs.get(k, orig), "-m", ckpt, "-o", calls[k],
+          "--nproc", "4"] for k in calls])))
+    want = sorted_rows(calls["orig"])
+    if len(want) != n_rows:
+        fail(f"call_mods on the original reads wrote {len(want)} rows for "
+             f"{n_rows} sites")
+    for k, st in sts.items():
+        k1_only(st, f"call_mods on the {k} reads")
+        if sorted_rows(calls[k]) != want:
+            fail(f"call_mods on the {k} twin wrote other rows than on the "
+                 "original")
+        if (st["fast5_files"], st["fast5_errors"]) != (VBZ_READS, 0):
+            fail(f"call_mods on the {k} reads: {st['fast5_files']} files, "
+                 f"{st['fast5_errors']} errors")
+        log(f"call_mods on the {k} reads (bf16, float16 wire, --nproc 4): "
+            f"{st['sites']} sites, {st['sites_per_s']:.1f} sites/s in the "
+            f"engine, parse_wait_seconds {st['parse_wait_seconds']:.3f} of "
+            f"{st['seconds']:.3f} s; K1 bf16 launches "
+            f"{st['kernel_launches']['fused_bilstm_bf16']} = 5 x "
+            f"{st['forward_tiles']} tiles; rows = the original's")
+    out = {"zstd_version": zver, "reads": VBZ_READS, "chunk": VBZ_CHUNK,
+           "reader": reader, "extract": ext, "rows": n_rows,
+           "call_mods": {k: {f: st[f] for f in (
+               "sites", "sites_per_s", "seconds", "parse_wait_seconds",
+               "forward_tiles", "kernel_launches", "wall_seconds")}
+               for k, st in sts.items()},
+           "phase6_reader_reads_per_s": phase6["reader"]["reads_per_s"],
+           "seconds": time.time() - t_phase}
+    log(f"phase 6c took {out['seconds']:.1f} s")
+    return out
 
 
 def run_cli_many(runs: list) -> list:
@@ -3117,6 +3261,8 @@ def main() -> int:
                      else "bytes"),
         "library_ms": total("library_ms"),
         "shapes_checked": [c for c in checked if c[4] == "fused_bilstm_bf16"],
+        "phase6c_launches": fast5_run["vbz"]["call_mods"]["vbz"][
+            "kernel_launches"]["fused_bilstm_bf16"],
         "phase8_launches": phase8_launches(phase8, "fused_bilstm_bf16"),
         "phase9_launches": phase9_launches(phase9, "fused_bilstm_bf16"),
         "per_launch": rows, "model_forward": forward, "main_path": run})

@@ -12,8 +12,12 @@ Group layout contract (reference extract_features.py:44-170,255-271):
     UniqueGlobalKey/channel_id attrs digitisation / range / offset
 
 The JAX package has two h5py readers, a fast one that falls back to a
-slower one; this module has one. VBZ-compressed signals (HDF5 filter
-32020) raise VBZPluginError: the port does not decode VBZ.
+slower one; this module has one. It reads what h5py reads in the fast5s
+users have: VBZ-compressed signals (HDF5 filter 32020, decoded by
+io/vbz.py against the system's libzstd.so.1), gzip, the layouts of
+``libver="latest"`` files (dense groups and attributes, every chunk
+index). A VBZPluginError means libzstd.so.1 is missing or the VBZ version
+is not one the port decodes.
 """
 from __future__ import annotations
 
@@ -124,12 +128,19 @@ def write_tombo_fast5(path: str, readname: str, raw_signal: np.ndarray,
                       basecall_subgroup: str = "BaseCalled_template",
                       digitisation: float = 8192.0, prange: float = 1465.0,
                       offset: float = 10.0,
-                      read_start_rel_to_raw: int = 0) -> None:
+                      read_start_rel_to_raw: int = 0,
+                      signal_chunks: int | None = None,
+                      signal_filters=(), signal_encode=None) -> None:
     """Create a minimal tombo-layout fast5 (test fixtures and format docs),
     in the layout h5py writes by default.
 
     ``raw_signal`` is stored as DAC integers; readers recover picoamps via
-    the channel scaling attrs.
+    the channel scaling attrs. It is stored contiguous, or with
+    ``signal_chunks`` in chunks of that many samples through
+    ``signal_filters`` ((filter id, client data values), as
+    ``hdf5.Chunked``): ``((1, (4,)),)`` is gzip at level 4; a VBZ
+    pipeline ``((32020, (0, 2, 1, 1)),)`` needs ``signal_encode``, a
+    chunk's stored bytes from its int16 array.
     """
     n = len(bases)
     ev = np.zeros(n, dtype=[("start", "<i8"), ("length", "<i8"),
@@ -137,10 +148,14 @@ def write_tombo_fast5(path: str, readname: str, raw_signal: np.ndarray,
     ev["start"] = np.asarray(event_starts, dtype=np.int64)
     ev["length"] = np.asarray(event_lengths, dtype=np.int64)
     ev["base"] = np.frombuffer(bases.encode(), "S1")
+    signal = np.asarray(raw_signal, dtype=np.int16)
+    if signal_chunks is not None:
+        signal = hdf5.Chunked(signal, (signal_chunks,), signal_filters,
+                              signal_encode)
     tree = {
         "Raw": {"Reads": {"Read_0": {
             "@attrs": {"read_id": np.bytes_(readname)},
-            "Signal": (np.asarray(raw_signal, dtype=np.int16), {})}}},
+            "Signal": (signal, {})}}},
         "UniqueGlobalKey": {"channel_id": {"@attrs": {
             "digitisation": np.float64(digitisation),
             "range": np.float64(prange), "offset": np.float64(offset)}}},

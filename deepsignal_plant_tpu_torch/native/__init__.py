@@ -82,7 +82,9 @@ def _declare(lib: ctypes.CDLL) -> None:
             ("dsp_quantize_i8_f16", ctypes.c_float, [u16p, i64, i8p]),
             ("dsp_quantize_i8_f16_portable", ctypes.c_float,
              [u16p, i64, i8p]),
-            ("dsp_quantize_i8_f32", ctypes.c_float, [f32p, i64, i8p])):
+            ("dsp_quantize_i8_f32", ctypes.c_float, [f32p, i64, i8p]),
+            ("dsp_vbz_unpack", i64,
+             [ctypes.c_void_p, i64, i64, i32, i32, u8p])):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = restype, argtypes
 

@@ -33,6 +33,11 @@
 //   dsp_quantize_i8_f16 / dsp_quantize_i8_f32(in, n, out) -> the dequant
 //     scale of a symmetric per-array int8 quantization (the int8 wire);
 //     dsp_quantize_i8_f16_portable: the f16 one without AVX-512.
+//   dsp_vbz_unpack(in, in_len, count, integer_size, zigzag, out) -> bytes
+//     of ``in`` consumed: the Stream VByte layer of a VBZ chunk (HDF5
+//     filter 32020) decoded into ``count`` little-endian integers of
+//     ``integer_size`` bytes; -1 when the stream is shorter than its
+//     control bytes say.
 
 #include <algorithm>
 #include <cmath>
@@ -1307,6 +1312,87 @@ float dsp_quantize_i8_f32(const float* in, int64_t n, int8_t* out) {
 float dsp_quantize_i8_f16_portable(const _Float16* in, int64_t n,
                                    int8_t* out) {
     return quantize_impl(in, n, out);
+}
+
+}  // extern "C"
+
+
+// ---------------------------------------------------------------------------
+// VBZ (HDF5 filter 32020, nanoporetech/vbz_compression): the Stream VByte
+// layer, read after io/vbz.py has undone the zstd layer
+// ---------------------------------------------------------------------------
+
+namespace {
+
+const uint32_t kVbzMask[4] = {0xFFu, 0xFFFFu, 0xFFFFFFu, 0xFFFFFFFFu};
+
+// One value type and delta mode: while 4 bytes remain, a value is one
+// unaligned little-endian 4-byte load masked to its length (x86-64 is
+// little-endian); the stream's last values take the bytewise path.
+template <typename T, bool ZigZag>
+int64_t vbz_unpack(const uint8_t* in, int64_t in_len, int64_t count,
+                   uint8_t* out) {
+    const int64_t nctrl = (count + 3) / 4;
+    if (count < 0 || nctrl > in_len) return -1;
+    const uint8_t* ctrl = in;
+    const uint8_t* p = in + nctrl;
+    const uint8_t* end = in + in_len;
+    uint32_t prev = 0;
+    for (int64_t i = 0; i < count; ++i) {
+        const int key = (ctrl[i >> 2] >> (2 * (i & 3))) & 3;
+        uint32_t v;
+        if (end - p >= 4) {
+            std::memcpy(&v, p, 4);
+            v &= kVbzMask[key];
+        } else {
+            if (end - p < key + 1) return -1;
+            v = 0;
+            for (int b = 0; b <= key; ++b) v |= uint32_t(p[b]) << (8 * b);
+        }
+        p += key + 1;
+        if (ZigZag) {
+            prev += (v >> 1) ^ (0u - (v & 1u));
+            v = prev;
+        }
+        const T t = T(v);
+        std::memcpy(out + i * sizeof(T), &t, sizeof(T));
+    }
+    return p - in;
+}
+
+template <typename T>
+int64_t vbz_unpack_delta(const uint8_t* in, int64_t in_len, int64_t count,
+                         int32_t zigzag, uint8_t* out) {
+    return zigzag ? vbz_unpack<T, true>(in, in_len, count, out)
+                  : vbz_unpack<T, false>(in, in_len, count, out);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Classic Stream VByte (Lemire et al., "Stream VByte: Faster
+// Byte-Oriented Integer Compression", 2018; the layout of the
+// streamvbyte library's streamvbyte_encode that vbz calls): ceil(count/4)
+// control bytes, two bits per value, the first value of each group of
+// four in the low bits, key k meaning k+1 data bytes; then the data
+// bytes, each value little-endian. With ``zigzag`` each decoded word is
+// the zig-zag code of the delta from the previous value, the values
+// widened to 32 bits and the first delta taken from 0 (vbz's
+// zigzag_delta_encode); sums wrap at 32 bits. Each value is narrowed to
+// ``integer_size`` bytes (1, 2 or 4) as vbz narrows its uint32 buffer;
+// any other size returns -1.
+int64_t dsp_vbz_unpack(const uint8_t* in, int64_t in_len, int64_t count,
+                       int32_t integer_size, int32_t zigzag, uint8_t* out) {
+    switch (integer_size) {
+        case 1: return vbz_unpack_delta<uint8_t>(in, in_len, count, zigzag,
+                                                 out);
+        case 2: return vbz_unpack_delta<uint16_t>(in, in_len, count, zigzag,
+                                                  out);
+        case 4: return vbz_unpack_delta<uint32_t>(in, in_len, count, zigzag,
+                                                  out);
+        default: return -1;
+    }
 }
 
 }  // extern "C"

@@ -485,8 +485,10 @@ def _extract_batch_feats(paths: list[str], batch_idx: int = 0
             if feats is not None:
                 feats_list.append(feats)
         except (MultiReadFast5Error, VBZPluginError) as exc:
-            # these failures have a user fix (convert the files); say so
-            # once per process instead of only counting them
+            # these failures have a user fix (convert a multi-read file;
+            # for VBZ, install the system's libzstd.so.1, or convert a
+            # VBZ version the port does not decode); say so once per
+            # process instead of only counting them
             if not _warned_actionable:
                 _warned_actionable = True
                 print(f"[warn] {exc}")

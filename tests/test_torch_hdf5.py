@@ -156,6 +156,9 @@ def test_writer_read_by_h5py(tmp_path):
 
 
 def test_refuses_dense_storage(tmp_path):
+    """Dense link and attribute storage (fractal heaps indexed by v2
+    B-trees), once refused by name, read as h5py reads them. The name is
+    kept from the refusal this test checked."""
     path = str(tmp_path / "dense.h5")
     with h5py.File(path, "w", libver="latest") as f:
         g = f.create_group("links")
@@ -164,43 +167,67 @@ def test_refuses_dense_storage(tmp_path):
         a = f.create_group("attrs")
         for i in range(12):
             a.attrs[f"a{i}"] = i
-    with hdf5.File(path) as f:
-        with pytest.raises(hdf5.UnsupportedFeature, match="dense link"):
-            f["links"].keys()
-        with pytest.raises(hdf5.UnsupportedFeature, match="dense attr"):
-            f["attrs"].attrs
+    with h5py.File(path) as ref, hdf5.File(path) as f:
+        assert f["links"].keys() == list(ref["links"].keys())
+        assert list(f["attrs"].attrs.items()) == list(
+            ref["attrs"].attrs.items())
 
 
 def test_refuses_extensible_array_index(tmp_path):
+    """The extensible-array chunk index (a dataset with an unlimited
+    dimension), once refused by name, reads as h5py reads it."""
     path = str(tmp_path / "ext.h5")
     with h5py.File(path, "w", libver="latest") as f:
         f.create_dataset("x", data=np.arange(100), maxshape=(None,),
                          chunks=(10,))
-    with hdf5.File(path) as f:
-        with pytest.raises(hdf5.UnsupportedFeature, match="extensible"):
-            f["x"][()]
+    with h5py.File(path) as ref, hdf5.File(path) as f:
+        got = f["x"][()]
+        assert got.dtype == ref["x"].dtype
+        np.testing.assert_array_equal(got, ref["x"][()])
 
 
 def test_refuses_paged_fixed_array(tmp_path):
+    """A paged fixed-array chunk index (more than 1,024 chunks), once
+    refused by name, reads as h5py reads it."""
     path = str(tmp_path / "paged.h5")
     with h5py.File(path, "w", libver="latest") as f:
         f.create_dataset("x", data=np.arange(3000, dtype=np.int8),
                          chunks=(2,))
-    with hdf5.File(path) as f:
-        with pytest.raises(hdf5.UnsupportedFeature, match="paged"):
-            f["x"][()]
+    with h5py.File(path) as ref, hdf5.File(path) as f:
+        got = f["x"][()]
+        assert got.dtype == np.int8
+        np.testing.assert_array_equal(got, ref["x"][()])
 
 
-def test_vbz_filter_raises_vbz_error(tmp_path):
+def test_vbz_filter_raises_vbz_error(tmp_path, monkeypatch):
+    """A VBZ chunk that is no VBZ stream raises the format error; without
+    the system's zstd library a VBZ dataset raises VBZPluginError, never
+    a partial or zero signal."""
+    import torch_vbz
+
+    from deepsignal_plant_tpu_torch.io import vbz
     path = str(tmp_path / "vbz.h5")
+    sig = np.arange(-8, 8, dtype=np.int16) * 999
     with h5py.File(path, "w") as f:
         d = f.create_dataset("Signal", shape=(16,), dtype=np.int16,
                              chunks=(16,), compression=32020,
                              allow_unknown_filter=True)
         d.id.write_direct_chunk((0,), b"\x00" * 32)
+        d = f.create_dataset("Good", shape=(16,), dtype=np.int16,
+                             chunks=(16,), compression=32020,
+                             compression_opts=torch_vbz.MINKNOW,
+                             allow_unknown_filter=True)
+        d.id.write_direct_chunk((0,), torch_vbz.vbz_encode(sig.tobytes()))
     with hdf5.File(path) as f:
-        with pytest.raises(hdf5.VBZPluginError, match="VBZ"):
+        with pytest.raises(hdf5.HDF5FormatError, match="VBZ") as exc:
             f["Signal"][()]
+        assert not isinstance(exc.value, hdf5.VBZPluginError)
+        np.testing.assert_array_equal(f["Good"][()], sig)
+    monkeypatch.setattr(vbz, "ZSTD_LIBRARY", "libzstd-not-here.so.1")
+    with hdf5.File(path) as f:
+        with pytest.raises(hdf5.VBZPluginError,
+                           match="libzstd-not-here.so.1"):
+            f["Good"][()]
 
 
 def test_not_hdf5(tmp_path):

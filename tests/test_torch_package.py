@@ -34,7 +34,8 @@ def test_every_module_is_listed():
                  "utils.fasta", "utils.gff", "utils.fileio", "tools",
                  "tools.ckpt", "tools.combiners", "tools.evaluate",
                  "tools.fileops", "tools.splitters", "io.hdf5", "io.fast5",
-                 "pipeline.extract", "utils.prof", "pipeline.denoise"):
+                 "pipeline.extract", "utils.prof", "pipeline.denoise",
+                 "io.vbz"):
         assert "deepsignal_plant_tpu_torch." + name in mods
 
 
