@@ -127,6 +127,20 @@ Phases, in order; any failure exits non-zero before the last line:
    one epoch on phase 4b's rows, then ``--resume`` to two (it starts at
    epoch 2 and step 32), and one epoch with ``--stream yes``: 5 launches
    of K3, K4 and dW_hh per step, samples/s of each plane;
+   (8b) ``denoise`` at two ranks on card 0 over gloo, one launch: the
+   global-batch plane in float32 at dropout 0 on the first 8,192 rows of
+   that TSV (``--iterations 1 --rounds 1 --epoch_num 2``; its final file
+   equal to one process's at the same batch of 512, the first
+   iteration's mean scores within 1e-5) and the sharded-resident plane
+   at the CLI's defaults with DSP_DENOISE_RESIDENT_MIN_ROWS=0 on all of
+   it with phase 8's arguments (label-1 purity at least 99%), each rank's launches against its
+   steps and forward tiles, files from rank 0 only, the same halves
+   drawn on every rank; one NCCL rank under ``torch.distributed.run``
+   writing one process's file byte for byte; wall seconds and
+   mini-trainings/s of each; and ResNet3 (models/resnet1d.py, no kernel)
+   at the reference's widths on a (4096, 1, 16) input, the card against
+   the CPU in training mode (outputs, running statistics) and eval mode
+   with TF32 off, within 1e-4, and with TF32 on reported beside;
 9. the spill plane and multi-process runs: (9a) ``train`` on phase 4b's
    rows (first 1,024 validation rows) with DSP_RESIDENT_MAX_BYTES set so
    the plane spills in 4 slabs, on the float16 and the int8 wire (5
@@ -147,7 +161,7 @@ Phases, in order; any failure exits non-zero before the last line:
    against the step on the rows kept, the port's collectives, then
    ``train`` in the group (every step and evaluation all-reducing over
    NCCL);
-10. a ``{"kernels": [...]}`` line (phase 6c's, 8's and 9's launches
+10. a ``{"kernels": [...]}`` line (phase 6c's, 8's, 8b's and 9's launches
    beside each kernel's main-path count), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -328,13 +342,37 @@ DENOISE_LAYERS = 4
 # which reads the signal branch alone; comb layers 1-2), and the rows of
 # denoise's forward tiles: --batch_size 512 and ragged epoch tails
 DENOISE_K1_SHAPES = ((16, 0, 256), (256, 0, 256), (256, 256, 256))
-DENOISE_TILES = (512, 509, 93)
+# (and phase 8b's 256-row tiles of a rank: accuracy checks and scoring)
+DENOISE_TILES = (512, 509, 93, 256)
 DENOISE_ARGS = ("--iterations", "2", "--rounds", "1", "--epoch_num", "2",
                 "--step_interval", str(DENOISE_CHECK), "--seed", "77")
 # float32 denoise, kernels against the plain versions at dropout 0: the
 # first iteration's mean scores (2 x 16 steps of training apart, each
 # step's float32 sums in other orders) and the rows kept
 DENOISE_SCORE_TOL = 1e-3
+# phase 8b, denoise at RANKS ranks on card 0 over gloo. The global-batch
+# plane on the first DENOISE_RANK_ROWS rows of phase 8's noisy TSV, one
+# iteration, one round, 2 epochs (at most 16 steps a mini-training at the
+# global batch of 512, 256 a rank), in float32 at dropout 0, against one
+# process at batch 512: the ranks' 256-row shares sum their gradients in
+# another order than one 512-row batch, and K1 scores 256-row tiles where
+# one process scores 512, so the mean scores differ by float32 rounding
+# carried through up to 32 Adam steps. The sharded-resident plane
+# (DSP_DENOISE_RESIDENT_MIN_ROWS=0) at the CLI's defaults on all of phase
+# 8's TSV with phase 8's arguments, beside phase 8's one-process run,
+# must reach DENOISE_PURITY label-1 purity.
+DENOISE_RANK_ROWS = 8_192
+DENOISE_RANK_ARGS = ("--iterations", "1", "--rounds", "1", "--epoch_num",
+                     "2", "--step_interval", str(DENOISE_CHECK), "--seed",
+                     "77")
+DENOISE_RANK_SCORE_TOL = 1e-5
+DENOISE_PURITY = 0.99
+# phase 8b, ResNet3 (models/resnet1d.py, no kernel: cuDNN convolutions):
+# the reference's widths on a (4096, 1, 16) input, the card against the
+# CPU at float32 with TF32 off; both sum each output's 3 x C_in products
+# (at most 192) in their own order, and training mode's batch statistics
+# over 4096 x L values
+RESNET_BATCH, RESNET_LEN, RESNET_OUT, RESNET_TOL = 4096, 16, 128, 1e-4
 # phase 9a, the spill plane: phase 4b's 16,384 training rows against the
 # first SPILL_VALID_ROWS of its validation rows, with DSP_RESIDENT_MAX_BYTES
 # set per wire so that the rows go up in slabs of SPILL_SLAB_ROWS (4
@@ -2717,6 +2755,237 @@ def check_denoise_resume_stream(tmp: str, ab) -> dict:
             "seconds": seconds}
 
 
+def check_denoise_ranks(tmp: str) -> dict:
+    """Phase 8b: ``denoise`` at RANKS ranks on card 0 over gloo, one
+    launch running both planes in turn: the global-batch plane (float32,
+    dropout 0, DENOISE_RANK_ROWS rows; its final file and mean scores
+    against one process's at the same batch) and the sharded-resident
+    plane (the CLI's defaults, DSP_DENOISE_RESIDENT_MIN_ROWS=0, phase
+    8's file and arguments; label-1 purity), each rank's
+    launches against its steps and tiles, files from rank 0 only, the
+    same halves on every rank; then one NCCL rank under
+    torch.distributed.run writing one process's file byte for byte."""
+    t_phase = time.time()
+    noisy = os.path.join(tmp, "denoise_noisy.tsv")
+    cut = os.path.join(tmp, "denoise_cut.tsv")
+    truth = {}
+    with open(noisy) as rf, open(cut, "w") as wf:
+        for _, line in zip(range(DENOISE_RANK_ROWS), rf):
+            wf.write(line)
+    with open(os.path.join(tmp, "denoise_clean.tsv")) as rf:
+        for line in rf:
+            cols = line.rstrip("\n").split("\t")
+            truth[cols[1]] = cols[11]
+    f32 = ("--compute_dtype", "float32", "--dropout_rate", "0")
+
+    def copy_to(name: str, src: str = cut) -> tuple[str, str]:
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        shutil.copy(src, os.path.join(d, "noisy.tsv"))
+        return d, os.path.join(d, "noisy.tsv")
+
+    # name -> (input, arguments, DSP_DENOISE_RESIDENT_MIN_ROWS)
+    planes = {"global": (cut, (*DENOISE_RANK_ARGS, *f32), "100000"),
+              "sharded": (noisy, DENOISE_ARGS, "0")}
+    runs, dirs = [], {}
+    for name, (src, extra, min_rows) in planes.items():
+        dirs[name] = copy_to(f"ranks_denoise_{name}", src)
+        runs.append([
+            os.path.join(tmp, f"ranks_denoise_{name}_rank") + "{rank}.npz",
+            ["denoise", "--train_file", dirs[name][1], "--fst_iter_prob",
+             *extra, "--device", "cuda:0", "--verbose_stages"],
+            {"watch": dirs[name][0],
+             "env": {"DSP_DENOISE_RESIDENT_MIN_ROWS": min_rows}}])
+    t0 = time.time()
+    outs = rank_runs(runs)
+    out = {"launch_seconds": time.time() - t0}
+    for (name, (src, extra, _)), run_outs in zip(planes.items(), outs):
+        f32_run = "float32" in extra
+        before = label_purity(src, truth)
+        sts = rank_stages(run_outs)
+        res = []
+        for r in range(RANKS):
+            with np.load(os.path.join(
+                    tmp, f"ranks_denoise_{name}_rank{r}.npz")) as z:
+                res.append(json.loads(z["result"].tobytes()))
+        sharded = name == "sharded"
+        for r, st in enumerate(sts):
+            if (st["rank"], st["world_size"], st["local_batch"],
+                    st["sharded_trainings"]) != (
+                    r, RANKS, TRAIN_B // RANKS,
+                    st["mini_trainings"] if sharded else 0):
+                fail(f"denoise rank {r} ({name}): {st}")
+            layers = DENOISE_LAYERS
+            if f32_run:
+                k1 = (st["kernel_launches"]["fused_bilstm_f32_inloop"]
+                      + st["kernel_launches"]["fused_bilstm_proj_f32"])
+                want = {"lstm_recurrence_fwd_save_f32": layers * st["steps"],
+                        "lstm_recurrence_bwd_f32": layers * st["steps"],
+                        "lstm_dw_hh": layers * st["steps"]}
+                got = {k: st["kernel_launches"][k] for k in want}
+                if got != want or k1 != layers * st["forward_tiles"]:
+                    fail(f"denoise rank {r} ({name}) launched "
+                         f"{st['kernel_launches']} for {st['steps']} steps "
+                         f"and {st['forward_tiles']} forward tiles")
+            else:
+                check_launches(f"denoise rank {r} ({name})",
+                               st["kernel_launches"], {
+                    "lstm_recurrence_fwd_save": layers * st["steps"],
+                    "lstm_recurrence_bwd": layers * st["steps"],
+                    "lstm_dw_hh": layers * st["steps"],
+                    "fused_bilstm_bf16": layers * st["forward_tiles"]})
+        if any(x["draws"] != res[0]["draws"] for x in res) or any(
+                x["final"] != res[0]["final"] for x in res):
+            fail(f"denoise ({name}): the ranks drew or ended apart: {res}")
+        if not res[0]["writes"] or any(x["writes"] for x in res[1:]):
+            fail(f"denoise ({name}): rank 0 wrote {res[0]['writes']}, the "
+                 f"others {[x['writes'] for x in res[1:]]}")
+        with open(dirs[name][1] + ".probs_1stiter.txt") as fh:
+            scores = np.array([float(ln.split("\t")[1]) for ln in fh])
+        out[name] = {"ranks": [{k: st[k] for k in (
+            "steps", "forward_tiles", "accuracy_checks", "score_tiles",
+            "train_rows", "mini_trainings", "sharded_trainings",
+            "iterations_run",
+            "kernel_launches", "seconds", "train_seconds", "score_seconds",
+            "mini_trainings_per_s", "samples_per_s")} for st in sts],
+            "final": res[0]["final"], "scores": scores,
+            "bytes": read_bytes(res[0]["final"]),
+            "rows": before["rows"], "purity_before": before,
+            "purity": label_purity(res[0]["final"], truth)}
+        log(f"denoise at {RANKS} ranks on card 0 over gloo ({name} plane, "
+            f"{'float32, dropout 0' if f32_run else 'bf16, dropout 0.5'}, "
+            f"{before['rows']} rows, {sts[0]['iterations_run']} "
+            f"iteration(s)): {sts[0]['steps']} steps of {TRAIN_B // RANKS} "
+            f"rows a rank, "
+            f"per rank " + ", ".join(
+                f"{st['seconds']:.2f} s ({st['mini_trainings_per_s']:.3f} "
+                f"mini-trainings/s, {st['forward_tiles']} forward tiles)"
+                for st in sts)
+            + f"; label-1 purity {before['label1_purity']:.4%} -> "
+            f"{out[name]['purity']['label1_purity']:.4%}; the same halves "
+            f"on every rank, files from rank 0 only")
+    if out["sharded"]["purity"]["label1_purity"] < DENOISE_PURITY:
+        fail(f"denoise on the sharded plane reached label-1 purity "
+             f"{out['sharded']['purity']['label1_purity']} (gate "
+             f"{DENOISE_PURITY})")
+
+    # one process at the same batch, and one NCCL rank, on the global
+    # plane's arguments
+    d, src = copy_to("one_denoise")
+    one = run_cli("denoise", "--train_file", src, "--fst_iter_prob",
+                  *DENOISE_RANK_ARGS, *f32)
+    with open(src + ".probs_1stiter.txt") as fh:
+        one_scores = np.array([float(ln.split("\t")[1]) for ln in fh])
+    g = out["global"]
+    dscore = float(np.abs(g["scores"] - one_scores).max())
+    margin = float(np.abs(one_scores - 0.5).min())
+    same = g["bytes"] == read_bytes(one["final_file"])
+    log(f"denoise, global-batch plane at {RANKS} ranks against one process "
+        f"at batch {TRAIN_B} (float32): max |d mean score| {dscore:.3g} "
+        f"(tolerance {DENOISE_RANK_SCORE_TOL:g}; one process's smallest "
+        f"|mean - 0.5| {margin:.3g}); final files "
+        f"{'equal' if same else 'DIFFER'}; one process "
+        f"{one['seconds']:.2f} s ({one['mini_trainings_per_s']:.3f} "
+        f"mini-trainings/s; {one['wall_seconds']:.2f} s with the process), "
+        f"two ranks {max(st['seconds'] for st in g['ranks']):.2f} s")
+    if dscore > DENOISE_RANK_SCORE_TOL or not same:
+        fail("denoise at two ranks and in one process disagree")
+    nd, nsrc = copy_to("nccl_denoise")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", os.path.abspath(__file__),
+           "--nccl-worker", "denoise", "--train_file", nsrc,
+           "--fst_iter_prob", *DENOISE_RANK_ARGS, *f32, "--verbose_stages"]
+    t0 = time.time()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=REPO))
+    if proc.returncode != 0 or "NCCL collectives ok" not in proc.stdout:
+        fail(f"the NCCL denoise exited {proc.returncode}:\n"
+             f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    nst = rank_stages([proc.stdout])[0]
+    nccl_same = read_bytes(nst["final_file"]) == read_bytes(
+        one["final_file"])
+    log(f"denoise under torch.distributed.run --nproc_per_node 1 (NCCL): "
+        f"{nst['seconds']:.2f} s, {time.time() - t0:.1f} s with the "
+        f"launcher; final file {'equal to' if nccl_same else 'DIFFERS from'}"
+        f" one process's, byte for byte")
+    if not nccl_same:
+        fail("the NCCL rank's denoise file differs from one process's")
+    for name in planes:
+        del out[name]["bytes"], out[name]["scores"]
+    out.update({"one_process": {k: one[k] for k in (
+        "seconds", "wall_seconds", "mini_trainings_per_s", "steps",
+        "forward_tiles", "kernel_launches")},
+        "global_vs_one": {"max_abs_dscore": dscore, "margin": margin,
+                          "same_file": same},
+        "nccl": {"seconds": nst["seconds"], "same_file": nccl_same,
+                 "kernel_launches": nst["kernel_launches"]}})
+    out["seconds"] = time.time() - t_phase
+    log(f"phase 8b (denoise) took {out['seconds']:.1f} s")
+    return out
+
+
+def check_resnet(torch, cuda_ms) -> dict:
+    """Phase 8b, ResNet3 (models/resnet1d.py) at the reference's widths
+    on a (RESNET_BATCH, 1, RESNET_LEN) input, its weights from one seeded
+    generator: training mode (outputs and the running statistics it
+    moves), then eval mode with those statistics, on the card with TF32
+    off against the CPU within RESNET_TOL; the same with TF32 on
+    (PyTorch's default for cuDNN convolutions) is reported beside."""
+    import copy
+    from deepsignal_plant_tpu_torch.models import resnet1d
+    cpu = resnet1d.init_resnet3(torch.Generator().manual_seed(SEED),
+                                RESNET_OUT)
+    card = {tf32: resnet1d.resnet3_from_state_dict(cpu.state_dict(),
+                                                   device="cuda")
+            for tf32 in (False, True)}
+    x = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=(RESNET_BATCH, 1, RESNET_LEN)).astype(np.float32))
+    xc = x.cuda()
+    out = {"shape": list(x.shape), "tolerance": RESNET_TOL}
+    for mode in ("train", "eval"):
+        cpu.train(mode == "train")
+        with torch.no_grad():
+            want = cpu(x)
+            for tf32, m in card.items():
+                m.train(mode == "train")
+                with torch.backends.cudnn.flags(enabled=True,
+                                                allow_tf32=tf32):
+                    got = m(xc).cpu()
+                key = f"{mode}_tf32" if tf32 else mode
+                out[key] = float((got - want).abs().max())
+                if mode == "train":
+                    sd = cpu.state_dict()
+                    out[key + "_stats"] = max(
+                        float((v.cpu().double() - sd[k].double()).abs().max())
+                        for k, v in m.state_dict().items())
+        if tuple(want.shape) != (RESNET_BATCH, RESNET_OUT,
+                                 resnet1d.get_lout(RESNET_LEN, (1, 2, 2))):
+            fail(f"ResNet3 gave shape {tuple(want.shape)}")
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=False):
+        out["eval_ms"] = cuda_ms(torch, lambda: card[False](xc))
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True,
+                                                     allow_tf32=True):
+        out["eval_tf32_ms"] = cuda_ms(torch, lambda: card[True](xc))
+    log("ResNet3 (out 128, strides (1, 2, 2)) on a "
+        f"{tuple(x.shape)} input, card against CPU: " + json.dumps(out))
+    if max(out["train"], out["train_stats"], out["eval"]) > RESNET_TOL:
+        fail(f"ResNet3 on the card disagrees with the CPU beyond "
+             f"{RESNET_TOL} with TF32 off: {out}")
+    return out
+
+
+def phase8b_launches(phase8b: dict, name: str) -> dict:
+    """A kernel's launches in phase 8b's runs: each rank of each plane,
+    and the one-process and NCCL runs."""
+    runs = {f"{plane}_rank{r}": st for plane in ("global", "sharded")
+            for r, st in enumerate(phase8b[plane]["ranks"])}
+    runs["one_process"] = phase8b["one_process"]
+    runs["nccl"] = phase8b["nccl"]
+    return {k: v["kernel_launches"][name] for k, v in runs.items()
+            if v["kernel_launches"].get(name)}
+
+
 def phase8_launches(phase8: dict, name: str) -> dict:
     """A kernel's launches in phase 8's runs: the bf16 and float32
     denoise, and train's resumed and streamed epochs."""
@@ -3218,6 +3487,9 @@ def main() -> int:
         npz_run = fast5_run.pop("npz")
         # phase 8: denoise, train --resume and --stream
         phase8 = check_denoise_resume_stream(tmp, ab)
+        # phase 8b: denoise at two ranks, one NCCL rank; ResNet3
+        phase8b = check_denoise_ranks(tmp)
+        phase8b["resnet3"] = check_resnet(torch, cuda_ms)
         # phase 9: the spill plane; two ranks on card 0 over gloo; one
         # rank under torch.distributed.run (NCCL)
         t9 = time.time()
@@ -3264,6 +3536,7 @@ def main() -> int:
         "phase6c_launches": fast5_run["vbz"]["call_mods"]["vbz"][
             "kernel_launches"]["fused_bilstm_bf16"],
         "phase8_launches": phase8_launches(phase8, "fused_bilstm_bf16"),
+        "phase8b_launches": phase8b_launches(phase8b, "fused_bilstm_bf16"),
         "phase9_launches": phase9_launches(phase9, "fused_bilstm_bf16"),
         "per_launch": rows, "model_forward": forward, "main_path": run})
     # K1's float32 kernels, launches from the float32 call_mods run; the
@@ -3274,6 +3547,7 @@ def main() -> int:
                                                   run["f32_layers"])
     for part in f32_parts:
         part["phase8_launches"] = phase8_launches(phase8, part["name"])
+        part["phase8b_launches"] = phase8b_launches(phase8b, part["name"])
     kernels["kernels"] += f32_parts
     # the recurrence kernels: times per train step at batch 512 in bf16
     # (two H=128 and three H=256 launches); launches from the train run
@@ -3295,6 +3569,7 @@ def main() -> int:
                             if name == "lstm_dw_hh"
                             else rec_errs[name]["bfloat16"]),
             "phase8_launches": phase8_launches(phase8, name),
+            "phase8b_launches": phase8b_launches(phase8b, name),
             "phase9_launches": phase9_launches(phase9, name),
             **t, "shapes_checked": rec_checked})
     kernels["kernels"][-1]["float32"]["launches_f32_training"] = (
@@ -3314,6 +3589,7 @@ def main() -> int:
                       if k.startswith(wrapper + " float32 ")},
             "max_abs_err": rec_errs[wrapper]["float32"],
             "phase8_launches": phase8_launches(phase8, name),
+            "phase8b_launches": phase8b_launches(phase8b, name),
             **rec_timings[name], "shapes_checked": rec_checked})
     log("train summary: " + json.dumps({
         **trained, "f32_kernel_vs_plain": f32_train, "k2_path": k2_path,
@@ -3325,6 +3601,8 @@ def main() -> int:
     log(".npz planes summary on " + smi + ": " + json.dumps(npz_run))
     log("denoise, resume and stream summary on " + smi + ": "
         + json.dumps(phase8))
+    log("denoise at two ranks and ResNet3 summary on " + smi + ": "
+        + json.dumps(phase8b))
     log("spill, ranks and NCCL summary on " + smi + ": "
         + json.dumps(phase9))
     log(f"train: {trained['samples_per_s_last_epoch']:.1f} samples/s in "

@@ -22,6 +22,10 @@ notions map onto ranks so:
   each): the sharded-resident plane deals contiguous row blocks, the
   host-fed plane strided row shards, and the step sums the weighted-CE
   terms and the gradients over ranks (pipeline/train.py).
+- denoise: rank ``r`` is device ``r`` of the one process the JAX
+  package's denoise runs over its local devices; rank 0 alone writes
+  the files (pipeline/denoise.py).
+- serve runs as one process (``refuse_launch``).
 
 Collectives use NCCL between cards and gloo on the CPU, unless the
 caller names a backend. Nothing falls back: a launch environment that
@@ -146,9 +150,9 @@ def process_info() -> tuple[int, int]:
 
 def refuse_launch(command: str) -> None:
     """Raise under a multi-process launch: ``command`` runs as one
-    process (denoise trains one model on all of its file and writes
-    files beside it; serve watches one directory), so N ranks would each
-    run the whole job and write the same paths."""
+    process (serve watches one directory and answers each request on
+    one card), so N ranks would each run the whole job and write the
+    same paths."""
     rank, world = process_info()
     if world > 1:
         raise ValueError(

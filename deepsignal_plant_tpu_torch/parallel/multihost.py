@@ -106,6 +106,13 @@ def allgather_bytes(data: bytes, chunk_bytes: int = 256 << 20,
     return [bytes(b) for b in out] if keep else []
 
 
+def barrier() -> None:
+    """Wait until every rank reaches this call."""
+    if group_running():
+        import torch.distributed as tdist
+        tdist.barrier()
+
+
 def broadcast_arrays(obj: dict | None, src: int = 0) -> dict:
     """Rank ``src``'s dict of numpy arrays on every rank (the other ranks
     pass None), sent as npz bytes: the size first, as int64, then the

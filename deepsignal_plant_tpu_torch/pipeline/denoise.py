@@ -19,6 +19,20 @@ both packages keep the same rows. The mini-trainings run on the train
 loop's step and data planes (pipeline/train.py): resident when both
 halves fit the card's budget, host-fed otherwise; their dropout masks
 come from (seed + 7, step), as JAX folds the step into PRNGKey(seed + 7).
+
+Under a launch of N ranks (parallel/dist.py) the ranks compute what the
+JAX package's denoise computes in one process over N devices: the batch
+is rounded up to a multiple of N and each mini-training runs data
+parallel, on the sharded-resident plane (``Sharded``) when JAX's rule
+takes it (``device_resident`` auto, at least
+``DSP_DENOISE_RESIDENT_MIN_ROWS`` training rows, default 100,000, and a
+rank's share of both halves within the resident budget) and on the
+global-batch plane (``GlobalBatch``) otherwise. The accuracy checks sum
+their counts over ranks, each rank scores one block of rows and the
+blocks are gathered in row order, so every rank holds the same scores.
+Rank 0 alone writes and removes files, draws the k-mer reselection and
+the shuffle, and sends its generator's state to the other ranks after
+each iteration: every rank draws the same halves and seeds.
 """
 from __future__ import annotations
 
@@ -36,15 +50,25 @@ from ..config import ModelConfig, TrainConfig, model_config_from_args
 from ..io.dataset import FeatureDataset
 from ..models.bilstm import ModelBiLSTM, init_params
 from ..ops.optim import Optimizer, step_decay_schedule
-from ..parallel.dist import refuse_launch
+from ..parallel.dist import process_info
+from ..parallel.multihost import (all_sum, allgather_bytes, barrier,
+                                  broadcast_arrays)
 from ..utils import metrics as M
 from ..utils.bases import str2bool
 from ..utils.device import resolve_device
 from ..utils.fileio import (count_lines, filter_rows_by_label,
                             select_neg_rows_as_pos_kmer_dist, shuffle_concat)
-from .train import (HostFed, Resident, kernel_launches,
-                    kernel_launches_since, resident_budget, step_generator,
-                    sync_device, train_step)
+from .train import (GlobalBatch, HostFed, Resident, Sharded,
+                    kernel_launches, kernel_launches_since, resident_budget,
+                    shard_rows, step_generator, sync_device, train_step)
+
+
+def resident_min_rows() -> int:
+    """The fewest training rows for which a multi-rank mini-training takes
+    the sharded-resident plane (the JAX package's
+    ``DSP_DENOISE_RESIDENT_MIN_ROWS``, default 100,000)."""
+    return int(os.environ.get("DSP_DENOISE_RESIDENT_MIN_ROWS", "")
+               or 100_000)
 
 
 def get_model_type_str(model_type: str, is_base: bool,
@@ -59,39 +83,112 @@ def get_model_type_str(model_type: str, is_base: bool,
 
 class CrossRankTrainer:
     """Train a fresh model on one half, score the other (JAX
-    denoise.py:166-221), and count what it ran."""
+    denoise.py:166-298), on this rank's share of each step under a
+    launch, and count what it ran."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
                  device: torch.device):
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.device = device
+        self.rank, self.world = process_info()
+        # the batch rounded up to a multiple of the ranks (JAX
+        # denoise.py:59), each rank its share
+        self.local_batch = -(-train_cfg.batch_size // self.world)
+        self.batch_size = self.local_batch * self.world
         self.class_weights = torch.tensor([1.0, train_cfg.pos_weight],
                                           dtype=torch.float32, device=device)
         self.counters = {"mini_trainings": 0, "resident_trainings": 0,
-                         "planes_built": 0, "steps": 0, "train_rows": 0,
-                         "accuracy_checks": 0, "score_tiles": 0,
-                         "train_seconds": 0.0, "score_seconds": 0.0}
-        # (dataset, its plane) of the last call: a round's second call
-        # swaps the same two halves, so each half uploads once a round
-        self._held: list[tuple[FeatureDataset, object]] = []
+                         "sharded_trainings": 0, "planes_built": 0,
+                         "steps": 0, "train_rows": 0, "accuracy_checks": 0,
+                         "score_tiles": 0, "train_seconds": 0.0,
+                         "score_seconds": 0.0}
+        # (dataset, plane kind, its plane) of the last call: a round's
+        # second call swaps the same two halves, so each half uploads
+        # once a round
+        self._held: list[tuple] = []
+
+    def _kind(self, train_ds: FeatureDataset,
+              score_ds: FeatureDataset) -> tuple:
+        """(plane class, world size, resident) of this call: one rank
+        trains resident when both halves fit the budget, else host-fed;
+        N ranks take JAX's rule (denoise.py:92-107) between the
+        sharded-resident and the global-batch plane."""
+        auto = self.train_cfg.device_resident == "auto"
+        both = train_ds.nbytes + score_ds.nbytes
+        budget = resident_budget(self.device)
+        if self.world == 1:
+            resident = auto and both <= budget
+            return (Resident if resident else HostFed), 1, resident
+        if (auto and len(train_ds) >= resident_min_rows()
+                and both // self.world <= budget):
+            return Sharded, self.world, True
+        return GlobalBatch, self.world, auto and both <= budget
+
+    def _plane(self, kind: tuple, ds: FeatureDataset):
+        plane, world, resident = kind
+        if plane is Sharded:
+            return Sharded(ds, self.device, self.rank, world)
+        if plane is GlobalBatch:
+            return GlobalBatch(ds, self.device, self.rank, world, resident)
+        return plane(ds, self.device)
 
     def _sources(self, train_ds: FeatureDataset, score_ds: FeatureDataset):
-        """The planes of both datasets, reusing the last call's."""
-        resident = (self.train_cfg.device_resident == "auto"
-                    and train_ds.nbytes + score_ds.nbytes
-                    <= resident_budget(self.device))
-        plane = Resident if resident else HostFed
-        held = {id(ds): src for ds, src in self._held
-                if type(src) is plane}
+        """The plane kind and the planes of both datasets, reusing the
+        last call's planes of the same kind."""
+        kind = self._kind(train_ds, score_ds)
+        held = {id(ds): src for ds, k, src in self._held if k == kind}
         self._held = []
         for ds in (train_ds, score_ds):
             src = held.get(id(ds))
             if src is None:
-                src = plane(ds, self.device)
+                src = self._plane(kind, ds)
                 self.counters["planes_built"] += 1
-            self._held.append((ds, src))
-        return plane, self._held[0][1], self._held[1][1]
+            self._held.append((ds, kind, src))
+        return kind, self._held[0][2], self._held[1][2]
+
+    def _accuracy(self, model: ModelBiLSTM, batch, labels: torch.Tensor,
+                  mask: torch.Tensor | None, sharded: bool):
+        """The post-update, no-dropout accuracy of the step's batch. Under
+        a launch the correct and valid counts of the ranks' rows are
+        summed first: the global-batch plane divides as the JAX host
+        path's ``M.accuracy`` on the global batch, the sharded plane in
+        float32 as JAX's in-scan signal (train.py:474-482)."""
+        with torch.no_grad():
+            pred = torch.argmax(model(batch)[1], dim=1)
+        if mask is None:
+            return M.accuracy(labels.cpu().numpy(), pred.cpu().numpy())
+        ok, tot = (float(x) for x in all_sum(
+            [((pred == labels).float() * mask).sum(), mask.sum()]))
+        if sharded:
+            return np.float32(ok) / np.float32(max(tot, 1.0))
+        return ok / tot if tot else 0.0
+
+    def _score(self, model: ModelBiLSTM, src, n: int) -> np.ndarray:
+        """prob_1 of the ``n`` rows of ``src``. Under a launch rank r
+        scores rows [r * R, (r + 1) * R), R = ceil(n / world) (the
+        sharded plane's block, JAX denoise.py:282-295), in tiles of its
+        batch share, and the blocks are gathered in rank order."""
+        c, b = self.counters, self.local_batch
+        lo, hi = 0, n
+        if self.world > 1:
+            rows = shard_rows(n, self.world)
+            lo = min(self.rank * rows, n)
+            hi = min(lo + rows, n)
+        # the sharded plane holds its block from local row 0
+        off = lo if isinstance(src, Sharded) else 0
+        probs1 = []
+        with torch.no_grad():
+            for s in range(lo, hi, b):
+                batch, _ = src.batch(slice(s - off, min(s + b, hi) - off))
+                probs1.append(model(batch)[1][:, 1])
+                c["score_tiles"] += 1
+        out = (torch.cat(probs1).cpu().numpy() if probs1
+               else np.empty(0, np.float32))
+        if self.world == 1:
+            return out
+        return np.concatenate([np.frombuffer(part, np.float32) for part in
+                               allgather_bytes(out.tobytes())])
 
     def train_then_score(self, train_ds: FeatureDataset,
                          score_ds: FeatureDataset, seed: int,
@@ -106,64 +203,74 @@ class CrossRankTrainer:
         model = ModelBiLSTM.from_params(init_params(cfg, seed), cfg, dev,
                                         trainable=True)
         weights = list(model.parameters())
-        B = tcfg.batch_size
-        steps_per_epoch = max(1, -(-len(train_ds) // B))
+        steps_per_epoch = max(1, -(-len(train_ds) // self.batch_size))
         opt = Optimizer("Adam", step_decay_schedule(
             tcfg.lr, steps_per_epoch, 2, 0.1), weights)
-        plane, train_src, score_src = self._sources(train_ds, score_ds)
+        (plane, _, resident), train_src, score_src = self._sources(
+            train_ds, score_ds)
+        sharded = plane is Sharded
+        if sharded:
+            train_src.steps = steps_per_epoch
         c["mini_trainings"] += 1
-        c["resident_trainings"] += plane is Resident
+        c["resident_trainings"] += resident
+        c["sharded_trainings"] += sharded
+        rank = self.rank if self.world > 1 else None
 
         gstep = 0
         for epoch in range(epoch_num):
-            epoch_accs: list[float] = []
-            for i, (batch, labels, _, _) in enumerate(
-                    train_src.epoch(rng_np, B)):
-                gen = (step_generator(seed + 7, gstep, dev)
+            epoch_accs: list = []
+            for i, (batch, labels, mask, rows) in enumerate(
+                    train_src.epoch(rng_np, self.local_batch)):
+                gen = (step_generator(seed + 7, gstep, dev, rank)
                        if cfg.dropout_rate > 0 else None)
                 loss = train_step(model, weights, opt, batch, labels,
-                                  self.class_weights, tcfg.clip_grad, gen)
+                                  self.class_weights, tcfg.clip_grad, gen,
+                                  mask)
                 gstep += 1
-                c["train_rows"] += len(labels)
+                c["train_rows"] += rows
                 if (i + 1) % step_interval == 0:
-                    with torch.no_grad():
-                        pred = torch.argmax(model(batch)[1], dim=1)
-                    acc = M.accuracy(labels.cpu().numpy(),
-                                     pred.cpu().numpy())
+                    acc = self._accuracy(model, batch, labels, mask, sharded)
                     epoch_accs.append(acc)
                     c["accuracy_checks"] += 1
-                    if verbose:
+                    if verbose and self.rank == 0:
                         print("Epoch [{}/{}], Step [{}/{}], "
                               "TrainLoss: {:.4f}, Accuracy: {:.4f}".format(
                                   epoch + 1, epoch_num, i + 1,
                                   steps_per_epoch, float(loss), acc))
                         sys.stdout.flush()
             # reference early break: running train accuracy >= .95
-            # (denoise.py:108)
-            if epoch_accs and np.mean(epoch_accs) >= 0.95:
+            # (denoise.py:108); the sharded plane's mean in float32, as
+            # JAX's over its in-scan signal
+            if epoch_accs and float(np.mean(np.asarray(
+                    epoch_accs, np.float32 if sharded else np.float64))
+                    ) >= 0.95:
                 break
         c["steps"] += gstep
         sync_device(dev)
         t1 = time.time()
-
-        probs1 = []
-        with torch.no_grad():
-            for lo in range(0, len(score_ds), B):
-                batch, _ = score_src.batch(slice(lo, lo + B))
-                probs1.append(model(batch)[1][:, 1])
-                c["score_tiles"] += 1
-        out = (torch.cat(probs1).cpu().numpy() if probs1
-               else np.empty(0, np.float32))
+        out = self._score(model, score_src, len(score_ds))
         c["train_seconds"] += t1 - t0
         c["score_seconds"] += time.time() - t1
         return out.astype(np.float32)
 
 
+def share_rng(rng: np.random.Generator, rank: int) -> None:
+    """Set every rank's ``rng`` to rank 0's state (rank 0's file work
+    draws from it alone)."""
+    state = broadcast_arrays(
+        {"state": np.frombuffer(json.dumps(rng.bit_generator.state)
+                                .encode(), np.uint8)} if rank == 0 else None)
+    rng.bit_generator.state = json.loads(state["state"].tobytes())
+
+
 def denoise(args) -> str:
-    """CLI entry mirroring reference denoise(args) (denoise.py:318).
-    Returns the path of the final denoised training file."""
+    """CLI entry mirroring reference denoise(args) (denoise.py:318), on one
+    card or as one rank of a launch. Returns the path of the final
+    denoised training file, the same on every rank."""
     total_start = time.time()
-    refuse_launch("denoise")
+    rank, world = process_info()
+    lead = rank == 0
+    say = print if lead else (lambda *a, **k: None)
     device = resolve_device(args.device)
     model_cfg = model_config_from_args(args, device, args.dropout_rate)
     train_cfg = TrainConfig(batch_size=args.batch_size, lr=args.lr,
@@ -175,15 +282,18 @@ def denoise(args) -> str:
                                        str2bool(args.is_signallen))
     is_filter_fn = str2bool(args.is_filter_fn)
     rng = np.random.default_rng(args.seed)
+    if world > 1:       # an unseeded run draws rank 0's entropy everywhere
+        share_rng(rng, rank)
     # the k-mer-balanced negative reselection draws with random.Random's
-    # API (rng.sample), seeded from the same stream
+    # API (rng.sample), seeded from the same stream; rank 0 alone uses it
     py_rng = random.Random(int(rng.integers(1 << 62)))
 
     train_file = args.train_file
     # all-negative pool for k-mer-balanced reselection (denoise.py:296)
     fname, fext = os.path.splitext(train_file)
     train_neg_file = fname + ".neg_all." + modeltype_str + fext
-    filter_rows_by_label(train_file, train_neg_file, 0)
+    if lead:
+        filter_rows_by_label(train_file, train_neg_file, 0)
 
     trainer = CrossRankTrainer(model_cfg, train_cfg, device)
     launches0 = kernel_launches()
@@ -191,7 +301,7 @@ def denoise(args) -> str:
     iterations_run = 0
     for iter_c in range(args.iterations):
         iterations_run += 1
-        print("\n###### cross rank to clean samples, Iter: {} ######".format(
+        say("\n###### cross rank to clean samples, Iter: {} ######".format(
             iter_c + 1))
         ds = FeatureDataset.from_file(train_file, model_cfg.seq_len,
                                       model_cfg.signal_len)
@@ -200,8 +310,8 @@ def denoise(args) -> str:
         score_sum = np.zeros(n, np.float64)
         score_cnt = np.zeros(n, np.int64)
         for r in range(args.rounds):
-            print("##########Train Cross Rank, Iter {}, Round {}##########"
-                  .format(iter_c + 1, r + 1))
+            say("##########Train Cross Rank, Iter {}, Round {}##########"
+                .format(iter_c + 1, r + 1))
             perm = rng.permutation(n)
             idx1, idx2 = np.sort(perm[:half]), np.sort(perm[half:])
             seed = int(rng.integers(1 << 30))
@@ -216,13 +326,13 @@ def denoise(args) -> str:
             score_cnt[idx1] += 1
         mean_scores = score_sum / np.maximum(score_cnt, 1)
 
-        if iter_c == 0 and args.fst_iter_prob:
+        if iter_c == 0 and args.fst_iter_prob and lead:
             with open(args.train_file + ".probs_1stiter.txt", "w") as wf:
                 for i in range(n):
                     wf.write("\t".join([str(i), str(mean_scores[i])]) + "\n")
 
         # ---- clean samples (denoise.py:216-293) ----
-        print("\n###### clean the samples ######")
+        say("\n###### clean the samples ######")
         labels = ds.labels
         pos_mask = labels == 1
         neg_mask = ~pos_mask
@@ -230,71 +340,45 @@ def denoise(args) -> str:
         keep_neg = (neg_mask & (mean_scores < 1 - args.score_cf)
                     if is_filter_fn else np.zeros(n, bool))
         n_pos, n_neg = int(pos_mask.sum()), int(neg_mask.sum())
-        print("There are {} positive, {} negative samples in total;".format(
+        say("There are {} positive, {} negative samples in total;".format(
             n_pos, n_neg))
         left_ratio = float(keep_pos.sum()) / n_pos if n_pos else 0.0
         left_ratio2 = float(keep_neg.sum()) / n_neg if n_neg else 0.0
-        print("{} ({}) high quality positive samples left, "
-              "{} ({}) high quality negative samples left".format(
-                  int(keep_pos.sum()), round(left_ratio, 6),
-                  int(keep_neg.sum()), round(left_ratio2, 6)))
-
-        if train_file == args.train_file:
-            stem = fname + "." + modeltype_str
-        else:
-            stem = os.path.splitext(train_file)[0]
-        pos_file = stem + ".pos.cf" + str(args.score_cf) + fext
-        neg_file = (stem + ".neg.cf" + str(args.score_cf) + fext
-                    if is_filter_fn else None)
-        _write_selected_rows(train_file, pos_file, keep_pos,
-                             neg_file, keep_neg)
+        say("{} ({}) high quality positive samples left, "
+            "{} ({}) high quality negative samples left".format(
+                int(keep_pos.sum()), round(left_ratio, 6),
+                int(keep_neg.sum()), round(left_ratio2, 6)))
         if is_filter_fn:
             left_ratio = (left_ratio + left_ratio2) / 2
 
-        # ---- rebuild train file (denoise.py:347-375) ----
-        # the previous iteration's working file goes only after its
-        # replacement exists: when this iteration keeps no positive, it is
-        # the returned final_file
-        prev_file = train_file
-        print("\n#####concat denoised file#####")
+        # ---- rebuild train file (denoise.py:347-375), on rank 0 ----
+        say("\n#####concat denoised file#####")
         pos_num = int(keep_pos.sum())
-        if pos_num > 0:
-            nfname, nfext = os.path.splitext(train_neg_file)
-            seled_neg = nfname + ".r" + str(pos_num) + nfext
-            if neg_file is None:
-                select_neg_rows_as_pos_kmer_dist(pos_file, train_neg_file,
-                                                 seled_neg, rng=py_rng)
-            else:
-                neg_num = count_lines(neg_file)
-                if pos_num <= neg_num:
-                    select_neg_rows_as_pos_kmer_dist(pos_file, neg_file,
-                                                     seled_neg, rng=py_rng)
-                    os.remove(neg_file)
-                else:
-                    seled_neg = neg_file
-            tag = ".denoise_fpnp" if is_filter_fn else ".denoise_fp"
-            train_file = (os.path.splitext(args.train_file)[0] + "." +
-                          modeltype_str + tag + str(iter_c + 1) + fext)
-            shuffle_concat(pos_file, seled_neg, train_file, rng=rng)
-            os.remove(seled_neg)
-            final_file = train_file
-            if prev_file != args.train_file:
-                os.remove(prev_file)
+        tag = ".denoise_fpnp" if is_filter_fn else ".denoise_fp"
+        next_file = (os.path.splitext(args.train_file)[0] + "." +
+                     modeltype_str + tag + str(iter_c + 1) + fext
+                     if pos_num > 0 else None)
+        if lead:
+            _rebuild(args, train_file, next_file, train_neg_file, keep_pos,
+                     keep_neg, is_filter_fn, modeltype_str, rng, py_rng)
+        if next_file is not None:
+            train_file = final_file = next_file
         else:
-            if neg_file is not None:
-                os.remove(neg_file)
-            print("WARNING: The denoise module denoised all samples in the "
-                  "train_file!!!")
-        os.remove(pos_file)
-        print("#####concat denoised file, finished!#####")
+            say("WARNING: The denoise module denoised all samples in the "
+                "train_file!!!")
+        say("#####concat denoised file, finished!#####")
+        if world > 1:   # rank 0's file work done: its draws reach every rank
+            share_rng(rng, rank)
 
         if left_ratio >= args.kept_ratio or pos_num == 0:
             break
 
-    os.remove(train_neg_file)
+    if lead:
+        os.remove(train_neg_file)
+    barrier()
     seconds = time.time() - total_start
-    print("###### denoised file for training: {}".format(final_file))
-    print("###### denoise totally costs {:.2f} seconds".format(seconds))
+    say("###### denoised file for training: {}".format(final_file))
+    say("###### denoise totally costs {:.2f} seconds".format(seconds))
     if args.verbose_stages:
         c = trainer.counters
         print("[stages] " + json.dumps({
@@ -302,6 +386,9 @@ def denoise(args) -> str:
                        if device.type == "cuda" else "cpu"),
             "compute_dtype": model_cfg.compute_dtype,
             "recurrence": model_cfg.recurrence,
+            "rank": rank, "world_size": world,
+            "batch_size": trainer.batch_size,
+            "local_batch": trainer.local_batch,
             "iterations_run": iterations_run, **c,
             "forward_tiles": c["accuracy_checks"] + c["score_tiles"],
             "kernel_launches": kernel_launches_since(launches0),
@@ -311,6 +398,48 @@ def denoise(args) -> str:
                               if c["train_seconds"] else 0.0),
             "seconds": seconds, "final_file": final_file}))
     return final_file
+
+
+def _rebuild(args, train_file: str, next_file: str | None,
+             train_neg_file: str, keep_pos: np.ndarray,
+             keep_neg: np.ndarray, is_filter_fn: bool, modeltype_str: str,
+             rng: np.random.Generator, py_rng: random.Random) -> None:
+    """One iteration's file work (denoise.py:216-375): the kept rows to
+    the pos (and with ``is_filter_fn`` neg) files, negatives reselected
+    to the positives' k-mer distribution, both shuffled into
+    ``next_file`` (None when no positive was kept), and the working files
+    removed. The previous iteration's file goes only after its
+    replacement exists: when this iteration keeps no positive, it is the
+    returned final file."""
+    fname, fext = os.path.splitext(args.train_file)
+    if train_file == args.train_file:
+        stem = fname + "." + modeltype_str
+    else:
+        stem = os.path.splitext(train_file)[0]
+    pos_file = stem + ".pos.cf" + str(args.score_cf) + fext
+    neg_file = (stem + ".neg.cf" + str(args.score_cf) + fext
+                if is_filter_fn else None)
+    _write_selected_rows(train_file, pos_file, keep_pos, neg_file, keep_neg)
+    if next_file is not None:
+        pos_num = int(keep_pos.sum())
+        nfname, nfext = os.path.splitext(train_neg_file)
+        seled_neg = nfname + ".r" + str(pos_num) + nfext
+        if neg_file is None:
+            select_neg_rows_as_pos_kmer_dist(pos_file, train_neg_file,
+                                             seled_neg, rng=py_rng)
+        elif pos_num <= count_lines(neg_file):
+            select_neg_rows_as_pos_kmer_dist(pos_file, neg_file, seled_neg,
+                                             rng=py_rng)
+            os.remove(neg_file)
+        else:
+            seled_neg = neg_file
+        shuffle_concat(pos_file, seled_neg, next_file, rng=rng)
+        os.remove(seled_neg)
+        if train_file != args.train_file:
+            os.remove(train_file)
+    elif neg_file is not None:
+        os.remove(neg_file)
+    os.remove(pos_file)
 
 
 def _write_selected_rows(src: str, pos_file: str, keep_pos: np.ndarray,

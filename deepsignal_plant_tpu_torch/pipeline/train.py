@@ -34,7 +34,10 @@ row blocks, every rank drawing every rank's block permutation from the
 one seeded stream) and the host-fed plane takes a strided row shard
 (``ShardedHostFed``: each rank permutes its own shard). Short and empty
 steps are padded with row 0 and masked, so every rank runs the same
-collectives. A step sums the weighted-CE denominator over ranks before
+collectives. A multi-rank denoise also trains on the global-batch plane
+(``GlobalBatch``: every rank holds the whole dataset and takes its share
+of each batch of the one epoch permutation, JAX's one process over N
+devices). A step sums the weighted-CE denominator over ranks before
 the backward, back-propagates its numerator over that sum, sums the
 gradients and the loss over ranks, and every rank applies the same
 clipped update: the parameters stay bitwise equal across ranks.
@@ -290,10 +293,14 @@ class Sharded(Plane):
         self.device, self.rank, self.world, self.steps = (device, rank,
                                                           world, steps)
 
+    def batch(self, idx):
+        """Rows ``idx`` of this rank's block (local indices)."""
+        return Batch(*(a[idx] for a in self.data)), self.labels[idx]
+
     def _step(self, idx: torch.Tensor, n_valid: int, batch_size: int):
         mask = _prefix_mask(n_valid, batch_size, self.device) \
             * self.valid[idx]
-        return Batch(*(a[idx] for a in self.data)), self.labels[idx], mask
+        return (*self.batch(idx), mask)
 
     def epoch(self, rng: np.random.Generator, batch_size: int):
         width = self.steps * batch_size
@@ -362,6 +369,55 @@ class ShardedHostFed(Plane):
                 batch_size, shuffle=False, pad_to_batch=True), steps,
                 batch_size):
             yield batch, labels, mask
+
+
+class GlobalBatch(Plane):
+    """The global-batch plane of a multi-rank denoise (JAX
+    denoise.py:166-221 on an N-device mesh): every rank holds the whole
+    dataset, on its card when ``resident`` and on the host otherwise
+    (the same numbers), and draws the one epoch permutation
+    (``iter_batches``' order) from the shared seeded stream. A step
+    takes the next ``world * batch_size`` rows of it, the tail padded
+    with row 0, and rank r keeps rows [r * batch_size, (r + 1) *
+    batch_size) of them, as shard_map's P("dp") splits a batch in
+    device order; rows past the global batch's valid ones are masked,
+    so a rank whose share is all padding still runs every
+    collective."""
+
+    def __init__(self, ds: FeatureDataset, device: torch.device, rank: int,
+                 world: int, resident: bool):
+        self.n, self.rank, self.world, self.device = (len(ds), rank, world,
+                                                      device)
+        if resident:
+            self.ds = None
+            self.data, self.labels = _upload(*ds.batch_at(slice(None)),
+                                             device)
+        else:
+            self.ds = ds
+
+    def batch(self, idx):
+        """Rows ``idx`` (global indices: a slice, or an index array on
+        the host plane and an index tensor on the resident one)."""
+        if self.ds is not None:
+            return _upload(*self.ds.batch_at(idx), self.device)
+        return Batch(*(a[idx] for a in self.data)), self.labels[idx]
+
+    def epoch(self, rng: np.random.Generator, batch_size: int):
+        world_b = self.world * batch_size
+        steps = -(-self.n // world_b)
+        order = np.zeros(steps * world_b, np.int64)
+        order[:self.n] = rng.permutation(self.n)
+        lo = self.rank * batch_size
+        mine = order.reshape(steps, world_b)[:, lo:lo + batch_size]
+        valid = np.clip(self.n - np.arange(steps) * world_b - lo, 0,
+                        batch_size)
+        if self.ds is None:
+            mine = torch.from_numpy(np.ascontiguousarray(mine)).to(
+                self.device)
+        for s in range(steps):
+            nv = int(valid[s])
+            yield (*self.batch(mine[s]),
+                   _prefix_mask(nv, batch_size, self.device), nv)
 
 
 class Spill(Plane):

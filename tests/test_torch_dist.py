@@ -181,12 +181,12 @@ def test_one_rank_group_gives_the_steps_bytes(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [
-    ["denoise", "--train_file", "t.tsv", "--device", "cpu"],
     ["serve", "-i", "watch", "-o", "out", "-m", "m.ckpt.npz", "--device",
-     "cpu"]], ids=["denoise", "serve"])
+     "cpu"]], ids=["serve"])
 def test_one_process_commands_refuse_a_launch(argv, tmp_path):
-    """denoise and serve run as one process: at 2 ranks every rank
-    raises before it reads or writes anything."""
+    """serve runs as one process: at 2 ranks every rank raises before it
+    reads or writes anything (denoise runs at N ranks:
+    tests/test_torch_dist_denoise.py)."""
     outs = launch(cli(*argv), 2, timeout=120, cwd=str(tmp_path))
     for rc, out in outs:
         assert rc != 0 and "runs as one process on one card" in out, \

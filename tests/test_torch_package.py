@@ -26,9 +26,9 @@ def test_every_module_is_listed():
     mods = port_modules()
     for name in ("cli", "config", "ops.fused_lstm", "ops._build",
                  "ops.lstm", "ops.recurrence", "ops.optim", "io.dataset",
-                 "models.bilstm", "models.convert", "pipeline.call_mods",
-                 "pipeline.train", "utils.device", "utils.metrics",
-                 "native", "utils.fastparse", "io.batching",
+                 "models.bilstm", "models.convert", "models.resnet1d",
+                 "pipeline.call_mods", "pipeline.train", "utils.device",
+                 "utils.metrics", "native", "utils.fastparse", "io.batching",
                  "ops.segment_agg", "pipeline.call_freq", "pipeline.serve",
                  "utils.formats", "utils.bases", "utils.motifs",
                  "utils.fasta", "utils.gff", "utils.fileio", "tools",

@@ -11,9 +11,15 @@ commands in turn in one gloo group (on the CPU, or on a card named by
 
 A train command with an OUT writes what it ended with there: the
 parameters as ``params/<name>`` arrays and a ``result`` JSON of the
-run's counters (steps, losses, accuracies, plane, start epoch).
+run's counters (steps, losses, accuracies, plane, start epoch). A
+denoise command with an OUT writes a ``result`` JSON of its final path
+and of what ``run_hooks`` recorded. A run may carry a third element, a
+dict of options for ``run_hooks``.
 """
+import builtins
+import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import socket
@@ -65,7 +71,7 @@ def cli(*args) -> list:
 
 def rank_runs(runs: list) -> list:
     """argv of one rank of this script running ``runs`` ([OUT or None,
-    CLI argv] each) in turn."""
+    CLI argv(, run_hooks options)] each) in turn."""
     return [sys.executable, os.path.abspath(__file__), json.dumps(runs)]
 
 
@@ -163,6 +169,98 @@ RESULT_KEYS = ("steps", "start_epoch", "start_step", "epochs_run", "plane",
                "train_rows", "eval_tiles")
 
 
+def half_digest(ds) -> str:
+    """SHA-1 of a dataset's labels and signals: which rows a denoise
+    mini-training trains on (either package's FeatureDataset)."""
+    import numpy as np
+    h = hashlib.sha1(np.asarray(ds.labels, np.int64).tobytes())
+    h.update(np.asarray(ds.signals, np.float32).tobytes())
+    return h.hexdigest()
+
+
+def save_init_params(path: str, by_seed: dict) -> None:
+    """Write initial parameters per seed ({seed: numpy pytree}) for the
+    ``init_params`` option: arrays ``<seed>/<name>``."""
+    import numpy as np
+
+    from deepsignal_plant_tpu_torch.models.convert import _flatten
+    np.savez(path, **{f"{seed}/{k}": v for seed, tree in by_seed.items()
+                      for k, v in _flatten(tree).items()})
+
+
+@contextlib.contextmanager
+def run_hooks(opts: dict):
+    """One run's options, undone when it ends; yields what they record.
+
+    - ``env``: environment variables set for the run;
+    - ``init_params``: a save_init_params file; denoise's mini-trainings
+      start from its parameters for their seed (a missing seed raises);
+    - ``watch``: a directory; every file this rank opens for writing or
+      removes under it is recorded (``writes``).
+
+    Every denoise mini-training's seed, training rows and half_digest go
+    to ``draws``."""
+    import numpy as np
+
+    from deepsignal_plant_tpu_torch.models.convert import _unflatten
+    from deepsignal_plant_tpu_torch.pipeline import denoise as D
+    record = {"draws": [], "writes": []}
+    undo = []
+
+    def patch(obj, name, value):
+        undo.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    env = opts.get("env", {})
+    env_before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    if "init_params" in opts:
+        by_seed: dict = {}
+        with np.load(opts["init_params"]) as z:
+            for k in z.files:
+                seed, name = k.split("/", 1)
+                by_seed.setdefault(int(seed), {})[name] = z[k]
+        patch(D, "init_params",
+              lambda cfg, seed: _unflatten(by_seed[seed]))
+    real_tts = D.CrossRankTrainer.train_then_score
+
+    def spy(self, train_ds, score_ds, seed, *a, **k):
+        record["draws"].append([seed, len(train_ds), half_digest(train_ds)])
+        return real_tts(self, train_ds, score_ds, seed, *a, **k)
+
+    patch(D.CrossRankTrainer, "train_then_score", spy)
+    watch = opts.get("watch")
+    if watch:
+        real_open, real_remove = builtins.open, os.remove
+
+        def watched(path) -> bool:
+            return (isinstance(path, (str, os.PathLike)) and os.path
+                    .abspath(path).startswith(os.path.abspath(watch)))
+
+        def open_(file, mode="r", *a, **k):
+            if watched(file) and any(c in mode for c in "wax+"):
+                record["writes"].append(["open", os.fspath(file)])
+            return real_open(file, mode, *a, **k)
+
+        def remove(path, *a, **k):
+            if watched(path):
+                record["writes"].append(["remove", os.fspath(path)])
+            return real_remove(path, *a, **k)
+
+        patch(builtins, "open", open_)
+        patch(os, "remove", remove)
+    try:
+        yield record
+    finally:
+        for obj, name, value in reversed(undo):
+            setattr(obj, name, value)
+        for k, v in env_before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def _rank_main(runs: list) -> None:
     import numpy as np
     import torch.distributed as tdist
@@ -173,12 +271,18 @@ def _rank_main(runs: list) -> None:
     if not dist.init_distributed(backend="gloo"):
         sys.exit("no multi-process launch to join")
     try:
-        for i, (out, argv) in enumerate(runs):
+        for i, (out, argv, *opts) in enumerate(runs):
             tdist.barrier()
             print(f"[rank] run {i}", flush=True)
             args = port_cli.build_parser().parse_args(argv)
-            res = args.func(args)
-            if out is not None:
+            with run_hooks(opts[0] if opts else {}) as record:
+                res = args.func(args)
+            if out is not None and argv[0] == "denoise":
+                result = json.dumps({"final": res, "rank": tdist.get_rank(),
+                                     **record})
+                np.savez(out, result=np.frombuffer(result.encode(),
+                                                   np.uint8))
+            elif out is not None:
                 result = json.dumps({k: res[k] for k in RESULT_KEYS})
                 np.savez(out, result=np.frombuffer(result.encode(),
                                                    np.uint8),
