@@ -161,9 +161,22 @@ Phases, in order; any failure exits non-zero before the last line:
    against the step on the rows kept, the port's collectives, then
    ``train`` in the group (every step and evaluation all-reducing over
    NCCL);
-10. a ``{"kernels": [...]}`` line (phase 6c's, 8's, 8b's and 9's launches
-   beside each kernel's main-path count), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+10. call_mods over a process's local cards: the CLI's default
+   ``--device`` resolved (every visible card), then the engine over two
+   replicas on card 0 (``[cuda:0, cuda:0]``: each batch cut into two
+   contiguous shares, each share uploaded, forwarded and read back on
+   its replica) against one replica, in turns (one, two, two, one), on
+   phase 4e's dense 131,072 rows and on phase 7's v3 directory at
+   ``--transfer_dtype int8`` (scales the batch's, sent to every share):
+   the rows byte for byte the one replica's, K1's bfloat16 kernel 5
+   times per forward tile of each share, sites/s, wire bytes a site and
+   each replica's forward device seconds; with two or more visible
+   cards, the CLI over every card against ``--device cuda:0`` on the
+   dense rows. Two replicas on one card measure the split and the merge,
+   not what N cards give;
+11. a ``{"kernels": [...]}`` line (phase 6c's, 8's, 8b's, 9's and 10's
+   launches beside each kernel's main-path count), the card line, and
+   last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -2572,6 +2585,8 @@ def check_npz(base: str, tmp: str, ckpt: str) -> dict:
         f"dW_hh {kl['lstm_dw_hh']} = 5 per step; "
         f"{tr['samples_per_s']:.1f} samples/s; read "
         f"{tr['read_seconds']:.2f} s")
+    # phase 10 calls the v3 directory after this run is gone
+    shutil.copytree(dirs["npz_packed"], os.path.join(tmp, "npz_v3"))
     seconds = time.time() - t_phase
     log(f"phase 7 took {seconds:.1f} s")
     return {"reads": NPZ_READS, "rows": n_rows, "extract": ext,
@@ -3314,6 +3329,109 @@ def phase9_launches(phase9: dict, name: str) -> dict:
             if v["kernel_launches"].get(name)}
 
 
+def check_local_cards(torch, ab, cm, fused_lstm, ModelConfig, cli, tmp: str,
+                      ckpt: str) -> dict:
+    """Phase 10: call_mods over a process's local cards. The CLI's
+    default --device resolved; the engine over two replicas on card 0
+    against one replica (in turns: one, two, two, one; each run
+    ``call_mods_ab.rate_run``: a warm-up, then a profiled run) on phase
+    4e's dense TSV (defaults: float16 wire) and on phase 7's v3
+    directory at int8: the same bytes, K1's bfloat16 kernel 5 times per
+    forward tile (tiles counted per share), sites/s, wire bytes a site,
+    each replica's forward device seconds. With two or more visible
+    cards, the CLI over every card against --device cuda:0."""
+    from deepsignal_plant_tpu_torch.utils.device import resolve_devices
+    t_phase = time.time()
+    every = [str(d) for d in resolve_devices(None)]
+    log(f"phase 10: the CLI's default --device resolves to {every} "
+        f"({torch.cuda.device_count()} visible card(s))")
+    cfg = ModelConfig(dropout_rate=0.0, compute_dtype="bfloat16")
+    card0 = torch.device("cuda", 0)
+    out = {"cli_default_devices": every, "fixtures": {}}
+    for name, inp, call in (
+            ("dense_tsv", os.path.join(tmp, "dense.tsv"), cm.CallConfig()),
+            ("v3_int8", os.path.join(tmp, "npz_v3"),
+             cm.CallConfig(transfer_dtype="int8"))):
+        engines = {k: cm.CallModsEngine(ckpt, cfg, call, [card0] * k)
+                   for k in (1, 2)}
+        runs = {1: [], 2: []}
+        for k in (1, 2, 2, 1):
+            path = os.path.join(tmp, f"cards_{name}_{k}.tsv")
+            rate = ab.rate_run(engines[k], inp, path, fused_lstm.launches)
+            rate["bytes"] = read_bytes(path)
+            runs[k].append(rate)
+        want = runs[1][0]["bytes"]
+        res = {}
+        for k, rs in runs.items():
+            for rate in rs:
+                st = rate["stats"]
+                if rate.pop("bytes") != want:
+                    fail(f"phase 10, {name}: {k} replica(s) wrote other "
+                         f"rows than one replica")
+                kl = rate["kernel_launches"]
+                if kl["fused_bilstm_bf16"] != 5 * st["forward_tiles"] or \
+                        sum(kl.values()) != kl["fused_bilstm_bf16"]:
+                    fail(f"phase 10, {name}, {k} replica(s): launched {kl} "
+                         f"for {st['forward_tiles']} forward tiles")
+                if st["devices"] != ["cuda:0"] * k:
+                    fail(f"phase 10, {name}: devices {st['devices']}")
+            st = rs[-1]["stats"]
+            res[k] = {
+                "sites": st["sites"], "batches": st["batches"],
+                "device_batch": st["device_batch"],
+                "sites_per_s": [r["sites_per_s"] for r in rs],
+                "wire_bytes_per_site": st["wire_bytes"] / st["sites"],
+                "bases_per_site": st["bases_uploaded"] / st["sites"],
+                "forward_tiles": st["forward_tiles"],
+                "k1_bf16_launches": rs[-1]["kernel_launches"][
+                    "fused_bilstm_bf16"],
+                "forward_device_seconds_per_card": [
+                    r["stats"]["forward_device_seconds_per_card"]
+                    for r in rs],
+                "upload_device_seconds": [r["stats"]["upload_device_seconds"]
+                                          for r in rs],
+                "busy_share": [r["busy_share"] for r in rs]}
+        db, n, nb = res[2]["device_batch"], res[2]["sites"], res[2]["batches"]
+        out["fixtures"][name] = res
+        log(f"phase 10, {name} ({n} sites, {nb} batches of "
+            f"{db}): two replicas on card 0 wrote one replica's bytes; "
+            f"sites/s one {res[1]['sites_per_s']}, two "
+            f"{res[2]['sites_per_s']}; wire bytes a site "
+            f"{res[1]['wire_bytes_per_site']:.3f} -> "
+            f"{res[2]['wire_bytes_per_site']:.3f}; K1 bf16 "
+            f"{res[2]['k1_bf16_launches']} = 5 x {res[2]['forward_tiles']} "
+            f"tiles (one replica 5 x {res[1]['forward_tiles']}); forward "
+            f"device seconds per replica "
+            f"{res[2]['forward_device_seconds_per_card']} against one "
+            f"replica's {res[1]['forward_device_seconds_per_card']}")
+    if torch.cuda.device_count() >= 2:
+        dense = os.path.join(tmp, "dense.tsv")
+        cli_out = {}
+        for label, extra in (("every", []), ("one", ["--device", "cuda:0"])):
+            path = os.path.join(tmp, f"cards_cli_{label}.tsv")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["call_mods", "-i", dense, "-m", ckpt, "-o", path,
+                          "--verbose_stages", *extra])
+            st = json.loads(next(ln for ln in buf.getvalue().splitlines()
+                                 if ln.startswith("[stages] "))[9:])
+            cli_out[label] = {"devices": st["devices"],
+                              "sites_per_s": st["sites_per_s"],
+                              "bytes": read_bytes(path)}
+        if cli_out["every"].pop("bytes") != cli_out["one"].pop("bytes") or \
+                cli_out["every"]["devices"] != every:
+            fail(f"phase 10: call_mods over every card: {cli_out}")
+        out["cli"] = cli_out
+        log(f"phase 10: the CLI over {every} wrote --device cuda:0's "
+            f"bytes: {cli_out}")
+    else:
+        log("phase 10: one visible card, so the CLI over every card is "
+            "the one-card run; two replicas on card 0 stand in for it")
+    out["seconds"] = time.time() - t_phase
+    log(f"phase 10 took {out['seconds']:.1f} s")
+    return out
+
+
 def k1_f32_parts(timings, errs, checked, launched) -> list:
     """The kernels line's entries of K1's float32 kernels (K1_F32_KERNELS),
     per 4096-row tile over the layers whose route runs each (the tail
@@ -3498,6 +3616,9 @@ def main() -> int:
                   "nccl": check_nccl(tmp)}
         phase9["seconds"] = time.time() - t9
         log(f"phase 9 took {phase9['seconds']:.1f} s")
+        # phase 10: call_mods over a process's local cards
+        phase10 = check_local_cards(torch, ab, call_mods, fused_lstm,
+                                    ModelConfig, cli, tmp, run["ckpt"])
     flops = forward_flops_per_site(ModelConfig())
     for what, st in (("sparse fixture", run["stages"]),
                      ("dense rate run", {**run["rate"]["stats"],
@@ -3538,6 +3659,9 @@ def main() -> int:
         "phase8_launches": phase8_launches(phase8, "fused_bilstm_bf16"),
         "phase8b_launches": phase8b_launches(phase8b, "fused_bilstm_bf16"),
         "phase9_launches": phase9_launches(phase9, "fused_bilstm_bf16"),
+        "phase10_launches": {
+            f"{name}_{k}_replicas": res[k]["k1_bf16_launches"]
+            for name, res in phase10["fixtures"].items() for k in (1, 2)},
         "per_launch": rows, "model_forward": forward, "main_path": run})
     # K1's float32 kernels, launches from the float32 call_mods run; the
     # whole float32 layer route per tile rides on the projection's entry
@@ -3605,6 +3729,7 @@ def main() -> int:
         + json.dumps(phase8b))
     log("spill, ranks and NCCL summary on " + smi + ": "
         + json.dumps(phase9))
+    log("local cards summary on " + smi + ": " + json.dumps(phase10))
     log(f"train: {trained['samples_per_s_last_epoch']:.1f} samples/s in "
         f"the last epoch ({trained['ms_per_step_last_epoch']:.2f} ms per "
         f"{TRAIN_B}-row step with its evaluations excluded) on {smi}")

@@ -22,7 +22,8 @@ from ._version import DEEPSIGNAL_PLANT_TPU_TORCH_VERSION
 
 def device_arg(value: str) -> str:
     """argparse type of ``--device``: cuda, cuda:<n> or cpu
-    (utils/device.resolve_device reads it)."""
+    (utils/device.resolve_device or, for call_mods and serve,
+    resolve_devices reads it)."""
     if value in ("cuda", "cpu") or (value.startswith("cuda:")
                                     and value[5:].isdigit()):
         return value
@@ -142,12 +143,16 @@ def main_denoise(args):
     return denoise(args)
 
 
-def _add_device_args(p):
+def _add_device_args(p, every_card: bool = False):
+    card = ("every visible card in this process (CUDA_VISIBLE_DEVICES "
+            "chooses them), each batch shared out over them"
+            if every_card else "the card")
     p.add_argument("--device", type=device_arg, default="cuda",
-                   help="run on the card (default; cuda:<LOCAL_RANK> under "
-                        "a multi-process launch, or the card named by "
-                        "cuda:<n>) or on the CPU (cpu) with the plain "
-                        "PyTorch versions of the kernels")
+                   help=f"run on {card} (cuda, the default; "
+                        "cuda:<LOCAL_RANK> under a multi-process launch, "
+                        "or the one card named by cuda:<n>) or on the CPU "
+                        "(cpu) with the plain PyTorch versions of the "
+                        "kernels")
     p.add_argument("--verbose_stages", action="store_true", default=False,
                    help="print a JSON line of run counters at the end: "
                         "kernel launches, steps or tiles, stage seconds")
@@ -211,7 +216,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model_path", "-m", type=str, required=True,
                    help=".ckpt (torch) or .ckpt.npz (native) checkpoint")
     _add_model_args(p, dropout_default=0.0, compute_dtype_default="auto")
-    _add_device_args(p)
+    _add_device_args(p, every_card=True)
     p.add_argument("--batch_size", "-b", type=int, default=512,
                    help="accepted for reference CLI compatibility")
     p.add_argument("--device_batch", type=int, default=None,
@@ -304,7 +309,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "wire always ships the read-packed wire")
     p.add_argument("--gzip", action="store_true", default=False)
     _add_model_args(p, dropout_default=0.0, compute_dtype_default="auto")
-    _add_device_args(p)
+    _add_device_args(p, every_card=True)
     p.add_argument("--nproc", "-p", type=int, default=4)
     p.add_argument("--f5_batch_size", type=int, default=30)
     _add_f5_args(p)

@@ -1,4 +1,5 @@
-"""Multi-process runs on torch.distributed (counterpart of
-deepsignal_plant_tpu/parallel/): the launch environment, input sharding
-and per-rank outputs (``dist``), and the collectives the pipelines use
-(``multihost``)."""
+"""Multi-card runs (counterpart of deepsignal_plant_tpu/parallel/): on
+torch.distributed, the launch environment, input sharding and per-rank
+outputs (``dist``) and the collectives the pipelines use
+(``multihost``); in one process, the per-card shares of a batch
+(``mesh``)."""

@@ -1,6 +1,6 @@
 """The multi-process runtime: launch environment, input sharding and
-per-rank outputs (counterpart of deepsignal_plant_tpu/parallel/dist.py
-and, for one process per card, parallel/mesh.py).
+per-rank outputs (counterpart of deepsignal_plant_tpu/parallel/dist.py;
+one process over several cards is parallel/mesh.py).
 
 The port runs one process per card, started by ``torchrun`` (or any
 launcher that sets ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,

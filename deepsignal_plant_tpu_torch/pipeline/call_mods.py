@@ -47,9 +47,24 @@ JAX package measured thread pools of .npz readers collapsing).
 k = up to RESIDENT_MAX_CHUNKS batches (k * device_batch rows); a segment
 is uploaded as one copy, its batches' forwards run from it, and its
 probabilities come back as one copy. Segment s+1's upload runs on the
-copy stream while segment s computes. Each batch sees the forward it
+copy stream while segment s computes. Over several cards each card
+holds its shares of a segment's k batches (k * device_batch / cards
+rows) as one upload. Each batch sees the forward it
 sees when streamed, so the bytes equal the streaming plane's at the same
 device_batch.
+
+Local cards (JAX's mesh over ``jax.local_devices()``, P("dp") on the
+sites): the engine holds one model replica and one pinned ring and copy
+stream per card, rounds ``device_batch`` up to a multiple of the cards
+(parallel/mesh.py) and cuts each batch into contiguous per-card shares.
+A share of the per-site route is its rows; a share of the read-packed
+route is its sites and the base span their windows cover, centres
+rebased (JAX replicates the base axis; a span ships the same window
+bytes, plus at most seq_len - 1 bases a cut). int8 scales are the
+batch's, made before the cut, and go to every share unchanged. Each
+card's share runs on that card, the probabilities come back in row
+order, and the output is one card's, byte for byte. A card whose share
+is empty gets no upload and no launch.
 
 The main thread formats and writes batch k while batch k+1's upload and
 forward run on the card. Every kernel launch stays on the main thread
@@ -60,6 +75,7 @@ fails the run.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -81,7 +97,8 @@ from ..models.bilstm import Batch, ModelBiLSTM
 from ..models.convert import load_any_checkpoint
 from ..ops import fused_lstm
 from ..parallel.dist import host_output_path
-from ..utils.device import resolve_device
+from ..parallel.mesh import local_batch_target, shares as card_shares
+from ..utils.device import resolve_devices
 from ..utils.fastparse import (emit_call_rows_arrays, format_call_block,
                                pack_raw_block, parse_raw_feature_block,
                                quantize_int8)
@@ -226,8 +243,11 @@ def npz_version(npz_files: list[str]) -> int:
 class CallStats:
     sites: int = 0
     batches: int = 0
+    # forwards of at most COMPUTE_TILE rows, over every card's shares
     forward_tiles: int = 0
+    # rows a batch (a multiple of the cards), and the cards
     device_batch: int = 0
+    devices: list[str] = dataclasses.field(default_factory=list)
     seconds: float = 0.0
     # called labels matching the features' label column — meaningful only
     # on labeled features (call_modifications.py:171-173)
@@ -257,9 +277,11 @@ class CallStats:
     # the card's time on the copy stream for the uploads, and on the
     # compute stream for the forwards (from the start of each unit's
     # forwards, its upload arrived and earlier units done, to their end;
-    # CUDA events; None on the CPU)
+    # CUDA events; None on the CPU): the busiest card's, and the
+    # forwards' per card
     upload_device_seconds: float | None = None
     forward_device_seconds: float | None = None
+    forward_device_seconds_per_card: list[float] | None = None
     # fast5 inputs: files found, and files that failed to read or extract
     fast5_files: int | None = None
     fast5_errors: int | None = None
@@ -378,6 +400,36 @@ def _emit_raw_segments(segs, probs: np.ndarray) -> bytes:
     return b"".join(out)
 
 
+@dataclass
+class _Share:
+    """One card's rows of a batch of its unit."""
+    batch: int                   # the batch's index in the unit
+    route: str
+    arrays: tuple                # upload order, as _Batch.arrays
+    n: int                       # sites
+    bases: int                   # per-base rows uploaded
+
+
+def _share(b: _Batch, index: int, lo: int, hi: int, seq_len: int
+           ) -> _Share:
+    """Sites [lo, hi) of batch ``b`` (of unit position ``index``): on the
+    per-site route their rows; on the read-packed route the base span of
+    their windows, centres rebased to it (centres rise within a batch).
+    int8 scales, the batch's, go unchanged."""
+    if lo == 0 and hi == b.n:
+        return _Share(index, b.route, b.arrays, b.n, b.bases)
+    if b.route == "persite":
+        arrays = tuple(a[lo:hi] for a in b.arrays[:5]) + b.arrays[5:]
+        return _Share(index, b.route, arrays, hi - lo, (hi - lo) * seq_len)
+    codes, means, stds, lens, rect, centers, *scales = b.arrays
+    nb = (seq_len - 1) // 2
+    b0 = int(centers[lo]) - nb
+    b1 = int(centers[hi - 1]) + nb + 1
+    arrays = (*(a[b0:b1] for a in (codes, means, stds, lens, rect)),
+              centers[lo:hi] - np.int32(b0), *scales)
+    return _Share(index, b.route, arrays, hi - lo, b1 - b0)
+
+
 class _Slot:
     """One entry of the pinned ring: the upload buffer of a batch (or a
     resident segment), its probabilities' readback buffer, and the events
@@ -398,8 +450,10 @@ class _DeviceFeed:
     compute stream waits for that copy's event and cuts the upload into
     the arrays. The probabilities come back by a non-blocking copy into
     the slot's pinned output buffer behind an event. A slot is refilled
-    only after the events of its last unit have fired. On the CPU
-    nothing is pinned: arrays pass through as tensors."""
+    only after the events of its last unit have fired. Every event and
+    copy names this card's streams, so a feed of card 1 is guarded
+    whatever device is current. On the CPU nothing is pinned: arrays
+    pass through as tensors."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -437,9 +491,9 @@ class _DeviceFeed:
             torch.cuda.Event(enable_timing=True) for _ in range(4))
         slot.done = torch.cuda.Event()
         with torch.cuda.stream(self._copy):
-            slot.up0.record()
+            slot.up0.record(self._copy)
             dev = slot.host[:total].to(self.device, non_blocking=True)
-            slot.copied.record()
+            slot.copied.record(self._copy)
         compute.wait_event(slot.copied)
         slot.fwd0.record(compute)
         dev.record_stream(compute)
@@ -447,17 +501,20 @@ class _DeviceFeed:
             a.shape) for a, o in zip(arrays, offs)], slot
 
     def readback(self, probs: torch.Tensor, slot: _Slot | None):
-        """Start the probabilities' copy to the host; ``wait`` ends it."""
+        """Start the probabilities' copy to the host; ``wait`` ends it.
+        The caller runs it with this card current: the copy goes on the
+        card's current stream."""
         if not self.cuda:
             return probs.numpy()
-        slot.fwd1.record()
+        compute = torch.cuda.current_stream(self.device)
+        slot.fwd1.record(compute)
         n = probs.shape[0]
         if slot.out is None or slot.out.shape[0] < n:
             slot.out = torch.empty(probs.shape, dtype=probs.dtype,
                                    pin_memory=True)
         out = slot.out[:n]
         out.copy_(probs, non_blocking=True)
-        slot.done.record()
+        slot.done.record(compute)
         return out
 
     def wait(self, out, slot: _Slot | None) -> np.ndarray:
@@ -487,18 +544,33 @@ def _units(batches: Iterator[_Batch], k: int) -> Iterator[list[_Batch]]:
 
 
 class CallModsEngine:
-    """Loads a checkpoint once onto ``device`` and calls feature files."""
+    """Loads a checkpoint once onto each of its cards and calls feature
+    files. ``device``: a device, a list of devices (one model replica
+    each; a card may repeat, as two replicas on one card), or a
+    ``--device`` string (utils/device.resolve_devices: None or "cuda"
+    is every visible card outside a launch)."""
 
     def __init__(self, model_path: str, model_cfg: ModelConfig,
                  call_cfg: CallConfig | None = None,
-                 device: torch.device | str | None = None):
-        self.device = (device if isinstance(device, torch.device)
-                       else resolve_device(device))
+                 device: torch.device | str | list | None = None):
+        if isinstance(device, (list, tuple)):
+            self.devices = [torch.device(d) for d in device]
+        elif isinstance(device, torch.device):
+            self.devices = [device]
+        else:
+            self.devices = resolve_devices(device)
+        if not self.devices:
+            raise ValueError("CallModsEngine needs at least one device")
+        self.device = self.devices[0]
         self.model_cfg = model_cfg
         self.call_cfg = call_cfg or CallConfig()
-        self.model = ModelBiLSTM.from_params(
-            load_any_checkpoint(model_path, self.model_cfg), self.model_cfg,
-            self.device)
+        self.device_batch = local_batch_target(self.call_cfg.device_batch,
+                                               len(self.devices))
+        params = load_any_checkpoint(model_path, self.model_cfg)
+        # a replica per card, each with its own packed-weight caches
+        self.models = [ModelBiLSTM.from_params(params, self.model_cfg, d)
+                       for d in self.devices]
+        self.model = self.models[0]
         self._warned_v1 = False
         native.load()    # build the parser now: a failed build fails here
 
@@ -507,7 +579,7 @@ class CallModsEngine:
         """A features TSV (plain or .gz), an .npz file or a directory of
         .npz batches -> call_mods TSV (reference else-branch,
         call_modifications.py:584-636; JAX run_features_file)."""
-        stats = CallStats(device_batch=self.call_cfg.device_batch)
+        stats = self._new_stats()
         t0 = time.time()
         npz_files = feature_npz_paths(input_path)
         if npz_files is not None:
@@ -530,6 +602,10 @@ class CallModsEngine:
         self._run_fast(_units(batches, k), result_path, is_gzip, stats)
         stats.seconds = time.time() - t0
         return stats
+
+    def _new_stats(self) -> CallStats:
+        return CallStats(device_batch=self.device_batch,
+                         devices=[str(d) for d in self.devices])
 
     def _parse_workers(self) -> int:
         return self.call_cfg.num_parse_workers or default_parse_workers()
@@ -765,7 +841,7 @@ class CallModsEngine:
         the float16 and int8 planes) or float32 FeatureBatches of any
         size (the per-site route). The fused fast5 path feeds this
         (pipeline/extract.py::extract_to_call_mods)."""
-        stats = CallStats(device_batch=self.call_cfg.device_batch)
+        stats = self._new_stats()
         t0 = time.time()
         if packed:
             batches = self._packed_batches(iter(blocks), stats)
@@ -801,14 +877,27 @@ class CallModsEngine:
                      base_stds=stds.float(), base_signal_lens=lens.float(),
                      signals=sig.float())
 
+    def _split(self, unit: list[_Batch]) -> list[list[_Share]]:
+        """Each card's shares of a unit's batches (parallel/mesh.py
+        ``shares``); a card gets nothing for a batch whose share is
+        empty."""
+        n, L = len(self.devices), self.model_cfg.seq_len
+        per_card: list[list[_Share]] = [[] for _ in range(n)]
+        for i, b in enumerate(unit):
+            for card, (lo, hi) in enumerate(card_shares(
+                    b.n, self.device_batch, n)):
+                if hi > lo:
+                    per_card[card].append(_share(b, i, lo, hi, L))
+        return per_card
+
     def _run_fast(self, units: Iterator[list[_Batch]], result_path: str,
                   is_gzip: bool, stats: CallStats) -> None:
         """Upload, forward, readback and row emission of every unit (one
         batch, or a resident segment of batches; JAX _run_fast's dispatch
-        loop), INFLIGHT units on the card at once: unit k is formatted
+        loop), INFLIGHT units on the cards at once: unit k is formatted
         and written while unit k+1 runs. A unit is one upload and one
-        readback."""
-        feed = _DeviceFeed(self.device)
+        readback a card that has rows in it."""
+        feeds = [_DeviceFeed(d) for d in self.devices]
         writer = AsyncWriter(result_path, is_gzip)
         inflight: deque = deque()
         try:
@@ -819,54 +908,74 @@ class CallModsEngine:
                 if unit is None:
                     break
                 t = time.perf_counter()
-                with stage("upload"):
-                    tensors, slot = feed.upload(
-                        tuple(a for b in unit for a in b.arrays))
-                with torch.inference_mode(), stage("forward"):
-                    probs, off = [], 0
-                    for b in unit:
-                        probs.append(forward_tiled(self.model,
-                                                   self._device_batch(
-                                                       b.route, tensors[
-                                                           off:off + len(
-                                                               b.arrays)])))
-                        off += len(b.arrays)
-                    probs = probs[0] if len(probs) == 1 else torch.cat(
-                        probs)
-                inflight.append((unit, feed.readback(probs, slot), slot))
+                work = [self._launch(feed, model, shares, stats)
+                        for feed, model, shares in zip(
+                            feeds, self.models, self._split(unit))
+                        if shares]
+                inflight.append((unit, work))
                 stats.device_seconds += time.perf_counter() - t
-                for b in unit:
-                    stats.bases_uploaded += b.bases
-                    stats.wire_bytes += sum(a.nbytes for a in b.arrays)
                 if len(inflight) == INFLIGHT:
-                    self._finish(feed, *inflight.popleft(), writer, stats)
+                    self._finish(*inflight.popleft(), writer, stats)
             while inflight:
-                self._finish(feed, *inflight.popleft(), writer, stats)
+                self._finish(*inflight.popleft(), writer, stats)
         finally:
             units.close()       # stops the parser threads after an error
             writer.close()
-        if feed.cuda:
-            stats.upload_device_seconds = feed.upload_ms / 1e3
-            stats.forward_device_seconds = feed.forward_ms / 1e3
+        if feeds[0].cuda:
+            stats.upload_device_seconds = max(f.upload_ms
+                                              for f in feeds) / 1e3
+            stats.forward_device_seconds_per_card = [f.forward_ms / 1e3
+                                                     for f in feeds]
+            stats.forward_device_seconds = max(
+                stats.forward_device_seconds_per_card)
+
+    def _launch(self, feed: _DeviceFeed, model: ModelBiLSTM,
+                shares: list[_Share], stats: CallStats) -> tuple:
+        """One card's shares of a unit, on that card (made current for its
+        kernels, streams and events): one upload, a tiled forward a share
+        on its replica, and the readback started."""
+        with (torch.cuda.device(feed.device) if feed.cuda
+              else contextlib.nullcontext()):
+            with stage("upload"):
+                tensors, slot = feed.upload(
+                    tuple(a for s in shares for a in s.arrays))
+            with torch.inference_mode(), stage("forward"):
+                probs, off = [], 0
+                for s in shares:
+                    probs.append(forward_tiled(model, self._device_batch(
+                        s.route, tensors[off:off + len(s.arrays)])))
+                    off += len(s.arrays)
+                probs = probs[0] if len(probs) == 1 else torch.cat(probs)
+            out = feed.readback(probs, slot)
+        for s in shares:
+            stats.bases_uploaded += s.bases
+            stats.wire_bytes += sum(a.nbytes for a in s.arrays)
+            stats.forward_tiles += -(-s.n // COMPUTE_TILE)
+        return feed, out, slot, shares
 
     @staticmethod
-    def _finish(feed: _DeviceFeed, unit: list[_Batch], out, slot,
-                writer: AsyncWriter, stats: CallStats) -> None:
+    def _finish(unit: list[_Batch], work: list, writer: AsyncWriter,
+                stats: CallStats) -> None:
+        """Wait for every card's probabilities of a unit, put each
+        batch's back in row order, emit and write its rows."""
         t = time.perf_counter()
+        parts: list[list[np.ndarray]] = [[] for _ in unit]
         with stage("readback"):
-            probs = feed.wait(out, slot)
+            for feed, out, slot, shares in work:
+                probs, off = feed.wait(out, slot), 0
+                for s in shares:
+                    parts[s.batch].append(probs[off:off + s.n])
+                    off += s.n
         t1 = time.perf_counter()
         with stage("emit"):
-            off, rows = 0, []
-            for b in unit:
-                p = probs[off:off + b.n]
-                off += b.n
+            rows = []
+            for b, p in zip(unit, parts):
+                p = p[0] if len(p) == 1 else np.concatenate(p)
                 rows.append(b.emit(p))
                 called = p[:, 1] > p[:, 0]
                 stats.label_correct += int((called == (b.labels == 1)).sum())
                 stats.sites += b.n
                 stats.batches += 1
-                stats.forward_tiles += -(-b.n // COMPUTE_TILE)
                 if b.route == "packed":
                     stats.packed_batches += 1
                     stats.packed_sites += b.n
@@ -902,7 +1011,10 @@ def call_mods(args) -> CallStats:
     model_path = os.path.abspath(args.model_path)
     if not os.path.exists(model_path):
         raise ValueError("--model_path is not set right!")
-    device = resolve_device(args.device)
+    # every visible card outside a launch (JAX's local devices), the
+    # rank's card under one
+    devices = resolve_devices(args.device)
+    device = devices[0]
     model_cfg = model_config_from_args(args, device, args.dropout_rate)
     call_cfg = CallConfig(
         device_batch=args.device_batch or CallConfig.device_batch,
@@ -915,7 +1027,7 @@ def call_mods(args) -> CallStats:
     print("[main] call_mods starts..")
     t0 = time.time()
     launches0 = dict(fused_lstm.launches)
-    engine = CallModsEngine(model_path, model_cfg, call_cfg, device)
+    engine = CallModsEngine(model_path, model_cfg, call_cfg, devices)
     # under a multi-process launch each rank writes <root>.host<RANK><ext>
     # (a fast5 directory is shared out over ranks; a features input is
     # called whole by every rank, as in the JAX package)

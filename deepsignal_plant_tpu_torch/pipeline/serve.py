@@ -228,11 +228,13 @@ def serve(args) -> list:
     from ..config import CallConfig, model_config_from_args
     from ..ops import fused_lstm
     from ..parallel.dist import refuse_launch
-    from ..utils.device import resolve_device
+    from ..utils.device import resolve_devices
     from .call_mods import CallModsEngine
 
     refuse_launch("serve")
-    device = resolve_device(args.device)
+    # every visible card, as call_mods (serve refuses a launch)
+    devices = resolve_devices(args.device)
+    device = devices[0]
     model_cfg = model_config_from_args(args, device, args.dropout_rate)
     call_cfg = CallConfig(
         device_batch=args.device_batch or CallConfig.device_batch,
@@ -243,7 +245,7 @@ def serve(args) -> list:
     launches0 = dict(fused_lstm.launches)
     t0 = time.time()
     engine = CallModsEngine(os.path.abspath(args.model_path), model_cfg,
-                            call_cfg, device)
+                            call_cfg, devices)
     startup = time.time() - t0
     served: list = []
     server = WatchServer(engine, os.path.abspath(args.watch_dir),
@@ -256,7 +258,7 @@ def serve(args) -> list:
                 for sig in (signal.SIGTERM, signal.SIGINT)}
     print(f"[serve] watching {args.watch_dir} -> {args.result_dir} "
           f"(poll {args.poll_s}s, compute {model_cfg.compute_dtype}, "
-          f"device {device}, once={args.once}); calls {', '.join(_EXTS)} "
+          f"devices {', '.join(map(str, devices))}, once={args.once}); calls {', '.join(_EXTS)} "
           f"and fast5 run-folders", flush=True)
     try:
         server.run(once=args.once)
@@ -267,6 +269,7 @@ def serve(args) -> list:
         print("[stages] " + json.dumps({
             "device": (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu"),
+            "devices": [str(d) for d in devices],
             "compute_dtype": model_cfg.compute_dtype,
             "engine_seconds": startup,
             "requests": [{"name": name, "sites": st.sites,

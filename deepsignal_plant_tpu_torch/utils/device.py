@@ -1,5 +1,6 @@
-"""Device and dtype resolution (counterpart of utils/jaxinit.py:56-96 and,
-for one process per card, parallel/mesh.py).
+"""Device and dtype resolution (counterpart of utils/jaxinit.py:56-96 and
+of parallel/mesh.py's choice of devices: ``resolve_device`` for one card
+a process, ``resolve_devices`` for the cards one process drives).
 
 The port runs on the card unless the caller asks for the CPU: there is
 no silent fallback, so a missing card is an error, not a slow run.
@@ -9,6 +10,19 @@ from __future__ import annotations
 import os
 
 import torch
+
+
+def _launched() -> bool:
+    """True under a multi-process launch (WORLD_SIZE > 1)."""
+    return int(os.environ.get("WORLD_SIZE", "") or 1) > 1
+
+
+def _need_cuda() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass --device cpu (or "
+            "resolve_device('cpu')) to run the plain PyTorch versions "
+            "on the CPU")
 
 
 def resolve_device(choice: str | None = None) -> torch.device:
@@ -26,13 +40,9 @@ def resolve_device(choice: str | None = None) -> torch.device:
     else:
         raise ValueError(f"device must be cuda, cuda:<n> or cpu "
                          f"(got {choice!r})")
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass --device cpu (or "
-            "resolve_device('cpu')) to run the plain PyTorch versions "
-            "on the CPU")
+    _need_cuda()
     if index is None:
-        if int(os.environ.get("WORLD_SIZE", "") or 1) <= 1:
+        if not _launched():
             return torch.device("cuda", torch.cuda.current_device())
         index = int(os.environ.get("LOCAL_RANK", "") or 0)
     if index >= torch.cuda.device_count():
@@ -41,6 +51,21 @@ def resolve_device(choice: str | None = None) -> torch.device:
             "card(s) visible): launch at most one rank per card")
     torch.cuda.set_device(index)
     return torch.device("cuda", index)
+
+
+def resolve_devices(choice: str | None = None) -> list[torch.device]:
+    """The cards one process drives (call_mods and serve; JAX
+    ``make_mesh()`` over ``jax.local_devices()``): ``None`` or
+    ``"cuda"`` -> every visible card, cuda:0 ... cuda:n-1
+    (``CUDA_VISIBLE_DEVICES`` chooses them), card 0 made current; under
+    a multi-process launch ``[cuda:<LOCAL_RANK>]``, one card a rank;
+    ``"cuda:<n>"`` -> ``[cuda:n]``; ``"cpu"`` -> ``[cpu]``. Raises when
+    the card is not there, as ``resolve_device`` does."""
+    if choice not in (None, "cuda") or _launched():
+        return [resolve_device(choice)]
+    _need_cuda()
+    torch.cuda.set_device(0)
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def resolve_compute_dtype(choice: str, device: torch.device) -> str:

@@ -27,6 +27,11 @@ of its f32 sums over (T-1)*B rows: 1e-5 in both storage types; its
 split-K partials are summed in a fixed order, so two launches on the
 same inputs agree bit for bit.
 
+call_mods over local cards: the engine over two replicas on card 0
+writes one replica's bytes, K1's bfloat16 kernel 5 times a forward tile
+of each share; with two or more visible cards, the CLI's default
+``--device`` (every card) writes ``--device cuda:0``'s bytes.
+
 K1 has one kernel at bfloat16 and two routes at float32 (the 3xTF32
 projection kernel and the float32 recurrence; the in-loop kernel); each
 check asserts that the counters of the kernels the layer ran moved and
@@ -542,3 +547,70 @@ def test_recurrence_kernels_reject_what_they_do_not_take(device):
         recurrence.lstm_recurrence(xproj.half(), w_hh.half(), 16)
     with pytest.raises(ValueError):        # non-contiguous xproj
         recurrence.lstm_recurrence(xproj.transpose(0, 2), w_hh, 16)
+
+
+@pytest.fixture
+def dense_call_inputs(tmp_path):
+    """A full-width bf16 checkpoint and a read-structured TSV of 20,000
+    rows (call_mods_ab.py's dense writer): batches of 8,192 and a tail."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import call_mods_ab
+    from deepsignal_plant_tpu_torch.config import ModelConfig
+    from deepsignal_plant_tpu_torch.models.bilstm import init_params
+    from deepsignal_plant_tpu_torch.models.convert import save_checkpoint
+    cfg = ModelConfig(dropout_rate=0.0, compute_dtype="bfloat16")
+    ckpt = str(tmp_path / "m.ckpt.npz")
+    save_checkpoint(ckpt, init_params(cfg, 3), cfg)
+    tsv = str(tmp_path / "dense.tsv")
+    call_mods_ab.write_dense_features(tsv, 20_000, 11)
+    return cfg, ckpt, tsv
+
+
+def test_two_replicas_on_one_card_write_one_replicas_bytes(
+        device, dense_call_inputs, tmp_path):
+    from deepsignal_plant_tpu_torch.config import CallConfig
+    from deepsignal_plant_tpu_torch.pipeline.call_mods import CallModsEngine
+    cfg, ckpt, tsv = dense_call_inputs
+    card = torch.device("cuda", 0)
+    outs = {}
+    for k in (1, 2):
+        eng = CallModsEngine(ckpt, cfg, CallConfig(device_batch=8192),
+                             [card] * k)
+        before = dict(fused_lstm.launches)
+        st = eng.run_features_file(tsv, str(tmp_path / f"{k}.tsv"))
+        moved = {n: v - before[n] for n, v in fused_lstm.launches.items()}
+        assert moved == {n: (5 * st.forward_tiles
+                             if n == "fused_bilstm_bf16" else 0)
+                         for n in moved}
+        # a full batch: two tiles, or two shares of one tile; the
+        # 3,616-row tail: one tile, in the first share only
+        assert st.forward_tiles == 5
+        assert len(st.forward_device_seconds_per_card) == k
+        outs[k] = (tmp_path / f"{k}.tsv").read_bytes()
+    assert outs[1] == outs[2] and outs[1].count(b"\n") == 20_000
+
+
+def test_call_mods_over_every_card_writes_one_cards_bytes(
+        device, dense_call_inputs, tmp_path, capsys):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more visible cards")
+    import json
+    from deepsignal_plant_tpu_torch import cli
+    _, ckpt, tsv = dense_call_inputs
+    outs = {}
+    for label, extra in (("every", []), ("one", ["--device", "cuda:0"])):
+        out = tmp_path / f"{label}.tsv"
+        cli.main(["call_mods", "-i", tsv, "-m", ckpt, "-o", str(out),
+                  "--device_batch", "8192", "--verbose_stages", *extra])
+        st = json.loads(next(ln for ln in capsys.readouterr().out
+                             .splitlines() if ln.startswith("[stages] "))[9:])
+        want = ([f"cuda:{i}" for i in range(torch.cuda.device_count())]
+                if label == "every" else ["cuda:0"])
+        assert st["devices"] == want
+        assert st["kernel_launches"]["fused_bilstm_bf16"] == \
+            5 * st["forward_tiles"]
+        outs[label] = out.read_bytes()
+    assert outs["every"] == outs["one"]

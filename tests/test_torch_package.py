@@ -35,7 +35,8 @@ def test_every_module_is_listed():
                  "tools.ckpt", "tools.combiners", "tools.evaluate",
                  "tools.fileops", "tools.splitters", "io.hdf5", "io.fast5",
                  "pipeline.extract", "utils.prof", "pipeline.denoise",
-                 "io.vbz"):
+                 "io.vbz", "parallel.dist", "parallel.multihost",
+                 "parallel.mesh"):
         assert "deepsignal_plant_tpu_torch." + name in mods
 
 
