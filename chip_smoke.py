@@ -5,15 +5,20 @@ agrees with itself on the card.
 
     python3 chip_smoke.py          # from the repository root; one card
 
-Phases, in order; any failure exits non-zero before the last line:
+Phases, in order; any failure exits non-zero before the last line.
+"K1's bfloat16 kernel" below is its wgmma kernel, which every layer of
+the main paths takes: a main-path launch of any other kernel fails the
+run.
 
 1. the card: name and power limit (nvidia-smi), torch's device name;
 2. every kernel of the main paths, built from csrc/ by nvcc (one nvcc
    per source, all started together), against its plain PyTorch version
    on the card at the main paths' shapes: the fused BiLSTM layer (K1) at
    call_mods' 4096-row tiles, its ragged neighbour and the 1,016-row
-   tail, and at phase 8 denoise's signal_bilstm layers in 512-row tiles
-   and ragged tails, in bfloat16 (the main path's kernel) and in float32 (for
+   tail, --device_batch 3477 (bfloat16), and at phase 8 denoise's
+   signal_bilstm layers in 512-row tiles and ragged tails, in bfloat16
+   (the wgmma kernel, which every one of those layers takes, and the
+   mma.sync kernel called directly) and in float32 (for
    exact-parity runs) through the route each layer takes and through
    both routes called directly (the 3xTF32 projection kernel and the
    float32 recurrence; the in-loop kernel), the two routes against each
@@ -29,7 +34,9 @@ Phases, in order; any failure exits non-zero before the last line:
    captured fails the run) beside its plain version, one PyTorch library
    call computing the same function or more (a yardstick the port never
    calls) and its bound: K1 per 4096-row forward tile and per tail tile
-   (float32: its two routes in turns at every layer, three pairs each,
+   (bfloat16: the wgmma and the mma.sync kernels in turns at every layer,
+   two pairs each, beside the L2 bytes of weights each design reads;
+   float32: its two routes in turns at every layer, three pairs each,
    and the projection kernel and K1's recurrence on their own), (3b) the
    recurrence kernels per launch and per train
    step at batch 512, the cluster kernels and the streaming kernels in
@@ -170,10 +177,12 @@ Phases, in order; any failure exits non-zero before the last line:
    ``--transfer_dtype int8`` (scales the batch's, sent to every share):
    the rows byte for byte the one replica's, K1's bfloat16 kernel 5
    times per forward tile of each share, sites/s, wire bytes a site and
-   each replica's forward device seconds; with two or more visible
-   cards, the CLI over every card against ``--device cuda:0`` on the
-   dense rows. Two replicas on one card measure the split and the merge,
-   not what N cards give;
+   each replica's forward device seconds; with two or more
+   visible cards, the CLI over every card against ``--device cuda:0`` on
+   the dense rows. Two replicas on one card measure the split and the
+   merge, not what N cards give. (10b) the engine on one card through
+   each of K1's bfloat16 kernels in turns, on the dense TSV, v3 at int8
+   and v3 at int8 resident: sites/s and the forwards' device seconds;
 11. a ``{"kernels": [...]}`` line (phase 6c's, 8's, 8b's, 9's and 10's
    launches beside each kernel's main-path count), the card line, and
    last ``{"ok": true, "device": {...}}``.
@@ -215,21 +224,38 @@ PEAK_BYTES = 3.35e12
 # this rate (165 TFLOP/s of f32 products)
 PEAK_TF32_FLOPS = 495e12
 TF32_PASSES = 3
-# K1 in each compute dtype: bfloat16 its kernel (ops/fused_lstm.py's
-# counter); float32 the layer through the route it takes ("k1_float32" is
-# a route of two or one launches, not a kernel: the kernels line lists
-# its kernels, K1_F32_KERNELS)
-K1_KERNELS = {"fused_bilstm_bf16": "bfloat16", "k1_float32": "float32"}
-# K1's routes (float32: "split", the projection kernel and the recurrence;
-# "inloop", the in-loop kernel) -> the key their errors go under
-K1_ROUTE_KEYS = {"bf16": "fused_bilstm_bf16", "split": "fused_bilstm_rec_f32",
+# K1 at bfloat16: the wgmma kernel, which every main-path and denoise
+# layer takes (ops/fused_lstm.py::k1_bf16_plan; phase 2 asserts it), and
+# the mma.sync kernel, which takes the shapes the wgmma kernel does
+# not fit (H > 256, inputs too wide for its shared memory) and is timed
+# beside it (ops/fused_lstm.py's counters)
+K1_BF16 = "fused_bilstm_bf16_wgmma"
+K1_BF16_MMA = "fused_bilstm_bf16"
+# K1 in each compute dtype: bfloat16 its kernels; float32 the layer
+# through the route it takes ("k1_float32" is a route of two or one
+# launches, not a kernel: the kernels line lists its kernels,
+# K1_F32_KERNELS)
+K1_KERNELS = {K1_BF16: "bfloat16", "k1_float32": "float32"}
+# K1's routes (bf16: the kernel k1_bf16_plan picks, "mma" the mma.sync
+# kernel called directly; float32: "split", the projection kernel and the
+# recurrence; "inloop", the in-loop kernel) -> the key their errors go
+# under
+K1_ROUTE_KEYS = {"bf16": K1_BF16, "mma": K1_BF16_MMA,
+                 "split": "fused_bilstm_rec_f32",
                  "inloop": "fused_bilstm_f32_inloop"}
 K1_F32_KERNELS = ("fused_bilstm_proj_f32", "fused_bilstm_rec_f32",
                   "fused_bilstm_f32_inloop")
-K1_ERR_KEYS = ("fused_bilstm_bf16", "k1_float32") + K1_F32_KERNELS
+K1_ERR_KEYS = (K1_BF16, K1_BF16_MMA, "k1_float32") + K1_F32_KERNELS
+# the bf16 kernels timed in turns (mma, wgmma, wgmma, mma) this many times
+# per layer and batch
+K1_BF16_PAIRS = 2
 # K1's float32 routes timed in turns (split, in-loop, in-loop, split) this
 # many times per layer and batch, to show their spread
 K1_F32_PAIRS = 3
+# a --device_batch that is no multiple of 64 (one forward tile of 3,477
+# rows: clusters of 4 over 55 row tiles, the last ragged), checked at
+# bfloat16
+DEVICE_BATCH_ODD = 3477
 # (Fa, Fb, H, seq_out) of the five layer launches of one forward tile
 MAIN_PATH_LAYERS = {
     "seq": (7, 0, 128, True),
@@ -511,8 +537,8 @@ def k1_moves(fused_lstm, route, plan):
     either the in-loop kernel or the projection kernel and the recurrence
     kernel of the plan (cluster or streaming)."""
     want = {k: 0 for k in fused_lstm.launches}
-    if route == "bf16":
-        want["fused_bilstm_bf16"] = 1
+    if route in ("bf16", "mma"):
+        want[K1_ROUTE_KEYS[route]] = 1
         return want
     if route == "inloop":
         want["fused_bilstm_f32_inloop"] = 1
@@ -536,6 +562,12 @@ def f32_routes(fused_lstm):
             "inloop": fused_lstm.layer_f32_inloop}
 
 
+def k1_routes(fused_lstm):
+    """K1's routes called directly: float32's two and the bf16 mma.sync
+    kernel."""
+    return {**f32_routes(fused_lstm), "mma": fused_lstm.layer_bf16_mma}
+
+
 def f32_route(torch, fused_lstm, F, H, B):
     """The float32 route bilstm_layer_fused takes on card 0."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -554,7 +586,8 @@ def check_kernel(torch, fused_lstm, recurrence, plain):
     also held against each other; the float32 projection kernel alone
     against its plain version. Each launch must move the counters of the
     kernels named."""
-    cases = [(shape, (TILE, TILE - 3, TAIL, TRAIN_B, TRAIN_B // RANKS))
+    cases = [(shape, (TILE, TILE - 3, TAIL, TRAIN_B, TRAIN_B // RANKS,
+                      DEVICE_BATCH_ODD))
              for shape in sorted(
         {(Fa, Fb, H) for Fa, Fb, H, _ in MAIN_PATH_LAYERS.values()})]
     cases += [(shape, DENOISE_TILES) for shape in DENOISE_K1_SHAPES]
@@ -563,6 +596,8 @@ def check_kernel(torch, fused_lstm, recurrence, plain):
     for (Fa, Fb, H), tiles in cases:
         for B in tiles:
             for dname in ("bfloat16", "float32"):
+                if dname == "float32" and B == DEVICE_BATCH_ODD:
+                    continue            # the default dtype's batch only
                 dtype = getattr(torch, dname)
                 xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, B, dtype)
                 if dtype == torch.float32:
@@ -584,14 +619,19 @@ def check_kernel(torch, fused_lstm, recurrence, plain):
                         if dtype == torch.float32 else None)
                 auto = (f32_route(torch, fused_lstm, Fa + Fb, H, B)
                         if dtype == torch.float32 else "bf16")
-                routes = (("bf16", None),) if dtype == torch.bfloat16 else (
+                if dtype == torch.bfloat16 and fused_lstm.k1_bf16_plan(
+                        Fa + Fb, H, B) is None:
+                    fail(f"K1 bf16 F=({Fa},{Fb}) H={H} B={B} would not take "
+                         f"the wgmma kernel")
+                routes = (("bf16", None), ("mma", "mma")) \
+                    if dtype == torch.bfloat16 else (
                     (auto, None), ("split", "split"), ("inloop", "inloop"))
                 for seq_out in (True, False):
                     want = plain.bilstm_layer(xs, w_ih, b, w_hh, H, seq_out)
                     outs = {}
                     for route, force in routes:
                         before = dict(fused_lstm.launches)
-                        layer = (f32_routes(fused_lstm)[force] if force
+                        layer = (k1_routes(fused_lstm)[force] if force
                                  else fused_lstm.bilstm_layer_fused)
                         got = layer(xs, w_ih, b, w_hh, H, seq_out)
                         torch.cuda.synchronize()
@@ -713,36 +753,70 @@ def time_k1_f32(torch, fused_lstm, recurrence, plain, Fa, Fb, H, seq_out,
     return out
 
 
+def time_k1_bf16(torch, fused_lstm, Fa, Fb, H, seq_out, xs, w_ih, b, w_hh):
+    """Phase 3, K1 at bfloat16, one main-path layer at B=4096 and at the
+    TAIL rows: the wgmma kernel (the route bilstm_layer_fused takes, on
+    k1_bf16_plan's plan) and the mma.sync kernel in turns,
+    K1_BF16_PAIRS times (mma, wgmma, wgmma, mma; graph replays, each
+    over its weights packed beforehand, as a model caches them), their
+    means, CUDA events per call. The L2 bytes of weights each design
+    reads (fused_lstm.weight_l2_bytes: by design, not measured) go to the
+    log beside them, not into the result."""
+    out = {}
+    packed = {"wgmma": fused_lstm.pack_weights_wgmma(w_ih, w_hh),
+              "mma": fused_lstm.pack_weights(w_ih, w_hh)}
+    layer = {"wgmma": fused_lstm.bilstm_layer_fused,
+             "mma": fused_lstm.layer_bf16_mma}
+    for B in (TILE, TAIL):
+        x = tuple(v[:, :B].contiguous() for v in xs)
+        pre = "" if B == TILE else "tail_"
+
+        def call(k):
+            return lambda: layer[k](x, w_ih, b, w_hh, H, seq_out,
+                                    packed=packed[k])
+
+        runs = {"mma": [], "wgmma": []}
+        for _ in range(K1_BF16_PAIRS):
+            for k in ("mma", "wgmma", "wgmma", "mma"):
+                runs[k].append(graph_ms(torch, call(k), reps=10))
+        plan = fused_lstm.k1_bf16_plan(Fa + Fb, H, B)
+        row = {"plan": dict(zip(("cluster", "stages", "x_buffers"), plan)),
+               "device_ms_runs": runs["wgmma"],
+               "mma_device_ms_runs": runs["mma"],
+               "device_ms": statistics.mean(runs["wgmma"]),
+               "mma_device_ms": statistics.mean(runs["mma"]),
+               "kernel_ms": cuda_ms(torch, call("wgmma")),
+               "mma_kernel_ms": cuda_ms(torch, call("mma"))}
+        l2 = {k: fused_lstm.weight_l2_bytes(k, T, Fa + Fb, H, B)
+              for k in ("wgmma", "mma")}
+        log(f"K1 bf16, F={Fa + Fb} H={H} B={B}: device ms wgmma "
+            f"{row['device_ms']:.4f}, mma.sync {row['mma_device_ms']:.4f}; "
+            f"L2 bytes of weights by design (not measured) {l2}")
+        out.update({pre + k: v for k, v in row.items()})
+        del x
+    out["tail_B"] = TAIL
+    return out
+
+
 def time_kernel(torch, fused_lstm, recurrence, plain):
-    """Phase 3: each main-path launch at B=4096, through each of K1's
-    routes (bfloat16 with its weights packed beforehand, as a model
-    caches them; float32 also, time_k1_f32), beside the plain version
-    and torch.nn.LSTM in the kernel's dtype; bfloat16 also at call_mods'
-    ragged tail tile (TAIL rows: 64 blocks, fewer than the SMs, where
-    B=4096 runs 256, two per SM). The kernels both with CUDA events per
-    call and as device time (graph replays, the packed weights made
-    before the capture)."""
+    """Phase 3: each main-path launch at B=4096 and at call_mods' ragged
+    tail tile (TAIL rows), through each of K1's routes (bfloat16: the
+    wgmma kernel and the mma.sync kernel in turns, time_k1_bf16; float32:
+    its two routes in turns, time_k1_f32), beside the plain version and
+    torch.nn.LSTM in the kernel's dtype. The kernels both with CUDA
+    events per call and as device time (graph replays, the packed
+    weights made before the capture)."""
     rows = []
     for name, (Fa, Fb, H, seq_out) in MAIN_PATH_LAYERS.items():
         for kernel, dname in K1_KERNELS.items():
             dtype = getattr(torch, dname)
             xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, TILE, dtype)
-            packed = (fused_lstm.pack_weights(w_ih, w_hh)
-                      if dtype == torch.bfloat16 else
+            packed = (None if dtype == torch.bfloat16 else
                       fused_lstm.pack_proj_weights(w_ih, Fa))
-            def call(x):
-                return lambda: fused_lstm.bilstm_layer_fused(
-                    x, w_ih, b, w_hh, H, seq_out, packed=packed)
-
             if dtype == torch.bfloat16:
-                kernel_ms = cuda_ms(torch, call(xs))
-                device_ms = graph_ms(torch, call(xs), reps=10)
-                xt = tuple(x[:, :TAIL].contiguous() for x in xs)
-                extra = {"tail_B": TAIL,
-                         "tail_kernel_ms": cuda_ms(torch, call(xt)),
-                         "tail_device_ms": graph_ms(torch, call(xt),
-                                                    reps=10)}
-                del xt
+                extra = time_k1_bf16(torch, fused_lstm, Fa, Fb, H, seq_out,
+                                     xs, w_ih, b, w_hh)
+                kernel_ms, device_ms = extra["kernel_ms"], extra["device_ms"]
             else:
                 extra = time_k1_f32(torch, fused_lstm, recurrence, plain,
                                     Fa, Fb, H, seq_out, xs, w_ih, b, w_hh,
@@ -1363,7 +1437,7 @@ def run_call_mods(tsv: str, ckpt: str, out: str, *extra: str) -> dict:
         json.dumps({k: v for k, v in st.items() if k != "rows"})))
     if "--compute_dtype" not in extra:
         want = {k: 0 for k in st["kernel_launches"]}
-        want["fused_bilstm_bf16"] = 5 * st["forward_tiles"]
+        want[K1_BF16] = 5 * st["forward_tiles"]
         if st["kernel_launches"] != want:
             fail(f"call_mods launched {st['kernel_launches']} for "
                  f"{st['forward_tiles']} forward tiles (expected {want}: "
@@ -1454,7 +1528,7 @@ def check_main_path(tmp: str, ab, cfg_cls, init_params, save_checkpoint,
     dp_bf = float(np.abs(p_main[:, 1] - p_p[:, 1]).max())
     log(f"bfloat16 kernel vs float32 plain: agreement {agree:.6f}, "
         f"max|dP1| = {dp_bf:.3g}")
-    return {"launches": launches["fused_bilstm_bf16"],
+    return {"launches": launches[K1_BF16],
             "launches_by_kernel": launches, "ckpt": ckpt,
             "f32_launches_by_kernel": f32k["kernel_launches"],
             "f32_layers": f32_layers,
@@ -1484,7 +1558,7 @@ def check_rate_run(torch, ab, cm, fused_lstm, ModelConfig, tmp: str,
     rate = ab.rate_run(eng, tsv, out, fused_lstm.launches)
     st = rate["stats"]
     want = {k: 0 for k in fused_lstm.launches}
-    want["fused_bilstm_bf16"] = 5 * st["forward_tiles"]
+    want[K1_BF16] = 5 * st["forward_tiles"]
     if (st["sites"], st["packed_sites"]) != (RATE_ROWS, RATE_ROWS) or \
             rate["kernel_launches"] != want:
         fail(f"the rate run did not call {RATE_ROWS} sites on the packed "
@@ -1544,7 +1618,7 @@ def check_training(tmp: str, ab):
     want = {k: 0 for k in kl}
     want.update({"lstm_recurrence_fwd_save": 5 * steps,
                  "lstm_recurrence_bwd": 5 * steps, "lstm_dw_hh": 5 * steps,
-                 "fused_bilstm_bf16": 5 * st["eval_tiles"]})
+                 K1_BF16: 5 * st["eval_tiles"]})
     if kl != want:
         fail(f"train launched {kl}, expected {want} (5 per train step of "
              f"each training kernel, K3 and K4 through the plan's cluster "
@@ -1760,7 +1834,7 @@ def check_serve(tmp: str, ckpt: str, main_run: dict, ab) -> dict:
              ".failed marker alone")
     tiles = sum(c["forward_tiles"] for c, _ in cold.values())
     want = {k: 0 for k in st["kernel_launches"]}
-    want["fused_bilstm_bf16"] = 5 * tiles
+    want[K1_BF16] = 5 * tiles
     if st["forward_tiles"] != tiles or st["kernel_launches"] != want:
         fail(f"the serving process ran {st['forward_tiles']} tiles and "
              f"launched {st['kernel_launches']} (expected {tiles} tiles, "
@@ -1774,7 +1848,7 @@ def check_serve(tmp: str, ckpt: str, main_run: dict, ab) -> dict:
             f"({c['sites_per_s']:.1f} sites/s)")
     log(f"serve: engine up in {st['engine_seconds']:.3f} s; process "
         f"{st['wall_seconds']:.3f} s for 3 requests and 2 polls 0.2 s "
-        f"apart; K1 bf16 launches {want['fused_bilstm_bf16']} = 5 x "
+        f"apart; K1 bf16 launches {want[K1_BF16]} = 5 x "
         f"{tiles} tiles; bad.tsv and batch.npz (no feature container) "
         f".failed")
     return {"requests": served, "engine_seconds": st["engine_seconds"],
@@ -2087,7 +2161,7 @@ def _check_fast5(fast5, base: str, tmp: str, ckpt: str) -> dict:
         f" {fused['sites']} sites, {fused['sites_per_s']:.1f} sites/s in "
         f"the engine ({fused['seconds']:.3f} s; process "
         f"{fused['wall_seconds']:.1f} s), K1 bf16 launches "
-        f"{fused['kernel_launches']['fused_bilstm_bf16']} = 5 x "
+        f"{fused['kernel_launches'][K1_BF16]} = 5 x "
         f"{fused['forward_tiles']} tiles; rows equal, sorted, to call_mods "
         f"on the extracted TSV ({on_tsv['sites_per_s']:.1f} sites/s); "
         f"stages " + json.dumps({k: fused[k] for k in STAGE_FIELDS}))
@@ -2109,7 +2183,7 @@ def _check_fast5(fast5, base: str, tmp: str, ckpt: str) -> dict:
     if any(p_f5["kernel_launches"].values()):
         fail("the plain float32 fast5 run launched a kernel")
     if f32_layers(k_f5) != 5 * k_f5["forward_tiles"] or \
-            k_f5["kernel_launches"]["fused_bilstm_bf16"]:
+            k_f5["kernel_launches"][K1_BF16]:
         fail(f"the float32 fast5 run launched {k_f5['kernel_launches']} "
              f"for {k_f5['forward_tiles']} forward tiles")
     if sorted_rows(os.path.join(tmp, "f5_f32k.tsv")) != \
@@ -2148,7 +2222,7 @@ def _check_fast5(fast5, base: str, tmp: str, ckpt: str) -> dict:
         fail("serve left the run-folder without a .done marker")
     req = st["requests"]
     want = {k: 0 for k in st["kernel_launches"]}
-    want["fused_bilstm_bf16"] = 5 * st["forward_tiles"]
+    want[K1_BF16] = 5 * st["forward_tiles"]
     if len(req) != 1 or st["kernel_launches"] != want:
         fail(f"serve over the run-folder: {st}")
     log(f"serve --once over a run-folder of {FAST5_SUB_READS} fast5s: "
@@ -2278,7 +2352,7 @@ def check_vbz(fast5, base: str, tmp: str, ckpt: str, phase6: dict
             f"{st['sites']} sites, {st['sites_per_s']:.1f} sites/s in the "
             f"engine, parse_wait_seconds {st['parse_wait_seconds']:.3f} of "
             f"{st['seconds']:.3f} s; K1 bf16 launches "
-            f"{st['kernel_launches']['fused_bilstm_bf16']} = 5 x "
+            f"{st['kernel_launches'][K1_BF16]} = 5 x "
             f"{st['forward_tiles']} tiles; rows = the original's")
     out = {"zstd_version": zver, "reads": VBZ_READS, "chunk": VBZ_CHUNK,
            "reader": reader, "extract": ext, "rows": n_rows,
@@ -2333,7 +2407,7 @@ def k1_only(st: dict, what: str) -> None:
     """A bf16 call_mods run launched K1's bfloat16 kernel 5 times per
     forward tile and nothing else."""
     want = {k: 0 for k in st["kernel_launches"]}
-    want["fused_bilstm_bf16"] = 5 * st["forward_tiles"]
+    want[K1_BF16] = 5 * st["forward_tiles"]
     if st["kernel_launches"] != want or not st["forward_tiles"]:
         fail(f"{what}: launched {st['kernel_launches']} for "
              f"{st['forward_tiles']} forward tiles (expected {want})")
@@ -2390,6 +2464,12 @@ def check_npz(base: str, tmp: str, ckpt: str) -> dict:
             f"{e['mb']:.1f} MB" + (f" in {e['files']} files"
                                    if "files" in e else ""))
 
+    ext["npz_packed"]["sha256"] = {
+        f: file_digest(os.path.join(dirs["npz_packed"], f))
+        for f in sorted(os.listdir(dirs["npz_packed"]))}
+    log("extract --w_format npz_packed: the v3 files' sha256 "
+        + json.dumps(ext["npz_packed"]["sha256"]))
+
     out = {k: os.path.join(tmp, f"npz_{k}.calls.tsv") for k in (
         "warm", "tsv", *NPZ_FORMATS, "i8_v3", "i8_tsv", "res_tsv", "res_v3",
         "f32k", "f32p", "prof")}
@@ -2430,7 +2510,7 @@ def check_npz(base: str, tmp: str, ckpt: str) -> dict:
                      "wire_bytes_per_site": st["wire_bytes"] / st["sites"],
                      "forward_tiles": st["forward_tiles"],
                      "k1_bf16_launches":
-                         st["kernel_launches"]["fused_bilstm_bf16"],
+                         st["kernel_launches"][K1_BF16],
                      "route": ("per-site" if st["persite_sites"]
                                else "packed"),
                      **{f: st[f] for f in STAGE_FIELDS}}
@@ -2464,10 +2544,14 @@ def check_npz(base: str, tmp: str, ckpt: str) -> dict:
                                                zip(got, base_rows)])),
                    "max_dp1": float(np.abs(p8 - p16).max()),
                    "k1_bf16_launches":
-                       st["kernel_launches"]["fused_bilstm_bf16"]}
+                       st["kernel_launches"][K1_BF16],
+                   "batches": st["batches"],
+                   "bases_uploaded": st["bases_uploaded"]}
         log(f"int8 on {ref}: {st['sites_per_s']:.1f} sites/s, "
-            f"{int8[k]['wire_bytes_per_site']:.1f} wire bytes a site "
-            f"(float16 {int8[k]['float16_wire_bytes_per_site']:.1f}); "
+            f"{int8[k]['wire_bytes_per_site']:.3f} wire bytes a site "
+            f"(float16 {int8[k]['float16_wire_bytes_per_site']:.3f}; "
+            f"{st['sites']} sites, {st['batches']} batches, "
+            f"{st['bases_uploaded']} bases uploaded); "
             f"against float16 agreement {int8[k]['agreement']:.6f}, max "
             f"|dP1| {int8[k]['max_dp1']:.3g} (random weights: P1 ~ 0.5, no "
             f"gate; the trained fixture is the int8 gate)")
@@ -2503,7 +2587,7 @@ def check_npz(base: str, tmp: str, ckpt: str) -> dict:
     if any(p_st["kernel_launches"].values()):
         fail("the plain float32 v3 run launched a kernel")
     if f32_layers(k_st) != 5 * k_st["forward_tiles"] or \
-            k_st["kernel_launches"]["fused_bilstm_bf16"]:
+            k_st["kernel_launches"][K1_BF16]:
         fail(f"the float32 v3 run launched {k_st['kernel_launches']} for "
              f"{k_st['forward_tiles']} forward tiles")
     k_rows = [r.split(b"\t") for r in read_bytes(out["f32k"]).splitlines()]
@@ -2530,7 +2614,7 @@ def check_npz(base: str, tmp: str, ckpt: str) -> dict:
     with open(os.path.join(prof_dir, traces[0])) as fh:
         trace = json.load(fh)
     names = {e.get("name", "") for e in trace["traceEvents"]}
-    k1 = sorted(n for n in names if "fused_bilstm_bf16_kernel" in n)
+    k1 = sorted(n for n in names if "fused_bilstm_wgmma_kernel" in n)
     stages = sorted(n for n in names if n in (
         "upload", "forward", "readback", "emit"))
     if not k1 or len(stages) != 4:
@@ -2574,7 +2658,7 @@ def check_npz(base: str, tmp: str, ckpt: str) -> dict:
     want_kl.update({"lstm_recurrence_fwd_save": 5 * steps,
                     "lstm_recurrence_bwd": 5 * steps,
                     "lstm_dw_hh": 5 * steps,
-                    "fused_bilstm_bf16": 5 * tr["eval_tiles"]})
+                    K1_BF16: 5 * tr["eval_tiles"]})
     if tr["steps"] != steps or kl != want_kl or \
             not np.isfinite(tr["step_losses"]).all():
         fail(f"train on the v1 directory: {tr['steps']} steps, launched "
@@ -2677,7 +2761,7 @@ def check_denoise_resume_stream(tmp: str, ab) -> dict:
         "lstm_recurrence_fwd_save": DENOISE_LAYERS * bf["steps"],
         "lstm_recurrence_bwd": DENOISE_LAYERS * bf["steps"],
         "lstm_dw_hh": DENOISE_LAYERS * bf["steps"],
-        "fused_bilstm_bf16": DENOISE_LAYERS * bf["forward_tiles"]})
+        K1_BF16: DENOISE_LAYERS * bf["forward_tiles"]})
     after = label_purity(bf["final_file"], flip["truth"])
     log(f"denoise purity on {DENOISE_ROWS} rows ({flip['flipped']} labels "
         f"flipped): label-1 {before['label1_purity']:.4%} -> "
@@ -2737,7 +2821,7 @@ def check_denoise_resume_stream(tmp: str, ab) -> dict:
         check_launches(f"train ({name})", st["kernel_launches"], {
             "lstm_recurrence_fwd_save": 5 * ran,
             "lstm_recurrence_bwd": 5 * ran, "lstm_dw_hh": 5 * ran,
-            "fused_bilstm_bf16": 5 * st["eval_tiles"]})
+            K1_BF16: 5 * st["eval_tiles"]})
         if ((st["start_epoch"], st["start_step"]) != start or ran != steps
                 or st["plane"] != plane
                 or not np.isfinite(st["step_losses"]).all()):
@@ -2848,7 +2932,7 @@ def check_denoise_ranks(tmp: str) -> dict:
                     "lstm_recurrence_fwd_save": layers * st["steps"],
                     "lstm_recurrence_bwd": layers * st["steps"],
                     "lstm_dw_hh": layers * st["steps"],
-                    "fused_bilstm_bf16": layers * st["forward_tiles"]})
+                    K1_BF16: layers * st["forward_tiles"]})
         if any(x["draws"] != res[0]["draws"] for x in res) or any(
                 x["final"] != res[0]["final"] for x in res):
             fail(f"denoise ({name}): the ranks drew or ended apart: {res}")
@@ -3049,7 +3133,7 @@ def check_spill(tmp: str, trained: dict) -> dict:
         check_launches(f"train (spill, {wire})", st["kernel_launches"], {
             "lstm_recurrence_fwd_save": 5 * steps,
             "lstm_recurrence_bwd": 5 * steps, "lstm_dw_hh": 5 * steps,
-            "fused_bilstm_bf16": 5 * st["eval_tiles"]})
+            K1_BF16: 5 * st["eval_tiles"]})
         acc = max(st["valid_accuracies"])
         if not np.isfinite(st["step_losses"]).all() or abs(
                 acc - trained["best_valid_accuracy"]) > SPILL_ACC_TOL:
@@ -3165,7 +3249,7 @@ def check_ranks(tmp: str, trained: dict, ckpt: str) -> dict:
             check_launches(f"rank {r} ({plane})", st["kernel_launches"], {
                 "lstm_recurrence_fwd_save": 5 * steps,
                 "lstm_recurrence_bwd": 5 * steps, "lstm_dw_hh": 5 * steps,
-                "fused_bilstm_bf16": 5 * st["eval_tiles"]})
+                K1_BF16: 5 * st["eval_tiles"]})
         params = []
         for r in range(RANKS):
             with np.load(os.path.join(d, f"params{r}.npz")) as z:
@@ -3198,7 +3282,7 @@ def check_ranks(tmp: str, trained: dict, ckpt: str) -> dict:
     sts = rank_stages(outs[2])
     for r, st in enumerate(sts):
         check_launches(f"call_mods rank {r}", st["kernel_launches"],
-                       {"fused_bilstm_bf16": 5 * st["forward_tiles"]})
+                       {K1_BF16: 5 * st["forward_tiles"]})
     one = os.path.join(tmp, "f5_sub_cli.tsv")   # phase 6, one process
     merged = sorted(ln for h in hosts for ln in open(h).read().splitlines())
     if os.path.exists(calls) or merged != sorted(
@@ -3261,7 +3345,7 @@ def check_nccl(tmp: str) -> dict:
     check_launches("train (torchrun, NCCL)", st["kernel_launches"], {
         "lstm_recurrence_fwd_save": 5 * steps,
         "lstm_recurrence_bwd": 5 * steps, "lstm_dw_hh": 5 * steps,
-        "fused_bilstm_bf16": 5 * st["eval_tiles"]})
+        K1_BF16: 5 * st["eval_tiles"]})
     log(f"NCCL group of one rank on card 0 (parallel.dist.start_group): "
         f"the train step through it is the step without it, bitwise (loss "
         f"{step['loss']:.6f}, evaluation {step['eval']}); with "
@@ -3369,8 +3453,8 @@ def check_local_cards(torch, ab, cm, fused_lstm, ModelConfig, cli, tmp: str,
                     fail(f"phase 10, {name}: {k} replica(s) wrote other "
                          f"rows than one replica")
                 kl = rate["kernel_launches"]
-                if kl["fused_bilstm_bf16"] != 5 * st["forward_tiles"] or \
-                        sum(kl.values()) != kl["fused_bilstm_bf16"]:
+                if kl[K1_BF16] != 5 * st["forward_tiles"] or \
+                        sum(kl.values()) != kl[K1_BF16]:
                     fail(f"phase 10, {name}, {k} replica(s): launched {kl} "
                          f"for {st['forward_tiles']} forward tiles")
                 if st["devices"] != ["cuda:0"] * k:
@@ -3384,13 +3468,16 @@ def check_local_cards(torch, ab, cm, fused_lstm, ModelConfig, cli, tmp: str,
                 "bases_per_site": st["bases_uploaded"] / st["sites"],
                 "forward_tiles": st["forward_tiles"],
                 "k1_bf16_launches": rs[-1]["kernel_launches"][
-                    "fused_bilstm_bf16"],
+                    K1_BF16],
                 "forward_device_seconds_per_card": [
                     r["stats"]["forward_device_seconds_per_card"]
                     for r in rs],
                 "upload_device_seconds": [r["stats"]["upload_device_seconds"]
                                           for r in rs],
-                "busy_share": [r["busy_share"] for r in rs]}
+                "busy_share": [r["busy_share"] for r in rs],
+                "wire_bytes_per_site_runs": [
+                    r["stats"]["wire_bytes"] / r["stats"]["sites"]
+                    for r in rs]}
         db, n, nb = res[2]["device_batch"], res[2]["sites"], res[2]["batches"]
         out["fixtures"][name] = res
         log(f"phase 10, {name} ({n} sites, {nb} batches of "
@@ -3404,6 +3491,8 @@ def check_local_cards(torch, ab, cm, fused_lstm, ModelConfig, cli, tmp: str,
             f"device seconds per replica "
             f"{res[2]['forward_device_seconds_per_card']} against one "
             f"replica's {res[1]['forward_device_seconds_per_card']}")
+    out["k1_bf16_kernels"] = k1_bf16_end_to_end(ab, cm, fused_lstm, cfg,
+                                                card0, tmp, ckpt)
     if torch.cuda.device_count() >= 2:
         dense = os.path.join(tmp, "dense.tsv")
         cli_out = {}
@@ -3430,6 +3519,53 @@ def check_local_cards(torch, ab, cm, fused_lstm, ModelConfig, cli, tmp: str,
     out["seconds"] = time.time() - t_phase
     log(f"phase 10 took {out['seconds']:.1f} s")
     return out
+
+
+def k1_bf16_end_to_end(ab, cm, fused_lstm, cfg, card, tmp: str,
+                       ckpt: str) -> dict:
+    """Phase 10b: call_mods' engine on one card through each of K1's
+    bfloat16 kernels in turns (wgmma, mma, mma, wgmma; each run
+    ``call_mods_ab.rate_run``: a warm-up, then a profiled run) on phase
+    4e's dense TSV, phase 7's v3 directory at int8, and the same at int8
+    with --device_resident always (the resident compute window; the
+    mma.sync kernel's runs inside ``fused_lstm.mma_only()``): sites/s,
+    the forwards' device seconds and each run's launches (5 a tile of the
+    kernel run, nothing else). The two kernels' rows are not compared
+    byte for byte: their sums run in other orders."""
+    res = {}
+    for name, inp, call in (
+            ("dense_tsv", os.path.join(tmp, "dense.tsv"), cm.CallConfig()),
+            ("v3_int8", os.path.join(tmp, "npz_v3"),
+             cm.CallConfig(transfer_dtype="int8")),
+            ("v3_int8_resident", os.path.join(tmp, "npz_v3"),
+             cm.CallConfig(transfer_dtype="int8",
+                           device_resident="always"))):
+        eng = cm.CallModsEngine(ckpt, cfg, call, card)
+        runs = {"wgmma": [], "mma": []}
+        for kernel in ("wgmma", "mma", "mma", "wgmma"):
+            path = os.path.join(tmp, f"k1_{name}_{kernel}.tsv")
+            with (fused_lstm.mma_only() if kernel == "mma" else
+                  contextlib.nullcontext()):
+                rate = ab.rate_run(eng, inp, path, fused_lstm.launches)
+            st = rate["stats"]
+            name_k = K1_BF16 if kernel == "wgmma" else K1_BF16_MMA
+            want = {k: 0 for k in rate["kernel_launches"]}
+            want[name_k] = 5 * st["forward_tiles"]
+            if rate["kernel_launches"] != want:
+                fail(f"phase 10b, {name} through the {kernel} kernel: "
+                     f"launched {rate['kernel_launches']}")
+            runs[kernel].append({
+                "sites_per_s": rate["sites_per_s"],
+                "forward_device_seconds": st["forward_device_seconds"],
+                "seconds": st["seconds"], "busy_share": rate["busy_share"],
+                "launches": want[name_k]})
+        res[name] = runs
+        log(f"phase 10b, {name} ({st['sites']} sites), in turns: "
+            + "; ".join(f"{k}: sites/s {[round(r['sites_per_s']) for r in v]}"
+                        f", forward device s "
+                        f"{[r['forward_device_seconds'] for r in v]}"
+                        for k, v in runs.items()))
+    return res
 
 
 def k1_f32_parts(timings, errs, checked, launched) -> list:
@@ -3631,38 +3767,51 @@ def main() -> int:
             + json.dumps({k: st[k] for k in STAGE_FIELDS}))
 
     kernels = {"kernels": []}
-    rows = [r for r in timings if r["kernel"] == "fused_bilstm_bf16"]
+    rows = [r for r in timings if r["kernel"] == K1_BF16]
 
     def total(key):
         return sum(r[key] for r in rows)
 
-    kernels["kernels"].append({
-        "name": "fused_bilstm_bf16", "route": "cuda",
-        "source": "deepsignal_plant_tpu_torch/csrc/fused_bilstm.cu",
-        "replaces": "deepsignal_plant_tpu/ops/pallas_fused.py:62",
-        # from the default call_mods run (phase 4, a fresh process)
-        "launches": run["launches_by_kernel"]["fused_bilstm_bf16"],
-        "max_abs_err": errs["fused_bilstm_bf16"], "dtype": "bfloat16",
-        # times: sums over the five launches of one 4096-row tile; ms is
-        # device time (graph replays), kernel_ms events per call
-        "ms": total("device_ms"), "device_ms": total("device_ms"),
-        "kernel_ms": total("kernel_ms"),
-        "tail_device_ms": total("tail_device_ms"),
-        "tail_kernel_ms": total("tail_kernel_ms"),
-        "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
-        "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
-                     else "bytes"),
-        "library_ms": total("library_ms"),
-        "shapes_checked": [c for c in checked if c[4] == "fused_bilstm_bf16"],
-        "phase6c_launches": fast5_run["vbz"]["call_mods"]["vbz"][
-            "kernel_launches"]["fused_bilstm_bf16"],
-        "phase8_launches": phase8_launches(phase8, "fused_bilstm_bf16"),
-        "phase8b_launches": phase8b_launches(phase8b, "fused_bilstm_bf16"),
-        "phase9_launches": phase9_launches(phase9, "fused_bilstm_bf16"),
-        "phase10_launches": {
-            f"{name}_{k}_replicas": res[k]["k1_bf16_launches"]
-            for name, res in phase10["fixtures"].items() for k in (1, 2)},
-        "per_launch": rows, "model_forward": forward, "main_path": run})
+    # the two bf16 kernels compute the same layers: one plain, bound and
+    # library figure serves both; times are sums over the five launches
+    # of one 4096-row tile (tail_: the TAIL-row tile), ms device time
+    # (graph replays, the two kernels in turns), kernel_ms events per
+    # call; launches from the default call_mods run (phase 4, a fresh
+    # process) and the other phases' runs
+    same = {"source": "deepsignal_plant_tpu_torch/csrc/fused_bilstm.cu",
+            "replaces": "deepsignal_plant_tpu/ops/pallas_fused.py:62",
+            "route": "cuda", "dtype": "bfloat16",
+            "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
+                         else "bytes"),
+            "library_ms": total("library_ms")}
+    # launches: the main path's run (phase 4; the mma.sync kernel takes
+    # none of its layers); phase 10b's runs through each kernel apart
+    for name, pre in ((K1_BF16, ""), (K1_BF16_MMA, "mma_")):
+        kernels["kernels"].append({
+            "name": name, **same,
+            "launches": run["launches_by_kernel"][name],
+            "max_abs_err": errs[name],
+            "ms": total(pre + "device_ms"),
+            "device_ms": total(pre + "device_ms"),
+            "kernel_ms": total(pre + "kernel_ms"),
+            "tail_device_ms": total("tail_" + pre + "device_ms"),
+            "tail_kernel_ms": total("tail_" + pre + "kernel_ms"),
+            "shapes_checked": [c for c in checked if c[4] == name],
+            "phase6c_launches": fast5_run["vbz"]["call_mods"]["vbz"][
+                "kernel_launches"][name],
+            "phase8_launches": phase8_launches(phase8, name),
+            "phase8b_launches": phase8b_launches(phase8b, name),
+            "phase9_launches": phase9_launches(phase9, name),
+            "phase10b_launches": {
+                fx: [r["launches"] for r in runs["wgmma" if name == K1_BF16
+                                                 else "mma"]]
+                for fx, runs in phase10["k1_bf16_kernels"].items()},
+            **({"phase10_launches": {
+                f"{fx}_{k}_replicas": res[k]["k1_bf16_launches"]
+                for fx, res in phase10["fixtures"].items() for k in (1, 2)},
+                "per_launch": rows, "model_forward": forward,
+                "main_path": run} if name == K1_BF16 else {})})
     # K1's float32 kernels, launches from the float32 call_mods run; the
     # whole float32 layer route per tile rides on the projection's entry
     f32_parts = k1_f32_parts(timings, errs, checked,

@@ -39,11 +39,17 @@
 // 168 GFLOP against ~0.1 GB of compulsory traffic: bound by operations
 // (0.17 ms at the bf16 tensor-core peak), not by bytes (0.03 ms).
 //
-// Three kernels:
+// Four kernels:
 //
-// bfloat16 (the main path): tensor cores (mma.sync) over weights packed
-//   once per model; every block re-reads its direction's packed weights
-//   from L2 at every step (below).
+// bfloat16 (the main path), two kernels over weights packed once per
+//   model (ops/fused_lstm.py::k1_bf16_plan picks):
+// - the wgmma kernel (below): 64-row blocks, the weights streamed by TMA
+//   bulk copies into a ring of shared-memory stages (multicast to a
+//   cluster), products on wgmma, wherever it fits (H <= 256 and its
+//   shared memory);
+// - the mma.sync kernel (below): 32-row blocks that re-read their
+//   direction's packed weights from L2 at every step; it takes the
+//   shapes the wgmma kernel does not fit.
 // float32, for exact-parity runs, two routes (ops/fused_lstm.py picks):
 // - the projection kernel (below): the input projection of all T steps
 //   as one 3xTF32 wgmma product into K2's xproj, after which
@@ -394,8 +400,9 @@ cudaError_t launch_proj_f32(const float* xa, const float* xb,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16) over the packed weights wt
-// (2, 4H, Kp): wt[d][n][k] = [W_ih[d]; W_hh[d]][k][n] for k < F + H, zero
+// bfloat16, the mma.sync kernel (for the shapes the wgmma kernel below
+// does not fit): tensor cores (mma.sync m16n8k16) over the packed weights
+// wt (2, 4H, Kp): wt[d][n][k] = [W_ih[d]; W_hh[d]][k][n] for k < F + H, zero
 // up to Kp = round_up(F + H, 32). The wrapper packs them once per model
 // (ops/fused_lstm.py::pack_weights), so one 16-byte load gives a thread
 // its fragments of two k16 steps (the k index is permuted alike in A and
@@ -632,6 +639,527 @@ cudaError_t launch_bf16(const bf16* xa, const bf16* xb, const bf16* wt,
                                Kp, seq_out, vec, stream);
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 on wgmma: the main path's kernel wherever it fits (H <= 256 and
+// its shared memory; ops/fused_lstm.py::k1_bf16_plan picks, the mma.sync
+// kernel above takes the rest)
+//
+// The mma.sync kernel streams its weights through 16-byte loads: every
+// 32-row block re-reads its direction's packed [W_ih; W_hh] from L2 at
+// every step, ~14 GB of L2 reads a 4096-row tile at the comb layers. This
+// kernel copies each weight tile by TMA once per cluster into shared
+// memory and feeds it to wgmma for 64 * C rows:
+//
+// - A block owns 64 rows (one wgmma M tile) of one direction for all T
+//   steps; a cluster of C (1 or 2) blocks owns neighbouring row tiles
+//   of the same direction. Grid (round_up(ceil(B / 64), C), 2).
+// - The weights are packed once per model (ops/fused_lstm.py::
+//   pack_weights_wgmma) in the order the kernel streams them, each tile
+//   already in the 128-byte swizzled shared-memory image wgmma reads: per
+//   direction, per chunk cc and K slab (the h slabs first, then x's), one
+//   stage of two 128 x 64 tiles (one per consumer warpgroup), 32 KB
+//   contiguous. A step streams every stage once, and every step streams
+//   the same stages.
+// - One producer warp (warp 8; one thread works) keeps a ring of S (2-4)
+//   stages full: block 0 of the cluster copies each stage with one TMA
+//   bulk copy (cp.async.bulk), multicast to every block of the cluster,
+//   which completes on each block's `full` mbarrier; every block's
+//   producer sets its own barrier's byte count. A stage is refilled once
+//   all 8 consumer warps of every block of the cluster have released it
+//   (arrivals on every block's `empty` mbarrier, through DSMEM). The
+//   producer runs ahead across step boundaries: the stream does not
+//   depend on h.
+// - Two consumer warpgroups (warps 0-7) run wgmma m64n128k16 (bf16, f32
+//   accumulators) with A = [x_t | h_{t-1}] and B = the stage's tile of the
+//   warpgroup, both in shared memory in the 128-byte swizzle. Warpgroup w
+//   owns units [w * Hp/2, (w + 1) * Hp/2) (Hp = round_up(H, 64)), in NCH =
+//   Hp / 64 chunks of 32 units; the packed columns of a chunk hold the
+//   four gates of 8 units side by side (32 * ug + 8 * gate + unit), so a
+//   thread's accumulator holds i, f, g and o of the same (row, unit)
+//   pairs and the cell update stays in registers (c: 16 f32 a chunk).
+// - h_t goes as bf16 into the other of two h buffers (A's h slabs) and to
+//   ys; after a step, fence.proxy.async and a named barrier of the 256
+//   consumer threads. x is staged by cp.async (zeros past the batch edge
+//   and past F; plain loads for widths that are not a multiple of 8):
+//   with two x buffers (where they fit beside the ring) x_{t+1} goes into
+//   the other during step t; with one, after step t, while chunk 0's h
+//   slabs run, and waited for before its first x slab (a second named
+//   barrier).
+//
+// Shared memory: S stages of 32 KB, one or two x buffers (ceil(F / 64)
+// slabs of 64 x 64 bf16, 8 KB each), two h buffers (NCH slabs each). At
+// comb1 (F = 512, H = 256) 3 stages, one x buffer of 64 KB and 64 KB of h:
+// 224 KB.
+//
+// What bounds it: a comb layer's products are 2 * 2 * T * B * (F + H) *
+// 4H flops (0.17 ms at the bf16 peak at 4096 rows); its weight stream is
+// T * (F + H) * 4H * 2 bytes a direction and cluster. On the H100 neither
+// binds (PERF.md has the times): the stage loop (a wait on the full
+// barrier, four wgmmas, a wait for the previous stage's, the release)
+// keeps the tensor cores busy only part of the time, the cell updates
+// (10 MUFU operations a (row, unit)) run while they idle, and a step ends
+// with the h exchange.
+
+constexpr int kWgRows = 64;                   // rows of a block
+constexpr int kWgK = 64;                      // K of a slab: 128 bytes
+constexpr int kWgTile = 128 * kWgK * 2;       // one warpgroup's weight tile
+constexpr int kWgStage = 2 * kWgTile;         // a stage: both warpgroups'
+constexpr int kWgSlab = kWgRows * kWgK * 2;   // one A slab (64 x 64 bf16)
+constexpr int kWgConsumers = 256;             // two warpgroups
+constexpr int kWgThreads = kWgConsumers + 32; // and the producer warp
+constexpr int kWgMaxStages = 4;
+constexpr int kWgMaxH = 256;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// byte offset of bf16 element (r, k) of a tile of 128-byte rows in the
+// 128-byte swizzle (the 16-byte chunk k / 8 of row r at chunk (k/8) ^ (r%8))
+__device__ __forceinline__ int swz(int r, int k) {
+  return r * 128 + ((((k >> 3) ^ r) & 7) << 4) + (k & 7) * 2;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+// arrive on this block's barrier and expect `bytes` more of copies
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// a wait that outlasts this traps (the launch fails, and the wrapper
+// raises) rather than holding the card: no phase of this kernel takes
+// more than milliseconds
+constexpr uint64_t kWaitTrapNs = 10ull * 1000 * 1000 * 1000;
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (uint32_t n = 1;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if ((n & 1023) == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (t0 == 0)
+        t0 = now;
+      else if (now - t0 > kWaitTrapNs)
+        __trap();
+    }
+  }
+}
+
+// arrive on the barrier at the same offset in block `rank` of the cluster
+// (release at CTA scope, as the arrival's default: it orders this
+// thread's completed reads; a .release.cluster arrival cost more than
+// the stage's wgmmas on the H100)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
+      :: "r"(bar), "r"(rank) : "memory");
+}
+
+// the cell update's sigmoid and tanh in f32 from __expf (ex2.approx) and
+// __fdividef (rcp.approx): a few ulp from expf and an IEEE division, in a
+// fraction of their instructions (with the accurate versions the cell
+// updates took about as long as the products on the H100)
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+__device__ __forceinline__ float tanh_fast(float x) {
+  return __fdividef(2.f, 1.f + __expf(-2.f * x)) - 1.f;
+}
+// TMA bulk copy global -> this block's shared memory, or (mask) to the
+// same offset in each block of the cluster in the mask; completes `bytes`
+// on the barrier at `bar` of each destination block
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void bulk_load_multicast(uint32_t dst,
+                                                    const void* src,
+                                                    uint32_t bytes,
+                                                    uint32_t bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar), "h"(mask) : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the 256 consumer threads (named barrier 1; the producer warp is not in it)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// d (64 x 128 f32, the m64n128 accumulator layout) = a (64 x 16) @ b
+// (16 x 128) + (accumulate ? d : 0), bf16, both K-major in shared memory
+// (descriptors). Starting a sum with accumulate = 0, rather than zeroing
+// d with other instructions, keeps ptxas from serializing the wgmmas.
+__device__ __forceinline__ void wgmma_bf16_m64n128(float (&d)[64],
+                                                   uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}"
+      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// x_t of the block's rows into the x slabs (columns [0, nkx * 64); zeros
+// past F and past the batch edge), by the 256 consumer threads. vec: 16-
+// byte cp.async (completed by the caller's cp_async_wait); else plain
+// loads and stores.
+__device__ __forceinline__ void stage_x_wg(unsigned char* __restrict__ xbuf,
+                                           const bf16* __restrict__ xa,
+                                           const bf16* __restrict__ xb,
+                                           int t, int B, int b0, int Fa,
+                                           int Fb, int nkx, bool vec) {
+  const int F = Fa + Fb;
+  const int Kx = nkx * kWgK;
+  if (vec) {
+    const int C8 = Kx / 8;
+    for (int i = threadIdx.x; i < kWgRows * C8; i += kWgConsumers) {
+      const int r = i / C8;
+      const int k = (i - r * C8) * 8;
+      const int row = b0 + r;
+      const bool ok = row < B && k < F;
+      const bf16* src = xa;
+      if (ok)
+        src = k < Fa ? xa + ((size_t)t * B + row) * Fa + k
+                     : xb + ((size_t)t * B + row) * Fb + (k - Fa);
+      cp_async16(xbuf + (k >> 6) * kWgSlab + swz(r, k & 63), src, ok);
+    }
+    return;
+  }
+  for (int i = threadIdx.x; i < kWgRows * Kx; i += kWgConsumers) {
+    const int r = i / Kx;
+    const int k = i - r * Kx;
+    const int row = b0 + r;
+    bf16 v = __float2bfloat16_rn(0.f);
+    if (row < B && k < F)
+      v = k < Fa ? xa[((size_t)t * B + row) * Fa + k]
+                 : xb[((size_t)t * B + row) * Fb + (k - Fa)];
+    *reinterpret_cast<bf16*>(xbuf + (k >> 6) * kWgSlab + swz(r, k & 63)) = v;
+  }
+}
+
+// NCH: chunks of 32 units per warpgroup (Hp = 64 * NCH)
+template <int NCH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+fused_bilstm_wgmma_kernel(const bf16* __restrict__ xa,
+                          const bf16* __restrict__ xb,
+                          const bf16* __restrict__ wp,
+                          const float* __restrict__ bias,
+                          bf16* __restrict__ ys_f, bf16* __restrict__ ys_b,
+                          int T_, int B, int Fa, int Fb, int H, int nkx,
+                          int stages, int xbufs, int seq_out, int vec) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* const ring =
+      reinterpret_cast<unsigned char*>(sw_align(smem_raw));
+  unsigned char* const xbuf0 = ring + stages * kWgStage;
+  unsigned char* const hbuf0 = xbuf0 + xbufs * nkx * kWgSlab;
+  unsigned char* const hbuf1 = hbuf0 + NCH * kWgSlab;
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(hbuf1 + NCH * kWgSlab);
+  const uint32_t full0 = smem_u32(bars);                  // full[i]: +8i
+  const uint32_t empty0 = smem_u32(bars + kWgMaxStages);  // empty[i]: +8i
+  const int nkb = nkx + NCH;                // K slabs: NCH of h, nkx of x
+  const int nst = NCH * nkb;                // stages of one step
+  const int d = blockIdx.y;
+  const int b0 = blockIdx.x * kWgRows;
+  const uint32_t C = cluster_blocks();
+  const uint32_t rank = cluster_rank();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bf16* wd = wp + (size_t)d * nst * (kWgStage / 2);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, 8 * C);     // 8 consumer warps a block
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (warp < 8) {
+    // h_{-1} = 0 (its padding units stay 0: zero weights and bias give
+    // c = 0, h = 0), x of the first step
+    for (int i = threadIdx.x; i < NCH * kWgSlab / 16; i += kWgConsumers)
+      reinterpret_cast<uint4*>(hbuf0)[i] = make_uint4(0, 0, 0, 0);
+    stage_x_wg(xbuf0, xa, xb, d == 0 ? 0 : T_ - 1, B, b0, Fa, Fb, nkx,
+               vec != 0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+  }
+  cluster_sync_all();    // every block's barriers set up, x_0 and h_{-1} in
+
+  if (warp == 8) {
+    // the producer: the same nst stages every step
+    if (lane == 0) {
+      const uint16_t mask = (uint16_t)((1u << C) - 1);
+      int slot = 0;
+      uint32_t phase = 0;
+      for (int s = 0; s < T_; ++s) {
+        for (int i = 0; i < nst; ++i) {
+          // the slot's previous use is released (a fresh barrier passes
+          // a wait on parity 1 at once)
+          mbar_wait(empty0 + 8 * slot, phase ^ 1);
+          const uint32_t full = full0 + 8 * slot;
+          mbar_expect_tx(full, kWgStage);
+          if (rank == 0) {
+            const bf16* src = wd + (size_t)i * (kWgStage / 2);
+            const uint32_t dst = smem_u32(ring + slot * kWgStage);
+            if (C > 1)
+              bulk_load_multicast(dst, src, kWgStage, full, mask);
+            else
+              bulk_load(dst, src, kWgStage, full);
+          }
+          if (++slot == stages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    const int wg = warp >> 2;
+    const int warp4 = warp & 3;
+    const int gq = lane >> 2, q = lane & 3;
+    const float* bd = bias + (size_t)d * 4 * H;
+    bf16* ys = d == 0 ? ys_f : ys_b;
+    // release a stage: each warp's lane 0 on every block's empty barrier
+    auto release = [&](int sl) {
+      if (lane == 0)
+        for (uint32_t p = 0; p < C; ++p)
+          mbar_arrive_cluster(empty0 + 8 * sl, p);
+    };
+    float c[NCH][16];
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) c[cc][i] = 0.f;
+    int slot = 0;
+    uint32_t phase = 0;
+
+    for (int s = 0; s < T_; ++s) {
+      const int t = d == 0 ? s : T_ - 1 - s;
+      const unsigned char* hcur = s & 1 ? hbuf1 : hbuf0;
+      unsigned char* hnxt = s & 1 ? hbuf0 : hbuf1;
+      const unsigned char* xcur = xbuf0 + (s & (xbufs - 1)) * nkx * kWgSlab;
+      if (xbufs == 2 && s + 1 < T_) {
+        // x_{t+1} into the other buffer (read in step s - 1, done) while
+        // this step runs; waited for at the step's end
+        stage_x_wg(xbuf0 + ((s + 1) & 1) * nkx * kWgSlab, xa, xb,
+                   d == 0 ? s + 1 : T_ - 2 - s, B, b0, Fa, Fb, nkx,
+                   vec != 0);
+        cp_async_commit();
+      }
+      const bool store = seq_out || s == T_ - 1;
+      const int t_out = seq_out ? t : 0;
+#pragma unroll
+      for (int cc = 0; cc < NCH; ++cc) {
+        float acc[64];                      // the first wgmma sets it
+        int prev = -1;
+        for (int kb = 0; kb < nkb; ++kb) {
+          if (xbufs == 1 && cc == 0 && kb == NCH && s > 0) {
+            // x_t (staged after the last step) is needed from here on
+            cp_async_wait<0>();
+            fence_proxy_async();
+            consumers_sync();
+          }
+          mbar_wait(full0 + 8 * slot, phase);
+          const unsigned char* a = kb < NCH ? hcur + kb * kWgSlab
+                                            : xcur + (kb - NCH) * kWgSlab;
+          const unsigned char* bt = ring + slot * kWgStage + wg * kWgTile;
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < kWgK / 16; ++j)
+            wgmma_bf16_m64n128(acc, gmma_desc(a + 32 * j),
+                               gmma_desc(bt + 32 * j), kb > 0 || j > 0);
+          wgmma_commit();
+          if (prev >= 0) {
+            wgmma_wait<1>();                // the previous slab's are done
+            release(prev);
+          }
+          prev = slot;
+          if (++slot == stages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+        wgmma_wait<0>();
+        release(prev);
+
+        // the cell update: accumulator i holds row warp4*16 + gq + 8 *
+        // ((i >> 1) & 1), packed column 8 * (i >> 2) + 2q + (i & 1); column
+        // 32 * ug + 8 * gate + e' is gate `gate` of unit 8 * ug + e'
+        const int ub = wg * (NCH * 32) + cc * 32;
+#pragma unroll
+        for (int ug = 0; ug < 4; ++ug) {
+          const int u0 = ub + ug * 8 + 2 * q;
+          float bg[4][2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int g = 0; g < 4; ++g)
+              bg[g][e] = u0 + e < H ? __ldg(bd + g * H + u0 + e) : 0.f;
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int r = warp4 * 16 + gq + 8 * rh;
+            bf16 hv[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i0 = 16 * ug + 2 * rh + e;
+              const float ig = sigmoid_fast(acc[i0] + bg[0][e]);
+              const float fg = sigmoid_fast(acc[i0 + 4] + bg[1][e]);
+              const float gg = tanh_fast(acc[i0 + 8] + bg[2][e]);
+              const float og = sigmoid_fast(acc[i0 + 12] + bg[3][e]);
+              float& cs = c[cc][4 * ug + 2 * rh + e];
+              cs = fg * cs + ig * gg;
+              hv[e] = __float2bfloat16_rn(og * tanh_fast(cs));
+            }
+            __nv_bfloat162 pair;
+            pair.x = hv[0];
+            pair.y = hv[1];
+            *reinterpret_cast<__nv_bfloat162*>(
+                hnxt + (u0 >> 6) * kWgSlab + swz(r, u0 & 63)) = pair;
+            const int row = b0 + r;
+            if (store && row < B && u0 < H) {
+              bf16* out = ys + ((size_t)t_out * B + row) * H + u0;
+              if (u0 + 1 < H && (H & 1) == 0) {
+                *reinterpret_cast<__nv_bfloat162*>(out) = pair;
+              } else {
+                out[0] = hv[0];
+                if (u0 + 1 < H) out[1] = hv[1];
+              }
+            }
+          }
+        }
+      }
+      if (xbufs == 2) cp_async_wait<0>();     // x_{t+1} has landed
+      fence_proxy_async();
+      consumers_sync();      // h_t is in hnxt; every read of x_t is done
+      if (xbufs == 1 && s + 1 < T_) {
+        // x_{t+1} while the next step's h slabs run
+        stage_x_wg(xbuf0, xa, xb, d == 0 ? s + 1 : T_ - 2 - s, B, b0, Fa,
+                   Fb, nkx, vec != 0);
+        cp_async_commit();
+      }
+    }
+  }
+  cluster_sync_all();    // no block leaves while a peer may still signal it
+}
+
+// x slabs of a width: ceil(F / 64)
+inline int wg_x_slabs(int F) { return (F + kWgK - 1) / kWgK; }
+
+// shared memory of the wgmma kernel without its ring, with `xbufs` x
+// buffers, alignment included
+inline size_t wg_fixed_smem(int F, int H, int xbufs) {
+  const int nch = (H + 63) / 64;
+  return (size_t)(xbufs * wg_x_slabs(F) + 2 * nch) * kWgSlab +
+         2 * kWgMaxStages * sizeof(uint64_t) + 1024;
+}
+
+template <int NCH>
+cudaError_t launch_wgmma_kernel(const bf16* xa, const bf16* xb,
+                                const bf16* wp, const float* bias,
+                                bf16* ys_f, bf16* ys_b, int T_, int B,
+                                int Fa, int Fb, int H, int seq_out,
+                                int cluster, int stages, int xbufs,
+                                int vec, cudaStream_t stream) {
+  const int nkx = wg_x_slabs(Fa + Fb);
+  const size_t smem =
+      wg_fixed_smem(Fa + Fb, H, xbufs) + (size_t)stages * kWgStage;
+  auto kernel = fused_bilstm_wgmma_kernel<NCH>;
+  cudaError_t err = set_smem((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (B + kWgRows - 1) / kWgRows;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((tiles + cluster - 1) / cluster * cluster, 2);
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, xa, xb, wp, bias, ys_f, ys_b, T_, B,
+                           Fa, Fb, H, nkx, stages, xbufs, seq_out, vec);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma(const bf16* xa, const bf16* xb, const bf16* wp,
+                         const float* bias, bf16* ys_f, bf16* ys_b, int T_,
+                         int B, int Fa, int Fb, int H, int seq_out,
+                         int cluster, int stages, int xbufs,
+                         cudaStream_t stream) {
+  const int vec = x_vec(xa, xb, Fa, Fb);
+  switch ((H + 63) / 64) {
+    case 1: return launch_wgmma_kernel<1>(xa, xb, wp, bias, ys_f, ys_b, T_,
+                                          B, Fa, Fb, H, seq_out, cluster,
+                                          stages, xbufs, vec, stream);
+    case 2: return launch_wgmma_kernel<2>(xa, xb, wp, bias, ys_f, ys_b, T_,
+                                          B, Fa, Fb, H, seq_out, cluster,
+                                          stages, xbufs, vec, stream);
+    case 3: return launch_wgmma_kernel<3>(xa, xb, wp, bias, ys_f, ys_b, T_,
+                                          B, Fa, Fb, H, seq_out, cluster,
+                                          stages, xbufs, vec, stream);
+    default: return launch_wgmma_kernel<4>(xa, xb, wp, bias, ys_f, ys_b, T_,
+                                           B, Fa, Fb, H, seq_out, cluster,
+                                           stages, xbufs, vec, stream);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -700,6 +1228,34 @@ cudaError_t dsp_fused_bilstm_bf16(const void* xa, const void* xb,
                      static_cast<const float*>(bias),
                      static_cast<bf16*>(ys_f), static_cast<bf16*>(ys_b), T_,
                      B, Fa, Fb, H, seq_out, static_cast<cudaStream_t>(stream));
+}
+
+// bfloat16 on wgmma: x* (T, B, F*) and ys_f/ys_b (T or 1, B, H) bf16; wp
+// the weights in the kernel's stream order (ops/fused_lstm.py::
+// pack_weights_wgmma: 2 * ceil(H/64) * (ceil(F/64) + ceil(H/64)) stages of
+// 32 KB a direction), 16-byte aligned; bias (2, 4H) f32; H <= 256; the
+// plan (ops/fused_lstm.py::wgmma_plan): clusters of 1 or 2 blocks, 2-4
+// ring stages, 1 or 2 x buffers. Runs on `stream`, allocates nothing,
+// returns the launch's error code (cudaErrorInvalidValue where the plan's
+// shared memory outgrows a block's).
+cudaError_t dsp_fused_bilstm_bf16_wgmma(const void* xa, const void* xb,
+                                        const void* wp, const void* bias,
+                                        void* ys_f, void* ys_b, int T_,
+                                        int B, int Fa, int Fb, int H,
+                                        int seq_out, int cluster, int stages,
+                                        int xbufs, void* stream) {
+  if (T_ < 1 || B < 1 || Fa < 1 || Fb < 0 || H < 1 || H > kWgMaxH ||
+      (Fb > 0 && xb == nullptr) || !(cluster == 1 || cluster == 2) ||
+      stages < 2 || stages > kWgMaxStages || !(xbufs == 1 || xbufs == 2) ||
+      reinterpret_cast<uintptr_t>(wp) % 16 != 0)
+    return cudaErrorInvalidValue;
+  return launch_wgmma(static_cast<const bf16*>(xa),
+                      static_cast<const bf16*>(xb),
+                      static_cast<const bf16*>(wp),
+                      static_cast<const float*>(bias),
+                      static_cast<bf16*>(ys_f), static_cast<bf16*>(ys_b), T_,
+                      B, Fa, Fb, H, seq_out, cluster, stages, xbufs,
+                      static_cast<cudaStream_t>(stream));
 }
 
 const char* dsp_cuda_error_string(int err) {

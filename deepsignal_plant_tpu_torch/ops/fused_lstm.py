@@ -9,10 +9,15 @@ true time, or (1, B, H) final states when ``seq_out`` is False.
 
 Two routes, one per compute dtype:
 
-- bfloat16 (the main path): one kernel, ``fused_bilstm_bf16`` on the
-  tensor cores, input projection inside its time loop, over the weights
-  packed once per model (``pack_weights``; ``packed_weights`` caches them
-  on the layer module);
+- bfloat16 (the main path): one launch a layer, input projection inside
+  the time loop, over weights packed once per model (``packed_weights``
+  caches them on the layer module), of one of two kernels by
+  ``k1_bf16_plan`` (a rule of F, H and B):
+  ``fused_bilstm_bf16_wgmma``, wgmma over weight tiles that TMA bulk
+  copies multicast to a cluster of 64-row blocks (``pack_weights_wgmma``'s
+  stream order), wherever it fits (H <= 256 and at least two stages of
+  its ring in shared memory); ``fused_bilstm_bf16``, the mma.sync
+  kernel (``pack_weights``), everywhere else;
 - float32 (exact-parity runs): one of two routes per layer, by
   ``f32_inloop``. The split route (``layer_f32_split``) is two launches:
   the input projection out of the time loop, one 3xTF32 wgmma product
@@ -35,6 +40,7 @@ launches the kernels, or raises: there is no fallback on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import torch
@@ -45,15 +51,22 @@ from . import recurrence as _rec
 from .lstm import bilstm_layer as bilstm_layer_plain
 
 #: launches of each kernel since the last reset (set an entry to 0 to
-#: count a run); launches that raise are not counted. A float32 layer
-#: launches the in-loop kernel, or the projection kernel and one of the
-#: recurrence's two
-launches = {"fused_bilstm_bf16": 0, "fused_bilstm_f32_inloop": 0,
+#: count a run); launches that raise are not counted. A bfloat16 layer
+#: launches one of its two kernels; a float32 layer the in-loop kernel,
+#: or the projection kernel and one of the recurrence's two
+launches = {"fused_bilstm_bf16_wgmma": 0, "fused_bilstm_bf16": 0,
+            "fused_bilstm_f32_inloop": 0,
             "fused_bilstm_proj_f32": 0, "fused_bilstm_rec_f32": 0,
             "fused_bilstm_rec_f32_stream": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HIDDEN = 512
+
+
+def packed_for(F: int, H: int, B: int) -> str:
+    """The packing of the bfloat16 kernel a layer takes (k1_bf16_plan):
+    "wgmma" (pack_weights_wgmma) or "mma" (pack_weights)."""
+    return "mma" if k1_bf16_plan(F, H, B) is None else "wgmma"
 
 
 def padded_k(F: int, H: int) -> int:
@@ -74,17 +87,145 @@ def pack_weights(w_ih: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     return wt
 
 
-def packed_weights(layer) -> torch.Tensor:
-    """``pack_weights`` of a layer module (w_ih, w_hh parameters), packed
-    once and cached on the module until a parameter changes: the cache
-    key holds both parameters' version counters (moved by every in-place
-    update, such as an optimizer step) and data pointers."""
+# the wgmma kernel (csrc/fused_bilstm.cu): 64-row blocks, K slabs of 64
+# (one 128-byte swizzled row) of 8 KB, chunks of 32 units a warpgroup,
+# ring stages of two 128 x 64 weight tiles (32 KB); its shared memory is
+# the ring, one or two x buffers, two h buffers, 8 barriers of 8 bytes and
+# 1,024 bytes of alignment (the kernel's wg_fixed_smem; a launch whose
+# plan outgrows a block's shared memory raises)
+WG_ROWS, WG_K, WG_SLAB_BYTES, WG_STAGE_BYTES = 64, 64, 8192, 32768
+WG_MAX_STAGES, WG_MAX_H, WG_BARRIER_BYTES = 4, 256, 8 * 8
+_MAX_SMEM = 232_448                       # a block's, on Hopper
+
+
+def wgmma_dims(F: int, H: int) -> tuple[int, int]:
+    """(x slabs, chunks a warpgroup) of the wgmma kernel: ceil(F / 64) and
+    ceil(H / 64) (H padded to Hp = 64 * chunks; the h slabs are as many as
+    the chunks)."""
+    return -(-F // WG_K), -(-H // 64)
+
+
+def _wgmma_fixed_smem(F: int, H: int, x_buffers: int) -> int:
+    nkx, nch = wgmma_dims(F, H)
+    return (x_buffers * nkx + 2 * nch) * WG_SLAB_BYTES + \
+        WG_BARRIER_BYTES + 1024
+
+
+def wgmma_stages(F: int, H: int) -> int:
+    """Ring stages of the wgmma kernel at (F, H): as many 32 KB stages as
+    fit (at most 4) beside one x buffer, two h buffers, the barriers and
+    1,024 bytes of alignment; 0 where H > 256 or fewer than two fit."""
+    if H > WG_MAX_H:
+        return 0
+    room = max(0, _MAX_SMEM - _wgmma_fixed_smem(F, H, 1))
+    stages = min(WG_MAX_STAGES, room // WG_STAGE_BYTES)
+    return stages if stages >= 2 else 0
+
+
+def wgmma_plan(F: int, H: int, B: int) -> tuple[int, int, int] | None:
+    """(cluster, stages, x buffers) of the wgmma kernel at (F, H, B), None
+    where it does not fit (wgmma_stages < 2). Its grid is 2 *
+    round_up(ceil(B / 64), cluster) blocks of 64 rows, one an SM; clusters
+    of 2 share each weight stage between two row tiles wherever there are
+    two (on the H100 no slower than 1; clusters of 4 were slower at 4,096
+    rows, where 32 clusters of 4 do not fit the card at once). x_{t+1} is
+    staged into a second x buffer during step t where one fits beside the
+    ring."""
+    stages = wgmma_stages(F, H)
+    if not stages:
+        return None
+    x_buffers = 2 if _wgmma_fixed_smem(F, H, 2) + stages * WG_STAGE_BYTES \
+        <= _MAX_SMEM else 1
+    return (2 if B > WG_ROWS else 1), stages, x_buffers
+
+
+_mma_only = False
+
+
+@contextlib.contextmanager
+def mma_only():
+    """While this holds, every bfloat16 layer takes the mma.sync kernel
+    (k1_bf16_plan gives None): for timing the two kernels in turns on
+    the same path."""
+    global _mma_only
+    before, _mma_only = _mma_only, True
+    try:
+        yield
+    finally:
+        _mma_only = before
+
+
+def k1_bf16_plan(F: int, H: int, B: int) -> tuple[int, int, int] | None:
+    """The bfloat16 K1 kernel a layer takes: wgmma_plan's (cluster,
+    stages, x buffers) of the wgmma kernel (``fused_bilstm_bf16_wgmma``),
+    which takes every shape it fits, or None for the mma.sync kernel
+    (``fused_bilstm_bf16``): where it does not fit, and everywhere inside
+    ``mma_only()``."""
+    return None if _mma_only else wgmma_plan(F, H, B)
+
+
+def weight_l2_bytes(kind: str, T: int, F: int, H: int, B: int) -> int:
+    """Bytes of packed weights a bfloat16 layer of T steps and B rows
+    reads from L2 by the design of kernel ``kind`` (not measured): "mma",
+    every 32-row block its direction's (4H x padded_k(F, H)) matrix at
+    every step; "wgmma", every cluster (wgmma_plan's) each stage of its
+    direction (4 Hp x (Kx + Hp), Kx = 64 ceil(F / 64), Hp = 64 ceil(H /
+    64)) once a step."""
+    if kind == "mma":
+        return 2 * -(-B // 32) * T * 4 * H * padded_k(F, H) * 2
+    nkx, nch = wgmma_dims(F, H)
+    clusters = -(-(-(-B // WG_ROWS)) // wgmma_plan(F, H, B)[0])
+    return 2 * clusters * T * 4 * 64 * nch * 64 * (nkx + nch) * 2
+
+
+@torch.no_grad()
+def pack_weights_wgmma(w_ih: torch.Tensor, w_hh: torch.Tensor
+                       ) -> torch.Tensor:
+    """The wgmma kernel's weights, in the order it streams them: (2,
+    nch * nkb, 2, 128, 64) bf16, per direction, chunk cc and K slab in
+    stream order (the nch h slabs, then the nkx x slabs; wgmma_dims), the
+    two warpgroups' 128 x 64 tiles, each the 128-byte swizzled image of
+    (packed column n, k): element (n, k) at [n, 8 * ((k // 8) ^ (n % 8)) +
+    k % 8]. Slab kb of x holds W_ih rows [64 kb, 64 kb + 64), of h W_hh's,
+    zero past F and H. Warpgroup w's packed column 32 * ug + 8 * gate + e of
+    chunk cc is gate ``gate`` (i, f, g, o) of unit u = 32 * (w * nch + cc)
+    + 8 * ug + e, zero for u >= H. w_ih (2, F, 4H), w_hh (2, H, 4H), any
+    float dtype. A layout transform in plain tensor ops."""
+    F, H = w_ih.shape[1], w_hh.shape[1]
+    nkx, nch = wgmma_dims(F, H)
+    Kx, Hp = nkx * WG_K, nch * 64
+    w = w_ih.new_zeros((2, Kx + Hp, 4, Hp), dtype=torch.float32)
+    w[:, :F, :, :H] = w_ih.float().reshape(2, F, 4, H)
+    w[:, Kx:Kx + H, :, :H] = w_hh.float().reshape(2, H, 4, H)
+    # units as (warpgroup, chunk, ug, e); columns as (w, cc, ug, gate, e)
+    w = w.reshape(2, Kx + Hp, 4, 2, nch, 4, 8).permute(0, 1, 3, 4, 5, 2, 6)
+    w = w.reshape(2, nkx + nch, WG_K, 2, nch, 128)
+    order = list(range(nkx, nkx + nch)) + list(range(nkx))
+    w = w[:, order]                        # K slabs in stream order
+    # (d, cc, kb, w, n, k): one stage is (2, 128, 64)
+    w = w.permute(0, 4, 1, 3, 5, 2).reshape(2, nch, nkx + nch, 2, 128, 8, 8)
+    swz = torch.arange(8).view(8, 1) ^ torch.arange(8).view(1, 8)  # [n%8, c]
+    idx = swz.repeat(16, 1).view(128, 8, 1).expand(128, 8, 8)
+    w = torch.gather(w, 5, idx.expand(w.shape).to(w.device))
+    return w.reshape(2, nch * (nkx + nch), 2, 128, 64).to(
+        torch.bfloat16).contiguous()
+
+
+def packed_weights(layer, kind: str) -> torch.Tensor:
+    """The packed weights of a layer module (w_ih, w_hh parameters) for
+    the bfloat16 kernel ``kind`` ("wgmma": pack_weights_wgmma; "mma":
+    pack_weights), packed once and cached on the module until a parameter
+    changes: the cache key holds both parameters' version counters (moved
+    by every in-place update, such as an optimizer step) and data
+    pointers."""
     key = (layer.w_ih._version, layer.w_ih.data_ptr(), layer.w_hh._version,
            layer.w_hh.data_ptr())
-    cached = layer.__dict__.get("_k1_packed")
+    cache = layer.__dict__.setdefault("_k1_packed", {})
+    cached = cache.get(kind)
     if cached is None or cached[0] != key:
-        cached = (key, pack_weights(layer.w_ih, layer.w_hh))
-        layer.__dict__["_k1_packed"] = cached
+        pack = pack_weights_wgmma if kind == "wgmma" else pack_weights
+        cached = (key, pack(layer.w_ih, layer.w_hh))
+        cache[kind] = cached
     return cached[1]
 
 
@@ -165,8 +306,9 @@ def _lib() -> ctypes.CDLL:
     lib.dsp_fused_bilstm_f32.argtypes = [P] * 7 + [I] * 6 + [P]
     lib.dsp_fused_bilstm_bf16.argtypes = [P] * 6 + [I] * 6 + [P]
     lib.dsp_fused_bilstm_proj_f32.argtypes = [P] * 6 + [I] * 5 + [P]
+    lib.dsp_fused_bilstm_bf16_wgmma.argtypes = [P] * 6 + [I] * 9 + [P]
     for fn in (lib.dsp_fused_bilstm_f32, lib.dsp_fused_bilstm_bf16,
-               lib.dsp_fused_bilstm_proj_f32):
+               lib.dsp_fused_bilstm_proj_f32, lib.dsp_fused_bilstm_bf16_wgmma):
         fn.restype = ctypes.c_int
     return lib
 
@@ -210,7 +352,16 @@ def input_projection(xs, w_ih: torch.Tensor, b: torch.Tensor,
     return xproj
 
 
-def _check_inputs(xs, w_ih, b, w_hh, H, packed) -> None:
+def _check_packed(packed: torch.Tensor, shape: tuple, dev) -> None:
+    if tuple(packed.shape) != shape or packed.dtype != torch.bfloat16 or \
+            not packed.is_contiguous() or packed.device != dev or \
+            packed.data_ptr() % 16:
+        raise ValueError(f"packed must be contiguous 16-byte aligned {shape} "
+                         f"bfloat16 on {dev}; got {tuple(packed.shape)} "
+                         f"{packed.dtype} on {packed.device}")
+
+
+def _check_inputs(xs, w_ih, b, w_hh, H) -> None:
     dev, dtype = xs[0].device, xs[0].dtype
     if dtype not in _DTYPES:
         raise TypeError(f"fused_bilstm takes float32 or bfloat16 (got {dtype})")
@@ -233,9 +384,6 @@ def _check_inputs(xs, w_ih, b, w_hh, H, packed) -> None:
             "b": ((2, 4 * H), torch.float32)}
     named = list(zip(("x", "x2"), xs)) + [
         ("w_ih", w_ih), ("w_hh", w_hh), ("b", b)]
-    if packed is not None and dtype == torch.bfloat16:
-        want["packed"] = ((2, 4 * H, padded_k(F, H)), torch.bfloat16)
-        named.append(("packed", packed))
     for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, inputs on {dev}")
@@ -250,7 +398,7 @@ def _check_inputs(xs, w_ih, b, w_hh, H, packed) -> None:
             raise TypeError(f"{name} is {t.dtype}, x is {dtype}")
 
 
-def _layer_inputs(xs, w_ih, b, w_hh, H, packed):
+def _layer_inputs(xs, w_ih, b, w_hh, H):
     """xs as a tuple, checked on the card (_check_inputs); None for CPU
     tensors, which take the plain version."""
     if not isinstance(xs, (tuple, list)):
@@ -261,7 +409,7 @@ def _layer_inputs(xs, w_ih, b, w_hh, H, packed):
     if xs[0].device.type != "cuda":
         raise ValueError(f"fused_bilstm runs on cuda or cpu tensors "
                          f"(got {xs[0].device})")
-    _check_inputs(xs, w_ih, b, w_hh, H, packed)
+    _check_inputs(xs, w_ih, b, w_hh, H)
     return xs
 
 
@@ -274,7 +422,7 @@ def layer_f32_split(xs, w_ih: torch.Tensor, b: torch.Tensor,
     not given), then lstm_recurrence_k1. Arguments and result as
     bilstm_layer_fused's; a CPU tensor takes the plain version."""
     H = hidden_size
-    checked = _layer_inputs(xs, w_ih, b, w_hh, H, packed)
+    checked = _layer_inputs(xs, w_ih, b, w_hh, H)
     if checked is None:
         return bilstm_layer_plain(xs, w_ih, b, w_hh, H, seq_out)
     if checked[0].dtype != torch.float32:
@@ -296,7 +444,7 @@ def layer_f32_inloop(xs, w_ih: torch.Tensor, b: torch.Tensor,
     result as bilstm_layer_fused's; a CPU tensor takes the plain
     version."""
     H = hidden_size
-    checked = _layer_inputs(xs, w_ih, b, w_hh, H, None)
+    checked = _layer_inputs(xs, w_ih, b, w_hh, H)
     if checked is None:
         return bilstm_layer_plain(xs, w_ih, b, w_hh, H, seq_out)
     if checked[0].dtype != torch.float32:
@@ -304,9 +452,74 @@ def layer_f32_inloop(xs, w_ih: torch.Tensor, b: torch.Tensor,
     return _launch(checked, w_ih, b, w_hh, H, seq_out, None)
 
 
+def layer_bf16_wgmma(xs, w_ih: torch.Tensor, b: torch.Tensor,
+                     w_hh: torch.Tensor, hidden_size: int,
+                     seq_out: bool = True, packed=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A bfloat16 layer through the wgmma kernel (over ``packed``, its
+    pack_weights_wgmma, made here when not given) on wgmma_plan's
+    clusters, stages and x buffers. Raises where the kernel does not fit
+    (H > 256, or fewer than two stages of its ring). Arguments and result
+    as bilstm_layer_fused's; a CPU tensor takes the plain version."""
+    H = hidden_size
+    checked = _layer_inputs(xs, w_ih, b, w_hh, H)
+    if checked is None:
+        return bilstm_layer_plain(xs, w_ih, b, w_hh, H, seq_out)
+    if checked[0].dtype != torch.bfloat16:
+        raise TypeError("the wgmma kernel takes bfloat16")
+    T, B, _ = checked[0].shape
+    F = sum(x.shape[-1] for x in checked)
+    plan = wgmma_plan(F, H, B)
+    if plan is None:
+        raise ValueError(f"the wgmma kernel does not fit F={F} H={H}")
+    return _launch_wgmma(checked, w_ih, b, w_hh, H, seq_out, packed, plan)
+
+
+def layer_bf16_mma(xs, w_ih: torch.Tensor, b: torch.Tensor,
+                   w_hh: torch.Tensor, hidden_size: int,
+                   seq_out: bool = True, packed=None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A bfloat16 layer through the mma.sync kernel (over ``packed``, its
+    pack_weights, made here when not given). Arguments and result as
+    bilstm_layer_fused's; a CPU tensor takes the plain version."""
+    H = hidden_size
+    checked = _layer_inputs(xs, w_ih, b, w_hh, H)
+    if checked is None:
+        return bilstm_layer_plain(xs, w_ih, b, w_hh, H, seq_out)
+    if checked[0].dtype != torch.bfloat16:
+        raise TypeError("the mma.sync kernel takes bfloat16")
+    return _launch(checked, w_ih, b, w_hh, H, seq_out, packed)
+
+
+def _launch_wgmma(xs, w_ih, b, w_hh, H, seq_out, packed, plan):
+    """One launch of the wgmma kernel on checked bfloat16 inputs, on
+    ``plan``'s (cluster, stages, x buffers)."""
+    T, B, Fa = xs[0].shape
+    Fb = xs[1].shape[-1] if len(xs) == 2 else 0
+    nkx, nch = wgmma_dims(Fa + Fb, H)
+    if packed is None:
+        packed = pack_weights_wgmma(w_ih, w_hh)
+    _check_packed(packed, (2, nch * (nkx + nch), 2, 128, WG_K),
+                  xs[0].device)
+    out_T = T if seq_out else 1
+    ys_f = torch.empty((out_T, B, H), dtype=xs[0].dtype, device=xs[0].device)
+    ys_b = torch.empty_like(ys_f)
+    lib = _lib()
+    with torch.cuda.device(xs[0].device):
+        err = lib.dsp_fused_bilstm_bf16_wgmma(
+            xs[0].data_ptr(), xs[1].data_ptr() if Fb else None,
+            packed.data_ptr(), b.data_ptr(), ys_f.data_ptr(),
+            ys_b.data_ptr(), T, B, Fa, Fb, H, int(seq_out), *plan,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "fused_bilstm_bf16_wgmma launch")
+    launches["fused_bilstm_bf16_wgmma"] += 1
+    return ys_f, ys_b
+
+
 def _launch(xs, w_ih, b, w_hh, H, seq_out, packed):
-    """One launch of the bfloat16 kernel (over ``packed``, made here when
-    not given) or of the float32 in-loop kernel, on checked inputs."""
+    """One launch of the bfloat16 mma.sync kernel (over ``packed``, made
+    here when not given) or of the float32 in-loop kernel, on checked
+    inputs."""
     T, B, Fa = xs[0].shape
     Fb = xs[1].shape[-1] if len(xs) == 2 else 0
     bf16 = xs[0].dtype == torch.bfloat16
@@ -321,6 +534,8 @@ def _launch(xs, w_ih, b, w_hh, H, seq_out, packed):
         if bf16:
             if packed is None:
                 packed = pack_weights(w_ih, w_hh)
+            _check_packed(packed, (2, 4 * H, padded_k(Fa + Fb, H)),
+                          xs[0].device)
             err = lib.dsp_fused_bilstm_bf16(
                 xs[0].data_ptr(), x1, packed.data_ptr(), b.data_ptr(),
                 ys_f.data_ptr(), ys_b.data_ptr(), T, B, Fa, Fb, H,
@@ -342,20 +557,25 @@ def bilstm_layer_fused(xs, w_ih: torch.Tensor, b: torch.Tensor,
     """One fused BiLSTM layer, time-major. ``xs``: a (T, B, F) tensor or a
     tuple of two (their F's concatenate against w_ih's rows), in float32
     or bfloat16; w_ih (2, F, 4H) and w_hh (2, H, 4H) in that dtype (for
-    bfloat16, any float dtype: the kernel reads ``packed``, their
-    pack_weights, made here when not given; float32's split route reads
-    w_ih through ``packed``, its pack_proj_weights at this row split,
-    made here when not given); b (2, 4H) float32. float32 takes
-    f32_inloop's route. Returns (ys_f, ys_b), each (T, B, H) in true
-    time, or (1, B, H) final states when ``seq_out`` is False."""
+    bfloat16, any float dtype: the kernel k1_bf16_plan picks reads
+    ``packed``, the weights packed for it (``packed_for``), made here
+    when not given; float32's split route reads w_ih through ``packed``,
+    its pack_proj_weights at this row split, made here when not given);
+    b (2, 4H) float32. float32 takes f32_inloop's route. Returns (ys_f,
+    ys_b), each (T, B, H) in true time, or (1, B, H) final states when
+    ``seq_out`` is False."""
     H = hidden_size
-    checked = _layer_inputs(xs, w_ih, b, w_hh, H, packed)
+    checked = _layer_inputs(xs, w_ih, b, w_hh, H)
     if checked is None:
         return bilstm_layer_plain(xs, w_ih, b, w_hh, H, seq_out)
-    if checked[0].dtype == torch.bfloat16:
-        return _launch(checked, w_ih, b, w_hh, H, seq_out, packed)
     T, B, _ = checked[0].shape
     F = sum(x.shape[-1] for x in checked)
+    if checked[0].dtype == torch.bfloat16:
+        plan = k1_bf16_plan(F, H, B)
+        if plan is None:
+            return _launch(checked, w_ih, b, w_hh, H, seq_out, packed)
+        return _launch_wgmma(checked, w_ih, b, w_hh, H, seq_out, packed,
+                             plan)
     sms = torch.cuda.get_device_properties(
         checked[0].device).multi_processor_count
     if f32_inloop(F, H, B, sms):
@@ -387,8 +607,11 @@ def bilstm_stack_fused_tm(xs, layers, hidden_size: int,
         seq_out = li < n - 1 or last_layer_sequence
         b = p.b.to(torch.float32).contiguous()
         if on_card and compute_dtype == torch.bfloat16:
-            xs = bilstm_layer_fused(xs, p.w_ih, b, p.w_hh, hidden_size,
-                                    seq_out, packed=packed_weights(p))
+            F = sum(x.shape[-1] for x in xs)
+            xs = bilstm_layer_fused(
+                xs, p.w_ih, b, p.w_hh, hidden_size, seq_out,
+                packed=packed_weights(p, packed_for(F, hidden_size,
+                                                    xs[0].shape[1])))
             continue
         if on_card and compute_dtype == torch.float32:
             xs = bilstm_layer_fused(

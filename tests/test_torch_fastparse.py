@@ -31,6 +31,11 @@ from deepsignal_plant_tpu_torch.utils.formats import (format_call_rows,
                                                       parse_feature_lines)
 from make_synthetic import (synth_fast5_dir, synth_feature_rows,
                             synth_genome, write_fasta)
+from torch_jaxnative import jax_native_lib
+
+# the JAX package's library, loaded in every worker before any test runs
+# (tests/torch_jaxnative.py)
+jax_native_lib()
 
 ARRAYS = ("kmer", "base_means", "base_stds", "base_signal_lens", "signals",
           "labels")

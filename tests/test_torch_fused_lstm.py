@@ -185,23 +185,23 @@ def test_packed_weights_cached_until_a_parameter_changes():
     _, p = make_layer(8, 2, 3, (16,), 8)
     layer = BiLSTMLayer(16, 8)
     layer.load_state_dict({k: torch.from_numpy(v) for k, v in p.items()})
-    first = fused_lstm.packed_weights(layer)
-    assert fused_lstm.packed_weights(layer) is first
+    first = fused_lstm.packed_weights(layer, "mma")
+    assert fused_lstm.packed_weights(layer, "mma") is first
     with torch.no_grad():
         layer.b.add_(1.0)                  # the bias is not packed
-    assert fused_lstm.packed_weights(layer) is first
+    assert fused_lstm.packed_weights(layer, "mma") is first
     with torch.no_grad():
         layer.w_hh.add_(0.5)
-    second = fused_lstm.packed_weights(layer)
+    second = fused_lstm.packed_weights(layer, "mma")
     assert second is not first
     assert torch.equal(unpack_weights(second, 16, 8)[1],
                        (torch.from_numpy(p["w_hh"]) + 0.5).bfloat16())
-    assert fused_lstm.packed_weights(layer) is second
+    assert fused_lstm.packed_weights(layer, "mma") is second
     with torch.no_grad():
         layer.w_ih.mul_(2.0)
-    assert fused_lstm.packed_weights(layer) is not second
+    assert fused_lstm.packed_weights(layer, "mma") is not second
     layer.w_ih = torch.nn.Parameter(layer.w_ih.detach().clone())
-    third = fused_lstm.packed_weights(layer)
+    third = fused_lstm.packed_weights(layer, "mma")
     assert torch.equal(unpack_weights(third, 16, 8)[0],
                        layer.w_ih.detach().bfloat16())
 

@@ -46,13 +46,14 @@ from deepsignal_plant_tpu_torch.utils import fastparse as pfp
 from make_synthetic import (synth_fast5_dir, synth_feature_rows,
                             synth_genome, write_feature_file)
 from test_torch_call_mods import assert_rows_agree, read_rows
+from torch_jaxnative import jax_native_lib
 
 NARROW = dict(hidden_size=32, num_layers_comb=2)
 NARROW_FLAGS = ["--hid_rnn", "32", "--layernum1", "2"]
 F32 = ["--compute_dtype", "float32"]
 
 needs_jax_lib = pytest.mark.skipif(
-    jfp.get_native_lib() is None,
+    jax_native_lib() is None,
     reason="the JAX package's native library did not build here")
 
 

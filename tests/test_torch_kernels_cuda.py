@@ -32,10 +32,12 @@ writes one replica's bytes, K1's bfloat16 kernel 5 times a forward tile
 of each share; with two or more visible cards, the CLI's default
 ``--device`` (every card) writes ``--device cuda:0``'s bytes.
 
-K1 has one kernel at bfloat16 and two routes at float32 (the 3xTF32
-projection kernel and the float32 recurrence; the in-loop kernel); each
-check asserts that the counters of the kernels the layer ran moved and
-no other.
+K1 has two kernels at bfloat16 (the wgmma kernel, which every layer that
+fits takes, k1_bf16_plan; the mma.sync kernel for the rest, and
+called directly) and two routes at float32 (the 3xTF32 projection
+kernel and the float32 recurrence; the in-loop kernel); each check
+asserts that the counters of the kernels the layer ran moved and no
+other.
 """
 
 import numpy as np
@@ -105,9 +107,11 @@ def k1_plan(H, B, device):
                                     torch.float32)), torch.float32)
 
 
-# K1's float32 routes, called directly
+# K1's float32 routes and its bf16 kernels, called directly
 F32_ROUTES = {"split": fused_lstm.layer_f32_split,
-              "inloop": fused_lstm.layer_f32_inloop}
+              "inloop": fused_lstm.layer_f32_inloop,
+              "wgmma": fused_lstm.layer_bf16_wgmma,
+              "mma": fused_lstm.layer_bf16_mma}
 
 
 def expected_k1_launches(F, H, B, dtype, device, f32_route=None):
@@ -116,10 +120,12 @@ def expected_k1_launches(F, H, B, dtype, device, f32_route=None):
     kernel, or the projection kernel and the recurrence kernel of K1's
     plan (k1_plan)."""
     want = {k: 0 for k in fused_lstm.launches}
-    if dtype == torch.bfloat16:
-        want["fused_bilstm_bf16"] = 1
-        return want
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    if dtype == torch.bfloat16:
+        plan = fused_lstm.k1_bf16_plan(F, H, B)
+        want["fused_bilstm_bf16" if plan is None or f32_route == "mma"
+             else "fused_bilstm_bf16_wgmma"] = 1
+        return want
     if f32_route is None:
         f32_route = ("inloop" if fused_lstm.f32_inloop(F, H, B, sms)
                      else "split")
@@ -136,7 +142,8 @@ def expected_k1_launches(F, H, B, dtype, device, f32_route=None):
 def check_against_plain(Fa, Fb, H, seq_out, B, dtype, device,
                         f32_route=None):
     """One layer against the plain version, through bilstm_layer_fused
-    or the float32 route ``f32_route`` called directly; the counters of
+    or the route ``f32_route`` (a float32 route or a bf16 kernel, by
+    F32_ROUTES) called directly; the counters of
     the kernels it runs move (expected_k1_launches), no other. Returns
     its output."""
     xs, w_ih, b, w_hh = layer_inputs(Fa, Fb, H, B, dtype, device)
@@ -253,15 +260,103 @@ def test_bf16_kernel_at_the_widest_hidden_size(device, Fa, Fb, H, seq_out):
 
 def test_bf16_kernel_takes_packed_weights(device):
     """The packed weights a model caches give the same outputs as packing
-    in the call, bit for bit."""
+    in the call, bit for bit, through the kernel the rule picks and
+    through each kernel called directly; weights packed for the other
+    kernel are refused."""
     xs, w_ih, b, w_hh = layer_inputs(256, 256, 256, 100, torch.bfloat16,
                                      device)
-    packed = fused_lstm.pack_weights(w_ih.float(), w_hh.float())
+    assert fused_lstm.packed_for(512, 256, 100) == "wgmma"
+    packs = {"wgmma": fused_lstm.pack_weights_wgmma(w_ih.float(),
+                                                    w_hh.float()),
+             "mma": fused_lstm.pack_weights(w_ih.float(), w_hh.float())}
     a = fused_lstm.bilstm_layer_fused(xs, w_ih, b, w_hh, 256)
     c = fused_lstm.bilstm_layer_fused(xs, w_ih.float(), b, w_hh.float(), 256,
-                                      packed=packed)
+                                      packed=packs["wgmma"])
     for g, w in zip(a, c):
         assert torch.equal(g, w)
+    for kind in ("wgmma", "mma"):
+        layer = F32_ROUTES[kind]
+        a = layer(xs, w_ih, b, w_hh, 256)
+        c = layer(xs, w_ih.float(), b, w_hh.float(), 256,
+                  packed=packs[kind])
+        for g, w in zip(a, c):
+            assert torch.equal(g, w)
+        with pytest.raises(ValueError):
+            layer(xs, w_ih, b, w_hh, 256,
+                  packed=packs["mma" if kind == "wgmma" else "wgmma"])
+
+
+# the wgmma kernel (K1 bf16) at every main-path and denoise layer shape,
+# rows below one 64-row block, one and two above it, call_mods' tail,
+# --device_batch 3477 and a full tile
+DENOISE_LAYERS = {"den_signal": (16, 0, 256, True),
+                  "den_comb0": (256, 0, 256, True),
+                  "den_comb1": (256, 256, 256, True)}
+
+
+@pytest.mark.parametrize("seq_out", [True, False])
+@pytest.mark.parametrize("B", [1, 63, 65, 1016, 3477, 4096])
+@pytest.mark.parametrize("layer", list(MAIN_PATH_LAYERS)
+                         + list(DENOISE_LAYERS))
+def test_wgmma_kernel_matches_plain(device, layer, B, seq_out):
+    Fa, Fb, H, _ = {**MAIN_PATH_LAYERS, **DENOISE_LAYERS}[layer]
+    check_against_plain(Fa, Fb, H, seq_out, B, torch.bfloat16, device,
+                        "wgmma")
+
+
+@pytest.mark.parametrize("B", [200, 1016, 4096])
+@pytest.mark.parametrize("layer", ["seq", "comb0", "comb1"])
+def test_wgmma_rows_do_not_depend_on_the_cluster(device, layer, B):
+    """The rows of a launch on clusters of 2 (B > 64) equal, bit for bit,
+    those of one-block launches (B = 64: clusters of 1) on the same rows
+    (the rows and their sums do not depend on how many blocks share each
+    weight stage), and are within the bound of the plain version."""
+    Fa, Fb, H, seq_out = MAIN_PATH_LAYERS[layer]
+    xs, w_ih, b, w_hh = layer_inputs(Fa, Fb, H, B, torch.bfloat16, device)
+    assert fused_lstm.wgmma_plan(Fa + Fb, H, B)[0] == 2
+    assert fused_lstm.wgmma_plan(Fa + Fb, H, 64)[0] == 1
+    got = fused_lstm.layer_bf16_wgmma(xs, w_ih, b, w_hh, H, seq_out)
+    want = bilstm_layer(xs, w_ih, b, w_hh, H, seq_out)
+    for r0 in (0, 64):
+        rows = tuple(x[:, r0:r0 + 64].contiguous() for x in xs)
+        one = fused_lstm.layer_bf16_wgmma(rows, w_ih, b, w_hh, H, seq_out)
+        for g, o in zip(got, one):
+            assert torch.equal(g[:, r0:r0 + 64], o)
+    for g, w in zip(got, want):
+        assert (g.float() - w.float()).abs().max().item() <= \
+            TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("B", [65, 4096])
+@pytest.mark.parametrize("layer", list(MAIN_PATH_LAYERS))
+def test_mma_kernel_matches_plain(device, layer, B):
+    """The mma.sync kernel, called directly at the main path's shapes
+    (the rule sends them to the wgmma kernel)."""
+    check_against_plain(*MAIN_PATH_LAYERS[layer], B, torch.bfloat16, device,
+                        "mma")
+
+
+def test_wgmma_kernel_raises_on_what_it_does_not_take(device):
+    """A launch the kernel refuses raises; nothing falls back."""
+    xs, w_ih, b, w_hh = layer_inputs(16, 0, 128, 64, torch.bfloat16, device)
+    before = dict(fused_lstm.launches)
+    # plans the kernel refuses: clusters of 4 (slower, not taken), a ring
+    # of 5 stages, and 4 stages with two x buffers at comb1 (past a
+    # block's shared memory: its plan is 3 stages and one x buffer)
+    for plan in ((4, 2, 1), (1, 5, 1)):
+        with pytest.raises(RuntimeError):
+            fused_lstm._launch_wgmma(xs, w_ih, b, w_hh, 128, True, None,
+                                     plan)
+    xs2, w_ih2, b2, w_hh2 = layer_inputs(512, 0, 256, 64, torch.bfloat16,
+                                         device)
+    assert fused_lstm.wgmma_plan(512, 256, 64) == (1, 3, 1)
+    with pytest.raises(RuntimeError):
+        fused_lstm._launch_wgmma(xs2, w_ih2, b2, w_hh2, 256, True, None,
+                                 (1, 4, 2))
+    xs, w_ih, b, w_hh = layer_inputs(16, 0, 512, 64, torch.bfloat16, device)
+    with pytest.raises(ValueError):        # H > 256 does not fit
+        fused_lstm.layer_bf16_wgmma(xs, w_ih, b, w_hh, 512)
+    assert fused_lstm.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -583,7 +678,7 @@ def test_two_replicas_on_one_card_write_one_replicas_bytes(
         st = eng.run_features_file(tsv, str(tmp_path / f"{k}.tsv"))
         moved = {n: v - before[n] for n, v in fused_lstm.launches.items()}
         assert moved == {n: (5 * st.forward_tiles
-                             if n == "fused_bilstm_bf16" else 0)
+                             if n == "fused_bilstm_bf16_wgmma" else 0)
                          for n in moved}
         # a full batch: two tiles, or two shares of one tile; the
         # 3,616-row tail: one tile, in the first share only
@@ -610,7 +705,7 @@ def test_call_mods_over_every_card_writes_one_cards_bytes(
         want = ([f"cuda:{i}" for i in range(torch.cuda.device_count())]
                 if label == "every" else ["cuda:0"])
         assert st["devices"] == want
-        assert st["kernel_launches"]["fused_bilstm_bf16"] == \
+        assert st["kernel_launches"]["fused_bilstm_bf16_wgmma"] == \
             5 * st["forward_tiles"]
         outs[label] = out.read_bytes()
     assert outs["every"] == outs["one"]

@@ -46,6 +46,11 @@ from deepsignal_plant_tpu_torch.utils import formats as pfm
 from make_synthetic import (synth_fast5_dir, synth_feature_rows,
                             synth_genome, write_feature_file)
 from test_torch_call_mods import assert_rows_agree, read_rows
+from torch_jaxnative import jax_native_lib
+
+# the JAX package's library, loaded in every worker before any test runs
+# (tests/torch_jaxnative.py)
+jax_native_lib()
 
 NARROW = dict(hidden_size=32, num_layers_comb=2)
 NARROW_FLAGS = ["--hid_rnn", "32", "--layernum1", "2"]

@@ -34,6 +34,11 @@ from deepsignal_plant_tpu_torch.config import ModelConfig, TrainConfig
 from deepsignal_plant_tpu_torch.io.dataset import FeatureDataset
 from deepsignal_plant_tpu_torch.models import convert
 from deepsignal_plant_tpu_torch.pipeline import train as port_train
+from torch_jaxnative import jax_native_lib
+
+# the JAX package's library (its spill plane's int8 wire quantizes with
+# it), loaded in every worker before any test runs (tests/torch_jaxnative.py)
+jax_native_lib()
 
 NARROW = dict(hidden_size=32, num_layers_comb=2, dropout_rate=0.0)
 CPU = torch.device("cpu")

@@ -26,7 +26,10 @@ int8 wire + bfloat16, float16 and int8 wires + float32 compute, and
 float32 wire + float32 compute, each at device_batch 32768 (one batch of
 4,493 sites in a 4096-row and a 397-row tile), 4096 (two batches) and
 3477 (its second batch a 1,016-row tile, the tail tile of
-chip_smoke.py's main path), and compares each run with the base: call
+chip_smoke.py's main path), the bfloat16 variants once through each of
+K1's two bfloat16 kernels (the wgmma kernel, which the rule picks, and
+the mma.sync kernel; each run's launches say which ran), and compares
+each run with the base: call
 agreement, flips (listed with their inputs), mean and max |dP1|; the
 int8+f32 runs also against JAX's int8 run. It prints the table and one
 JSON line, and writes the JSON to chiprun_out/torch_trained_gates.json.
@@ -46,6 +49,7 @@ purity after >= 99%. It writes chiprun_out/torch_trained_gates_denoise
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -61,6 +65,7 @@ VARIANTS = {"f16+bf16": ("float16", "bfloat16"),
             "int8+f32": ("int8", "float32"),
             "f32+f32": ("float32", "float32")}
 DEVICE_BATCHES = (32768, 4096, 3477)
+K1_BF16_KERNELS = ("wgmma", "mma")
 GATE_FILES = ("eval_features.tsv", "model.trained.npz", "meta.json",
               "train.tsv")
 # step 3: docs/DENOISE_EVAL.md's protocol
@@ -136,6 +141,7 @@ def card(gates: str) -> None:
         raise SystemExit("no CUDA device: the gates run on the card")
     sys.path.insert(0, REPO)
     from deepsignal_plant_tpu_torch.config import CallConfig, ModelConfig
+    from deepsignal_plant_tpu_torch.ops import fused_lstm
     from deepsignal_plant_tpu_torch.pipeline.call_mods import CallModsEngine
     smi = card_name()
     feats = os.path.join(gates, "eval_features.tsv")
@@ -149,11 +155,20 @@ def card(gates: str) -> None:
     rows = []
     for name, (wire, compute) in VARIANTS.items():
         cfg = ModelConfig(dropout_rate=0.0, compute_dtype=compute)
-        for db in DEVICE_BATCHES:
+        # bfloat16 through each of K1's two kernels: the wgmma kernel
+        # (the rule's choice) and the mma.sync kernel
+        kernels = K1_BF16_KERNELS if compute == "bfloat16" else (None,)
+        for kernel, db in ((k, db) for k in kernels for db in DEVICE_BATCHES):
             eng = CallModsEngine(ckpt, cfg, CallConfig(
                 device_batch=db, transfer_dtype=wire), "cuda")
-            out = os.path.join(out_dir, f"{name}.{db}.tsv")
-            st = eng.run_features_file(feats, out)
+            tag = name + (f".{kernel}" if kernel else "")
+            out = os.path.join(out_dir, f"{tag}.{db}.tsv")
+            before = dict(fused_lstm.launches)
+            with (fused_lstm.mma_only() if kernel == "mma" else
+                  contextlib.nullcontext()):
+                st = eng.run_features_file(feats, out)
+            launched = {k: v - before[k] for k, v in
+                        fused_lstm.launches.items() if v != before[k]}
             calls = read_calls(out)
             res = compare(base_calls, calls)
             if name == "int8+f32":
@@ -161,7 +176,8 @@ def card(gates: str) -> None:
                 res["max_abs_dp1_vs_jax_int8"] = max(
                     abs(calls[k][1] - jax_int8[k][1]) for k in calls)
             rows.append({"variant": name, "wire": wire, "compute": compute,
-                         "recurrence": "kernel", "device_batch": db,
+                         "recurrence": "kernel", "k1_bf16": kernel,
+                         "device_batch": db, "launches": launched,
                          "forward_tiles": st.forward_tiles,
                          "seconds": st.seconds, **res})
     summary = {"card": smi, "kind": torch.cuda.get_device_name(0),
@@ -174,11 +190,12 @@ def card(gates: str) -> None:
                "jax_int8_vs_base": compare(base_calls, jax_int8),
                "gates": rows}
     print(f"card: {smi}")
-    print("| variant | wire | compute | device_batch | agreement | flips | "
-          "mean abs dP1 | max abs dP1 |")
-    print("|---|---|---|---|---|---|---|---|")
+    print("| variant | wire | compute | K1 bf16 | device_batch | agreement "
+          "| flips | mean abs dP1 | max abs dP1 |")
+    print("|---|---|---|---|---|---|---|---|---|")
     for r in rows:
         print(f"| {r['variant']} | {r['wire']} | {r['compute']} | "
+              f"{r['k1_bf16'] or '-'} | "
               f"{r['device_batch']} | {r['agreement_pct']:.4f}% | "
               f"{r['flips']} | {r['mean_abs_dp1']:.3g} | "
               f"{r['max_abs_dp1']:.6f} |")
