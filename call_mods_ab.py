@@ -4,6 +4,8 @@ checkouts of the port in turns, on one card.
 
     python3 call_mods_ab.py build/parent . . build/parent [--rows 131072]
     python3 call_mods_ab.py . --fixture sparse --wires auto off
+    python3 call_mods_ab.py . --fixture dense sparse \
+        --allocators tuned default default tuned [--tsv DENSE SPARSE]
 
 Fixtures: ``dense`` (write_dense_features: read-structured, one site per
 C, ~3.9 bases a site) or ``sparse`` (write_features: unrelated 13-base
@@ -18,12 +20,24 @@ them. The checkpoint comes from this checkout's init_params and
 save_checkpoint, which every checkout of the port reads. Without a card
 it fails.
 
+Several ``--fixture`` entries run in each process in turn (``--tsv``
+gives existing files for them instead of writing the fixtures).
+``--allocators`` runs each checkout once per entry, each a fresh process:
+``tuned`` as the package runs (glibc's malloc thresholds raised by
+utils/allocator.py when the native library loads), ``default`` with
+glibc's own thresholds, the package's tune replaced by a no-op before
+anything loads (calling mallopt to restore 128 KB would not restore
+them: a mallopt of M_MMAP_THRESHOLD turns off glibc's dynamic
+threshold). Each run reports the sha256 of the rows it wrote.
+
 chip_smoke.py imports the fixture writers and ``rate_run`` from here.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -130,25 +144,28 @@ def busy_seconds(prof) -> tuple[float, int]:
     return busy / 1e6, len(spans)
 
 
-def rate_run(engine, tsv: str, out: str, launches: dict) -> dict:
+def rate_run(engine, tsv: str, out: str, launches: dict,
+             profiled: bool = True) -> dict:
     """``engine.run_features_file`` on ``tsv`` to warm up (CUDA's
     first-use costs, the pinned ring grown to full batches, the file in
     the page cache), then once more under torch.profiler with CUDA
-    activity only: the rate from that run's CallStats, the card's busy
-    share (the union of its kernel and copy spans over the run's wall
-    time), and the kernel launches of that run (``launches``, the
-    checkout's counters, set to 0 just before it)."""
+    activity only (``profiled``; else without it, and no busy share):
+    the rate from that run's CallStats, the card's busy share (the union
+    of its kernel and copy spans over the run's wall time), and the
+    kernel launches of that run (``launches``, the checkout's counters,
+    set to 0 just before it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     engine.run_features_file(tsv, out)
     for k in launches:
         launches[k] = 0
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+          else contextlib.nullcontext()) as prof:
         t0 = time.perf_counter()
         stats = engine.run_features_file(tsv, out)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, events = busy_seconds(prof)
+    busy, events = busy_seconds(prof) if profiled else (0.0, 0)
     return {"stats": dataclasses.asdict(stats),
             "sites_per_s": stats.sites / stats.seconds,
             "kernel_launches": dict(launches),
@@ -157,10 +174,28 @@ def rate_run(engine, tsv: str, out: str, launches: dict) -> dict:
             "device_events": events}
 
 
-def child(tree: str, tsv: str, ckpt: str, tmp: str,
-          wires: list[str]) -> list[dict]:
-    """One checkout's runs, in this process."""
+def file_sha256(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 24), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def child(tree: str, inputs: list[tuple[str, str]], ckpt: str, tmp: str,
+          wires: list[str], arm: str, profiled: bool) -> list[dict]:
+    """One checkout's runs, in this process: at each wire, one engine
+    on each (fixture, TSV) of ``inputs``, under allocator ``arm``."""
     sys.path.insert(0, tree)
+    try:
+        from deepsignal_plant_tpu_torch.utils import allocator
+    except ImportError:         # a checkout from before the tune
+        allocator = None
+    if allocator is not None:
+        if arm == "default":
+            allocator.tune_host_allocator = lambda: False
+        else:
+            allocator.tune_host_allocator()
     from deepsignal_plant_tpu_torch.config import CallConfig, ModelConfig
     from deepsignal_plant_tpu_torch.ops import fused_lstm
     from deepsignal_plant_tpu_torch.pipeline.call_mods import CallModsEngine
@@ -170,9 +205,14 @@ def child(tree: str, tsv: str, ckpt: str, tmp: str,
         call = CallConfig() if wire == "default" else CallConfig(
             packed_wire=wire)
         eng = CallModsEngine(ckpt, cfg, call, device="cuda")
-        res = rate_run(eng, tsv, os.path.join(tmp, "calls.tsv"),
-                       fused_lstm.launches)
-        out.append({"tree": tree, "wire": wire, **res})
+        for fixture, tsv in inputs:
+            path = os.path.join(tmp, f"calls_{os.getpid()}.tsv")
+            res = rate_run(eng, tsv, path, fused_lstm.launches, profiled)
+            out.append({"tree": tree, "fixture": fixture, "wire": wire,
+                        "allocator": arm, "allocator_tuned": bool(
+                            allocator is not None and allocator._tuned),
+                        "rows_sha256": file_sha256(path), **res})
+            os.remove(path)
     return out
 
 
@@ -180,17 +220,29 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("trees", nargs="+", help="checkouts, in run order")
     ap.add_argument("--rows", type=int, default=131_072)
-    ap.add_argument("--fixture", choices=sorted(FIXTURES), default="dense")
+    ap.add_argument("--fixture", nargs="+", choices=sorted(FIXTURES),
+                    default=["dense"])
+    ap.add_argument("--tsv", nargs="+", help="existing TSVs, one for each "
+                    "--fixture entry, used instead of writing them")
     ap.add_argument("--wires", nargs="+", default=["default"],
                     help="--packed_wire settings, run in this order in "
                          "each checkout's process (default: its own)")
-    ap.add_argument("--child", nargs=3, help=argparse.SUPPRESS,
-                    metavar=("TSV", "CKPT", "TMP"))
+    ap.add_argument("--allocators", nargs="+", choices=["tuned", "default"],
+                    default=["tuned"], help="a process per entry and "
+                    "checkout, in this order")
+    ap.add_argument("--no-profile", dest="profiled", action="store_false",
+                    help="time without torch.profiler (no busy share)")
+    ap.add_argument("--child", nargs=4, help=argparse.SUPPRESS,
+                    metavar=("INPUTS", "CKPT", "TMP", "ARM"))
     args = ap.parse_args()
     if args.child:
-        for res in child(args.trees[0], *args.child, args.wires):
+        inputs, ckpt, tmp, arm = args.child
+        for res in child(args.trees[0], json.loads(inputs), ckpt, tmp,
+                         args.wires, arm, args.profiled):
             print(json.dumps(res), flush=True)
         return 0
+    if args.tsv and len(args.tsv) != len(args.fixture):
+        ap.error("--tsv takes one file for each --fixture entry")
     import torch
     if not torch.cuda.is_available():
         print("call_mods_ab: no CUDA device", file=sys.stderr)
@@ -203,38 +255,46 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    write = FIXTURES[args.fixture]
     results = []
     with tempfile.TemporaryDirectory() as tmp:
-        tsv = os.path.join(tmp, "in.tsv")
-        t0 = time.time()
-        write(tsv, args.rows, SEED + 6)
+        inputs = []
+        for i, fixture in enumerate(args.fixture):
+            if args.tsv:
+                inputs.append((fixture, os.path.abspath(args.tsv[i])))
+                continue
+            tsv = os.path.join(tmp, f"{fixture}.tsv")
+            t0 = time.time()
+            FIXTURES[fixture](tsv, args.rows, SEED + 6)
+            print(f"wrote {args.rows} {fixture} rows "
+                  f"({os.path.getsize(tsv)} bytes) in "
+                  f"{time.time() - t0:.2f} s", flush=True)
+            inputs.append((fixture, tsv))
         cfg = ModelConfig(dropout_rate=0.0)
         ckpt = os.path.join(tmp, "both_bilstm.ckpt.npz")
         save_checkpoint(ckpt, init_params(cfg, SEED), cfg)
-        print(f"wrote {args.rows} {args.fixture} rows "
-              f"({os.path.getsize(tsv)} bytes) in {time.time() - t0:.2f} s",
-              flush=True)
         for tree in args.trees:
-            env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__),
-                 os.path.abspath(tree), "--child", tsv, ckpt, tmp,
-                 "--wires", *args.wires],
-                cwd=tree, env=env,
-                capture_output=True, text=True, timeout=1200)
-            if proc.returncode != 0:
-                print(proc.stdout[-3000:], proc.stderr[-3000:],
-                      file=sys.stderr)
-                return 1
-            for line in proc.stdout.strip().splitlines():
-                if line.startswith('{"tree"'):
-                    res = {**json.loads(line), "fixture": args.fixture,
-                           "card": smi}
-                    print(json.dumps(res), flush=True)
-                    results.append(res)
-    print(json.dumps([{k: r[k] for k in ("tree", "wire", "sites_per_s",
-                                          "busy_share")} for r in results]))
+            for arm in args.allocators:
+                env = {k: v for k, v in os.environ.items()
+                       if k != "PYTHONPATH"}
+                proc = subprocess.run(
+                    [sys.executable, os.path.abspath(__file__),
+                     os.path.abspath(tree), "--child", json.dumps(inputs),
+                     ckpt, tmp, arm, "--wires", *args.wires,
+                     *([] if args.profiled else ["--no-profile"])],
+                    cwd=tree, env=env,
+                    capture_output=True, text=True, timeout=1200)
+                if proc.returncode != 0:
+                    print(proc.stdout[-3000:], proc.stderr[-3000:],
+                          file=sys.stderr)
+                    return 1
+                for line in proc.stdout.strip().splitlines():
+                    if line.startswith('{"tree"'):
+                        res = {**json.loads(line), "card": smi}
+                        print(json.dumps(res), flush=True)
+                        results.append(res)
+    print(json.dumps([{k: r[k] for k in (
+        "tree", "fixture", "wire", "allocator", "sites_per_s", "busy_share",
+        "rows_sha256")} for r in results]))
     return 0
 
 

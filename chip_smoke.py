@@ -121,8 +121,8 @@ run.
    stages); ``serve --once`` over one dropped v3 .npz (bytes = the CLI's,
    a .done marker); one epoch of ``train`` on the v1 directory (5
    launches of K3, K4 and dW_hh per step);
-8. denoise, resume and the streaming dataset, each a fresh CLI process:
-   ``denoise`` with its defaults (bf16, signal_bilstm at hidden 256,
+8. denoise, resume and the streaming dataset: ``denoise``, each a fresh
+   CLI process, with its defaults (bf16, signal_bilstm at hidden 256,
    dropout 0.5; ``--iterations 2 --rounds 1 --epoch_num 2``, an accuracy
    check every 4 steps) on a seeded learnable 16,384-row TSV with 20% of
    its label-0 rows flipped to 1: 4 launches of K3, K4 and dW_hh per step
@@ -132,7 +132,8 @@ run.
    through the kernels and through the plain versions (the same final
    file, the first iteration's mean scores within 1e-3); ``train`` for
    one epoch on phase 4b's rows, then ``--resume`` to two (it starts at
-   epoch 2 and step 32), and one epoch with ``--stream yes``: 5 launches
+   epoch 2 and step 32), and one epoch with ``--stream yes``, the three in
+   turn in one fresh process (each run's launches its own): 5 launches
    of K3, K4 and dW_hh per step, samples/s of each plane;
    (8b) ``denoise`` at two ranks on card 0 over gloo, one launch: the
    global-batch plane in float32 at dropout 0 on the first 8,192 rows of
@@ -183,9 +184,26 @@ run.
    merge, not what N cards give. (10b) the engine on one card through
    each of K1's bfloat16 kernels in turns, on the dense TSV, v3 at int8
    and v3 at int8 resident: sites/s and the forwards' device seconds;
-11. a ``{"kernels": [...]}`` line (phase 6c's, 8's, 8b's, 9's and 10's
-   launches beside each kernel's main-path count), the card line, and
-   last ``{"ok": true, "device": {...}}``.
+11. train and denoise over a process's local cards, and the host
+   allocator: (11a) ``train_loop`` over ``[cuda:0, cuda:0]`` and over
+   ``[cuda:0]`` in turns (two, one, one, two), one epoch of phase 4b's
+   rows with phase 9b's arguments, on the sharded-resident and the
+   host-fed plane: 5 launches of K3, K4 and dW_hh a step on each
+   replica, the two replicas' parameters bitwise equal, the two-replica
+   weights within 2e-5 of phase 9b's two gloo ranks (bitwise expected;
+   9b runs the host-fed ranks a third time in the replicas' global-batch
+   layout), samples/s of each run; (11b) one 512-row step over one and
+   over two replicas in turns, host enqueue and device ms; (11c)
+   ``denoise`` over two replicas on card 0 on each of phase 8b's planes
+   with 8b's arguments, its final file byte for byte 8b's two-rank file;
+   (11d) ``call_mods_ab.py`` on phase 4e's dense TSV and phase 4's sparse
+   TSV four times over, with the host-allocator tune and without it
+   (glibc's own thresholds), a fresh process each, in turns: the rows
+   byte for byte equal, sites/s and the parse stages. Two replicas on
+   one card measure the sums and the replica count's cost, not N cards;
+12. a ``{"kernels": [...]}`` line (phase 6c's, 8's, 8b's, 9's, 10's and
+   11's launches beside each kernel's main-path count), the card line,
+   and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Without a card, or
 without the package beside it, it exits non-zero and prints no result.
@@ -194,6 +212,7 @@ from __future__ import annotations
 
 import contextlib
 import gzip
+import hashlib
 import io
 import json
 import os
@@ -429,6 +448,10 @@ SPILL_ACC_TOL = 0.05
 # one card), one epoch of phase 4b's rows a plane at the global batch of
 # TRAIN_B (TRAIN_B / 2 a rank)
 RANKS = 2
+# phase 11: two replicas on card 0 against two gloo ranks on the same rows
+# and seed (phase 9b); the same float32 adds in the same order, so
+# bitwise is expected
+TRAIN_RANKS_TOL = 2e-5
 # phase 9c: the step on a rank's rows with the last eighth padded and
 # masked against the step on the rows kept, in bfloat16 (SGD's first
 # update is the clipped gradient): max|difference| over max|update|
@@ -2807,13 +2830,13 @@ def check_denoise_resume_stream(tmp: str, ab) -> dict:
               "--step_interval", "100000", "--min_epoch_num", "2")
     resumed = ("--model_dir", os.path.join(tmp, "resume_model"))
     steps = -(-TRAIN_ROWS // TRAIN_B)
-    runs = {"epoch1": run_cli("train", *common, *resumed,
-                              "--max_epoch_num", "1"),
-            "resume": run_cli("train", *common, *resumed,
-                              "--max_epoch_num", "2", "--resume"),
-            "stream": run_cli("train", *common, "--model_dir",
-                              os.path.join(tmp, "stream_model"),
-                              "--max_epoch_num", "1", "--stream", "yes")}
+    # in turn in one process: the resumed run reads the state file the
+    # first one wrote
+    runs = dict(zip(("epoch1", "resume", "stream"), run_cli_many([
+        ["train", *common, *resumed, "--max_epoch_num", "1"],
+        ["train", *common, *resumed, "--max_epoch_num", "2", "--resume"],
+        ["train", *common, "--model_dir", os.path.join(tmp, "stream_model"),
+         "--max_epoch_num", "1", "--stream", "yes"]])))
     for name, st in runs.items():
         start = (1, steps) if name == "resume" else (0, 0)
         plane = "stream" if name == "stream" else "resident"
@@ -3009,8 +3032,13 @@ def check_denoise_ranks(tmp: str) -> dict:
         f" one process's, byte for byte")
     if not nccl_same:
         fail("the NCCL rank's denoise file differs from one process's")
-    for name in planes:
-        del out[name]["bytes"], out[name]["scores"]
+    for name, (src, extra, min_rows) in planes.items():
+        # phase 11 runs the same denoise over two replicas on card 0
+        out[name]["final_sha256"] = hashlib.sha256(
+            out[name].pop("bytes")).hexdigest()
+        out[name]["input"] = {"train_file": src, "args": list(extra),
+                              "min_rows": min_rows}
+        del out[name]["scores"]
     out.update({"one_process": {k: one[k] for k in (
         "seconds", "wall_seconds", "mini_trainings_per_s", "steps",
         "forward_tiles", "kernel_launches")},
@@ -3215,7 +3243,13 @@ def check_ranks(tmp: str, trained: dict, ckpt: str) -> dict:
     shard = -(-TRAIN_ROWS // RANKS)         # the most rows a rank holds
     steps = -(-shard // local_b)
     dev = ["--device", "cuda:0"]
-    planes = (("sharded", "auto"), ("host-fed", "never"))
+    # (name, --device_resident, the plane, torch_launch options): the
+    # host-fed plane twice, in a launch's strided row shards and (for
+    # phase 11's replicas) in one process's global-batch layout
+    planes = (("sharded", "auto", "sharded", {}),
+              ("host-fed", "never", "host-fed", {}),
+              ("host-fed-global", "never", "host-fed",
+               {"host_fed_layout": "global"}))
     calls = os.path.join(tmp, "ranks_calls.tsv")
     hosts = [os.path.join(tmp, f"ranks_calls.host{r}.tsv")
              for r in range(RANKS)]
@@ -3225,26 +3259,29 @@ def check_ranks(tmp: str, trained: dict, ckpt: str) -> dict:
               os.path.join(tmp, f"ranks_{plane}", "m{rank}"),
               "--max_epoch_num", "1", "--min_epoch_num", "1",
               "--step_interval", "100000", "--device_resident", resident,
-              *dev, "--verbose_stages"]] for plane, resident in planes]
+              *dev, "--verbose_stages"], opts]
+            for plane, resident, _, opts in planes]
     runs.append([None, ["call_mods", "-i", os.path.join(tmp, "fast5_sub"),
                         "-m", ckpt, "-o", calls, *dev, "--verbose_stages"]])
     runs.append([None, ["call_freq", *sum((["-i", h] for h in hosts), []),
                         "-o", freq, "--sort", "--prob_cf", "0",
                         "--device_agg", *dev]])
-    for plane, _ in planes:
+    for plane, *_ in planes:
         os.makedirs(os.path.join(tmp, f"ranks_{plane}"))
     outs = rank_runs(runs)
-    out = {"train": {}, "launch_seconds": time.time() - t_phase}
+    out = {"train": {}, "launch_seconds": time.time() - t_phase,
+           "params": {}}
 
-    for (plane, _), run_outs in zip(planes, outs):
+    for (plane, _, kind, _), run_outs in zip(planes, outs):
         d = os.path.join(tmp, f"ranks_{plane}")
+        out["params"][plane] = os.path.join(d, "params0.npz")
         sts = rank_stages(run_outs)
         for r, st in enumerate(sts):
             if (st["plane"], st["rank"], st["world_size"], st["local_batch"],
-                    st["steps"]) != (plane, r, RANKS, local_b, steps):
+                    st["steps"]) != (kind, r, RANKS, local_b, steps):
                 fail(f"rank {r} trained {st['plane']} (rank {st['rank']} of "
                      f"{st['world_size']}, {st['local_batch']} rows a step, "
-                     f"{st['steps']} steps; expected {plane}, {local_b}, "
+                     f"{st['steps']} steps; expected {kind}, {local_b}, "
                      f"{steps})")
             check_launches(f"rank {r} ({plane})", st["kernel_launches"], {
                 "lstm_recurrence_fwd_save": 5 * steps,
@@ -3279,7 +3316,7 @@ def check_ranks(tmp: str, trained: dict, ckpt: str) -> dict:
             + f"; valid accuracy {sts[0]['valid_accuracies']}")
 
     # fused fast5 call_mods on phase 6's 64 reads, then pod call_freq
-    sts = rank_stages(outs[2])
+    sts = rank_stages(outs[3])
     for r, st in enumerate(sts):
         check_launches(f"call_mods rank {r}", st["kernel_launches"],
                        {K1_BF16: 5 * st["forward_tiles"]})
@@ -3297,9 +3334,9 @@ def check_ranks(tmp: str, trained: dict, ckpt: str) -> dict:
                     f"sites, {st['sites_per_s']:.1f} sites/s"
                     for r, st in enumerate(sts))
         + "; the .host<N> files hold one process's rows (phase 6)")
-    if "shared input list" not in outs[3][0]:
+    if "shared input list" not in outs[4][0]:
         fail("pod call_freq did not see a shared list:\n"
-             + outs[3][0][-2000:])
+             + outs[4][0][-2000:])
     from deepsignal_plant_tpu_torch import cli
     one_freq = os.path.join(tmp, "ranks_freq_one.tsv")
     with contextlib.redirect_stdout(io.StringIO()):
@@ -3646,6 +3683,306 @@ def k1_f32_tile(timings, errs, checked, layers) -> dict:
         "per_layer": rows}
 
 
+# ---- phase 11: train and denoise over a process's local cards ---------------
+
+def zero_launches(*counters) -> None:
+    for counts in counters:
+        for k in counts:
+            counts[k] = 0
+
+
+def check_local_train(torch, cli, train_mod, convert, FeatureDataset,
+                      tmp: str, ranks: dict) -> dict:
+    """Phase 11a: ``train_loop`` over two replicas on card 0 and over
+    card 0 alone, in turns (two, one, one, two), one epoch of phase 4b's
+    rows at the CLI's defaults (phase 9b's arguments), on the
+    sharded-resident plane and on the host-fed plane. Each run's counts
+    start at 0: 5 launches of K3, K4 and dW_hh a step on each replica and
+    5 of K1's bfloat16 kernel per evaluation tile on each. The two
+    replicas' parameters bitwise equal; the two-replica weights within
+    TRAIN_RANKS_TOL of phase 9b's two gloo ranks on the same rows and
+    seed (the host-fed ranks in the replicas' global-batch layout).
+    ``ranks``: phase 9b's parameter files by plane."""
+    from deepsignal_plant_tpu_torch.ops import fused_lstm, recurrence
+    tr, va = os.path.join(tmp, "train.tsv"), os.path.join(tmp, "valid.tsv")
+    train_ds, valid_ds = (FeatureDataset.from_file(p) for p in (tr, va))
+    card0 = torch.device("cuda", 0)
+    steps = -(-TRAIN_ROWS // TRAIN_B)
+    out = {}
+    for plane, resident, ranks_plane in (
+            ("sharded", "auto", "sharded"),
+            ("host-fed", "never", "host-fed-global")):
+        args = cli.build_parser().parse_args([
+            "train", "--train_file", tr, "--valid_file", va, "--model_dir",
+            tmp, "--max_epoch_num", "1", "--min_epoch_num", "1",
+            "--step_interval", "100000", "--device_resident", resident])
+        model_cfg, train_cfg = train_mod.train_configs(args, card0)
+        with np.load(ranks[ranks_plane]) as z:
+            want = {k[len("params/"):]: z[k] for k in z.files
+                    if k.startswith("params/")}
+        runs = {1: [], 2: []}
+        for k in (2, 1, 1, 2):
+            zero_launches(fused_lstm.launches, recurrence.launches)
+            res = train_mod.train_loop(model_cfg, train_cfg, train_ds,
+                                       valid_ds, None, [card0] * k,
+                                       verbose=False)
+            kl = train_mod.kernel_launches()
+            name = plane if k > 1 or plane == "host-fed" else "resident"
+            if (res["plane"], res["steps"], res["train_rows"],
+                    res["local_batch"]) != (name, steps, TRAIN_ROWS,
+                                            TRAIN_B // k):
+                fail(f"phase 11, {plane} at {k} replica(s): {res['plane']}, "
+                     f"{res['steps']} steps, {res['train_rows']} rows, "
+                     f"{res['local_batch']} a replica")
+            check_launches(f"phase 11, {plane} at {k} replica(s)", kl, {
+                "lstm_recurrence_fwd_save": 5 * steps * k,
+                "lstm_recurrence_bwd": 5 * steps * k,
+                "lstm_dw_hh": 5 * steps * k,
+                K1_BF16: 5 * res["eval_tiles"] * k})
+            got = convert._flatten(res["params"])
+            run = {"samples_per_s": res["train_rows"] / res["train_seconds"],
+                   "train_seconds": res["train_seconds"],
+                   "eval_seconds": res["eval_seconds"],
+                   "eval_tiles": res["eval_tiles"],
+                   "valid_accuracies": res["valid_accuracies"],
+                   "kernel_launches": kl,
+                   "k3_k4_dw_hh_per_replica_step": [
+                       kl[n] / (k * steps) for n in (
+                           "lstm_recurrence_fwd_save", "lstm_recurrence_bwd",
+                           "lstm_dw_hh")]}
+            if k > 1:
+                other = convert._flatten(res["replica_params"][0])
+                if any(not np.array_equal(got[n], other[n]) for n in got):
+                    fail(f"phase 11, {plane}: the two replicas' parameters "
+                         f"differ")
+                if sorted(got) != sorted(want):
+                    fail(f"phase 11, {plane}: parameter names differ from "
+                         f"the ranks'")
+                run["max_abs_diff_vs_ranks"] = max(
+                    float(np.abs(got[n] - want[n]).max()) for n in got)
+                if run["max_abs_diff_vs_ranks"] > TRAIN_RANKS_TOL:
+                    fail(f"phase 11, {plane}: two replicas end "
+                         f"{run['max_abs_diff_vs_ranks']} from two gloo "
+                         f"ranks (tolerance {TRAIN_RANKS_TOL})")
+            runs[k].append(run)
+        out[plane] = runs
+        log(f"phase 11, train over [cuda:0, cuda:0] against [cuda:0], "
+            f"{plane} plane, one epoch of {TRAIN_ROWS} rows ({steps} steps "
+            f"of {TRAIN_B}): samples/s two replicas "
+            f"{[round(r['samples_per_s'], 1) for r in runs[2]]}, one "
+            f"{[round(r['samples_per_s'], 1) for r in runs[1]]}; K3/K4/dW_hh "
+            f"a replica a step {runs[2][0]['k3_k4_dw_hh_per_replica_step']}; "
+            f"replicas bitwise equal; max |two replicas - two gloo ranks| "
+            f"{[r['max_abs_diff_vs_ranks'] for r in runs[2]]} (phase 9b, "
+            f"{ranks_plane})")
+    return out
+
+
+def time_replica_steps(torch, train_mod, ModelConfig, FeatureDataset,
+                       init_params) -> dict:
+    """Phase 11b: one ``replicas_step`` of a 512-row global batch at the
+    train CLI's defaults (bfloat16, dropout 0.5, Adam) over one replica
+    and over two on card 0 (256 rows each, masked as the padded planes
+    mask), in turns (one, two, two, one), 10 steps each after 3: the
+    host's time to enqueue it and its device time (CUDA events, the
+    enqueue included), medians."""
+    cfg = ModelConfig(compute_dtype="bfloat16")
+    card0 = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    n = 32 * TRAIN_B
+    ds = FeatureDataset(
+        rng.integers(0, 4, (n, T)).astype(np.int32),
+        rng.normal(size=(n, T)).astype(np.float32),
+        np.abs(rng.normal(size=(n, T))).astype(np.float32),
+        rng.integers(1, 30, (n, T)).astype(np.float32),
+        rng.normal(size=(n, T, 16)).astype(np.float32),
+        rng.integers(0, 2, n).astype(np.int32))
+    src = train_mod.Resident(ds, card0)
+    order = torch.from_numpy(rng.permutation(n)).to(card0)
+    params = init_params(cfg, SEED)
+    sched = train_mod.step_decay_schedule(1e-3, 32, 2, 0.1)
+    reps = {k: [train_mod.Replica(params, cfg, card0, "Adam", sched, 1.0)
+                for _ in range(k)] for k in (1, 2)}
+    times = {1: ([], []), 2: ([], [])}
+
+    def step(k, i):
+        b = TRAIN_B // k
+        parts = []
+        for j in range(k):
+            lo = (i % 32) * TRAIN_B + j * b
+            batch, labels = src.batch(order[lo:lo + b])
+            mask = None if k == 1 else torch.ones(b, device=card0)
+            parts.append((batch, labels, mask))
+        gens = [train_mod.step_generator(SEED + 1, i, card0,
+                                         j if k > 1 else None)
+                for j in range(k)]
+        return train_mod.replicas_step(reps[k], parts, 0.5, gens)
+
+    i = 0
+    for k in (1, 2, 2, 1):
+        for _ in range(3):
+            step(k, i)
+            i += 1
+        torch.cuda.synchronize()
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            step(k, i)
+            times[k][1].append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            times[k][0].append(start.elapsed_time(end))
+            i += 1
+    out = {str(k): {"device_ms": statistics.median(times[k][0]),
+                    "host_enqueue_ms": statistics.median(times[k][1]),
+                    "rows_a_replica": TRAIN_B // k} for k in (1, 2)}
+    log(f"phase 11, one {TRAIN_B}-row step (bf16, dropout 0.5, Adam): one "
+        f"replica {out['1']['host_enqueue_ms']:.2f} ms to enqueue, "
+        f"{out['1']['device_ms']:.2f} ms on the card; two replicas on card 0 "
+        f"{out['2']['host_enqueue_ms']:.2f} / {out['2']['device_ms']:.2f} ms")
+    return out
+
+
+def check_local_denoise(cli, denoise_mod, torch, tmp: str,
+                        phase8b: dict) -> dict:
+    """Phase 11c: ``denoise`` over two replicas on card 0 in this
+    process (its resolve_devices answering [cuda:0, cuda:0]) on each of
+    phase 8b's planes with 8b's file and arguments: the final file byte
+    for byte 8b's two-rank file, each replica's launches against the
+    steps and forward tiles."""
+    from deepsignal_plant_tpu_torch.ops import fused_lstm, recurrence
+    card0 = torch.device("cuda", 0)
+    out = {}
+    for name in ("global", "sharded"):
+        inp = phase8b[name]["input"]
+        d = os.path.join(tmp, f"local_denoise_{name}")
+        os.makedirs(d)
+        src = os.path.join(d, "noisy.tsv")
+        shutil.copy(inp["train_file"], src)
+        zero_launches(fused_lstm.launches, recurrence.launches)
+        buf = io.StringIO()
+        real = denoise_mod.resolve_devices
+        os.environ["DSP_DENOISE_RESIDENT_MIN_ROWS"] = inp["min_rows"]
+        denoise_mod.resolve_devices = lambda choice: [card0, card0]
+        try:
+            with contextlib.redirect_stdout(buf):
+                cli.main(["denoise", "--train_file", src, "--fst_iter_prob",
+                          *inp["args"], "--verbose_stages"])
+        finally:
+            denoise_mod.resolve_devices = real
+            del os.environ["DSP_DENOISE_RESIDENT_MIN_ROWS"]
+        st = json.loads(next(ln for ln in buf.getvalue().splitlines()
+                             if ln.startswith("[stages] "))[9:])
+        kl = {**fused_lstm.launches, **recurrence.launches}
+        if (st["devices"], st["world_size"], st["local_batch"],
+                st["sharded_trainings"]) != (
+                ["cuda:0", "cuda:0"], 1, TRAIN_B // 2,
+                st["mini_trainings"] if name == "sharded" else 0):
+            fail(f"phase 11, denoise ({name}): {st}")
+        layers, steps = DENOISE_LAYERS, st["steps"]
+        if "float32" in inp["args"]:
+            want = {"lstm_recurrence_fwd_save_f32": layers * steps * 2,
+                    "lstm_recurrence_bwd_f32": layers * steps * 2,
+                    "lstm_dw_hh": layers * steps * 2}
+            k1 = kl["fused_bilstm_f32_inloop"] + kl["fused_bilstm_proj_f32"]
+            if {k: kl[k] for k in want} != want or \
+                    k1 != layers * st["forward_tiles"]:
+                fail(f"phase 11, denoise ({name}) launched {kl} for {steps} "
+                     f"steps and {st['forward_tiles']} forward tiles")
+        else:
+            check_launches(f"phase 11, denoise ({name})", kl, {
+                "lstm_recurrence_fwd_save": layers * steps * 2,
+                "lstm_recurrence_bwd": layers * steps * 2,
+                "lstm_dw_hh": layers * steps * 2,
+                K1_BF16: layers * st["forward_tiles"]})
+        same = file_digest(st["final_file"]) == phase8b[name]["final_sha256"]
+        ranks_s = max(r["seconds"] for r in phase8b[name]["ranks"])
+        out[name] = {k: st[k] for k in (
+            "steps", "forward_tiles", "accuracy_checks", "score_tiles",
+            "mini_trainings", "seconds", "train_seconds", "score_seconds",
+            "mini_trainings_per_s", "samples_per_s")}
+        out[name].update({"kernel_launches": kl, "same_file": same,
+                          "ranks_seconds": ranks_s})
+        log(f"phase 11, denoise over [cuda:0, cuda:0] ({name} plane, 8b's "
+            f"arguments): {st['seconds']:.2f} s ({steps} steps, "
+            f"{st['forward_tiles']} forward tiles) against 8b's two ranks' "
+            f"{ranks_s:.2f} s; final file "
+            f"{'equal to' if same else 'DIFFERS from'} 8b's, byte for byte")
+        if not same:
+            fail(f"phase 11: denoise over two replicas ({name}) wrote other "
+                 f"bytes than two ranks")
+    return out
+
+
+def check_allocator_ab(tmp: str) -> dict:
+    """Phase 11d: ``call_mods_ab.py`` with the host-allocator tune and
+    without it (glibc's own thresholds), a fresh process each, in turns
+    (tuned, default, default, tuned), each on phase 4e's dense TSV and
+    on phase 4's sparse TSV four times over: the rows byte for byte the
+    same in every run, 5 launches of K1's bfloat16 kernel per forward
+    tile, sites/s and the parse stages of each (no profiler: sites/s
+    from each run's own clock)."""
+    sparse = os.path.join(tmp, "ab_sparse.tsv")
+    with open(sparse, "wb") as wf:
+        for _ in range(4):
+            with open(os.path.join(tmp, "features.tsv"), "rb") as rf:
+                shutil.copyfileobj(rf, wf)
+    arms = ("tuned", "default", "default", "tuned")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(REPO, "call_mods_ab.py"), REPO,
+         "--fixture", "dense", "sparse", "--tsv",
+         os.path.join(tmp, "dense.tsv"), sparse, "--allocators", *arms,
+         "--no-profile"],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"call_mods_ab.py exited {proc.returncode}:\n"
+             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    runs = [json.loads(ln) for ln in proc.stdout.splitlines()
+            if ln.startswith('{"tree"')]
+    if len(runs) != 2 * len(arms):
+        fail(f"call_mods_ab.py gave {len(runs)} runs:\n{proc.stdout[-3000:]}")
+    out = {}
+    for fixture in ("dense", "sparse"):
+        rs = [r for r in runs if r["fixture"] == fixture]
+        if len({r["rows_sha256"] for r in rs}) != 1:
+            fail(f"phase 11, allocator A/B ({fixture}): the rows differ")
+        for r in rs:
+            kl, st = r["kernel_launches"], r["stats"]
+            if kl[K1_BF16] != 5 * st["forward_tiles"] or \
+                    sum(kl.values()) != kl[K1_BF16]:
+                fail(f"phase 11, allocator A/B ({fixture}): launched {kl}")
+            if r["allocator_tuned"] != (r["allocator"] == "tuned"):
+                fail(f"phase 11, allocator A/B: the {r['allocator']} arm ran "
+                     f"with the tune {r['allocator_tuned']}")
+        out[fixture] = {arm: [{"sites_per_s": r["sites_per_s"],
+                               **{k: r["stats"][k] for k in (
+                                   "sites", "parse_seconds",
+                                   "parse_wait_seconds", "batch_seconds",
+                                   "seconds")}}
+                              for r in rs if r["allocator"] == arm]
+                        for arm in ("tuned", "default")}
+        log(f"phase 11, allocator A/B on the {fixture} TSV "
+            f"({rs[0]['stats']['sites']} sites; tuned, default, default, "
+            f"tuned, a process each): sites/s "
+            f"{[round(r['sites_per_s'], 1) for r in rs]}, parse_wait_seconds "
+            f"{[round(r['stats']['parse_wait_seconds'], 4) for r in rs]}; "
+            f"rows byte-identical")
+    return out
+
+
+def phase11_launches(phase11: dict, name: str) -> dict:
+    """A kernel's launches in phase 11's runs: each train run (plane,
+    replicas, turn) and each local denoise."""
+    runs = {f"train_{plane}_{k}_replicas_{i}": r
+            for plane, by_k in phase11["train"].items()
+            for k, rs in by_k.items() for i, r in enumerate(rs)}
+    runs.update({f"denoise_{p}": st for p, st in phase11["denoise"].items()})
+    return {k: v["kernel_launches"][name] for k, v in runs.items()
+            if v["kernel_launches"].get(name)}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3658,12 +3995,14 @@ def main() -> int:
         from deepsignal_plant_tpu_torch.models import bilstm
         from deepsignal_plant_tpu_torch.models.bilstm import (
             Batch, ModelBiLSTM, forward_flops_per_site, init_params)
+        from deepsignal_plant_tpu_torch.models import convert
         from deepsignal_plant_tpu_torch.models.convert import (
             load_checkpoint, save_checkpoint)
         from deepsignal_plant_tpu_torch.ops import _build, fused_lstm
         from deepsignal_plant_tpu_torch.ops import lstm as plain
         from deepsignal_plant_tpu_torch.ops import optim, recurrence
         from deepsignal_plant_tpu_torch.pipeline import call_mods
+        from deepsignal_plant_tpu_torch.pipeline import denoise as denoise_mod
         from deepsignal_plant_tpu_torch.pipeline import train as train_mod
         import call_mods_ab as ab
     except ImportError as exc:
@@ -3755,6 +4094,20 @@ def main() -> int:
         # phase 10: call_mods over a process's local cards
         phase10 = check_local_cards(torch, ab, call_mods, fused_lstm,
                                     ModelConfig, cli, tmp, run["ckpt"])
+        # phase 11: train and denoise over a process's local cards (two
+        # replicas on card 0); the host-allocator A/B
+        t11 = time.time()
+        phase11 = {
+            "train": check_local_train(torch, cli, train_mod, convert,
+                                       FeatureDataset, tmp,
+                                       phase9["ranks"]["params"]),
+            "step": time_replica_steps(torch, train_mod, ModelConfig,
+                                       FeatureDataset, init_params),
+            "denoise": check_local_denoise(cli, denoise_mod, torch, tmp,
+                                           phase8b),
+            "allocator": check_allocator_ab(tmp)}
+        phase11["seconds"] = time.time() - t11
+        log(f"phase 11 took {phase11['seconds']:.1f} s")
     flops = forward_flops_per_site(ModelConfig())
     for what, st in (("sparse fixture", run["stages"]),
                      ("dense rate run", {**run["rate"]["stats"],
@@ -3803,6 +4156,7 @@ def main() -> int:
             "phase8_launches": phase8_launches(phase8, name),
             "phase8b_launches": phase8b_launches(phase8b, name),
             "phase9_launches": phase9_launches(phase9, name),
+            "phase11_launches": phase11_launches(phase11, name),
             "phase10b_launches": {
                 fx: [r["launches"] for r in runs["wgmma" if name == K1_BF16
                                                  else "mma"]]
@@ -3821,6 +4175,7 @@ def main() -> int:
     for part in f32_parts:
         part["phase8_launches"] = phase8_launches(phase8, part["name"])
         part["phase8b_launches"] = phase8b_launches(phase8b, part["name"])
+        part["phase11_launches"] = phase11_launches(phase11, part["name"])
     kernels["kernels"] += f32_parts
     # the recurrence kernels: times per train step at batch 512 in bf16
     # (two H=128 and three H=256 launches); launches from the train run
@@ -3844,6 +4199,7 @@ def main() -> int:
             "phase8_launches": phase8_launches(phase8, name),
             "phase8b_launches": phase8b_launches(phase8b, name),
             "phase9_launches": phase9_launches(phase9, name),
+            "phase11_launches": phase11_launches(phase11, name),
             **t, "shapes_checked": rec_checked})
     kernels["kernels"][-1]["float32"]["launches_f32_training"] = (
         f32_train["launches"]["lstm_dw_hh"])
@@ -3863,6 +4219,7 @@ def main() -> int:
             "max_abs_err": rec_errs[wrapper]["float32"],
             "phase8_launches": phase8_launches(phase8, name),
             "phase8b_launches": phase8b_launches(phase8b, name),
+            "phase11_launches": phase11_launches(phase11, name),
             **rec_timings[name], "shapes_checked": rec_checked})
     log("train summary: " + json.dumps({
         **trained, "f32_kernel_vs_plain": f32_train, "k2_path": k2_path,
@@ -3879,6 +4236,8 @@ def main() -> int:
     log("spill, ranks and NCCL summary on " + smi + ": "
         + json.dumps(phase9))
     log("local cards summary on " + smi + ": " + json.dumps(phase10))
+    log("train and denoise over local cards, allocator A/B summary on "
+        + smi + ": " + json.dumps(phase11))
     log(f"train: {trained['samples_per_s_last_epoch']:.1f} samples/s in "
         f"the last epoch ({trained['ms_per_step_last_epoch']:.2f} ms per "
         f"{TRAIN_B}-row step with its evaluations excluded) on {smi}")

@@ -22,8 +22,8 @@ from ._version import DEEPSIGNAL_PLANT_TPU_TORCH_VERSION
 
 def device_arg(value: str) -> str:
     """argparse type of ``--device``: cuda, cuda:<n> or cpu
-    (utils/device.resolve_device or, for call_mods and serve,
-    resolve_devices reads it)."""
+    (utils/device.resolve_devices reads it for call_mods, serve, train
+    and denoise, resolve_device for call_freq's --device_agg)."""
     if value in ("cuda", "cpu") or (value.startswith("cuda:")
                                     and value[5:].isdigit()):
         return value
@@ -447,6 +447,8 @@ def main(argv=None) -> int:
         parser.print_help()
         return 0
     from .parallel import dist
+    from .utils.allocator import tune_host_allocator
+    tune_host_allocator()
     started = dist.init_distributed(device=run_device(args))
     try:
         args.func(args)

@@ -8,6 +8,8 @@ edited source rebuilds and an unchanged one loads what an earlier process
 built. The flags leave out ``-march=native``: one source gives the same
 bytes on every x86-64 host. There is no fallback: a failed build raises
 with the compiler's output, and no path parses in Python instead.
+Loading it also tunes glibc's malloc thresholds for the parser threads'
+blocks (utils/allocator.py), as the JAX package's library load does.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from pathlib import Path
 import numpy as np
 
 from ..ops._build import PACKAGE_DIR, compile_library, keyed_library
+from ..utils import allocator
 
 SOURCE = Path(__file__).resolve().parent / "featparse.cpp"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "native"
@@ -90,7 +93,8 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def load() -> ctypes.CDLL:
-    """The loaded library, built if needed; raises if g++ fails."""
+    """The loaded library, built if needed; raises if g++ fails. The
+    host allocator is tuned before it returns."""
     out = library_path()
     with _lock:
         if out not in _libs:
@@ -99,4 +103,6 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(out))
             _declare(lib)
             _libs[out] = lib
-        return _libs[out]
+        lib = _libs[out]
+    allocator.tune_host_allocator()
+    return lib

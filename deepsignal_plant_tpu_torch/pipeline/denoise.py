@@ -33,6 +33,16 @@ blocks are gathered in row order, so every rank holds the same scores.
 Rank 0 alone writes and removes files, draws the k-mer reselection and
 the shuffle, and sends its generator's state to the other ranks after
 each iteration: every rank draws the same halves and seeds.
+
+One process over N local cards (``--device cuda`` or none outside a
+launch: every visible card, utils/device.resolve_devices) computes the
+same: ``CrossRankTrainer`` holds a model replica a card, replica i in
+the place of rank i. Its planes are ``Replicated`` over ``Sharded`` or
+``GlobalBatch`` at world N by the same rule (each card within its
+budget), a step is train.replicas_step, the accuracy checks sum the
+replicas' counts, and each replica scores its block of rows, put back
+in row order. The process does the file work alone; nothing is
+broadcast.
 """
 from __future__ import annotations
 
@@ -48,19 +58,22 @@ import torch
 
 from ..config import ModelConfig, TrainConfig, model_config_from_args
 from ..io.dataset import FeatureDataset
-from ..models.bilstm import ModelBiLSTM, init_params
-from ..ops.optim import Optimizer, step_decay_schedule
+from ..models.bilstm import init_params
+from ..ops.optim import step_decay_schedule
 from ..parallel.dist import process_info
+from ..parallel.mesh import replica_sum
 from ..parallel.multihost import (all_sum, allgather_bytes, barrier,
                                   broadcast_arrays)
 from ..utils import metrics as M
 from ..utils.bases import str2bool
-from ..utils.device import resolve_device
+from ..utils.device import resolve_devices
 from ..utils.fileio import (count_lines, filter_rows_by_label,
                             select_neg_rows_as_pos_kmer_dist, shuffle_concat)
-from .train import (GlobalBatch, HostFed, Resident, Sharded,
-                    kernel_launches, kernel_launches_since, resident_budget,
-                    shard_rows, step_generator, sync_device, train_step)
+from .train import (GlobalBatch, HostFed, Replica, Replicated, Resident,
+                    Sharded, as_devices, kernel_launches,
+                    kernel_launches_since, replica_generators,
+                    replicas_fit, replicas_step, resident_budget,
+                    shard_rows, sync_device)
 
 
 def resident_min_rows() -> int:
@@ -84,20 +97,25 @@ def get_model_type_str(model_type: str, is_base: bool,
 class CrossRankTrainer:
     """Train a fresh model on one half, score the other (JAX
     denoise.py:166-298), on this rank's share of each step under a
-    launch, and count what it ran."""
+    launch or on every local card's share (``device``: a device or a
+    list of them, one replica each), and count what it ran."""
 
     def __init__(self, model_cfg: ModelConfig, train_cfg: TrainConfig,
-                 device: torch.device):
+                 device):
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
-        self.device = device
+        self.devices = as_devices(device)
+        self.device = self.devices[0]
         self.rank, self.world = process_info()
-        # the batch rounded up to a multiple of the ranks (JAX
-        # denoise.py:59), each rank its share
-        self.local_batch = -(-train_cfg.batch_size // self.world)
-        self.batch_size = self.local_batch * self.world
-        self.class_weights = torch.tensor([1.0, train_cfg.pos_weight],
-                                          dtype=torch.float32, device=device)
+        if self.world > 1 and len(self.devices) > 1:
+            raise ValueError("under a multi-process launch each rank "
+                             "denoises on one card")
+        # devices of the data-parallel axis: the ranks or the replicas
+        self.shards = self.world * len(self.devices)
+        # the batch rounded up to a multiple of them (JAX
+        # denoise.py:59), each its share
+        self.local_batch = -(-train_cfg.batch_size // self.shards)
+        self.batch_size = self.local_batch * self.shards
         self.counters = {"mini_trainings": 0, "resident_trainings": 0,
                          "sharded_trainings": 0, "planes_built": 0,
                          "steps": 0, "train_rows": 0, "accuracy_checks": 0,
@@ -110,12 +128,20 @@ class CrossRankTrainer:
 
     def _kind(self, train_ds: FeatureDataset,
               score_ds: FeatureDataset) -> tuple:
-        """(plane class, world size, resident) of this call: one rank
+        """(plane class, world size, resident) of this call: one card
         trains resident when both halves fit the budget, else host-fed;
-        N ranks take JAX's rule (denoise.py:92-107) between the
-        sharded-resident and the global-batch plane."""
+        N ranks or local cards take JAX's rule (denoise.py:92-107)
+        between the sharded-resident and the global-batch plane."""
         auto = self.train_cfg.device_resident == "auto"
         both = train_ds.nbytes + score_ds.nbytes
+        if len(self.devices) > 1:
+            # local replicas: each card holds its replicas' blocks, or
+            # (global-batch plane) their copies of both halves
+            if (auto and len(train_ds) >= resident_min_rows()
+                    and replicas_fit(both, self.devices)):
+                return Sharded, self.shards, True
+            return GlobalBatch, self.shards, auto and replicas_fit(
+                both * self.shards, self.devices)
         budget = resident_budget(self.device)
         if self.world == 1:
             resident = auto and both <= budget
@@ -127,10 +153,11 @@ class CrossRankTrainer:
 
     def _plane(self, kind: tuple, ds: FeatureDataset):
         plane, world, resident = kind
-        if plane is Sharded:
-            return Sharded(ds, self.device, self.rank, world)
-        if plane is GlobalBatch:
-            return GlobalBatch(ds, self.device, self.rank, world, resident)
+        extra = {"resident": resident} if plane is GlobalBatch else {}
+        if len(self.devices) > 1:
+            return Replicated.over(plane, ds, self.devices, **extra)
+        if plane in (Sharded, GlobalBatch):
+            return plane(ds, self.device, self.rank, world, **extra)
         return plane(ds, self.device)
 
     def _sources(self, train_ds: FeatureDataset, score_ds: FeatureDataset):
@@ -147,44 +174,56 @@ class CrossRankTrainer:
             self._held.append((ds, kind, src))
         return kind, self._held[0][2], self._held[1][2]
 
-    def _accuracy(self, model: ModelBiLSTM, batch, labels: torch.Tensor,
-                  mask: torch.Tensor | None, sharded: bool):
-        """The post-update, no-dropout accuracy of the step's batch. Under
-        a launch the correct and valid counts of the ranks' rows are
-        summed first: the global-batch plane divides as the JAX host
-        path's ``M.accuracy`` on the global batch, the sharded plane in
-        float32 as JAX's in-scan signal (train.py:474-482)."""
+    def _accuracy(self, reps: list[Replica], parts, sharded: bool):
+        """The post-update, no-dropout accuracy of the step's batch
+        (``parts``: each replica's (batch, labels, mask)). Over ranks or
+        replicas the correct and valid counts of their rows are summed
+        first: the global-batch plane divides as the JAX host path's
+        ``M.accuracy`` on the global batch, the sharded plane in float32
+        as JAX's in-scan signal (train.py:474-482)."""
         with torch.no_grad():
-            pred = torch.argmax(model(batch)[1], dim=1)
+            preds = [torch.argmax(r.model(batch)[1], dim=1)
+                     for r, (batch, _, _) in zip(reps, parts)]
+        _, labels, mask = parts[0]
         if mask is None:
-            return M.accuracy(labels.cpu().numpy(), pred.cpu().numpy())
-        ok, tot = (float(x) for x in all_sum(
-            [((pred == labels).float() * mask).sum(), mask.sum()]))
+            return M.accuracy(labels.cpu().numpy(), preds[0].cpu().numpy())
+        counts = [[((pred == y).float() * m).sum(), m.sum()]
+                  for pred, (_, y, m) in zip(preds, parts)]
+        ok, tot = (float(x) for x in (
+            all_sum(counts[0]) if len(reps) == 1 else
+            replica_sum(counts)[0]))
         if sharded:
             return np.float32(ok) / np.float32(max(tot, 1.0))
         return ok / tot if tot else 0.0
 
-    def _score(self, model: ModelBiLSTM, src, n: int) -> np.ndarray:
-        """prob_1 of the ``n`` rows of ``src``. Under a launch rank r
-        scores rows [r * R, (r + 1) * R), R = ceil(n / world) (the
-        sharded plane's block, JAX denoise.py:282-295), in tiles of its
-        batch share, and the blocks are gathered in rank order."""
+    def _score(self, reps: list[Replica], src, n: int) -> np.ndarray:
+        """prob_1 of the ``n`` rows of ``src``. Over N ranks or replicas
+        device d (rank or replica) scores rows [d * R, (d + 1) * R), R =
+        ceil(n / N) (the sharded plane's block, JAX
+        denoise.py:282-295), in tiles of its batch share; the replicas'
+        blocks are put in order, and the ranks' gathered in rank
+        order."""
         c, b = self.counters, self.local_batch
-        lo, hi = 0, n
-        if self.world > 1:
-            rows = shard_rows(n, self.world)
-            lo = min(self.rank * rows, n)
-            hi = min(lo + rows, n)
-        # the sharded plane holds its block from local row 0
-        off = lo if isinstance(src, Sharded) else 0
-        probs1 = []
-        with torch.no_grad():
-            for s in range(lo, hi, b):
-                batch, _ = src.batch(slice(s - off, min(s + b, hi) - off))
-                probs1.append(model(batch)[1][:, 1])
-                c["score_tiles"] += 1
-        out = (torch.cat(probs1).cpu().numpy() if probs1
-               else np.empty(0, np.float32))
+        parts = src.parts if len(reps) > 1 else [src]
+        blocks = []
+        for j, (rep, part) in enumerate(zip(reps, parts)):
+            lo, hi = 0, n
+            if self.shards > 1:     # device d: the rank or the replica
+                rows = shard_rows(n, self.shards)
+                lo = min((self.rank + j) * rows, n)
+                hi = min(lo + rows, n)
+            # the sharded plane holds its block from local row 0
+            off = lo if isinstance(part, Sharded) else 0
+            probs1 = []
+            with torch.no_grad():
+                for s in range(lo, hi, b):
+                    batch, _ = part.batch(slice(s - off,
+                                                min(s + b, hi) - off))
+                    probs1.append(rep.model(batch)[1][:, 1])
+                    c["score_tiles"] += 1
+            blocks.append(torch.cat(probs1).cpu().numpy() if probs1
+                          else np.empty(0, np.float32))
+        out = blocks[0] if len(blocks) == 1 else np.concatenate(blocks)
         if self.world == 1:
             return out
         return np.concatenate([np.frombuffer(part, np.float32) for part in
@@ -196,40 +235,40 @@ class CrossRankTrainer:
                          verbose: bool = False) -> np.ndarray:
         """Train a fresh model on train_ds and return prob_1 of every
         score_ds row (reference train_1time, denoise.py:28-170)."""
-        cfg, tcfg, dev, c = (self.model_cfg, self.train_cfg, self.device,
-                             self.counters)
+        cfg, tcfg, c = self.model_cfg, self.train_cfg, self.counters
+        n = len(self.devices)
         t0 = time.time()
         rng_np = np.random.default_rng(seed)
-        model = ModelBiLSTM.from_params(init_params(cfg, seed), cfg, dev,
-                                        trainable=True)
-        weights = list(model.parameters())
+        params = init_params(cfg, seed)
         steps_per_epoch = max(1, -(-len(train_ds) // self.batch_size))
-        opt = Optimizer("Adam", step_decay_schedule(
-            tcfg.lr, steps_per_epoch, 2, 0.1), weights)
+        schedule = step_decay_schedule(tcfg.lr, steps_per_epoch, 2, 0.1)
+        reps = [Replica(params, cfg, d, "Adam", schedule, tcfg.pos_weight)
+                for d in self.devices]
         (plane, _, resident), train_src, score_src = self._sources(
             train_ds, score_ds)
         sharded = plane is Sharded
         if sharded:
-            train_src.steps = steps_per_epoch
+            for part in (train_src.parts if n > 1 else [train_src]):
+                part.steps = steps_per_epoch
         c["mini_trainings"] += 1
         c["resident_trainings"] += resident
         c["sharded_trainings"] += sharded
-        rank = self.rank if self.world > 1 else None
 
         gstep = 0
         for epoch in range(epoch_num):
             epoch_accs: list = []
-            for i, (batch, labels, mask, rows) in enumerate(
+            for i, step in enumerate(
                     train_src.epoch(rng_np, self.local_batch)):
-                gen = (step_generator(seed + 7, gstep, dev, rank)
-                       if cfg.dropout_rate > 0 else None)
-                loss = train_step(model, weights, opt, batch, labels,
-                                  self.class_weights, tcfg.clip_grad, gen,
-                                  mask)
+                step = step if n > 1 else (step,)
+                parts = [p[:3] for p in step]
+                gens = (replica_generators(seed + 7, gstep, reps, self.rank,
+                                           self.world)
+                        if cfg.dropout_rate > 0 else [None] * n)
+                loss = replicas_step(reps, parts, tcfg.clip_grad, gens)
                 gstep += 1
-                c["train_rows"] += rows
+                c["train_rows"] += sum(p[3] for p in step)
                 if (i + 1) % step_interval == 0:
-                    acc = self._accuracy(model, batch, labels, mask, sharded)
+                    acc = self._accuracy(reps, parts, sharded)
                     epoch_accs.append(acc)
                     c["accuracy_checks"] += 1
                     if verbose and self.rank == 0:
@@ -246,9 +285,10 @@ class CrossRankTrainer:
                     ) >= 0.95:
                 break
         c["steps"] += gstep
-        sync_device(dev)
+        for d in set(self.devices):
+            sync_device(d)
         t1 = time.time()
-        out = self._score(model, score_src, len(score_ds))
+        out = self._score(reps, score_src, len(score_ds))
         c["train_seconds"] += t1 - t0
         c["score_seconds"] += time.time() - t1
         return out.astype(np.float32)
@@ -264,14 +304,16 @@ def share_rng(rng: np.random.Generator, rank: int) -> None:
 
 
 def denoise(args) -> str:
-    """CLI entry mirroring reference denoise(args) (denoise.py:318), on one
-    card or as one rank of a launch. Returns the path of the final
-    denoised training file, the same on every rank."""
+    """CLI entry mirroring reference denoise(args) (denoise.py:318), over
+    every visible card unless ``--device`` names one, or as one rank of
+    a launch. Returns the path of the final denoised training file, the
+    same on every rank."""
     total_start = time.time()
     rank, world = process_info()
     lead = rank == 0
     say = print if lead else (lambda *a, **k: None)
-    device = resolve_device(args.device)
+    devices = resolve_devices(args.device)
+    device = devices[0]
     model_cfg = model_config_from_args(args, device, args.dropout_rate)
     train_cfg = TrainConfig(batch_size=args.batch_size, lr=args.lr,
                             pos_weight=args.pos_weight,
@@ -295,7 +337,7 @@ def denoise(args) -> str:
     if lead:
         filter_rows_by_label(train_file, train_neg_file, 0)
 
-    trainer = CrossRankTrainer(model_cfg, train_cfg, device)
+    trainer = CrossRankTrainer(model_cfg, train_cfg, devices)
     launches0 = kernel_launches()
     final_file = train_file
     iterations_run = 0
@@ -386,11 +428,14 @@ def denoise(args) -> str:
                        if device.type == "cuda" else "cpu"),
             "compute_dtype": model_cfg.compute_dtype,
             "recurrence": model_cfg.recurrence,
+            "devices": [str(d) for d in devices],
             "rank": rank, "world_size": world,
             "batch_size": trainer.batch_size,
             "local_batch": trainer.local_batch,
             "iterations_run": iterations_run, **c,
-            "forward_tiles": c["accuracy_checks"] + c["score_tiles"],
+            # an accuracy check runs a forward on every replica
+            "forward_tiles": (c["accuracy_checks"] * len(devices)
+                              + c["score_tiles"]),
             "kernel_launches": kernel_launches_since(launches0),
             "mini_trainings_per_s": (c["mini_trainings"] / seconds
                                      if seconds else 0.0),

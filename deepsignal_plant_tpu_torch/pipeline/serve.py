@@ -228,9 +228,11 @@ def serve(args) -> list:
     from ..config import CallConfig, model_config_from_args
     from ..ops import fused_lstm
     from ..parallel.dist import refuse_launch
+    from ..utils.allocator import tune_host_allocator
     from ..utils.device import resolve_devices
     from .call_mods import CallModsEngine
 
+    tune_host_allocator()
     refuse_launch("serve")
     # every visible card, as call_mods (serve refuses a launch)
     devices = resolve_devices(args.device)

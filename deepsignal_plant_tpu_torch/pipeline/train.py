@@ -46,6 +46,28 @@ writes checkpoints, the train state and the log lines; ``--resume``
 reads the state on rank 0 and broadcasts it. A streaming dataset under
 a launch raises, as in the JAX package.
 
+One process over N local cards (``train_loop`` given N devices; the CLI's
+default ``--device`` outside a launch, utils/device.resolve_devices) is
+JAX's one process over an N-device mesh: a model replica a card
+(``Replica``), replica i in the place of device i. The global batch is
+rounded up to a multiple of N and each replica takes its contiguous
+share of every step (parallel/mesh.py), padded with row 0 and masked at
+the epoch's tail. Data that fits takes the sharded-resident plane at
+world N (``Replicated`` over ``Sharded``: each card its block, the block
+permutations drawn once for all); otherwise, as JAX's host loop, one
+permutation an epoch in the global-batch layout (``Replicated`` over
+``GlobalBatch``), and a streamed file's padded batches cut into shares
+(``StreamedShares``). There is no spill plane over several cards: data
+over the budget goes host-fed, as in JAX. ``replicas_step`` runs every
+replica's forward, sums the weight sums, runs every backward, sums the
+gradients and losses in replica order on replica 0's card
+(``replica_sum``) and gives every replica the same bytes, so the
+replicas' parameters stay bitwise equal. Every replica works on its
+card's current stream: PyTorch orders a copy between cards against both
+cards' current streams, so the sums need no events, and two replicas on
+one card run in turn. Replica 0 writes the checkpoints and the train
+state; ``--resume`` loads the state into every replica.
+
 A host ``numpy.random.default_rng(seed)`` draws the permutations in the
 JAX package's order, so batch order is the same in both packages. A
 step's dropout masks come from a generator seeded by (seed + 1, global
@@ -84,8 +106,9 @@ from ..models.convert import (_flatten, _unflatten, load_any_checkpoint,
 from ..ops import fused_lstm, recurrence
 from ..ops.optim import STATE_SLOTS, Optimizer, step_decay_schedule
 from ..parallel.dist import process_info
+from ..parallel.mesh import local_batch_target, replica_sum, shares
 from ..parallel.multihost import all_sum, broadcast_arrays, host_row_shard
-from ..utils.device import resolve_device
+from ..utils.device import resolve_devices
 
 #: with --stream auto, a training file over this size streams (JAX
 #: train.py:763-774)
@@ -147,6 +170,52 @@ def train_step(model: ModelBiLSTM, weights: list, opt: Optimizer,
     return loss.detach()
 
 
+class Replica:
+    """One model replica on one device: the trainable model, its
+    parameters in order, its optimizer and the class weights of the
+    loss."""
+
+    def __init__(self, params, model_cfg: ModelConfig, device: torch.device,
+                 optim_type: str, schedule, pos_weight: float):
+        self.device = device
+        self.model = ModelBiLSTM.from_params(params, model_cfg, device,
+                                             trainable=True)
+        self.weights = list(self.model.parameters())
+        self.opt = Optimizer(optim_type, schedule, self.weights)
+        self.class_weights = torch.tensor([1.0, pos_weight],
+                                          dtype=torch.float32, device=device)
+
+
+def replicas_step(reps: list[Replica], parts, clip: float,
+                  gens: list) -> torch.Tensor:
+    """One update over a process's replicas (JAX's shard_map step,
+    train.py:107-122, on one process's N devices). ``parts[i]``: replica
+    i's (batch, labels, mask); ``gens[i]``: its dropout generator or
+    None. One replica takes ``train_step`` as it is. Over N replicas, in
+    phases: every replica's training forward and weighted-CE terms; the
+    weight sums summed; every replica's gradients of its numerator over
+    that sum; the gradients and losses summed in replica order; the same
+    clip and optimizer step on every replica. Returns the summed loss on
+    replica 0's device."""
+    if len(reps) == 1:
+        r, (batch, labels, mask), gen = reps[0], parts[0], gens[0]
+        return train_step(r.model, r.weights, r.opt, batch, labels,
+                          r.class_weights, clip, gen, mask)
+    terms = []
+    for r, (batch, labels, mask), gen in zip(reps, parts, gens):
+        logits, _ = r.model(batch, train=True, generator=gen)
+        terms.append(masked_ce_terms(logits, labels, r.class_weights, mask))
+    dens = replica_sum([[den] for _, den in terms])
+    grads = []
+    for r, (num, _), (den,) in zip(reps, terms, dens):
+        loss = num / torch.clamp(den, min=1e-12)
+        grads.append([*torch.autograd.grad(loss, r.weights), loss])
+    summed = replica_sum(grads)
+    for r, (*g, _) in zip(reps, summed):
+        r.opt.step(clip_by_global_norm(g, clip))
+    return summed[0][-1]
+
+
 def step_generator(key: int, step: int, device,
                    rank: int | None = None) -> torch.Generator:
     """The dropout generator of one training step, seeded by (key, step)
@@ -159,6 +228,17 @@ def step_generator(key: int, step: int, device,
     gen = torch.Generator(device=device)
     gen.manual_seed(int(state[0]) << 32 | int(state[1]))
     return gen
+
+
+def replica_generators(key: int, step: int, reps: list,
+                       rank: int, world: int) -> list[torch.Generator]:
+    """Each replica's dropout generator of one step: device j of JAX's
+    data-parallel axis is a launch's rank or a process's replica j (its
+    axis index folded into the key), and one card without a launch folds
+    none."""
+    return [step_generator(key, step, r.device, rank if world > 1 else
+                           j if len(reps) > 1 else None)
+            for j, r in enumerate(reps)]
 
 
 def _upload(batch: Batch, labels: np.ndarray, device: torch.device):
@@ -302,13 +382,20 @@ class Sharded(Plane):
             * self.valid[idx]
         return (*self.batch(idx), mask)
 
+    def draw(self, rng: np.random.Generator, batch_size: int) -> list:
+        """The epoch's block permutations, one a rank, from the one
+        seeded stream."""
+        return [rng.permutation(self.rows) for _ in range(self.world)]
+
     def epoch(self, rng: np.random.Generator, batch_size: int):
+        yield from self.steps_of(self.draw(rng, batch_size), batch_size)
+
+    def steps_of(self, perms: list, batch_size: int):
+        """This rank's steps of the epoch ``draw`` drew: its block's
+        permutation, zero-padded to ``steps * batch_size``."""
         width = self.steps * batch_size
-        for r in range(self.world):
-            p = rng.permutation(self.rows)
-            if r == self.rank:
-                perm = np.concatenate([p, np.zeros(
-                    max(width - self.rows, 0), np.int64)])[:width]
+        perm = np.concatenate([perms[self.rank], np.zeros(
+            max(width - self.rows, 0), np.int64)])[:width]
         perm_t = torch.from_numpy(perm).to(self.device)
         for s in range(self.steps):
             lo = s * batch_size
@@ -402,11 +489,20 @@ class GlobalBatch(Plane):
             return _upload(*self.ds.batch_at(idx), self.device)
         return Batch(*(a[idx] for a in self.data)), self.labels[idx]
 
-    def epoch(self, rng: np.random.Generator, batch_size: int):
+    def draw(self, rng: np.random.Generator, batch_size: int) -> np.ndarray:
+        """The epoch's permutation, zero-padded to whole global batches."""
         world_b = self.world * batch_size
-        steps = -(-self.n // world_b)
-        order = np.zeros(steps * world_b, np.int64)
+        order = np.zeros(-(-self.n // world_b) * world_b, np.int64)
         order[:self.n] = rng.permutation(self.n)
+        return order
+
+    def epoch(self, rng: np.random.Generator, batch_size: int):
+        yield from self.steps_of(self.draw(rng, batch_size), batch_size)
+
+    def steps_of(self, order: np.ndarray, batch_size: int):
+        """This rank's share of each step of the epoch ``draw`` drew."""
+        world_b = self.world * batch_size
+        steps = len(order) // world_b
         lo = self.rank * batch_size
         mine = order.reshape(steps, world_b)[:, lo:lo + batch_size]
         valid = np.clip(self.n - np.arange(steps) * world_b - lo, 0,
@@ -418,6 +514,75 @@ class GlobalBatch(Plane):
             nv = int(valid[s])
             yield (*self.batch(mine[s]),
                    _prefix_mask(nv, batch_size, self.device), nv)
+
+    def eval_steps(self, batch_size: int):
+        """The evaluation in the same layout (JAX train.py:673-695 on an
+        N-device mesh): consecutive global batches of ``world *
+        batch_size`` rows, the last padded with row 0 and masked, this
+        rank's share of each."""
+        world_b = self.world * batch_size
+        for s in range(max(1, -(-self.n // world_b))):
+            lo = s * world_b + self.rank * batch_size
+            nv = min(max(self.n - lo, 0), batch_size)
+            idx = np.concatenate([np.arange(lo, lo + nv),
+                                  np.zeros(batch_size - nv, np.int64)])
+            if self.ds is None:
+                idx = torch.from_numpy(idx).to(self.device)
+            yield (*self.batch(idx),
+                   _prefix_mask(nv, batch_size, self.device))
+
+
+class Replicated(Plane):
+    """A plane over a process's local replicas: ``parts[i]`` is replica
+    i's plane at world N (``Sharded`` or ``GlobalBatch`` with rank i),
+    the epoch's permutations drawn once for all of them. A step yields a
+    tuple of each replica's (batch, labels, mask, rows), an evaluation
+    step a tuple of each replica's (batch, labels, mask)."""
+
+    def __init__(self, parts: list):
+        self.parts = parts
+
+    @classmethod
+    def over(cls, kind, ds: FeatureDataset, devices: list, **kw):
+        """``kind`` (``Sharded`` or ``GlobalBatch``, with its other
+        arguments ``kw``) at world ``len(devices)``, replica i on
+        ``devices[i]``."""
+        return cls([kind(ds, d, i, len(devices), **kw)
+                    for i, d in enumerate(devices)])
+
+    def epoch(self, rng: np.random.Generator, batch_size: int):
+        drawn = self.parts[0].draw(rng, batch_size)
+        yield from zip(*(p.steps_of(drawn, batch_size)
+                         for p in self.parts))
+
+    def eval_steps(self, batch_size: int):
+        yield from zip(*(p.eval_steps(batch_size) for p in self.parts))
+
+
+class StreamedShares(Plane):
+    """The streamed plane over local replicas (JAX train.py:1245-1248 on
+    an N-device mesh): the file's batches of ``len(devices) *
+    batch_size`` rows, the tail padded with its first row and masked, each
+    replica's contiguous share uploaded to its card."""
+
+    def __init__(self, ds: StreamingFeatureDataset, devices: list):
+        self.ds, self.devices = ds, devices
+
+    def epoch(self, rng: np.random.Generator, batch_size: int):
+        world_b = len(self.devices) * batch_size
+        for batch, labels in self.ds.iter_batches(world_b, True, rng):
+            nv = len(labels)
+            idx = np.concatenate([np.arange(nv),
+                                  np.zeros(world_b - nv, np.int64)])
+            batch, labels = Batch(*(a[idx] for a in batch)), labels[idx]
+            step = []
+            for dev, (lo, hi) in zip(self.devices, shares(
+                    world_b, world_b, len(self.devices))):
+                rows = min(max(nv - lo, 0), batch_size)
+                step.append((*_upload(Batch(*(a[lo:hi] for a in batch)),
+                                      labels[lo:hi], dev),
+                             _prefix_mask(rows, batch_size, dev), rows))
+            yield tuple(step)
 
 
 class Spill(Plane):
@@ -597,6 +762,22 @@ def resident_budget(device: torch.device) -> int:
     return min(free // 2, cap)
 
 
+def _eval_terms(model: ModelBiLSTM, class_weights: torch.Tensor, batch,
+                y: torch.Tensor, mask: torch.Tensor | None) -> list:
+    """[weighted-CE numerator, weight sum, the five prediction counts
+    (correct, total, tp, fp, fn)] of one evaluation step's rows."""
+    logits, probs = model(batch)
+    num, den = masked_ce_terms(logits, y, class_weights, mask)
+    pred = torch.argmax(probs, dim=1)
+    valid = torch.ones_like(y, dtype=torch.bool) if mask is None \
+        else mask > 0
+    return [num, den, torch.stack([
+        ((pred == y) & valid).sum(), valid.sum(),
+        (valid & (pred == 1) & (y == 1)).sum(),
+        (valid & (pred == 1) & (y == 0)).sum(),
+        (valid & (pred == 0) & (y == 1)).sum()]).float()]
+
+
 @torch.no_grad()
 def evaluate(model: ModelBiLSTM, source: Plane, batch_size: int,
              class_weights: torch.Tensor) -> dict:
@@ -607,21 +788,33 @@ def evaluate(model: ModelBiLSTM, source: Plane, batch_size: int,
     recall from the five prediction counts [correct, total, tp, fp, fn]
     summed over ranks. One inference forward a step; one all-reduce and
     one read of the results at the end."""
+    return _evaluate(([_eval_terms(model, class_weights, *step)]
+                      for step in source.eval_steps(batch_size)),
+                     class_weights.device)
+
+
+@torch.no_grad()
+def evaluate_replicas(reps: list[Replica], source: Replicated,
+                      batch_size: int) -> dict:
+    """``evaluate`` over local replicas: each step's terms summed over
+    the replicas (``replica_sum``) on replica 0's device, as JAX's
+    sharded evaluation psums them over its mesh."""
+    return _evaluate(([_eval_terms(r.model, r.class_weights, *part)
+                       for r, part in zip(reps, step)]
+                      for step in source.eval_steps(batch_size)),
+                     reps[0].device)
+
+
+def _evaluate(steps, device: torch.device) -> dict:
+    """The metrics of ``evaluate`` from each step's replicas' terms."""
     nums, dens = [], []
-    counts = torch.zeros(5, dtype=torch.float32, device=class_weights.device)
-    for batch, y, mask in source.eval_steps(batch_size):
-        logits, probs = model(batch)
-        num, den = masked_ce_terms(logits, y, class_weights, mask)
+    counts = torch.zeros(5, dtype=torch.float32, device=device)
+    for terms in steps:
+        num, den, cnt = terms[0] if len(terms) == 1 else \
+            replica_sum(terms)[0]
         nums.append(num)
         dens.append(den)
-        pred = torch.argmax(probs, dim=1)
-        valid = torch.ones_like(y, dtype=torch.bool) if mask is None \
-            else mask > 0
-        counts += torch.stack([
-            ((pred == y) & valid).sum(), valid.sum(),
-            (valid & (pred == 1) & (y == 1)).sum(),
-            (valid & (pred == 1) & (y == 0)).sum(),
-            (valid & (pred == 0) & (y == 1)).sum()]).float()
+        counts += cnt
     if not nums:
         return {"loss": 0.0, "accuracy": 0.0, "precision": 0.0,
                 "recall": 0.0, "batches": 0}
@@ -841,16 +1034,37 @@ def sync_device(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def as_devices(device) -> list[torch.device]:
+    """A device, or a list of them (one replica each; a card may
+    repeat), as a list."""
+    return list(device) if isinstance(device, (list, tuple)) else [device]
+
+
+def replicas_fit(nbytes: int, devices: list[torch.device]) -> bool:
+    """Whether every card holds its replicas' blocks of ``nbytes`` of
+    data, ``nbytes // len(devices)`` a replica, within its resident
+    budget (two replicas on one card hold two blocks there)."""
+    block = nbytes // len(devices)
+    return all(block * devices.count(d) <= resident_budget(d)
+               for d in set(devices))
+
+
 def pick_plane(train_cfg: TrainConfig, train_ds, valid_ds,
-               device: torch.device, world: int) -> str:
+               device, world: int) -> str:
     """The data plane the JAX package takes for these datasets (JAX
-    train.py:825-1021): stream, resident, sharded, spill or host-fed."""
+    train.py:825-1021): stream, resident, sharded, spill or host-fed.
+    ``device``: a device, or the list of a process's replicas' devices
+    (JAX's one process over N devices: sharded when the data fits the
+    cards, else host-fed; no spill)."""
+    devices = as_devices(device)
     if isinstance(train_ds, StreamingFeatureDataset):
         return "stream"
     if train_cfg.device_resident != "auto":
         return "host-fed"
-    budget = resident_budget(device)
     total = train_ds.nbytes + valid_ds.nbytes
+    if len(devices) > 1:
+        return "sharded" if replicas_fit(total, devices) else "host-fed"
+    budget = resident_budget(devices[0])
     if world > 1:
         return "sharded" if total // world <= budget else "host-fed"
     if total <= budget:
@@ -861,24 +1075,32 @@ def pick_plane(train_cfg: TrainConfig, train_ds, valid_ds,
 def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
                train_ds: FeatureDataset | StreamingFeatureDataset,
                valid_ds: FeatureDataset, model_dir: str | None,
-               device: torch.device, init_model: str | None = None,
+               device, init_model: str | None = None,
                verbose: bool = True, resume: bool = False) -> dict:
-    """The training loop (JAX train.py:802-1435), on one card or as one
-    rank of a multi-process launch (parallel/dist.py). With a
-    ``model_dir`` rank 0 saves the train state after every epoch, and
-    with ``resume`` the run continues from that file when it exists.
-    Returns the best accuracy and checkpoint (rank 0), the final
-    parameters (numpy pytree), the steps' losses and the validation
-    accuracies of this run, and its counters."""
+    """The training loop (JAX train.py:802-1435), on one card, on a list
+    of a process's cards (``device``: a list of devices, one replica
+    each; JAX's one process over N devices) or as one rank of a
+    multi-process launch (parallel/dist.py). With a ``model_dir`` rank 0
+    saves the train state after every epoch, and with ``resume`` the run
+    continues from that file when it exists. Returns the best accuracy
+    and checkpoint (rank 0), the final parameters (numpy pytree; replica
+    0's, and the other replicas' in ``replica_params``), the steps'
+    losses and the validation accuracies of this run, and its
+    counters."""
     t_start = time.time()
     if train_cfg.device_resident not in ("auto", "never"):
         raise ValueError("device_resident must be auto|never")
+    devices = as_devices(device)
+    device, n = devices[0], len(devices)
     rank, world = process_info()
     if world > 1 and isinstance(train_ds, StreamingFeatureDataset):
         raise ValueError("streaming datasets are single-host only; "
                          "pre-shard the file per host instead")
+    if world > 1 and n > 1:
+        raise ValueError("under a multi-process launch each rank trains "
+                         "on one card")
     verbose = verbose and rank == 0
-    plane = pick_plane(train_cfg, train_ds, valid_ds, device, world)
+    plane = pick_plane(train_cfg, train_ds, valid_ds, devices, world)
 
     rng_np = np.random.default_rng(train_cfg.seed)
     params = init_params(model_cfg, train_cfg.seed)
@@ -891,31 +1113,43 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
     st = resume_state(state_path, rank, world) if resume else None
     if st is not None:
         params = st["params"]
-    model = ModelBiLSTM.from_params(params, model_cfg, device, trainable=True)
-    weights = list(model.parameters())
 
-    # the global batch rounded up to a multiple of the ranks, each rank
-    # its share; equal step counts on every rank (JAX train.py:826-862)
-    B = -(-train_cfg.batch_size // world)
-    steps_per_epoch = max(1, -(-shard_rows(len(train_ds), world) // B))
-    opt = Optimizer(train_cfg.optim_type, step_decay_schedule(
+    # the global batch rounded up to a multiple of the ranks or local
+    # replicas, each its share; equal step counts on every rank (JAX
+    # train.py:826-862)
+    shards = world * n
+    B = local_batch_target(train_cfg.batch_size, shards) // shards
+    steps_per_epoch = max(1, -(-shard_rows(len(train_ds), shards) // B))
+    schedule = step_decay_schedule(
         train_cfg.lr, steps_per_epoch, train_cfg.lr_decay_step,
-        train_cfg.lr_decay), weights)
-    class_weights = torch.tensor([1.0, train_cfg.pos_weight],
-                                 dtype=torch.float32, device=device)
+        train_cfg.lr_decay)
+    reps = [Replica(params, model_cfg, d, train_cfg.optim_type, schedule,
+                    train_cfg.pos_weight) for d in devices]
+    model = reps[0].model
 
     best_accuracy = 0.0
     best_ckpt = None
     global_step = start_epoch = 0
     if st is not None:
-        restore_optimizer(opt, model, st, state_path)
+        for r in reps:
+            restore_optimizer(r.opt, r.model, st, state_path)
         start_epoch, global_step = st["epoch"], st["global_step"]
         best_accuracy = st["best_accuracy"]
         if verbose:
             print("resuming training from epoch {} (step {})".format(
                 start_epoch, global_step))
 
-    if plane == "stream":
+    if n > 1 and plane == "sharded":
+        train_src = Replicated.over(Sharded, train_ds, devices,
+                                    steps=steps_per_epoch)
+        valid_src = Replicated.over(Sharded, valid_ds, devices)
+    elif n > 1:
+        train_src = (StreamedShares(train_ds, devices) if plane == "stream"
+                     else Replicated.over(GlobalBatch, train_ds, devices,
+                                          resident=False))
+        valid_src = Replicated.over(GlobalBatch, valid_ds, devices,
+                                    resident=False)
+    elif plane == "stream":
         train_src, valid_src = (Streamed(train_ds, device),
                                 HostFed(valid_ds, device))
     elif plane == "spill":
@@ -937,6 +1171,11 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
                   "slab(s) of <= {} rows ({} wire), {} valid rows on "
                   "{}".format(len(train_ds), c["slabs"], c["slab_rows"],
                               c["wire"], len(valid_ds), device))
+        elif plane == "sharded" and n > 1:
+            print("sharded device-resident data plane: {} train + {} "
+                  "valid rows over {} devices ({}), each its block".format(
+                      len(train_ds), len(valid_ds), n,
+                      ", ".join(map(str, devices))))
         elif plane in ("resident", "sharded"):
             print("{}device-resident data plane: {} train + {} valid rows "
                   "on {}{}".format(
@@ -947,7 +1186,9 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
         print("total_step: {}".format(steps_per_epoch))
 
     def run_eval() -> dict:
-        return evaluate(model, valid_src, B, class_weights)
+        if n > 1:
+            return evaluate_replicas(reps, valid_src, B)
+        return evaluate(model, valid_src, B, reps[0].class_weights)
 
     start_step = global_step
     epochs_run = start_epoch
@@ -968,7 +1209,8 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 """Eval + best checkpoint + log (JAX train.py:1250-1283)."""
                 nonlocal best_accuracy, epoch_best, no_best_model, best_ckpt
                 nonlocal tlosses, tic, t_interval
-                sync_device(device)
+                for d in set(devices):
+                    sync_device(d)
                 t_eval = time.time()
                 counters["train_seconds"] += t_eval - t_interval
                 counters["epoch_train_seconds"][-1] += t_eval - t_interval
@@ -1008,15 +1250,15 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 tic = t_interval = time.time()
                 counters["eval_seconds"] += t_interval - t_eval
 
-            for i, (batch, labels, mask, rows) in enumerate(
-                    train_src.epoch(rng_np, B)):
-                gen = (step_generator(train_cfg.seed + 1, global_step,
-                                      device, rank if world > 1 else None)
-                       if model_cfg.dropout_rate > 0 else None)
-                tlosses.append(train_step(model, weights, opt, batch, labels,
-                                          class_weights, train_cfg.clip_grad,
-                                          gen, mask))
-                counters["train_rows"] += rows
+            for i, step in enumerate(train_src.epoch(rng_np, B)):
+                parts = step if n > 1 else (step,)
+                gens = (replica_generators(train_cfg.seed + 1, global_step,
+                                           reps, rank, world)
+                        if model_cfg.dropout_rate > 0 else [None] * n)
+                tlosses.append(replicas_step(
+                    reps, [p[:3] for p in parts], train_cfg.clip_grad,
+                    gens))
+                counters["train_rows"] += sum(p[3] for p in parts)
                 global_step += 1
                 if train_src.evaluates_after(i + 1, steps_per_epoch,
                                              train_cfg.step_interval):
@@ -1024,7 +1266,7 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
             epochs_run = epoch + 1
             epoch_seconds.append(time.time() - epoch_t0)
             if state_path is not None and rank == 0:
-                save_train_state(state_path, model, opt, epoch + 1,
+                save_train_state(state_path, model, reps[0].opt, epoch + 1,
                                  global_step, best_accuracy)
             if no_best_model and epoch >= train_cfg.min_epoch_num - 1:
                 if verbose:
@@ -1038,6 +1280,8 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
             time.time() - t_start, best_accuracy))
     return {"best_accuracy": best_accuracy, "best_ckpt": best_ckpt,
             "epochs_run": epochs_run, "params": params_to_numpy(model),
+            "replica_params": [params_to_numpy(r.model) for r in reps[1:]],
+            "devices": [str(d) for d in devices],
             "steps": global_step, "start_epoch": start_epoch,
             "start_step": start_step, "step_losses": step_losses,
             "valid_accuracies": valid_accuracies,
@@ -1066,21 +1310,32 @@ def use_stream(args) -> bool:
         and os.path.getsize(args.train_file) > STREAM_MIN_BYTES)
 
 
+def train_configs(args, device: torch.device
+                  ) -> tuple[ModelConfig, TrainConfig]:
+    """The model and training configurations of parsed ``train``
+    arguments (compute dtype ``auto`` resolved for ``device``)."""
+    return (model_config_from_args(args, device, args.dropout_rate),
+            TrainConfig(
+                batch_size=args.batch_size, lr=args.lr,
+                lr_decay=args.lr_decay, lr_decay_step=args.lr_decay_step,
+                max_epoch_num=args.max_epoch_num,
+                min_epoch_num=args.min_epoch_num,
+                step_interval=args.step_interval,
+                pos_weight=args.pos_weight, optim_type=args.optim_type,
+                device_resident=args.device_resident))
+
+
 def train(args) -> dict:
-    """CLI entry mirroring reference train(args) (train.py:22). Returns
-    train_loop's summary."""
+    """CLI entry mirroring reference train(args) (train.py:22), over
+    every visible card unless ``--device`` names one (utils/device.
+    resolve_devices). Returns train_loop's summary."""
     for path in (args.train_file, args.valid_file):
         if not os.path.exists(path):
             raise ValueError(f"{path} does not exist!")
-    device = resolve_device(args.device)
+    devices = resolve_devices(args.device)
+    device = devices[0]
     print("[main] train starts..")
-    model_cfg = model_config_from_args(args, device, args.dropout_rate)
-    train_cfg = TrainConfig(
-        batch_size=args.batch_size, lr=args.lr, lr_decay=args.lr_decay,
-        lr_decay_step=args.lr_decay_step, max_epoch_num=args.max_epoch_num,
-        min_epoch_num=args.min_epoch_num, step_interval=args.step_interval,
-        pos_weight=args.pos_weight, optim_type=args.optim_type,
-        device_resident=args.device_resident)
+    model_cfg, train_cfg = train_configs(args, device)
 
     print("reading data..")
     t0 = time.time()
@@ -1105,11 +1360,12 @@ def train(args) -> dict:
 
     launches0 = kernel_launches()
     res = train_loop(model_cfg, train_cfg, train_ds, valid_ds, model_dir,
-                     device, init_model=args.init_model, resume=args.resume)
+                     devices, init_model=args.init_model, resume=args.resume)
     if args.verbose_stages:
         print("[stages] " + json.dumps({
             "device": (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu"),
+            "devices": res["devices"],
             "compute_dtype": model_cfg.compute_dtype,
             "recurrence": model_cfg.recurrence,
             "plane": res["plane"],

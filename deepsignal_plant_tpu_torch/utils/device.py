@@ -54,8 +54,9 @@ def resolve_device(choice: str | None = None) -> torch.device:
 
 
 def resolve_devices(choice: str | None = None) -> list[torch.device]:
-    """The cards one process drives (call_mods and serve; JAX
-    ``make_mesh()`` over ``jax.local_devices()``): ``None`` or
+    """The cards one process drives (call_mods, serve, train and
+    denoise: one model replica a card; JAX ``make_mesh()`` over
+    ``jax.local_devices()``): ``None`` or
     ``"cuda"`` -> every visible card, cuda:0 ... cuda:n-1
     (``CUDA_VISIBLE_DEVICES`` chooses them), card 0 made current; under
     a multi-process launch ``[cuda:<LOCAL_RANK>]``, one card a rank;

@@ -196,7 +196,12 @@ def run_hooks(opts: dict):
     - ``init_params``: a save_init_params file; denoise's mini-trainings
       start from its parameters for their seed (a missing seed raises);
     - ``watch``: a directory; every file this rank opens for writing or
-      removes under it is recorded (``writes``).
+      removes under it is recorded (``writes``);
+    - ``host_fed_layout``: ``"global"`` gives train's host-fed plane the
+      layout of one process over N devices (``GlobalBatch``: one
+      permutation of every row an epoch, each rank its share of each
+      global batch), which N local replicas take, in place of a launch's
+      strided row shards (``ShardedHostFed``).
 
     Every denoise mini-training's seed, training rows and half_digest go
     to ``draws``."""
@@ -204,6 +209,7 @@ def run_hooks(opts: dict):
 
     from deepsignal_plant_tpu_torch.models.convert import _unflatten
     from deepsignal_plant_tpu_torch.pipeline import denoise as D
+    from deepsignal_plant_tpu_torch.pipeline import train as T
     record = {"draws": [], "writes": []}
     undo = []
 
@@ -222,6 +228,10 @@ def run_hooks(opts: dict):
                 by_seed.setdefault(int(seed), {})[name] = z[k]
         patch(D, "init_params",
               lambda cfg, seed: _unflatten(by_seed[seed]))
+    if opts.get("host_fed_layout") == "global":
+        patch(T, "ShardedHostFed",
+              lambda ds, device, rank, world, steps=None: T.GlobalBatch(
+                  ds, device, rank, world, resident=False))
     real_tts = D.CrossRankTrainer.train_then_score
 
     def spy(self, train_ds, score_ds, seed, *a, **k):
