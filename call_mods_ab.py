@@ -30,12 +30,12 @@ anything loads (calling mallopt to restore 128 KB would not restore
 them: a mallopt of M_MMAP_THRESHOLD turns off glibc's dynamic
 threshold). Each run reports the sha256 of the rows it wrote.
 
-chip_smoke.py imports the fixture writers and ``rate_run`` from here.
+chip_smoke.py imports the fixture writers, ``rate_run`` and
+``run_child`` from here.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import hashlib
 import json
@@ -144,28 +144,25 @@ def busy_seconds(prof) -> tuple[float, int]:
     return busy / 1e6, len(spans)
 
 
-def rate_run(engine, tsv: str, out: str, launches: dict,
-             profiled: bool = True) -> dict:
+def rate_run(engine, tsv: str, out: str, launches: dict) -> dict:
     """``engine.run_features_file`` on ``tsv`` to warm up (CUDA's
     first-use costs, the pinned ring grown to full batches, the file in
     the page cache), then once more under torch.profiler with CUDA
-    activity only (``profiled``; else without it, and no busy share):
-    the rate from that run's CallStats, the card's busy share (the union
-    of its kernel and copy spans over the run's wall time), and the
-    kernel launches of that run (``launches``, the checkout's counters,
-    set to 0 just before it)."""
+    activity only: the rate from that run's CallStats, the card's busy
+    share (the union of its kernel and copy spans over the run's wall
+    time), and the kernel launches of that run (``launches``, the
+    checkout's counters, set to 0 just before it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     engine.run_features_file(tsv, out)
     for k in launches:
         launches[k] = 0
-    with (profile(activities=[ProfilerActivity.CUDA]) if profiled
-          else contextlib.nullcontext()) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         stats = engine.run_features_file(tsv, out)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, events = busy_seconds(prof) if profiled else (0.0, 0)
+    busy, events = busy_seconds(prof)
     return {"stats": dataclasses.asdict(stats),
             "sites_per_s": stats.sites / stats.seconds,
             "kernel_launches": dict(launches),
@@ -183,7 +180,7 @@ def file_sha256(path: str) -> str:
 
 
 def child(tree: str, inputs: list[tuple[str, str]], ckpt: str, tmp: str,
-          wires: list[str], arm: str, profiled: bool) -> list[dict]:
+          wires: list[str], arm: str) -> list[dict]:
     """One checkout's runs, in this process: at each wire, one engine
     on each (fixture, TSV) of ``inputs``, under allocator ``arm``."""
     sys.path.insert(0, tree)
@@ -207,13 +204,29 @@ def child(tree: str, inputs: list[tuple[str, str]], ckpt: str, tmp: str,
         eng = CallModsEngine(ckpt, cfg, call, device="cuda")
         for fixture, tsv in inputs:
             path = os.path.join(tmp, f"calls_{os.getpid()}.tsv")
-            res = rate_run(eng, tsv, path, fused_lstm.launches, profiled)
+            res = rate_run(eng, tsv, path, fused_lstm.launches)
             out.append({"tree": tree, "fixture": fixture, "wire": wire,
                         "allocator": arm, "allocator_tuned": bool(
                             allocator is not None and allocator._tuned),
                         "rows_sha256": file_sha256(path), **res})
             os.remove(path)
     return out
+
+
+def run_child(tree: str, inputs: list[tuple[str, str]], ckpt: str,
+              tmp: str, wires: list[str], arm: str) -> list[dict]:
+    """``child``'s runs in a fresh process at ``tree`` (its own imports,
+    CUDA start and allocator state); raises if the process fails."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), os.path.abspath(tree),
+         "--child", json.dumps(inputs), ckpt, tmp, arm, "--wires", *wires],
+        cwd=tree, env=env, capture_output=True, text=True, timeout=1200)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{tree} ({arm}) exited {proc.returncode}:\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith('{"tree"')]
 
 
 def main() -> int:
@@ -230,15 +243,13 @@ def main() -> int:
     ap.add_argument("--allocators", nargs="+", choices=["tuned", "default"],
                     default=["tuned"], help="a process per entry and "
                     "checkout, in this order")
-    ap.add_argument("--no-profile", dest="profiled", action="store_false",
-                    help="time without torch.profiler (no busy share)")
     ap.add_argument("--child", nargs=4, help=argparse.SUPPRESS,
                     metavar=("INPUTS", "CKPT", "TMP", "ARM"))
     args = ap.parse_args()
     if args.child:
         inputs, ckpt, tmp, arm = args.child
         for res in child(args.trees[0], json.loads(inputs), ckpt, tmp,
-                         args.wires, arm, args.profiled):
+                         args.wires, arm):
             print(json.dumps(res), flush=True)
         return 0
     if args.tsv and len(args.tsv) != len(args.fixture):
@@ -274,24 +285,16 @@ def main() -> int:
         save_checkpoint(ckpt, init_params(cfg, SEED), cfg)
         for tree in args.trees:
             for arm in args.allocators:
-                env = {k: v for k, v in os.environ.items()
-                       if k != "PYTHONPATH"}
-                proc = subprocess.run(
-                    [sys.executable, os.path.abspath(__file__),
-                     os.path.abspath(tree), "--child", json.dumps(inputs),
-                     ckpt, tmp, arm, "--wires", *args.wires,
-                     *([] if args.profiled else ["--no-profile"])],
-                    cwd=tree, env=env,
-                    capture_output=True, text=True, timeout=1200)
-                if proc.returncode != 0:
-                    print(proc.stdout[-3000:], proc.stderr[-3000:],
-                          file=sys.stderr)
+                try:
+                    runs = run_child(tree, inputs, ckpt, tmp, args.wires,
+                                     arm)
+                except RuntimeError as exc:
+                    print(exc, file=sys.stderr)
                     return 1
-                for line in proc.stdout.strip().splitlines():
-                    if line.startswith('{"tree"'):
-                        res = {**json.loads(line), "card": smi}
-                        print(json.dumps(res), flush=True)
-                        results.append(res)
+                for res in runs:
+                    res["card"] = smi
+                    print(json.dumps(res), flush=True)
+                    results.append(res)
     print(json.dumps([{k: r[k] for k in (
         "tree", "fixture", "wire", "allocator", "sites_per_s", "busy_share",
         "rows_sha256")} for r in results]))

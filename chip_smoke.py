@@ -132,9 +132,10 @@ run.
    through the kernels and through the plain versions (the same final
    file, the first iteration's mean scores within 1e-3); ``train`` for
    one epoch on phase 4b's rows, then ``--resume`` to two (it starts at
-   epoch 2 and step 32), and one epoch with ``--stream yes``, the three in
-   turn in one fresh process (each run's launches its own): 5 launches
-   of K3, K4 and dW_hh per step, samples/s of each plane;
+   epoch 2 and step 32, in a fresh process that reads the state file),
+   and one epoch with ``--stream yes`` (in turn in the first run's
+   process; each run's launches its own): 5 launches of K3, K4 and
+   dW_hh per step, samples/s of each plane;
    (8b) ``denoise`` at two ranks on card 0 over gloo, one launch: the
    global-batch plane in float32 at dropout 0 on the first 8,192 rows of
    that TSV (``--iterations 1 --rounds 1 --epoch_num 2``; its final file
@@ -185,22 +186,23 @@ run.
    each of K1's bfloat16 kernels in turns, on the dense TSV, v3 at int8
    and v3 at int8 resident: sites/s and the forwards' device seconds;
 11. train and denoise over a process's local cards, and the host
-   allocator: (11a) ``train_loop`` over ``[cuda:0, cuda:0]`` and over
-   ``[cuda:0]`` in turns (two, one, one, two), one epoch of phase 4b's
-   rows with phase 9b's arguments, on the sharded-resident and the
-   host-fed plane: 5 launches of K3, K4 and dW_hh a step on each
-   replica, the two replicas' parameters bitwise equal, the two-replica
-   weights within 2e-5 of phase 9b's two gloo ranks (bitwise expected;
-   9b runs the host-fed ranks a third time in the replicas' global-batch
-   layout), samples/s of each run; (11b) one 512-row step over one and
-   over two replicas in turns, host enqueue and device ms; (11c)
-   ``denoise`` over two replicas on card 0 on each of phase 8b's planes
-   with 8b's arguments, its final file byte for byte 8b's two-rank file;
-   (11d) ``call_mods_ab.py`` on phase 4e's dense TSV and phase 4's sparse
-   TSV four times over, with the host-allocator tune and without it
-   (glibc's own thresholds), a fresh process each, in turns: the rows
-   byte for byte equal, sites/s and the parse stages. Two replicas on
-   one card measure the sums and the replica count's cost, not N cards;
+   allocator: (11a) ``train_loop`` over ``[cuda:0, cuda:0]``, then over
+   ``[cuda:0]``, one epoch of phase 4b's rows with phase 9b's arguments,
+   on the sharded-resident and the host-fed plane: 5 launches of K3, K4
+   and dW_hh a step on each replica, the two replicas' parameters
+   bitwise equal, on the sharded plane the two-replica weights within
+   2e-5 of phase 9b's two gloo ranks (bitwise expected), samples/s of
+   each run; (11b) one 512-row step over one and over two replicas in
+   turns, host enqueue and device ms; (11c) ``denoise`` over two
+   replicas on card 0 on each of phase 8b's planes with 8b's arguments,
+   its final file byte for byte 8b's two-rank file (on the global-batch
+   plane, the layout of train's host-fed replicas); (11d)
+   ``call_mods_ab.py`` on phase 4e's dense TSV and phase 4's sparse TSV
+   four times over, with the host-allocator tune, then without it
+   (glibc's own thresholds), a fresh process each: the rows byte for
+   byte equal, sites/s, the parse stages and the card's busy share. Two
+   replicas on one card measure the sums and the replica count's cost,
+   not N cards;
 12. a ``{"kernels": [...]}`` line (phase 6c's, 8's, 8b's, 9's, 10's and
    11's launches beside each kernel's main-path count), the card line,
    and last ``{"ok": true, "device": {...}}``.
@@ -1318,8 +1320,8 @@ def time_recurrence_f32(torch, recurrence, plain):
     return per_h
 
 
-def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
-                    init_params, optim, train_mod, compute_dtype):
+def time_train_step(torch, ModelConfig, FeatureDataset, init_params,
+                    train_mod, compute_dtype):
     """Phase 3c: where the time of one training step goes, at batch 512
     in ``compute_dtype`` (bfloat16, the train CLI's default, or float32)
     with the train CLI's other defaults (dropout 0.5, Adam), through
@@ -1332,11 +1334,10 @@ def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     cfg = ModelConfig(compute_dtype=compute_dtype)
-    model = ModelBiLSTM.from_params(init_params(cfg, SEED), cfg, "cuda",
-                                    trainable=True)
-    weights = list(model.parameters())
-    opt = optim.Optimizer("Adam", optim.step_decay_schedule(
-        1e-3, 32, 2, 0.1), weights)
+    dev = torch.device("cuda")
+    rep = train_mod.Replica(init_params(cfg, SEED), cfg, dev, "Adam",
+                            train_mod.step_decay_schedule(1e-3, 32, 2, 0.1),
+                            1.0)
     rng = np.random.default_rng(SEED)
     n = 32 * TRAIN_B
     ds = FeatureDataset(
@@ -1346,10 +1347,8 @@ def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
         rng.integers(1, 30, (n, T)).astype(np.float32),
         rng.normal(size=(n, T, 16)).astype(np.float32),
         rng.integers(0, 2, n).astype(np.int32))
-    dev = torch.device("cuda")
     src = train_mod.Resident(ds, dev)
     order = torch.from_numpy(rng.permutation(n)).to(dev)
-    cw = torch.ones(2, device="cuda")
 
     def gathered(i):
         return src.batch(order[i % 32 * TRAIN_B:(i % 32 + 1) * TRAIN_B])
@@ -1358,8 +1357,8 @@ def time_train_step(torch, ModelConfig, ModelBiLSTM, FeatureDataset,
 
     def step(i, get_batch):
         return train_mod.train_step(
-            model, weights, opt, *get_batch(i), cw, 0.5,
-            train_mod.step_generator(SEED + 1, i, dev))
+            [rep], [(*get_batch(i), None)], 0.5,
+            [train_mod.step_generator(SEED + 1, i, dev)])
 
     for i in range(3):
         step(i, gathered)
@@ -2830,13 +2829,14 @@ def check_denoise_resume_stream(tmp: str, ab) -> dict:
               "--step_interval", "100000", "--min_epoch_num", "2")
     resumed = ("--model_dir", os.path.join(tmp, "resume_model"))
     steps = -(-TRAIN_ROWS // TRAIN_B)
-    # in turn in one process: the resumed run reads the state file the
-    # first one wrote
-    runs = dict(zip(("epoch1", "resume", "stream"), run_cli_many([
+    # the first epoch and the streamed one in turn in one process; the
+    # resumed run in a fresh process, from the state file alone
+    runs = dict(zip(("epoch1", "stream"), run_cli_many([
         ["train", *common, *resumed, "--max_epoch_num", "1"],
-        ["train", *common, *resumed, "--max_epoch_num", "2", "--resume"],
         ["train", *common, "--model_dir", os.path.join(tmp, "stream_model"),
          "--max_epoch_num", "1", "--stream", "yes"]])))
+    runs["resume"] = run_cli("train", *common, *resumed, "--max_epoch_num",
+                             "2", "--resume")
     for name, st in runs.items():
         start = (1, steps) if name == "resume" else (0, 0)
         plane = "stream" if name == "stream" else "resident"
@@ -3243,13 +3243,7 @@ def check_ranks(tmp: str, trained: dict, ckpt: str) -> dict:
     shard = -(-TRAIN_ROWS // RANKS)         # the most rows a rank holds
     steps = -(-shard // local_b)
     dev = ["--device", "cuda:0"]
-    # (name, --device_resident, the plane, torch_launch options): the
-    # host-fed plane twice, in a launch's strided row shards and (for
-    # phase 11's replicas) in one process's global-batch layout
-    planes = (("sharded", "auto", "sharded", {}),
-              ("host-fed", "never", "host-fed", {}),
-              ("host-fed-global", "never", "host-fed",
-               {"host_fed_layout": "global"}))
+    planes = (("sharded", "auto"), ("host-fed", "never"))
     calls = os.path.join(tmp, "ranks_calls.tsv")
     hosts = [os.path.join(tmp, f"ranks_calls.host{r}.tsv")
              for r in range(RANKS)]
@@ -3259,29 +3253,28 @@ def check_ranks(tmp: str, trained: dict, ckpt: str) -> dict:
               os.path.join(tmp, f"ranks_{plane}", "m{rank}"),
               "--max_epoch_num", "1", "--min_epoch_num", "1",
               "--step_interval", "100000", "--device_resident", resident,
-              *dev, "--verbose_stages"], opts]
-            for plane, resident, _, opts in planes]
+              *dev, "--verbose_stages"]] for plane, resident in planes]
     runs.append([None, ["call_mods", "-i", os.path.join(tmp, "fast5_sub"),
                         "-m", ckpt, "-o", calls, *dev, "--verbose_stages"]])
     runs.append([None, ["call_freq", *sum((["-i", h] for h in hosts), []),
                         "-o", freq, "--sort", "--prob_cf", "0",
                         "--device_agg", *dev]])
-    for plane, *_ in planes:
+    for plane, _ in planes:
         os.makedirs(os.path.join(tmp, f"ranks_{plane}"))
     outs = rank_runs(runs)
     out = {"train": {}, "launch_seconds": time.time() - t_phase,
            "params": {}}
 
-    for (plane, _, kind, _), run_outs in zip(planes, outs):
+    for (plane, _), run_outs in zip(planes, outs):
         d = os.path.join(tmp, f"ranks_{plane}")
         out["params"][plane] = os.path.join(d, "params0.npz")
         sts = rank_stages(run_outs)
         for r, st in enumerate(sts):
             if (st["plane"], st["rank"], st["world_size"], st["local_batch"],
-                    st["steps"]) != (kind, r, RANKS, local_b, steps):
+                    st["steps"]) != (plane, r, RANKS, local_b, steps):
                 fail(f"rank {r} trained {st['plane']} (rank {st['rank']} of "
                      f"{st['world_size']}, {st['local_batch']} rows a step, "
-                     f"{st['steps']} steps; expected {kind}, {local_b}, "
+                     f"{st['steps']} steps; expected {plane}, {local_b}, "
                      f"{steps})")
             check_launches(f"rank {r} ({plane})", st["kernel_launches"], {
                 "lstm_recurrence_fwd_save": 5 * steps,
@@ -3316,7 +3309,7 @@ def check_ranks(tmp: str, trained: dict, ckpt: str) -> dict:
             + f"; valid accuracy {sts[0]['valid_accuracies']}")
 
     # fused fast5 call_mods on phase 6's 64 reads, then pod call_freq
-    sts = rank_stages(outs[3])
+    sts = rank_stages(outs[2])
     for r, st in enumerate(sts):
         check_launches(f"call_mods rank {r}", st["kernel_launches"],
                        {K1_BF16: 5 * st["forward_tiles"]})
@@ -3334,9 +3327,9 @@ def check_ranks(tmp: str, trained: dict, ckpt: str) -> dict:
                     f"sites, {st['sites_per_s']:.1f} sites/s"
                     for r, st in enumerate(sts))
         + "; the .host<N> files hold one process's rows (phase 6)")
-    if "shared input list" not in outs[4][0]:
+    if "shared input list" not in outs[3][0]:
         fail("pod call_freq did not see a shared list:\n"
-             + outs[4][0][-2000:])
+             + outs[3][0][-2000:])
     from deepsignal_plant_tpu_torch import cli
     one_freq = os.path.join(tmp, "ranks_freq_one.tsv")
     with contextlib.redirect_stdout(io.StringIO()):
@@ -3693,35 +3686,37 @@ def zero_launches(*counters) -> None:
 
 def check_local_train(torch, cli, train_mod, convert, FeatureDataset,
                       tmp: str, ranks: dict) -> dict:
-    """Phase 11a: ``train_loop`` over two replicas on card 0 and over
-    card 0 alone, in turns (two, one, one, two), one epoch of phase 4b's
-    rows at the CLI's defaults (phase 9b's arguments), on the
-    sharded-resident plane and on the host-fed plane. Each run's counts
-    start at 0: 5 launches of K3, K4 and dW_hh a step on each replica and
-    5 of K1's bfloat16 kernel per evaluation tile on each. The two
-    replicas' parameters bitwise equal; the two-replica weights within
-    TRAIN_RANKS_TOL of phase 9b's two gloo ranks on the same rows and
-    seed (the host-fed ranks in the replicas' global-batch layout).
-    ``ranks``: phase 9b's parameter files by plane."""
+    """Phase 11a: ``train_loop`` over two replicas on card 0, then over
+    card 0 alone, one epoch of phase 4b's rows at the CLI's defaults
+    (phase 9b's arguments), on the sharded-resident plane and on the
+    host-fed plane. Each run's counts start at 0: 5 launches of K3, K4
+    and dW_hh a step on each replica and 5 of K1's bfloat16 kernel per
+    evaluation tile on each. The two replicas' parameters bitwise equal;
+    on the sharded plane the two-replica weights within TRAIN_RANKS_TOL
+    of phase 9b's two gloo ranks on the same rows and seed. (Launched
+    ranks feed the host-fed plane in strided row shards, not in the
+    replicas' global-batch layout; phase 11c holds that layout over two
+    replicas against two ranks, through denoise.) ``ranks``: phase 9b's
+    parameter files by plane."""
     from deepsignal_plant_tpu_torch.ops import fused_lstm, recurrence
     tr, va = os.path.join(tmp, "train.tsv"), os.path.join(tmp, "valid.tsv")
     train_ds, valid_ds = (FeatureDataset.from_file(p) for p in (tr, va))
     card0 = torch.device("cuda", 0)
     steps = -(-TRAIN_ROWS // TRAIN_B)
     out = {}
-    for plane, resident, ranks_plane in (
-            ("sharded", "auto", "sharded"),
-            ("host-fed", "never", "host-fed-global")):
+    for plane, resident in (("sharded", "auto"), ("host-fed", "never")):
         args = cli.build_parser().parse_args([
             "train", "--train_file", tr, "--valid_file", va, "--model_dir",
             tmp, "--max_epoch_num", "1", "--min_epoch_num", "1",
             "--step_interval", "100000", "--device_resident", resident])
         model_cfg, train_cfg = train_mod.train_configs(args, card0)
-        with np.load(ranks[ranks_plane]) as z:
-            want = {k[len("params/"):]: z[k] for k in z.files
-                    if k.startswith("params/")}
+        want = None
+        if plane == "sharded":
+            with np.load(ranks[plane]) as z:
+                want = {k[len("params/"):]: z[k] for k in z.files
+                        if k.startswith("params/")}
         runs = {1: [], 2: []}
-        for k in (2, 1, 1, 2):
+        for k in (2, 1):
             zero_launches(fused_lstm.launches, recurrence.launches)
             res = train_mod.train_loop(model_cfg, train_cfg, train_ds,
                                        valid_ds, None, [card0] * k,
@@ -3755,6 +3750,7 @@ def check_local_train(torch, cli, train_mod, convert, FeatureDataset,
                 if any(not np.array_equal(got[n], other[n]) for n in got):
                     fail(f"phase 11, {plane}: the two replicas' parameters "
                          f"differ")
+            if k > 1 and want is not None:
                 if sorted(got) != sorted(want):
                     fail(f"phase 11, {plane}: parameter names differ from "
                          f"the ranks'")
@@ -3766,21 +3762,22 @@ def check_local_train(torch, cli, train_mod, convert, FeatureDataset,
                          f"ranks (tolerance {TRAIN_RANKS_TOL})")
             runs[k].append(run)
         out[plane] = runs
-        log(f"phase 11, train over [cuda:0, cuda:0] against [cuda:0], "
+        vs_ranks = ("; max |two replicas - two gloo ranks| "
+                    f"{runs[2][0]['max_abs_diff_vs_ranks']} (phase 9b)"
+                    if want is not None else "")
+        log(f"phase 11, train over [cuda:0, cuda:0], then [cuda:0], "
             f"{plane} plane, one epoch of {TRAIN_ROWS} rows ({steps} steps "
             f"of {TRAIN_B}): samples/s two replicas "
-            f"{[round(r['samples_per_s'], 1) for r in runs[2]]}, one "
-            f"{[round(r['samples_per_s'], 1) for r in runs[1]]}; K3/K4/dW_hh "
-            f"a replica a step {runs[2][0]['k3_k4_dw_hh_per_replica_step']}; "
-            f"replicas bitwise equal; max |two replicas - two gloo ranks| "
-            f"{[r['max_abs_diff_vs_ranks'] for r in runs[2]]} (phase 9b, "
-            f"{ranks_plane})")
+            f"{runs[2][0]['samples_per_s']:.1f}, one "
+            f"{runs[1][0]['samples_per_s']:.1f}; K3/K4/dW_hh a replica a "
+            f"step {runs[2][0]['k3_k4_dw_hh_per_replica_step']}; replicas "
+            f"bitwise equal{vs_ranks}")
     return out
 
 
 def time_replica_steps(torch, train_mod, ModelConfig, FeatureDataset,
                        init_params) -> dict:
-    """Phase 11b: one ``replicas_step`` of a 512-row global batch at the
+    """Phase 11b: one ``train_step`` of a 512-row global batch at the
     train CLI's defaults (bfloat16, dropout 0.5, Adam) over one replica
     and over two on card 0 (256 rows each, masked as the padded planes
     mask), in turns (one, two, two, one), 10 steps each after 3: the
@@ -3816,7 +3813,7 @@ def time_replica_steps(torch, train_mod, ModelConfig, FeatureDataset,
         gens = [train_mod.step_generator(SEED + 1, i, card0,
                                          j if k > 1 else None)
                 for j in range(k)]
-        return train_mod.replicas_step(reps[k], parts, 0.5, gens)
+        return train_mod.train_step(reps[k], parts, 0.5, gens)
 
     i = 0
     for k in (1, 2, 2, 1):
@@ -3916,33 +3913,30 @@ def check_local_denoise(cli, denoise_mod, torch, tmp: str,
     return out
 
 
-def check_allocator_ab(tmp: str) -> dict:
-    """Phase 11d: ``call_mods_ab.py`` with the host-allocator tune and
-    without it (glibc's own thresholds), a fresh process each, in turns
-    (tuned, default, default, tuned), each on phase 4e's dense TSV and
-    on phase 4's sparse TSV four times over: the rows byte for byte the
-    same in every run, 5 launches of K1's bfloat16 kernel per forward
-    tile, sites/s and the parse stages of each (no profiler: sites/s
-    from each run's own clock)."""
+def check_allocator_ab(ab, tmp: str, ckpt: str) -> dict:
+    """Phase 11d: ``call_mods_ab.py`` with the host-allocator tune, then
+    without it (glibc's own thresholds), a fresh process each, each on
+    phase 4e's dense TSV and on phase 4's sparse TSV four times over:
+    the rows byte for byte the same in every run, 5 launches of K1's
+    bfloat16 kernel per forward tile, sites/s, the parse stages and the
+    card's busy share of each, with phase 4's checkpoint. (The README's
+    call_mods_ab.py command runs the arms in turns, four processes, for
+    a reading.)"""
     sparse = os.path.join(tmp, "ab_sparse.tsv")
     with open(sparse, "wb") as wf:
         for _ in range(4):
             with open(os.path.join(tmp, "features.tsv"), "rb") as rf:
                 shutil.copyfileobj(rf, wf)
-    arms = ("tuned", "default", "default", "tuned")
-    proc = subprocess.run(
-        [sys.executable, os.path.join(REPO, "call_mods_ab.py"), REPO,
-         "--fixture", "dense", "sparse", "--tsv",
-         os.path.join(tmp, "dense.tsv"), sparse, "--allocators", *arms,
-         "--no-profile"],
-        cwd=REPO, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        fail(f"call_mods_ab.py exited {proc.returncode}:\n"
-             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-    runs = [json.loads(ln) for ln in proc.stdout.splitlines()
-            if ln.startswith('{"tree"')]
-    if len(runs) != 2 * len(arms):
-        fail(f"call_mods_ab.py gave {len(runs)} runs:\n{proc.stdout[-3000:]}")
+    arms = ("tuned", "default")
+    inputs = [("dense", os.path.join(tmp, "dense.tsv")), ("sparse", sparse)]
+    runs = []
+    for arm in arms:
+        try:
+            runs += ab.run_child(REPO, inputs, ckpt, tmp, ["default"], arm)
+        except RuntimeError as exc:
+            fail(f"call_mods_ab.py, the {arm} arm: {exc}")
+    if len(runs) != len(inputs) * len(arms):
+        fail(f"call_mods_ab.py gave {len(runs)} runs")
     out = {}
     for fixture in ("dense", "sparse"):
         rs = [r for r in runs if r["fixture"] == fixture]
@@ -3957,6 +3951,7 @@ def check_allocator_ab(tmp: str) -> dict:
                 fail(f"phase 11, allocator A/B: the {r['allocator']} arm ran "
                      f"with the tune {r['allocator_tuned']}")
         out[fixture] = {arm: [{"sites_per_s": r["sites_per_s"],
+                               "busy_share": r["busy_share"],
                                **{k: r["stats"][k] for k in (
                                    "sites", "parse_seconds",
                                    "parse_wait_seconds", "batch_seconds",
@@ -3964,11 +3959,12 @@ def check_allocator_ab(tmp: str) -> dict:
                               for r in rs if r["allocator"] == arm]
                         for arm in ("tuned", "default")}
         log(f"phase 11, allocator A/B on the {fixture} TSV "
-            f"({rs[0]['stats']['sites']} sites; tuned, default, default, "
-            f"tuned, a process each): sites/s "
+            f"({rs[0]['stats']['sites']} sites; tuned, then default, a "
+            f"process each, profiled): sites/s "
             f"{[round(r['sites_per_s'], 1) for r in rs]}, parse_wait_seconds "
-            f"{[round(r['stats']['parse_wait_seconds'], 4) for r in rs]}; "
-            f"rows byte-identical")
+            f"{[round(r['stats']['parse_wait_seconds'], 4) for r in rs]}, "
+            f"busy share {[round(r['busy_share'], 4) for r in rs]}; rows "
+            f"byte-identical")
     return out
 
 
@@ -4000,7 +3996,7 @@ def main() -> int:
             load_checkpoint, save_checkpoint)
         from deepsignal_plant_tpu_torch.ops import _build, fused_lstm
         from deepsignal_plant_tpu_torch.ops import lstm as plain
-        from deepsignal_plant_tpu_torch.ops import optim, recurrence
+        from deepsignal_plant_tpu_torch.ops import recurrence
         from deepsignal_plant_tpu_torch.pipeline import call_mods
         from deepsignal_plant_tpu_torch.pipeline import denoise as denoise_mod
         from deepsignal_plant_tpu_torch.pipeline import train as train_mod
@@ -4045,9 +4041,8 @@ def main() -> int:
     forward = time_forward(torch, ModelConfig, ModelBiLSTM, Batch,
                            init_params)
     rec_timings = time_recurrence(torch, recurrence, plain)
-    step_timing = {dt: time_train_step(torch, ModelConfig, ModelBiLSTM,
-                                       FeatureDataset, init_params, optim,
-                                       train_mod, dt)
+    step_timing = {dt: time_train_step(torch, ModelConfig, FeatureDataset,
+                                       init_params, train_mod, dt)
                    for dt in ("bfloat16", "float32")}
 
     # phase 4: the main paths; their counts start at 0 in fresh processes
@@ -4105,7 +4100,7 @@ def main() -> int:
                                        FeatureDataset, init_params),
             "denoise": check_local_denoise(cli, denoise_mod, torch, tmp,
                                            phase8b),
-            "allocator": check_allocator_ab(tmp)}
+            "allocator": check_allocator_ab(ab, tmp, run["ckpt"])}
         phase11["seconds"] = time.time() - t11
         log(f"phase 11 took {phase11['seconds']:.1f} s")
     flops = forward_flops_per_site(ModelConfig())

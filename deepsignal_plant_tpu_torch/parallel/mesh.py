@@ -54,7 +54,9 @@ def replica_sum(per_replica: list[list[torch.Tensor]]
     from any card count. Each replica's results are tensors of its own
     (``.to`` a device the sum is already on would return the sum itself,
     and two replicas on one card would share it), in its input's shapes
-    and dtypes."""
+    and dtypes. One replica's list comes back as it is."""
+    if len(per_replica) == 1:
+        return [list(per_replica[0])]
     flats = [torch.cat([t.detach().reshape(-1).to(torch.float32)
                         for t in ts]) for ts in per_replica]
     total = flats[0]

@@ -39,7 +39,7 @@ launch: every visible card, utils/device.resolve_devices) computes the
 same: ``CrossRankTrainer`` holds a model replica a card, replica i in
 the place of rank i. Its planes are ``Replicated`` over ``Sharded`` or
 ``GlobalBatch`` at world N by the same rule (each card within its
-budget), a step is train.replicas_step, the accuracy checks sum the
+budget), a step is train.train_step, the accuracy checks sum the
 replicas' counts, and each replica scores its block of rows, put back
 in row order. The process does the file work alone; nothing is
 broadcast.
@@ -61,9 +61,7 @@ from ..io.dataset import FeatureDataset
 from ..models.bilstm import init_params
 from ..ops.optim import step_decay_schedule
 from ..parallel.dist import process_info
-from ..parallel.mesh import replica_sum
-from ..parallel.multihost import (all_sum, allgather_bytes, barrier,
-                                  broadcast_arrays)
+from ..parallel.multihost import allgather_bytes, barrier, broadcast_arrays
 from ..utils import metrics as M
 from ..utils.bases import str2bool
 from ..utils.device import resolve_devices
@@ -72,8 +70,8 @@ from ..utils.fileio import (count_lines, filter_rows_by_label,
 from .train import (GlobalBatch, HostFed, Replica, Replicated, Resident,
                     Sharded, as_devices, kernel_launches,
                     kernel_launches_since, replica_generators,
-                    replicas_fit, replicas_step, resident_budget,
-                    shard_rows, sync_device)
+                    reduce_replicas, replicas_fit, resident_budget,
+                    shard_rows, sync_device, train_step)
 
 
 def resident_min_rows() -> int:
@@ -189,9 +187,7 @@ class CrossRankTrainer:
             return M.accuracy(labels.cpu().numpy(), preds[0].cpu().numpy())
         counts = [[((pred == y).float() * m).sum(), m.sum()]
                   for pred, (_, y, m) in zip(preds, parts)]
-        ok, tot = (float(x) for x in (
-            all_sum(counts[0]) if len(reps) == 1 else
-            replica_sum(counts)[0]))
+        ok, tot = (float(x) for x in reduce_replicas(counts)[0])
         if sharded:
             return np.float32(ok) / np.float32(max(tot, 1.0))
         return ok / tot if tot else 0.0
@@ -264,7 +260,7 @@ class CrossRankTrainer:
                 gens = (replica_generators(seed + 7, gstep, reps, self.rank,
                                            self.world)
                         if cfg.dropout_rate > 0 else [None] * n)
-                loss = replicas_step(reps, parts, tcfg.clip_grad, gens)
+                loss = train_step(reps, parts, tcfg.clip_grad, gens)
                 gstep += 1
                 c["train_rows"] += sum(p[3] for p in step)
                 if (i + 1) % step_interval == 0:

@@ -58,7 +58,7 @@ permutations drawn once for all); otherwise, as JAX's host loop, one
 permutation an epoch in the global-batch layout (``Replicated`` over
 ``GlobalBatch``), and a streamed file's padded batches cut into shares
 (``StreamedShares``). There is no spill plane over several cards: data
-over the budget goes host-fed, as in JAX. ``replicas_step`` runs every
+over the budget goes host-fed, as in JAX. ``train_step`` runs every
 replica's forward, sums the weight sums, runs every backward, sums the
 gradients and losses in replica order on replica 0's card
 (``replica_sum``) and gives every replica the same bytes, so the
@@ -147,29 +147,6 @@ def clip_by_global_norm(grads: list, clip: float) -> list:
     return [g * scale for g in grads]
 
 
-def train_step(model: ModelBiLSTM, weights: list, opt: Optimizer,
-               batch: Batch, labels: torch.Tensor,
-               class_weights: torch.Tensor, clip: float,
-               generator: torch.Generator | None,
-               mask: torch.Tensor | None = None) -> torch.Tensor:
-    """One update (JAX make_train_step and its shard_map step,
-    train.py:104-127): the training forward, the weighted-CE terms of the
-    rows ``mask`` keeps (all rows without one), the weight sum summed over
-    ranks before the backward, the gradients of this rank's numerator
-    over it, the gradients and the loss summed over ranks (not averaged,
-    as DDP would: ranks' weight sums differ), the clip and the optimizer
-    step. Without a process group the sums are this rank's own. Returns
-    the loss, left on the device."""
-    logits, _ = model(batch, train=True, generator=generator)
-    num, den = masked_ce_terms(logits, labels, class_weights, mask)
-    den, = all_sum([den])
-    loss = num / torch.clamp(den, min=1e-12)
-    grads = torch.autograd.grad(loss, weights)
-    *grads, loss = all_sum([*grads, loss])
-    opt.step(clip_by_global_norm(grads, clip))
-    return loss.detach()
-
-
 class Replica:
     """One model replica on one device: the trainable model, its
     parameters in order, its optimizer and the class weights of the
@@ -186,34 +163,40 @@ class Replica:
                                           dtype=torch.float32, device=device)
 
 
-def replicas_step(reps: list[Replica], parts, clip: float,
-                  gens: list) -> torch.Tensor:
-    """One update over a process's replicas (JAX's shard_map step,
-    train.py:107-122, on one process's N devices). ``parts[i]``: replica
-    i's (batch, labels, mask); ``gens[i]``: its dropout generator or
-    None. One replica takes ``train_step`` as it is. Over N replicas, in
-    phases: every replica's training forward and weighted-CE terms; the
-    weight sums summed; every replica's gradients of its numerator over
-    that sum; the gradients and losses summed in replica order; the same
-    clip and optimizer step on every replica. Returns the summed loss on
-    replica 0's device."""
-    if len(reps) == 1:
-        r, (batch, labels, mask), gen = reps[0], parts[0], gens[0]
-        return train_step(r.model, r.weights, r.opt, batch, labels,
-                          r.class_weights, clip, gen, mask)
+def reduce_replicas(per_replica: list[list[torch.Tensor]]
+                    ) -> list[list[torch.Tensor]]:
+    """JAX's ``psum`` over the data-parallel axis: the sums over a
+    process's replicas (``replica_sum``), then over ranks (``all_sum``,
+    this process's own without a process group); each replica's list of
+    results, the same bytes on every replica and rank."""
+    return [all_sum(ts) for ts in replica_sum(per_replica)]
+
+
+def train_step(reps: list[Replica], parts, clip: float,
+               gens: list) -> torch.Tensor:
+    """One update (JAX make_train_step and its shard_map step,
+    train.py:104-127) over a process's replicas. ``parts[i]``: replica
+    i's (batch, labels, mask), the mask None for all rows; ``gens[i]``:
+    its dropout generator or None. In phases: every replica's training
+    forward and weighted-CE terms; the weight sums summed over replicas
+    and ranks before the backward; every replica's gradients of its
+    numerator over that sum; the gradients and losses summed (not
+    averaged, as DDP would: the weight sums differ); the same clip and
+    optimizer step on every replica, whose parameters stay bitwise
+    equal. Returns the summed loss, left on replica 0's device."""
     terms = []
     for r, (batch, labels, mask), gen in zip(reps, parts, gens):
         logits, _ = r.model(batch, train=True, generator=gen)
         terms.append(masked_ce_terms(logits, labels, r.class_weights, mask))
-    dens = replica_sum([[den] for _, den in terms])
+    dens = reduce_replicas([[den] for _, den in terms])
     grads = []
     for r, (num, _), (den,) in zip(reps, terms, dens):
         loss = num / torch.clamp(den, min=1e-12)
         grads.append([*torch.autograd.grad(loss, r.weights), loss])
-    summed = replica_sum(grads)
+    summed = reduce_replicas(grads)
     for r, (*g, _) in zip(reps, summed):
         r.opt.step(clip_by_global_norm(g, clip))
-    return summed[0][-1]
+    return summed[0][-1].detach()
 
 
 def step_generator(key: int, step: int, device,
@@ -810,8 +793,7 @@ def _evaluate(steps, device: torch.device) -> dict:
     nums, dens = [], []
     counts = torch.zeros(5, dtype=torch.float32, device=device)
     for terms in steps:
-        num, den, cnt = terms[0] if len(terms) == 1 else \
-            replica_sum(terms)[0]
+        num, den, cnt = replica_sum(terms)[0]
         nums.append(num)
         dens.append(den)
         counts += cnt
@@ -1255,7 +1237,7 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
                 gens = (replica_generators(train_cfg.seed + 1, global_step,
                                            reps, rank, world)
                         if model_cfg.dropout_rate > 0 else [None] * n)
-                tlosses.append(replicas_step(
+                tlosses.append(train_step(
                     reps, [p[:3] for p in parts], train_cfg.clip_grad,
                     gens))
                 counters["train_rows"] += sum(p[3] for p in parts)

@@ -58,7 +58,7 @@ def run_port(d, rows, n: int, sharded: bool, init: dict) -> dict:
     file, scores, files left, draws, stages and per-step checks."""
     draws, steps = [], []
     real_tts = port_denoise.CrossRankTrainer.train_then_score
-    real_step = port_denoise.replicas_step
+    real_step = port_denoise.train_step
 
     def spy_tts(self, train_ds, score_ds, seed, *a, **k):
         draws.append([seed, len(train_ds), half_digest(train_ds)])
@@ -75,7 +75,7 @@ def run_port(d, rows, n: int, sharded: bool, init: dict) -> dict:
         mp.setattr(port_denoise, "init_params", lambda cfg, seed: init[seed])
         mp.setattr(port_denoise.CrossRankTrainer, "train_then_score",
                    spy_tts)
-        mp.setattr(port_denoise, "replicas_step", spy_step)
+        mp.setattr(port_denoise, "train_step", spy_step)
         mp.setenv("DSP_DENOISE_RESIDENT_MIN_ROWS",
                   "0" if sharded else "100000")
         d.mkdir()

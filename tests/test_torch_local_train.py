@@ -1,5 +1,5 @@
 """train over several devices of one process (pipeline/train.py's
-``Replica``, ``replicas_step`` and ``Replicated`` planes; the JAX
+``Replica``, ``train_step`` and ``Replicated`` planes; the JAX
 package's one process over a mesh of N local devices), on the CPU.
 
 - ``train_loop`` over ``[cpu] * N`` (N = 2, 3) against JAX's
@@ -10,14 +10,15 @@ package's one process over a mesh of N local devices), on the CPU.
   steps): on the sharded-resident plane, the host-fed plane (340 training
   rows: the last step's global batch of 64 or 66 rows holds 20 or 10, so
   the last device's share is all padding; 75 validation rows leave the
-  same in the evaluation's tail) and the streamed plane. Step losses and
+  same in the evaluation's tail; two epochs) and the streamed plane (one
+  epoch each on these two). Step losses and
   weights within 2e-5 (float32 sums of N devices' terms in other
   orders; the weights move over 1e-2), the validation accuracies, best
   accuracy and step and row counts equal, every replica's weights
   bitwise replica 0's.
 - The replicas' parameters are bitwise equal after every step (dropout
-  0.5, so each replica's gradients differ), ``[cpu]`` alone is the
-  one-device loop (``train_step`` each step, the bytes of ``cpu``), and
+  0.5, so each replica's gradients differ), ``[cpu]`` alone gives the
+  bytes of ``cpu`` and of a one-card step without replica sums, and
   two local replicas at dropout 0.5 end bitwise where two gloo ranks end
   (tests/torch_launch.py; on the host-fed plane the ranks in the
   replicas' layout), so replica j draws rank j's masks.
@@ -67,6 +68,9 @@ FLAGS = ["--device", "cpu", "--hid_rnn", "32", "--layernum1", "2",
          "2"]
 #: plane -> JAX's device_resident
 PLANES = {"sharded": "auto", "host-fed": "never", "stream": "auto"}
+#: plane -> epochs of the comparisons with JAX: two where each epoch
+#: draws a global permutation and ends in all-padding shares
+EPOCHS = {"sharded": 1, "host-fed": 2, "stream": 1}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -147,23 +151,25 @@ def test_n_devices_match_jax_on_n_devices(data, monkeypatch, capsys, n,
     spy("make_train_step", 2)
     train_ds = (JaxStreaming(data["train"], block_rows=100)
                 if plane == "stream" else JaxDataset.from_file(data["train"]))
+    epochs = {"max_epoch_num": EPOCHS[plane], "min_epoch_num": EPOCHS[plane]}
     want = jax_train.train_loop(
         JaxModelConfig(**NARROW),
-        JaxTrainConfig(device_resident=PLANES[plane], **COMMON), train_ds,
-        JaxDataset.from_file(data["valid"]), None, init_model=data["init"])
+        JaxTrainConfig(device_resident=PLANES[plane], **{**COMMON, **epochs}),
+        train_ds, JaxDataset.from_file(data["valid"]), None,
+        init_model=data["init"])
     out = capsys.readouterr().out
     assert ("sharded device-resident data plane" in out) == (
         plane == "sharded")
     want_acc = re.findall(r"Accuracy: ([0-9.]+)", out)
-    assert len(want_acc) == 4
+    assert len(want_acc) == 2 * EPOCHS[plane]
 
-    got = port_run(data, [CPU] * n, plane)
+    got = port_run(data, [CPU] * n, plane, train=epochs)
     B = -(-64 // n)
     steps = -(-340 // (n * B))
     assert (got["plane"], got["local_batch"], got["steps"],
             got["world_size"], got["devices"]) == (
-        plane, B, 2 * steps, 1, ["cpu"] * n)
-    assert got["train_rows"] == 2 * 340
+        plane, B, EPOCHS[plane] * steps, 1, ["cpu"] * n)
+    assert got["train_rows"] == EPOCHS[plane] * 340
     assert ["%.4f" % a for a in got["valid_accuracies"]] == want_acc
     assert got["best_accuracy"] == want["best_accuracy"]
     np.testing.assert_allclose(got["step_losses"], np.concatenate(losses),
@@ -187,7 +193,7 @@ def test_replicas_are_bitwise_equal_after_every_step(data, monkeypatch,
                                                      plane):
     """At dropout 0.5 each replica draws its own masks and its own
     gradients; after the sums every replica holds the same bytes."""
-    real = port_train.replicas_step
+    real = port_train.train_step
     checked = []
 
     def spy(reps, parts, clip, gens):
@@ -201,28 +207,41 @@ def test_replicas_are_bitwise_equal_after_every_step(data, monkeypatch,
         checked.append(loss)
         return loss
 
-    monkeypatch.setattr(port_train, "replicas_step", spy)
+    monkeypatch.setattr(port_train, "train_step", spy)
     res = port_run(data, [CPU] * 3, plane, model={"dropout_rate": 0.5},
                    train={"max_epoch_num": 1, "min_epoch_num": 1})
     assert len(checked) == res["steps"] == 6
     assert_replicas_equal(res)
 
 
-def test_one_device_is_the_one_card_loop(data, monkeypatch):
-    """``[cpu]`` runs ``train_step`` itself every step and gives the bytes
-    of ``cpu``, on both planes, at dropout 0.5."""
-    calls = []
-    real = port_train.train_step
-
-    def spy(*a, **k):
+def one_card_step(calls: list):
+    """The one-card step with no sum over replicas or ranks: the training
+    forward, the weighted CE over the rows kept, its gradients, the clip
+    and the optimizer step."""
+    def step(reps, parts, clip, gens):
+        (r,), ((batch, labels, mask),), (gen,) = reps, parts, gens
+        logits, _ = r.model(batch, train=True, generator=gen)
+        num, den = port_train.masked_ce_terms(logits, labels,
+                                              r.class_weights, mask)
+        loss = num / torch.clamp(den, min=1e-12)
+        grads = torch.autograd.grad(loss, r.weights)
+        r.opt.step(port_train.clip_by_global_norm(grads, clip))
         calls.append(1)
-        return real(*a, **k)
+        return loss.detach()
+    return step
 
-    monkeypatch.setattr(port_train, "train_step", spy)
+
+def test_one_device_is_the_one_card_loop(data, monkeypatch):
+    """``[cpu]`` gives the bytes of ``cpu`` through ``train_step`` and of
+    the one-card step without replica sums, on both planes, at dropout
+    0.5."""
+    calls = []
     for plane in ("sharded", "host-fed"):
-        one, listed = (port_run(data, dev, plane,
-                                model={"dropout_rate": 0.5})
-                       for dev in (CPU, [CPU]))
+        one = port_run(data, CPU, plane, model={"dropout_rate": 0.5})
+        with monkeypatch.context() as m:
+            m.setattr(port_train, "train_step", one_card_step(calls))
+            listed = port_run(data, [CPU], plane,
+                              model={"dropout_rate": 0.5})
         assert one["plane"] == listed["plane"] == (
             "resident" if plane == "sharded" else "host-fed")
         assert one["replica_params"] == listed["replica_params"] == []
@@ -231,7 +250,7 @@ def test_one_device_is_the_one_card_loop(data, monkeypatch):
         a, b = flat(one["params"]), flat(listed["params"])
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
-    assert len(calls) == 4 * 12
+    assert len(calls) == 2 * 12
 
 
 @pytest.fixture(scope="module")

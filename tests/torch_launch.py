@@ -98,10 +98,8 @@ def one_rank_group_check(device: str, backend: str, model_cfg, rows: int,
     import torch
 
     from deepsignal_plant_tpu_torch.io.dataset import FeatureDataset
-    from deepsignal_plant_tpu_torch.models.bilstm import (ModelBiLSTM,
-                                                          init_params)
-    from deepsignal_plant_tpu_torch.ops.optim import (Optimizer,
-                                                      step_decay_schedule)
+    from deepsignal_plant_tpu_torch.models.bilstm import init_params
+    from deepsignal_plant_tpu_torch.ops.optim import step_decay_schedule
     from deepsignal_plant_tpu_torch.parallel import dist
     from deepsignal_plant_tpu_torch.pipeline import train as T
     model_cfg = dataclasses.replace(model_cfg, dropout_rate=0.0)
@@ -120,21 +118,18 @@ def one_rank_group_check(device: str, backend: str, model_cfg, rows: int,
                                                      dtype=torch.int64)])
     mask = (torch.arange(rows) < keep).float().to(dev)
     params = init_params(model_cfg, seed)
-    cw = torch.tensor([1.0, 1.5], device=dev)
 
     def step(optim, idx, mask=None):
-        model = ModelBiLSTM.from_params(params, model_cfg, dev,
-                                        trainable=True)
-        weights = list(model.parameters())
-        before = [w.detach().clone() for w in weights]
-        opt = Optimizer(optim, step_decay_schedule(1e-2, 10, 2, 0.1),
-                        weights)
-        loss = T.train_step(model, weights, opt, *src.batch(idx.to(dev)),
-                            cw, 0.5, None, mask)
+        rep = T.Replica(params, model_cfg, dev, optim,
+                        step_decay_schedule(1e-2, 10, 2, 0.1), 1.5)
+        before = [w.detach().clone() for w in rep.weights]
+        loss = T.train_step([rep], [(*src.batch(idx.to(dev)), mask)], 0.5,
+                            [None])
         return {"loss": loss.cpu(),
                 "update": [(w.detach() - b).cpu()
-                           for w, b in zip(weights, before)],
-                "eval": T.evaluate(model, src, rows, cw)}
+                           for w, b in zip(rep.weights, before)],
+                "eval": T.evaluate(rep.model, src, rows,
+                                   rep.class_weights)}
 
     every = torch.arange(rows)
     alone = step("Adam", every)
