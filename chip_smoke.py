@@ -105,7 +105,16 @@ run.
    bytes; fused ``call_mods`` on the original and both twins in one
    process after a warm-up run on the original (rows equal, 5
    launches of K1's bfloat16 kernel per forward tile, sites/s and
-   parse_wait_seconds);
+   parse_wait_seconds); (6d) the fast5 feature fixtures committed in
+   tests/data/fast5_features/ (one read of 2,000 bases, plain and once
+   per HDF5 structure fast5 writers add: enumerations, a variable-length
+   sequence, a committed datatype, soft and external links, LZF, N-bit,
+   scale-offset and szip signals, a shared message table, a filtered
+   heap), each read as the plain file field for field, the reader's
+   reads/s on each (two passes in turns); ``extract --nproc 4`` and
+   fused ``call_mods`` on the directory write every file's rows equal to
+   the plain file's (5 launches of K1's bfloat16 kernel per forward
+   tile);
 7. the .npz planes, on the first 256 of those reads (~80k sites; bf16,
    float16 wire unless stated): ``extract --w_format npz|npz_wire|
    npz_packed`` (and TSV) at --nproc 4, rows/s each; ``call_mods`` on the
@@ -203,8 +212,8 @@ run.
    byte equal, sites/s, the parse stages and the card's busy share. Two
    replicas on one card measure the sums and the replica count's cost,
    not N cards;
-12. a ``{"kernels": [...]}`` line (phase 6c's, 8's, 8b's, 9's, 10's and
-   11's launches beside each kernel's main-path count), the card line,
+12. a ``{"kernels": [...]}`` line (phase 6c's, 6d's, 8's, 8b's, 9's,
+   10's and 11's launches beside each kernel's main-path count), the card line,
    and last ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package. Without a card, or
@@ -225,6 +234,7 @@ import sys
 import tempfile
 import time
 import warnings
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -383,6 +393,16 @@ FAST5_SUB_READS = 64
 # values 0, 2, 1, 1) and once gzip (deflate level 4)
 VBZ_READS = 256
 VBZ_CHUNK = 10_000
+# phase 6d, the fast5 feature fixtures committed in the repository
+# (tests/data/fast5_features/, written by tests/make_fast5_features.py,
+# which needs h5py): one tombo read of 2,000 bases stored plain and once
+# per HDF5 structure fast5 writers add (enumerations, a variable-length
+# sequence, a committed datatype, soft and external links, LZF, N-bit,
+# scale-offset and szip signals, a shared message table, a filtered
+# heap); each file's reader rate timed over FEATURE_READS reads, in two
+# passes in turns
+FEATURE_DIR = os.path.join(REPO, "tests", "data", "fast5_features")
+FEATURE_READS = 25
 # phase 7, the .npz planes: the first NPZ_READS reads of phase 6's run
 # (~80k sites), extracted into each container at --nproc 4; the fast5
 # batches of extract's default size (30 reads) give 9 files
@@ -2115,6 +2135,8 @@ def check_fast5(tmp: str, ckpt: str) -> dict:
         out = _check_fast5(fast5, base, tmp, ckpt)
         # phase 6c: VBZ and gzip twins of the first VBZ_READS reads
         out["vbz"] = check_vbz(fast5, base, tmp, ckpt, out)
+        # phase 6d: the committed fast5 feature fixtures
+        out["features"] = check_features(fast5, tmp, ckpt)
         # phase 7 on the first NPZ_READS of the same reads
         out["npz"] = check_npz(base, tmp, ckpt)
         return out
@@ -2385,6 +2407,87 @@ def check_vbz(fast5, base: str, tmp: str, ckpt: str, phase6: dict
            "phase6_reader_reads_per_s": phase6["reader"]["reads_per_s"],
            "seconds": time.time() - t_phase}
     log(f"phase 6c took {out['seconds']:.1f} s")
+    return out
+
+
+def same_read(got, want) -> bool:
+    """Two TomboReads equal field for field (arrays: dtype and values)."""
+    for k in ("readname", "read_strand", "alignstrand", "chrom",
+              "chrom_start", "seq"):
+        if getattr(got, k) != getattr(want, k):
+            return False
+    return all(getattr(got, k).dtype == getattr(want, k).dtype
+               and np.array_equal(getattr(got, k), getattr(want, k))
+               for k in ("raw_signal", "event_starts", "event_lengths"))
+
+
+def copies_of_one(rows: list, n: int) -> int:
+    """The rows of one file, where ``rows`` are those of ``n`` files of
+    one read: each distinct row must occur exactly ``n`` times (every
+    file wrote the same rows); 0 where not."""
+    counts = Counter(tuple(r) for r in rows)
+    return len(counts) if counts and set(counts.values()) == {n} else 0
+
+
+def check_features(fast5, tmp: str, ckpt: str) -> dict:
+    """Phase 6d: the fast5 feature fixtures (FEATURE_DIR), one read
+    stored plain and once per HDF5 structure, on the card's machine,
+    which has no h5py: every file reads as plain.fast5, field for field;
+    the reader's reads/s on each file (two passes in turns, the faster
+    kept); ``extract --nproc 4`` on the directory and fused ``call_mods``
+    (bf16, float16 wire, --nproc 4) write each file's rows equal to every
+    other's, the plain file's among them (every distinct row once per
+    file), with K1's bfloat16 kernel 5 times per forward tile."""
+    t_phase = time.time()
+    names = sorted(f[:-len(".fast5")] for f in os.listdir(FEATURE_DIR)
+                   if f.endswith(".fast5"))
+    if "plain" not in names or len(names) < 2:
+        fail(f"phase 6d: no feature fixtures in {FEATURE_DIR}: {names}")
+    paths = {n: os.path.join(FEATURE_DIR, n + ".fast5") for n in names}
+    plain = fast5.read_tombo_fast5(paths["plain"])
+    for n, p in paths.items():
+        if not same_read(fast5.read_tombo_fast5(p), plain):
+            fail(f"phase 6d: {n}.fast5 reads otherwise than plain.fast5")
+    rates: dict = {}
+    for order in (names, names[::-1]):
+        for n in order:
+            t0 = time.perf_counter()
+            for _ in range(FEATURE_READS):
+                fast5.read_tombo_fast5(paths[n])
+            rate = FEATURE_READS / (time.perf_counter() - t0)
+            rates[n] = max(rates.get(n, 0.0), rate)
+    log(f"phase 6d: {len(names)} feature fixtures ({len(plain.seq)} bases,"
+        f" {len(plain.raw_signal)} samples each) read as plain.fast5, field"
+        f" for field; reader reads/s (best of two passes of "
+        f"{FEATURE_READS} in turns): " + json.dumps(
+            {n: round(r, 1) for n, r in rates.items()}))
+    tsv = os.path.join(tmp, "features_6d.tsv")
+    ext = run_extract("-i", FEATURE_DIR, "-o", tsv, "--nproc", "4")
+    rows = sorted_rows(tsv)
+    per_file = copies_of_one(rows, len(names))
+    if not per_file:
+        fail(f"phase 6d: extract wrote {len(rows)} rows for {len(names)} "
+             "files of one read that are not each file's same rows")
+    calls = os.path.join(tmp, "features_6d.calls.tsv")
+    st = run_call_mods(FEATURE_DIR, ckpt, calls, "--nproc", "4")
+    k1_only(st, "phase 6d call_mods")
+    check_rows(st, len(rows))
+    if (st["fast5_files"], st["fast5_errors"]) != (len(names), 0):
+        fail(f"phase 6d call_mods: {st['fast5_files']} files, "
+             f"{st['fast5_errors']} errors")
+    if copies_of_one(st["rows"], len(names)) != per_file:
+        fail("phase 6d: call_mods wrote rows that differ across the "
+             "feature files")
+    out = {"files": names, "reads_per_file": FEATURE_READS,
+           "reader_reads_per_s": rates, "extract": ext,
+           "rows_per_file": per_file,
+           "call_mods": {k: v for k, v in st.items() if k != "rows"},
+           "seconds": time.time() - t_phase}
+    log(f"phase 6d: extract --nproc 4 and call_mods (bf16, float16 wire, "
+        f"--nproc 4) wrote {per_file} rows for every file, the same in each;"
+        f" call_mods {st['sites']} sites, K1 bf16 launches "
+        f"{st['kernel_launches'][K1_BF16]} = 5 x {st['forward_tiles']} "
+        f"tiles; phase 6d took {out['seconds']:.1f} s")
     return out
 
 
@@ -4147,6 +4250,8 @@ def main() -> int:
             "tail_kernel_ms": total("tail_" + pre + "kernel_ms"),
             "shapes_checked": [c for c in checked if c[4] == name],
             "phase6c_launches": fast5_run["vbz"]["call_mods"]["vbz"][
+                "kernel_launches"][name],
+            "phase6d_launches": fast5_run["features"]["call_mods"][
                 "kernel_launches"][name],
             "phase8_launches": phase8_launches(phase8, name),
             "phase8b_launches": phase8b_launches(phase8b, name),

@@ -14,10 +14,14 @@ Group layout contract (reference extract_features.py:44-170,255-271):
 The JAX package has two h5py readers, a fast one that falls back to a
 slower one; this module has one. It reads what h5py reads in the fast5s
 users have: VBZ-compressed signals (HDF5 filter 32020, decoded by
-io/vbz.py against the system's libzstd.so.1), gzip, the layouts of
+io/vbz.py against the system's libzstd.so.1), gzip, LZF, N-bit,
+scale-offset and szip (io/h5filters.py), the layouts of
 ``libver="latest"`` files (dense groups and attributes, every chunk
-index). A VBZPluginError means libzstd.so.1 is missing or the VBZ version
-is not one the port decodes.
+index), enumerations and variable-length attributes, committed
+datatypes and shared messages, soft and external links (a missing
+channel group, or an external file missing, reads the raw signal
+unscaled, as the JAX package's reader does). A VBZPluginError means
+libzstd.so.1 is missing or the VBZ version is not one the port decodes.
 """
 from __future__ import annotations
 

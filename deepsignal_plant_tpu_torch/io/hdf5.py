@@ -1,46 +1,65 @@
 """A read-only reader, and a small writer, for the part of HDF5 that
 fast5 files use: what h5py reads in single-read tombo fast5s, whether
-MinKNOW, ont_fast5_api, tombo or h5py at ``libver="latest"`` wrote them.
-Pure Python: numpy, struct and the standard library's zlib; VBZ through
-io/vbz.py (the system's libzstd.so.1 by ctypes, the port's native
-library). It imports no h5py.
+MinKNOW, ont_fast5_api, Guppy, tombo or h5py at ``libver="latest"``
+wrote them. Python over numpy, struct and the standard library's zlib,
+with the port's native library (native/featparse.cpp, built by g++ at
+first use) for lookup3 and the bit-level filters (io/h5filters.py), and
+VBZ through io/vbz.py (the system's libzstd.so.1 by ctypes). It imports
+no h5py.
 
 Names below are those of the *HDF5 File Format Specification Version
 3.0*.
 
 Reader (``File``): opens a file by path, resolves objects by path
 (``"Analyses/RawGenomeCorrected_000/BaseCalled_template/Events"``) and
-returns attributes (numpy scalars or arrays; ``bytes`` for
-variable-length strings) and datasets (numpy arrays; a structured dtype
-for compound types). Links and attributes come in h5py's order:
-creation order where the object tracks it, else name order. It reads
+returns attributes and datasets as h5py does: numpy scalars or arrays,
+a structured dtype for compound types, numpy bools for h5py's boolean
+enumeration, object arrays of numpy arrays for variable-length
+sequences (``bytes`` for variable-length strings, where h5py's
+attributes give str). Links and attributes come in h5py's order:
+creation order where the object tracks it, else name order. An
+object's attributes are a read-only mapping that decodes a value only
+when it is asked for. It reads
 
-- superblock versions 0-3, with any size of offsets and lengths;
+- superblock versions 0-3, with any size of offsets and lengths, and
+  the superblock extension;
 - object header versions 1 and 2 with continuation blocks (version 2
   checksums verified, Jenkins lookup3);
 - old-style groups (symbol table message, v1 B-tree type 0, symbol
-  nodes, local heap) and new-style groups with compact Link messages or
-  dense link storage;
+  nodes, local heap; soft links in entries of cache type 2) and
+  new-style groups with compact Link messages or dense link storage;
+- hard, soft and external links, resolved as HDF5 resolves them: a
+  soft link's relative value from the group holding it, an external
+  link's file by HDF5's default search, at most 16 soft and external
+  links a path (H5L_NUM_LINKS);
 - attribute messages versions 1-3, compact or in dense attribute
-  storage;
+  storage, their datatypes and dataspaces shared or not;
+- shared messages: in another object's header (committed datatypes)
+  or in the shared object header message table's fractal heaps;
 - dense storage: fractal heaps (managed objects in direct and indirect
-  blocks, tiny objects, huge objects) and version 2 B-trees (record
-  types 1, 5, 6, 8 and 9 for heaps and groups, 10 and 11 for chunks);
-- fixed-point, IEEE float, fixed and variable-length strings (global
-  heap collections), compound types (member encodings 1-3);
+  blocks, tiny objects, huge objects; through an I/O filter pipeline or
+  not) and version 2 B-trees (record types 1, 2, 5, 6, 8 and 9 for heaps
+  and groups, 10 and 11 for chunks);
+- every datatype class h5py reads but time and references: integers of
+  any precision and bit offset, bitfields, IEEE floats, fixed and
+  variable-length strings and sequences (global heap collections),
+  opaque, compound (member encodings 1-3, any member type), enumeration
+  and array types;
 - scalar and simple dataspaces, with maximum dimensions;
 - data layout version 3 (compact, contiguous, chunked with a v1 B-tree
   type 1) and version 4 (compact, contiguous, chunked with a single
   chunk, implicit, fixed-array (paged or not), extensible-array or v2
   B-tree index);
-- filter pipeline versions 1 and 2: deflate, shuffle, fletcher32 and VBZ
-  (filter 32020, version 0).
+- filter pipeline versions 1 and 2: deflate, shuffle, fletcher32, VBZ
+  (filter 32020, version 0), LZF (32000), N-bit (5), scale-offset (6)
+  and szip (4).
 
-What it does not read raises ``UnsupportedFeature`` naming the feature:
-shared object header messages, variable-length sequences, soft, external
-and user-defined links, fractal heaps with I/O filters, other datatype
-classes, and other filters; VBZ raises ``VBZPluginError`` when
-libzstd.so.1 is missing or its version is not 0. Every address and
+What it does not read raises ``UnsupportedFeature`` naming the feature,
+only when that attribute, dataset or link is accessed: time datatypes,
+object and region references, user-defined link classes, other
+filters; VBZ raises ``VBZPluginError`` when libzstd.so.1 is missing or
+its version is not 0. An external link to a file found nowhere raises
+``ExternalFileMissing`` (a KeyError, as h5py's). Every address and
 length is checked against the file's size, every walk is bounded and
 every checksum of a version 2 structure is verified, so a corrupt file
 raises ``HDF5FormatError`` (a ValueError) instead of hanging.
@@ -54,8 +73,10 @@ attributes -- the layout h5py writes by default for the tombo fixture.
 from __future__ import annotations
 
 import math
+import os
 import struct
 import zlib
+from collections.abc import Mapping
 
 import numpy as np
 
@@ -68,7 +89,10 @@ MAX_NODES = 1 << 16
 MAX_CONTINUATIONS = 1024
 MAX_MESSAGES = 1 << 16        # header messages of one object
 MAX_ENTRIES = 1 << 22         # B-tree entries of one walk
-MAX_PATH_DEPTH = 64
+MAX_TYPE_DEPTH = 16           # nesting of compound, array, vlen, enum
+MAX_SHARED_DEPTH = 8          # shared messages that point on to another
+#: soft and external links one path may traverse (HDF5's H5L_NUM_LINKS)
+MAX_LINKS = 16
 
 
 class HDF5FormatError(ValueError):
@@ -83,6 +107,15 @@ class UnsupportedFeature(HDF5FormatError):
                          "port's fast5 reader reads the subset of HDF5 "
                          "that single-read tombo fast5s use)")
         self.feature = feature
+
+
+class ExternalFileMissing(KeyError):
+    """An external link names a file found nowhere HDF5 looks (a
+    KeyError, as h5py raises)."""
+
+    def __init__(self, name: str, tried: list):
+        super().__init__(f"external link to {name!r}: no such file (tried "
+                         f"{', '.join(tried)})")
 
 
 class VBZPluginError(UnsupportedFeature):
@@ -100,51 +133,27 @@ class VBZPluginError(UnsupportedFeature):
 
 
 # ---------------------------------------------------------------------------
-# Jenkins lookup3 (hashlittle), the checksum of version 2 structures
+# checksums: Jenkins lookup3 (hashlittle) of version 2 structures,
+# Fletcher-32 of the fletcher32 filter
 # ---------------------------------------------------------------------------
 
 _M32 = 0xFFFFFFFF
+_native = None                # the port's native library, loaded once
 
 
-def _rot(x: int, k: int) -> int:
-    return ((x << k) | (x >> (32 - k))) & _M32
+def native():
+    """The port's native library (native/featparse.cpp: lookup3, the
+    filters' decoders, VBZ's Stream VByte), built by g++ at first use."""
+    global _native
+    if _native is None:
+        from ..native import load
+        _native = load()
+    return _native
 
 
 def lookup3(data: bytes, initval: int = 0) -> int:
-    n = len(data)
-    a = b = c = (0xDEADBEEF + n + initval) & _M32
-    words = np.frombuffer(data[:n - n % 4], "<u4").tolist() if n >= 4 \
-        else []
-    off = 0
-    w = 0
-    while n - off > 12:
-        a = (a + words[w]) & _M32
-        b = (b + words[w + 1]) & _M32
-        c = (c + words[w + 2]) & _M32
-        a = (a - c) & _M32; a ^= _rot(c, 4); c = (c + b) & _M32
-        b = (b - a) & _M32; b ^= _rot(a, 6); a = (a + c) & _M32
-        c = (c - b) & _M32; c ^= _rot(b, 8); b = (b + a) & _M32
-        a = (a - c) & _M32; a ^= _rot(c, 16); c = (c + b) & _M32
-        b = (b - a) & _M32; b ^= _rot(a, 19); a = (a + c) & _M32
-        c = (c - b) & _M32; c ^= _rot(b, 4); b = (b + a) & _M32
-        off += 12
-        w += 3
-    rest = n - off
-    if rest == 0:
-        return c
-    tail = data[off:] + b"\x00" * (12 - rest)
-    ta, tb, tc = struct.unpack("<III", tail)
-    a = (a + ta) & _M32
-    b = (b + tb) & _M32
-    c = (c + tc) & _M32
-    c ^= b; c = (c - _rot(b, 14)) & _M32
-    a ^= c; a = (a - _rot(c, 11)) & _M32
-    b ^= a; b = (b - _rot(a, 25)) & _M32
-    c ^= b; c = (c - _rot(b, 16)) & _M32
-    a ^= c; a = (a - _rot(c, 4)) & _M32
-    b ^= a; b = (b - _rot(a, 14)) & _M32
-    c ^= b; c = (c - _rot(b, 24)) & _M32
-    return c
+    """Jenkins' lookup3 (hashlittle) of ``data`` (``dsp_lookup3``)."""
+    return int(native().dsp_lookup3(bytes(data), len(data), initval))
 
 
 def fletcher32(data: bytes) -> int:
@@ -219,10 +228,18 @@ class _Cursor:
         return b
 
     def uint(self, n: int) -> int:
-        return int.from_bytes(self.take(n), "little")
+        p = self.pos
+        if n < 0 or p + n > self.end:
+            raise HDF5FormatError(f"truncated structure at {p}")
+        self.pos = p + n
+        return int.from_bytes(self.buf[p:p + n], "little")
 
     def u8(self) -> int:
-        return self.uint(1)
+        p = self.pos
+        if p >= self.end:
+            raise HDF5FormatError(f"truncated structure at {p}")
+        self.pos = p + 1
+        return self.buf[p]
 
     def u16(self) -> int:
         return self.uint(2)
@@ -242,15 +259,74 @@ class _Cursor:
     def align(self, base: int, to: int = 8) -> None:
         self.skip((-(self.pos - base)) % to)
 
+    def copy(self) -> "_Cursor":
+        c = _Cursor.__new__(_Cursor)
+        c.buf, c.pos, c.end, c.so, c.sl = (self.buf, self.pos, self.end,
+                                           self.so, self.sl)
+        return c
+
+
+def _cstring(c: _Cursor, n: int | None) -> bytes:
+    """A null-terminated string at ``c``: in a field of ``n`` bytes, or,
+    with ``n`` None, up to and past its terminator."""
+    if n is not None:
+        return c.take(n).split(b"\x00", 1)[0]
+    end = c.buf.find(b"\x00", c.pos, c.end)
+    if end < 0:
+        raise HDF5FormatError(f"unterminated string at {c.pos}")
+    return c.take(end - c.pos + 1)[:-1]
+
+
+def _attribute_name(c: _Cursor) -> str:
+    """The name of the attribute message at ``c`` (``c`` not moved)."""
+    if c.end - c.pos < 8 or c.buf[c.pos] not in (1, 2, 3):
+        raise HDF5FormatError(f"attribute message at {c.pos}")
+    head = 9 if c.buf[c.pos] == 3 else 8
+    nsize = int.from_bytes(c.buf[c.pos + 2:c.pos + 4], "little")
+    if c.pos + head + nsize > c.end:
+        raise HDF5FormatError(f"attribute name past its message at {c.pos}")
+    name = c.buf[c.pos + head:c.pos + head + nsize]
+    return name.split(b"\x00", 1)[0].decode("utf-8", "replace")
+
 
 class _Dtype:
-    """A decoded datatype: the numpy dtype of its stored bytes, and
-    whether elements are variable-length strings (global heap ids)."""
-    __slots__ = ("np", "vlen_str")
+    """A decoded datatype: ``np`` the numpy dtype of its stored bytes,
+    ``out`` that of the values h5py returns, and ``conv`` the function
+    from an array of stored elements to an array of values of the same
+    shape (None where the two are the same). An array datatype's
+    ``conv`` is its base type's, applied element by element."""
+    __slots__ = ("np", "out", "conv")
 
-    def __init__(self, npdt: np.dtype, vlen_str: bool = False):
+    def __init__(self, npdt: np.dtype, out: np.dtype | None = None,
+                 conv=None):
         self.np = npdt
-        self.vlen_str = vlen_str
+        self.out = npdt if out is None else out
+        self.conv = conv
+
+
+def _array_of(base: _Dtype, dims: tuple) -> _Dtype:
+    """An array datatype (class 10, or a version 1 compound member's
+    dimensions) of ``dims`` elements of ``base``."""
+    if not dims or 0 in dims or len(dims) > 32:
+        raise HDF5FormatError(f"array datatype dimensions {dims}")
+    return _Dtype(np.dtype((base.np, dims)), np.dtype((base.out, dims)),
+                  base.conv)
+
+
+def _bit_field(dt: np.dtype, off: int, prec: int, signed: bool):
+    """The conversion of an integer stored in ``prec`` bits at bit
+    ``off`` of ``dt`` to ``dt`` at full precision, sign-extended when
+    signed (HDF5's H5T__conv_i_i into the native type of that size)."""
+    udt = np.dtype(dt.str.replace("i", "u"))
+    mask = np.uint64((1 << prec) - 1)
+
+    def conv(a: np.ndarray) -> np.ndarray:
+        v = (a.view(udt).astype(np.uint64) >> np.uint64(off)) & mask
+        if signed and prec < 64:
+            v = v.astype(np.int64)
+            v = np.where(v >= 1 << (prec - 1), v - (1 << prec), v)
+        return v.astype(dt)
+    return conv
 
 
 class _Message:
@@ -266,6 +342,7 @@ class File:
     a Dataset; ``path in f`` tests for one."""
 
     def __init__(self, path: str):
+        self.path = os.path.abspath(path)
         with open(path, "rb") as fh:
             self.buf = fh.read()
         self._headers: dict[int, list] = {}
@@ -273,6 +350,10 @@ class File:
         self._heaps: dict[int, dict] = {}
         self._fheaps: dict[int, _FractalHeap] = {}
         self._attr_order: dict[int, bool] = {}
+        self._attr_index: dict[int, dict] = {}
+        self._external: dict[str, File] = {}
+        self._sohm: dict[int, int] | None = None
+        self._ext_addr = None
         self._read_superblock()
         self.root = Group(self, self._root_addr, "/")
 
@@ -283,7 +364,12 @@ class File:
         self.close()
 
     def close(self) -> None:
+        """Drop the file's bytes, and close the files its external
+        links opened."""
         self.buf = b""
+        for ext in self._external.values():
+            ext.close()
+        self._external.clear()
 
     # -- superblock -----------------------------------------------------
     def _read_superblock(self) -> None:
@@ -323,7 +409,7 @@ class File:
             c.so, c.sl = self.so, self.sl
             c.skip(1)
             c.addr()
-            c.addr()                        # superblock extension
+            self._ext_addr = c.addr()       # superblock extension
             c.addr()                        # end of file
             self._root_addr = c.addr()
             end = c.pos
@@ -438,20 +524,99 @@ class File:
         return msgs
 
     def _msg(self, m: _Message) -> _Cursor:
-        if m.flags & 0x02:
-            raise UnsupportedFeature("shared object header messages")
-        return _Cursor(self, m.pos, m.pos + m.size)
+        """A cursor over a message's body: where the message is shared,
+        the body it points to."""
+        c = _Cursor(self, m.pos, m.pos + m.size)
+        return self._shared(c, m.mtype) if m.flags & 0x02 else c
+
+    def _shared(self, c: _Cursor, mtype: int, depth: int = 0) -> _Cursor:
+        """The body of the message of type ``mtype`` that the shared
+        message encoding at ``c`` points to: in another object's header
+        (a committed datatype; versions 1-3) or in the shared object
+        header message heap (version 3, type 1)."""
+        if depth > MAX_SHARED_DEPTH:
+            raise HDF5FormatError("shared message chain too long")
+        version, stype = c.u8(), c.u8()
+        if version == 1:
+            c.skip(6 + self.sl)             # reserved, a local heap address
+        elif version not in (2, 3):
+            raise HDF5FormatError(f"shared message version {version}")
+        if version == 3 and stype == 1:
+            return _Cursor.over(self._sohm_object(mtype, c.take(8)),
+                                self.so, self.sl)
+        if version == 3 and stype != 2:
+            raise HDF5FormatError(f"shared message type {stype}")
+        addr = c.addr()
+        for m in self.messages(addr):
+            if m.mtype == mtype:
+                body = _Cursor(self, m.pos, m.pos + m.size)
+                return self._shared(body, mtype, depth + 1) \
+                    if m.flags & 0x02 else body
+        raise HDF5FormatError(f"shared message of type {mtype} not in the "
+                              f"object header at {addr}")
+
+    def _sohm_object(self, mtype: int, hid: bytes) -> bytes:
+        """A message in the shared object header message heap: the
+        fractal heap of the index (superblock extension, shared message
+        table ``SMTB``) that holds messages of type ``mtype``. The
+        indexes themselves (lists or v2 B-trees of record type 7) serve
+        writers looking for duplicates; a reader has the heap id."""
+        if self._sohm is None:
+            self._sohm = self._sohm_table()
+        heap = self._sohm.get(mtype)
+        if heap is None:
+            raise HDF5FormatError(f"a shared message of type {mtype} and "
+                                  "no shared message index for it")
+        return self.fractal_heap(heap).object(hid)
+
+    def _sohm_table(self) -> dict[int, int]:
+        """message type -> fractal heap address of each index of the
+        shared object header message table."""
+        if self._ext_addr in (None, self.undef):
+            raise HDF5FormatError("a shared message and no superblock "
+                                  "extension")
+        for m in self.messages(self._ext_addr):
+            if m.mtype != 0x0F:
+                continue
+            c = _Cursor(self, m.pos, m.pos + m.size)
+            if c.u8() != 0:
+                raise HDF5FormatError("shared message table message version")
+            addr, n = c.addr(), c.u8()
+            t = self.cursor(addr)
+            start = t.pos
+            if t.take(4) != b"SMTB":
+                raise HDF5FormatError(f"no shared message table at {addr}")
+            out: dict[int, int] = {}
+            for _ in range(n):
+                if t.u8() != 0:
+                    raise HDF5FormatError("shared message index version")
+                t.u8()                      # list or v2 B-tree
+                types = t.u16()
+                t.skip(4 + 2 + 2 + 2)       # minimum size, cutoffs, count
+                t.addr()                    # the index
+                heap = t.addr()
+                for mt in range(16):
+                    if types & (1 << mt):
+                        out.setdefault(mt, heap)
+            if t.u32() != lookup3(self.buf[start:t.pos - 4]):
+                raise HDF5FormatError("shared message table checksum "
+                                      "mismatch")
+            return out
+        raise HDF5FormatError("a shared message and no shared message "
+                              "table")
 
     # -- groups ---------------------------------------------------------
-    def links(self, addr: int) -> dict[str, int]:
-        """name -> object header address of a group's hard links, in the
-        order h5py lists them: creation order where the group tracks it,
-        else name order (bytes)."""
+    def links(self, addr: int) -> dict[str, tuple]:
+        """name -> link of a group, in the order h5py lists them:
+        creation order where the group tracks it, else name order
+        (bytes). A link is ``("hard", object header address)``,
+        ``("soft", path)``, ``("external", (file name, object path))`` or
+        ``("user", link class)``."""
         if addr not in self._links:
             self._links[addr] = self._read_links(addr)
         return self._links[addr]
 
-    def _read_links(self, addr: int) -> dict[str, int]:
+    def _read_links(self, addr: int) -> dict[str, tuple]:
         msgs = self.messages(addr)
         for m in msgs:
             if m.mtype == 0x11:
@@ -493,8 +658,8 @@ class File:
         return [self._link(_Cursor.over(fh.object(i), self.so, self.sl))
                 for i in ids]
 
-    def _link(self, c: _Cursor) -> tuple[int, str, int]:
-        """(creation order, name, target) of a Link message."""
+    def _link(self, c: _Cursor) -> tuple[int, str, tuple]:
+        """(creation order, name, link) of a Link message."""
         if c.u8() != 1:
             raise HDF5FormatError("link message version")
         flags = c.u8()
@@ -504,10 +669,18 @@ class File:
             c.skip(1)
         name = c.take(c.uint(1 << (flags & 3))).decode("utf-8", "replace")
         if ltype == 0:
-            return corder, name, c.addr()
+            return corder, name, ("hard", c.addr())
         if ltype == 1:
-            raise UnsupportedFeature(f"soft link {name!r}")
-        raise UnsupportedFeature(f"external or user-defined link {name!r}")
+            return corder, name, ("soft", c.take(c.u16()).decode(
+                "utf-8", "replace"))
+        if ltype == 64:
+            v = _Cursor.over(c.take(c.u16()), self.so, self.sl)
+            if v.u8() != 0:
+                raise HDF5FormatError("external link version or flags")
+            target = (_cstring(v, None).decode("utf-8", "replace"),
+                      _cstring(v, None).decode("utf-8", "replace"))
+            return corder, name, ("external", target)
+        return corder, name, ("user", ltype)
 
     def _local_heap(self, addr: int) -> tuple[int, int]:
         """(position, size) of a local heap's data segment."""
@@ -566,18 +739,33 @@ class File:
         walk(addr, 0, None)
         return out
 
-    def _symbol_table(self, btree: int, heap_addr: int) -> dict[str, int]:
+    def _symbol_table(self, btree: int, heap_addr: int) -> dict[str, tuple]:
+        """name -> link of an old-style group's symbol table entries: a
+        hard link, or with cache type 2 a soft link whose value lies in
+        the group's local heap at the scratch pad's offset."""
         heap = self._local_heap(heap_addr)
-        out: dict[str, int] = {}
+        out: dict[str, tuple] = {}
         for _key, snod in self._btree_leaves(btree, 0, self.sl):
             c = self.cursor(snod)
             if c.take(4) != b"SNOD":
                 raise HDF5FormatError(f"no symbol node at {snod}")
             c.skip(2)
+            sl, so = self.sl, self.so
             for _ in range(c.u16()):
-                name_off, obj = c.length(), c.addr()
-                c.skip(24)                  # cache type, reserved, scratch
-                out[self._heap_name(heap, name_off)] = obj
+                e = c.take(sl + so + 24)    # cache type, reserved, scratch
+                name_off = int.from_bytes(e[:sl], "little")
+                obj = int.from_bytes(e[sl:sl + so], "little")
+                cache = int.from_bytes(e[sl + so:sl + so + 4], "little")
+                scratch = e[sl + so + 8:]
+                name = self._heap_name(heap, name_off)
+                if cache == 2:
+                    out[name] = ("soft", self._heap_name(
+                        heap, int.from_bytes(scratch[:4], "little")))
+                elif cache in (0, 1):
+                    out[name] = ("hard", obj)
+                else:
+                    raise HDF5FormatError(f"symbol table entry cache type "
+                                          f"{cache}")
         return out
 
     # -- v2 B-trees and fractal heaps ----------------------------------
@@ -659,21 +847,19 @@ class File:
         return self._fheaps[addr]
 
     # -- datatypes, dataspaces ------------------------------------------
-    def datatype(self, c: _Cursor) -> _Dtype:
+    def datatype(self, c: _Cursor, depth: int = 0) -> _Dtype:
+        """The datatype message at ``c``: every class h5py reads but
+        time, references and those of no class."""
+        if depth > MAX_TYPE_DEPTH:
+            raise HDF5FormatError("datatype nested too deep")
         cv = c.u8()
         cls, version = cv & 0x0F, cv >> 4
         bits = c.uint(3)
         size = c.u32()
         if size == 0 or size > (1 << 20):
             raise HDF5FormatError(f"datatype size {size}")
-        if cls == 0:                        # fixed-point
-            off, prec = c.u16(), c.u16()
-            if off != 0 or prec != 8 * size or size not in (1, 2, 4, 8):
-                raise UnsupportedFeature(f"{prec}-bit integer at bit {off}"
-                                         f" in {size} bytes")
-            order = ">" if bits & 1 else "<"
-            kind = "i" if bits & 0x08 else "u"
-            return _Dtype(np.dtype(f"{order}{kind}{size}"))
+        if cls in (0, 4):                   # fixed-point, bitfield
+            return self._fixed(c, bits, size, cls == 0 and bool(bits & 8))
         if cls == 1:                        # floating point
             props = c.take(12)
             off, prec, eloc, esize, mloc, msize, bias = struct.unpack(
@@ -687,29 +873,124 @@ class File:
             return _Dtype(np.dtype(f"{order}f{size}"))
         if cls == 3:                        # fixed-length string
             return _Dtype(np.dtype(f"S{size}"))
+        if cls == 5:                        # opaque
+            tag = _cstring(c, bits & 0xFF)
+            if tag.startswith(b"NUMPY:"):   # h5py's tag of numpy types
+                try:
+                    dt = np.dtype(tag[6:].decode("ascii"))
+                except (TypeError, ValueError, UnicodeDecodeError):
+                    dt = None
+                if dt is not None and dt.itemsize == size:
+                    return _Dtype(np.dtype(f"V{size}"), dt,
+                                  lambda a, dt=dt: a.view(dt))
+            return _Dtype(np.dtype(f"V{size}"))
         if cls == 6:                        # compound
-            return self._compound(c, version, bits & 0xFFFF, size)
+            return self._compound(c, version, bits & 0xFFFF, size, depth)
+        if cls == 8:                        # enumeration
+            return self._enum(c, version, bits & 0xFFFF, size, depth)
         if cls == 9:                        # variable length
-            if bits & 0x0F != 1:
-                raise UnsupportedFeature("variable-length sequences")
-            self.datatype(c)                # base type
-            return _Dtype(np.dtype(f"V{size}"), vlen_str=True)
-        names = {2: "time", 4: "bitfield", 5: "opaque", 7: "reference",
-                 8: "enumeration", 10: "array"}
-        raise UnsupportedFeature(f"{names.get(cls, f'class {cls}')} "
-                                 "datatype")
+            return self._vlen(c, bits & 0x0F, size, depth)
+        if cls == 10:                       # array
+            ndims = c.u8()
+            if version == 2:
+                c.skip(3)
+            elif version != 3:
+                raise HDF5FormatError(f"array datatype version {version}")
+            dims = tuple(c.u32() for _ in range(ndims))
+            if version == 2:
+                c.skip(4 * ndims)           # permutation indexes
+            dt = _array_of(self.datatype(c, depth + 1), dims)
+            if dt.np.itemsize != size:
+                raise HDF5FormatError("array datatype size")
+            return dt
+        if cls == 7:
+            raise UnsupportedFeature(("object", "region")[bits & 1]
+                                     + " reference datatype")
+        raise UnsupportedFeature("time datatype" if cls == 2 else
+                                 f"datatype class {cls}")
+
+    def _fixed(self, c: _Cursor, bits: int, size: int, signed: bool
+               ) -> _Dtype:
+        """An integer (or, unsigned, a bitfield, which h5py reads as the
+        unsigned integer of its size) of any precision and bit offset."""
+        off, prec = c.u16(), c.u16()
+        if size not in (1, 2, 4, 8):
+            raise UnsupportedFeature(f"{size}-byte integer")
+        if prec == 0 or off + prec > 8 * size:
+            raise HDF5FormatError(f"{prec}-bit integer at bit {off} in "
+                                  f"{size} bytes")
+        dt = np.dtype(f"{'>' if bits & 1 else '<'}{'iu'[not signed]}{size}")
+        if off == 0 and prec == 8 * size:
+            return _Dtype(dt)
+        return _Dtype(dt, dt, _bit_field(dt, off, prec, signed))
+
+    def _enum(self, c: _Cursor, version: int, n: int, size: int,
+              depth: int) -> _Dtype:
+        """h5py's values of an enumeration: numpy bools for its boolean
+        (members exactly FALSE=0 and TRUE=1), else the base integers."""
+        base = self.datatype(c, depth + 1)
+        if base.np.kind not in "iu" or base.np.itemsize != size:
+            raise HDF5FormatError("enumeration of a non-integer base")
+        names = []
+        for _ in range(n):
+            start = c.pos
+            names.append(_cstring(c, None))
+            if version < 3:
+                c.align(start)
+        values = self.to_value(base, (n,), c.take(n * size)).tolist()
+        if dict(zip(names, values)) == {b"FALSE": 0, b"TRUE": 1}:
+            def to_bool(a, conv=base.conv):
+                return (a if conv is None else conv(a)) != 0
+            return _Dtype(base.np, np.dtype(bool), to_bool)
+        members = {}
+        for name, value in zip(names, values):
+            try:
+                name = name.decode("ascii")
+            except UnicodeDecodeError:
+                try:
+                    name = name.decode("utf-8")
+                except UnicodeDecodeError:
+                    pass
+            members[name] = value
+        out = np.dtype(base.out.str, metadata={"enum": members})
+        if base.conv is None:
+            return _Dtype(out)
+        return _Dtype(base.np, out, lambda a: base.conv(a).astype(out))
+
+    def _vlen(self, c: _Cursor, vtype: int, size: int, depth: int
+              ) -> _Dtype:
+        """Variable-length strings (``bytes``) and sequences (h5py's
+        object arrays of numpy arrays), each element a (length, global
+        heap collection, object index) triple."""
+        base = self.datatype(c, depth + 1)
+        if size < 8 + self.so:
+            raise HDF5FormatError(f"variable-length datatype of {size} "
+                                  "bytes")
+        stored = np.dtype(f"V{size}")
+        if vtype == 1:
+            return _Dtype(stored, np.dtype(object), self._vlen_str_values)
+        if vtype != 0:
+            raise HDF5FormatError(f"variable-length type {vtype}")
+
+        def seqs(a):
+            out = np.empty(a.shape, object)
+            flat = out.reshape(-1)
+            for i, obj in enumerate(self._vlen_objects(
+                    a, base.np.itemsize)):
+                flat[i] = self.to_value(base, (len(obj) // max(
+                    base.np.itemsize, 1),), obj)
+            return out
+        return _Dtype(stored, np.dtype(object, metadata={"vlen": base.out}),
+                      seqs)
 
     def _compound(self, c: _Cursor, version: int, nmembers: int,
-                  size: int) -> _Dtype:
-        names, formats, offsets = [], [], []
+                  size: int, depth: int) -> _Dtype:
+        names, members, offsets = [], [], []
         off_bytes = 1 if size < 1 << 8 else 2 if size < 1 << 16 else \
             3 if size < 1 << 24 else 4
         for _ in range(nmembers):
             start = c.pos
-            end = c.buf.find(b"\x00", start, c.end)
-            if end < 0:
-                raise HDF5FormatError("unterminated compound member name")
-            name = c.take(end - start + 1)[:-1].decode("utf-8", "replace")
+            name = _cstring(c, None).decode("utf-8", "replace")
             if version in (1, 2):
                 c.align(start)
                 off = c.u32()
@@ -718,26 +999,38 @@ class File:
             else:
                 raise HDF5FormatError(f"compound datatype version "
                                       f"{version}")
-            if version == 1:
+            if version == 1:                # dimensions of an array member
                 ndims = c.u8()
-                c.skip(3 + 4 + 4 + 16)
+                c.skip(3 + 4 + 4)           # reserved, permutation
+                dims = tuple(c.u32() for _ in range(4))[:ndims]
+                mt = self.datatype(c, depth + 1)
                 if ndims:
-                    raise UnsupportedFeature("array members of compounds")
-            mt = self.datatype(c)
-            if mt.vlen_str or mt.np.fields is not None:
-                raise UnsupportedFeature("nested or variable-length "
-                                         "compound members")
+                    mt = _array_of(mt, dims)
+            else:
+                mt = self.datatype(c, depth + 1)
             if off + mt.np.itemsize > size:
                 raise HDF5FormatError("compound member past its type")
             names.append(name)
-            formats.append(mt.np)
+            members.append(mt)
             offsets.append(off)
-        try:
-            dt = np.dtype({"names": names, "formats": formats,
-                           "offsets": offsets, "itemsize": size})
-        except (ValueError, TypeError) as exc:
-            raise HDF5FormatError(f"compound datatype: {exc}") from None
-        return _Dtype(dt)
+
+        def struct_dt(formats):
+            try:
+                return np.dtype({"names": names, "formats": formats,
+                                 "offsets": offsets, "itemsize": size})
+            except (ValueError, TypeError) as exc:
+                raise HDF5FormatError(f"compound datatype: {exc}") from None
+        dt = struct_dt([m.np for m in members])
+        if all(m.conv is None for m in members):
+            return _Dtype(dt)
+        out = struct_dt([m.out for m in members])
+
+        def conv(a):
+            o = np.empty(a.shape, out)
+            for name, m in zip(names, members):
+                o[name] = a[name] if m.conv is None else m.conv(a[name])
+            return o
+        return _Dtype(dt, out, conv)
 
     def dataspace(self, c: _Cursor, with_max: bool = False):
         """The shape: ``()`` for a scalar, None for a null dataspace; with
@@ -768,25 +1061,32 @@ class File:
                             (c.length() for _ in range(rank)))
 
     # -- global heap ----------------------------------------------------
-    def vlen_strings(self, raw: bytes, n: int) -> list[bytes]:
-        """Variable-length strings from ``n`` stored (length, heap id)
-        elements."""
+    def _vlen_objects(self, a: np.ndarray, esize: int) -> list[bytes]:
+        """The bytes of each stored variable-length element of ``a`` (in
+        C order): its length times ``esize`` bytes of its global heap
+        object."""
+        raw = np.ascontiguousarray(a).reshape(-1).view(np.uint8).reshape(
+            a.size, a.dtype.itemsize) if a.size else np.zeros((0, 16))
         out = []
-        step = 4 + self.so + 4
-        for i in range(n):
-            e = raw[i * step:(i + 1) * step]
-            length = int.from_bytes(e[:4], "little")
+        for e in raw:
+            e = e.tobytes()
+            length = int.from_bytes(e[:4], "little") * esize
             coll = int.from_bytes(e[4:4 + self.so], "little")
-            index = int.from_bytes(e[4 + self.so:], "little")
-            if length == 0 and coll == 0:
+            index = int.from_bytes(e[4 + self.so:8 + self.so], "little")
+            if length == 0:
                 out.append(b"")
                 continue
             obj = self._global_heap(coll).get(index)
-            if obj is None:
+            if obj is None or len(obj) < length:
                 raise HDF5FormatError(f"global heap object {index} "
-                                      "missing")
+                                      "missing or short")
             out.append(obj[:length])
         return out
+
+    def _vlen_str_values(self, a: np.ndarray) -> np.ndarray:
+        out = np.empty(a.size, object)
+        out[:] = self._vlen_objects(a, 1)
+        return out.reshape(a.shape)
 
     def _global_heap(self, addr: int) -> dict[int, bytes]:
         if addr in self._heaps:
@@ -813,22 +1113,23 @@ class File:
 
     # -- values ---------------------------------------------------------
     def to_value(self, dt: _Dtype, shape, raw: bytes):
-        n = math.prod(shape)
-        if dt.vlen_str:
-            vals = self.vlen_strings(raw, n)
-            if shape == ():
-                return vals[0]
-            arr = np.empty(n, object)
-            arr[:] = vals
-            return arr.reshape(shape)
-        arr = np.frombuffer(raw, dt.np, count=n)
-        return arr.reshape(shape)[()] if shape == () else \
-            arr.reshape(shape).copy()
+        """The value h5py gives for ``shape`` elements of ``dt`` stored
+        in ``raw``: a numpy scalar (or, for variable-length types, the
+        element itself) for a scalar, else an array; an array datatype's
+        dimensions follow the dataspace's, as h5py returns them."""
+        base, sub = (dt.np.base, dt.np.shape) if dt.np.subdtype else \
+            (dt.np, ())
+        arr = np.frombuffer(raw, base, count=math.prod(shape) * math.prod(
+            sub)).reshape(tuple(shape) + sub)
+        arr = arr.copy() if dt.conv is None else dt.conv(arr)
+        return arr[()] if arr.ndim == 0 else arr
 
-    def attributes(self, addr: int) -> dict:
-        """name -> value of an object's attributes, in the order h5py
-        lists them: creation order where the object tracks it, else name
-        order (bytes)."""
+    def attribute_index(self, addr: int) -> dict:
+        """name -> (cursor factory) of an object's attributes, in the
+        order h5py lists them: creation order where the object tracks
+        it, else name order (bytes). Only names are decoded here."""
+        if addr in self._attr_index:
+            return self._attr_index[addr]
         found: list[tuple[int, str, object]] = []
         msgs = self.messages(addr)
         tracked = self._attr_order.get(addr, False)
@@ -847,15 +1148,19 @@ class File:
                     found += self._dense_attributes(heap, name_bt, order_bt,
                                                     tracked)
             elif m.mtype == 0x0C:
-                name, value = self._attribute(self._msg(m))
-                found.append((m.corder, name, value))
-        return _ordered(found, tracked)
+                body = self._msg(m)
+                found.append((m.corder, _attribute_name(body), body))
+        if len(self._attr_index) > MAX_NODES:
+            self._attr_index.clear()
+        out = self._attr_index[addr] = _ordered(found, tracked)
+        return out
 
     def _dense_attributes(self, heap: int, name_bt: int, order_bt: int,
                           tracked: bool) -> list:
         """Attributes held in a fractal heap, indexed by a v2 B-tree of
         name hashes (record type 8) or, where kept, of creation order
-        (9)."""
+        (9); a shared one's record holds its id in the shared message
+        heap."""
         fh = self.fractal_heap(heap)
         if tracked and order_bt != self.undef:
             recs = self.btree2(order_bt, 9)
@@ -865,21 +1170,17 @@ class File:
             raise HDF5FormatError("dense attributes without a name index")
         out = []
         for r in recs:
-            if r[8] & 0x02:
-                raise UnsupportedFeature("shared object header messages")
-            name, value = self._attribute(
-                _Cursor.over(fh.object(r[:8]), self.so, self.sl))
-            out.append((int.from_bytes(r[9:13], "little"), name, value))
+            data = self._sohm_object(0x0C, r[:8]) if r[8] & 0x02 else \
+                fh.object(r[:8])
+            body = _Cursor.over(data, self.so, self.sl)
+            out.append((int.from_bytes(r[9:13], "little"),
+                        _attribute_name(body), body))
         return out
 
-    def _attribute(self, c: _Cursor):
-        version = c.u8()
-        flags = c.u8()
-        if version not in (1, 2, 3):
-            raise HDF5FormatError(f"attribute message version {version}")
-        if version > 1 and flags & 0x03:
-            raise UnsupportedFeature("shared attribute datatype or "
-                                     "dataspace")
+    def attribute_value(self, c: _Cursor):
+        """The value of the attribute message at ``c`` (a fresh cursor
+        each call): None for a null dataspace."""
+        version, flags = c.u8(), c.u8()
         nsize, tsize, ssize = c.u16(), c.u16(), c.u16()
         if version == 3:
             c.skip(1)
@@ -889,28 +1190,89 @@ class File:
             if version == 1:
                 c.skip(-n % 8)
             return p
-        name = part(nsize).split(b"\x00", 1)[0].decode("utf-8", "replace")
+        part(nsize)
         tpart, spart = part(tsize), part(ssize)
-        dt = self.datatype(_Cursor.over(tpart, self.so, self.sl))
-        shape = self.dataspace(_Cursor.over(spart, self.so, self.sl))
+        tc = _Cursor.over(tpart, self.so, self.sl)
+        sc = _Cursor.over(spart, self.so, self.sl)
+        if version > 1 and flags & 0x01:
+            tc = self._shared(tc, 0x03)
+        if version > 1 and flags & 0x02:
+            sc = self._shared(sc, 0x01)
+        dt = self.datatype(tc)
+        shape = self.dataspace(sc)
         if shape is None:
-            return name, None
+            return None
         n = math.prod(shape)
         raw = c.take(n * dt.np.itemsize)
-        return name, self.to_value(dt, shape, raw)
+        return self.to_value(dt, shape, raw)
 
     # -- paths ----------------------------------------------------------
-    def resolve(self, path: str) -> int:
-        addr = self._root_addr
-        parts = [p for p in path.split("/") if p]
-        if len(parts) > MAX_PATH_DEPTH:
-            raise HDF5FormatError("path too deep")
+    def lookup(self, group: int, path: str, budget: list | None = None
+               ) -> tuple["File", int]:
+        """(file, object header address) of ``path`` from the group at
+        ``group`` (from the root where the path is absolute), following
+        soft and external links as HDF5 does (H5G_traverse): a soft
+        link's relative value from the group holding it, at most
+        MAX_LINKS soft and external links in all. KeyError where a link
+        is missing, dangles or takes more links than that."""
+        budget = [MAX_LINKS] if budget is None else budget
+        parts = [p for p in path.split("/") if p and p != "."]
+        f, addr = self, self._root_addr if path.startswith("/") else group
         for p in parts:
-            links = self.links(addr)
-            if p not in links:
-                raise KeyError(path)
-            addr = links[p]
-        return addr
+            f, addr = f._follow(addr, p, budget, path)
+        return f, addr
+
+    def _follow(self, group: int, name: str, budget: list, path: str
+                ) -> tuple["File", int]:
+        link = self.links(group).get(name)
+        if link is None:
+            raise KeyError(path)
+        kind, value = link
+        if kind == "hard":
+            return self, value
+        if kind == "user":
+            raise UnsupportedFeature(f"user-defined link class {value} "
+                                     f"({name!r})")
+        budget[0] -= 1
+        if budget[0] < 0:
+            raise KeyError(f"{path}: more than {MAX_LINKS} soft or "
+                           "external links (a cycle?)")
+        if kind == "soft":
+            return self.lookup(group, value, budget)
+        ext = self._open_external(value[0])
+        return ext.lookup(ext._root_addr, value[1], budget)
+
+    def _open_external(self, name: str) -> "File":
+        """The file an external link names, by HDF5's default search
+        (H5F_prefix_open_file): an absolute name as given, then its last
+        component as a relative name; a relative name in the linking
+        file's directory, then in the working directory. Opened once,
+        closed with this File."""
+        cands = []
+        if os.path.isabs(name):
+            cands.append(name)
+            name = os.path.basename(name)
+        cands += [os.path.join(os.path.dirname(self.path), name),
+                  os.path.abspath(name)]
+        for cand in cands:
+            key = os.path.abspath(cand)
+            if key in self._external:
+                return self._external[key]
+            if os.path.isfile(key):
+                if len(self._external) >= MAX_NODES:
+                    raise HDF5FormatError("too many external files")
+                ext = self._external[key] = File(key)
+                return ext
+        raise ExternalFileMissing(name, cands)
+
+    def kind(self, addr: int) -> str:
+        """"dataset", "datatype" (a committed one) or "group"."""
+        kinds = {m.mtype for m in self.messages(addr)}
+        if 0x08 in kinds:
+            return "dataset"
+        if 0x03 in kinds and not kinds & {0x02, 0x06, 0x11}:
+            return "datatype"
+        return "group"
 
     def __getitem__(self, path: str):
         return self.root[path]
@@ -926,8 +1288,11 @@ class _FractalHeap:
     """A fractal heap (``FRHP``): managed objects in direct blocks under
     a doubling table of indirect blocks, tiny objects inside their heap
     ids, huge objects in blocks of their own found through a v2 B-tree
-    (record type 1) or from the id itself. Heaps with I/O filters are
-    refused by name."""
+    (record type 1, or 2 when filtered) or from the id itself. A heap
+    with an I/O filter pipeline stores each direct block, and each huge
+    object, through it: the root direct block's filtered size and mask
+    in the header, each other's in its indirect block entry; a direct
+    block's checksum covers its unfiltered bytes."""
 
     def __init__(self, f: File, addr: int):
         self.f, self.addr = f, addr
@@ -950,9 +1315,15 @@ class _FractalHeap:
         self.max_dblock, heap_bits = c.length(), c.u16()
         c.u16()                             # starting rows of the root
         self.root, self.root_rows = c.addr(), c.u16()
+        self.filters: list = []
+        self.root_filtered = None
         if filter_len:
-            raise UnsupportedFeature("filtered fractal heap (dense link or "
-                                     "attribute storage with I/O filters)")
+            self.root_filtered = (c.length(), c.u32())
+            self.filters = _filter_pipeline(_Cursor.over(
+                c.take(filter_len), f.so, f.sl))
+            if not self.filters:
+                raise HDF5FormatError("fractal heap with an empty filter "
+                                      "pipeline")
         if c.u32() != lookup3(f.buf[start:c.pos - 4]):
             raise HDF5FormatError("fractal heap header checksum mismatch")
         self.dblock_checksums = bool(flags & 2)
@@ -968,19 +1339,21 @@ class _FractalHeap:
         self.off_size = (heap_bits + 7) // 8
         self.len_size = min((mb + 7) // 8, _enc_size(max_man))
         self._blocks: list | None = None
-        self._checked: set[int] = set()
+        self._images: dict[int, bytes] = {}
         self._huge: dict | None = None
 
     def _row_size(self, r: int) -> int:
         return self.start_block << max(r - 1, 0)
 
-    def blocks(self) -> list[tuple[int, int, int]]:
-        """(heap offset, file address, size) of every direct block."""
+    def blocks(self) -> list[tuple]:
+        """(heap offset, file address, size, (filtered size, filter
+        mask) or None) of every direct block."""
         if self._blocks is None:
             out: list = []
             if self.root != self.f.undef:
                 if self.root_rows == 0:
-                    out.append((0, self.root, self.start_block))
+                    out.append((0, self.root, self.start_block,
+                                self.root_filtered))
                 else:
                     self._indirect(self.root, self.root_rows, 0, out, 0)
             self._blocks = sorted(out)
@@ -999,16 +1372,20 @@ class _FractalHeap:
         c = f.cursor(addr)
         start = c.pos
         self._block_offset(c, b"FHIB", addr, off)
-        kids = [c.addr() for _ in range(nrows * self.width)]
+        kids = []
+        for i in range(nrows * self.width):
+            direct = i // self.width < self.max_direct_rows
+            kids.append((c.addr(), (c.length(), c.u32())
+                         if direct and self.filters else None))
         if c.u32() != lookup3(f.buf[start:c.pos - 4]):
             raise HDF5FormatError("fractal heap indirect block checksum "
                                   "mismatch")
-        for i, kid in enumerate(kids):
+        for i, (kid, filtered) in enumerate(kids):
             r = i // self.width
             size = self._row_size(r)
             if kid != f.undef:
                 if r < self.max_direct_rows:
-                    out.append((off, kid, size))
+                    out.append((off, kid, size, filtered))
                 else:
                     rows = size.bit_length() - 1 - self.first_row_bits + 1
                     self._indirect(kid, rows, off, out, depth + 1)
@@ -1025,45 +1402,80 @@ class _FractalHeap:
                 hi = mid
         if lo == 0:
             raise HDF5FormatError(f"fractal heap offset {off} in no block")
-        boff, baddr, bsize = blocks[lo - 1]
+        boff, baddr, bsize, filtered = blocks[lo - 1]
         if off + length > boff + bsize:
             raise HDF5FormatError(f"fractal heap object at {off} of "
                                   f"{length} bytes runs past its block")
+        image, header = self._image(boff, baddr, bsize, filtered)
+        if off - boff < header:
+            raise HDF5FormatError(f"fractal heap object at {off} "
+                                  "inside a block header")
+        return image[off - boff:off - boff + length]
+
+    def _image(self, boff: int, baddr: int, bsize: int, filtered):
+        """(bytes, header length) of a direct block, unfiltered, its
+        header and checksum verified once."""
+        if baddr in self._images:
+            return self._images[baddr]
         f = self.f
-        c = f.cursor(baddr, bsize)
-        if baddr not in self._checked:
-            start = c.pos
-            self._block_offset(c, b"FHDB", baddr, boff)
-            if self.dblock_checksums:
-                at = c.pos
-                stored = c.u32()
-                block = bytearray(c.buf[start:start + bsize])
-                block[at - start:at - start + 4] = bytes(4)
-                if stored != lookup3(bytes(block)):
-                    raise HDF5FormatError("fractal heap direct block "
-                                          "checksum mismatch")
-            if off - boff < c.pos - start:
-                raise HDF5FormatError(f"fractal heap object at {off} "
-                                      "inside a block header")
-            self._checked.add(baddr)
-        return f.read_at(baddr + off - boff, length)
+        if filtered is None:
+            image = f.read_at(baddr, bsize)
+        else:
+            image = _unfilter(f.read_at(baddr, filtered[0]), self.filters,
+                              filtered[1], bsize,
+                              f"fractal heap direct block at {baddr}")
+            if len(image) != bsize:
+                raise HDF5FormatError(f"fractal heap direct block at {baddr}"
+                                      f" unfilters to {len(image)} bytes, "
+                                      f"not {bsize}")
+        c = _Cursor.over(image, f.so, f.sl)
+        self._block_offset(c, b"FHDB", baddr, boff)
+        if self.dblock_checksums:
+            at = c.pos
+            stored = c.u32()
+            block = bytearray(image)
+            block[at:at + 4] = bytes(4)
+            if stored != lookup3(bytes(block)):
+                raise HDF5FormatError("fractal heap direct block "
+                                      "checksum mismatch")
+        self._images[baddr] = (image, c.pos)
+        return self._images[baddr]
 
     def _huge_object(self, hid: bytes) -> bytes:
+        """A huge object: its address and length (and, filtered, its
+        filter mask and size) in the id itself when the id has room,
+        else in a v2 B-tree record (type 1, or 2 when filtered) keyed by
+        the id's number."""
         f = self.f
-        if self.id_len - 1 >= f.so + f.sl:  # address and length in the id
+        where = f"huge fractal heap object in the heap at {self.addr}"
+        fl = 4 + f.sl if self.filters else 0
+        if self.id_len - 1 >= f.so + f.sl + fl:
             c = _Cursor.over(hid[1:], f.so, f.sl)
-            return f.read_at(c.addr(), c.length())
-        if self._huge is None:
-            self._huge = {}
-            if self.huge_bt != f.undef:
-                for r in f.btree2(self.huge_bt, 1):
-                    c = _Cursor.over(r, f.so, f.sl)
-                    a, n = c.addr(), c.length()
-                    self._huge[c.length()] = (a, n)
-        key = int.from_bytes(hid[1:1 + min(self.id_len - 1, 8)], "little")
-        if key not in self._huge:
-            raise HDF5FormatError(f"huge fractal heap object {key} missing")
-        return f.read_at(*self._huge[key])
+            entry = (c.addr(), c.length()) + (
+                (c.u32(), c.length()) if fl else ())
+        else:
+            if self._huge is None:
+                self._huge = {}
+                if self.huge_bt != f.undef:
+                    for r in f.btree2(self.huge_bt, 2 if fl else 1):
+                        c = _Cursor.over(r, f.so, f.sl)
+                        e = (c.addr(), c.length()) + (
+                            (c.u32(), c.length()) if fl else ())
+                        self._huge[c.length()] = e
+            key = int.from_bytes(hid[1:1 + min(self.id_len - 1, 8)],
+                                 "little")
+            if key not in self._huge:
+                raise HDF5FormatError(f"huge fractal heap object {key} "
+                                      "missing")
+            entry = self._huge[key]
+        data = f.read_at(entry[0], entry[1])
+        if not fl:
+            return data
+        out = _unfilter(data, self.filters, entry[2], entry[3], where)
+        if len(out) != entry[3]:
+            raise HDF5FormatError(f"{where} unfilters to {len(out)} bytes, "
+                                  f"not {entry[3]}")
+        return out
 
     def object(self, hid: bytes) -> bytes:
         """The bytes of the object with heap id ``hid``."""
@@ -1089,38 +1501,85 @@ class _FractalHeap:
         raise HDF5FormatError("fractal heap id of unknown type")
 
 
+class Attributes(Mapping):
+    """An object's attributes, read-only, in h5py's order. Names are
+    read when the mapping is made; a value is decoded only when it is
+    asked for, so an attribute of a type the reader refuses raises only
+    on its own access."""
+
+    def __init__(self, f: File, addr: int):
+        self._file = f
+        self._index = f.attribute_index(addr)
+
+    def __getitem__(self, name: str):
+        return self._file.attribute_value(self._index[name].copy())
+
+    def __iter__(self):
+        return iter(self._index)
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    def __contains__(self, name) -> bool:
+        return name in self._index
+
+
 class _Object:
     def __init__(self, f: File, addr: int, name: str):
         self.file, self.addr, self.name = f, addr, name
 
     @property
-    def attrs(self) -> dict:
-        return self.file.attributes(self.addr)
+    def attrs(self) -> Attributes:
+        return Attributes(self.file, self.addr)
 
 
 class Group(_Object):
     def keys(self) -> list[str]:
         """Link names in h5py's order: creation order where the group
-        tracks it, else byte order (HDF5's name index order)."""
+        tracks it, else byte order (HDF5's name index order); soft,
+        external and user-defined links too."""
         return list(self.file.links(self.addr))
 
-    def _child(self, path: str):
-        full = self.name.rstrip("/") + "/" + path.strip("/")
-        addr = self.file.resolve(full)
-        kinds = {m.mtype for m in self.file.messages(addr)}
-        if 0x08 in kinds:
-            return Dataset(self.file, addr, full)
-        return Group(self.file, addr, full)
-
     def __getitem__(self, path: str):
-        return self._child(path)
+        f, addr = self.file.lookup(self.addr, path)
+        name = path if path.startswith("/") else \
+            self.name.rstrip("/") + "/" + path.strip("/")
+        kind = f.kind(addr)
+        return (Dataset if kind == "dataset" else Datatype
+                if kind == "datatype" else Group)(f, addr, name)
 
     def __contains__(self, path: str) -> bool:
-        try:
-            self.file.resolve(self.name.rstrip("/") + "/" + path.strip("/"))
-        except KeyError:
+        """h5py's test (h5g._path_valid): every link on the path exists
+        and each but the last leads to a group; the last link itself is
+        not followed, so a dangling one is in its group."""
+        if not path:
             return False
+        f, addr = self.file, (self.file._root_addr if path.startswith("/")
+                              else self.addr)
+        parts = [p for p in path.split("/") if p and p != "."]
+        for i, p in enumerate(parts):
+            if p not in f.links(addr):
+                return False
+            if i == len(parts) - 1:
+                break
+            try:
+                f, addr = f._follow(addr, p, [MAX_LINKS], path)
+            except KeyError:
+                return False
+            if f.kind(addr) != "group":
+                return False
         return True
+
+
+class Datatype(_Object):
+    """A committed (named) datatype."""
+
+    @property
+    def dtype(self) -> np.dtype:
+        for m in self.file.messages(self.addr):
+            if m.mtype == 0x03:
+                return self.file.datatype(self.file._msg(m)).out
+        raise HDF5FormatError(f"{self.name}: no datatype message")
 
 
 class Dataset(_Object):
@@ -1156,10 +1615,12 @@ class Dataset(_Object):
         if nbytes > 1100 * len(f.buf) + (1 << 20):
             raise HDF5FormatError(f"{self.name}: {nbytes} bytes of data "
                                   f"in a file of {len(f.buf)}")
-        raw = _read_layout(f, f._msg(layout), dt.np, shape, maxshape,
-                           nbytes, filters, self.name)
-        return f.to_value(dt, shape, raw) if shape == () or dt.vlen_str \
-            else np.frombuffer(raw, dt.np, count=n).reshape(shape)
+        raw = _read_layout(f, f._msg(layout), np.dtype(
+            (np.void, dt.np.itemsize)), shape, maxshape, nbytes, filters,
+            self.name)
+        if shape == () or dt.conv is not None or dt.np.subdtype:
+            return f.to_value(dt, shape, raw)
+        return np.frombuffer(raw, dt.np, count=n).reshape(shape)
 
     def __getitem__(self, key):
         return self.read()[key]
@@ -1216,6 +1677,9 @@ def _unfilter(data: bytes, filters, mask: int, expect: int, where: str
             from . import vbz
             data = vbz.decode_chunk(data, vals, expect if i == 0 else None,
                                     f"{where}: ")
+        elif fid in (4, 5, 6, 32000):
+            from .h5filters import DECODERS
+            data = DECODERS[fid](data, vals, expect, where)
         else:
             raise UnsupportedFeature(f"filter {fid} ({name or 'unnamed'})")
     return data

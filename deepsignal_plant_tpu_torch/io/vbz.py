@@ -28,7 +28,7 @@ import threading
 
 import numpy as np
 
-from .hdf5 import HDF5FormatError, VBZPluginError
+from .hdf5 import HDF5FormatError, VBZPluginError, native
 
 ZSTD_LIBRARY = "libzstd.so.1"
 _ZSTD_CONTENTSIZE_ERROR = (1 << 64) - 2
@@ -36,7 +36,6 @@ _ZSTD_CONTENTSIZE_UNKNOWN = (1 << 64) - 1
 
 _lock = threading.Lock()
 _zstd: dict[str, ctypes.CDLL] = {}
-_native = None                # the port's native library, loaded once
 
 
 def libzstd() -> ctypes.CDLL:
@@ -128,12 +127,8 @@ def decode_chunk(data: bytes, cd_values, expect: int | None,
             raise HDF5FormatError(f"{where}VBZ chunk of {len(body)} bytes, "
                                   f"header says {size}")
         return bytes(body)
-    global _native
-    if _native is None:
-        from ..native import load
-        _native = load()
     out = np.empty(size, np.uint8)
-    used = _native.dsp_vbz_unpack(
+    used = native().dsp_vbz_unpack(
         body.ctypes.data if level else body, len(body), count, isize,
         int(zigzag), out)
     if used != len(body):

@@ -87,7 +87,15 @@ def _declare(lib: ctypes.CDLL) -> None:
              [u16p, i64, i8p]),
             ("dsp_quantize_i8_f32", ctypes.c_float, [f32p, i64, i8p]),
             ("dsp_vbz_unpack", i64,
-             [ctypes.c_void_p, i64, i64, i32, i32, u8p])):
+             [ctypes.c_void_p, i64, i64, i32, i32, u8p]),
+            ("dsp_lzf_decompress", i64, [c_char_p, i64, u8p, i64]),
+            ("dsp_nbit_decode", i64, [c_char_p, i64, u32p, i64, u8p, i64]),
+            ("dsp_scaleoffset_decode", i64,
+             [c_char_p, i64, u32p, i64, u8p, i64]),
+            ("dsp_szip_decode", i64,
+             [c_char_p, i64, i32, i32, i32, i32, u8p, i64]),
+            ("dsp_lookup3", ctypes.c_uint32,
+             [c_char_p, i64, ctypes.c_uint32])):
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = restype, argtypes
 

@@ -38,6 +38,14 @@
 //     filter 32020) decoded into ``count`` little-endian integers of
 //     ``integer_size`` bytes; -1 when the stream is shorter than its
 //     control bytes say.
+//   HDF5 filters of io/h5filters.py, one stored chunk into ``out``:
+//     dsp_lzf_decompress(in, in_len, out, out_cap) -> bytes written (32000);
+//     dsp_nbit_decode(in, in_len, parms, nparms, out, out_len) -> 0 (5);
+//     dsp_scaleoffset_decode(in, in_len, cd, ncd, out, out_len) -> 0 (6);
+//     dsp_szip_decode(in, in_len, options, ppb, bpp, pps, out, out_len)
+//       -> 0 (4); each negative for a short or malformed chunk.
+//   dsp_lookup3(data, len, initval) -> Jenkins' lookup3 hashlittle, the
+//     checksum of HDF5's version 2 structures.
 
 #include <algorithm>
 #include <cmath>
@@ -1393,6 +1401,514 @@ int64_t dsp_vbz_unpack(const uint8_t* in, int64_t in_len, int64_t count,
                                                   out);
         default: return -1;
     }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// HDF5 filters of io/h5filters.py: LZF (32000, the filter h5py ships),
+// N-bit (5), scale-offset (6) and szip (4, CCSDS 121.0 Rice coding as
+// libaec decodes it). Each decodes one stored chunk into a buffer of the
+// chunk's size; each returns a negative code instead of reading or
+// writing out of bounds.
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// ``nbits`` (at most 64) bits at bit ``pos`` of ``p``, the most
+// significant bit of each byte first; false past ``nbytes``.
+inline bool read_bits(const uint8_t* p, int64_t nbytes, int64_t& pos,
+                      int nbits, uint64_t& v) {
+    if (pos + nbits > nbytes * 8) return false;
+    uint64_t r = 0;
+    int left = nbits;
+    while (left > 0) {
+        const int off = int(pos & 7);
+        const int avail = 8 - off;
+        const int take = avail < left ? avail : left;
+        const uint32_t bits =
+            (uint32_t(p[pos >> 3]) >> (avail - take)) & ((1u << take) - 1);
+        r = (r << take) | bits;
+        left -= take;
+        pos += take;
+    }
+    v = r;
+    return true;
+}
+
+// the count of 0 bits before the next 1 bit (a fundamental sequence
+// code), the 1 consumed; -1 past the end
+inline int64_t read_fs(const uint8_t* p, int64_t nbytes, int64_t& pos) {
+    int64_t n = 0;
+    const int64_t end = nbytes * 8;
+    while (pos < end) {
+        if (!(pos & 7) && p[pos >> 3] == 0 && pos + 8 <= end) {
+            n += 8;
+            pos += 8;
+            continue;
+        }
+        const bool bit = (p[pos >> 3] >> (7 - (pos & 7))) & 1;
+        ++pos;
+        if (bit) return n;
+        ++n;
+    }
+    return -1;
+}
+
+inline void put_uint(uint8_t* out, uint64_t v, int size, bool big) {
+    for (int b = 0; b < size; ++b) {
+        const uint8_t byte = uint8_t(v >> (8 * b));
+        out[big ? size - 1 - b : b] = byte;
+    }
+}
+
+inline uint64_t get_uint(const uint8_t* in, int size, bool big) {
+    uint64_t v = 0;
+    for (int b = 0; b < size; ++b)
+        v |= uint64_t(in[big ? size - 1 - b : b]) << (8 * b);
+    return v;
+}
+
+// N-bit: one element of the type whose parameters start at parms[i]
+// (its class code already read), its bits read from the stream.
+int64_t nbit_one(const uint8_t* in, int64_t in_len, int64_t& pos,
+                 const uint32_t* parms, int64_t nparms, int64_t& i,
+                 int cls, uint8_t* out, int64_t out_len, int depth);
+
+int64_t nbit_atomic(const uint8_t* in, int64_t in_len, int64_t& pos,
+                    const uint32_t* parms, int64_t nparms, int64_t& i,
+                    uint8_t* out, int64_t out_len) {
+    if (i + 4 > nparms) return -2;
+    const uint32_t size = parms[i], order = parms[i + 1];
+    const uint32_t prec = parms[i + 2], off = parms[i + 3];
+    i += 4;
+    if (size == 0 || size > 8 || prec == 0 || prec + off > 8 * size ||
+        order > 1 || int64_t(size) > out_len)
+        return -2;
+    uint64_t v;
+    if (!read_bits(in, in_len, pos, int(prec), v)) return -1;
+    put_uint(out, v << off, int(size), order == 1);
+    return 0;
+}
+
+int64_t nbit_one(const uint8_t* in, int64_t in_len, int64_t& pos,
+                 const uint32_t* parms, int64_t nparms, int64_t& i,
+                 int cls, uint8_t* out, int64_t out_len, int depth) {
+    if (depth > 16) return -2;
+    if (cls == 1)
+        return nbit_atomic(in, in_len, pos, parms, nparms, i, out, out_len);
+    if (cls == 4) {                // no-op type: its bytes as they are
+        if (i >= nparms) return -2;
+        const uint32_t size = parms[i++];
+        if (int64_t(size) > out_len) return -2;
+        for (uint32_t b = 0; b < size; ++b) {
+            uint64_t v;
+            if (!read_bits(in, in_len, pos, 8, v)) return -1;
+            out[b] = uint8_t(v);
+        }
+        return 0;
+    }
+    if (cls == 2) {                          // array: total size, base type
+        if (i + 3 > nparms) return -2;
+        const uint32_t total = parms[i++];
+        const int base = int(parms[i++]);
+        const uint32_t bsize = parms[i];     // every base type starts so
+        if (bsize == 0 || total % bsize || int64_t(total) > out_len)
+            return -2;
+        const int64_t start = i;
+        for (uint32_t e = 0; e < total / bsize; ++e) {
+            i = start;
+            const int64_t rc = nbit_one(in, in_len, pos, parms, nparms, i,
+                                        base, out + int64_t(e) * bsize,
+                                        bsize, depth + 1);
+            if (rc) return rc;
+        }
+        return 0;
+    }
+    if (cls == 3) {                          // compound: size, members
+        if (i + 2 > nparms) return -2;
+        const uint32_t size = parms[i++];
+        const uint32_t nmembers = parms[i++];
+        if (int64_t(size) > out_len) return -2;
+        for (uint32_t m = 0; m < nmembers; ++m) {
+            if (i + 2 > nparms) return -2;
+            const uint32_t moff = parms[i++];
+            const int mcls = int(parms[i++]);
+            if (moff >= size) return -2;
+            const int64_t rc = nbit_one(in, in_len, pos, parms, nparms, i,
+                                        mcls, out + moff, size - moff,
+                                        depth + 1);
+            if (rc) return rc;
+        }
+        return 0;
+    }
+    return -2;
+}
+
+}  // namespace
+
+extern "C" {
+
+// LZF (liblzf's lzf_decompress): a control byte below 32 starts a run of
+// ctrl+1 literal bytes; else a back reference of (ctrl >> 5) + 2 bytes
+// (7: plus the next byte) at distance ((ctrl & 31) << 8) + next byte + 1.
+// Returns the bytes written; -1 for data that is no LZF stream, -2 when
+// ``out_cap`` is too small (liblzf's E2BIG).
+int64_t dsp_lzf_decompress(const uint8_t* in, int64_t in_len, uint8_t* out,
+                           int64_t out_cap) {
+    const uint8_t* ip = in;
+    const uint8_t* const in_end = in + in_len;
+    int64_t op = 0;
+    while (ip < in_end) {
+        uint32_t ctrl = *ip++;
+        if (ctrl < 32) {
+            ++ctrl;
+            if (op + ctrl > out_cap) return -2;
+            if (ip + ctrl > in_end) return -1;
+            std::memcpy(out + op, ip, ctrl);
+            op += ctrl;
+            ip += ctrl;
+        } else {
+            uint32_t len = ctrl >> 5;
+            int64_t ref = op - int64_t((ctrl & 0x1f) << 8) - 1;
+            if (ip >= in_end) return -1;
+            if (len == 7) {
+                len += *ip++;
+                if (ip >= in_end) return -1;
+            }
+            ref -= *ip++;
+            len += 2;
+            if (op + len > out_cap) return -2;
+            if (ref < 0) return -1;
+            for (uint32_t k = 0; k < len; ++k) out[op + k] = out[ref + k];
+            op += len;
+        }
+    }
+    return op;
+}
+
+// N-bit (HDF5's H5Z__filter_nbit, decompression): ``parms`` the
+// filter's client data values (total count, need-not-compress flag,
+// elements, then the type's parameters: atomic 1 size order precision
+// offset, array 2 size base, compound 3 size members (offset type)...,
+// no-op 4 size). Each element's significant bits were packed most
+// significant first; they return to their offset, the other bits 0.
+// Returns 0; -1 for a stream shorter than its elements, -2 for bad
+// parameters or an output of another size.
+int64_t dsp_nbit_decode(const uint8_t* in, int64_t in_len,
+                        const uint32_t* parms, int64_t nparms, uint8_t* out,
+                        int64_t out_len) {
+    if (nparms < 5) return -2;
+    const int64_t nelmts = parms[2];
+    const int cls = int(parms[3]);
+    const int64_t size = parms[4];
+    if (size == 0 || nelmts * size != out_len) return -2;
+    std::memset(out, 0, size_t(out_len));
+    int64_t pos = 0;
+    for (int64_t e = 0; e < nelmts; ++e) {
+        int64_t i = 4;
+        int64_t rc;
+        if (cls == 1) {
+            rc = nbit_atomic(in, in_len, pos, parms, nparms, i, out + e * size,
+                             size);
+        } else {
+            rc = nbit_one(in, in_len, pos, parms, nparms, i, cls,
+                          out + e * size, size, 0);
+        }
+        if (rc) return rc;
+    }
+    return 0;
+}
+
+// scale-offset (HDF5's H5Z__filter_scaleoffset, decompression): ``cd``
+// the filter's client data values (scale type, scale factor, elements,
+// class 0 integer / 1 float, size, sign, byte order, fill value
+// defined, the fill value's bytes from cd[8] on). The chunk is a 21-byte
+// header (minbits, a little-endian uint32; the minimum's byte count and
+// bytes) and each element's ``minbits`` low bits, most significant
+// first. minbits equal to the type's bits: the elements as stored;
+// minbits 0: every element the minimum. Integers: the minimum added, the
+// all-ones value the fill value where one is defined; floats (D-scale):
+// the integer over 10^D plus the minimum. Returns 0, -1 for a short
+// chunk, -2 for bad parameters (E-scale, which HDF5 does not write).
+int64_t dsp_scaleoffset_decode(const uint8_t* in, int64_t in_len,
+                               const uint32_t* cd, int64_t ncd, uint8_t* out,
+                               int64_t out_len) {
+    if (ncd < 8) return -2;
+    const uint32_t scale_type = cd[0];
+    const int32_t dscale = int32_t(cd[1]);
+    const int64_t nelmts = cd[2];
+    const uint32_t cls = cd[3], size = cd[4], order = cd[6];
+    const bool fill = cd[7] == 1;
+    if (!(size == 1 || size == 2 || size == 4 || size == 8) || cls > 1 ||
+        order > 1 || nelmts * size != out_len ||
+        (cls == 1 && (scale_type != 0 || size < 4)))
+        return -2;
+    if (in_len < 21) return -1;
+    const uint32_t minbits = uint32_t(get_uint(in, 4, false));
+    const int mvsize = in[4] < 8 ? in[4] : 8;
+    const uint64_t minval = get_uint(in + 5, mvsize, false);
+    const bool big = order == 1;
+    const uint8_t* data = in + 21;
+    const int64_t data_len = in_len - 21;
+    if (minbits > 8 * size) return -2;
+    if (minbits == 8 * size) {
+        if (data_len < out_len) return -1;
+        for (int64_t e = 0; e < nelmts; ++e)
+            put_uint(out + e * size,
+                     get_uint(data + e * size, int(size), false), int(size),
+                     big);
+        return 0;
+    }
+    uint64_t filval = 0;
+    if (fill) {
+        if (ncd < 8 + (int64_t(size) + 3) / 4) return -2;
+        for (uint32_t b = 0; b < size; ++b)
+            filval |= uint64_t((cd[8 + b / 4] >> (8 * (b % 4))) & 0xff)
+                      << (8 * b);
+    }
+    const uint64_t all_ones = minbits ? (uint64_t(1) << minbits) - 1 : 0;
+    const uint64_t type_mask =
+        size == 8 ? ~uint64_t(0) : (uint64_t(1) << (8 * size)) - 1;
+    int64_t pos = 0;
+    for (int64_t e = 0; e < nelmts; ++e) {
+        uint64_t v = 0;
+        if (minbits && !read_bits(data, data_len, pos, int(minbits), v))
+            return -1;
+        uint64_t w;
+        if (cls == 0) {
+            w = (fill && v == all_ones) ? filval : (v + minval) & type_mask;
+        } else if (size == 4) {
+            float mn, fv, r;
+            const uint32_t mb = uint32_t(minval), fb = uint32_t(filval);
+            std::memcpy(&mn, &mb, 4);
+            std::memcpy(&fv, &fb, 4);
+            const int32_t iv = int32_t(uint32_t(v));
+            if (fill && iv == int32_t(uint32_t(all_ones))) {
+                r = fv;
+            } else {
+                const float p = powf(10.0f, float(dscale));
+                r = float(iv) / p + mn;
+            }
+            uint32_t rb;
+            std::memcpy(&rb, &r, 4);
+            w = rb;
+        } else {
+            double mn, fv, r;
+            std::memcpy(&mn, &minval, 8);
+            std::memcpy(&fv, &filval, 8);
+            const int64_t iv = int64_t(v);
+            if (fill && iv == int64_t(all_ones)) {
+                r = fv;
+            } else {
+                const double p = pow(10.0, double(dscale));
+                r = double(iv) / p + mn;
+            }
+            std::memcpy(&w, &r, 8);
+        }
+        put_uint(out + e * size, w, int(size), big);
+    }
+    return 0;
+}
+
+// szip (HDF5's H5Z__filter_szip through libaec's SZ_BufftoBuffDecompress):
+// CCSDS 121.0-B Rice coding. ``options`` HDF5's szip option mask (32:
+// nearest-neighbour preprocessing, 16: samples most significant byte
+// first), ``ppb`` samples a block, ``bpp`` bits a sample (32 and 64 are
+// coded as bytes, interleaved by byte plane), ``pps`` samples a scanline
+// (a reference sample interval of ceil(pps / ppb) blocks; a scanline
+// that is no whole number of blocks was padded). Each block: an ID
+// (3, 4 or 5 bits), then a low-entropy block (zero-block run or second
+// extension), an uncompressed block, or a split-sample block; with
+// preprocessing each interval starts with an n-bit reference sample and
+// the rest are mapped prediction residuals. Writes ``out_len`` bytes;
+// returns 0, -1 for a stream shorter than that, -2 for bad parameters,
+// -3 for a malformed stream.
+int64_t dsp_szip_decode(const uint8_t* in, int64_t in_len, int32_t options,
+                        int32_t ppb, int32_t bpp, int32_t pps, uint8_t* out,
+                        int64_t out_len) {
+    if (ppb < 1 || ppb > 4096 || pps < 1 || bpp < 1 || bpp > 64 ||
+        (bpp > 32 && bpp != 64))
+        return -2;
+    const bool pp = options & 32, msb = options & 16;
+    const bool interleave = bpp == 32 || bpp == 64;
+    const int n = interleave ? 8 : bpp;
+    const int psize = n > 16 ? 4 : n > 8 ? 2 : 1;
+    if (out_len % psize) return -2;
+    const int64_t J = ppb;
+    const int64_t rsi = (pps + J - 1) / J;
+    const bool pad = pps % J != 0;
+    const int64_t samples = out_len / psize;
+    const int64_t lines = (samples + pps - 1) / pps;
+    const int64_t target = pad ? rsi * J * lines : samples;
+    const int id_len = n > 16 ? 5 : n > 8 ? 4 : 3;
+    const uint64_t id_max = (uint64_t(1) << id_len) - 1;
+    const uint64_t xmax = n == 64 ? ~uint64_t(0) : (uint64_t(1) << n) - 1;
+    std::vector<uint8_t> bytes;                  // interleaved byte planes
+    if (interleave) bytes.resize(size_t(samples));
+    std::vector<uint64_t> buf;
+    buf.reserve(size_t(rsi * J));
+    int64_t pos = 0, done = 0;
+    auto emit = [&](int64_t p, uint64_t v) {
+        int64_t k = p;
+        if (pad) {
+            const int64_t line = p / (rsi * J), col = p % (rsi * J);
+            if (col >= pps) return;
+            k = line * pps + col;
+        }
+        if (k >= samples) return;
+        if (interleave) bytes[size_t(k)] = uint8_t(v);
+        else put_uint(out + k * psize, v, psize, msb);
+    };
+    while (done < target) {
+        buf.clear();
+        for (int64_t b = 0; b < rsi && done + int64_t(buf.size()) < target;
+             ++b) {
+            const bool ref = pp && b == 0;
+            uint64_t id, v;
+            if (!read_bits(in, in_len, pos, id_len, id)) return -1;
+            if (id == 0) {                       // low entropy
+                uint64_t se;
+                if (!read_bits(in, in_len, pos, 1, se)) return -1;
+                if (ref) {
+                    if (!read_bits(in, in_len, pos, n, v)) return -1;
+                    buf.push_back(v);
+                }
+                if (se) {                        // second extension
+                    int64_t i = ref;
+                    while (i < J) {
+                        const int64_t m = read_fs(in, in_len, pos);
+                        if (m < 0) return -1;
+                        if (m > 90) return -3;
+                        int64_t s = 0;
+                        while ((s + 1) * (s + 2) / 2 <= m) ++s;
+                        const int64_t d1 = m - s * (s + 1) / 2;
+                        if ((i & 1) == 0) {
+                            buf.push_back(uint64_t(s - d1));
+                            ++i;
+                        }
+                        buf.push_back(uint64_t(d1));
+                        ++i;
+                    }
+                } else {                         // a run of zero blocks
+                    const int64_t fs = read_fs(in, in_len, pos);
+                    if (fs < 0) return -1;
+                    int64_t zb = fs + 1;
+                    if (zb == 5) {               // to the end of the segment
+                        const int64_t used = int64_t(buf.size()) / J;
+                        zb = std::min(rsi - used, 64 - used % 64);
+                    } else if (zb > 5) {
+                        --zb;
+                    }
+                    if (b + zb > rsi) return -3;
+                    buf.insert(buf.end(), size_t(zb * J - ref), 0);
+                    b += zb - 1;
+                }
+            } else if (id == id_max) {           // uncompressed
+                for (int64_t i = 0; i < J; ++i) {
+                    if (!read_bits(in, in_len, pos, n, v)) return -1;
+                    buf.push_back(v);
+                }
+            } else {                             // split samples, k LSBs
+                const int k = int(id) - 1;
+                if (ref) {
+                    if (!read_bits(in, in_len, pos, n, v)) return -1;
+                    buf.push_back(v);
+                }
+                const size_t first = buf.size();
+                for (int64_t i = ref; i < J; ++i) {
+                    const int64_t m = read_fs(in, in_len, pos);
+                    if (m < 0) return -1;
+                    if (k + (64 - __builtin_clzll(uint64_t(m) | 1)) > 64)
+                        return -3;
+                    buf.push_back(uint64_t(m) << k);
+                }
+                if (k)
+                    for (size_t i = first; i < buf.size(); ++i) {
+                        if (!read_bits(in, in_len, pos, k, v)) return -1;
+                        buf[i] += v;
+                    }
+            }
+        }
+        // undo the preprocessing: the reference as it is, then each
+        // mapped residual around the sample before it
+        uint64_t last = 0;
+        for (size_t i = 0; i < buf.size(); ++i) {
+            uint64_t x = buf[i];
+            if (pp) {
+                if (i == 0) {
+                    last = x;
+                } else {
+                    const uint64_t d = x;
+                    const uint64_t half = (d >> 1) + (d & 1);
+                    const uint64_t theta = std::min(last, xmax - last);
+                    if (half <= theta) {
+                        last = (d & 1) ? last - half : last + half;
+                    } else if (last <= xmax - last) {
+                        last = d;
+                    } else {
+                        last = xmax - d;
+                    }
+                    x = last;
+                }
+            }
+            if (x > xmax) return -3;
+            emit(done + int64_t(i), x);
+        }
+        done += int64_t(buf.size());
+    }
+    if (interleave) {
+        const int w = bpp / 8;
+        const int64_t words = samples / w;
+        for (int64_t i = 0; i < words; ++i)
+            for (int j = 0; j < w; ++j)
+                out[i * w + j] = bytes[size_t(j * words + i)];
+    }
+    return 0;
+}
+
+}  // extern "C"
+
+extern "C" {
+
+// Bob Jenkins' lookup3 hashlittle, the checksum of HDF5's version 2
+// structures (H5_checksum_lookup3), over ``length`` bytes read in any
+// alignment.
+uint32_t dsp_lookup3(const uint8_t* k, int64_t length, uint32_t initval) {
+    auto rot = [](uint32_t x, int r) { return (x << r) | (x >> (32 - r)); };
+    auto word = [](const uint8_t* p) {
+        return uint32_t(p[0]) | uint32_t(p[1]) << 8 | uint32_t(p[2]) << 16 |
+               uint32_t(p[3]) << 24;
+    };
+    uint32_t a, b, c;
+    a = b = c = 0xdeadbeefu + uint32_t(length) + initval;
+    while (length > 12) {
+        a += word(k);
+        b += word(k + 4);
+        c += word(k + 8);
+        a -= c; a ^= rot(c, 4);  c += b;
+        b -= a; b ^= rot(a, 6);  a += c;
+        c -= b; c ^= rot(b, 8);  b += a;
+        a -= c; a ^= rot(c, 16); c += b;
+        b -= a; b ^= rot(a, 19); a += c;
+        c -= b; c ^= rot(b, 4);  b += a;
+        length -= 12;
+        k += 12;
+    }
+    if (length == 0) return c;
+    uint8_t tail[12] = {0};
+    std::memcpy(tail, k, size_t(length));
+    a += word(tail);
+    b += word(tail + 4);
+    c += word(tail + 8);
+    c ^= b; c -= rot(b, 14);
+    a ^= c; a -= rot(c, 11);
+    b ^= a; b -= rot(a, 25);
+    c ^= b; c -= rot(b, 16);
+    a ^= c; a -= rot(c, 4);
+    b ^= a; b -= rot(a, 14);
+    c ^= b; c -= rot(b, 24);
+    return c;
 }
 
 }  // extern "C"

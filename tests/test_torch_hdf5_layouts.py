@@ -199,7 +199,7 @@ def walk_file(path: str) -> int:
             if obj.addr in seen:
                 continue
             seen.add(obj.addr)
-            obj.attrs
+            dict(obj.attrs)
             if isinstance(obj, hdf5.Dataset):
                 obj.read()
             else:

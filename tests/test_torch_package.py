@@ -36,7 +36,7 @@ def test_every_module_is_listed():
                  "tools.fileops", "tools.splitters", "io.hdf5", "io.fast5",
                  "pipeline.extract", "utils.prof", "pipeline.denoise",
                  "io.vbz", "parallel.dist", "parallel.multihost",
-                 "parallel.mesh"):
+                 "parallel.mesh", "io.h5filters"):
         assert "deepsignal_plant_tpu_torch." + name in mods
 
 
