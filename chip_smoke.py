@@ -20,9 +20,10 @@ run.
    (the wgmma kernel, which every one of those layers takes, and the
    mma.sync kernel called directly) and in float32 (for
    exact-parity runs) through the route each layer takes and through
-   both routes called directly (the 3xTF32 projection kernel and the
-   float32 recurrence; the in-loop kernel), the two routes against each
-   other, and the projection kernel alone; (2b) the
+   each route called directly (the narrow kernel, at every shape it has
+   a plan for; the 3xTF32 projection kernel and the float32 recurrence;
+   the in-loop kernel), the routes against each other, and the
+   projection kernel alone; (2b) the
    trainable recurrence (K2, K3 and K4's recurrence on the cluster
    kernels of the card's plan in each dtype, logged with the occupancy
    query it read; K4's bitwise reproducible; K4's split-K dW_hh, bitwise
@@ -36,8 +37,12 @@ run.
    calls) and its bound: K1 per 4096-row forward tile and per tail tile
    (bfloat16: the wgmma and the mma.sync kernels in turns at every layer,
    two pairs each, beside the L2 bytes of weights each design reads;
-   float32: its two routes in turns at every layer, three pairs each,
-   and the projection kernel and K1's recurrence on their own), (3b) the
+   float32: its routes in turns at every layer, three rounds each (the
+   narrow, in-loop and split routes at the branches; split and in-loop
+   at the comb layers), the narrow layers also at train's 512- and
+   256-row tiles and denoise's signal_bilstm first layer at 512, 256
+   and 93 rows, and the projection kernel and K1's recurrence on their
+   own), (3b) the
    recurrence kernels per launch and per train
    step at batch 512, the cluster kernels and the streaming kernels in
    turns (cluster, stream, stream, cluster), in bfloat16 and in float32
@@ -227,6 +232,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -268,21 +274,34 @@ K1_BF16_MMA = "fused_bilstm_bf16"
 # K1_F32_KERNELS)
 K1_KERNELS = {K1_BF16: "bfloat16", "k1_float32": "float32"}
 # K1's routes (bf16: the kernel k1_bf16_plan picks, "mma" the mma.sync
-# kernel called directly; float32: "split", the projection kernel and the
-# recurrence; "inloop", the in-loop kernel) -> the key their errors go
-# under
+# kernel called directly; float32: "narrow", the narrow kernel; "split",
+# the projection kernel and the recurrence; "inloop", the in-loop kernel)
+# -> the key their errors go under
 K1_ROUTE_KEYS = {"bf16": K1_BF16, "mma": K1_BF16_MMA,
+                 "narrow": "fused_bilstm_f32_narrow",
                  "split": "fused_bilstm_rec_f32",
                  "inloop": "fused_bilstm_f32_inloop"}
 K1_F32_KERNELS = ("fused_bilstm_proj_f32", "fused_bilstm_rec_f32",
-                  "fused_bilstm_f32_inloop")
+                  "fused_bilstm_f32_narrow", "fused_bilstm_f32_inloop")
+# each float32 K1 layer launches exactly one of these, whatever its route
+# (ops/fused_lstm.py's launches): their sum is a run's layer count
+K1_F32_LAYER_KERNELS = ("fused_bilstm_f32_narrow", "fused_bilstm_f32_inloop",
+                        "fused_bilstm_proj_f32")
 K1_ERR_KEYS = (K1_BF16, K1_BF16_MMA, "k1_float32") + K1_F32_KERNELS
 # the bf16 kernels timed in turns (mma, wgmma, wgmma, mma) this many times
 # per layer and batch
 K1_BF16_PAIRS = 2
-# K1's float32 routes timed in turns (split, in-loop, in-loop, split) this
-# many times per layer and batch, to show their spread
+# K1's float32 routes timed in turns (narrow, in-loop, split, split,
+# in-loop, narrow; the comb layers, which have no narrow plan: split,
+# in-loop, in-loop, split) this many times per layer and batch, to show
+# their spread
 K1_F32_PAIRS = 3
+# the narrow layers' other batches (train's evaluation tile and a
+# two-rank share of it) and denoise's signal_bilstm first layer at its
+# tiles, timed through the three routes as phase 3 times the main path's:
+# the route rule takes the narrow kernel only where it was the fastest
+NARROW_EXTRA_TIMED = ((7, 0, 128, (512, 256)), (16, 0, 128, (512, 256)),
+                      (16, 0, 256, (512, 256, 93)))
 # a --device_batch that is no multiple of 64 (one forward tile of 3,477
 # rows: clusters of 4 over 55 row tiles, the last ragged), checked at
 # bfloat16
@@ -579,14 +598,11 @@ def layer_bound(Fa, Fb, H, seq_out, B, itemsize, peak_flops, passes=1):
 
 def k1_moves(fused_lstm, route, plan):
     """The counters one K1 layer moves: bfloat16 its kernel; float32
-    either the in-loop kernel or the projection kernel and the recurrence
-    kernel of the plan (cluster or streaming)."""
+    the narrow kernel, the in-loop kernel, or the projection kernel and
+    the recurrence kernel of the plan (cluster or streaming)."""
     want = {k: 0 for k in fused_lstm.launches}
-    if route in ("bf16", "mma"):
+    if route in ("bf16", "mma", "narrow", "inloop"):
         want[K1_ROUTE_KEYS[route]] = 1
-        return want
-    if route == "inloop":
-        want["fused_bilstm_f32_inloop"] = 1
     else:
         want["fused_bilstm_proj_f32"] = 1
         want["fused_bilstm_rec_f32" if plan else
@@ -603,20 +619,31 @@ def k1_plan(torch, recurrence, B, H):
 
 def f32_routes(fused_lstm):
     """K1's float32 routes, called directly."""
-    return {"split": fused_lstm.layer_f32_split,
+    return {"narrow": fused_lstm.layer_f32_narrow,
+            "split": fused_lstm.layer_f32_split,
             "inloop": fused_lstm.layer_f32_inloop}
 
 
+def k1_f32_layers(kl: dict) -> int:
+    """K1 float32 layers a run launched: one of K1_F32_LAYER_KERNELS
+    each."""
+    return sum(kl[k] for k in K1_F32_LAYER_KERNELS)
+
+
 def k1_routes(fused_lstm):
-    """K1's routes called directly: float32's two and the bf16 mma.sync
+    """K1's routes called directly: float32's three and the bf16 mma.sync
     kernel."""
     return {**f32_routes(fused_lstm), "mma": fused_lstm.layer_bf16_mma}
 
 
 def f32_route(torch, fused_lstm, F, H, B):
     """The float32 route bilstm_layer_fused takes on card 0."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return "inloop" if fused_lstm.f32_inloop(F, H, B, sms) else "split"
+    return fused_lstm.f32_route_on(torch.device("cuda", 0), F, H, B)[0]
+
+
+def narrow_plan(torch, fused_lstm, F, H, B):
+    """The narrow kernel's plan on card 0 (None where it has none)."""
+    return fused_lstm.narrow_plan_on(torch.device("cuda", 0), F, H, B)
 
 
 def check_kernel(torch, fused_lstm, recurrence, plain):
@@ -626,11 +653,12 @@ def check_kernel(torch, fused_lstm, recurrence, plain):
     9b's) and of phase 8's denoise (signal_bilstm's layers in 512-row
     tiles and their tails),
     seq_out True and False: the bfloat16 kernel, and float32 through the
-    route it takes and through both of its routes called directly (the
-    projection kernel and the recurrence; the in-loop kernel), which are
-    also held against each other; the float32 projection kernel alone
-    against its plain version. Each launch must move the counters of the
-    kernels named."""
+    route it takes and through each of its routes called directly (the
+    projection kernel and the recurrence; the in-loop kernel; the narrow
+    kernel, at every shape it has a plan for), which are also held
+    against each other (the narrow kernel against the other two); the
+    float32 projection kernel alone against its plain version. Each
+    launch must move the counters of the kernels named."""
     cases = [(shape, (TILE, TILE - 3, TAIL, TRAIN_B, TRAIN_B // RANKS,
                       DEVICE_BATCH_ODD))
              for shape in sorted(
@@ -671,6 +699,9 @@ def check_kernel(torch, fused_lstm, recurrence, plain):
                 routes = (("bf16", None), ("mma", "mma")) \
                     if dtype == torch.bfloat16 else (
                     (auto, None), ("split", "split"), ("inloop", "inloop"))
+                if dtype == torch.float32 and narrow_plan(
+                        torch, fused_lstm, Fa + Fb, H, B) is not None:
+                    routes += (("narrow", "narrow"),)
                 for seq_out in (True, False):
                     want = plain.bilstm_layer(xs, w_ih, b, w_hh, H, seq_out)
                     outs = {}
@@ -713,13 +744,18 @@ def check_kernel(torch, fused_lstm, recurrence, plain):
                         checked.append([Fa, Fb, H, B, "k1_float32"
                                         if taken else key, seq_out])
                     if dtype == torch.float32:
-                        err = max((a - c).abs().max().item() for a, c in zip(
-                            outs["split"], outs["inloop"]))
-                        log(f"float32 K1 routes against each other F=({Fa},"
-                            f"{Fb}) H={H} B={B} seq_out={seq_out}: "
-                            f"max|split - inloop| = {err:.3g}")
-                        if err > TOL[dname]:
-                            fail(f"K1's float32 routes disagree by {err}")
+                        f32_pairs = [("split", "inloop")] + [
+                            ("narrow", r) for r in ("split", "inloop")
+                            if "narrow" in outs]
+                        for r1, r2 in f32_pairs:
+                            err = max((a - c).abs().max().item()
+                                      for a, c in zip(outs[r1], outs[r2]))
+                            log(f"float32 K1 routes against each other F=("
+                                f"{Fa},{Fb}) H={H} B={B} seq_out={seq_out}: "
+                                f"max|{r1} - {r2}| = {err:.3g}")
+                            if err > TOL[dname]:
+                                fail(f"K1's float32 routes {r1} and {r2} "
+                                     f"disagree by {err}")
     return errs, checked
 
 
@@ -733,50 +769,76 @@ def proj_bound(Fa, Fb, H, B):
     return flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def f32_turns(torch, fused_lstm, Fa, Fb, H, seq_out, x, w_ih, b, w_hh,
+              packed) -> dict:
+    """K1's float32 routes on one layer in turns, K1_F32_PAIRS times
+    (narrow, in-loop, split, split, in-loop, narrow where the narrow kernel
+    has a plan; split, in-loop, in-loop, split elsewhere; graph replays,
+    each route over its weights packed beforehand, as a model caches
+    them): each route's times and mean, the route the rule takes, the
+    route the narrow kernel replaces (the rule's choice without it), the
+    fastest, and the pairwise differences in the order timed."""
+    B = x[0].shape[1]
+    routes = f32_routes(fused_lstm)
+    plan = narrow_plan(torch, fused_lstm, Fa + Fb, H, B)
+    order = (("narrow", "inloop", "split", "split", "inloop", "narrow")
+             if plan else ("split", "inloop", "inloop", "split"))
+
+    def call(r):
+        if r == "inloop":
+            return lambda: routes[r](x, w_ih, b, w_hh, H, seq_out)
+        return lambda: routes[r](x, w_ih, b, w_hh, H, seq_out,
+                                 packed=packed[r])
+
+    runs = {r: [] for r in order}
+    for _ in range(K1_F32_PAIRS):
+        for r in order:
+            runs[r].append(graph_ms(torch, call(r), reps=10))
+    means = {r: statistics.mean(v) for r, v in runs.items()}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {"route": f32_route(torch, fused_lstm, Fa + Fb, H, B),
+           "replaced_route": fused_lstm.f32_route(Fa + Fb, H, B, sms, None),
+           "fastest": min(means, key=means.get), "narrow_plan": plan,
+           **{f"{r}_ms_runs": v for r, v in runs.items()},
+           **{f"{r}_ms": m for r, m in means.items()},
+           # in-loop minus split, pair by pair in the order timed
+           "inloop_minus_split_ms": [
+               i - s_ for i, s_ in zip(runs["inloop"], runs["split"])]}
+    if plan:
+        out["narrow_kernel_ms"] = cuda_ms(torch, call("narrow"))
+        for r in ("inloop", "split"):
+            out[f"narrow_minus_{r}_ms"] = [
+                n - o for n, o in zip(runs["narrow"], runs[r])]
+        out["narrow_faster"] = means["narrow"] < means[out["replaced_route"]]
+    out["device_ms"] = means[out["route"]]
+    return out
+
+
 def time_k1_f32(torch, fused_lstm, recurrence, plain, Fa, Fb, H, seq_out,
                 xs, w_ih, b, w_hh, packed):
     """Phase 3, K1 at float32, one main-path layer at B=4096 and at the
-    TAIL rows: its two routes in turns, K1_F32_PAIRS times (split,
-    in-loop, in-loop, split; graph replays), their means and spread, the
-    route it takes, and the split route's parts: the projection kernel
-    (beside its plain version, one torch.matmul and its bound) and the
-    recurrence on its plan (beside its plain version and its bound)."""
+    TAIL rows: its routes in turns (f32_turns), the route it takes, and
+    the split route's parts: the projection kernel (beside its plain
+    version, one torch.matmul and its bound) and the recurrence on its
+    plan (beside its plain version and its bound). ``packed``: the
+    narrow and split routes' packed weights."""
     out = {}
-    routes = f32_routes(fused_lstm)
     for B in (TILE, TAIL):
         x = tuple(v[:, :B].contiguous() for v in xs)
         pre = "" if B == TILE else "tail_"
-
-        def route(r):
-            if r == "split":
-                return lambda: routes[r](x, w_ih, b, w_hh, H, seq_out,
-                                         packed=packed)
-            return lambda: routes[r](x, w_ih, b, w_hh, H, seq_out)
-
-        runs = {"split": [], "inloop": []}
-        for _ in range(K1_F32_PAIRS):
-            for r in ("split", "inloop", "inloop", "split"):
-                runs[r].append(graph_ms(torch, route(r), reps=10))
-        taken = f32_route(torch, fused_lstm, Fa + Fb, H, B)
-        split_ms = statistics.mean(runs["split"])
-        inloop_ms = statistics.mean(runs["inloop"])
-        xproj = fused_lstm.input_projection(x, w_ih, b, packed)
+        row = f32_turns(torch, fused_lstm, Fa, Fb, H, seq_out, x, w_ih, b,
+                        w_hh, packed)
+        taken = row["route"]
+        xproj = fused_lstm.input_projection(x, w_ih, b, packed["split"])
         x2d = torch.cat(x, dim=-1).reshape(T * B, Fa + Fb)
         pj_ops, pj_bytes = proj_bound(Fa, Fb, H, B)
         rc_ops, rc_bytes = rec_bound("lstm_recurrence_fwd", H, B, 4,
                                      PEAK_TF32_FLOPS, TF32_PASSES)
-        row = {
-            "route": taken, "split_ms_runs": runs["split"],
-            "inloop_ms_runs": runs["inloop"], "split_ms": split_ms,
-            "inloop_ms": inloop_ms,
-            # in-loop minus split, pair by pair in the order timed
-            "inloop_minus_split_ms": [
-                i - s_ for i, s_ in zip(runs["inloop"], runs["split"])],
-            "device_ms": split_ms if taken == "split" else inloop_ms,
+        row.update({
             "kernel_ms": cuda_ms(torch, lambda: fused_lstm.bilstm_layer_fused(
-                x, w_ih, b, w_hh, H, seq_out, packed=packed)),
+                x, w_ih, b, w_hh, H, seq_out, packed=packed.get(taken))),
             "proj_ms": graph_ms(torch, lambda: fused_lstm.input_projection(
-                x, w_ih, b, packed), reps=10),
+                x, w_ih, b, packed["split"]), reps=10),
             "proj_plain_ms": cuda_ms(torch, lambda: plain.input_projection(
                 x, w_ih, b), reps=10),
             # one library call of the same product (no bias, no flip):
@@ -791,11 +853,45 @@ def time_k1_f32(torch, fused_lstm, recurrence, plain, Fa, Fb, H, seq_out,
             "rec_plain_ms": cuda_ms(torch, lambda: plain.k1_outputs(
                 plain.lstm_recurrence(xproj, w_hh, H), seq_out), reps=5),
             "rec_bound_ms": max(rc_ops, rc_bytes),
-            "rec_bound_by": "operations" if rc_ops >= rc_bytes else "bytes"}
+            "rec_bound_by": "operations" if rc_ops >= rc_bytes else "bytes"})
         out.update({pre + k: v for k, v in row.items()})
+        log(f"K1 float32, F=({Fa},{Fb}) H={H} B={B}: route {taken}, in "
+            f"turns " + ", ".join(f"{r} {row[r + '_ms']:.4f}" for r in
+                                  f32_routes(fused_lstm) if r + "_ms" in row))
         del x, xproj, x2d
     out["tail_B"] = TAIL
     return out
+
+
+def time_narrow_extra(torch, fused_lstm, plain) -> list:
+    """Phase 3, the narrow layers at NARROW_EXTRA_TIMED's batches (train's
+    evaluation tiles, denoise's signal_bilstm first layer): the three
+    routes in turns (f32_turns), beside the plain version and the bounds
+    (3xTF32, and FFMA)."""
+    rows = []
+    for Fa, Fb, H, batches in NARROW_EXTRA_TIMED:
+        xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, max(batches),
+                                         torch.float32)
+        packed = {"split": fused_lstm.pack_proj_weights(w_ih, Fa),
+                  "narrow": fused_lstm.pack_narrow_weights(w_ih, w_hh)}
+        for B in batches:
+            x = tuple(v[:, :B].contiguous() for v in xs)
+            row = f32_turns(torch, fused_lstm, Fa, Fb, H, True, x, w_ih, b,
+                            w_hh, packed)
+            ops_ms, bytes_ms = layer_bound(Fa, Fb, H, True, B, 4,
+                                           PEAK_TF32_FLOPS, TF32_PASSES)
+            row.update({"F": [Fa, Fb], "H": H, "B": B,
+                        "plain_ms": cuda_ms(torch, lambda: plain.bilstm_layer(
+                            x, w_ih, b, w_hh, H, True), reps=5),
+                        "bound_ms": max(ops_ms, bytes_ms),
+                        "ffma_bound_ms": max(layer_bound(
+                            Fa, Fb, H, True, B, 4, PEAK_F32_FLOPS)[0],
+                            bytes_ms)})
+            log("K1 float32 narrow layer timing " + json.dumps(row))
+            rows.append(row)
+            del x
+        del xs, w_ih, b, w_hh, packed
+    return rows
 
 
 def time_k1_bf16(torch, fused_lstm, Fa, Fb, H, seq_out, xs, w_ih, b, w_hh):
@@ -847,7 +943,7 @@ def time_kernel(torch, fused_lstm, recurrence, plain):
     """Phase 3: each main-path launch at B=4096 and at call_mods' ragged
     tail tile (TAIL rows), through each of K1's routes (bfloat16: the
     wgmma kernel and the mma.sync kernel in turns, time_k1_bf16; float32:
-    its two routes in turns, time_k1_f32), beside the plain version and
+    its routes in turns, time_k1_f32), beside the plain version and
     torch.nn.LSTM in the kernel's dtype. The kernels both with CUDA
     events per call and as device time (graph replays, the packed
     weights made before the capture)."""
@@ -857,7 +953,9 @@ def time_kernel(torch, fused_lstm, recurrence, plain):
             dtype = getattr(torch, dname)
             xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, TILE, dtype)
             packed = (None if dtype == torch.bfloat16 else
-                      fused_lstm.pack_proj_weights(w_ih, Fa))
+                      {"split": fused_lstm.pack_proj_weights(w_ih, Fa),
+                       "narrow": fused_lstm.pack_narrow_weights(w_ih, w_hh)
+                       if Fa + Fb <= fused_lstm.NARROW_MAX_F else None})
             if dtype == torch.bfloat16:
                 extra = time_k1_bf16(torch, fused_lstm, Fa, Fb, H, seq_out,
                                      xs, w_ih, b, w_hh)
@@ -1546,10 +1644,9 @@ def check_main_path(tmp: str, ab, cfg_cls, init_params, save_checkpoint,
         fail(f"the float32 kernel run launched {f32k['kernel_launches']}, "
              f"expected {f32_want} (each layer of each tile on the route "
              f"and plan this card gives it)")
-    # every float32 layer starts with one launch: the in-loop kernel's or
-    # the projection kernel's
-    f32_layers = (f32k["kernel_launches"]["fused_bilstm_f32_inloop"]
-                  + f32k["kernel_launches"]["fused_bilstm_proj_f32"])
+    # every float32 layer starts with one launch: the narrow kernel's, the
+    # in-loop kernel's or the projection kernel's
+    f32_layers = k1_f32_layers(f32k["kernel_launches"])
     if f32_layers != 5 * f32k["forward_tiles"]:
         fail(f"the float32 run ran {f32_layers} K1 layers for "
              f"{f32k['forward_tiles']} forward tiles")
@@ -2111,10 +2208,8 @@ def sorted_rows(path: str) -> list:
 
 
 def f32_layers(st: dict) -> int:
-    """K1 float32 layers a run launched: one in-loop or projection
-    launch each."""
-    kl = st["kernel_launches"]
-    return kl["fused_bilstm_f32_inloop"] + kl["fused_bilstm_proj_f32"]
+    """K1 float32 layers a run launched (k1_f32_layers)."""
+    return k1_f32_layers(st["kernel_launches"])
 
 
 def check_fast5(tmp: str, ckpt: str) -> dict:
@@ -2905,8 +3000,7 @@ def check_denoise_resume_stream(tmp: str, ab) -> dict:
                             "0", "--recurrence", rec)
            for rec in ("kernel", "scan")}
     k, p = f32["kernel"], f32["scan"]
-    k1_f32 = (k["kernel_launches"]["fused_bilstm_f32_inloop"]
-              + k["kernel_launches"]["fused_bilstm_proj_f32"])
+    k1_f32 = k1_f32_layers(k["kernel_launches"])
     if (k["kernel_launches"]["lstm_recurrence_fwd_save_f32"]
             != DENOISE_LAYERS * k["steps"]
             or k["kernel_launches"]["lstm_recurrence_bwd_f32"]
@@ -3042,8 +3136,7 @@ def check_denoise_ranks(tmp: str) -> dict:
                 fail(f"denoise rank {r} ({name}): {st}")
             layers = DENOISE_LAYERS
             if f32_run:
-                k1 = (st["kernel_launches"]["fused_bilstm_f32_inloop"]
-                      + st["kernel_launches"]["fused_bilstm_proj_f32"])
+                k1 = k1_f32_layers(st["kernel_launches"])
                 want = {"lstm_recurrence_fwd_save_f32": layers * st["steps"],
                         "lstm_recurrence_bwd_f32": layers * st["steps"],
                         "lstm_dw_hh": layers * st["steps"]}
@@ -3701,18 +3794,21 @@ def k1_bf16_end_to_end(ab, cm, fused_lstm, cfg, card, tmp: str,
     return res
 
 
-def k1_f32_parts(timings, errs, checked, launched) -> list:
+def k1_f32_parts(timings, errs, checked, launched, narrow_extra) -> list:
     """The kernels line's entries of K1's float32 kernels (K1_F32_KERNELS),
-    per 4096-row tile over the layers whose route runs each (the tail
-    tile's beside): the projection kernel and K1's recurrence on the
-    float32 cluster kernel (the split route), and the in-loop kernel.
-    ``launched``: the float32 call_mods run's counters."""
+    per 4096-row tile (the tail tile's beside): the projection kernel and
+    K1's recurrence on the float32 cluster kernel, over the layers whose
+    route is the split route; the narrow and the in-loop kernels, over
+    the narrow layers (seq and signal), whichever route they take (their
+    times come from the turns of f32_turns). ``launched``: the float32
+    call_mods run's counters; ``narrow_extra``: time_narrow_extra's
+    rows."""
     rows = [r for r in timings if r["kernel"] == "k1_float32"]
+    narrow_rows = [r for r in rows if "narrow_ms" in r]
     parts = []
 
-    def entry(name, source, route, ms, plain_ms, bound, library_ms):
-        use = [r for r in rows if r["route"] == route]
-        tail = [r for r in rows if r["tail_route"] == route]
+    def entry(name, source, use, tail, ms, plain_ms, bound, library_ms,
+              **extra):
         ops = sum(bound(r)[0] for r in use)
         nbytes = sum(bound(r)[1] for r in use)
         parts.append({
@@ -3729,35 +3825,65 @@ def k1_f32_parts(timings, errs, checked, launched) -> list:
             "bound_by": "operations" if ops >= nbytes else "bytes",
             "library_ms": (sum(r[library_ms] for r in use)
                            if library_ms else None),
-            "shapes_checked": [c for c in checked if c[4] == name]})
+            "shapes_checked": [c for c in checked if c[4] == name],
+            **extra})
 
-    entry("fused_bilstm_proj_f32", "fused_bilstm.cu", "split", "proj_ms",
-          "proj_plain_ms", lambda r: proj_bound(*r["F"], r["H"], TILE),
-          "proj_library_ms")
+    split = [r for r in rows if r["route"] == "split"]
+    tail_split = [r for r in rows if r["tail_route"] == "split"]
+    entry("fused_bilstm_proj_f32", "fused_bilstm.cu", split, tail_split,
+          "proj_ms", "proj_plain_ms",
+          lambda r: proj_bound(*r["F"], r["H"], TILE), "proj_library_ms")
     # library: torch.nn.LSTM at float32 on the same layers (cuDNN; it
     # computes the input projection too), as K2's entry takes it
-    entry("fused_bilstm_rec_f32", "lstm_recurrence.cu", "split", "rec_ms",
-          "rec_plain_ms", lambda r: rec_bound(
+    entry("fused_bilstm_rec_f32", "lstm_recurrence.cu", split, tail_split,
+          "rec_ms", "rec_plain_ms", lambda r: rec_bound(
               "lstm_recurrence_fwd", r["H"], TILE, 4, PEAK_TF32_FLOPS,
               TF32_PASSES), "library_ms")
-    entry("fused_bilstm_f32_inloop", "fused_bilstm.cu", "inloop",
-          "inloop_ms", "plain_ms", lambda r: (r["ops_ms"], r["bytes_ms"]),
-          "library_ms")
     parts[1]["plans"] = {r["layer"]: [r["rec_plan"], r["tail_rec_plan"]]
                          for r in rows}
+    # the narrow layers' kernels: bound with products in 3xTF32, the FFMA
+    # bound beside it; library torch.nn.LSTM at float32 on the same layers
+    ffma = sum(max(r["ffma_ms"], r["bytes_ms"]) for r in narrow_rows)
+    for name, route in (("fused_bilstm_f32_narrow", "narrow"),
+                        ("fused_bilstm_f32_inloop", "inloop")):
+        entry(name, "fused_bilstm.cu", narrow_rows, narrow_rows,
+              route + "_ms", "plain_ms",
+              lambda r: (r["ops_ms"], r["bytes_ms"]), "library_ms",
+              device_ms=sum(r[route + "_ms"] for r in narrow_rows),
+              taken_layers=[r["layer"] for r in narrow_rows
+                            if r["route"] == route],
+              tail_taken_layers=[r["layer"] for r in narrow_rows
+                                 if r["tail_route"] == route],
+              ffma_bound_ms=ffma)
+    parts[2].update({
+        "kernel_ms": sum(r["narrow_kernel_ms"] for r in narrow_rows),
+        "plans": {r["layer"]: [r["narrow_plan"], r["tail_narrow_plan"]]
+                  for r in narrow_rows},
+        "routes_timed": [{k: r[k] for k in (
+            "layer", "route", "replaced_route", "fastest", "narrow_faster",
+            "narrow_ms", "inloop_ms", "split_ms")} for r in narrow_rows] + [
+            {k: r["tail_" + k] for k in (
+                "route", "replaced_route", "fastest", "narrow_faster",
+                "narrow_ms", "inloop_ms", "split_ms")} | {
+                "layer": r["layer"], "B": TAIL} for r in narrow_rows] + [
+            {k: r[k] for k in (
+                "F", "H", "B", "route", "replaced_route", "fastest",
+                "narrow_faster", "narrow_ms", "inloop_ms", "split_ms",
+                "plain_ms", "bound_ms", "ffma_bound_ms", "narrow_plan")}
+            for r in narrow_extra]})
     return parts
 
 
 def k1_f32_tile(timings, errs, checked, layers) -> dict:
     """K1 at float32 as a whole, a composite of its kernels' launches
     (not a kernel): sums over the five layers of one 4096-row tile (and
-    of the tail tile) of the route each layer takes and of both routes
-    timed in turns; ``layers``: the float32 call_mods run's layer
-    count."""
+    of the tail tile) of the route each layer takes and of each route
+    timed in turns (the narrow route over the layers it has a plan for);
+    ``layers``: the float32 call_mods run's layer count."""
     rows = [r for r in timings if r["kernel"] == "k1_float32"]
 
     def total(key):
-        return sum(r[key] for r in rows)
+        return sum(r[key] for r in rows if key in r)
 
     return {
         "what": "K1 float32 per tile, a composite of its kernels",
@@ -3767,8 +3893,10 @@ def k1_f32_tile(timings, errs, checked, layers) -> dict:
         "device_ms": total("device_ms"), "kernel_ms": total("kernel_ms"),
         "tail_device_ms": total("tail_device_ms"),
         "split_ms": total("split_ms"), "inloop_ms": total("inloop_ms"),
+        "narrow_ms": total("narrow_ms"),
         "tail_split_ms": total("tail_split_ms"),
         "tail_inloop_ms": total("tail_inloop_ms"),
+        "tail_narrow_ms": total("tail_narrow_ms"),
         "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
         "bound_by": ("operations" if total("ops_ms") >= total("bytes_ms")
                      else "bytes"),
@@ -3986,7 +4114,7 @@ def check_local_denoise(cli, denoise_mod, torch, tmp: str,
             want = {"lstm_recurrence_fwd_save_f32": layers * steps * 2,
                     "lstm_recurrence_bwd_f32": layers * steps * 2,
                     "lstm_dw_hh": layers * steps * 2}
-            k1 = kl["fused_bilstm_f32_inloop"] + kl["fused_bilstm_proj_f32"]
+            k1 = k1_f32_layers(kl)
             if {k: kl[k] for k in want} != want or \
                     k1 != layers * st["forward_tiles"]:
                 fail(f"phase 11, denoise ({name}) launched {kl} for {steps} "
@@ -4082,6 +4210,23 @@ def phase11_launches(phase11: dict, name: str) -> dict:
             if v["kernel_launches"].get(name)}
 
 
+def log_narrow_ptxas(_build) -> None:
+    """ptxas's registers, stack and spills of each instance of the narrow
+    kernel (MT m16 tiles, U units a block, C blocks a cluster, KX x
+    columns), from csrc/fused_bilstm.cu's build log."""
+    text = _build.library_path("fused_bilstm").with_suffix(
+        ".so.log").read_text()
+    for entry in text.split("Compiling entry function")[1:]:
+        m = re.search(r"narrow_f32_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E",
+                      entry)
+        if m:
+            info = " ".join(ln.split(":", 1)[-1].strip()
+                            for ln in entry.splitlines()[1:]
+                            if "Used" in ln or "spill" in ln)
+            log("ptxas, narrow kernel MT={} U={} C={} KX={}: {}".format(
+                *m.groups(), info))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4133,6 +4278,7 @@ def main() -> int:
             + _build.library_path(name).with_suffix(".so.log").read_text()
             .strip().replace("\n", " | ")[-600:])
     parser.result()
+    log_narrow_ptxas(_build)
     log(f"built native/featparse.cpp with {native.CXX} "
         f"{' '.join(native.CXX_FLAGS)}: {native.library_path().name}")
     errs, checked = check_kernel(torch, fused_lstm, recurrence, plain)
@@ -4141,6 +4287,7 @@ def main() -> int:
 
     # phase 3: timing
     timings = time_kernel(torch, fused_lstm, recurrence, plain)
+    narrow_extra = time_narrow_extra(torch, fused_lstm, plain)
     forward = time_forward(torch, ModelConfig, ModelBiLSTM, Batch,
                            init_params)
     rec_timings = time_recurrence(torch, recurrence, plain)
@@ -4269,7 +4416,7 @@ def main() -> int:
     # K1's float32 kernels, launches from the float32 call_mods run; the
     # whole float32 layer route per tile rides on the projection's entry
     f32_parts = k1_f32_parts(timings, errs, checked,
-                             run["f32_launches_by_kernel"])
+                             run["f32_launches_by_kernel"], narrow_extra)
     f32_parts[0]["k1_float32_tile"] = k1_f32_tile(timings, errs, checked,
                                                   run["f32_layers"])
     for part in f32_parts:

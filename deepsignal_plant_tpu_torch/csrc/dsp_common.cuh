@@ -18,6 +18,18 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
+// the cell update's sigmoid and tanh in f32 from __expf (ex2.approx) and
+// __fdividef (rcp.approx): a few ulp from expf and an IEEE division, in a
+// fraction of their instructions (with the accurate versions the
+// bfloat16 wgmma kernel's cell updates took about as long as its products
+// on the H100)
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+__device__ __forceinline__ float tanh_fast(float x) {
+  return __fdividef(2.f, 1.f + __expf(-2.f * x)) - 1.f;
+}
+
 // Allow `smem` bytes of dynamic shared memory for `kernel` (needed above
 // 48 KB); refuses more than a block can have.
 inline cudaError_t set_smem(const void* kernel, size_t smem) {
@@ -157,6 +169,16 @@ __device__ __forceinline__ void wgmma_wait() {
 // (wgmma's) reads of them
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the two halves of a cluster barrier: arrive (release: this thread's
+// writes, to its own and to peers' shared memory, are ordered before
+// the peers' reads that follow their wait) and wait (acquire)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // 16-byte asynchronous copy global -> shared (cp.async, L2 only); with

@@ -3,8 +3,9 @@
 // Replaces the Pallas TPU kernel deepsignal_plant_tpu/ops/pallas_fused.py
 // ::_fused_kernel (reached through _layer_fused_impl's pallas_call): one
 // whole layer, both directions, input projection included (one launch of
-// the bfloat16 or the float32 in-loop kernel, or the float32 projection
-// kernel and a recurrence kernel of lstm_recurrence.cu):
+// a bfloat16 kernel or of the float32 narrow or in-loop kernel, or the
+// float32 projection kernel and a recurrence kernel of
+// lstm_recurrence.cu):
 //
 //     pre_d[t] = sum_i x_i[t] @ W_ih[d][rows_i] + b[d] + h_d @ W_hh[d]
 //     i,f,o = sigmoid(pre[i|f|o]), g = tanh(pre[g])   (gate order i,f,g,o)
@@ -39,7 +40,7 @@
 // 168 GFLOP against ~0.1 GB of compulsory traffic: bound by operations
 // (0.17 ms at the bf16 tensor-core peak), not by bytes (0.03 ms).
 //
-// Four kernels:
+// Five kernels:
 //
 // bfloat16 (the main path), two kernels over weights packed once per
 //   model (ops/fused_lstm.py::k1_bf16_plan picks):
@@ -50,7 +51,60 @@
 // - the mma.sync kernel (below): 32-row blocks that re-read their
 //   direction's packed weights from L2 at every step; it takes the
 //   shapes the wgmma kernel does not fit.
-// float32, for exact-parity runs, two routes (ops/fused_lstm.py picks):
+// float32, for exact-parity runs, three routes (ops/fused_lstm.py::
+// f32_route picks one a layer):
+// - the narrow kernel (below): the layers whose input is narrower than
+//   the projection's K slab of 32 (the seq and signal branches' 7 and 16
+//   features; it takes F <= 16) at H = 128 and 256, one launch a layer,
+//   the projection inside the time loop, on the tensor cores in 3xTF32
+//   with the weights resident across a thread-block cluster:
+//   - A cluster of C blocks owns a tile of `rows` batch rows of one
+//     direction for all T steps (grid (C * ceil(B / rows), 2)); block r
+//     owns U = H / C hidden units (64 at H = 128, C = 2; 32 at H = 256,
+//     C = 8) and all four gates of each, so the cell update stays in the
+//     block (and thread) that owns c. Before step 0 it copies its slice
+//     of [W_ih; W_hh], transposed (4U rows of Kx + H, Kx = 8 or 16), into
+//     shared memory by cp.async, where it stays for the launch. The
+//     weights are packed once per model (ops/fused_lstm.py::
+//     pack_narrow_weights): K-major, W_ih's rows zero-padded to Kx, then
+//     W_hh's; rows in (8-unit group, gate, unit) order, so a block's
+//     slice is contiguous and a warp's four gate tiles of a group are 32
+//     neighbouring rows.
+//   - Each step is one product, [x_t | h_{t-1}] (rows x (Kx + H)) by the
+//     slice ((Kx + H) x 4U), on mma.sync m16n8k8 in 3xTF32 (lo*hi + hi*lo
+//     + hi*hi, lo*lo dropped), as the float32 cluster kernels of
+//     lstm_recurrence.cu run theirs. Both operands' fragments load by
+//     ldmatrix (rows of Kx + H + 4 floats: conflict-free) and are split
+//     into tf32 hi and lo in registers (split_tf32's integer ops) at
+//     every step: split planes do not fit, neither W's (twice the slice,
+//     2 x 151 KB at H = 128) nor h's (the A buffer twice over, were each
+//     block to split the h it produces once for the cluster). 16 warps:
+//     warp w owns 8-unit group w % (U / 8) and every 16 / (U / 8)-th m16
+//     tile from w / (U / 8) on; its accumulators hold i, f, g and o of the
+//     same (row, unit) pairs. The cell update takes sigmoid and tanh from
+//     __expf and __fdividef (f32, a few ulp; with expf, tanhf and IEEE
+//     divisions the layers were slower on the H100).
+//   - The A operand, [x_t | h_{t-1}] of the tile's rows, is one buffer
+//     in every block. h_t crosses the cluster through distributed shared
+//     memory: each block writes its units of h_t into every block's
+//     buffer between two cluster barriers (the first's arrive after the
+//     product, its wait after the cell update, before the writes; the
+//     second after them), then x_{t+1}, read into registers during the
+//     cell update.
+//   - The plan (ops/fused_lstm.py::narrow_plan, on the card's occupancy
+//     query dsp_fused_bilstm_narrow_clusters) picks the row tile: at
+//     call_mods' 4096-row tiles 128 rows, 32 tiles x 2 directions x 2
+//     blocks = 128 blocks, one wave on the H100's 132 SMs. Shared memory
+//     at that tile (signal, F = 16, H = 128): the slice 256 x 148 x 4 =
+//     151,552 bytes and the A buffer 128 x 148 x 4 = 75,776, 227,328 of a
+//     block's 232,448.
+//   What bounds it: a signal layer at 4096 rows is 2 * 2 * T * B * (F +
+//   H) * 4H = 15.7 GFLOP of f32 products, 47 GFLOP in 3xTF32 (0.095 ms
+//   at 495 TFLOP/s, the FFMA peak's 0.234 ms beside it), against 7 MB of
+//   compulsory bytes (2 us): operations bind. On the H100 mma.sync does
+//   not reach the wgmma rate, the splits take issue slots beside the
+//   products, and each step ends in the cell update and two cluster
+//   barriers (PERF.md has the times).
 // - the projection kernel (below): the input projection of all T steps
 //   as one 3xTF32 wgmma product into K2's xproj, after which
 //   lstm_recurrence.cu's float32 recurrence kernels store h as this file's
@@ -59,17 +113,21 @@
 //   layer at B = 4096; out of the loop the projection runs at the tensor
 //   cores' rate, and only W_hh stays in the loop, resident on clusters.
 // - the in-loop kernel: CUDA-core FMAs, the projection inside the time
-//   loop, for inputs narrower than one K slab of the projection (the
-//   branches' 7 and 16 features, whose xproj would be 32-73 times their
-//   bytes) at batches that fill the card. block = (round_up(H, 32),
+//   loop, for inputs narrower than one K slab of the projection (whose
+//   xproj would be 4H / F times their bytes) that the narrow kernel has no
+//   plan for (H other than 128 and 256), at batches that fill the card.
+//   The narrow kernel replaced it at the branches. block = (round_up(H, 32),
 //   max(1, 256 / that)) threads; thread (j, y) owns unit j for RB = 16
 //   rows; x_t and h_{t-1} are staged as f32, transposed ([k][row]) so one
 //   16-byte load feeds four rows; two __syncthreads() per step order the
 //   h exchange; the weights are read from global memory.
 
+#include <cooperative_groups.h>
+
 #include "dsp_common.cuh"
 
 using namespace dsp;
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -180,6 +238,293 @@ cudaError_t launch_f32(const float* xa, const float* xb, const float* w_ih,
                                                ys_b, T_, B, Fa, Fb, H,
                                                seq_out);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32, the narrow kernel: 3xTF32 mma.sync over [W_ih; W_hh] slices
+// resident across a thread-block cluster (described in the header)
+
+constexpr int kNwWarps = 16;
+constexpr int kNwThreads = kNwWarps * 32;
+constexpr int kNwMaxF = 16;              // the widest input it takes
+
+// x width of the packed weights (ops/fused_lstm.py::narrow_kx): F
+// rounded up to 8 or 16
+inline int narrow_kx(int F) { return F <= 8 ? 8 : 16; }
+
+// shared-memory bytes of a block: its weight slice, transposed (4U rows
+// of Kx + H + 4 floats), and the A buffer (rows of the same width); the
+// same formula as ops/fused_lstm.py::narrow_smem
+inline size_t narrow_smem(int Kx, int H, int U, int rows) {
+  return (size_t)(Kx + H + 4) * (4 * U + rows) * sizeof(float);
+}
+
+// v to the same shared-memory offset as `addr` (this block's) in block
+// `rank` of the cluster
+__device__ __forceinline__ void st_cluster_f2(uint32_t addr, uint32_t rank,
+                                              float2 v) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "st.shared::cluster.v2.f32 [ra], {%2, %3};\n}\n"
+      :: "r"(addr), "r"(rank), "f"(v.x), "f"(v.y) : "memory");
+}
+
+// four 8 x 4 tiles of 32-bit values (rows of 16 bytes at the addresses
+// lanes 8i..8i+7 give for tile i): thread t gets element (t / 4, t % 4)
+// of each, the fragment layout of mma.m16n8k8's tf32 operands
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void split4(const uint32_t (&v)[4],
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(v[i]), hi[i], lo[i]);
+}
+
+// MT: m16 tiles of the row tile (rows = 16 MT); U: hidden units of a
+// block; C: blocks of a cluster (H = U C); KX: x columns (Fa + Fb <= KX).
+// ys_f/ys_b (T or 1, B, H).
+template <int MT, int U, int C, int KX>
+__global__ void __launch_bounds__(kNwThreads, 1)
+fused_bilstm_narrow_f32_kernel(const float* __restrict__ xa,
+                               const float* __restrict__ xb,
+                               const float* __restrict__ wp,
+                               const float* __restrict__ bias,
+                               float* __restrict__ ys_f,
+                               float* __restrict__ ys_b, int T_, int B,
+                               int Fa, int Fb, int seq_out) {
+  constexpr int H = U * C;
+  constexpr int K = KX + H;
+  constexpr int L = K + 4;                  // rows of W^T and of A
+  constexpr int BB = 16 * MT;
+  constexpr int G = U / 8;                  // 8-unit groups of a block
+  constexpr int WPG = kNwWarps / G;         // warps of a group
+  constexpr int MW = (MT + WPG - 1) / WPG;  // m16 tiles of a warp, at most
+  constexpr bool EVEN = MT % WPG == 0;      // every warp has MW of them
+  constexpr int N = 4 * U;                  // gate columns of the block
+  constexpr int NX = (BB * KX + kNwThreads - 1) / kNwThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int d = blockIdx.y;
+  const int F = Fa + Fb;
+  const int u0 = rank * U;
+  const int b0 = ((int)blockIdx.x / C) * BB;
+  float* const wsm = reinterpret_cast<float*>(smem_raw);  // N x L: W^T
+  float* const abuf = wsm + N * L;                         // BB x L: A
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q = lane & 3;
+  const int grp = warp % G;                 // the warp's 8-unit group
+  const int mt0 = warp / G;                 // its m16 tiles mt0 + WPG i
+  const int jl = grp * 8 + 2 * q;           // this thread's units jl, jl+1
+  auto has = [&](int mw) { return EVEN || mt0 + WPG * mw < MT; };
+
+  // the slice: rows [rank N, rank N + N) of wp[d] (packed once per
+  // model, K-major), by 16-byte cp.async
+  const float* wd = wp + ((size_t)d * 4 * H + rank * N) * K;
+  for (int i = threadIdx.x; i < N * (K / 4); i += kNwThreads) {
+    const int n = i / (K / 4), k = (i % (K / 4)) * 4;
+    cp_async16(wsm + n * L + k, wd + (size_t)n * K + k, true);
+  }
+  cp_async_commit();
+
+  // x_t of the tile's rows into registers: value j is A element (r, k)
+  // of i = threadIdx.x + j * kNwThreads, r = i / KX, k = i % KX; zeros
+  // past F and past the batch edge
+  float xr[NX];
+  auto load_x = [&](int s) {
+    const int t = d == 0 ? s : T_ - 1 - s;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      const int i = threadIdx.x + j * kNwThreads;
+      const int r = i / KX, k = i % KX;
+      const int row = b0 + r;
+      float v = 0.f;
+      if (r < BB && row < B && k < F)
+        v = k < Fa ? xa[((size_t)t * B + row) * Fa + k]
+                   : xb[((size_t)t * B + row) * Fb + (k - Fa)];
+      xr[j] = v;
+    }
+  };
+  auto store_x = [&]() {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      const int i = threadIdx.x + j * kNwThreads;
+      const int r = i / KX, k = i % KX;
+      if (r < BB) abuf[r * L + k] = xr[j];
+    }
+  };
+
+  // h_{-1} = 0, x_0 in place
+  for (int i = threadIdx.x; i < BB * L; i += kNwThreads) abuf[i] = 0.f;
+  load_x(0);
+  __syncthreads();
+  store_x();
+  // the row addresses this lane gives ldmatrix: A, row lane % 16 of an
+  // m16 tile, k + 4 (lane / 16); W^T, row lane % 8 of gate 2 gp + lane /
+  // 16 of its group, k + 4 ((lane / 8) % 2)
+  const uint32_t a_addr = static_cast<uint32_t>(__cvta_generic_to_shared(
+      abuf + (mt0 * 16 + (lane & 15)) * L + 4 * (lane >> 4)));
+  const uint32_t w_addr = static_cast<uint32_t>(__cvta_generic_to_shared(
+      wsm + (grp * 32 + (lane >> 4) * 8 + (lane & 7)) * L +
+      4 * ((lane >> 3) & 1)));
+  const float* bd = bias + d * 4 * H + u0 + jl;
+  cp_async_wait<0>();
+  cluster_arrive();                         // every peer runs, W is in place
+  cluster_wait();
+
+  float c[MW][4];
+#pragma unroll
+  for (int mw = 0; mw < MW; ++mw)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[mw][e] = 0.f;
+
+  for (int s = 0; s < T_; ++s) {
+    const bool last = s + 1 == T_;
+    const int t = d == 0 ? s : T_ - 1 - s;
+    float acc[MW][4][4];
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float2 bv = *reinterpret_cast<const float2*>(bd + g * H);
+#pragma unroll
+      for (int mw = 0; mw < MW; ++mw) {
+        acc[mw][g][0] = acc[mw][g][2] = bv.x;
+        acc[mw][g][1] = acc[mw][g][3] = bv.y;
+      }
+    }
+
+    // pre = b + [x_t | h_{t-1}] @ [W_ih; W_hh], the block's columns
+#pragma unroll 2
+    for (int kk = 0; kk < K; kk += 8) {
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int gp = 0; gp < 2; ++gp) {      // gates 2 gp, 2 gp + 1
+        uint32_t v[4], hi[4], lo[4];
+        ldsm_x4(v, w_addr + (gp * 16 * L + kk) * 4);
+        split4(v, hi, lo);
+        bh[2 * gp][0] = hi[0]; bh[2 * gp][1] = hi[1];
+        bh[2 * gp + 1][0] = hi[2]; bh[2 * gp + 1][1] = hi[3];
+        bl[2 * gp][0] = lo[0]; bl[2 * gp][1] = lo[1];
+        bl[2 * gp + 1][0] = lo[2]; bl[2 * gp + 1][1] = lo[3];
+      }
+#pragma unroll
+      for (int mw = 0; mw < MW; ++mw) {
+        if (has(mw)) {                      // the same for the whole warp
+          uint32_t v[4], ah[4], al[4];
+          ldsm_x4(v, a_addr + (WPG * mw * 16 * L + kk) * 4);
+          // tiles: rows 0-7 and 8-15 at k, then at k + 4
+          split4(v, ah, al);
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            mma_3xtf32(acc[mw][g], ah, al, bh[g], bl[g]);
+        }
+      }
+    }
+    if (!last) {
+      cluster_arrive();                     // this block read A
+      load_x(s + 1);                        // in flight during the update
+    }
+
+    const bool store = seq_out || last;
+    const int t_out = seq_out ? t : 0;
+    float* ys = d == 0 ? ys_f : ys_b;
+    float2 hv[MW][2];
+#pragma unroll
+    for (int mw = 0; mw < MW; ++mw) {
+      if (!has(mw)) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float h[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int e = 2 * half + k;
+          const float ig = sigmoid_fast(acc[mw][0][e]);
+          const float fg = sigmoid_fast(acc[mw][1][e]);
+          const float gg = tanh_fast(acc[mw][2][e]);
+          const float og = sigmoid_fast(acc[mw][3][e]);
+          c[mw][e] = fg * c[mw][e] + ig * gg;
+          h[k] = og * tanh_fast(c[mw][e]);
+        }
+        hv[mw][half] = make_float2(h[0], h[1]);
+        const int row = b0 + (mt0 + WPG * mw) * 16 + (lane >> 2) + half * 8;
+        if (store && row < B)
+          *reinterpret_cast<float2*>(ys + ((size_t)t_out * B + row) * H +
+                                     u0 + jl) = hv[mw][half];
+      }
+    }
+    if (last) break;                        // h_{T-1} feeds no product
+    cluster_wait();                         // every peer read its A
+#pragma unroll
+    for (int mw = 0; mw < MW; ++mw) {
+      if (!has(mw)) continue;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(
+            abuf + ((mt0 + WPG * mw) * 16 + (lane >> 2) + half * 8) * L +
+            KX + u0 + jl));
+#pragma unroll
+        for (int p = 0; p < C; ++p) st_cluster_f2(a, p, hv[mw][half]);
+      }
+    }
+    store_x();                              // x_{t+1} of this block's rows
+    cluster_arrive();                       // h_t is in every block's A
+    cluster_wait();
+  }
+}
+
+// the narrow kernel's designs: (units a block, cluster) = (64, 2) at H =
+// 128 and (32, 8) at H = 256; x widths 8 and 16; row tiles of 16 to 128
+inline const void* narrow_kernel(int H, int cluster, int Kx, int rows) {
+  if (rows % 16 != 0 || !(Kx == 8 || Kx == 16)) return nullptr;
+#define DSP_NW2(MT, U, C, KX)                                              \
+  (const void*)fused_bilstm_narrow_f32_kernel<MT, U, C, KX>
+#define DSP_NW(MT)                                                         \
+  if (rows == 16 * MT) {                                                   \
+    if (H == 128 && cluster == 2)                                          \
+      return Kx == 8 ? DSP_NW2(MT, 64, 2, 8) : DSP_NW2(MT, 64, 2, 16);     \
+    if (H == 256 && cluster == 8)                                          \
+      return Kx == 8 ? DSP_NW2(MT, 32, 8, 8) : DSP_NW2(MT, 32, 8, 16);     \
+  }
+  DSP_NW(1) DSP_NW(2) DSP_NW(3) DSP_NW(4)
+  DSP_NW(5) DSP_NW(6) DSP_NW(7) DSP_NW(8)
+#undef DSP_NW
+#undef DSP_NW2
+  return nullptr;
+}
+
+// the launch configuration of the plan (cluster, rows) over `tiles` row
+// tiles: grid (cluster * tiles, 2), cluster (cluster, 1, 1), kNwThreads
+// threads; allows the shared memory. Refuses what narrow_plan cannot
+// give (no kernel, shared memory past a block's).
+inline cudaError_t narrow_config(int F, int H, int cluster, int rows,
+                                 int tiles, cudaStream_t stream,
+                                 const void** kernel,
+                                 cudaLaunchConfig_t* cfg,
+                                 cudaLaunchAttribute* attr) {
+  if (F < 1 || F > kNwMaxF || tiles < 1) return cudaErrorInvalidValue;
+  const int Kx = narrow_kx(F);
+  *kernel = narrow_kernel(H, cluster, Kx, rows);
+  if (*kernel == nullptr) return cudaErrorInvalidValue;
+  const size_t smem = narrow_smem(Kx, H, H / cluster, rows);
+  const cudaError_t err = set_smem(*kernel, smem);
+  if (err != cudaSuccess) return err;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster * tiles, 2);
+  cfg->blockDim = dim3(kNwThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -768,16 +1113,6 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
       :: "r"(bar), "r"(rank) : "memory");
 }
 
-// the cell update's sigmoid and tanh in f32 from __expf (ex2.approx) and
-// __fdividef (rcp.approx): a few ulp from expf and an IEEE division, in a
-// fraction of their instructions (with the accurate versions the cell
-// updates took about as long as the products on the H100)
-__device__ __forceinline__ float sigmoid_fast(float x) {
-  return __fdividef(1.f, 1.f + __expf(-x));
-}
-__device__ __forceinline__ float tanh_fast(float x) {
-  return __fdividef(2.f, 1.f + __expf(-2.f * x)) - 1.f;
-}
 // TMA bulk copy global -> this block's shared memory, or (mask) to the
 // same offset in each block of the cluster in the mask; completes `bytes`
 // on the barrier at `bar` of each destination block
@@ -809,8 +1144,8 @@ __device__ __forceinline__ uint32_t cluster_blocks() {
   return n;
 }
 __device__ __forceinline__ void cluster_sync_all() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  cluster_arrive();
+  cluster_wait();
 }
 // the 256 consumer threads (named barrier 1; the producer warp is not in it)
 __device__ __forceinline__ void consumers_sync() {
@@ -1182,6 +1517,57 @@ cudaError_t dsp_fused_bilstm_f32(const void* xa, const void* xb,
                     static_cast<const float*>(w_hh),
                     static_cast<float*>(ys_f), static_cast<float*>(ys_b), T_,
                     B, Fa, Fb, H, seq_out, static_cast<cudaStream_t>(stream));
+}
+
+// float32, the narrow kernel: x* (T, B, F*) row-major, Fa + Fb <= 32;
+// wp (2, Kx + H, 4H) the packed, swizzled [W_ih; W_hh] described above
+// (ops/fused_lstm.py::pack_narrow_weights; Kx = round_up(Fa + Fb, 8)),
+// 16-byte aligned; bias (2, 4H); ys_f/ys_b (T or 1, B, H); the plan
+// (ops/fused_lstm.py::narrow_plan): clusters of `cluster` blocks of H /
+// cluster = 32 or 64 units, row tiles of `rows` (16 to 128, a multiple
+// of 16). Runs on `stream`, allocates nothing, returns the launch's
+// error code (cudaErrorInvalidValue for a plan it has no kernel for or
+// whose shared memory outgrows a block's).
+cudaError_t dsp_fused_bilstm_f32_narrow(const void* xa, const void* xb,
+                                        const void* wp, const void* bias,
+                                        void* ys_f, void* ys_b, int T_,
+                                        int B, int Fa, int Fb, int H,
+                                        int seq_out, int cluster, int rows,
+                                        void* stream) {
+  if (T_ < 1 || B < 1 || Fa < 1 || Fb < 0 || (Fb > 0 && xb == nullptr) ||
+      reinterpret_cast<uintptr_t>(wp) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(ys_f) % 8 != 0 ||
+      reinterpret_cast<uintptr_t>(ys_b) % 8 != 0)
+    return cudaErrorInvalidValue;
+  const void* kernel;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = narrow_config(Fa + Fb, H, cluster, rows,
+                                  (B + rows - 1) / rows,
+                                  static_cast<cudaStream_t>(stream), &kernel,
+                                  &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&xa, &xb, &wp, &bias, &ys_f, &ys_b, &T_, &B, &Fa, &Fb,
+                  &seq_out};
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// How many clusters of the narrow kernel's plan (cluster, rows) at
+// input width F and hidden size H the card holds at once
+// (cudaOccupancyMaxActiveClusters at the kernel's shared memory), into
+// *clusters; refuses a plan the launcher refuses.
+cudaError_t dsp_fused_bilstm_narrow_clusters(int F, int H, int cluster,
+                                             int rows, int* clusters) {
+  if (clusters == nullptr) return cudaErrorInvalidValue;
+  const void* kernel;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const cudaError_t err = narrow_config(F, H, cluster, rows, 1, nullptr,
+                                        &kernel, &cfg, &attr);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
 }
 
 // The float32 route's input projection: x* (T, B, F*) float32; w_hi and

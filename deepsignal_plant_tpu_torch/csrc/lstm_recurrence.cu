@@ -935,13 +935,6 @@ constexpr int kClU = 64;                    // hidden units of a block
 constexpr int kClWarps = 8;                 // one 8-unit group per warp
 constexpr int kClLdw = 4 * kClU + 8;        // W slice, xproj and da rows
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile(

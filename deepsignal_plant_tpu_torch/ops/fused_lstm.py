@@ -18,19 +18,26 @@ Two routes, one per compute dtype:
   stream order), wherever it fits (H <= 256 and at least two stages of
   its ring in shared memory); ``fused_bilstm_bf16``, the mma.sync
   kernel (``pack_weights``), everywhere else;
-- float32 (exact-parity runs): one of two routes per layer, by
-  ``f32_inloop``. The split route (``layer_f32_split``) is two launches:
-  the input projection out of the time loop, one 3xTF32 wgmma product
-  over all T*B rows (``fused_bilstm_proj_f32``, csrc/fused_bilstm.cu)
-  into K2's xproj (T, 2, B, 4H), over W_ih packed once per model in tf32
-  hi and lo planes (``pack_proj_weights``, cached by
-  ``packed_proj_weights``); then ops/recurrence.py::lstm_recurrence_k1,
-  K2's float32 kernels storing h as K1 does (``fused_bilstm_rec_f32``,
-  or ``fused_bilstm_rec_f32_stream`` off the cluster plans). Layers with
-  inputs narrower than the projection's K slab, at batches that fill
-  the card, run one launch of the in-loop kernel instead
-  (``layer_f32_inloop``, ``fused_bilstm_f32_inloop``: CUDA-core FMAs, the
-  projection inside the time loop).
+- float32 (exact-parity runs): one of three routes per layer, by
+  ``f32_route``. The narrow route (``layer_f32_narrow``,
+  ``fused_bilstm_f32_narrow``) is one launch of the narrow kernel: the
+  layers of at most 16 input features (the seq and signal branches' 7
+  and 16) at H = 128 and 256, from 256 rows up, the projection inside
+  the time loop, 3xTF32 mma.sync over [W_ih; W_hh] slices resident
+  across a thread-block cluster (packed once per model by
+  ``pack_narrow_weights``, cached by ``packed_narrow_weights``) on
+  ``narrow_plan``'s clusters and row tiles. The split route
+  (``layer_f32_split``) is two launches: the input projection out of
+  the time loop, one 3xTF32 wgmma product over all T*B rows
+  (``fused_bilstm_proj_f32``, csrc/fused_bilstm.cu) into K2's xproj
+  (T, 2, B, 4H), over W_ih packed once per model in tf32 hi and lo planes
+  (``pack_proj_weights``, cached by ``packed_proj_weights``); then
+  ops/recurrence.py::lstm_recurrence_k1, K2's float32 kernels storing h
+  as K1 does (``fused_bilstm_rec_f32``, or
+  ``fused_bilstm_rec_f32_stream`` off the cluster plans). The in-loop
+  route (``layer_f32_inloop``, ``fused_bilstm_f32_inloop``: CUDA-core
+  FMAs, the projection inside the time loop) takes the narrow layers the
+  narrow kernel does not, at batches that fill the card.
 
 K1's launches all count here, its recurrence's too, not in
 ops/recurrence.py's counters, which count the training path.
@@ -52,10 +59,12 @@ from .lstm import bilstm_layer as bilstm_layer_plain
 
 #: launches of each kernel since the last reset (set an entry to 0 to
 #: count a run); launches that raise are not counted. A bfloat16 layer
-#: launches one of its two kernels; a float32 layer the in-loop kernel,
-#: or the projection kernel and one of the recurrence's two
+#: launches one of its two kernels; a float32 layer the narrow or the
+#: in-loop kernel, or the projection kernel and one of the recurrence's
+#: two (so the narrow, in-loop and projection counts sum to the float32
+#: layers run)
 launches = {"fused_bilstm_bf16_wgmma": 0, "fused_bilstm_bf16": 0,
-            "fused_bilstm_f32_inloop": 0,
+            "fused_bilstm_f32_narrow": 0, "fused_bilstm_f32_inloop": 0,
             "fused_bilstm_proj_f32": 0, "fused_bilstm_rec_f32": 0,
             "fused_bilstm_rec_f32_stream": 0}
 
@@ -287,16 +296,160 @@ def inloop_rows(H: int) -> int:
     return 16 * max(1, 256 // width)
 
 
-def f32_inloop(F: int, H: int, B: int, sms: int) -> bool:
-    """Whether a float32 layer runs the in-loop kernel (CUDA-core FMAs,
-    the projection inside the time loop) rather than the projection
-    kernel and the recurrence: where its input is narrower than one K
-    slab of the projection (F < 32: the seq and signal branches' 7 and 16
-    raw features, whose xproj would be 4H/F = 32-73 times the input's
-    bytes) and its grid, 2 * ceil(B / inloop_rows(H)) blocks, fills the
-    card's ``sms`` SMs. On the H100 it was the faster route there at
-    4,096 rows and the slower at 1,016 (PERF.md)."""
-    return F < 32 and 2 * -(-B // inloop_rows(H)) >= sms
+# the narrow kernel (csrc/fused_bilstm.cu: fused_bilstm_narrow_f32_kernel):
+# inputs of at most 16 features (x columns padded to 8 or 16); a block of
+# 16 warps owns NARROW_UNITS[H] hidden units (a cluster H / that blocks);
+# row tiles of 16 to 128 rows
+NARROW_UNITS = {128: 64, 256: 32}
+NARROW_ROWS = tuple(range(16, 129, 16))
+NARROW_MAX_F = 16
+# the fewest rows at which f32_route takes the narrow kernel
+NARROW_MIN_ROWS = 256
+
+
+def narrow_kx(F: int) -> int:
+    """x columns of the narrow kernel (and of its packed weights): F
+    rounded up to 8 or 16 (8 for the seq branch's 7, 16 for the signal
+    branch's 16)."""
+    return 8 if F <= 8 else 16
+
+
+def narrow_smem(F: int, H: int, rows: int) -> int:
+    """Shared-memory bytes of a block of the narrow kernel
+    (csrc/fused_bilstm.cu's narrow_smem): its weight slice transposed, 4U
+    rows (U = NARROW_UNITS[H]), and the A buffer [x_t | h_{t-1}], ``rows``
+    rows, each row Kx + H + 4 floats (the 4 make the ldmatrix reads
+    conflict-free)."""
+    K = narrow_kx(F) + H
+    return 4 * (K + 4) * (4 * NARROW_UNITS[H] + rows)
+
+
+def narrow_plan(F: int, H: int, B: int, capacity):
+    """(cluster, rows) of the narrow kernel for a float32 layer of input
+    width F, hidden size H and B rows, or None where it has no plan.
+    ``capacity(cluster, rows)`` is how many clusters of that plan the card
+    holds at once (the wrapper asks the card, narrow_capacity). The grid
+    is 2 * ceil(B / rows) clusters of H / U blocks.
+
+    The shape rule: F <= 16 (the kernel is built for x columns of 8 and
+    16: the seq and signal branches' 7 and 16 features) and H = 128
+    (clusters of 2 blocks of 64 units) or 256 (clusters of 8 of 32): a
+    block's slice of [W_ih; W_hh] has to fit its shared memory beside the
+    A buffer, and a cluster has at most 8 blocks.
+
+    Among the row tiles whose shared memory fits, with waves = 2 *
+    ceil(B / rows) / capacity rounded up, the least estimated time waves x
+    (rows / 16 + 1.5): a wave's step grows by about one m16 tile's
+    products per 16 rows of its tile, beside a fixed part worth about 1.5
+    of them (the cell update, the two cluster barriers), as timed on the
+    H100 at 16 to 128 rows (PERF.md); ties take fewer waves, then the
+    smaller tile. On the H100: 128-row tiles at 4,096 rows (64 clusters of
+    2, one wave), 32 at 1,016, 16 at 512; at H = 256, 80 at 512 (14
+    clusters of 8)."""
+    U = NARROW_UNITS.get(H)
+    if U is None or not 1 <= F <= NARROW_MAX_F:
+        return None
+    C = H // U
+    best = None
+    for rows in NARROW_ROWS:
+        if narrow_smem(F, H, rows) > _MAX_SMEM:
+            continue
+        cap = capacity(C, rows)
+        if cap < 1:
+            continue
+        waves = -(-2 * -(-B // rows) // cap)
+        cost = (waves * (rows // 16 + 1.5), waves, rows)
+        if best is None or cost < best[0]:
+            best = cost, rows
+    return None if best is None else (C, best[1])
+
+
+@functools.cache
+def narrow_capacity(device: int, F: int, H: int, cluster: int,
+                    rows: int) -> int:
+    """Clusters of a narrow-kernel plan that card ``device`` holds at once
+    (the kernel's occupancy query), cached per device and plan."""
+    lib = _lib()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.dsp_fused_bilstm_narrow_clusters(narrow_kx(F), H, cluster,
+                                                   rows, ctypes.byref(n))
+    _build.check(lib, err, "narrow kernel occupancy query")
+    return n.value
+
+
+def narrow_plan_on(device: torch.device, F: int, H: int, B: int):
+    """narrow_plan on the capacity of card ``device``."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return narrow_plan(F, H, B, lambda C, rows: narrow_capacity(
+        idx, narrow_kx(F), H, C, rows))
+
+
+def f32_route(F: int, H: int, B: int, sms: int, narrow) -> str:
+    """The route of a float32 layer of input width F, hidden size H and B
+    rows on a card of ``sms`` SMs, where ``narrow`` is its narrow_plan
+    (None where it has none): "narrow", the narrow kernel, wherever it has
+    a plan at B >= NARROW_MIN_ROWS; else "inloop", the in-loop kernel
+    (CUDA-core FMAs), where the input is narrower than the projection's
+    K slab (F < 32: xproj would be 4H / F times the input's bytes) and its
+    grid, 2 * ceil(B / inloop_rows(H)) blocks, fills the card; else
+    "split", the projection kernel and the recurrence (the comb layers,
+    and the narrow layers below NARROW_MIN_ROWS rows). On the H100
+    (chip_smoke.py phase 3, PERF.md) the narrow kernel was the fastest of
+    the three routes at every shape timed from 256 rows up (the
+    branches at 4,096, 1,016, 512 and 256 rows; H = 256 at 512 and 256)
+    and slower than the split route at denoise's 93-row tail (H = 256);
+    the in-loop kernel was the faster of the other two at 4,096 rows and
+    the slower at 1,016."""
+    if narrow is not None and B >= NARROW_MIN_ROWS:
+        return "narrow"
+    if F < 32 and 2 * -(-B // inloop_rows(H)) >= sms:
+        return "inloop"
+    return "split"
+
+
+def f32_route_on(device: torch.device, F: int, H: int, B: int):
+    """(route, narrow plan) of a float32 layer on card ``device``
+    (f32_route on its SM count and narrow_plan_on)."""
+    narrow = narrow_plan_on(device, F, H, B)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return f32_route(F, H, B, sms, narrow), narrow
+
+
+@torch.no_grad()
+def pack_narrow_weights(w_ih: torch.Tensor, w_hh: torch.Tensor
+                        ) -> torch.Tensor:
+    """The narrow kernel's weights: (2, 4H, Kx + H) float32, K-major, Kx =
+    narrow_kx(F): row 32 grp + 8 gate + e holds gate ``gate`` (i, f, g, o)
+    of unit 8 grp + e, so block r of a cluster copies the contiguous rows
+    [4U r, 4U (r + 1)) (its U units, as its warps' four gate tiles of an
+    8-unit group side by side); column k < F is W_ih's row k, columns [F,
+    Kx) are zero, column Kx + k is W_hh's row k. w_ih (2, F, 4H), w_hh
+    (2, H, 4H), H a multiple of 8. A layout transform in plain tensor
+    ops."""
+    F, H = w_ih.shape[1], w_hh.shape[1]
+    Kx = narrow_kx(F)
+    K = Kx + H
+    w = w_ih.new_zeros((2, K, 4, H), dtype=torch.float32)
+    w[:, :F] = w_ih.float().reshape(2, F, 4, H)
+    w[:, Kx:] = w_hh.float().reshape(2, H, 4, H)
+    # rows (group, gate, unit in the group), K-major
+    return w.reshape(2, K, 4, H // 8, 8).permute(0, 3, 2, 4, 1).reshape(
+        2, 4 * H, K).contiguous()
+
+
+def packed_narrow_weights(layer) -> torch.Tensor:
+    """``pack_narrow_weights`` of a layer module's w_ih and w_hh, packed
+    once and cached on the module until either changes (the cache key
+    holds both parameters' version counters and data pointers)."""
+    key = (layer.w_ih._version, layer.w_ih.data_ptr(), layer.w_hh._version,
+           layer.w_hh.data_ptr())
+    cached = layer.__dict__.get("_k1_narrow_packed")
+    if cached is None or cached[0] != key:
+        cached = (key, pack_narrow_weights(layer.w_ih, layer.w_hh))
+        layer.__dict__["_k1_narrow_packed"] = cached
+    return cached[1]
 
 
 @functools.cache
@@ -307,8 +460,13 @@ def _lib() -> ctypes.CDLL:
     lib.dsp_fused_bilstm_bf16.argtypes = [P] * 6 + [I] * 6 + [P]
     lib.dsp_fused_bilstm_proj_f32.argtypes = [P] * 6 + [I] * 5 + [P]
     lib.dsp_fused_bilstm_bf16_wgmma.argtypes = [P] * 6 + [I] * 9 + [P]
+    lib.dsp_fused_bilstm_f32_narrow.argtypes = [P] * 6 + [I] * 8 + [P]
+    lib.dsp_fused_bilstm_narrow_clusters.argtypes = [I] * 4 + [
+        ctypes.POINTER(I)]
     for fn in (lib.dsp_fused_bilstm_f32, lib.dsp_fused_bilstm_bf16,
-               lib.dsp_fused_bilstm_proj_f32, lib.dsp_fused_bilstm_bf16_wgmma):
+               lib.dsp_fused_bilstm_proj_f32, lib.dsp_fused_bilstm_bf16_wgmma,
+               lib.dsp_fused_bilstm_f32_narrow,
+               lib.dsp_fused_bilstm_narrow_clusters):
         fn.restype = ctypes.c_int
     return lib
 
@@ -452,6 +610,60 @@ def layer_f32_inloop(xs, w_ih: torch.Tensor, b: torch.Tensor,
     return _launch(checked, w_ih, b, w_hh, H, seq_out, None)
 
 
+def layer_f32_narrow(xs, w_ih: torch.Tensor, b: torch.Tensor,
+                     w_hh: torch.Tensor, hidden_size: int,
+                     seq_out: bool = True, packed=None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A float32 layer through the narrow kernel (one launch, 3xTF32 over
+    ``packed``, its pack_narrow_weights, made here when not given) on
+    narrow_plan's clusters and row tiles. Raises where the kernel has no
+    plan (F >= 32, H other than 128 and 256). Arguments and result as
+    bilstm_layer_fused's; a CPU tensor takes the plain version."""
+    H = hidden_size
+    checked = _layer_inputs(xs, w_ih, b, w_hh, H)
+    if checked is None:
+        return bilstm_layer_plain(xs, w_ih, b, w_hh, H, seq_out)
+    if checked[0].dtype != torch.float32:
+        raise TypeError("the narrow kernel takes float32")
+    B = checked[0].shape[1]
+    F = sum(x.shape[-1] for x in checked)
+    plan = narrow_plan_on(checked[0].device, F, H, B)
+    if plan is None:
+        raise ValueError(f"the narrow kernel has no plan for F={F} H={H}")
+    return _launch_narrow(checked, w_ih, b, w_hh, H, seq_out, packed, plan)
+
+
+def _launch_narrow(xs, w_ih, b, w_hh, H, seq_out, packed, plan):
+    """One launch of the narrow kernel on checked float32 inputs, on
+    ``plan``'s (cluster, rows)."""
+    T, B, Fa = xs[0].shape
+    Fb = xs[1].shape[-1] if len(xs) == 2 else 0
+    if packed is None:
+        packed = pack_narrow_weights(w_ih, w_hh)
+    shape = (2, 4 * H, narrow_kx(Fa + Fb) + H)
+    if tuple(packed.shape) != shape or packed.dtype != torch.float32 or \
+            not packed.is_contiguous() or packed.device != xs[0].device \
+            or packed.data_ptr() % 16:
+        raise ValueError(f"packed must be contiguous 16-byte aligned {shape} "
+                         f"float32 on {xs[0].device}; got "
+                         f"{tuple(packed.shape)} {packed.dtype} on "
+                         f"{packed.device}")
+    out_T = T if seq_out else 1
+    ys_f = torch.empty((out_T, B, H), dtype=torch.float32,
+                       device=xs[0].device)
+    ys_b = torch.empty_like(ys_f)
+    lib = _lib()
+    with torch.cuda.device(xs[0].device):
+        err = lib.dsp_fused_bilstm_f32_narrow(
+            xs[0].data_ptr(), xs[1].data_ptr() if Fb else None,
+            packed.data_ptr(), b.data_ptr(), ys_f.data_ptr(),
+            ys_b.data_ptr(), T, B, Fa, Fb, H, int(seq_out), *plan,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, err, "fused_bilstm_f32_narrow launch")
+    launches["fused_bilstm_f32_narrow"] += 1
+    return ys_f, ys_b
+
+
 def layer_bf16_wgmma(xs, w_ih: torch.Tensor, b: torch.Tensor,
                      w_hh: torch.Tensor, hidden_size: int,
                      seq_out: bool = True, packed=None
@@ -559,11 +771,12 @@ def bilstm_layer_fused(xs, w_ih: torch.Tensor, b: torch.Tensor,
     or bfloat16; w_ih (2, F, 4H) and w_hh (2, H, 4H) in that dtype (for
     bfloat16, any float dtype: the kernel k1_bf16_plan picks reads
     ``packed``, the weights packed for it (``packed_for``), made here
-    when not given; float32's split route reads w_ih through ``packed``,
-    its pack_proj_weights at this row split, made here when not given);
-    b (2, 4H) float32. float32 takes f32_inloop's route. Returns (ys_f,
-    ys_b), each (T, B, H) in true time, or (1, B, H) final states when
-    ``seq_out`` is False."""
+    when not given; float32's narrow and split routes read ``packed``,
+    the weights packed for the route f32_route gives the layer
+    (``f32_packed``: pack_narrow_weights, or pack_proj_weights at this
+    row split), made here when not given); b (2, 4H) float32. Returns
+    (ys_f, ys_b), each (T, B, H) in true time, or (1, B, H) final states
+    when ``seq_out`` is False."""
     H = hidden_size
     checked = _layer_inputs(xs, w_ih, b, w_hh, H)
     if checked is None:
@@ -576,11 +789,25 @@ def bilstm_layer_fused(xs, w_ih: torch.Tensor, b: torch.Tensor,
             return _launch(checked, w_ih, b, w_hh, H, seq_out, packed)
         return _launch_wgmma(checked, w_ih, b, w_hh, H, seq_out, packed,
                              plan)
-    sms = torch.cuda.get_device_properties(
-        checked[0].device).multi_processor_count
-    if f32_inloop(F, H, B, sms):
+    route, narrow = f32_route_on(checked[0].device, F, H, B)
+    if route == "narrow":
+        return _launch_narrow(checked, w_ih, b, w_hh, H, seq_out, packed,
+                              narrow)
+    if route == "inloop":
         return _launch(checked, w_ih, b, w_hh, H, seq_out, None)
     return _split(checked, w_ih, b, w_hh, H, seq_out, packed)
+
+
+def f32_packed(layer, route: str, Fa: int):
+    """A layer module's cached packed weights for float32 route ``route``
+    at inputs split at Fa: packed_narrow_weights (narrow),
+    packed_proj_weights (split), or None (the in-loop kernel reads w_ih
+    and w_hh as they are)."""
+    if route == "narrow":
+        return packed_narrow_weights(layer)
+    if route == "split":
+        return packed_proj_weights(layer, Fa)
+    return None
 
 
 def bilstm_stack_fused_tm(xs, layers, hidden_size: int,
@@ -614,10 +841,12 @@ def bilstm_stack_fused_tm(xs, layers, hidden_size: int,
                                                     xs[0].shape[1])))
             continue
         if on_card and compute_dtype == torch.float32:
+            route, _ = f32_route_on(xs[0].device, sum(
+                x.shape[-1] for x in xs), hidden_size, xs[0].shape[1])
             xs = bilstm_layer_fused(
                 xs, p.w_ih.to(compute_dtype).contiguous(), b,
                 p.w_hh.to(compute_dtype).contiguous(), hidden_size, seq_out,
-                packed=packed_proj_weights(p, xs[0].shape[-1]))
+                packed=f32_packed(p, route, xs[0].shape[-1]))
             continue
         layer_fn = (bilstm_layer_fused if recurrence == "kernel"
                     else bilstm_layer_plain)

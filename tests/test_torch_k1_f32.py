@@ -195,19 +195,34 @@ def test_k1_plan_takes_the_streaming_kernel_off_the_cluster_widths(H):
                                       torch.float32) is None
 
 
-@pytest.mark.parametrize("F,H,B,inloop", [
-    (7, 128, 4096, True), (16, 128, 4096, True),
-    (7, 128, 1016, False), (16, 128, 1016, False),
-    (256, 256, 4096, False), (512, 256, 4096, False),
-    (512, 256, 1016, False), (16, 128, 37, False), (31, 8, 8448, True),
-    (31, 8, 8192, False), (32, 8, 8448, False)])
-def test_f32_route_rule(F, H, B, inloop):
-    """f32_inloop on the H100's 132 SMs: the in-loop kernel for inputs
-    narrower than the projection's K slab once its grid fills the card
-    (the branches at 4,096 rows), the projection and the recurrence
-    elsewhere (the comb layers, and the branches at call_mods' 1,016-row
-    tail)."""
-    assert fused_lstm.f32_inloop(F, H, B, H100_SMS) is inloop
+# the H100's capacities of the narrow kernel's plans (clusters of 2 at H =
+# 128, of 8 at H = 256; one block an SM), as its occupancy query
+# reported them (PERF.md)
+H100_NARROW_CLUSTERS = {2: 66, 8: 15}
+
+
+@pytest.mark.parametrize("F,H,B,route", [
+    (7, 128, 4096, "narrow"), (16, 128, 4096, "narrow"),
+    (7, 128, 1016, "narrow"), (16, 128, 1016, "narrow"),
+    (256, 256, 4096, "split"), (512, 256, 4096, "split"),
+    (512, 256, 1016, "split"), (16, 128, 37, "split"),
+    (31, 8, 8448, "inloop"), (31, 8, 8192, "split"),
+    (32, 8, 8448, "split"), (7, 128, 512, "narrow"),
+    (16, 128, 256, "narrow"), (7, 128, 255, "split"),
+    (16, 256, 512, "narrow"), (16, 256, 256, "narrow"),
+    (16, 256, 93, "split"), (24, 128, 4096, "inloop"),
+    (24, 128, 1016, "split")])
+def test_f32_route_rule(F, H, B, route):
+    """f32_route on the H100's 132 SMs and its narrow plans: the narrow
+    kernel wherever it has a plan (the branches: F <= 16 at H = 128 and
+    256) from NARROW_MIN_ROWS = 256 rows up, where the H100 ran it
+    fastest; else the in-loop kernel for inputs narrower than the
+    projection's K slab once its grid fills the card; the projection and
+    the recurrence elsewhere (the comb layers, and the branches' short
+    tiles: denoise's 93-row tail ran faster there)."""
+    narrow = fused_lstm.narrow_plan(
+        F, H, B, lambda C, rows: H100_NARROW_CLUSTERS[C])
+    assert fused_lstm.f32_route(F, H, B, H100_SMS, narrow) == route
 
 
 def test_inloop_rows_follow_the_kernel_block():

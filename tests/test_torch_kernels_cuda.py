@@ -34,10 +34,10 @@ of each share; with two or more visible cards, the CLI's default
 
 K1 has two kernels at bfloat16 (the wgmma kernel, which every layer that
 fits takes, k1_bf16_plan; the mma.sync kernel for the rest, and
-called directly) and two routes at float32 (the 3xTF32 projection
-kernel and the float32 recurrence; the in-loop kernel); each check
-asserts that the counters of the kernels the layer ran moved and no
-other.
+called directly) and three routes at float32 (the narrow kernel, which
+the branches take, f32_route; the 3xTF32 projection kernel and the
+float32 recurrence; the in-loop kernel); each check asserts that the
+counters of the kernels the layer ran moved and no other.
 """
 
 import numpy as np
@@ -108,7 +108,8 @@ def k1_plan(H, B, device):
 
 
 # K1's float32 routes and its bf16 kernels, called directly
-F32_ROUTES = {"split": fused_lstm.layer_f32_split,
+F32_ROUTES = {"narrow": fused_lstm.layer_f32_narrow,
+              "split": fused_lstm.layer_f32_split,
               "inloop": fused_lstm.layer_f32_inloop,
               "wgmma": fused_lstm.layer_bf16_wgmma,
               "mma": fused_lstm.layer_bf16_mma}
@@ -116,21 +117,19 @@ F32_ROUTES = {"split": fused_lstm.layer_f32_split,
 
 def expected_k1_launches(F, H, B, dtype, device, f32_route=None):
     """The counters one K1 layer moves: bfloat16 its kernel; float32 the
-    kernels of its route (f32_inloop's, or the one called): the in-loop
-    kernel, or the projection kernel and the recurrence kernel of K1's
-    plan (k1_plan)."""
+    kernels of its route (f32_route's, or the one called): the narrow
+    kernel, the in-loop kernel, or the projection kernel and the
+    recurrence kernel of K1's plan (k1_plan)."""
     want = {k: 0 for k in fused_lstm.launches}
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     if dtype == torch.bfloat16:
         plan = fused_lstm.k1_bf16_plan(F, H, B)
         want["fused_bilstm_bf16" if plan is None or f32_route == "mma"
              else "fused_bilstm_bf16_wgmma"] = 1
         return want
     if f32_route is None:
-        f32_route = ("inloop" if fused_lstm.f32_inloop(F, H, B, sms)
-                     else "split")
-    if f32_route == "inloop":
-        want["fused_bilstm_f32_inloop"] = 1
+        f32_route = fused_lstm.f32_route_on(device, F, H, B)[0]
+    if f32_route in ("narrow", "inloop"):
+        want[f"fused_bilstm_f32_{f32_route}"] = 1
         return want
     plan = k1_plan(H, B, device)
     want["fused_bilstm_proj_f32"] = 1
@@ -188,6 +187,54 @@ def test_f32_routes_match_plain_and_each_other(device, layer, B, f32_route):
     alt = F32_ROUTES[other](xs, w_ih, b, w_hh, H, seq_out)
     for g, a in zip(got, alt):
         assert (g - a).abs().max().item() <= TOL[torch.float32]
+
+
+# the narrow layers the main paths give the narrow kernel: the branches
+# (call_mods' tiles, train's 512-row evaluation tile and a two-rank share
+# of it, a ragged 77), a row-split input, and denoise's signal_bilstm
+# first layer (H = 256) at its tiles
+NARROW_CASES = [(7, 0, 128, B) for B in (4096, 4093, 1016, 512, 256, 77)] + \
+    [(16, 0, 128, B) for B in (4096, 4093, 1016, 512, 256)] + \
+    [(8, 8, 128, 1000)] + [(16, 0, 256, B) for B in (512, 509, 93, 256)]
+
+
+@pytest.mark.parametrize("Fa,Fb,H,B", NARROW_CASES)
+def test_narrow_kernel_matches_plain_and_the_other_routes(device, Fa, Fb, H,
+                                                          B):
+    """The narrow kernel (3xTF32 over cluster-resident weight slices) at
+    the narrow layers, seq_out both ways: against the plain version, each
+    launch moving its own counter alone, and against the split and
+    in-loop routes; from NARROW_MIN_ROWS rows up bilstm_layer_fused takes
+    it (f32_route), over its packed weights given or made in the call
+    with the same bits."""
+    for seq_out in (True, False):
+        got = check_against_plain(Fa, Fb, H, seq_out, B, torch.float32,
+                                  device, "narrow")
+        xs, w_ih, b, w_hh = layer_inputs(Fa, Fb, H, B, torch.float32, device)
+        for other in ("split", "inloop"):
+            alt = F32_ROUTES[other](xs, w_ih, b, w_hh, H, seq_out)
+            for g, a in zip(got, alt):
+                assert (g - a).abs().max().item() <= TOL[torch.float32]
+        route = fused_lstm.f32_route_on(device, Fa + Fb, H, B)[0]
+        assert (route == "narrow") == (B >= fused_lstm.NARROW_MIN_ROWS)
+        if route != "narrow":
+            continue
+        packed = fused_lstm.pack_narrow_weights(w_ih, w_hh)
+        auto = fused_lstm.bilstm_layer_fused(xs, w_ih, b, w_hh, H, seq_out,
+                                             packed=packed)
+        for g, a in zip(got, auto):
+            assert torch.equal(g, a)
+
+
+def test_narrow_kernel_refuses_what_it_has_no_plan_for(device):
+    """No plan, so the narrow route raises: inputs wider than 16, H other
+    than 128 and 256; a float32 layer there takes another route."""
+    for Fa, H in ((24, 128), (7, 96)):
+        xs, w_ih, b, w_hh = layer_inputs(Fa, 0, H, 64, torch.float32,
+                                         device)
+        with pytest.raises(ValueError, match="no plan"):
+            fused_lstm.layer_f32_narrow(xs, w_ih, b, w_hh, H)
+        assert fused_lstm.f32_route_on(device, Fa, H, 64)[0] != "narrow"
 
 
 @pytest.mark.parametrize("B", [4096, 1016, 77, 1])
