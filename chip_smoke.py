@@ -501,8 +501,9 @@ NCCL_UPDATE_TOL = 1e-2
 STAGE_FIELDS = ("batches", "packed_batches", "packed_sites",
                 "persite_batches", "persite_sites", "bases_uploaded",
                 "wire_bytes", "parse_seconds",
-                "parse_wait_seconds", "batch_seconds", "device_seconds",
-                "format_seconds", "upload_device_seconds",
+                "parse_wait_seconds", "batch_seconds", "upload_seconds",
+                "forward_seconds", "readback_seconds", "format_seconds",
+                "drain_seconds", "unfed_seconds", "upload_device_seconds",
                 "forward_device_seconds", "seconds")
 
 
@@ -1601,7 +1602,7 @@ def f32_call_mods_launches(torch, fused_lstm, recurrence) -> dict:
     """K1's launches in a float32 call_mods run of N_ROWS rows: per
     4096-row tile (and the TAIL tile) and layer, the route and plan this
     card gives it (k1_moves)."""
-    want = {k: 0 for k in fused_lstm.launches}
+    want = {k: 0 for k in fused_lstm.kernel_launches()}
     for B in [TILE] * (N_ROWS // TILE) + [TAIL]:
         for Fa, Fb, H, _ in MAIN_PATH_LAYERS.values():
             route = f32_route(torch, fused_lstm, Fa + Fb, H, B)

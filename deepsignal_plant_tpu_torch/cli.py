@@ -155,7 +155,11 @@ def _add_device_args(p, every_card: bool = False):
                         "kernels")
     p.add_argument("--verbose_stages", action="store_true", default=False,
                    help="print a JSON line of run counters at the end: "
-                        "kernel launches, steps or tiles, stage seconds")
+                        "kernel launches, steps or tiles, stage seconds "
+                        "(call_mods: the seconds of each engine span, "
+                        "parse_wait, batch, upload, forward, readback, "
+                        "emit and drain, and unfed_seconds: "
+                        "utils/prof.py)")
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -68,6 +68,19 @@ launches = {"fused_bilstm_bf16_wgmma": 0, "fused_bilstm_bf16": 0,
             "fused_bilstm_proj_f32": 0, "fused_bilstm_rec_f32": 0,
             "fused_bilstm_rec_f32_stream": 0}
 
+
+def kernel_launches() -> dict:
+    """K1's launch counters and the recurrence's (ops/recurrence.py), as
+    one snapshot."""
+    return {**launches, **_rec.launches}
+
+
+def kernel_launches_since(before: dict) -> dict:
+    """Launches of every kernel counter since the ``before`` snapshot
+    (``kernel_launches()``)."""
+    return {k: v - before[k] for k, v in kernel_launches().items()}
+
+
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_HIDDEN = 512
 

@@ -264,16 +264,39 @@ class CallStats:
     bases_uploaded: int = 0
     wire_bytes: int = 0
     # parser threads' seconds in parse + pack, summed over the threads
-    # (float16 plane)
+    # (float16 plane): their ``parse`` spans
     parse_seconds: float | None = None
-    # main thread: waiting for parsed blocks, assembling batches (its
-    # waits and the int8 quantization included), staging + upload +
-    # forward + readback (host time, its waits for the card included),
-    # formatting + queueing rows
+    # the main thread's seconds in each of its spans (utils/prof.py),
+    # which never nest: blocked on the next parsed or loaded block
+    # (parse_wait); cutting and concatenating blocks into batches, int8
+    # quantization, cutting units into card shares, its waits excluded
+    # (batch); staging into the pinned ring, the ring-slot wait and the
+    # copy's submission (upload); launching the tiled forward (forward);
+    # starting the readback and waiting on the card (readback); row
+    # emission, label count and queueing the rows (emit); the writer's
+    # drain at the call's end (drain)
     parse_wait_seconds: float = 0.0
     batch_seconds: float = 0.0
-    device_seconds: float = 0.0
+    upload_seconds: float = 0.0
+    forward_seconds: float = 0.0
+    readback_seconds: float = 0.0
     format_seconds: float = 0.0
+    drain_seconds: float = 0.0
+    # seconds of the call in which no unit was submitted to a card and
+    # not yet waited for: the engine gave the cards no work (from the
+    # call's start to the first upload, from each wait that leaves
+    # nothing in flight to the next upload, from the last wait to the end)
+    unfed_seconds: float = 0.0
+    # input blocks taken (loaded files, parsed byte blocks, feature
+    # batches) and engine units made (a batch, or a resident segment):
+    # the ids the spans carry (``block <j>``, ``blocks <a>-<b>``,
+    # ``unit <i>``) count from 0 in a call
+    blocks: int = 0
+    units: int = 0
+    # launches of every kernel counter over the call
+    # (ops/fused_lstm.py::kernel_launches: K1's and the recurrence's)
+    kernel_launches: dict[str, int] = dataclasses.field(
+        default_factory=dict)
     # the card's time on the copy stream for the uploads, and on the
     # compute stream for the forwards (from the start of each unit's
     # forwards, its upload arrived and earlier units done, to their end;
@@ -328,11 +351,11 @@ def _check_packed_block(pb, seq_len: int, sig_len: int):
 
 
 def _take_packed_span(fifo, target, base_budget, seq_len):
-    """Consume blocks from ``fifo`` ([PackedFeatureBlock, consumed]
-    deque) into one packed batch: up to ``target`` sites whose covering
-    base span fits ``base_budget``. Returns ((codes, means, stds, lens,
-    rect, centers), segs, labels, ns, nbase) with centers rebased to the
-    batch's base axis."""
+    """Consume blocks from ``fifo`` ([PackedFeatureBlock, consumed,
+    block index] deque) into one packed batch: up to ``target`` sites
+    whose covering base span fits ``base_budget``. Returns ((codes,
+    means, stds, lens, rect, centers), segs, labels, ns, nbase) with
+    centers rebased to the batch's base axis."""
     nb = (seq_len - 1) // 2
     segs = []
     cols = {k: [] for k in ("codes", "means", "stds", "lens",
@@ -340,7 +363,7 @@ def _take_packed_span(fifo, target, base_budget, seq_len):
     ns = nbase = 0
     while fifo and ns < target:
         ent = fifo[0]
-        pb, lo = ent
+        pb, lo = ent[0], ent[1]
         budget = base_budget - nbase
         if budget < seq_len:
             break
@@ -528,19 +551,46 @@ class _DeviceFeed:
         return out.numpy()
 
 
-def _units(batches: Iterator[_Batch], k: int) -> Iterator[list[_Batch]]:
-    """Consecutive batches in groups of ``k`` (the last one shorter)."""
+def _units(batches: Iterator[_Batch], k: int, stats: CallStats
+           ) -> Iterator[list[_Batch]]:
+    """Consecutive batches in groups of ``k`` (the last one shorter),
+    counted in ``stats.units``: while a unit's batches are made, that
+    count is the unit's index."""
     unit: list[_Batch] = []
     try:
         for b in batches:
             unit.append(b)
             if len(unit) == k:
+                stats.units += 1
                 yield unit
                 unit = []
         if unit:
+            stats.units += 1
             yield unit
     finally:
         batches.close()     # stops the parser threads after an error
+
+
+def _waited(blocks: Iterator, stats: CallStats) -> Iterator[tuple]:
+    """(index, block) of each input block in order, each waited for in a
+    ``parse_wait`` span and counted in ``stats.blocks``."""
+    while True:
+        with stage("parse_wait", stats, "parse_wait_seconds"):
+            block = next(blocks, None)
+        if block is None:
+            return
+        stats.blocks += 1
+        yield stats.blocks - 1, block
+
+
+def _batch_span(stats: CallStats):
+    """The ``batch`` span of the unit being made."""
+    return stage("batch", stats, "batch_seconds", f"unit {stats.units}")
+
+
+def _blocks_span(first: int, last: int):
+    """A child of a ``batch`` span: the blocks its batch came from."""
+    return stage(f"blocks {first}-{last}")
 
 
 class CallModsEngine:
@@ -578,29 +628,32 @@ class CallModsEngine:
                           is_gzip: bool = False) -> CallStats:
         """A features TSV (plain or .gz), an .npz file or a directory of
         .npz batches -> call_mods TSV (reference else-branch,
-        call_modifications.py:584-636; JAX run_features_file)."""
+        call_modifications.py:584-636; JAX run_features_file). The
+        call's spans run under a ``run_features_file`` span."""
+        t0 = time.perf_counter()
         stats = self._new_stats()
-        t0 = time.time()
-        npz_files = feature_npz_paths(input_path)
-        if npz_files is not None:
-            stats.npz_version = npz_version(npz_files)
-            stats.npz_files = len(npz_files)
-        k = 1
-        if self.call_cfg.device_resident == "always":
-            self._check_resident_input(input_path, stats)
-            batches = self._resident_batches(input_path, npz_files, stats)
-            k = resident_k_chunks(_estimate_rows(input_path, npz_files),
-                                  stats.device_batch)
-            stats.resident_k_chunks = k
-            stats.resident_segments = 0
-        elif npz_files is not None:
-            batches = self._npz_batches(input_path, npz_files, stats)
-        elif self.call_cfg.transfer_dtype == "float32":
-            batches = self._persite_file_batches(input_path, stats)
-        else:
-            batches = self._packed_plane_batches(input_path, stats)
-        self._run_fast(_units(batches, k), result_path, is_gzip, stats)
-        stats.seconds = time.time() - t0
+        with stage("run_features_file"):
+            npz_files = feature_npz_paths(input_path)
+            if npz_files is not None:
+                stats.npz_version = npz_version(npz_files)
+                stats.npz_files = len(npz_files)
+            k = 1
+            if self.call_cfg.device_resident == "always":
+                self._check_resident_input(input_path, stats)
+                batches = self._resident_batches(input_path, npz_files,
+                                                 stats)
+                k = resident_k_chunks(_estimate_rows(input_path, npz_files),
+                                      stats.device_batch)
+                stats.resident_k_chunks = k
+                stats.resident_segments = 0
+            elif npz_files is not None:
+                batches = self._npz_batches(input_path, npz_files, stats)
+            elif self.call_cfg.transfer_dtype == "float32":
+                batches = self._persite_file_batches(input_path, stats)
+            else:
+                batches = self._packed_plane_batches(input_path, stats)
+            self._run_fast(_units(batches, k, stats), result_path, is_gzip,
+                           stats, t0)
         return stats
 
     def _new_stats(self) -> CallStats:
@@ -632,13 +685,15 @@ class CallModsEngine:
         """Read-packed batches from containers that ``load`` turns into
         PackedFeatureBlocks: one loader thread, four files ahead (JAX
         _run_fast_wire_npz)."""
-        def timed(f):
-            with stage("parse"):
+        def timed(job):
+            j, f = job
+            with stage("parse", tag=f"block {j}"):
                 t = time.perf_counter()
                 pb = load(f)
                 return pb, time.perf_counter() - t
 
-        blocks = bounded_thread_map(timed, npz_files, workers=1, depth=4)
+        blocks = bounded_thread_map(timed, enumerate(npz_files), workers=1,
+                                    depth=4)
         yield from self._timed_packed_batches(blocks, stats)
 
     def _packed_plane_batches(self, input_path: str, stats: CallStats
@@ -649,16 +704,17 @@ class CallModsEngine:
         cfg = self.model_cfg
         L, S = cfg.seq_len, cfg.signal_len
 
-        def parse_and_pack(raw: bytes):
-            with stage("parse"):
+        def parse_and_pack(job):
+            j, raw = job
+            with stage("parse", tag=f"block {j}"):
                 t = time.perf_counter()
                 pb = pack_raw_block(parse_raw_feature_block(raw, L, S))
                 return pb, time.perf_counter() - t
 
         pw = self._parse_workers()
-        blocks = bounded_thread_map(parse_and_pack,
-                                    iter_byte_blocks(input_path, 8 << 20),
-                                    workers=pw, depth=2 * pw)
+        blocks = bounded_thread_map(
+            parse_and_pack, enumerate(iter_byte_blocks(input_path, 8 << 20)),
+            workers=pw, depth=2 * pw)
         yield from self._timed_packed_batches(blocks, stats)
 
     def _timed_packed_batches(self, blocks, stats: CallStats
@@ -674,43 +730,47 @@ class CallModsEngine:
                 stats.parse_seconds += dt
                 yield pb
         try:
-            yield from self._packed_batches(timed(), stats)
+            yield from self._packed_batches(_waited(timed(), stats), stats)
         finally:
             blocks.close()
 
     def _packed_batches(self, blocks: Iterator, stats: CallStats
                         ) -> Iterator[_Batch]:
-        """Read-packed batches from PackedFeatureBlocks: a batch closes
-        when it holds ``device_batch`` sites or its base budget is full.
-        The int8 wire quantizes each batch's base arrays here."""
+        """Read-packed batches from (index, PackedFeatureBlock) pairs
+        (``_waited``): a batch closes when it holds ``device_batch`` sites
+        or its base budget is full. The int8 wire quantizes each batch's
+        base arrays here."""
         cfg = self.model_cfg
         L, S = cfg.seq_len, cfg.signal_len
         target = stats.device_batch
         base_budget = 1 << (target * L - 1).bit_length()
         quant = self.call_cfg.transfer_dtype == "int8"
-        fifo: deque = deque()       # [pb, consumed sites]
+        fifo: deque = deque()       # [pb, consumed sites, block index]
         pending = 0
         exhausted = False
         while True:
             while not exhausted and pending < target:
-                t = time.perf_counter()
-                pb = next(blocks, None)
-                stats.parse_wait_seconds += time.perf_counter() - t
+                j, pb = next(blocks, (None, None))
                 if pb is None:
                     exhausted = True
                     break
                 if pb.n:
-                    fifo.append([_check_packed_block(pb, L, S), 0])
+                    fifo.append([_check_packed_block(pb, L, S), 0, j])
                     pending += pb.n
             if not fifo:
                 return
-            arrays, segs, labels, ns, nbase = _take_packed_span(
-                fifo, target, base_budget, L)
-            pending -= ns
-            if quant:
-                arrays = quantize_packed(arrays)
-            yield _Batch("packed", arrays, ns, nbase, labels,
-                         partial(_emit_segments, segs))
+            with _batch_span(stats):
+                index = {id(ent[0]): ent[2] for ent in fifo}
+                arrays, segs, labels, ns, nbase = _take_packed_span(
+                    fifo, target, base_budget, L)
+                with _blocks_span(index[id(segs[0][0])],
+                                  index[id(segs[-1][0])]):
+                    pending -= ns
+                    if quant:
+                        arrays = quantize_packed(arrays)
+                    batch = _Batch("packed", arrays, ns, nbase, labels,
+                                   partial(_emit_segments, segs))
+            yield batch
 
     def _persite_file_batches(self, input_path: str, stats: CallStats
                               ) -> Iterator[_Batch]:
@@ -722,23 +782,21 @@ class CallModsEngine:
             input_path, stats.device_batch, cfg.seq_len, cfg.signal_len,
             self._parse_workers(), out_dtype="float32"), depth=4)
         try:
-            yield from self._persite_batches(fbs, stats)
+            yield from self._persite_batches(
+                ((j, j, fb) for j, fb in _waited(fbs, stats)), stats)
         finally:
             fbs.close()
 
     def _persite_batches(self, fbs: Iterator, stats: CallStats
                          ) -> Iterator[_Batch]:
-        """Per-site batches from float32 FeatureBatches of at most
-        ``device_batch`` rows, at the engine's wire."""
+        """Per-site batches from (first block, last block, FeatureBatch)
+        triples of float32 batches of at most ``device_batch`` rows, at
+        the engine's wire."""
         L = self.model_cfg.seq_len
         wire = self.call_cfg.transfer_dtype
-        while True:
-            t = time.perf_counter()
-            fb = next(fbs, None)
-            stats.parse_wait_seconds += time.perf_counter() - t
-            if fb is None:
-                return
-            arrays = _persite_wire(fb, wire)
+        for first, last, fb in fbs:
+            with _batch_span(stats), _blocks_span(first, last):
+                arrays = _persite_wire(fb, wire)
 
             def emit(probs, fb=fb) -> bytes:
                 return format_call_block(fb.sampleinfo, probs,
@@ -749,50 +807,51 @@ class CallModsEngine:
     def _raw_persite_batches(self, blocks: Iterator, stats: CallStats
                              ) -> Iterator[_Batch]:
         """Per-site float16 batches of ``device_batch`` rows from
-        RawFeatureBlocks (v2 .npz), rows emitted from the blocks' info
-        bytes."""
+        (index, RawFeatureBlock) pairs (v2 .npz, ``_waited``), rows
+        emitted from the blocks' info bytes."""
         L = self.model_cfg.seq_len
         target = stats.device_batch
-        fifo: deque = deque()       # [rb, consumed rows]
+        fifo: deque = deque()       # [rb, consumed rows, block index]
         pending = 0
         exhausted = False
+
+        def cat(segs, name, dt):
+            parts = [np.asarray(getattr(rb, name)[lo:hi], dt)
+                     for rb, lo, hi in segs]
+            return parts[0] if len(parts) == 1 else np.concatenate(parts)
         while True:
             while not exhausted and pending < target:
-                t = time.perf_counter()
-                rb = next(blocks, None)
-                stats.parse_wait_seconds += time.perf_counter() - t
+                j, rb = next(blocks, (None, None))
                 if rb is None:
                     exhausted = True
                 elif rb.n:
-                    fifo.append([rb, 0])
+                    fifo.append([rb, 0, j])
                     pending += rb.n
             if not fifo:
                 return
-            segs, need = [], min(target, pending)
-            pending -= need
-            while need:
-                ent = fifo[0]
-                rb, lo = ent
-                hi = min(rb.n, lo + need)
-                segs.append((rb, lo, hi))
-                need -= hi - lo
-                if hi == rb.n:
-                    fifo.popleft()
-                else:
-                    ent[1] = hi
-
-            def cat(name, dt):
-                parts = [np.asarray(getattr(rb, name)[lo:hi], dt)
-                         for rb, lo, hi in segs]
-                return parts[0] if len(parts) == 1 else np.concatenate(
-                    parts)
-            arrays = (cat("kmer", np.int8), cat("means", np.float16),
-                      cat("stds", np.float16), cat("slens", np.float16),
-                      cat("signals", np.float16))
-            n = len(arrays[0])
-            yield _Batch("persite", arrays, n, n * L,
-                         cat("labels", np.int32),
-                         partial(_emit_raw_segments, segs))
+            with _batch_span(stats):
+                segs, need, first = [], min(target, pending), fifo[0][2]
+                pending -= need
+                while need:
+                    ent = fifo[0]
+                    rb, lo, last = ent
+                    hi = min(rb.n, lo + need)
+                    segs.append((rb, lo, hi))
+                    need -= hi - lo
+                    if hi == rb.n:
+                        fifo.popleft()
+                    else:
+                        ent[1] = hi
+                with _blocks_span(first, last):
+                    arrays = tuple(cat(segs, name, dt) for name, dt in (
+                        ("kmer", np.int8), ("means", np.float16),
+                        ("stds", np.float16), ("slens", np.float16),
+                        ("signals", np.float16)))
+                    n = len(arrays[0])
+                    batch = _Batch("persite", arrays, n, n * L,
+                                   cat(segs, "labels", np.int32),
+                                   partial(_emit_raw_segments, segs))
+            yield batch
 
     @staticmethod
     def _check_resident_input(input_path: str, stats: CallStats) -> None:
@@ -830,7 +889,8 @@ class CallModsEngine:
             blocks = PrefetchIterator(bounded_thread_map(
                 load_wire_npz, npz_files, workers=1, depth=4), depth=4)
             try:
-                yield from self._raw_persite_batches(blocks, stats)
+                yield from self._raw_persite_batches(_waited(blocks, stats),
+                                                     stats)
             finally:
                 blocks.close()
 
@@ -840,16 +900,19 @@ class CallModsEngine:
         """Call input blocks in order: PackedFeatureBlocks (``packed``,
         the float16 and int8 planes) or float32 FeatureBatches of any
         size (the per-site route). The fused fast5 path feeds this
-        (pipeline/extract.py::extract_to_call_mods)."""
+        (pipeline/extract.py::extract_to_call_mods). The call's spans run
+        under a ``run_blocks`` span."""
+        t0 = time.perf_counter()
         stats = self._new_stats()
-        t0 = time.time()
-        if packed:
-            batches = self._packed_batches(iter(blocks), stats)
-        else:
-            batches = self._persite_batches(
-                _rechunk(iter(blocks), stats.device_batch), stats)
-        self._run_fast(_units(batches, 1), result_path, is_gzip, stats)
-        stats.seconds = time.time() - t0
+        with stage("run_blocks"):
+            blocks = _waited(iter(blocks), stats)
+            if packed:
+                batches = self._packed_batches(blocks, stats)
+            else:
+                batches = self._persite_batches(
+                    _rechunk(blocks, stats.device_batch, stats), stats)
+            self._run_fast(_units(batches, 1, stats), result_path, is_gzip,
+                           stats, t0)
         return stats
 
     def _device_batch(self, route: str, tensors: list[torch.Tensor]
@@ -891,36 +954,53 @@ class CallModsEngine:
         return per_card
 
     def _run_fast(self, units: Iterator[list[_Batch]], result_path: str,
-                  is_gzip: bool, stats: CallStats) -> None:
+                  is_gzip: bool, stats: CallStats, t0: float) -> None:
         """Upload, forward, readback and row emission of every unit (one
         batch, or a resident segment of batches; JAX _run_fast's dispatch
         loop), INFLIGHT units on the cards at once: unit k is formatted
         and written while unit k+1 runs. A unit is one upload and one
-        readback a card that has rows in it."""
+        readback a card that has rows in it. Ends the call that started
+        at ``t0`` (``time.perf_counter``): its seconds, the seconds it
+        left the cards without a unit in flight, its kernel launches."""
+        launches0 = fused_lstm.kernel_launches()
         feeds = [_DeviceFeed(d) for d in self.devices]
         writer = AsyncWriter(result_path, is_gzip)
         inflight: deque = deque()
+        unfed = t0      # no unit in flight since; None while one is
+
+        def finish():
+            nonlocal unfed
+            waited = self._finish(*inflight.popleft(), writer, stats)
+            if not inflight:
+                unfed = waited
         try:
-            while True:
-                t = time.perf_counter()
-                unit = next(units, None)
-                stats.batch_seconds += time.perf_counter() - t
-                if unit is None:
-                    break
-                t = time.perf_counter()
-                work = [self._launch(feed, model, shares, stats)
-                        for feed, model, shares in zip(
-                            feeds, self.models, self._split(unit))
-                        if shares]
-                inflight.append((unit, work))
-                stats.device_seconds += time.perf_counter() - t
+            for u, unit in enumerate(units):
+                with stage("batch", stats, "batch_seconds", f"unit {u}"):
+                    per_card = self._split(unit)
+                work, submitted = [], []
+                for feed, model, shares in zip(feeds, self.models,
+                                               per_card):
+                    if shares:
+                        w, t = self._launch(feed, model, shares, stats, u)
+                        work.append(w)
+                        submitted.append(t)
+                inflight.append((u, unit, work))
+                if unfed is not None and submitted:
+                    stats.unfed_seconds += submitted[0] - unfed
+                    unfed = None
                 if len(inflight) == INFLIGHT:
-                    self._finish(*inflight.popleft(), writer, stats)
+                    finish()
             while inflight:
-                self._finish(*inflight.popleft(), writer, stats)
+                finish()
         finally:
             units.close()       # stops the parser threads after an error
-            writer.close()
+            with stage("drain", stats, "drain_seconds"):
+                writer.close()
+        end = time.perf_counter()
+        stats.seconds = end - t0
+        if unfed is not None:
+            stats.unfed_seconds += end - unfed
+        stats.kernel_launches = fused_lstm.kernel_launches_since(launches0)
         if feeds[0].cuda:
             stats.upload_device_seconds = max(f.upload_ms
                                               for f in feeds) / 1e3
@@ -930,44 +1010,52 @@ class CallModsEngine:
                 stats.forward_device_seconds_per_card)
 
     def _launch(self, feed: _DeviceFeed, model: ModelBiLSTM,
-                shares: list[_Share], stats: CallStats) -> tuple:
-        """One card's shares of a unit, on that card (made current for its
-        kernels, streams and events): one upload, a tiled forward a share
-        on its replica, and the readback started."""
+                shares: list[_Share], stats: CallStats, u: int
+                ) -> tuple[tuple, float]:
+        """One card's shares of unit ``u``, on that card (made current for
+        its kernels, streams and events): one upload, a tiled forward a
+        share on its replica, and the readback started. Returns the work
+        to finish and when its upload was submitted
+        (``time.perf_counter``)."""
+        tag = f"unit {u}"
         with (torch.cuda.device(feed.device) if feed.cuda
               else contextlib.nullcontext()):
-            with stage("upload"):
+            with stage("upload", stats, "upload_seconds", tag):
+                for s in shares:
+                    stats.bases_uploaded += s.bases
+                    stats.wire_bytes += sum(a.nbytes for a in s.arrays)
+                    stats.forward_tiles += -(-s.n // COMPUTE_TILE)
                 tensors, slot = feed.upload(
                     tuple(a for s in shares for a in s.arrays))
-            with torch.inference_mode(), stage("forward"):
+            submitted = time.perf_counter()
+            with stage("forward", stats, "forward_seconds", tag), \
+                    torch.inference_mode():
                 probs, off = [], 0
                 for s in shares:
                     probs.append(forward_tiled(model, self._device_batch(
                         s.route, tensors[off:off + len(s.arrays)])))
                     off += len(s.arrays)
                 probs = probs[0] if len(probs) == 1 else torch.cat(probs)
-            out = feed.readback(probs, slot)
-        for s in shares:
-            stats.bases_uploaded += s.bases
-            stats.wire_bytes += sum(a.nbytes for a in s.arrays)
-            stats.forward_tiles += -(-s.n // COMPUTE_TILE)
-        return feed, out, slot, shares
+            with stage("readback", stats, "readback_seconds", tag):
+                out = feed.readback(probs, slot)
+        return (feed, out, slot, shares), submitted
 
     @staticmethod
-    def _finish(unit: list[_Batch], work: list, writer: AsyncWriter,
-                stats: CallStats) -> None:
-        """Wait for every card's probabilities of a unit, put each
-        batch's back in row order, emit and write its rows."""
-        t = time.perf_counter()
+    def _finish(u: int, unit: list[_Batch], work: list,
+                writer: AsyncWriter, stats: CallStats) -> float:
+        """Wait for every card's probabilities of unit ``u``, put each
+        batch's back in row order, emit and write its rows. Returns when
+        the wait returned (``time.perf_counter``)."""
+        tag = f"unit {u}"
         parts: list[list[np.ndarray]] = [[] for _ in unit]
-        with stage("readback"):
+        with stage("readback", stats, "readback_seconds", tag):
             for feed, out, slot, shares in work:
                 probs, off = feed.wait(out, slot), 0
                 for s in shares:
                     parts[s.batch].append(probs[off:off + s.n])
                     off += s.n
-        t1 = time.perf_counter()
-        with stage("emit"):
+        waited = time.perf_counter()
+        with stage("emit", stats, "format_seconds", tag):
             rows = []
             for b, p in zip(unit, parts):
                 p = p[0] if len(p) == 1 else np.concatenate(p)
@@ -983,21 +1071,42 @@ class CallModsEngine:
                     stats.persite_batches += 1
                     stats.persite_sites += b.n
             writer.write(b"".join(rows))
-        if stats.resident_segments is not None:
-            stats.resident_segments += 1
-        stats.format_seconds += time.perf_counter() - t1
-        stats.device_seconds += t1 - t
+            if stats.resident_segments is not None:
+                stats.resident_segments += 1
+        return waited
 
 
-def _rechunk(fbs: Iterator, target: int) -> Iterator:
-    """FeatureBatches of any size re-cut into ``target``-row batches (the
-    last one shorter), in order."""
+def _rechunk(blocks: Iterator, target: int, stats: CallStats) -> Iterator:
+    """(index, FeatureBatch) blocks of any size re-cut into
+    ``target``-row batches (the last one shorter), in order, in ``batch``
+    spans: (first block, last block, batch) triples, the blocks its rows
+    came from."""
     asm = BatchAssembler(target)
-    for fb in fbs:
-        asm.add(fb)
-        while (full := asm.pop_full()) is not None:
-            yield full
-    rest = asm.pop_rest()
+    held: deque = deque()       # [block index, rows not yet cut]
+
+    def cut(fb) -> tuple:
+        first, n = held[0][0], len(fb)
+        while n:
+            ent = held[0]
+            k = min(n, ent[1])
+            ent[1] -= k
+            n -= k
+            last = ent[0]
+            if not ent[1]:
+                held.popleft()
+        return first, last, fb
+    for j, fb in blocks:
+        with _batch_span(stats):
+            if len(fb):
+                asm.add(fb)
+                held.append([j, len(fb)])
+            full = []
+            while (b := asm.pop_full()) is not None:
+                full.append(cut(b))
+        yield from full
+    with _batch_span(stats):
+        rest = asm.pop_rest()
+        rest = rest if rest is None else cut(rest)
     if rest is not None:
         yield rest
 
@@ -1026,7 +1135,6 @@ def call_mods(args) -> CallStats:
 
     print("[main] call_mods starts..")
     t0 = time.time()
-    launches0 = dict(fused_lstm.launches)
     engine = CallModsEngine(model_path, model_cfg, call_cfg, devices)
     # under a multi-process launch each rank writes <root>.host<RANK><ext>
     # (a fast5 directory is shared out over ranks; a features input is
@@ -1052,9 +1160,7 @@ def call_mods(args) -> CallStats:
             "device_resident": call_cfg.device_resident,
             "parse_workers": engine._parse_workers(),
             **dataclasses.asdict(stats),
-            "sites_per_s": stats.sites_per_s,
-            "kernel_launches": {k: v - launches0[k]
-                                for k, v in fused_lstm.launches.items()}}))
+            "sites_per_s": stats.sites_per_s}))
     print("[main] call_mods costs %.2f seconds.. "
           "(%d sites, %.0f sites/s)" % (time.time() - t0, stats.sites,
                                         stats.sites_per_s))

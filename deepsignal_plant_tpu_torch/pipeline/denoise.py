@@ -59,6 +59,7 @@ import torch
 from ..config import ModelConfig, TrainConfig, model_config_from_args
 from ..io.dataset import FeatureDataset
 from ..models.bilstm import init_params
+from ..ops.fused_lstm import kernel_launches, kernel_launches_since
 from ..ops.optim import step_decay_schedule
 from ..parallel.dist import process_info
 from ..parallel.multihost import allgather_bytes, barrier, broadcast_arrays
@@ -68,8 +69,7 @@ from ..utils.device import resolve_devices
 from ..utils.fileio import (count_lines, filter_rows_by_label,
                             select_neg_rows_as_pos_kmer_dist, shuffle_concat)
 from .train import (GlobalBatch, HostFed, Replica, Replicated, Resident,
-                    Sharded, as_devices, kernel_launches,
-                    kernel_launches_since, replica_generators,
+                    Sharded, as_devices, replica_generators,
                     reduce_replicas, replicas_fit, resident_budget,
                     shard_rows, sync_device, train_step)
 

@@ -244,7 +244,6 @@ def serve(args) -> list:
                         else args.transfer_dtype),
         packed_wire=args.packed_wire,
         num_parse_workers=args.parse_workers)
-    launches0 = dict(fused_lstm.launches)
     t0 = time.time()
     engine = CallModsEngine(os.path.abspath(args.model_path), model_cfg,
                             call_cfg, devices)
@@ -268,6 +267,10 @@ def serve(args) -> list:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
     if args.verbose_stages:
+        launches = dict.fromkeys(fused_lstm.kernel_launches(), 0)
+        for _, st in served:
+            for k, v in st.kernel_launches.items():
+                launches[k] += v
         print("[stages] " + json.dumps({
             "device": (torch.cuda.get_device_name(device)
                        if device.type == "cuda" else "cpu"),
@@ -280,6 +283,5 @@ def serve(args) -> list:
                           "forward_tiles": st.forward_tiles}
                          for name, st in served],
             "forward_tiles": sum(st.forward_tiles for _, st in served),
-            "kernel_launches": {k: v - launches0[k]
-                                for k, v in fused_lstm.launches.items()}}))
+            "kernel_launches": launches}))
     return served

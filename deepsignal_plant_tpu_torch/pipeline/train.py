@@ -103,7 +103,7 @@ from ..io.dataset import FeatureDataset, StreamingFeatureDataset
 from ..models.bilstm import Batch, ModelBiLSTM, init_params
 from ..models.convert import (_flatten, _unflatten, load_any_checkpoint,
                               params_to_numpy, save_checkpoint)
-from ..ops import fused_lstm, recurrence
+from ..ops.fused_lstm import kernel_launches, kernel_launches_since
 from ..ops.optim import STATE_SLOTS, Optimizer, step_decay_schedule
 from ..parallel.dist import process_info
 from ..parallel.mesh import local_batch_target, replica_sum, shares
@@ -1272,16 +1272,6 @@ def train_loop(model_cfg: ModelConfig, train_cfg: TrainConfig,
             "rank": rank, "world_size": world, "local_batch": B,
             "spill": (train_src.counters if plane == "spill" else None),
             **counters}
-
-
-def kernel_launches() -> dict:
-    return {**fused_lstm.launches, **recurrence.launches}
-
-
-def kernel_launches_since(before: dict) -> dict:
-    """Launches of every kernel counter since the ``before`` snapshot
-    (``kernel_launches()``)."""
-    return {k: v - before[k] for k, v in kernel_launches().items()}
 
 
 def use_stream(args) -> bool:
