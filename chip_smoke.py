@@ -41,8 +41,10 @@ run.
    narrow, in-loop and split routes at the branches; split and in-loop
    at the comb layers), the narrow layers also at train's 512- and
    256-row tiles and denoise's signal_bilstm first layer at 512, 256
-   and 93 rows, and the projection kernel and K1's recurrence on their
-   own), (3b) the
+   and 93 rows, the split route with its recurrence on each of K1's
+   float32 recurrence kernels, and the projection kernel and K1's
+   recurrence on their own, the recurrence on its wgmma kernel and on
+   the cluster kernel in turns, with the float32 tile on each), (3b) the
    recurrence kernels per launch and per train
    step at batch 512, the cluster kernels and the streaming kernels in
    turns (cluster, stream, stream, cluster), in bfloat16 and in float32
@@ -274,15 +276,21 @@ K1_BF16_MMA = "fused_bilstm_bf16"
 # K1_F32_KERNELS)
 K1_KERNELS = {K1_BF16: "bfloat16", "k1_float32": "float32"}
 # K1's routes (bf16: the kernel k1_bf16_plan picks, "mma" the mma.sync
-# kernel called directly; float32: "narrow", the narrow kernel; "split",
-# the projection kernel and the recurrence; "inloop", the in-loop kernel)
-# -> the key their errors go under
+# kernel called directly; float32: "narrow", the narrow kernel; "inloop",
+# the in-loop kernel) -> the key their errors go under; the split route
+# (the projection kernel and the recurrence) goes under its recurrence
+# kernel's counter (route_key)
 K1_ROUTE_KEYS = {"bf16": K1_BF16, "mma": K1_BF16_MMA,
                  "narrow": "fused_bilstm_f32_narrow",
-                 "split": "fused_bilstm_rec_f32",
                  "inloop": "fused_bilstm_f32_inloop"}
-K1_F32_KERNELS = ("fused_bilstm_proj_f32", "fused_bilstm_rec_f32",
-                  "fused_bilstm_f32_narrow", "fused_bilstm_f32_inloop")
+K1_F32_KERNELS = ("fused_bilstm_proj_f32", "fused_bilstm_rec_f32_wgmma",
+                  "fused_bilstm_rec_f32", "fused_bilstm_f32_narrow",
+                  "fused_bilstm_f32_inloop")
+# the counter of each kernel of K1's float32 recurrence, by the kind
+# recurrence.k1_rec_plan gives
+K1_REC_COUNTERS = {"wgmma": "fused_bilstm_rec_f32_wgmma",
+                   "cluster": "fused_bilstm_rec_f32",
+                   "stream": "fused_bilstm_rec_f32_stream"}
 # each float32 K1 layer launches exactly one of these, whatever its route
 # (ops/fused_lstm.py's launches): their sum is a run's layer count
 K1_F32_LAYER_KERNELS = ("fused_bilstm_f32_narrow", "fused_bilstm_f32_inloop",
@@ -600,22 +608,28 @@ def layer_bound(Fa, Fb, H, seq_out, B, itemsize, peak_flops, passes=1):
 def k1_moves(fused_lstm, route, plan):
     """The counters one K1 layer moves: bfloat16 its kernel; float32
     the narrow kernel, the in-loop kernel, or the projection kernel and
-    the recurrence kernel of the plan (cluster or streaming)."""
+    the recurrence kernel of the plan (k1_plan: K1's wgmma recurrence,
+    the cluster kernel or the streaming kernel)."""
     want = {k: 0 for k in fused_lstm.launches}
     if route in ("bf16", "mma", "narrow", "inloop"):
         want[K1_ROUTE_KEYS[route]] = 1
     else:
         want["fused_bilstm_proj_f32"] = 1
-        want["fused_bilstm_rec_f32" if plan else
-             "fused_bilstm_rec_f32_stream"] = 1
+        want[K1_REC_COUNTERS[plan[0]]] = 1
     return want
 
 
+def route_key(route, plan):
+    """The key a K1 route's errors go under: the split route's, its
+    recurrence kernel's counter (k1_plan's kind)."""
+    return K1_REC_COUNTERS[plan[0]] if route == "split" else \
+        K1_ROUTE_KEYS[route]
+
+
 def k1_plan(torch, recurrence, B, H):
-    """K1's recurrence plan on card 0: K2's float32 recurrence_plan."""
-    return recurrence.recurrence_plan(0, B, H, lambda C, r: (
-        recurrence.cluster_capacity(0, 0, H, C, r, torch.float32)),
-        torch.float32)
+    """K1's recurrence plan on card 0: recurrence.k1_rec_plan's (kind,
+    plan)."""
+    return recurrence.k1_rec_plan_on(torch.device("cuda", 0), B, H)
 
 
 def f32_routes(fused_lstm):
@@ -729,7 +743,7 @@ def check_kernel(torch, fused_lstm, recurrence, plain):
                                 fail("kernel output is not finite")
                             err = max(err, (g.float() - w.float()).abs()
                                       .max().item())
-                        key = K1_ROUTE_KEYS[route]
+                        key = route_key(route, plan)
                         taken = force is None and dtype == torch.float32
                         log(f"{key} F=({Fa},{Fb}) H={H} B={B} "
                             f"seq_out={seq_out}{' (taken)' * taken}: "
@@ -770,24 +784,49 @@ def proj_bound(Fa, Fb, H, B):
     return flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
+def split_packed(fused_lstm, w_ih, w_hh, Fa):
+    """The split route's packed weights, as a model caches them: the
+    projection's planes at this row split and K1's wgmma recurrence's
+    (None at the widths it does not take)."""
+    from deepsignal_plant_tpu_torch.ops import recurrence
+    H = w_hh.shape[1]
+    return (fused_lstm.pack_proj_weights(w_ih, Fa),
+            fused_lstm.pack_rec_weights(w_hh)
+            if H in recurrence.K1W_WIDTHS else None)
+
+
 def f32_turns(torch, fused_lstm, Fa, Fb, H, seq_out, x, w_ih, b, w_hh,
               packed) -> dict:
     """K1's float32 routes on one layer in turns, K1_F32_PAIRS times
     (narrow, in-loop, split, split, in-loop, narrow where the narrow kernel
     has a plan; split, in-loop, in-loop, split elsewhere; graph replays,
     each route over its weights packed beforehand, as a model caches
-    them): each route's times and mean, the route the rule takes, the
-    route the narrow kernel replaces (the rule's choice without it), the
-    fastest, and the pairwise differences in the order timed."""
+    them), and beside the split route, at the widths K1's wgmma
+    recurrence takes, the split route on each recurrence kernel
+    (recurrence.force_k1_rec: "split_wgmma", "split_cluster", in turns
+    after it): each route's times and mean, the route the rule takes,
+    the route the narrow kernel replaces (the rule's choice without it),
+    the fastest of the three routes, and the pairwise differences in the
+    order timed."""
     B = x[0].shape[1]
+    from deepsignal_plant_tpu_torch.ops import recurrence as rec
     routes = f32_routes(fused_lstm)
     plan = narrow_plan(torch, fused_lstm, Fa + Fb, H, B)
-    order = (("narrow", "inloop", "split", "split", "inloop", "narrow")
-             if plan else ("split", "inloop", "inloop", "split"))
+    forced = ("split_wgmma", "split_cluster") if H in rec.K1W_WIDTHS else ()
+    order = (("narrow", "inloop", "split", *forced, *forced[::-1], "split",
+              "inloop", "narrow")
+             if plan else ("split", *forced, "inloop", "inloop",
+                           *forced[::-1], "split"))
 
     def call(r):
         if r == "inloop":
             return lambda: routes[r](x, w_ih, b, w_hh, H, seq_out)
+        if r in forced:
+            def run():
+                with rec.force_k1_rec(r.split("_")[1]):
+                    return routes["split"](x, w_ih, b, w_hh, H, seq_out,
+                                           packed=packed["split"])
+            return run
         return lambda: routes[r](x, w_ih, b, w_hh, H, seq_out,
                                  packed=packed[r])
 
@@ -799,7 +838,8 @@ def f32_turns(torch, fused_lstm, Fa, Fb, H, seq_out, x, w_ih, b, w_hh,
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {"route": f32_route(torch, fused_lstm, Fa + Fb, H, B),
            "replaced_route": fused_lstm.f32_route(Fa + Fb, H, B, sms, None),
-           "fastest": min(means, key=means.get), "narrow_plan": plan,
+           "fastest": min((r for r in means if r not in forced),
+                          key=means.get), "narrow_plan": plan,
            **{f"{r}_ms_runs": v for r, v in runs.items()},
            **{f"{r}_ms": m for r, m in means.items()},
            # in-loop minus split, pair by pair in the order timed
@@ -821,8 +861,11 @@ def time_k1_f32(torch, fused_lstm, recurrence, plain, Fa, Fb, H, seq_out,
     TAIL rows: its routes in turns (f32_turns), the route it takes, and
     the split route's parts: the projection kernel (beside its plain
     version, one torch.matmul and its bound) and the recurrence on its
-    plan (beside its plain version and its bound). ``packed``: the
-    narrow and split routes' packed weights."""
+    plan (beside its plain version and its bound), and at the widths K1's
+    wgmma recurrence takes, the recurrence on each of its kernels in
+    turns (wgmma, cluster, cluster, wgmma, K1_F32_PAIRS times;
+    recurrence.force_k1_rec). ``packed``: the narrow and split routes'
+    packed weights."""
     out = {}
     for B in (TILE, TAIL):
         x = tuple(v[:, :B].contiguous() for v in xs)
@@ -830,7 +873,7 @@ def time_k1_f32(torch, fused_lstm, recurrence, plain, Fa, Fb, H, seq_out,
         row = f32_turns(torch, fused_lstm, Fa, Fb, H, seq_out, x, w_ih, b,
                         w_hh, packed)
         taken = row["route"]
-        xproj = fused_lstm.input_projection(x, w_ih, b, packed["split"])
+        xproj = fused_lstm.input_projection(x, w_ih, b, packed["split"][0])
         x2d = torch.cat(x, dim=-1).reshape(T * B, Fa + Fb)
         pj_ops, pj_bytes = proj_bound(Fa, Fb, H, B)
         rc_ops, rc_bytes = rec_bound("lstm_recurrence_fwd", H, B, 4,
@@ -839,7 +882,7 @@ def time_k1_f32(torch, fused_lstm, recurrence, plain, Fa, Fb, H, seq_out,
             "kernel_ms": cuda_ms(torch, lambda: fused_lstm.bilstm_layer_fused(
                 x, w_ih, b, w_hh, H, seq_out, packed=packed.get(taken))),
             "proj_ms": graph_ms(torch, lambda: fused_lstm.input_projection(
-                x, w_ih, b, packed["split"]), reps=10),
+                x, w_ih, b, packed["split"][0]), reps=10),
             "proj_plain_ms": cuda_ms(torch, lambda: plain.input_projection(
                 x, w_ih, b), reps=10),
             # one library call of the same product (no bias, no flip):
@@ -850,18 +893,44 @@ def time_k1_f32(torch, fused_lstm, recurrence, plain, Fa, Fb, H, seq_out,
             "proj_bound_by": "operations" if pj_ops >= pj_bytes else "bytes",
             "rec_plan": k1_plan(torch, recurrence, B, H),
             "rec_ms": graph_ms(torch, lambda: recurrence.lstm_recurrence_k1(
-                xproj, w_hh, H, seq_out, fused_lstm.launches), reps=10),
+                xproj, w_hh, H, seq_out, fused_lstm.launches,
+                packed["split"][1]), reps=10),
             "rec_plain_ms": cuda_ms(torch, lambda: plain.k1_outputs(
                 plain.lstm_recurrence(xproj, w_hh, H), seq_out), reps=5),
             "rec_bound_ms": max(rc_ops, rc_bytes),
             "rec_bound_by": "operations" if rc_ops >= rc_bytes else "bytes"})
+        if H in recurrence.K1W_WIDTHS:
+            row.update(rec_turns(torch, fused_lstm, recurrence, xproj, w_hh,
+                                 H, seq_out, packed["split"][1]))
         out.update({pre + k: v for k, v in row.items()})
         log(f"K1 float32, F=({Fa},{Fb}) H={H} B={B}: route {taken}, in "
-            f"turns " + ", ".join(f"{r} {row[r + '_ms']:.4f}" for r in
-                                  f32_routes(fused_lstm) if r + "_ms" in row))
+            f"turns " + ", ".join(f"{r} {row[r + '_ms']:.4f}" for r in (
+                *f32_routes(fused_lstm), "split_wgmma", "split_cluster",
+                "rec_wgmma", "rec_cluster") if r + "_ms" in row))
         del x, xproj, x2d
     out["tail_B"] = TAIL
     return out
+
+
+def rec_turns(torch, fused_lstm, recurrence, xproj, w_hh, H, seq_out,
+              packed) -> dict:
+    """K1's float32 recurrence on each of its kernels in turns (wgmma,
+    cluster, cluster, wgmma, K1_F32_PAIRS times; graph replays): each
+    kernel's times and mean, "rec_<kind>_ms"."""
+    runs = {"wgmma": [], "cluster": []}
+
+    def call(kind):
+        def run():
+            with recurrence.force_k1_rec(kind):
+                return recurrence.lstm_recurrence_k1(
+                    xproj, w_hh, H, seq_out, fused_lstm.launches, packed)
+        return run
+
+    for _ in range(K1_F32_PAIRS):
+        for kind in ("wgmma", "cluster", "cluster", "wgmma"):
+            runs[kind].append(graph_ms(torch, call(kind), reps=10))
+    return {**{f"rec_{k}_ms_runs": v for k, v in runs.items()},
+            **{f"rec_{k}_ms": statistics.mean(v) for k, v in runs.items()}}
 
 
 def time_narrow_extra(torch, fused_lstm, plain) -> list:
@@ -873,7 +942,7 @@ def time_narrow_extra(torch, fused_lstm, plain) -> list:
     for Fa, Fb, H, batches in NARROW_EXTRA_TIMED:
         xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, max(batches),
                                          torch.float32)
-        packed = {"split": fused_lstm.pack_proj_weights(w_ih, Fa),
+        packed = {"split": split_packed(fused_lstm, w_ih, w_hh, Fa),
                   "narrow": fused_lstm.pack_narrow_weights(w_ih, w_hh)}
         for B in batches:
             x = tuple(v[:, :B].contiguous() for v in xs)
@@ -954,7 +1023,7 @@ def time_kernel(torch, fused_lstm, recurrence, plain):
             dtype = getattr(torch, dname)
             xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, TILE, dtype)
             packed = (None if dtype == torch.bfloat16 else
-                      {"split": fused_lstm.pack_proj_weights(w_ih, Fa),
+                      {"split": split_packed(fused_lstm, w_ih, w_hh, Fa),
                        "narrow": fused_lstm.pack_narrow_weights(w_ih, w_hh)
                        if Fa + Fb <= fused_lstm.NARROW_MAX_F else None})
             if dtype == torch.bfloat16:
@@ -3798,8 +3867,9 @@ def k1_bf16_end_to_end(ab, cm, fused_lstm, cfg, card, tmp: str,
 def k1_f32_parts(timings, errs, checked, launched, narrow_extra) -> list:
     """The kernels line's entries of K1's float32 kernels (K1_F32_KERNELS),
     per 4096-row tile (the tail tile's beside): the projection kernel and
-    K1's recurrence on the float32 cluster kernel, over the layers whose
-    route is the split route; the narrow and the in-loop kernels, over
+    K1's recurrence on each of its kernels (K1's wgmma recurrence and
+    the float32 cluster kernel, timed in turns, rec_turns), over the
+    layers whose route is the split route; the narrow and the in-loop kernels, over
     the narrow layers (seq and signal), whichever route they take (their
     times come from the turns of f32_turns). ``launched``: the float32
     call_mods run's counters; ``narrow_extra``: time_narrow_extra's
@@ -3836,10 +3906,17 @@ def k1_f32_parts(timings, errs, checked, launched, narrow_extra) -> list:
           lambda r: proj_bound(*r["F"], r["H"], TILE), "proj_library_ms")
     # library: torch.nn.LSTM at float32 on the same layers (cuDNN; it
     # computes the input projection too), as K2's entry takes it
-    entry("fused_bilstm_rec_f32", "lstm_recurrence.cu", split, tail_split,
-          "rec_ms", "rec_plain_ms", lambda r: rec_bound(
-              "lstm_recurrence_fwd", r["H"], TILE, 4, PEAK_TF32_FLOPS,
-              TF32_PASSES), "library_ms")
+    for name, kind in (("fused_bilstm_rec_f32_wgmma", "wgmma"),
+                       ("fused_bilstm_rec_f32", "cluster")):
+        entry(name, "lstm_recurrence.cu", split, tail_split,
+              f"rec_{kind}_ms", "rec_plain_ms", lambda r: rec_bound(
+                  "lstm_recurrence_fwd", r["H"], TILE, 4, PEAK_TF32_FLOPS,
+                  TF32_PASSES), "library_ms",
+              ms_runs=[r[f"rec_{kind}_ms_runs"] for r in split],
+              taken_layers=[r["layer"] for r in split
+                            if r["rec_plan"][0] == kind],
+              tail_taken_layers=[r["layer"] for r in tail_split
+                                 if r["tail_rec_plan"][0] == kind])
     parts[1]["plans"] = {r["layer"]: [r["rec_plan"], r["tail_rec_plan"]]
                          for r in rows}
     # the narrow layers' kernels: bound with products in 3xTF32, the FFMA
@@ -3856,7 +3933,7 @@ def k1_f32_parts(timings, errs, checked, launched, narrow_extra) -> list:
               tail_taken_layers=[r["layer"] for r in narrow_rows
                                  if r["tail_route"] == route],
               ffma_bound_ms=ffma)
-    parts[2].update({
+    parts[3].update({
         "kernel_ms": sum(r["narrow_kernel_ms"] for r in narrow_rows),
         "plans": {r["layer"]: [r["narrow_plan"], r["tail_narrow_plan"]]
                   for r in narrow_rows},
@@ -3886,7 +3963,18 @@ def k1_f32_tile(timings, errs, checked, layers) -> dict:
     def total(key):
         return sum(r[key] for r in rows if key in r)
 
+    def with_rec(kind, pre=""):
+        """The tile's device time with the split layers' recurrence on
+        kernel ``kind`` (their split route timed under force_k1_rec)."""
+        return sum(r[f"{pre}split_{kind}_ms"] if r[pre + "route"] == "split"
+                   and f"{pre}split_{kind}_ms" in r else r[pre + "device_ms"]
+                   for r in rows)
+
     return {
+        "device_ms_rec_wgmma": with_rec("wgmma"),
+        "device_ms_rec_cluster": with_rec("cluster"),
+        "tail_device_ms_rec_wgmma": with_rec("wgmma", "tail_"),
+        "tail_device_ms_rec_cluster": with_rec("cluster", "tail_"),
         "what": "K1 float32 per tile, a composite of its kernels",
         "kernels": list(K1_F32_KERNELS), "layers_run": layers,
         "routes": [r["route"] for r in rows],

@@ -238,4 +238,101 @@ __device__ __forceinline__ void accumulate(float (&acc)[4][RB],
   }
 }
 
+// Warp-specialised kernels (a producer warp streaming tiles by TMA bulk
+// copies into a ring of shared-memory stages, consumer warpgroups):
+// the ring's mbarriers, the copies, the cluster and the consumers'
+// named barrier (fused_bilstm.cu's wgmma kernel, lstm_recurrence.cu's
+// K1 float32 recurrence).
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+// arrive on this block's barrier and expect `bytes` more of copies
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// a wait that outlasts this traps (the launch fails, and the wrapper
+// raises) rather than holding the card: no phase of the kernels that wait takes
+// more than milliseconds
+constexpr uint64_t kWaitTrapNs = 10ull * 1000 * 1000 * 1000;
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint64_t t0 = 0;
+  for (uint32_t n = 1;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if ((n & 1023) == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (t0 == 0)
+        t0 = now;
+      else if (now - t0 > kWaitTrapNs)
+        __trap();
+    }
+  }
+}
+
+// arrive on the barrier at the same offset in block `rank` of the cluster
+// (release at CTA scope, as the arrival's default: it orders this
+// thread's completed reads; a .release.cluster arrival cost more than
+// the stage's wgmmas on the H100)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
+      :: "r"(bar), "r"(rank) : "memory");
+}
+
+// TMA bulk copy global -> this block's shared memory, or (mask) to the
+// same offset in each block of the cluster in the mask; completes `bytes`
+// on the barrier at `bar` of each destination block
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void bulk_load_multicast(uint32_t dst,
+                                                    const void* src,
+                                                    uint32_t bytes,
+                                                    uint32_t bar,
+                                                    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar), "h"(mask) : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+__device__ __forceinline__ void cluster_sync_all() {
+  cluster_arrive();
+  cluster_wait();
+}
+// the 256 consumer threads (named barrier 1; the producer warp is not in it)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
 }  // namespace dsp

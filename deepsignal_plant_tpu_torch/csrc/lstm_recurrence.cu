@@ -9,9 +9,12 @@
 //                                       reverse-time recurrence
 //   dsp_lstm_dw_hh                   <- _lstm_bwd_kernel (K4): its dW_hh
 //                                       accumulation, as a kernel of its own
-//   dsp_lstm_recurrence_fwd_k1       <- the recurrence of pallas_fused.py's
-//                                       _fused_kernel (K1) at float32, over
-//                                       the projection of fused_bilstm.cu
+//   dsp_k1_rec_f32,                  <- the recurrence of pallas_fused.py's
+//   dsp_lstm_recurrence_fwd_k1          _fused_kernel (K1) at float32, over
+//                                       the projection of fused_bilstm.cu:
+//                                       K1's own wgmma kernel (k1_rec,
+//                                       call_mods' 4096-row tiles) or K2's
+//                                       float32 kernels in K1's order
 //
 // Tensor contract (pallas_lstm.py:11-16): xproj (T, 2, B, 4H) holds the
 // input projections with the bias, gate order i,f,g,o, direction 1
@@ -42,7 +45,9 @@
 // 128, pallas_lstm.py:219-223).
 //
 // Each storage type has two designs, chosen per launch by the wrapper's
-// plan (ops/recurrence.py::recurrence_plan):
+// plan (ops/recurrence.py::recurrence_plan; K1's float32 recurrence has a
+// third, k1_rec below, which k1_rec_plan weighs against the cluster
+// kernel):
 // - the cluster kernels (H = 128 and 256, the training path's widths): a
 //   thread-block cluster of C blocks owns a row tile, block r owns H/C
 //   hidden units (64 in bfloat16, 32 in float32) and keeps their slice of
@@ -1742,6 +1747,421 @@ bwd_cluster_f32_kernel(const float* __restrict__ dys,
 }
 
 // ---------------------------------------------------------------------------
+// K1's float32 recurrence on wgmma: W_hh streamed by TMA in tf32 hi and lo
+// planes to 64-row blocks (call_mods' forward tiles;
+// ops/recurrence.py::k1_rec_plan picks it or the cluster kernel above)
+//
+// Replaces, with fused_bilstm.cu's projection kernel before it, the
+// recurrence of deepsignal_plant_tpu/ops/pallas_fused.py::_fused_kernel
+// at float32: h_{s-1} @ W_hh[d] added to xproj[s, d] (the projection with
+// the bias), then the cell update, for T steps; h stored as K1 stores it
+// (ys_row's kYsTrueTime or kYsFinal).
+//
+// What bounds it: a comb layer at 4,096 rows is 2 * 2 * T * B * H * 4H =
+// 56 GFLOP of f32 products at H = 256, 167 GFLOP in 3xTF32 (0.34 ms at
+// 495 TFLOP/s), against xproj read (0.44 GB) and h written (0.11 GB):
+// 0.16 ms at 3.35 TB/s. Operations bind, in 13 dependent steps. The
+// cluster kernel above keeps a 32-unit W_hh slice resident in each block
+// of a cluster of 8 (139 KB at H = 256), so its row tile stops at 64-80
+// rows and a 4,096-row tile takes about 9 waves of 13 steps; each step
+// pays two cluster barriers, h written into 8 peers, every W and h
+// fragment split into tf32 hi and lo in registers, and mma.sync, which
+// does not reach wgmma's rate on Hopper.
+//
+// Design, after fused_bilstm.cu's bfloat16 wgmma kernel:
+// - A block owns 64 rows (one wgmma M tile) of one direction for all T
+//   steps; a cluster of C (1, 2 or 4) blocks owns neighbouring row tiles
+//   of the same direction: grid (round_up(ceil(B / 64), C), 2), at 4,096
+//   rows 128 blocks, one wave.
+// - W_hh[d] is packed once per model (ops/fused_lstm.py::
+//   pack_rec_weights) in the order the kernel streams it: per chunk cc
+//   and 16-float K slab kb, one stage of 32 KB holding each consumer
+//   warpgroup's 128 x 16 tile twice, as tf32 hi and lo (tf32_split), each
+//   the 64-byte swizzled K-major image wgmma reads. Packed column 32 * ug +
+//   8 * gate + e of warpgroup w's chunk cc is gate `gate` of unit 32 * (w *
+//   NCH + cc) + 8 * ug + e, so a thread's accumulators hold i, f, g and o
+//   of the same (row, unit) pairs. W is never split in the loop.
+// - A producer warpgroup (warps 8-11; one thread works, the others give
+//   their registers to the consumers by setmaxnreg) keeps a ring of 2-6
+//   stages full: block 0 of the cluster copies each stage with one TMA
+//   bulk copy multicast to the cluster; a stage is refilled once all 8
+//   consumer warps of every block have released it (arrivals on every
+//   block's `empty` mbarrier, through DSMEM). The stream does not depend
+//   on h, so the producer runs ahead across steps. (Prefetching each
+//   block's rows of xproj[s + 1] into L2 as step s started made the
+//   4,096-row tiles 5-13% slower on the H100.)
+// - Two consumer warpgroups own H / 2 units each, in NCH = H / 64 chunks
+//   of 32 units (m64n128 accumulators, 64 registers a thread). A chunk's
+//   accumulators start from xproj[s], loaded as the previous chunk's
+//   cell update frees them, and take 3xTF32 products on wgmma m64n128k8:
+//   lo*hi + hi*lo + hi*hi, lo*lo dropped, as the projection kernel runs
+//   its own. c stays in f32 registers for all T steps; sigmoid and tanh
+//   come from __expf and __fdividef (f32, a few ulp).
+// - h_{s-1} lives once, in f32 (64 x H, in slabs of 32 floats in the
+//   128-byte swizzle). Its hi is that plane itself, through a descriptor:
+//   the tensor cores read a .tf32 operand's top 19 bits, so hi is h
+//   truncated to tf32. Its lo, h - hi (exact in f32, rounded to tf32 by
+//   the half ulp split_tf32 adds), is made in registers from the same
+//   plane for the register-operand wgmma, each k8 fragment once a chunk.
+//   Splitting h once a step into hi and lo planes instead (128 KB) left
+//   room for 3 ring stages, not 5, and was slower on the H100 (PERF.md).
+//   Every chunk of both warpgroups reads all of h_{s-1}, so h_s is held
+//   in registers until the last chunk's products are done (a named
+//   barrier of the 256 consumer threads), then stored, fenced for the
+//   async proxy, and a second named barrier ends the step. No cluster
+//   barrier in the loop: h never leaves the block.
+// Shared memory at H = 256: the h plane 64 KB and 5 stages of 32 KB (225
+// KB with the barriers and 1,024 bytes of alignment); at H = 128 32 KB
+// and 4 stages (ops/recurrence.py::K1W_STAGES: more were slower there).
+
+namespace k1_rec {
+
+constexpr int kRows = 64;                 // rows of a block
+constexpr int kKs = 16;                   // K of a stage: 64-byte rows
+constexpr int kTile = 128 * kKs;          // floats of one plane tile
+constexpr int kStageF = 4 * kTile;        // floats of a stage (2 wg x hi, lo)
+constexpr int kStage = kStageF * 4;       // bytes of a stage: 32 KB
+constexpr int kSlab = kRows * kSwK;       // floats of an h slab (64 x 32)
+constexpr int kConsumers = 256;           // two warpgroups
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr int kMaxStages = 6;
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;   // setmaxnreg
+static_assert(kConsumers * kConsumerRegs + 128 * kProducerRegs <= 65536,
+              "the register file of an SM");
+
+// wgmma descriptor of a K-major tf32 tile of 64-byte rows in the 64-byte
+// swizzle (the 16-byte chunk c of row n at chunk c ^ ((n >> 1) & 3);
+// 8-row atoms of 512 bytes, the SBO; the LBO is not used by this layout)
+__device__ __forceinline__ uint64_t desc64(const void* smem) {
+  const uint32_t a = smem_u32(smem);
+  return (uint64_t)((a >> 4) & 0x3FFF) | (uint64_t)1 << 16 |
+         (uint64_t)(512 >> 4) << 32 | (uint64_t)2 << 62;
+}
+
+// d (64 x 128 f32, the m64n128 accumulator layout) += a @ b (8 x 128), a
+// the 64 x 8 tf32 fragment in registers (a warp's 16 rows: rows gq and gq
+// + 8 by columns q and q + 4, as mma.m16n8k8's A), b a descriptor.
+// Asynchronous, as wgmma_tf32_m64n128.
+__device__ __forceinline__ void wgmma_tf32_m64n128_ra(float (&d)[64],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}"
+      ", {%64,%65,%66,%67}, %68, 1, 1, 1;\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+// the tf32 lo of x against the tensor cores' truncation of x to tf32 (its
+// hi): x - hi, exact in f32, with the half ulp that rounds it (split_tf32)
+__device__ __forceinline__ uint32_t lo_of(float x) {
+  const float hi = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  return __float_as_uint(x - hi) + 0x1000u;
+}
+
+// shared memory without the ring: the h plane, the barriers, alignment
+inline size_t fixed_smem(int H) {
+  return (size_t)kRows * H * sizeof(float) +
+         2 * kMaxStages * sizeof(uint64_t) + 1024;
+}
+
+// NCH: chunks of 32 units a warpgroup (H = 64 * NCH); ys_b and mode:
+// ys_row (kYsTrueTime or kYsFinal)
+template <int NCH>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_f32_kernel(const float* __restrict__ xproj, const float* __restrict__ wp,
+               float* __restrict__ ys_f, float* __restrict__ ys_b, int T_,
+               int B, int stages, int mode) {
+  constexpr int H = 64 * NCH;
+  constexpr int G4 = 4 * H;
+  constexpr int NKS = H / kKs;              // stages of a chunk
+  constexpr int NST = NCH * NKS;            // stages of a step
+  static_assert(NKS % 2 == 0, "stages go in pairs");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // (sw_align: the ring and h on 1,024 bytes; fixed_smem leaves room)
+  float* const ring = sw_align(smem_raw);
+  float* const hs = ring + stages * kStageF;                // h_{s-1}
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(hs + kRows * H);
+  const uint32_t full0 = smem_u32(bars);                // full[i]: +8i
+  const uint32_t empty0 = smem_u32(bars + kMaxStages);  // empty[i]: +8i
+  const int d = blockIdx.y;
+  const int b0 = blockIdx.x * kRows;
+  const uint32_t C = cluster_blocks();
+  const uint32_t rank = cluster_rank();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, 8 * C);     // 8 consumer warps a block
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (warp < 8) {
+    // h_{-1} = 0
+    for (int i = threadIdx.x; i < kRows * H / 4; i += kConsumers)
+      reinterpret_cast<float4*>(hs)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    fence_proxy_async();
+  }
+  cluster_sync_all();    // every block's barriers set up, h_{-1} in place
+
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kProducerRegs));
+    if (warp == 8 && lane == 0) {
+      const uint16_t mask = (uint16_t)((1u << C) - 1);
+      const float* wd = wp + (size_t)d * NST * kStageF;
+      int slot = 0;
+      uint32_t phase = 0;
+      for (int s = 0; s < T_; ++s) {
+        for (int i = 0; i < NST; ++i) {
+          // the slot's previous use is released (a fresh barrier passes
+          // a wait on parity 1 at once)
+          mbar_wait(empty0 + 8 * slot, phase ^ 1);
+          const uint32_t full = full0 + 8 * slot;
+          mbar_expect_tx(full, kStage);
+          if (rank == 0) {
+            const uint32_t dst = smem_u32(ring + slot * kStageF);
+            if (C > 1)
+              bulk_load_multicast(dst, wd + (size_t)i * kStageF, kStage, full,
+                                  mask);
+            else
+              bulk_load(dst, wd + (size_t)i * kStageF, kStage, full);
+          }
+          if (++slot == stages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kConsumerRegs));
+    const int wg = warp >> 2;
+    const int warp4 = warp & 3;
+    const int gq = lane >> 2, q = lane & 3;
+    // release a stage: each warp's lane 0 on every block's empty barrier
+    auto release = [&](int sl) {
+      if (lane == 0)
+        for (uint32_t p = 0; p < C; ++p)
+          mbar_arrive_cluster(empty0 + 8 * sl, p);
+    };
+    // h_s of chunk cc (this thread's 16 (row, unit) pairs) into the
+    // plane: element (r, u) at slab u / 32, sw_off(r, u % 32)
+    auto store_h = [&](int cc, const float (&h)[16]) {
+      const int ub = (wg * NCH + cc) * 32;
+#pragma unroll
+      for (int ug = 0; ug < 4; ++ug)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int r = warp4 * 16 + gq + 8 * rh;
+          const int u = ub + ug * 8 + 2 * q;
+          *reinterpret_cast<float2*>(hs + (u / kSwK) * kSlab +
+                                     sw_off(r, u % kSwK)) =
+              make_float2(h[4 * ug + 2 * rh], h[4 * ug + 2 * rh + 1]);
+        }
+    };
+    // accumulator i holds row warp4*16 + gq + 8 * ((i >> 1) & 1), packed
+    // column 8 * (i >> 2) + 2q + (i & 1): gate (i >> 2) & 3 of unit ub + 8
+    // * (i >> 4) + 2q + (i & 1). Each chunk's start from xproj[s], group
+    // ug (accumulators 16 ug to 16 ug + 15) at a time; rows >= B read 0.
+    float acc[64];
+    auto load_x = [&](int s, int cc, int ug) {
+      const float* xs = xproj + ((size_t)s * 2 + d) * B * G4;
+      const int ub = (wg * NCH + cc) * 32;
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int row = b0 + warp4 * 16 + gq + 8 * rh;
+        const float* xr = xs + (size_t)row * G4 + ub + 8 * ug + 2 * q;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float2 v = row < B ? __ldg(reinterpret_cast<const float2*>(
+                                         xr + g * H))
+                                   : make_float2(0.f, 0.f);
+          acc[16 * ug + 4 * g + 2 * rh] = v.x;
+          acc[16 * ug + 4 * g + 2 * rh + 1] = v.y;
+        }
+      }
+    };
+    float c[NCH][16];
+    float hn[NCH][16];                      // h_s, held until the plane
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) c[cc][i] = 0.f;
+    int slot = 0;
+    uint32_t phase = 0;
+#pragma unroll
+    for (int ug = 0; ug < 4; ++ug) load_x(0, 0, ug);
+
+    for (int s = 0; s < T_; ++s) {
+      const bool more = s + 1 < T_;
+#pragma unroll
+      for (int cc = 0; cc < NCH; ++cc) {
+        const int ub = (wg * NCH + cc) * 32;
+        int prev = -1;
+        // one stage: the lo fragments of its two k8 steps from the plane,
+        // then lo*hi, hi*lo, hi*hi for each; `la` stays untouched until
+        // the stage's wgmmas are done (two stages later)
+        auto stage = [&](int kb, uint32_t (&la)[2][4]) {
+          mbar_wait(full0 + 8 * slot, phase);
+          const float* st = ring + slot * kStageF + 2 * wg * kTile;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int k = kb * kKs + j * 8;
+            const float* hp = hs + (k / kSwK) * kSlab;
+            const int r0 = warp4 * 16 + gq, kq = k % kSwK + q;
+            la[j][0] = lo_of(hp[sw_off(r0, kq)]);
+            la[j][1] = lo_of(hp[sw_off(r0 + 8, kq)]);
+            la[j][2] = lo_of(hp[sw_off(r0, kq + 4)]);
+            la[j][3] = lo_of(hp[sw_off(r0 + 8, kq + 4)]);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            // k8 step j: 32 bytes into the stage's 64-byte rows and into
+            // the plane's 128-byte rows (the swizzle applies to the
+            // address the descriptor forms)
+            const int k = kb * kKs + j * 8;
+            const uint64_t ah = gmma_desc(hs + (k / kSwK) * kSlab + k % kSwK);
+            const uint64_t bh = desc64(st + j * 8);
+            wgmma_tf32_m64n128_ra(acc, la[j], bh);
+            wgmma_tf32_m64n128(acc, ah, desc64(st + kTile + j * 8));
+            wgmma_tf32_m64n128(acc, ah, bh);
+          }
+          wgmma_commit();
+          if (prev >= 0) {
+            wgmma_wait<1>();                // the previous stage's are done
+            release(prev);
+          }
+          prev = slot;
+          if (++slot == stages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        };
+        uint32_t la0[2][4], la1[2][4];
+        for (int kb = 0; kb < NKS; kb += 2) {
+          stage(kb, la0);
+          stage(kb + 1, la1);
+        }
+        wgmma_wait<0>();
+        release(prev);
+        if (cc == NCH - 1 && more) {
+          // every wgmma of this step has read h_{s-1}: the held chunks go
+          // to the plane now, the last one after its cell update
+          consumers_sync();
+#pragma unroll
+          for (int pc = 0; pc < NCH - 1; ++pc) store_h(pc, hn[pc]);
+        }
+
+        // the cell update, a group of 16 accumulators at a time; each
+        // group's accumulators then take the next chunk's xproj
+#pragma unroll
+        for (int ug = 0; ug < 4; ++ug) {
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int i0 = 16 * ug + 2 * rh + e;
+              const float ig = sigmoid_fast(acc[i0]);
+              const float fg = sigmoid_fast(acc[i0 + 4]);
+              const float gg = tanh_fast(acc[i0 + 8]);
+              const float og = sigmoid_fast(acc[i0 + 12]);
+              float& cs = c[cc][4 * ug + 2 * rh + e];
+              cs = fg * cs + ig * gg;
+              hn[cc][4 * ug + 2 * rh + e] = og * tanh_fast(cs);
+            }
+            const int row = b0 + warp4 * 16 + gq + 8 * rh;
+            if (row < B) {
+              float* yr = ys_row(ys_f, ys_b, mode, s, d, T_, B, H, row);
+              if (yr != nullptr)
+                *reinterpret_cast<float2*>(yr + ub + ug * 8 + 2 * q) =
+                    make_float2(hn[cc][4 * ug + 2 * rh],
+                                hn[cc][4 * ug + 2 * rh + 1]);
+            }
+          }
+          if (cc + 1 < NCH)
+            load_x(s, cc + 1, ug);
+          else if (more)
+            load_x(s + 1, 0, ug);
+        }
+      }
+      if (more) {
+        store_h(NCH - 1, hn[NCH - 1]);
+        fence_proxy_async();
+        consumers_sync();    // h_s is in the plane
+      }
+    }
+  }
+  cluster_sync_all();    // no block leaves while a peer may still signal it
+}
+
+// the most stages of the ring at H: as many 32 KB stages as fit beside
+// the h plane, at most kMaxStages
+inline int ring_stages(int H) {
+  const int n = (int)((kMaxSmem - fixed_smem(H)) / kStage);
+  return n < kMaxStages ? n : kMaxStages;
+}
+
+inline const void* kernel_of(int H) {
+  if (H == 128) return (const void*)fwd_f32_kernel<2>;
+  if (H == 256) return (const void*)fwd_f32_kernel<4>;
+  return nullptr;
+}
+
+// the launch configuration of (H, cluster, stages) over B rows; allows
+// the shared memory; refuses what the kernel does not take
+inline cudaError_t config(int H, int B, int cluster, int stages,
+                          cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                          cudaLaunchAttribute* attr, const void** kernel) {
+  *kernel = kernel_of(H);
+  if (*kernel == nullptr || B < 1 ||
+      !(cluster == 1 || cluster == 2 || cluster == 4) || stages < 2 ||
+      stages > ring_stages(H))
+    return cudaErrorInvalidValue;
+  const size_t smem = fixed_smem(H) + (size_t)stages * kStage;
+  const cudaError_t err = set_smem(*kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (B + kRows - 1) / kRows;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3((tiles + cluster - 1) / cluster * cluster, 2);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+}  // namespace k1_rec
+
+// ---------------------------------------------------------------------------
 // launch helpers
 
 // The cluster kernels' launches: kind 0 = K2, 1 = K3, 2 = K4's
@@ -2123,6 +2543,51 @@ cudaError_t dsp_lstm_recurrence_fwd_k1(const void* xproj, const void* w_hh,
                         static_cast<const float*>(w_hh),
                         static_cast<float*>(ys_f), static_cast<float*>(ys_b),
                         nullptr, nullptr, T_, B, H, mode, st);
+}
+
+// How many clusters of K1's float32 wgmma recurrence (k1_rec) at hidden
+// size H (128 or 256), `cluster` blocks and a ring of `stages` the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *clusters;
+// refuses what dsp_k1_rec_f32 refuses.
+cudaError_t dsp_k1_rec_f32_clusters(int H, int cluster, int stages,
+                                    int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const void* kernel;
+  if (clusters == nullptr) return cudaErrorInvalidValue;
+  const cudaError_t err =
+      k1_rec::config(H, cluster * k1_rec::kRows, cluster, stages, nullptr,
+                     &cfg, &attr, &kernel);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+// K1's recurrence at float32 on wgmma (ops/recurrence.py::
+// lstm_recurrence_k1 where k1_rec_plan takes this kernel): xproj (T, 2, B,
+// 4H) float32 as dsp_lstm_recurrence_fwd_k1 reads it, `wp` W_hh packed by
+// ops/fused_lstm.py::pack_rec_weights, ys_f and ys_b as that function
+// writes them; H 128 or 256, clusters of 1, 2 or 4 blocks, a ring of 2
+// to k1_rec::ring_stages(H) stages (5 at 256, 6 at 128); every pointer
+// 16-byte aligned. Runs
+// on `stream`, allocates nothing, returns the launch's error code.
+cudaError_t dsp_k1_rec_f32(const void* xproj, const void* wp, void* ys_f,
+                           void* ys_b, int T_, int B, int H, int seq_out,
+                           int cluster, int stages, void* stream) {
+  if (T_ < 1 || ys_f == nullptr || ys_b == nullptr || !aligned16(xproj) ||
+      !aligned16(wp) || !aligned16(ys_f) || !aligned16(ys_b))
+    return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  const void* kernel;
+  cudaError_t err = k1_rec::config(H, B, cluster, stages,
+                                   static_cast<cudaStream_t>(stream), &cfg,
+                                   &attr, &kernel);
+  if (err != cudaSuccess) return err;
+  int mode = seq_out ? kYsTrueTime : kYsFinal;
+  void* args[] = {&xproj, &wp, &ys_f, &ys_b, &T_, &B, &stages, &mode};
+  err = cudaLaunchKernelExC(&cfg, kernel, args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // Bytes of the workspace dsp_lstm_recurrence_bwd needs without a cluster

@@ -32,9 +32,12 @@ Two routes, one per compute dtype:
   (``fused_bilstm_proj_f32``, csrc/fused_bilstm.cu) into K2's xproj
   (T, 2, B, 4H), over W_ih packed once per model in tf32 hi and lo planes
   (``pack_proj_weights``, cached by ``packed_proj_weights``); then
-  ops/recurrence.py::lstm_recurrence_k1, K2's float32 kernels storing h
-  as K1 does (``fused_bilstm_rec_f32``, or
-  ``fused_bilstm_rec_f32_stream`` off the cluster plans). The in-loop
+  ops/recurrence.py::lstm_recurrence_k1 storing h as K1 does, on the
+  kernel ``k1_rec_plan`` picks: K1's wgmma recurrence over W_hh packed
+  once per model in tf32 hi and lo planes (``pack_rec_weights``, cached
+  by ``packed_rec_weights``; ``fused_bilstm_rec_f32_wgmma``: call_mods'
+  4096-row tiles), K2's float32 cluster kernel (``fused_bilstm_rec_f32``)
+  or its streaming kernel (``fused_bilstm_rec_f32_stream``). The in-loop
   route (``layer_f32_inloop``, ``fused_bilstm_f32_inloop``: CUDA-core
   FMAs, the projection inside the time loop) takes the narrow layers the
   narrow kernel does not, at batches that fill the card.
@@ -66,7 +69,8 @@ from .lstm import bilstm_layer as bilstm_layer_plain
 launches = {"fused_bilstm_bf16_wgmma": 0, "fused_bilstm_bf16": 0,
             "fused_bilstm_f32_narrow": 0, "fused_bilstm_f32_inloop": 0,
             "fused_bilstm_proj_f32": 0, "fused_bilstm_rec_f32": 0,
-            "fused_bilstm_rec_f32_stream": 0}
+            "fused_bilstm_rec_f32_stream": 0,
+            "fused_bilstm_rec_f32_wgmma": 0}
 
 
 def kernel_launches() -> dict:
@@ -298,6 +302,53 @@ def packed_proj_weights(layer, Fa: int) -> tuple[torch.Tensor, torch.Tensor]:
     if cached is None or cached[0] != key:
         cached = (key, pack_proj_weights(layer.w_ih, Fa))
         layer.__dict__["_k1_proj_packed"] = cached
+    return cached[1]
+
+
+# K1's float32 wgmma recurrence (csrc/lstm_recurrence.cu, k1_rec): ring
+# stages of 16 K rows of W_hh[d] for both consumer warpgroups' 128 packed
+# columns, as tf32 hi and lo tiles (32 KB)
+REC_KS, REC_TILE_N = 16, 128
+
+
+@torch.no_grad()
+def pack_rec_weights(w_hh: torch.Tensor) -> torch.Tensor:
+    """K1's float32 wgmma recurrence's weights, in the order it streams
+    them: (2, nch * H / 16, 2, 2, 128, 16) float32, nch = H / 64 (H 128
+    or 256): per direction, per chunk cc and 16-row K slab kb (stage cc *
+    H / 16 + kb), per consumer warpgroup w, the tf32 (hi, lo) planes of
+    W_hh (tf32_split), each a 128 x 16 tile K-major in the 64-byte
+    swizzled image wgmma reads: element (n, k) at [n, 4 * ((k // 4) ^ ((n
+    // 2) % 4)) + k % 4]. Packed column n = 32 * ug + 8 * gate + e of
+    warpgroup w's chunk cc is gate ``gate`` (i, f, g, o) of unit u = 32 *
+    (w * nch + cc) + 8 * ug + e, and k of slab kb W_hh's row 16 * kb + k:
+    tile[n, k] = w_hh[d, 16 kb + k, gate * H + u]. A layout transform and
+    the tf32 split in plain tensor ops."""
+    H = w_hh.shape[1]
+    nch, nks = H // 64, H // REC_KS
+    w = w_hh.to(torch.float32).reshape(2, H, 4, 2, nch, 4, 8)
+    # (d, k, gate, w, cc, ug, e) -> (d, cc, kb, w, n = (ug, gate, e), k)
+    w = w.permute(0, 4, 3, 5, 2, 6, 1).reshape(2, nch, 2, REC_TILE_N, nks,
+                                               REC_KS)
+    w = w.permute(0, 1, 4, 2, 3, 5)
+    hi, lo = tf32_split(w.contiguous())
+    t = torch.stack([hi, lo], 4).reshape(2, nch, nks, 2, 2, REC_TILE_N, 4, 4)
+    n = torch.arange(REC_TILE_N).view(REC_TILE_N, 1)
+    idx = torch.arange(4).view(1, 4) ^ ((n >> 1) & 3)      # [n, chunk]
+    idx = idx.view(REC_TILE_N, 4, 1).expand(REC_TILE_N, 4, 4)
+    t = torch.gather(t, 6, idx.expand(t.shape).to(t.device))
+    return t.reshape(2, nch * nks, 2, 2, REC_TILE_N, REC_KS).contiguous()
+
+
+def packed_rec_weights(layer) -> torch.Tensor:
+    """``pack_rec_weights`` of a layer module's w_hh, packed once and
+    cached on the module until w_hh changes (the cache key holds its
+    version counter and data pointer)."""
+    key = (layer.w_hh._version, layer.w_hh.data_ptr())
+    cached = layer.__dict__.get("_k1_rec_packed")
+    if cached is None or cached[0] != key:
+        cached = (key, pack_rec_weights(layer.w_hh))
+        layer.__dict__["_k1_rec_packed"] = cached
     return cached[1]
 
 
@@ -588,10 +639,11 @@ def layer_f32_split(xs, w_ih: torch.Tensor, b: torch.Tensor,
                     w_hh: torch.Tensor, hidden_size: int,
                     seq_out: bool = True, packed=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """A float32 layer through the split route: input_projection (over
-    ``packed``, its pack_proj_weights at this row split, made here when
-    not given), then lstm_recurrence_k1. Arguments and result as
-    bilstm_layer_fused's; a CPU tensor takes the plain version."""
+    """A float32 layer through the split route: input_projection, then
+    lstm_recurrence_k1, over ``packed`` = (pack_proj_weights at this row
+    split, pack_rec_weights or None), either made where needed when None.
+    Arguments and result as bilstm_layer_fused's; a CPU tensor takes the
+    plain version."""
     H = hidden_size
     checked = _layer_inputs(xs, w_ih, b, w_hh, H)
     if checked is None:
@@ -602,8 +654,9 @@ def layer_f32_split(xs, w_ih: torch.Tensor, b: torch.Tensor,
 
 
 def _split(xs, w_ih, b, w_hh, H, seq_out, packed):
-    return _rec.lstm_recurrence_k1(input_projection(xs, w_ih, b, packed),
-                                   w_hh, H, seq_out, launches)
+    proj, rec = packed or (None, None)
+    return _rec.lstm_recurrence_k1(input_projection(xs, w_ih, b, proj),
+                                   w_hh, H, seq_out, launches, rec)
 
 
 def layer_f32_inloop(xs, w_ih: torch.Tensor, b: torch.Tensor,
@@ -786,8 +839,9 @@ def bilstm_layer_fused(xs, w_ih: torch.Tensor, b: torch.Tensor,
     ``packed``, the weights packed for it (``packed_for``), made here
     when not given; float32's narrow and split routes read ``packed``,
     the weights packed for the route f32_route gives the layer
-    (``f32_packed``: pack_narrow_weights, or pack_proj_weights at this
-    row split), made here when not given); b (2, 4H) float32. Returns
+    (``f32_packed``: pack_narrow_weights, or (pack_proj_weights at this
+    row split, pack_rec_weights or None)), made where needed when not
+    given); b (2, 4H) float32. Returns
     (ys_f, ys_b), each (T, B, H) in true time, or (1, B, H) final states
     when ``seq_out`` is False."""
     H = hidden_size
@@ -814,12 +868,15 @@ def bilstm_layer_fused(xs, w_ih: torch.Tensor, b: torch.Tensor,
 def f32_packed(layer, route: str, Fa: int):
     """A layer module's cached packed weights for float32 route ``route``
     at inputs split at Fa: packed_narrow_weights (narrow),
-    packed_proj_weights (split), or None (the in-loop kernel reads w_ih
-    and w_hh as they are)."""
+    (packed_proj_weights, packed_rec_weights where K1's wgmma recurrence
+    takes the layer's H, else None) (split), or None (the in-loop kernel
+    reads w_ih and w_hh as they are)."""
     if route == "narrow":
         return packed_narrow_weights(layer)
     if route == "split":
-        return packed_proj_weights(layer, Fa)
+        H = layer.w_hh.shape[1]
+        return (packed_proj_weights(layer, Fa),
+                packed_rec_weights(layer) if H in _rec.K1W_WIDTHS else None)
     return None
 
 

@@ -10,9 +10,11 @@ deepsignal_plant_tpu/ops/pallas_lstm.py:74-124 and :211-353).
   recurrence, and the weight gradient as a kernel of its own;
 - ``BiLSTMRecurrence``: K3 forward, K4 backward;
   ``bilstm_recurrence_trainable`` picks it under autograd and K2 else;
-- ``lstm_recurrence_k1``: K2's float32 kernels storing h as K1 does, the
-  recurrence of K1's float32 route (ops/fused_lstm.py), counted with
-  K1's kernels, not here.
+- ``lstm_recurrence_k1``: the recurrence of K1's float32 route
+  (ops/fused_lstm.py), storing h as K1 does: K1's own wgmma kernel, which
+  streams W_hh packed in tf32 hi and lo planes to 64-row blocks, or K2's
+  float32 kernels (``k1_rec_plan`` picks), counted with K1's kernels, not
+  here.
 
 Tensor contract as the Pallas kernels': xproj (T, 2, B, 4H) with the
 bias in it and direction 1 time-flipped, w_hh (2, H, 4H), ys
@@ -30,6 +32,7 @@ occupancy query); the launch counters say which ran.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -103,9 +106,12 @@ def _lib() -> ctypes.CDLL:
     lib.dsp_lstm_recurrence_fwd_k1.argtypes = [P] * 4 + [I] * 6 + [P]
     lib.dsp_lstm_recurrence_clusters.argtypes = [I] * 5 + [
         ctypes.POINTER(I)]
+    lib.dsp_k1_rec_f32.argtypes = [P] * 4 + [I] * 6 + [P]
+    lib.dsp_k1_rec_f32_clusters.argtypes = [I] * 3 + [ctypes.POINTER(I)]
     for fn in (lib.dsp_lstm_recurrence_fwd, lib.dsp_lstm_recurrence_bwd,
                lib.dsp_lstm_dw_hh, lib.dsp_lstm_recurrence_clusters,
-               lib.dsp_lstm_recurrence_fwd_k1):
+               lib.dsp_lstm_recurrence_fwd_k1, lib.dsp_k1_rec_f32,
+               lib.dsp_k1_rec_f32_clusters):
         fn.restype = ctypes.c_int
     for fn in (lib.dsp_lstm_fwd_workspace_bytes,
                lib.dsp_lstm_bwd_workspace_bytes):
@@ -200,8 +206,9 @@ def recurrence_plan(kind: int, B: int, H: int, capacity,
     ceil(B / rows) / capacity rounded up: bfloat16, and float32's
     backward, the fewest waves, and among those the smallest tile (shorter
     chains, more SMs), within one wave (bfloat16) or two (float32), else
-    the streaming kernel. float32's forward (K2, K3, and K1's recurrence
-    at call_mods' 4096-row tiles) the least estimated time, waves x
+    the streaming kernel. float32's forward (K2, K3, and K1's recurrence,
+    which k1_rec_plan weighs against its wgmma kernel by this cost) the
+    least estimated time, waves x
     (ceil(rows / 32) + 0.5), in as many waves as the rows need: a wave's
     time grows with the m16 tiles each warp walks a step (the 8 warps
     split a tile's m16 tiles two ways), plus about half a tile's worth of
@@ -254,6 +261,139 @@ def _plan(name: str, t: torch.Tensor, B: int, H: int, stream: bool):
     kind, dev, dtype = _KIND[name], t.device.index, t.dtype
     return recurrence_plan(kind, B, H, lambda C, rows: cluster_capacity(
         dev, kind, H, C, rows, dtype), dtype)
+
+
+# K1's float32 recurrence on wgmma (csrc/lstm_recurrence.cu,
+# k1_rec::fwd_f32_kernel): 64-row blocks in clusters of 1, 2 or 4; its
+# shared memory is h (64 x H float32), a ring of 2 to 6 stages of 32 KB,
+# 12 barriers of 8 bytes and 1,024 bytes of alignment (k1_rec::
+# fixed_smem). H 128 or 256: two consumer warpgroups of H / 64 chunks of
+# 32 units.
+K1W_ROWS, K1W_STAGE_BYTES, K1W_MAX_STAGES = 64, 32768, 6
+# the ring a plan takes at each H, where it fits: the fastest on the H100
+# at 4,096 and 1,016 rows (PERF.md: 5 of the 5 that fit at H = 256; 4 of
+# 6 at H = 128, where 5 and 6 were slower)
+K1W_STAGES = {128: 4, 256: 5}
+K1W_WIDTHS = tuple(K1W_STAGES)
+# cluster sizes, in the order a plan takes them among equal waves
+K1W_CLUSTERS = (4, 2, 1)
+# one wave of the wgmma kernel in the units of the float32 cluster
+# kernel's cost (recurrence_plan: a wave of row tile `rows` costs
+# ceil(rows / 32) + 0.5), per H, from the H100's times of both kernels at
+# 4,096 and 1,016 rows (PERF.md)
+K1W_WAVE_COST = {128: 3.0, 256: 8.6}
+
+
+def k1w_smem(H: int, stages: int) -> int:
+    """Shared-memory bytes of a block of K1's wgmma recurrence at hidden
+    size H with a ring of ``stages`` (k1_rec's fixed_smem + the ring)."""
+    return K1W_ROWS * H * 4 + stages * K1W_STAGE_BYTES + \
+        2 * K1W_MAX_STAGES * 8 + 1024
+
+
+def k1w_stages(H: int) -> int:
+    """Ring stages of K1's wgmma recurrence at H: K1W_STAGES[H], or as
+    many as fit beside h where fewer do; 0 where H is not one of
+    K1W_WIDTHS or fewer than two fit."""
+    if H not in K1W_STAGES:
+        return 0
+    n = min(K1W_STAGES[H],
+            (_MAX_SMEM - k1w_smem(H, 0)) // K1W_STAGE_BYTES)
+    return n if n >= 2 else 0
+
+
+def k1w_plan(B: int, H: int, capacity):
+    """(cluster, stages, waves) of K1's wgmma recurrence for B rows, or
+    None where it does not take H. ``capacity(cluster, stages)`` is how
+    many clusters of that plan the card holds at once (the wrapper asks
+    the card, k1w_capacity). Its grid is 2 * round_up(ceil(B / 64),
+    cluster) blocks of 64 rows. Among the clusters of K1W_CLUSTERS no
+    larger than the row tiles (a cluster shares each weight stage among
+    its blocks: bigger ones read W_hh from L2 fewer times), the fewest
+    waves, then the first in that order."""
+    stages = k1w_stages(H)
+    if not stages:
+        return None
+    tiles = -(-B // K1W_ROWS)
+    best = None
+    for pref, C in enumerate(K1W_CLUSTERS):
+        if C > tiles:
+            continue
+        cap = capacity(C, stages)
+        if cap < 1:
+            continue
+        waves = -(-2 * -(-tiles // C) // cap)
+        if best is None or (waves, pref) < best[0]:
+            best = (waves, pref), (C, stages, waves)
+    return None if best is None else best[1]
+
+
+def _f32_fwd_cost(B: int, rows: int, cap: int) -> float:
+    """recurrence_plan's estimated time of a float32 forward cluster plan
+    of row tile ``rows`` on ``cap`` clusters at once."""
+    return -(-2 * -(-B // rows) // cap) * (-(-rows // 32) + 0.5)
+
+
+_k1_forced = None
+
+
+@contextlib.contextmanager
+def force_k1_rec(kind: str):
+    """While this holds, k1_rec_plan takes kernel ``kind`` ("wgmma", K1's
+    wgmma recurrence, or "cluster", K2's float32 cluster kernel) wherever
+    that kernel has a plan: for timing the two in turns on the same
+    path."""
+    global _k1_forced
+    if kind not in ("wgmma", "cluster"):
+        raise KeyError(kind)
+    before, _k1_forced = _k1_forced, kind
+    try:
+        yield
+    finally:
+        _k1_forced = before
+
+
+def k1_rec_plan(B: int, H: int, capacity, cl_capacity):
+    """The kernel of K1's float32 recurrence for B rows at hidden size H:
+    ("wgmma", (cluster, stages)), K1's wgmma recurrence on k1w_plan's
+    plan (``capacity`` as it takes); ("cluster", (cluster, rows)), K2's
+    float32 cluster kernel on recurrence_plan's plan (``cl_capacity``
+    as it takes); or ("stream", None), K2's float32 streaming kernel.
+    The least estimated time: the cluster kernel's by recurrence_plan's
+    rule, the wgmma kernel's its waves times K1W_WAVE_COST[H] in the same
+    units; ties take the cluster kernel. Inside ``force_k1_rec(kind)``
+    kernel ``kind`` wherever it has a plan."""
+    cl = recurrence_plan(0, B, H, cl_capacity, torch.float32)
+    wg = None if _k1_forced == "cluster" and cl else \
+        k1w_plan(B, H, capacity)
+    if wg is not None and (cl is None or _k1_forced == "wgmma" or
+                           wg[2] * K1W_WAVE_COST[H] <
+                           _f32_fwd_cost(B, cl[1], cl_capacity(*cl))):
+        return "wgmma", wg[:2]
+    return ("cluster", cl) if cl else ("stream", None)
+
+
+@functools.cache
+def k1w_capacity(device: int, H: int, cluster: int, stages: int) -> int:
+    """Clusters of a plan of K1's wgmma recurrence that card ``device``
+    holds at once (the kernel's occupancy query), cached per device and
+    plan."""
+    lib = _lib()
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.dsp_k1_rec_f32_clusters(H, cluster, stages,
+                                          ctypes.byref(n))
+    _build.check(lib, err, "K1 wgmma recurrence occupancy query")
+    return n.value
+
+
+def k1_rec_plan_on(device: torch.device, B: int, H: int):
+    """k1_rec_plan on the capacities of card ``device``."""
+    dev = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return k1_rec_plan(
+        B, H, lambda C, stages: k1w_capacity(dev, H, C, stages),
+        lambda C, rows: cluster_capacity(dev, 0, H, C, rows, torch.float32))
 
 
 def _counter(name: str, dtype: torch.dtype, plan) -> str:
@@ -318,18 +458,21 @@ def lstm_recurrence_fwd_save(xproj: torch.Tensor, w_hh: torch.Tensor,
 
 
 def lstm_recurrence_k1(xproj: torch.Tensor, w_hh: torch.Tensor,
-                       hidden_size: int, seq_out: bool, counts: dict
+                       hidden_size: int, seq_out: bool, counts: dict,
+                       packed: torch.Tensor | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K1's recurrence at float32: K2 over xproj (T, 2, B, 4H) float32,
-    with h stored as K1 stores it: (ys_f, ys_b), each (T, B, H) in true
-    time, or (1, B, H) final states when ``seq_out`` is False
-    (ops/lstm.py: lstm_recurrence, then k1_outputs). On the card K2's
-    float32 kernel of recurrence_plan (its forward cost rule: call_mods'
-    4096-row tiles take 5 to 9 waves of clusters) in K1's output order.
-    The launch counts in ``counts`` (ops/fused_lstm.py::launches, with
-    K1's kernels) under ``fused_bilstm_rec_f32`` (cluster kernel) or
-    ``fused_bilstm_rec_f32_stream``, never in this module's counters,
-    which count the training path."""
+    """K1's recurrence at float32: K2's arithmetic over xproj (T, 2, B,
+    4H) float32, with h stored as K1 stores it: (ys_f, ys_b), each (T, B,
+    H) in true time, or (1, B, H) final states when ``seq_out`` is False
+    (ops/lstm.py: lstm_recurrence, then k1_outputs). On the card the
+    kernel of k1_rec_plan: K1's wgmma recurrence over ``packed``
+    (ops/fused_lstm.py::pack_rec_weights of w_hh, made here when not
+    given; call_mods' 4096-row tiles), or K2's float32 cluster or
+    streaming kernel in K1's output order. The launch counts in
+    ``counts`` (ops/fused_lstm.py::launches, with K1's kernels) under
+    ``fused_bilstm_rec_f32_wgmma``, ``fused_bilstm_rec_f32`` (cluster
+    kernel) or ``fused_bilstm_rec_f32_stream``, never in this module's
+    counters, which count the training path."""
     name = "lstm_recurrence_fwd"
     H = hidden_size
     if not _on_card(name, xproj, w_hh):
@@ -338,15 +481,36 @@ def lstm_recurrence_k1(xproj: torch.Tensor, w_hh: torch.Tensor,
     T, B, _ = _dims(name, xproj, H, 4 * H)
     _check("xproj", xproj, (T, 2, B, 4 * H), torch.float32)
     _check("w_hh", w_hh, (2, H, 4 * H), torch.float32)
-    plan = _plan(name, xproj, B, H, False)
+    kind, plan = k1_rec_plan_on(xproj.device, B, H)
     dev = xproj.device
     ys_f = torch.empty((T if seq_out else 1, B, H), dtype=torch.float32,
                        device=dev)
     ys_b = torch.empty_like(ys_f)
+    lib = _lib()
+    if kind == "wgmma":
+        if packed is None:
+            from .fused_lstm import pack_rec_weights
+            packed = pack_rec_weights(w_hh)
+        shape = (2, H // 64 * (H // 16), 2, 2, 128, 16)
+        if tuple(packed.shape) != shape or packed.dtype != torch.float32 \
+                or not packed.is_contiguous() or packed.device != dev \
+                or packed.data_ptr() % 16:
+            raise ValueError(f"packed must be contiguous 16-byte aligned "
+                             f"{shape} float32 on {dev}; got "
+                             f"{tuple(packed.shape)} {packed.dtype} on "
+                             f"{packed.device}")
+        xproj = _aligned(xproj)
+        with torch.cuda.device(dev):
+            err = lib.dsp_k1_rec_f32(
+                xproj.data_ptr(), packed.data_ptr(), ys_f.data_ptr(),
+                ys_b.data_ptr(), T, B, H, int(seq_out), *plan,
+                _stream(xproj))
+        _build.check(lib, err, "K1 wgmma recurrence launch")
+        counts["fused_bilstm_rec_f32_wgmma"] += 1
+        return ys_f, ys_b
     if plan:
         xproj, w_hh = _aligned(xproj), _aligned(w_hh)
     cluster, rows = plan or (0, 0)
-    lib = _lib()
     with torch.cuda.device(dev):
         err = lib.dsp_lstm_recurrence_fwd_k1(
             xproj.data_ptr(), w_hh.data_ptr(), ys_f.data_ptr(),

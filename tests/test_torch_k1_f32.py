@@ -193,6 +193,126 @@ def test_k1_plan_covers_every_row_within_shared_memory(H, B):
 def test_k1_plan_takes_the_streaming_kernel_off_the_cluster_widths(H):
     assert recurrence.recurrence_plan(0, 4096, H, h100_capacity,
                                       torch.float32) is None
+    assert recurrence.k1_rec_plan(4096, H, h100_k1w_capacity,
+                                  h100_capacity) == ("stream", None)
+
+
+# the H100's capacities of K1's wgmma recurrence, as its occupancy query
+# reported them (PERF.md): one block an SM at either width, so 132
+# clusters of 1, 66 of 2 and 30 of 4 (clusters of 4 fit only 120 of the
+# 132 SMs)
+H100_K1W_CLUSTERS = {1: 132, 2: 66, 4: 30}
+
+
+def h100_k1w_capacity(C, stages):
+    return H100_K1W_CLUSTERS[C]
+
+
+@pytest.mark.parametrize("B", [4096, 1016, 512, 37])
+@pytest.mark.parametrize("H", [128, 256])
+def test_k1_wgmma_plan_covers_every_row_within_shared_memory(H, B):
+    """K1's wgmma recurrence plan (k1w_plan) on the H100's capacities:
+    the ring the H100 ran fastest (K1W_STAGES: 5 stages at H = 256, all
+    that fit a block's shared memory beside h; 4 at H = 128), 64-row
+    tiles that cover the B rows once in clusters of at most that many
+    tiles, and one wave of them."""
+    C, stages, waves = recurrence.k1w_plan(B, H, h100_k1w_capacity)
+    assert stages == recurrence.K1W_STAGES[H] == {128: 4, 256: 5}[H]
+    assert 2 <= stages <= recurrence.K1W_MAX_STAGES
+    assert recurrence.k1w_smem(H, stages) <= 232_448
+    assert H == 128 or recurrence.k1w_smem(H, stages + 1) > 232_448
+    tiles = -(-B // 64)
+    assert tiles * 64 >= B > (tiles - 1) * 64
+    assert C in recurrence.K1W_CLUSTERS and C <= tiles
+    blocks = 2 * -(-tiles // C) * C
+    assert blocks >= 2 * tiles and waves == 1
+    assert blocks // C <= H100_K1W_CLUSTERS[C]
+
+
+@pytest.mark.parametrize("B,H,kind", [
+    (4096, 256, "wgmma"), (4096, 128, "wgmma"), (4093, 256, "wgmma"),
+    (1016, 256, "cluster"), (1016, 128, "cluster"), (512, 256, "cluster"),
+    (37, 256, "cluster"), (37, 128, "cluster")])
+def test_k1_rec_plan_takes_the_kernel_the_h100_ran_fastest(B, H, kind):
+    """k1_rec_plan on the H100's capacities: K1's wgmma recurrence at
+    call_mods' 4096-row tiles (one wave of 64-row blocks against 5 to 9
+    waves of the cluster kernel), the cluster kernel at the 1,016-row tail
+    and below, where both run one to three short waves and the cluster
+    kernel was as fast or faster (PERF.md); inside force_k1_rec(kind)
+    kernel ``kind`` everywhere."""
+    got, plan = recurrence.k1_rec_plan(B, H, h100_k1w_capacity,
+                                       h100_capacity)
+    assert got == kind
+    if kind == "wgmma":
+        assert plan == recurrence.k1w_plan(B, H, h100_k1w_capacity)[:2]
+    else:
+        assert plan == recurrence.recurrence_plan(0, B, H, h100_capacity,
+                                                  torch.float32)
+    for forced in ("wgmma", "cluster"):
+        with recurrence.force_k1_rec(forced):
+            assert recurrence.k1_rec_plan(B, H, h100_k1w_capacity,
+                                          h100_capacity)[0] == forced
+    assert recurrence.k1_rec_plan(B, H, h100_k1w_capacity,
+                                  h100_capacity)[0] == kind
+
+
+@pytest.mark.parametrize("H", [128, 256])
+def test_rec_packer_lays_out_w_hh_in_stream_order(H):
+    """pack_rec_weights: (2, stages, 2 warpgroups, (hi, lo), 128, 16),
+    each element where the kernel reads it, by the layout's own formula
+    against the plain W_hh: stage cc * H/16 + kb, warpgroup w, packed
+    column n = 32 ug + 8 gate + e is unit 32 (w H/64 + cc) + 8 ug + e of
+    gate ``gate``; k of slab kb is W_hh's row 16 kb + k, its 16-byte chunk
+    k // 4 at chunk (k // 4) ^ ((n // 2) % 4) of the row. hi is W rounded
+    to tf32; hi + tf32(lo) recovers W within 2^-21 of it."""
+    _, p = make_layer(16, (8,), H, Bn=2)
+    w_hh = p["w_hh"]
+    packed = fused_lstm.pack_rec_weights(torch.from_numpy(w_hh))
+    nch, nks = H // 64, H // 16
+    assert packed.shape == (2, nch * nks, 2, 2, 128, 16)
+    assert packed.dtype == torch.float32 and packed.is_contiguous()
+    assert not (packed.view(torch.int32) & 0x1FFF).any()
+    d, i, w, n, col = np.meshgrid(np.arange(2), np.arange(nch * nks),
+                                  np.arange(2), np.arange(128),
+                                  np.arange(16), indexing="ij")
+    cc, kb = i // nks, i % nks
+    k = kb * 16 + 4 * ((col // 4) ^ ((n // 2) % 4)) + col % 4
+    unit = 32 * (w * nch + cc) + 8 * (n // 32) + n % 8
+    want = w_hh[d, k, ((n // 8) % 4) * H + unit]
+    hi, lo = packed[:, :, :, 0].numpy(), packed[:, :, :, 1].numpy()
+    np.testing.assert_array_equal(hi, tf32_round(want))
+    err = np.abs(hi.astype(np.float64) + tf32_round(lo) - want)
+    assert (err <= 2.0 ** -21 * np.abs(want)).all()
+    # every weight once, in one stage of one direction
+    assert sorted(np.abs(want[0]).ravel()) == sorted(np.abs(w_hh[0]).ravel())
+
+
+def test_packed_rec_weights_cached_until_w_hh_changes():
+    """packed_rec_weights packs once per model: the same planes until an
+    in-place update of w_hh (an optimizer step) or a new w_hh; f32_packed
+    gives the split route both packings at the wgmma kernel's widths, the
+    projection's alone elsewhere."""
+    _, p = make_layer(17, (16, 16), 128, Bn=2)
+    layer = BiLSTMLayer(32, 128)
+    layer.load_state_dict({k: torch.from_numpy(v) for k, v in p.items()})
+    first = fused_lstm.packed_rec_weights(layer)
+    assert fused_lstm.packed_rec_weights(layer) is first
+    with torch.no_grad():
+        layer.w_ih.add_(1.0)               # the projection's, not packed here
+        layer.b.add_(1.0)
+    assert fused_lstm.packed_rec_weights(layer) is first
+    with torch.no_grad():
+        layer.w_hh.mul_(2.0)
+    second = fused_lstm.packed_rec_weights(layer)
+    assert second is not first
+    torch.testing.assert_close(second[:, :, :, 0], first[:, :, :, 0] * 2.0,
+                               rtol=0, atol=0)
+    proj, rec = fused_lstm.f32_packed(layer, "split", 16)
+    assert rec is second and proj is fused_lstm.packed_proj_weights(layer, 16)
+    layer.w_hh = torch.nn.Parameter(layer.w_hh.detach().clone())
+    assert fused_lstm.packed_rec_weights(layer) is not second
+    narrow = BiLSTMLayer(32, 16)
+    assert fused_lstm.f32_packed(narrow, "split", 16)[1] is None
 
 
 # the H100's capacities of the narrow kernel's plans (clusters of 2 at H =
@@ -251,3 +371,4 @@ def test_cpu_route_launches_no_kernel():
     assert fused_lstm.launches == before
     assert recurrence.launches == rbefore
     assert "_k1_proj_packed" not in layer.__dict__
+    assert "_k1_rec_packed" not in layer.__dict__

@@ -101,10 +101,14 @@ ODD_LAYERS = {
 
 
 def k1_plan(H, B, device):
-    """K1's recurrence plan on this card: K2's float32 recurrence_plan."""
-    return recurrence.recurrence_plan(0, B, H, lambda C, rows: (
-        recurrence.cluster_capacity(device.index or 0, 0, H, C, rows,
-                                    torch.float32)), torch.float32)
+    """K1's recurrence plan on this card: k1_rec_plan's (kind, plan)."""
+    return recurrence.k1_rec_plan_on(device, B, H)
+
+
+# the counter of each kernel of K1's float32 recurrence, by k1_plan's kind
+K1_REC_COUNTERS = {"wgmma": "fused_bilstm_rec_f32_wgmma",
+                   "cluster": "fused_bilstm_rec_f32",
+                   "stream": "fused_bilstm_rec_f32_stream"}
 
 
 # K1's float32 routes and its bf16 kernels, called directly
@@ -131,10 +135,8 @@ def expected_k1_launches(F, H, B, dtype, device, f32_route=None):
     if f32_route in ("narrow", "inloop"):
         want[f"fused_bilstm_f32_{f32_route}"] = 1
         return want
-    plan = k1_plan(H, B, device)
     want["fused_bilstm_proj_f32"] = 1
-    want["fused_bilstm_rec_f32" if plan else
-         "fused_bilstm_rec_f32_stream"] = 1
+    want[K1_REC_COUNTERS[k1_plan(H, B, device)[0]]] = 1
     return want
 
 
@@ -262,31 +264,115 @@ def test_projection_kernel_matches_plain(device, layer, B):
 @pytest.mark.parametrize("B", [4096, 1016])
 @pytest.mark.parametrize("H", [128, 256])
 def test_k1_plan_covers_the_rows_on_this_card(device, H, B):
-    """K1's plan at call_mods' tiles: a cluster plan of the float32
-    kernel whose shared memory fits a block, on which K1's recurrence
-    (both output orders) and K2 agree with the plain version and with
-    each other."""
-    plan = k1_plan(H, B, device)
-    assert plan is not None and plan[0] == H // 32
-    assert recurrence.recurrence_smem(0, H, plan[1], torch.float32) <= \
-        232_448
+    """K1's plan at call_mods' tiles: K1's wgmma recurrence at 4,096 rows,
+    whose shared memory fits a block, and which agrees with the plain
+    version in both output orders; the float32 cluster kernel at the
+    1,016-row tail. On the cluster kernel (force_k1_rec) K1's
+    recurrence stores K2's bits in K1's order; K2 (the training path)
+    runs the cluster kernel and counts in its own counters."""
+    kind, plan = k1_plan(H, B, device)
+    assert kind == ("wgmma" if B == 4096 else "cluster")
+    if kind == "wgmma":
+        assert recurrence.k1w_smem(H, plan[1]) <= 232_448
+    else:
+        assert plan[0] == H // 32 and recurrence.recurrence_smem(
+            0, H, plan[1], torch.float32) <= 232_448
     xproj, w_hh, _ = recurrence_inputs(H, B, torch.float32, device)
     before = dict(fused_lstm.launches)
     rbefore = dict(recurrence.launches)
     ys = recurrence.lstm_recurrence(xproj, w_hh, H)
+    want = plain.lstm_recurrence(xproj, w_hh, H)
+    for g, w in zip(plain.k1_outputs(ys, True), plain.k1_outputs(want, True)):
+        assert_close("ys", g, w, REC_TOL[torch.float32])
     for seq_out in (True, False):
         got = recurrence.lstm_recurrence_k1(xproj, w_hh, H, seq_out,
                                             fused_lstm.launches)
+        with recurrence.force_k1_rec("cluster"):
+            on_cluster = recurrence.lstm_recurrence_k1(
+                xproj, w_hh, H, seq_out, fused_lstm.launches)
         torch.cuda.synchronize()
-        for g, want in zip(got, plain.k1_outputs(ys, seq_out)):
-            assert torch.equal(g, want)
-    want = plain.k1_outputs(plain.lstm_recurrence(xproj, w_hh, H), True)
-    for g, w in zip(plain.k1_outputs(ys, True), want):
-        assert_close("ys", g, w, REC_TOL[torch.float32])
-    assert fused_lstm.launches["fused_bilstm_rec_f32"] == \
-        before["fused_bilstm_rec_f32"] + 2
+        for g, c, k2, w in zip(got, on_cluster, plain.k1_outputs(ys, seq_out),
+                               plain.k1_outputs(want, seq_out)):
+            assert torch.equal(c, k2)
+            assert_close("ys", g, w, REC_TOL[torch.float32])
+    moved = {k: v - before[k] for k, v in fused_lstm.launches.items()}
+    assert moved == {k: 2 * (k == K1_REC_COUNTERS[kind]) +
+                     2 * (k == "fused_bilstm_rec_f32") for k in moved}
     assert {k: v - rbefore[k] for k, v in recurrence.launches.items()} == \
         {k: int(k == "lstm_recurrence_fwd_f32") for k in rbefore}
+
+
+@pytest.mark.parametrize("seq_out", [True, False])
+@pytest.mark.parametrize("B", [4096, 1016, 37])
+@pytest.mark.parametrize("H", [128, 256])
+def test_k1_wgmma_recurrence_matches_plain(device, monkeypatch, H, B,
+                                           seq_out):
+    """K1's wgmma recurrence (force_k1_rec("wgmma")) against the plain
+    recurrence (ops/lstm.py) in K1's output order, within the float32
+    route's tolerance, in clusters of 1, 2 and 4 blocks (the same bits:
+    each block's sums do not depend on its cluster), over W_hh packed
+    once or in the call (the same bits); each launch moves its own
+    counter alone."""
+    xproj, w_hh, _ = recurrence_inputs(H, B, torch.float32, device,
+                                       seed=H + B)
+    want = plain.k1_outputs(plain.lstm_recurrence(xproj, w_hh, H), seq_out)
+    packed = fused_lstm.pack_rec_weights(w_hh)
+    outs = []
+    for C in (1, 2, 4):
+        if C > -(-B // 64):
+            continue
+        monkeypatch.setattr(recurrence, "K1W_CLUSTERS", (C,))
+        before = dict(fused_lstm.launches)
+        with recurrence.force_k1_rec("wgmma"):
+            assert recurrence.k1_rec_plan_on(device, B, H)[1][0] == C
+            outs.append(recurrence.lstm_recurrence_k1(
+                xproj, w_hh, H, seq_out, fused_lstm.launches,
+                packed if C > 1 else None))
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in fused_lstm.launches.items()}
+        assert moved == {k: int(k == "fused_bilstm_rec_f32_wgmma")
+                         for k in moved}
+        for g, w in zip(outs[-1], want):
+            assert g.shape == w.shape == ((T if seq_out else 1), B, H)
+            assert_close("ys", g, w, REC_TOL[torch.float32])
+    for other in outs[1:]:
+        for g, o in zip(outs[0], other):
+            assert torch.equal(g, o)
+
+
+def test_f32_forward_tile_takes_the_wgmma_recurrence(device):
+    """A 4096-row float32 forward of the published both_bilstm (seeded
+    weights) through the fused path: its three comb layers' recurrences
+    on K1's wgmma recurrence (its counter 3, the cluster kernel's 0), the
+    branches on the narrow kernel, and the probabilities within 1e-5 of
+    the same forward with the recurrence on the cluster kernel."""
+    from deepsignal_plant_tpu_torch.config import ModelConfig
+    from deepsignal_plant_tpu_torch.models.bilstm import (
+        Batch, ModelBiLSTM, init_params)
+    cfg = ModelConfig(compute_dtype="float32", recurrence="kernel")
+    model = ModelBiLSTM.from_params(init_params(cfg, 5), cfg, device)
+    rng = np.random.default_rng(5)
+    B, L = 4096, cfg.seq_len
+    batch = Batch(
+        torch.tensor(rng.integers(0, 4, (B, L)), device=device),
+        *(torch.tensor(rng.normal(size=(B, L)), dtype=torch.float32,
+                       device=device) for _ in range(2)),
+        torch.tensor(rng.integers(1, 30, (B, L)), dtype=torch.float32,
+                     device=device),
+        torch.tensor(rng.normal(size=(B, L, cfg.signal_len)),
+                     dtype=torch.float32, device=device))
+    before = dict(fused_lstm.launches)
+    with torch.no_grad():
+        _, probs = model(batch)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in fused_lstm.launches.items()}
+        with recurrence.force_k1_rec("cluster"):
+            _, on_cluster = model(batch)
+    assert moved["fused_bilstm_rec_f32_wgmma"] == 3
+    assert moved["fused_bilstm_rec_f32"] == 0
+    assert moved["fused_bilstm_f32_narrow"] == 2
+    assert moved["fused_bilstm_proj_f32"] == 3
+    assert (probs - on_cluster).abs().max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("B", [1016, 1, 37])
