@@ -8,10 +8,11 @@ on the chip (``run.py`` never plants anything; this does):
 For each seed a run of the cell as ``run.py`` makes it (set-up, a short
 window at the cell's own size, the comparison), with no limit applied:
 - ``--seeds``: the program as it stands (the lower reading: the largest
-  ``max_dp1`` of sound runs);
+  gap of sound runs);
 - ``--control-seeds``: the plain reference in the workload's ``control``
   precision put in the program's place (the upper reading: the smallest);
-- ``--fault-seeds``: each of lib/faults.py's faults in turn.
+- ``--fault-seeds``: each of lib/faults.py's faults in turn, then the
+  faults that the cell's traffic kind exports as ``FAULTS``.
 One JSON line a run, then a summary line.
 """
 import time
@@ -49,12 +50,12 @@ def main(argv=None) -> int:
     import torch
 
     from portbench import harness
-    from portbench.lib import faults, spec
+    from portbench.lib import check, faults, spec
 
     cell = spec.load_cell(args.workload)
+    # every gap read, whichever the cell limits
     cell.workload = {**cell.workload,
-                     "limits": {**cell.workload["limits"],
-                                "max_dp1": math.inf}}
+                     "limits": {g: math.inf for g in check.GAPS}}
     dev = torch.device("cuda", 0) if torch.cuda.is_available() else \
         torch.device("cpu")
     plans = [("program", s, contextlib.nullcontext)
@@ -62,10 +63,13 @@ def main(argv=None) -> int:
     plans += [("control", s, lambda s=s: faults.control(
         cell.config, s, dev, cell.workload["control"]))
         for s in _seeds(args.control_seeds)]
+    inputs = getattr(spec.load_module("traffic", cell.traffic["kind"]),
+                     "FAULTS", {})
     for s in _seeds(args.fault_seeds):
         plans += [("half_batch", s, faults.half_batch),
                   ("altered_answer", s, faults.altered_answer),
                   ("dropped_rows", s, faults.dropped_rows)]
+        plans += [(name, s, plant) for name, plant in inputs.items()]
     readings: dict[str, list] = {}
     for kind, seed, plant in plans:
         t0 = time.time()
@@ -75,14 +79,19 @@ def main(argv=None) -> int:
                 **{k: c["value"] for k, c in run.checks.items()},
                 "compared": run.record["rows_compared"],
                 "passes": run.record["passes"],
-                "sites_per_s": run.metrics["sites_per_s"]["value"],
+                "sites_per_s": run.record["sites"]
+                / run.record["window_s"],
                 "setup_s": run.metrics["setup_s"]["value"],
                 "device": run.device["kind"]}
         print(json.dumps(line), flush=True)
-        readings.setdefault(kind, []).append(run.checks["max_dp1"]["value"])
-    summary = {"workload": cell.name, "lower": max(readings.get(
-        "program", [math.nan])), "upper": min(readings.get(
-            "control", [math.nan])), "readings": readings}
+        for g in check.GAPS:
+            readings.setdefault(g, {}).setdefault(kind, []).append(
+                run.checks[g]["value"])
+    harness.stop_resource_tracker()
+    summary = {"workload": cell.name, **{g: {
+        "lower": max(r.get("program", [math.nan])),
+        "upper": min(r.get("control", [math.nan])), "readings": r}
+        for g, r in readings.items()}}
     print(json.dumps(summary), flush=True)
     return 0
 

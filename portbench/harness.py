@@ -72,10 +72,19 @@ def _settle(*paths: str) -> None:
                 os.close(fd)
 
 
-def cpu_seconds() -> float:
-    """The process's CPU seconds (its threads', not its children's)."""
+def cpu_seconds() -> tuple[float, float]:
+    """The process's CPU seconds (its threads') and those of the child
+    processes it has waited for."""
     t = os.times()
-    return t.user + t.system
+    return t.user + t.system, t.children_user + t.children_system
+
+
+def stop_resource_tracker() -> None:
+    """Stop, and wait for, the process that multiprocessing starts beside
+    a program's spawned worker pool (the fast5 path's) to track its
+    semaphores: left to notice this process's exit, it outlives it."""
+    from multiprocessing import resource_tracker
+    resource_tracker._resource_tracker._stop()     # a no-op when not running
 
 
 def device_info(device: torch.device) -> dict:
@@ -138,7 +147,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                     if time.perf_counter() - w0 >= seconds:
                         break
                 window_s = time.perf_counter() - w0
-                cpu_per_s = (cpu_seconds() - c0) / window_s
+                c1 = cpu_seconds()
         dev = device_info(device)
         if device.type == "cuda":
             dev["memory_peak_bytes"] = int(
@@ -150,6 +159,10 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         passes = rows.close()
         rows = None
         dtype = entry.compute_dtype
+        summed = _sum_stats(stats)
+        # the entry's own checks of the window (a fast5 entry's files that
+        # the program failed to read), each with its limit
+        own = entry.checks(summed) if hasattr(entry, "checks") else {}
         entry.close()
         entry = None
         gc.collect()
@@ -157,12 +170,13 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
             torch.cuda.empty_cache()
 
         s = inp.sample
-        ref_p1 = reference.probs_in_blocks(sd, cfg, *(
+        logits, probs = reference.forward_in_blocks(sd, cfg, *(
             torch.from_numpy(a).to(device) for a in (
-                s.kmer, s.means, s.stds, s.lens, s.signals)))[:, 1]
-        checks = check.compare(passes, inp.sites, s,
-                               ref_p1.double().cpu().numpy(),
-                               float(wl["limits"]["max_dp1"]))
+                s.kmer, s.means, s.stds, s.lens, s.signals)))
+        logits, probs = (t.double().cpu().numpy() for t in (logits, probs))
+        checks = check.compare(passes, inp.sites, s, probs[:, 1],
+                               logits[:, 1] - logits[:, 0], wl["limits"])
+        checks.numbers.update(own)
         sites = sum(st["sites"] for st in stats)
         record = {
             "cell": cell.name, "config": cfg, "dtype": dtype,
@@ -170,12 +184,12 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool,
             "peak_bytes": peaks.PEAK_BYTES,
             "itemsize": peaks.ITEMSIZE[dtype],
             "setup_s": setup_s, "window_s": window_s, "sites": sites,
-            "passes": len(stats), "stats": _sum_stats(stats),
+            "passes": len(stats), "stats": summed,
             "trace": reduced, "device_busy_s": busy_s,
             "input_bytes": inp.bytes_written,
             "rows_compared": checks.compared, "setup_marks": marks,
             "pass_seconds": [st["seconds"] for st in stats],
-            "cpu_per_s": cpu_per_s}
+            "cpu_s": c1[0] - c0[0], "children_cpu_s": c1[1] - c0[1]}
         metrics = {}
         for m in (cell.per_layer if trace else cell.end_to_end):
             v = spec.load_module("metrics", m["name"]).read(record)

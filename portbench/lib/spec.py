@@ -1,5 +1,6 @@
 """Finding a cell's parts by name: ``BENCHMARK.json`` at the checkout's
-root, and the data files and modules under ``portbench/``."""
+root, ``portbench/held_back.json`` for the cells it leaves out, and the
+data files and modules under ``portbench/``."""
 from __future__ import annotations
 
 import importlib.util
@@ -45,13 +46,18 @@ def _applies(metric: dict, cell: str) -> bool:
 
 
 def load_cell(name: str, bench_path: str | None = None) -> Cell:
-    """The cell ``name`` of BENCHMARK.json with its files."""
-    bench = read_json(bench_path or os.path.join(ROOT, "BENCHMARK.json"))
-    cells = {w["name"]: w for w in bench["workloads"]}
-    if name not in cells:
-        raise KeyError(f"no workload {name!r} in BENCHMARK.json "
-                       f"(have {sorted(cells)})")
-    return cell_of(cells[name], bench)
+    """The cell ``name`` of BENCHMARK.json, or else of held_back.json,
+    with its files and the metrics of the file that names it."""
+    have = []
+    for bench in (read_json(bench_path
+                            or os.path.join(ROOT, "BENCHMARK.json")),
+                  read_json(BENCH_DIR, "held_back.json")):
+        cells = {w["name"]: w for w in bench["workloads"]}
+        if name in cells:
+            return cell_of(cells[name], bench)
+        have += sorted(cells)
+    raise KeyError(f"no workload {name!r} in BENCHMARK.json or "
+                   f"held_back.json (have {have})")
 
 
 def cell_of(w: dict, bench: dict) -> Cell:

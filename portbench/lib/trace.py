@@ -22,10 +22,12 @@ import numpy as np
 WINDOW = "portbench.window"
 PASS = "portbench.pass"
 OUTPUT_WAIT = "portbench.output_wait"
-#: main-thread spans that say what the host was doing; parse spans run in
-#: the parser threads and are not named here
-STAGES = ("upload", "forward", "readback", "emit", OUTPUT_WAIT)
-IN_PASS = "batching or parse wait (no stage span)"
+#: main-thread spans that say what the host was doing (the engine's,
+#: utils/prof.py, and the benchmark's); parse spans run in the parser
+#: threads and are not named here
+STAGES = ("parse_wait", "batch", "upload", "forward", "readback", "emit",
+          "drain", OUTPUT_WAIT)
+IN_PASS = "in a pass, no stage span"
 BETWEEN = "between passes"
 TOP = 10
 

@@ -131,10 +131,18 @@ def forward(sd: dict, cfg: dict, kmer, means, stds, lens, signals,
     return logits, torch.softmax(logits, dim=1)
 
 
+def forward_in_blocks(sd: dict, cfg: dict, kmer, means, stds, lens,
+                      signals, precision: str = "float32",
+                      block: int = 8192):
+    """``forward``'s (logits, probs), ``block`` sites at a time."""
+    out = [forward(sd, cfg, *(a[lo:lo + block] for a in (
+        kmer, means, stds, lens, signals)), precision=precision)
+        for lo in range(0, kmer.shape[0], block)]
+    return tuple(torch.cat(parts) for parts in zip(*out))
+
+
 def probs_in_blocks(sd: dict, cfg: dict, kmer, means, stds, lens, signals,
                     precision: str = "float32", block: int = 8192):
     """``forward``'s probabilities, ``block`` sites at a time."""
-    out = [forward(sd, cfg, *(a[lo:lo + block] for a in (
-        kmer, means, stds, lens, signals)), precision=precision)[1]
-        for lo in range(0, kmer.shape[0], block)]
-    return torch.cat(out)
+    return forward_in_blocks(sd, cfg, kmer, means, stds, lens, signals,
+                             precision, block)[1]

@@ -62,6 +62,7 @@ def main(argv=None) -> int:
         return 2
     run = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace),
                            torch.device("cuda", 0), T0)
+    harness.stop_resource_tracker()
     found = banned_modules()
     if found:
         print(f"portbench: the run loaded {', '.join(found)}; no result",
@@ -80,10 +81,10 @@ def main(argv=None) -> int:
               [round(s, 4) for s in rec["pass_seconds"]],
               {k: round(v, 3) for k, v in rec["setup_marks"].items()},
               rec["input_bytes"], time.time() - T0), file=sys.stderr)
-    print("portbench: the window's CPU seconds a second {:.4f}; the main "
-          "thread's seconds a pass waiting for input {:.4f}, emitting "
-          "rows {:.4f}".format(
-              rec["cpu_per_s"],
+    print("portbench: the window's CPU seconds a second {:.4f}, the "
+          "children's it reaped {:.3f}; the main thread's seconds a pass "
+          "waiting for input {:.4f}, emitting rows {:.4f}".format(
+              rec["cpu_s"] / rec["window_s"], rec["children_cpu_s"],
               rec["stats"].get("parse_wait_seconds", 0.0)
               / max(rec["passes"], 1),
               rec["stats"].get("format_seconds", 0.0)

@@ -13,20 +13,13 @@ import pytest
 import torch
 
 from portbench import harness
-from portbench.lib import faults, spec
+from portbench.lib import check, faults, spec
 
+#: BENCHMARK.json's cells, and those held_back.json keeps out of it (their
+#: host-bound rates spread too widely for a bound; PERF.md)
 CELLS = ["f32.call_tsv_allc", "f32.call_npz_resident_allc",
-         "bf16.call_npz_resident_allc"]
-#: kept out of BENCHMARK.json (its host-bound rate spreads too widely for
-#: a bound; PERF.md), its files kept for the cell a later change adds
-TSV = {"name": "f32.call_tsv_allc", "config": "dp2_bilstm_b13s16_f32",
-       "traffic": "allc_tsv_262k", "chips": 1}
-
-
-def load(name):
-    if name == TSV["name"]:
-        return spec.cell_of(TSV, spec.read_json(spec.ROOT, "BENCHMARK.json"))
-    return spec.load_cell(name)
+         "bf16.call_npz_resident_allc", "bf16.call_fast5_allc"]
+load = spec.load_cell
 SMALL = {"sites": 600, "reads_per_file": 1}
 FAULTS = {"none": contextlib.nullcontext,
           "half_batch": faults.half_batch,
@@ -56,7 +49,8 @@ def test_the_control_is_not_correct(tmp_path, name):
                         cell.workload["control"]):
         run = _run(cell, 43, tmp_path)
     assert not run.correct, run.checks
-    assert run.checks["max_dp1"]["value"] > run.checks["max_dp1"]["limit"]
+    assert any(run.checks[g]["value"] > run.checks[g]["limit"]
+               for g in check.GAPS if g in run.checks)
 
 
 @pytest.mark.cuda

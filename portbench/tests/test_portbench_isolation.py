@@ -38,11 +38,9 @@ def test_a_run_loads_neither_jax_nor_the_jax_package(tmp_path):
 import time, torch
 from portbench import harness
 from portbench.lib import spec
-bench = spec.read_json(spec.ROOT, "BENCHMARK.json")
-tsv = {{"name": "f32.call_tsv_allc", "config": "dp2_bilstm_b13s16_f32",
-       "traffic": "allc_tsv_262k", "chips": 1}}
-for cell in (spec.cell_of(tsv, bench),
-             spec.load_cell("bf16.call_npz_resident_allc")):
+for cell in (spec.load_cell("f32.call_tsv_allc"),
+             spec.load_cell("bf16.call_npz_resident_allc"),
+             spec.load_cell("bf16.call_fast5_allc")):
     run = harness.run_cell(cell, 3, 0.01, False, torch.device("cpu"),
                            time.time(), sizes={{"sites": 300,
                                                 "reads_per_file": 1}},
@@ -61,8 +59,16 @@ for kind in ("metrics", "entries", "traffic"):
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    loaded = _loaded_after("import portbench.reference.bilstm")
+    """Neither reference, nor a traffic kind with the writers it uses."""
+    loaded = _loaded_after(
+        "import os\n"
+        "import portbench.reference.bilstm, portbench.reference.extract\n"
+        "from portbench.lib import spec\n"
+        "for f in os.listdir(os.path.join(spec.BENCH_DIR, 'traffic')):\n"
+        "    if f.endswith('.py'):\n"
+        "        spec.load_module('traffic', f[:-3])")
     assert "deepsignal_plant_tpu_torch" not in loaded
+    assert "tests" not in loaded
     assert not loaded & BANNED
 
 
@@ -106,6 +112,26 @@ def test_benchmark_json_has_the_contracts_shape():
     for m in metrics:
         assert NAME.match(m["name"]) and m["better"] in ("lower", "higher")
         assert re.match(r"^[A-Za-z0-9_/%.-]{1,16}$", m["unit"])
+        assert os.path.isfile(os.path.join(spec.BENCH_DIR, "metrics",
+                                           m["name"] + ".py"))
+
+
+def test_held_back_cells_are_whole_and_out_of_the_benchmark():
+    bench = spec.read_json(spec.ROOT, "BENCHMARK.json")
+    held = spec.read_json(spec.BENCH_DIR, "held_back.json")
+    assert held["workloads"]
+    assert not ({w["name"] for w in held["workloads"]}
+                & {w["name"] for w in bench["workloads"]})
+    for w in held["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"}
+        assert NAME.match(w["name"]) and len(w["why"]) <= 200
+        cell = spec.load_cell(w["name"])     # every file it names is there
+        assert "setup_s" in {m["name"] for m in cell.end_to_end}
+        assert len(cell.end_to_end) >= 2 and cell.per_layer, w["name"]
+    e2e = {m["name"] for m in held["end_to_end"]}
+    assert all(m["moves"] in e2e for m in held["per_layer"])
+    for m in held["end_to_end"] + held["per_layer"]:
+        assert "bound" not in m
         assert os.path.isfile(os.path.join(spec.BENCH_DIR, "metrics",
                                            m["name"] + ".py"))
 
