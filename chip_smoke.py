@@ -36,7 +36,10 @@ run.
    call computing the same function or more (a yardstick the port never
    calls) and its bound: K1 per 4096-row forward tile and per tail tile
    (bfloat16: the wgmma and the mma.sync kernels in turns at every layer,
-   two pairs each, beside the L2 bytes of weights each design reads;
+   two pairs each, beside the L2 bytes of weights each design reads; (3d)
+   where build/parent holds the parent commit's tree (``git archive``),
+   each bfloat16 layer at 4096 and 1,016 rows of that tree and of this one
+   in turns, parent, this, this, parent, each a fresh process;
    float32: its routes in turns at every layer, three rounds each (the
    narrow, in-loop and split routes at the branches; split and in-loop
    at the comb layers), the narrow layers also at train's 512- and
@@ -964,6 +967,72 @@ def time_narrow_extra(torch, fused_lstm, plain) -> list:
     return rows
 
 
+# the packer of each packing packed_for names
+K1_BF16_PACKERS = {"wgmma": "pack_weights_wgmma", "mma": "pack_weights",
+                   "resident": "pack_weights_resident"}
+
+
+def k1_bf16_packed(fused_lstm, F, H, B, w_ih, w_hh):
+    """The weights packed for the bfloat16 kernel and design the layer
+    takes (packed_for), as a model caches them."""
+    kind = fused_lstm.packed_for(F, H, B)
+    return getattr(fused_lstm, K1_BF16_PACKERS[kind])(w_ih, w_hh)
+
+
+def k1_bf16_layer_times(tree: str) -> dict:
+    """``--k1-bf16-times <tree>``: device ms (graph replays) of each main-path
+    bfloat16 layer at TILE and TAIL rows through bilstm_layer_fused of the
+    package in checkout ``tree`` (its own kernels, built under its
+    build/), over weights packed beforehand: the same timing for this
+    tree and another (the parent's), each in a fresh process."""
+    import torch
+    sys.path.insert(0, os.path.abspath(tree))
+    from deepsignal_plant_tpu_torch.ops import fused_lstm
+    out = {}
+    for name, (Fa, Fb, H, seq_out) in MAIN_PATH_LAYERS.items():
+        xs, w_ih, b, w_hh = layer_inputs(torch, Fa, Fb, H, TILE,
+                                         torch.bfloat16)
+        for B in (TILE, TAIL):
+            x = tuple(v[:, :B].contiguous() for v in xs)
+            packed = k1_bf16_packed(fused_lstm, Fa + Fb, H, B, w_ih, w_hh)
+            out[f"{name} {B}"] = graph_ms(
+                torch, lambda: fused_lstm.bilstm_layer_fused(
+                    x, w_ih, b, w_hh, H, seq_out, packed=packed), reps=10)
+    return out
+
+
+def time_k1_bf16_ab(parent: str) -> dict:
+    """Phase 3d: the bfloat16 layers of this tree and of ``parent`` (an
+    unpacked ``git archive`` of the parent commit; skipped where it is
+    missing) in turns, parent, this, this, parent, each a fresh process
+    of k1_bf16_layer_times; per tree the mean of its two runs a layer and
+    the sums over a TILE-row and a TAIL-row tile."""
+    if not os.path.isdir(os.path.join(parent, "deepsignal_plant_tpu_torch")):
+        log(f"phase 3d: no parent tree at {parent}: skipped")
+        return {}
+    runs = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--k1-bf16-times",
+             parent if who == "parent" else REPO], capture_output=True,
+            text=True, timeout=1200)
+        if proc.returncode:
+            fail(f"phase 3d, {who}'s K1 bf16 times failed:\n"
+                 + proc.stdout[-2000:] + proc.stderr[-4000:])
+        runs[who].append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    out = {}
+    for who, rs in runs.items():
+        layers = {k: statistics.mean(r[k] for r in rs) for k in rs[0]}
+        out[who] = {"layers_ms": layers, "runs": rs,
+                    **{f"tile_{B}_ms": sum(v for k, v in layers.items()
+                                           if k.endswith(f" {B}"))
+                       for B in (TILE, TAIL)}}
+    log("phase 3d, K1 bf16 layers, parent vs this tree in turns: "
+        + json.dumps({who: {k: v for k, v in o.items() if k != "runs"}
+                      for who, o in out.items()}))
+    return out
+
+
 def time_k1_bf16(torch, fused_lstm, Fa, Fb, H, seq_out, xs, w_ih, b, w_hh):
     """Phase 3, K1 at bfloat16, one main-path layer at B=4096 and at the
     TAIL rows: the wgmma kernel (the route bilstm_layer_fused takes, on
@@ -974,13 +1043,14 @@ def time_k1_bf16(torch, fused_lstm, Fa, Fb, H, seq_out, xs, w_ih, b, w_hh):
     reads (fused_lstm.weight_l2_bytes: by design, not measured) go to the
     log beside them, not into the result."""
     out = {}
-    packed = {"wgmma": fused_lstm.pack_weights_wgmma(w_ih, w_hh),
-              "mma": fused_lstm.pack_weights(w_ih, w_hh)}
     layer = {"wgmma": fused_lstm.bilstm_layer_fused,
              "mma": fused_lstm.layer_bf16_mma}
     for B in (TILE, TAIL):
         x = tuple(v[:, :B].contiguous() for v in xs)
         pre = "" if B == TILE else "tail_"
+        packed = {"wgmma": k1_bf16_packed(fused_lstm, Fa + Fb, H, B, w_ih,
+                                          w_hh),
+                  "mma": fused_lstm.pack_weights(w_ih, w_hh)}
 
         def call(k):
             return lambda: layer[k](x, w_ih, b, w_hh, H, seq_out,
@@ -991,7 +1061,7 @@ def time_k1_bf16(torch, fused_lstm, Fa, Fb, H, seq_out, xs, w_ih, b, w_hh):
             for k in ("mma", "wgmma", "wgmma", "mma"):
                 runs[k].append(graph_ms(torch, call(k), reps=10))
         plan = fused_lstm.k1_bf16_plan(Fa + Fb, H, B)
-        row = {"plan": dict(zip(("cluster", "stages", "x_buffers"), plan)),
+        row = {"plan": dict(zip(("kind", "stages", "x_buffers"), plan)),
                "device_ms_runs": runs["wgmma"],
                "mma_device_ms_runs": runs["mma"],
                "device_ms": statistics.mean(runs["wgmma"]),
@@ -4376,6 +4446,7 @@ def main() -> int:
 
     # phase 3: timing
     timings = time_kernel(torch, fused_lstm, recurrence, plain)
+    k1_ab = time_k1_bf16_ab(os.path.join(REPO, "build", "parent"))
     narrow_extra = time_narrow_extra(torch, fused_lstm, plain)
     forward = time_forward(torch, ModelConfig, ModelBiLSTM, Batch,
                            init_params)
@@ -4501,6 +4572,9 @@ def main() -> int:
                 f"{fx}_{k}_replicas": res[k]["k1_bf16_launches"]
                 for fx, res in phase10["fixtures"].items() for k in (1, 2)},
                 "per_launch": rows, "model_forward": forward,
+                "parent_in_turns": {who: {k: v for k, v in o.items()
+                                          if k != "runs"}
+                                    for who, o in k1_ab.items()},
                 "main_path": run} if name == K1_BF16 else {})})
     # K1's float32 kernels, launches from the float32 call_mods run; the
     # whole float32 layer route per tile rides on the projection's entry
@@ -4588,4 +4662,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--nccl-worker"]:
         sys.exit(nccl_worker(sys.argv[2:]))
+    if sys.argv[1:2] == ["--k1-bf16-times"]:
+        print(json.dumps(k1_bf16_layer_times(sys.argv[2])))
+        sys.exit(0)
     sys.exit(main())

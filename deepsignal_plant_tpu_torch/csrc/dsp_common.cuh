@@ -123,6 +123,15 @@ __device__ __forceinline__ uint64_t gmma_desc(const void* smem) {
          (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;   // 128B swizzle
 }
 
+// the same for a K-major tile of 64-byte rows in the 64-byte swizzle (the
+// 16-byte chunk c of row r at chunk c ^ ((r >> 1) & 3); 8-row atoms of
+// 512 bytes, the SBO)
+__device__ __forceinline__ uint64_t gmma_desc64(const void* smem) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return (uint64_t)((a >> 4) & 0x3FFF) | (uint64_t)1 << 16 |
+         (uint64_t)(512 >> 4) << 32 | (uint64_t)2 << 62;   // 64B swizzle
+}
+
 // d (64 x 128 f32 in the m64n128 accumulator layout) += a (64 x 8) @ b
 // (8 x 128), a and b tf32 in shared memory (descriptors). Asynchronous:
 // wgmma_commit, then wgmma_wait before d is read or the operands change.
@@ -294,6 +303,12 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
       "mapa.shared::cluster.u32 ra, %0, %1;\n"
       "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n"
       :: "r"(bar), "r"(rank) : "memory");
+}
+
+// arrive on this block's barrier
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
 }
 
 // TMA bulk copy global -> this block's shared memory, or (mask) to the

@@ -44,10 +44,11 @@
 //
 // bfloat16 (the main path), two kernels over weights packed once per
 //   model (ops/fused_lstm.py::k1_bf16_plan picks):
-// - the wgmma kernel (below): 64-row blocks, the weights streamed by TMA
-//   bulk copies into a ring of shared-memory stages (multicast to a
-//   cluster), products on wgmma, wherever it fits (H <= 256 and its
-//   shared memory);
+// - the wgmma kernel (below): 64-row blocks, products on wgmma, the
+//   weights resident in shared memory for the launch (inputs of at most
+//   32 features at H <= 128: the branches) or streamed by TMA bulk copies
+//   into a ring of tiles for each consumer warpgroup, wherever it fits
+//   (H <= 256 and its shared memory);
 // - the mma.sync kernel (below): 32-row blocks that re-read their
 //   direction's packed weights from L2 at every step; it takes the
 //   shapes the wgmma kernel does not fit.
@@ -994,73 +995,95 @@ cudaError_t launch_bf16(const bf16* xa, const bf16* xb, const bf16* wt,
 // The mma.sync kernel streams its weights through 16-byte loads: every
 // 32-row block re-reads its direction's packed [W_ih; W_hh] from L2 at
 // every step, ~14 GB of L2 reads a 4096-row tile at the comb layers. This
-// kernel copies each weight tile by TMA once per cluster into shared
-// memory and feeds it to wgmma for 64 * C rows:
+// kernel feeds wgmma from shared memory, in one of two designs (the
+// template's KIND), each a block of 64 rows (one wgmma M tile) of one
+// direction for all T steps, grid (ceil(B / 64), 2), 384 threads: two
+// consumer warpgroups (warps 0-7) that split the units, and a producer
+// warpgroup (warps 8-11) that moves the weights and gives its registers
+// to the consumers (setmaxnreg).
 //
-// - A block owns 64 rows (one wgmma M tile) of one direction for all T
-//   steps; a cluster of C (1 or 2) blocks owns neighbouring row tiles
-//   of the same direction. Grid (round_up(ceil(B / 64), C), 2).
-// - The weights are packed once per model (ops/fused_lstm.py::
-//   pack_weights_wgmma) in the order the kernel streams them, each tile
-//   already in the 128-byte swizzled shared-memory image wgmma reads: per
-//   direction, per chunk cc and K slab (the h slabs first, then x's), one
-//   stage of two 128 x 64 tiles (one per consumer warpgroup), 32 KB
-//   contiguous. A step streams every stage once, and every step streams
-//   the same stages.
-// - One producer warp (warp 8; one thread works) keeps a ring of S (2-4)
-//   stages full: block 0 of the cluster copies each stage with one TMA
-//   bulk copy (cp.async.bulk), multicast to every block of the cluster,
-//   which completes on each block's `full` mbarrier; every block's
-//   producer sets its own barrier's byte count. A stage is refilled once
-//   all 8 consumer warps of every block of the cluster have released it
-//   (arrivals on every block's `empty` mbarrier, through DSMEM). The
-//   producer runs ahead across step boundaries: the stream does not
-//   depend on h.
-// - Two consumer warpgroups (warps 0-7) run wgmma m64n128k16 (bf16, f32
-//   accumulators) with A = [x_t | h_{t-1}] and B = the stage's tile of the
-//   warpgroup, both in shared memory in the 128-byte swizzle. Warpgroup w
-//   owns units [w * Hp/2, (w + 1) * Hp/2) (Hp = round_up(H, 64)), in NCH =
-//   Hp / 64 chunks of 32 units; the packed columns of a chunk hold the
-//   four gates of 8 units side by side (32 * ug + 8 * gate + unit), so a
-//   thread's accumulator holds i, f, g and o of the same (row, unit)
-//   pairs and the cell update stays in registers (c: 16 f32 a chunk).
-// - h_t goes as bf16 into the other of two h buffers (A's h slabs) and to
-//   ys; after a step, fence.proxy.async and a named barrier of the 256
-//   consumer threads. x is staged by cp.async (zeros past the batch edge
-//   and past F; plain loads for widths that are not a multiple of 8):
-//   with two x buffers (where they fit beside the ring) x_{t+1} goes into
-//   the other during step t; with one, after step t, while chunk 0's h
-//   slabs run, and waited for before its first x slab (a second named
-//   barrier).
+// - Resident (kWgResident: F <= 32, H <= 128: the seq and signal
+//   branches): each block copies its direction's [W_ih; W_hh] (160 KB at
+//   H = 128) into shared memory once, by TMA bulk copies, and keeps it
+//   for all T steps (ops/fused_lstm.py::pack_weights_resident: per
+//   warpgroup and chunk, W_ih's tile, K padded to 32 in the 64-byte
+//   swizzle, then W_hh's slabs of 64 in the 128-byte swizzle). x_{t+1}
+//   is read into registers during step t (one 16-byte load a thread, or
+//   eight 2-byte loads where F is not a multiple of 8, as the seq
+//   branch's 7) and stored into the other of two x buffers; h_t goes into
+//   the other of two h buffers; one named barrier of the consumers ends
+//   a step.
+// - Streamed (kWgStreamed: the comb layers, and denoise's H = 256
+//   layers): the weights are packed once per model
+//   (ops/fused_lstm.py::pack_weights_wgmma) in the order the kernel
+//   streams them, per chunk cc and K slab (the h slabs first, then x's),
+//   one 128 x 64 tile a warpgroup (16 KB), the 128-byte swizzled image
+//   wgmma reads. Each warpgroup has a ring of S (2 or 3) such tiles, kept
+//   full by its own producer thread (warp 8 lane 0 for warpgroup 0, warp
+//   9 lane 0 for 1) with one TMA bulk copy a tile; its 4 warps release a
+//   tile as soon as its products are done (mbarriers). The stream does
+//   not depend on h, so the producers run ahead across steps. No
+//   cluster: the copies are not multicast (on the H100, a block alone
+//   took 9.5 us a step of comb1's 1.5 MB at five 32 KB stages, a pair
+//   sharing each copy 14.3 us at any depth). One h buffer: h_t is held
+//   in registers (bf16) until every product of step t has read h_{t-1},
+//   then stored between two named barriers. (Rings of 4-6 tiles, where
+//   they fit, were 1-7% slower than 3 on the H100.) x_{t+1} is staged by
+//   cp.async into a second x buffer
+//   during step t where one fits beside the rings, else into the one
+//   buffer between the two barriers, and awaited before the first x
+//   slab.
 //
-// Shared memory: S stages of 32 KB, one or two x buffers (ceil(F / 64)
-// slabs of 64 x 64 bf16, 8 KB each), two h buffers (NCH slabs each). At
-// comb1 (F = 512, H = 256) 3 stages, one x buffer of 64 KB and 64 KB of h:
-// 224 KB.
+// Both: warpgroup w owns units [w * Hp/2, (w + 1) * Hp/2) (Hp =
+// round_up(H, 64)) in NCH = Hp / 64 chunks of 32 units; a chunk is one
+// m64n128 accumulator (wgmma m64n128k16, bf16 operands, f32 sums) over
+// A = [h_{t-1} | x_t] of the block's rows; the packed columns of a chunk
+// hold the four gates of 8 units side by side (32 * ug + 8 * gate +
+// unit), so a thread's accumulator holds i, f, g and o of the same (row,
+// unit) pairs and the cell update stays in registers (c: 16 f32 a chunk,
+// for all T steps; sigmoid and tanh from __expf and __fdividef, 10 MUFU
+// operations a (row, unit)).
 //
 // What bounds it: a comb layer's products are 2 * 2 * T * B * (F + H) *
-// 4H flops (0.17 ms at the bf16 peak at 4096 rows); its weight stream is
-// T * (F + H) * 4H * 2 bytes a direction and cluster. On the H100 neither
-// binds (PERF.md has the times): the stage loop (a wait on the full
-// barrier, four wgmmas, a wait for the previous stage's, the release)
-// keeps the tensor cores busy only part of the time, the cell updates
-// (10 MUFU operations a (row, unit)) run while they idle, and a step ends
-// with the h exchange.
+// 4H flops (0.17 ms at the bf16 peak at 4096 rows), beside T * 64 * H * 10
+// MUFU operations a block (16 a clock an SM: 5.6 us a step at H = 256).
+// On the H100 (PERF.md) comb1 takes 0.38-0.40 ms at 4,096 rows: the cell
+// updates run after each chunk's products, not under them, and with the
+// stream and the MUFU work taken out the products alone took 0.32 ms.
+// Turns on the tensor cores (one warpgroup's cell update under the
+// other's products, by named barriers), warpgroup 1 starting each step
+// half a chunk after warpgroup 0, and the 64 gates of a chunk computed
+// before its cells were each no faster.
 
+constexpr int kWgStreamed = 0, kWgResident = 1;    // the designs (KIND)
 constexpr int kWgRows = 64;                   // rows of a block
 constexpr int kWgK = 64;                      // K of a slab: 128 bytes
 constexpr int kWgTile = 128 * kWgK * 2;       // one warpgroup's weight tile
-constexpr int kWgStage = 2 * kWgTile;         // a stage: both warpgroups'
+constexpr int kWgTileElems = kWgTile / 2;     // its bf16 elements
 constexpr int kWgSlab = kWgRows * kWgK * 2;   // one A slab (64 x 64 bf16)
 constexpr int kWgConsumers = 256;             // two warpgroups
-constexpr int kWgThreads = kWgConsumers + 32; // and the producer warp
-constexpr int kWgMaxStages = 4;
+constexpr int kWgThreads = kWgConsumers + 128;  // and the producer warpgroup
+constexpr int kWgMaxStages = 3;    // a warpgroup's ring (deeper was slower)
 constexpr int kWgMaxH = 256;
+constexpr int kWgProducerRegs = 40, kWgConsumerRegs = 232;   // setmaxnreg
+static_assert(kWgConsumers * kWgConsumerRegs + 128 * kWgProducerRegs <=
+                  65536, "the register file of an SM");
+// the resident design: x's K padded to 32 (one 64-byte row)
+constexpr int kRsKx = 32;
+constexpr int kRsMaxF = kRsKx;
+constexpr int kRsMaxH = 128;
+constexpr int kRsXTile = 128 * kRsKx * 2;     // a chunk's W_ih tile: 8 KB
+constexpr int kRsXBuf = kWgRows * kRsKx * 2;  // an x buffer: 4 KB
 
 // byte offset of bf16 element (r, k) of a tile of 128-byte rows in the
 // 128-byte swizzle (the 16-byte chunk k / 8 of row r at chunk (k/8) ^ (r%8))
 __device__ __forceinline__ int swz(int r, int k) {
   return r * 128 + ((((k >> 3) ^ r) & 7) << 4) + (k & 7) * 2;
+}
+// the same in a tile of 64-byte rows in the 64-byte swizzle (chunk k / 8
+// of row r at chunk (k/8) ^ ((r/2)%4))
+__device__ __forceinline__ int swz64(int r, int k) {
+  return r * 64 + ((((k >> 3) ^ (r >> 1)) & 3) << 4) + (k & 7) * 2;
 }
 
 // d (64 x 128 f32, the m64n128 accumulator layout) = a (64 x 16) @ b
@@ -1135,8 +1158,392 @@ __device__ __forceinline__ void stage_x_wg(unsigned char* __restrict__ xbuf,
   }
 }
 
-// NCH: chunks of 32 units per warpgroup (Hp = 64 * NCH)
+// The cell update of one chunk: accumulator i holds row warp4*16 + gq +
+// 8 * ((i >> 1) & 1), packed column 8 * (i >> 2) + 2q + (i & 1); column 32
+// * ug + 8 * gate + e' is gate `gate` of unit ub + 8 * ug + e'. h_t, as
+// bf16 pairs, goes to hv[2 * ug + rh] (unit ub + 8 ug + 2q and the next,
+// row warp4*16 + gq + 8 rh) and, where `store`, to row t_out of ys.
+// (Computing all 64 gates first, then the cells, was slower on the H100.)
+__device__ __forceinline__ void wg_cell(const float (&acc)[64],
+                                        float (&c)[16], uint32_t (&hv)[8],
+                                        const float* __restrict__ bd, int ub,
+                                        int H, int warp4, int gq, int q,
+                                        bf16* __restrict__ ys, int B, int b0,
+                                        bool store, int t_out) {
+#pragma unroll
+  for (int ug = 0; ug < 4; ++ug) {
+    const int u0 = ub + ug * 8 + 2 * q;
+    float bg[4][2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        bg[g][e] = u0 + e < H ? __ldg(bd + g * H + u0 + e) : 0.f;
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      bf16 h2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i0 = 16 * ug + 2 * rh + e;
+        const float ig = sigmoid_fast(acc[i0] + bg[0][e]);
+        const float fg = sigmoid_fast(acc[i0 + 4] + bg[1][e]);
+        const float gg = tanh_fast(acc[i0 + 8] + bg[2][e]);
+        const float og = sigmoid_fast(acc[i0 + 12] + bg[3][e]);
+        float& cs = c[4 * ug + 2 * rh + e];
+        cs = fg * cs + ig * gg;
+        h2[e] = __float2bfloat16_rn(og * tanh_fast(cs));
+      }
+      __nv_bfloat162 pair;
+      pair.x = h2[0];
+      pair.y = h2[1];
+      hv[2 * ug + rh] = *reinterpret_cast<uint32_t*>(&pair);
+      const int row = b0 + warp4 * 16 + gq + 8 * rh;
+      if (store && row < B && u0 < H) {
+        bf16* out = ys + ((size_t)t_out * B + row) * H + u0;
+        if (u0 + 1 < H && (H & 1) == 0) {
+          *reinterpret_cast<__nv_bfloat162*>(out) = pair;
+        } else {
+          out[0] = h2[0];
+          if (u0 + 1 < H) out[1] = h2[1];
+        }
+      }
+    }
+  }
+}
+
+// a chunk's h (wg_cell's hv) into an h buffer (slabs of 64 units)
+__device__ __forceinline__ void wg_store_h(unsigned char* hbuf,
+                                           const uint32_t (&hv)[8], int ub,
+                                           int warp4, int gq, int q) {
+#pragma unroll
+  for (int ug = 0; ug < 4; ++ug) {
+    const int u0 = ub + ug * 8 + 2 * q;
+#pragma unroll
+    for (int rh = 0; rh < 2; ++rh) {
+      const int r = warp4 * 16 + gq + 8 * rh;
+      *reinterpret_cast<uint32_t*>(hbuf + (u0 >> 6) * kWgSlab +
+                                   swz(r, u0 & 63)) = hv[2 * ug + rh];
+    }
+  }
+}
+
+// shared memory of the resident design: the weights, two h buffers, two
+// x buffers, the barrier, alignment
+__host__ __device__ constexpr int wg_res_weight_bytes(int nch) {
+  return 2 * nch * (kRsXTile + nch * kWgTile);
+}
+inline size_t wg_res_smem(int nch) {
+  return (size_t)wg_res_weight_bytes(nch) + 2 * nch * kWgSlab +
+         2 * kRsXBuf + sizeof(uint64_t) + 1024;
+}
+
+// NCH: chunks of 32 units a warpgroup (Hp = 64 * NCH <= 128)
 template <int NCH>
+__device__ __forceinline__ void wg_resident(
+    const bf16* __restrict__ xa, const bf16* __restrict__ xb,
+    const bf16* __restrict__ wp, const float* __restrict__ bias,
+    bf16* __restrict__ ys_f, bf16* __restrict__ ys_b, int T_, int B, int Fa,
+    int Fb, int H, int seq_out, int vec) {
+  constexpr int GRP = kRsXTile + NCH * kWgTile;   // a (warpgroup, chunk)
+  constexpr int WB = wg_res_weight_bytes(NCH);    // a direction's weights
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* const wsm =
+      reinterpret_cast<unsigned char*>(sw_align(smem_raw));
+  unsigned char* const hbuf0 = wsm + WB;
+  unsigned char* const xbuf0 = hbuf0 + 2 * NCH * kWgSlab;
+  const uint32_t wbar = smem_u32(xbuf0 + 2 * kRsXBuf);
+  const int d = blockIdx.y;
+  const int b0 = blockIdx.x * kWgRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int F = Fa + Fb;
+
+  if (threadIdx.x == 0) {
+    mbar_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kWgProducerRegs));
+    if (warp == 8 && lane == 0) {
+      // the direction's weights, in copies of at most 32 KB
+      mbar_expect_tx(wbar, WB);
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(wp) + (size_t)d * WB;
+      for (int off = 0; off < WB; off += 2 * kWgTile) {
+        const int n = WB - off < 2 * kWgTile ? WB - off : 2 * kWgTile;
+        bulk_load(smem_u32(wsm + off), src + off, n, wbar);
+      }
+      mbar_wait(wbar, 0);                  // no copy outlives its issuer
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kWgConsumerRegs));
+  const int wg = warp >> 2;
+  const int warp4 = warp & 3;
+  const int gq = lane >> 2, q = lane & 3;
+  const float* bd = bias + (size_t)d * 4 * H;
+  bf16* ys = d == 0 ? ys_f : ys_b;
+  // x: thread i reads columns [8 (i % 4), 8 (i % 4) + 8) of row i / 4
+  const int xr = threadIdx.x >> 2, xk = (threadIdx.x & 3) * 8;
+  auto load_x = [&](int s) {
+    const int t = d == 0 ? s : T_ - 1 - s;
+    const int row = b0 + xr;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (row >= B || xk >= F) return v;
+    if (vec) {                  // Fa, Fb multiples of 8, 16-byte bases
+      const bf16* src = xk < Fa ? xa + ((size_t)t * B + row) * Fa + xk
+                                : xb + ((size_t)t * B + row) * Fb + (xk - Fa);
+      return __ldg(reinterpret_cast<const uint4*>(src));
+    }
+    auto at = [&](int k) {
+      return k < Fa  ? xa[((size_t)t * B + row) * Fa + k]
+             : k < F ? xb[((size_t)t * B + row) * Fb + (k - Fa)]
+                     : __float2bfloat16_rn(0.f);
+    };
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      __nv_bfloat162 p;
+      p.x = at(xk + 2 * j);
+      p.y = at(xk + 2 * j + 1);
+      w[j] = *reinterpret_cast<uint32_t*>(&p);
+    }
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  };
+  auto store_x = [&](unsigned char* buf, uint4 v) {
+    *reinterpret_cast<uint4*>(buf + swz64(xr, xk)) = v;
+  };
+  // h_{-1} = 0 (its padding units stay 0: zero weights and bias give c =
+  // 0, h = 0), x_0
+  for (int i = threadIdx.x; i < NCH * kWgSlab / 16; i += kWgConsumers)
+    reinterpret_cast<uint4*>(hbuf0)[i] = make_uint4(0, 0, 0, 0);
+  store_x(xbuf0, load_x(0));
+  fence_proxy_async();
+  consumers_sync();
+  mbar_wait(wbar, 0);                      // the weights are in
+  const int nx16 = F <= 16 ? 1 : 2;        // k16 steps of x that are not 0
+
+  float c[NCH][16];
+#pragma unroll
+  for (int cc = 0; cc < NCH; ++cc)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) c[cc][i] = 0.f;
+
+  for (int s = 0; s < T_; ++s) {
+    const int t = d == 0 ? s : T_ - 1 - s;
+    const bool more = s + 1 < T_;
+    const unsigned char* hcur = hbuf0 + (s & 1) * NCH * kWgSlab;
+    unsigned char* hnxt = hbuf0 + ((s + 1) & 1) * NCH * kWgSlab;
+    const unsigned char* xcur = xbuf0 + (s & 1) * kRsXBuf;
+    uint4 xv = make_uint4(0, 0, 0, 0);
+    if (more) xv = load_x(s + 1);          // lands during the products
+    const bool store = seq_out || !more;
+    const int t_out = seq_out ? t : 0;
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc) {
+      const unsigned char* wx = wsm + (wg * NCH + cc) * GRP;
+      const unsigned char* wh = wx + kRsXTile;
+      float acc[64];                        // the first wgmma sets it
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (j < nx16)
+          wgmma_bf16_m64n128(acc, gmma_desc64(xcur + 32 * j),
+                             gmma_desc64(wx + 32 * j), j);
+#pragma unroll
+      for (int kb = 0; kb < NCH; ++kb)
+#pragma unroll
+        for (int j = 0; j < kWgK / 16; ++j)
+          wgmma_bf16_m64n128(acc, gmma_desc(hcur + kb * kWgSlab + 32 * j),
+                             gmma_desc(wh + kb * kWgTile + 32 * j), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      const int ub = (wg * NCH + cc) * 32;
+      uint32_t hv[8];
+      wg_cell(acc, c[cc], hv, bd, ub, H, warp4, gq, q, ys, B, b0, store,
+              t_out);
+      wg_store_h(hnxt, hv, ub, warp4, gq, q);
+    }
+    if (more) store_x(xbuf0 + ((s + 1) & 1) * kRsXBuf, xv);
+    fence_proxy_async();
+    consumers_sync();        // h_t and x_{t+1} in place; h_{t-1} read
+  }
+}
+
+// shared memory of the streamed design without its rings: one h buffer,
+// `xbufs` x buffers, the rings' barriers, alignment
+inline size_t wg_fixed_smem(int F, int H, int xbufs) {
+  const int nkx = (F + kWgK - 1) / kWgK;
+  const int nch = (H + 63) / 64;
+  return (size_t)(xbufs * nkx + nch) * kWgSlab +
+         2 * 2 * kWgMaxStages * sizeof(uint64_t) + 1024;
+}
+
+// NCH: chunks of 32 units a warpgroup (Hp = 64 * NCH <= 256)
+template <int NCH>
+__device__ __forceinline__ void wg_streamed(
+    const bf16* __restrict__ xa, const bf16* __restrict__ xb,
+    const bf16* __restrict__ wp, const float* __restrict__ bias,
+    bf16* __restrict__ ys_f, bf16* __restrict__ ys_b, int T_, int B, int Fa,
+    int Fb, int H, int nkx, int stages, int xbufs, int seq_out, int vec) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // ring w: stages tiles of warpgroup w
+  unsigned char* const ring0 =
+      reinterpret_cast<unsigned char*>(sw_align(smem_raw));
+  unsigned char* const hbuf = ring0 + 2 * stages * kWgTile;
+  unsigned char* const xbuf0 = hbuf + NCH * kWgSlab;
+  uint64_t* const bars =
+      reinterpret_cast<uint64_t*>(xbuf0 + xbufs * nkx * kWgSlab);
+  // full[w][i] at bars + w * kWgMaxStages + i, empty[w][i] 2 kWgMaxStages on
+  const int nkb = nkx + NCH;                // K slabs: NCH of h, nkx of x
+  const int nst = NCH * nkb;                // tiles of a step, a warpgroup
+  const int d = blockIdx.y;
+  const int b0 = blockIdx.x * kWgRows;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * kWgMaxStages; ++i) {
+      mbar_init(smem_u32(bars + i), 1);
+      mbar_init(smem_u32(bars + 2 * kWgMaxStages + i), 4);   // 4 warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (warp < 8) {
+    // h_{-1} = 0 (its padding units stay 0), x of the first step
+    for (int i = threadIdx.x; i < NCH * kWgSlab / 16; i += kWgConsumers)
+      reinterpret_cast<uint4*>(hbuf)[i] = make_uint4(0, 0, 0, 0);
+    stage_x_wg(xbuf0, xa, xb, d == 0 ? 0 : T_ - 1, B, b0, Fa, Fb, nkx,
+               vec != 0);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+  }
+  __syncthreads();       // the barriers set up, x_0 and h_{-1} in place
+
+  if (warp >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 :: "n"(kWgProducerRegs));
+    if (warp < 10 && lane == 0) {
+      // warpgroup w's producer: its tile of the same nst stages every step
+      const int w = warp - 8;
+      const bf16* src = wp + ((size_t)d * nst * 2 + w) * kWgTileElems;
+      unsigned char* const ring = ring0 + w * stages * kWgTile;
+      const uint32_t full0 = smem_u32(bars + w * kWgMaxStages);
+      const uint32_t empty0 = smem_u32(bars + (2 + w) * kWgMaxStages);
+      int slot = 0;
+      uint32_t phase = 0;
+      for (int s = 0; s < T_; ++s) {
+        for (int i = 0; i < nst; ++i) {
+          // the slot's previous use is released (a fresh barrier passes
+          // a wait on parity 1 at once)
+          mbar_wait(empty0 + 8 * slot, phase ^ 1);
+          mbar_expect_tx(full0 + 8 * slot, kWgTile);
+          bulk_load(smem_u32(ring + slot * kWgTile),
+                    src + (size_t)i * 2 * kWgTileElems, kWgTile,
+                    full0 + 8 * slot);
+          if (++slot == stages) {
+            slot = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      // every copy has landed before the producer leaves
+      for (int i = 0; i < stages; ++i) {
+        mbar_wait(empty0 + 8 * slot, phase ^ 1);
+        if (++slot == stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+               :: "n"(kWgConsumerRegs));
+  const int wg = warp >> 2;
+  const int warp4 = warp & 3;
+  const int gq = lane >> 2, q = lane & 3;
+  const float* bd = bias + (size_t)d * 4 * H;
+  bf16* ys = d == 0 ? ys_f : ys_b;
+  const unsigned char* const ring = ring0 + wg * stages * kWgTile;
+  const uint32_t full0 = smem_u32(bars + wg * kWgMaxStages);
+  const uint32_t empty0 = smem_u32(bars + (2 + wg) * kWgMaxStages);
+  float c[NCH][16];
+  uint32_t hv[NCH][8];                      // h_t, held until the buffer
+#pragma unroll
+  for (int cc = 0; cc < NCH; ++cc)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) c[cc][i] = 0.f;
+  int slot = 0;
+  uint32_t phase = 0;
+
+  for (int s = 0; s < T_; ++s) {
+    const int t = d == 0 ? s : T_ - 1 - s;
+    const bool more = s + 1 < T_;
+    const unsigned char* xcur = xbuf0 + (xbufs == 2 ? s & 1 : 0) *
+                                            nkx * kWgSlab;
+    if (xbufs == 2 && more) {
+      // x_{t+1} into the other buffer (read in step s - 1, done) while
+      // this step runs; awaited at the step's end
+      stage_x_wg(xbuf0 + ((s + 1) & 1) * nkx * kWgSlab, xa, xb,
+                 d == 0 ? s + 1 : T_ - 2 - s, B, b0, Fa, Fb, nkx, vec != 0);
+      cp_async_commit();
+    }
+    const bool x_late = xbufs == 1 && s > 0;  // x_t staged after step s-1
+    const bool store = seq_out || !more;
+    const int t_out = seq_out ? t : 0;
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc) {
+      float acc[64];                        // the first wgmma sets it
+      for (int kb = 0; kb < nkb; ++kb) {
+        if (x_late && cc == 0 && kb == NCH) {
+          // x_t is needed from here on: every consumer's copies
+          cp_async_wait<0>();
+          fence_proxy_async();
+          consumers_sync();
+        }
+        mbar_wait(full0 + 8 * slot, phase);
+        const unsigned char* a = kb < NCH ? hbuf + kb * kWgSlab
+                                          : xcur + (kb - NCH) * kWgSlab;
+        const unsigned char* bt = ring + slot * kWgTile;
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < kWgK / 16; ++j)
+          wgmma_bf16_m64n128(acc, gmma_desc(a + 32 * j),
+                             gmma_desc(bt + 32 * j), kb > 0 || j > 0);
+        wgmma_commit();
+        wgmma_wait<0>();                    // the tile is free at once
+        if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+        if (++slot == stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+      wg_cell(acc, c[cc], hv[cc], bd, (wg * NCH + cc) * 32, H, warp4, gq, q,
+              ys, B, b0, store, t_out);
+    }
+    if (!more) break;                       // h_{T-1} feeds no product
+    consumers_sync();        // every product of step s is done
+#pragma unroll
+    for (int cc = 0; cc < NCH; ++cc)
+      wg_store_h(hbuf, hv[cc], (wg * NCH + cc) * 32, warp4, gq, q);
+    if (xbufs == 1) {
+      // x_{t+1} into the one buffer, awaited before its first x slab
+      stage_x_wg(xbuf0, xa, xb, d == 0 ? s + 1 : T_ - 2 - s, B, b0, Fa, Fb,
+                 nkx, vec != 0);
+      cp_async_commit();
+    } else {
+      cp_async_wait<0>();                   // x_{t+1} has landed
+    }
+    fence_proxy_async();
+    consumers_sync();        // h_t is in the buffer
+  }
+}
+
+// NCH: chunks of 32 units a warpgroup; KIND: kWgStreamed or kWgResident
+template <int NCH, int KIND>
 __global__ void __launch_bounds__(kWgThreads, 1)
 fused_bilstm_wgmma_kernel(const bf16* __restrict__ xa,
                           const bf16* __restrict__ xb,
@@ -1145,264 +1552,71 @@ fused_bilstm_wgmma_kernel(const bf16* __restrict__ xa,
                           bf16* __restrict__ ys_f, bf16* __restrict__ ys_b,
                           int T_, int B, int Fa, int Fb, int H, int nkx,
                           int stages, int xbufs, int seq_out, int vec) {
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  unsigned char* const ring =
-      reinterpret_cast<unsigned char*>(sw_align(smem_raw));
-  unsigned char* const xbuf0 = ring + stages * kWgStage;
-  unsigned char* const hbuf0 = xbuf0 + xbufs * nkx * kWgSlab;
-  unsigned char* const hbuf1 = hbuf0 + NCH * kWgSlab;
-  uint64_t* const bars = reinterpret_cast<uint64_t*>(hbuf1 + NCH * kWgSlab);
-  const uint32_t full0 = smem_u32(bars);                  // full[i]: +8i
-  const uint32_t empty0 = smem_u32(bars + kWgMaxStages);  // empty[i]: +8i
-  const int nkb = nkx + NCH;                // K slabs: NCH of h, nkx of x
-  const int nst = NCH * nkb;                // stages of one step
-  const int d = blockIdx.y;
-  const int b0 = blockIdx.x * kWgRows;
-  const uint32_t C = cluster_blocks();
-  const uint32_t rank = cluster_rank();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const bf16* wd = wp + (size_t)d * nst * (kWgStage / 2);
-
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < stages; ++i) {
-      mbar_init(full0 + 8 * i, 1);
-      mbar_init(empty0 + 8 * i, 8 * C);     // 8 consumer warps a block
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  if (warp < 8) {
-    // h_{-1} = 0 (its padding units stay 0: zero weights and bias give
-    // c = 0, h = 0), x of the first step
-    for (int i = threadIdx.x; i < NCH * kWgSlab / 16; i += kWgConsumers)
-      reinterpret_cast<uint4*>(hbuf0)[i] = make_uint4(0, 0, 0, 0);
-    stage_x_wg(xbuf0, xa, xb, d == 0 ? 0 : T_ - 1, B, b0, Fa, Fb, nkx,
-               vec != 0);
-    cp_async_commit();
-    cp_async_wait<0>();
-    fence_proxy_async();
-  }
-  cluster_sync_all();    // every block's barriers set up, x_0 and h_{-1} in
-
-  if (warp == 8) {
-    // the producer: the same nst stages every step
-    if (lane == 0) {
-      const uint16_t mask = (uint16_t)((1u << C) - 1);
-      int slot = 0;
-      uint32_t phase = 0;
-      for (int s = 0; s < T_; ++s) {
-        for (int i = 0; i < nst; ++i) {
-          // the slot's previous use is released (a fresh barrier passes
-          // a wait on parity 1 at once)
-          mbar_wait(empty0 + 8 * slot, phase ^ 1);
-          const uint32_t full = full0 + 8 * slot;
-          mbar_expect_tx(full, kWgStage);
-          if (rank == 0) {
-            const bf16* src = wd + (size_t)i * (kWgStage / 2);
-            const uint32_t dst = smem_u32(ring + slot * kWgStage);
-            if (C > 1)
-              bulk_load_multicast(dst, src, kWgStage, full, mask);
-            else
-              bulk_load(dst, src, kWgStage, full);
-          }
-          if (++slot == stages) {
-            slot = 0;
-            phase ^= 1;
-          }
-        }
-      }
-    }
-    __syncwarp();
-  } else {
-    const int wg = warp >> 2;
-    const int warp4 = warp & 3;
-    const int gq = lane >> 2, q = lane & 3;
-    const float* bd = bias + (size_t)d * 4 * H;
-    bf16* ys = d == 0 ? ys_f : ys_b;
-    // release a stage: each warp's lane 0 on every block's empty barrier
-    auto release = [&](int sl) {
-      if (lane == 0)
-        for (uint32_t p = 0; p < C; ++p)
-          mbar_arrive_cluster(empty0 + 8 * sl, p);
-    };
-    float c[NCH][16];
-#pragma unroll
-    for (int cc = 0; cc < NCH; ++cc)
-#pragma unroll
-      for (int i = 0; i < 16; ++i) c[cc][i] = 0.f;
-    int slot = 0;
-    uint32_t phase = 0;
-
-    for (int s = 0; s < T_; ++s) {
-      const int t = d == 0 ? s : T_ - 1 - s;
-      const unsigned char* hcur = s & 1 ? hbuf1 : hbuf0;
-      unsigned char* hnxt = s & 1 ? hbuf0 : hbuf1;
-      const unsigned char* xcur = xbuf0 + (s & (xbufs - 1)) * nkx * kWgSlab;
-      if (xbufs == 2 && s + 1 < T_) {
-        // x_{t+1} into the other buffer (read in step s - 1, done) while
-        // this step runs; waited for at the step's end
-        stage_x_wg(xbuf0 + ((s + 1) & 1) * nkx * kWgSlab, xa, xb,
-                   d == 0 ? s + 1 : T_ - 2 - s, B, b0, Fa, Fb, nkx,
-                   vec != 0);
-        cp_async_commit();
-      }
-      const bool store = seq_out || s == T_ - 1;
-      const int t_out = seq_out ? t : 0;
-#pragma unroll
-      for (int cc = 0; cc < NCH; ++cc) {
-        float acc[64];                      // the first wgmma sets it
-        int prev = -1;
-        for (int kb = 0; kb < nkb; ++kb) {
-          if (xbufs == 1 && cc == 0 && kb == NCH && s > 0) {
-            // x_t (staged after the last step) is needed from here on
-            cp_async_wait<0>();
-            fence_proxy_async();
-            consumers_sync();
-          }
-          mbar_wait(full0 + 8 * slot, phase);
-          const unsigned char* a = kb < NCH ? hcur + kb * kWgSlab
-                                            : xcur + (kb - NCH) * kWgSlab;
-          const unsigned char* bt = ring + slot * kWgStage + wg * kWgTile;
-          wgmma_fence();
-#pragma unroll
-          for (int j = 0; j < kWgK / 16; ++j)
-            wgmma_bf16_m64n128(acc, gmma_desc(a + 32 * j),
-                               gmma_desc(bt + 32 * j), kb > 0 || j > 0);
-          wgmma_commit();
-          if (prev >= 0) {
-            wgmma_wait<1>();                // the previous slab's are done
-            release(prev);
-          }
-          prev = slot;
-          if (++slot == stages) {
-            slot = 0;
-            phase ^= 1;
-          }
-        }
-        wgmma_wait<0>();
-        release(prev);
-
-        // the cell update: accumulator i holds row warp4*16 + gq + 8 *
-        // ((i >> 1) & 1), packed column 8 * (i >> 2) + 2q + (i & 1); column
-        // 32 * ug + 8 * gate + e' is gate `gate` of unit 8 * ug + e'
-        const int ub = wg * (NCH * 32) + cc * 32;
-#pragma unroll
-        for (int ug = 0; ug < 4; ++ug) {
-          const int u0 = ub + ug * 8 + 2 * q;
-          float bg[4][2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-#pragma unroll
-            for (int g = 0; g < 4; ++g)
-              bg[g][e] = u0 + e < H ? __ldg(bd + g * H + u0 + e) : 0.f;
-#pragma unroll
-          for (int rh = 0; rh < 2; ++rh) {
-            const int r = warp4 * 16 + gq + 8 * rh;
-            bf16 hv[2];
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int i0 = 16 * ug + 2 * rh + e;
-              const float ig = sigmoid_fast(acc[i0] + bg[0][e]);
-              const float fg = sigmoid_fast(acc[i0 + 4] + bg[1][e]);
-              const float gg = tanh_fast(acc[i0 + 8] + bg[2][e]);
-              const float og = sigmoid_fast(acc[i0 + 12] + bg[3][e]);
-              float& cs = c[cc][4 * ug + 2 * rh + e];
-              cs = fg * cs + ig * gg;
-              hv[e] = __float2bfloat16_rn(og * tanh_fast(cs));
-            }
-            __nv_bfloat162 pair;
-            pair.x = hv[0];
-            pair.y = hv[1];
-            *reinterpret_cast<__nv_bfloat162*>(
-                hnxt + (u0 >> 6) * kWgSlab + swz(r, u0 & 63)) = pair;
-            const int row = b0 + r;
-            if (store && row < B && u0 < H) {
-              bf16* out = ys + ((size_t)t_out * B + row) * H + u0;
-              if (u0 + 1 < H && (H & 1) == 0) {
-                *reinterpret_cast<__nv_bfloat162*>(out) = pair;
-              } else {
-                out[0] = hv[0];
-                if (u0 + 1 < H) out[1] = hv[1];
-              }
-            }
-          }
-        }
-      }
-      if (xbufs == 2) cp_async_wait<0>();     // x_{t+1} has landed
-      fence_proxy_async();
-      consumers_sync();      // h_t is in hnxt; every read of x_t is done
-      if (xbufs == 1 && s + 1 < T_) {
-        // x_{t+1} while the next step's h slabs run
-        stage_x_wg(xbuf0, xa, xb, d == 0 ? s + 1 : T_ - 2 - s, B, b0, Fa,
-                   Fb, nkx, vec != 0);
-        cp_async_commit();
-      }
-    }
-  }
-  cluster_sync_all();    // no block leaves while a peer may still signal it
+  if constexpr (KIND == kWgResident)
+    wg_resident<NCH>(xa, xb, wp, bias, ys_f, ys_b, T_, B, Fa, Fb, H, seq_out,
+                     vec);
+  else
+    wg_streamed<NCH>(xa, xb, wp, bias, ys_f, ys_b, T_, B, Fa, Fb, H, nkx,
+                     stages, xbufs, seq_out, vec);
 }
 
 // x slabs of a width: ceil(F / 64)
 inline int wg_x_slabs(int F) { return (F + kWgK - 1) / kWgK; }
 
-// shared memory of the wgmma kernel without its ring, with `xbufs` x
-// buffers, alignment included
-inline size_t wg_fixed_smem(int F, int H, int xbufs) {
-  const int nch = (H + 63) / 64;
-  return (size_t)(xbufs * wg_x_slabs(F) + 2 * nch) * kWgSlab +
-         2 * kWgMaxStages * sizeof(uint64_t) + 1024;
-}
-
-template <int NCH>
+template <int NCH, int KIND>
 cudaError_t launch_wgmma_kernel(const bf16* xa, const bf16* xb,
                                 const bf16* wp, const float* bias,
                                 bf16* ys_f, bf16* ys_b, int T_, int B,
                                 int Fa, int Fb, int H, int seq_out,
-                                int cluster, int stages, int xbufs,
-                                int vec, cudaStream_t stream) {
+                                int stages, int xbufs, int vec,
+                                cudaStream_t stream) {
   const int nkx = wg_x_slabs(Fa + Fb);
   const size_t smem =
-      wg_fixed_smem(Fa + Fb, H, xbufs) + (size_t)stages * kWgStage;
-  auto kernel = fused_bilstm_wgmma_kernel<NCH>;
-  cudaError_t err = set_smem((const void*)kernel, smem);
+      KIND == kWgResident
+          ? wg_res_smem(NCH)
+          : wg_fixed_smem(Fa + Fb, H, xbufs) + (size_t)stages * 2 * kWgTile;
+  auto kernel = fused_bilstm_wgmma_kernel<NCH, KIND>;
+  const cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
-  const int tiles = (B + kWgRows - 1) / kWgRows;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = cluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((tiles + cluster - 1) / cluster * cluster, 2);
-  cfg.blockDim = dim3(kWgThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, xa, xb, wp, bias, ys_f, ys_b, T_, B,
-                           Fa, Fb, H, nkx, stages, xbufs, seq_out, vec);
-  if (err != cudaSuccess) return err;
+  const dim3 grid((B + kWgRows - 1) / kWgRows, 2);
+  kernel<<<grid, kWgThreads, smem, stream>>>(xa, xb, wp, bias, ys_f, ys_b,
+                                             T_, B, Fa, Fb, H, nkx, stages,
+                                             xbufs, seq_out, vec);
   return cudaGetLastError();
 }
 
 cudaError_t launch_wgmma(const bf16* xa, const bf16* xb, const bf16* wp,
                          const float* bias, bf16* ys_f, bf16* ys_b, int T_,
-                         int B, int Fa, int Fb, int H, int seq_out,
-                         int cluster, int stages, int xbufs,
-                         cudaStream_t stream) {
+                         int B, int Fa, int Fb, int H, int seq_out, int kind,
+                         int stages, int xbufs, cudaStream_t stream) {
   const int vec = x_vec(xa, xb, Fa, Fb);
-  switch ((H + 63) / 64) {
-    case 1: return launch_wgmma_kernel<1>(xa, xb, wp, bias, ys_f, ys_b, T_,
-                                          B, Fa, Fb, H, seq_out, cluster,
-                                          stages, xbufs, vec, stream);
-    case 2: return launch_wgmma_kernel<2>(xa, xb, wp, bias, ys_f, ys_b, T_,
-                                          B, Fa, Fb, H, seq_out, cluster,
-                                          stages, xbufs, vec, stream);
-    case 3: return launch_wgmma_kernel<3>(xa, xb, wp, bias, ys_f, ys_b, T_,
-                                          B, Fa, Fb, H, seq_out, cluster,
-                                          stages, xbufs, vec, stream);
-    default: return launch_wgmma_kernel<4>(xa, xb, wp, bias, ys_f, ys_b, T_,
-                                           B, Fa, Fb, H, seq_out, cluster,
-                                           stages, xbufs, vec, stream);
+  const int nch = (H + 63) / 64;
+  if (kind == kWgResident) {
+    if (Fa + Fb > kRsMaxF || H > kRsMaxH) return cudaErrorInvalidValue;
+    if (nch == 1)
+      return launch_wgmma_kernel<1, kWgResident>(
+          xa, xb, wp, bias, ys_f, ys_b, T_, B, Fa, Fb, H, seq_out, 0, 0, vec,
+          stream);
+    return launch_wgmma_kernel<2, kWgResident>(
+        xa, xb, wp, bias, ys_f, ys_b, T_, B, Fa, Fb, H, seq_out, 0, 0, vec,
+        stream);
+  }
+  if (kind != kWgStreamed || stages < 2 || stages > kWgMaxStages ||
+      !(xbufs == 1 || xbufs == 2))
+    return cudaErrorInvalidValue;
+  switch (nch) {
+    case 1: return launch_wgmma_kernel<1, kWgStreamed>(
+        xa, xb, wp, bias, ys_f, ys_b, T_, B, Fa, Fb, H, seq_out, stages,
+        xbufs, vec, stream);
+    case 2: return launch_wgmma_kernel<2, kWgStreamed>(
+        xa, xb, wp, bias, ys_f, ys_b, T_, B, Fa, Fb, H, seq_out, stages,
+        xbufs, vec, stream);
+    case 3: return launch_wgmma_kernel<3, kWgStreamed>(
+        xa, xb, wp, bias, ys_f, ys_b, T_, B, Fa, Fb, H, seq_out, stages,
+        xbufs, vec, stream);
+    default: return launch_wgmma_kernel<4, kWgStreamed>(
+        xa, xb, wp, bias, ys_f, ys_b, T_, B, Fa, Fb, H, seq_out, stages,
+        xbufs, vec, stream);
   }
 }
 
@@ -1528,22 +1742,23 @@ cudaError_t dsp_fused_bilstm_bf16(const void* xa, const void* xb,
 }
 
 // bfloat16 on wgmma: x* (T, B, F*) and ys_f/ys_b (T or 1, B, H) bf16; wp
-// the weights in the kernel's stream order (ops/fused_lstm.py::
-// pack_weights_wgmma: 2 * ceil(H/64) * (ceil(F/64) + ceil(H/64)) stages of
-// 32 KB a direction), 16-byte aligned; bias (2, 4H) f32; H <= 256; the
-// plan (ops/fused_lstm.py::wgmma_plan): clusters of 1 or 2 blocks, 2-4
-// ring stages, 1 or 2 x buffers. Runs on `stream`, allocates nothing,
-// returns the launch's error code (cudaErrorInvalidValue where the plan's
-// shared memory outgrows a block's).
+// 16-byte aligned, the weights packed for the design `kind`: kWgStreamed
+// (ops/fused_lstm.py::pack_weights_wgmma: 2 * ceil(H/64) * (ceil(F/64) +
+// ceil(H/64)) stages of two 16 KB tiles a direction, in stream order) with
+// `stages` (2 or 3) ring tiles a warpgroup and `xbufs` (1 or 2) x buffers,
+// or kWgResident (pack_weights_resident; F <= 32, H <= 128; `stages` and
+// `xbufs` unused); bias (2, 4H) f32; H <= 256; the plan from
+// ops/fused_lstm.py::wgmma_plan. Runs on `stream`, allocates nothing,
+// returns the launch's error code (cudaErrorInvalidValue for a plan the
+// kernel does not take or whose shared memory outgrows a block's).
 cudaError_t dsp_fused_bilstm_bf16_wgmma(const void* xa, const void* xb,
                                         const void* wp, const void* bias,
                                         void* ys_f, void* ys_b, int T_,
                                         int B, int Fa, int Fb, int H,
-                                        int seq_out, int cluster, int stages,
+                                        int seq_out, int kind, int stages,
                                         int xbufs, void* stream) {
   if (T_ < 1 || B < 1 || Fa < 1 || Fb < 0 || H < 1 || H > kWgMaxH ||
-      (Fb > 0 && xb == nullptr) || !(cluster == 1 || cluster == 2) ||
-      stages < 2 || stages > kWgMaxStages || !(xbufs == 1 || xbufs == 2) ||
+      (Fb > 0 && xb == nullptr) ||
       reinterpret_cast<uintptr_t>(wp) % 16 != 0)
     return cudaErrorInvalidValue;
   return launch_wgmma(static_cast<const bf16*>(xa),
@@ -1551,7 +1766,7 @@ cudaError_t dsp_fused_bilstm_bf16_wgmma(const void* xa, const void* xb,
                       static_cast<const bf16*>(wp),
                       static_cast<const float*>(bias),
                       static_cast<bf16*>(ys_f), static_cast<bf16*>(ys_b), T_,
-                      B, Fa, Fb, H, seq_out, cluster, stages, xbufs,
+                      B, Fa, Fb, H, seq_out, kind, stages, xbufs,
                       static_cast<cudaStream_t>(stream));
 }
 

@@ -1829,15 +1829,6 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;   // setmaxnreg
 static_assert(kConsumers * kConsumerRegs + 128 * kProducerRegs <= 65536,
               "the register file of an SM");
 
-// wgmma descriptor of a K-major tf32 tile of 64-byte rows in the 64-byte
-// swizzle (the 16-byte chunk c of row n at chunk c ^ ((n >> 1) & 3);
-// 8-row atoms of 512 bytes, the SBO; the LBO is not used by this layout)
-__device__ __forceinline__ uint64_t desc64(const void* smem) {
-  const uint32_t a = smem_u32(smem);
-  return (uint64_t)((a >> 4) & 0x3FFF) | (uint64_t)1 << 16 |
-         (uint64_t)(512 >> 4) << 32 | (uint64_t)2 << 62;
-}
-
 // d (64 x 128 f32, the m64n128 accumulator layout) += a @ b (8 x 128), a
 // the 64 x 8 tf32 fragment in registers (a warp's 16 rows: rows gq and gq
 // + 8 by columns q and q + 4, as mma.m16n8k8's A), b a descriptor.
@@ -2045,9 +2036,9 @@ fwd_f32_kernel(const float* __restrict__ xproj, const float* __restrict__ wp,
             // address the descriptor forms)
             const int k = kb * kKs + j * 8;
             const uint64_t ah = gmma_desc(hs + (k / kSwK) * kSlab + k % kSwK);
-            const uint64_t bh = desc64(st + j * 8);
+            const uint64_t bh = gmma_desc64(st + j * 8);
             wgmma_tf32_m64n128_ra(acc, la[j], bh);
-            wgmma_tf32_m64n128(acc, ah, desc64(st + kTile + j * 8));
+            wgmma_tf32_m64n128(acc, ah, gmma_desc64(st + kTile + j * 8));
             wgmma_tf32_m64n128(acc, ah, bh);
           }
           wgmma_commit();

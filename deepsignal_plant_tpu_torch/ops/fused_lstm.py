@@ -13,11 +13,13 @@ Two routes, one per compute dtype:
   the time loop, over weights packed once per model (``packed_weights``
   caches them on the layer module), of one of two kernels by
   ``k1_bf16_plan`` (a rule of F, H and B):
-  ``fused_bilstm_bf16_wgmma``, wgmma over weight tiles that TMA bulk
-  copies multicast to a cluster of 64-row blocks (``pack_weights_wgmma``'s
-  stream order), wherever it fits (H <= 256 and at least two stages of
-  its ring in shared memory); ``fused_bilstm_bf16``, the mma.sync
-  kernel (``pack_weights``), everywhere else;
+  ``fused_bilstm_bf16_wgmma``, wgmma in 64-row blocks, wherever it fits
+  (H <= 256 and its shared memory), in one of two designs: the weights
+  resident in shared memory for the launch (``pack_weights_resident``;
+  F <= 32, H <= 128: the branches), or streamed by TMA bulk copies into
+  a ring of tiles a warpgroup (``pack_weights_wgmma``'s stream order; the
+  comb layers); ``fused_bilstm_bf16``, the mma.sync kernel
+  (``pack_weights``), everywhere else;
 - float32 (exact-parity runs): one of three routes per layer, by
   ``f32_route``. The narrow route (``layer_f32_narrow``,
   ``fused_bilstm_f32_narrow``) is one launch of the narrow kernel: the
@@ -91,8 +93,13 @@ _MAX_HIDDEN = 512
 
 def packed_for(F: int, H: int, B: int) -> str:
     """The packing of the bfloat16 kernel a layer takes (k1_bf16_plan):
-    "wgmma" (pack_weights_wgmma) or "mma" (pack_weights)."""
-    return "mma" if k1_bf16_plan(F, H, B) is None else "wgmma"
+    "resident" (pack_weights_resident) or "wgmma" (pack_weights_wgmma)
+    for the wgmma kernel's two designs, "mma" (pack_weights) for the
+    mma.sync kernel."""
+    plan = k1_bf16_plan(F, H, B)
+    if plan is None:
+        return "mma"
+    return "resident" if plan[0] == WG_RESIDENT else "wgmma"
 
 
 def padded_k(F: int, H: int) -> int:
@@ -113,14 +120,20 @@ def pack_weights(w_ih: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     return wt
 
 
-# the wgmma kernel (csrc/fused_bilstm.cu): 64-row blocks, K slabs of 64
-# (one 128-byte swizzled row) of 8 KB, chunks of 32 units a warpgroup,
-# ring stages of two 128 x 64 weight tiles (32 KB); its shared memory is
-# the ring, one or two x buffers, two h buffers, 8 barriers of 8 bytes and
-# 1,024 bytes of alignment (the kernel's wg_fixed_smem; a launch whose
-# plan outgrows a block's shared memory raises)
-WG_ROWS, WG_K, WG_SLAB_BYTES, WG_STAGE_BYTES = 64, 64, 8192, 32768
-WG_MAX_STAGES, WG_MAX_H, WG_BARRIER_BYTES = 4, 256, 8 * 8
+# the wgmma kernel (csrc/fused_bilstm.cu), two designs (the plan's kind):
+# WG_STREAMED, weight tiles of 128 packed columns x 64 K (16 KB) streamed
+# into a ring of WG_MAX_STAGES at most a consumer warpgroup (rings of 4-6
+# were slower on the H100, PERF.md), beside one h buffer, one or two x
+# buffers (K slabs of 64, 8 KB each), 12 barriers of 8 bytes and 1,024
+# bytes of alignment (the kernel's wg_fixed_smem);
+# WG_RESIDENT, a direction's weights resident (x's K padded to RS_KX),
+# where F <= RS_MAX_F and H <= RS_MAX_H. 64-row blocks either way; a
+# launch whose plan outgrows a block's shared memory raises.
+WG_STREAMED, WG_RESIDENT = 0, 1
+WG_ROWS, WG_K, WG_SLAB_BYTES, WG_TILE_BYTES = 64, 64, 8192, 16384
+WG_MAX_STAGES, WG_MAX_H, WG_BARRIER_BYTES = 3, 256, 2 * 2 * 3 * 8
+RS_KX, RS_MAX_F, RS_MAX_H = 32, 32, 128
+RS_XTILE_BYTES, RS_XBUF_BYTES = 128 * RS_KX * 2, WG_ROWS * RS_KX * 2
 _MAX_SMEM = 232_448                       # a block's, on Hopper
 
 
@@ -133,36 +146,48 @@ def wgmma_dims(F: int, H: int) -> tuple[int, int]:
 
 def _wgmma_fixed_smem(F: int, H: int, x_buffers: int) -> int:
     nkx, nch = wgmma_dims(F, H)
-    return (x_buffers * nkx + 2 * nch) * WG_SLAB_BYTES + \
+    return (x_buffers * nkx + nch) * WG_SLAB_BYTES + \
         WG_BARRIER_BYTES + 1024
 
 
+def resident_smem(H: int) -> int:
+    """Shared-memory bytes of the resident design at hidden size H (the
+    kernel's wg_res_smem): a direction's weights (each warpgroup's chunks:
+    W_ih's 128 x RS_KX tile, then W_hh's 128 x 64 tiles), two h buffers,
+    two x buffers, one barrier and 1,024 bytes of alignment."""
+    nch = -(-H // 64)
+    return 2 * nch * (RS_XTILE_BYTES + nch * WG_TILE_BYTES) + \
+        2 * nch * WG_SLAB_BYTES + 2 * RS_XBUF_BYTES + 8 + 1024
+
+
 def wgmma_stages(F: int, H: int) -> int:
-    """Ring stages of the wgmma kernel at (F, H): as many 32 KB stages as
-    fit (at most 4) beside one x buffer, two h buffers, the barriers and
-    1,024 bytes of alignment; 0 where H > 256 or fewer than two fit."""
+    """Ring tiles a warpgroup of the streamed design at (F, H): as many
+    pairs of 16 KB tiles as fit (at most WG_MAX_STAGES) beside one x
+    buffer, one h buffer, the barriers and 1,024 bytes of alignment; 0
+    where H > 256 or fewer than two fit."""
     if H > WG_MAX_H:
         return 0
     room = max(0, _MAX_SMEM - _wgmma_fixed_smem(F, H, 1))
-    stages = min(WG_MAX_STAGES, room // WG_STAGE_BYTES)
+    stages = min(WG_MAX_STAGES, room // (2 * WG_TILE_BYTES))
     return stages if stages >= 2 else 0
 
 
 def wgmma_plan(F: int, H: int, B: int) -> tuple[int, int, int] | None:
-    """(cluster, stages, x buffers) of the wgmma kernel at (F, H, B), None
-    where it does not fit (wgmma_stages < 2). Its grid is 2 *
-    round_up(ceil(B / 64), cluster) blocks of 64 rows, one an SM; clusters
-    of 2 share each weight stage between two row tiles wherever there are
-    two (on the H100 no slower than 1; clusters of 4 were slower at 4,096
-    rows, where 32 clusters of 4 do not fit the card at once). x_{t+1} is
-    staged into a second x buffer during step t where one fits beside the
-    ring."""
+    """(kind, stages, x buffers) of the wgmma kernel at (F, H) (any B: a
+    grid of 2 * ceil(B / 64) blocks of 64 rows, one an SM, no clusters),
+    None where it does not fit. (WG_RESIDENT, 0, 0) where the weights
+    stay in shared memory: F <= 32 and H <= 128 (the branches, 160 KB at
+    H = 128). Else (WG_STREAMED, wgmma_stages, x buffers) where two
+    stages fit: x_{t+1} is staged into a second x buffer during step t
+    where one fits beside the rings."""
+    if F <= RS_MAX_F and H <= RS_MAX_H and resident_smem(H) <= _MAX_SMEM:
+        return WG_RESIDENT, 0, 0
     stages = wgmma_stages(F, H)
     if not stages:
         return None
-    x_buffers = 2 if _wgmma_fixed_smem(F, H, 2) + stages * WG_STAGE_BYTES \
-        <= _MAX_SMEM else 1
-    return (2 if B > WG_ROWS else 1), stages, x_buffers
+    x_buffers = 2 if _wgmma_fixed_smem(F, H, 2) + \
+        stages * 2 * WG_TILE_BYTES <= _MAX_SMEM else 1
+    return WG_STREAMED, stages, x_buffers
 
 
 _mma_only = False
@@ -182,9 +207,9 @@ def mma_only():
 
 
 def k1_bf16_plan(F: int, H: int, B: int) -> tuple[int, int, int] | None:
-    """The bfloat16 K1 kernel a layer takes: wgmma_plan's (cluster,
-    stages, x buffers) of the wgmma kernel (``fused_bilstm_bf16_wgmma``),
-    which takes every shape it fits, or None for the mma.sync kernel
+    """The bfloat16 K1 kernel a layer takes: wgmma_plan's (kind, stages, x
+    buffers) of the wgmma kernel (``fused_bilstm_bf16_wgmma``), which
+    takes every shape it fits, or None for the mma.sync kernel
     (``fused_bilstm_bf16``): where it does not fit, and everywhere inside
     ``mma_only()``."""
     return None if _mma_only else wgmma_plan(F, H, B)
@@ -194,63 +219,117 @@ def weight_l2_bytes(kind: str, T: int, F: int, H: int, B: int) -> int:
     """Bytes of packed weights a bfloat16 layer of T steps and B rows
     reads from L2 by the design of kernel ``kind`` (not measured): "mma",
     every 32-row block its direction's (4H x padded_k(F, H)) matrix at
-    every step; "wgmma", every cluster (wgmma_plan's) each stage of its
-    direction (4 Hp x (Kx + Hp), Kx = 64 ceil(F / 64), Hp = 64 ceil(H /
-    64)) once a step."""
+    every step; "wgmma", every 64-row block its direction's packed
+    matrix, once a launch where it is resident (4 Hp x (RS_KX + Hp)), else
+    once a step (4 Hp x (Kx + Hp), Kx = 64 ceil(F / 64)); Hp = 64 ceil(H /
+    64)."""
     if kind == "mma":
         return 2 * -(-B // 32) * T * 4 * H * padded_k(F, H) * 2
     nkx, nch = wgmma_dims(F, H)
-    clusters = -(-(-(-B // WG_ROWS)) // wgmma_plan(F, H, B)[0])
-    return 2 * clusters * T * 4 * 64 * nch * 64 * (nkx + nch) * 2
+    blocks = 2 * -(-B // WG_ROWS)
+    if wgmma_plan(F, H, B)[0] == WG_RESIDENT:
+        return blocks * 4 * 64 * nch * (RS_KX + 64 * nch) * 2
+    return blocks * T * 4 * 64 * nch * 64 * (nkx + nch) * 2
 
 
-@torch.no_grad()
-def pack_weights_wgmma(w_ih: torch.Tensor, w_hh: torch.Tensor
-                       ) -> torch.Tensor:
-    """The wgmma kernel's weights, in the order it streams them: (2,
-    nch * nkb, 2, 128, 64) bf16, per direction, chunk cc and K slab in
-    stream order (the nch h slabs, then the nkx x slabs; wgmma_dims), the
-    two warpgroups' 128 x 64 tiles, each the 128-byte swizzled image of
-    (packed column n, k): element (n, k) at [n, 8 * ((k // 8) ^ (n % 8)) +
-    k % 8]. Slab kb of x holds W_ih rows [64 kb, 64 kb + 64), of h W_hh's,
-    zero past F and H. Warpgroup w's packed column 32 * ug + 8 * gate + e of
-    chunk cc is gate ``gate`` (i, f, g, o) of unit u = 32 * (w * nch + cc)
-    + 8 * ug + e, zero for u >= H. w_ih (2, F, 4H), w_hh (2, H, 4H), any
-    float dtype. A layout transform in plain tensor ops."""
+def _wgmma_columns(w_ih, w_hh, Kx: int) -> torch.Tensor:
+    """[W_ih; W_hh] as (2, Kx + Hp, 2, nch, 128) float32 (rows: W_ih's
+    zero-padded to Kx, then W_hh's padded to Hp = 64 nch; columns by
+    warpgroup w, chunk cc and packed column n = 32 ug + 8 gate + e, which
+    holds gate ``gate`` of unit 32 (w nch + cc) + 8 ug + e, zero for units
+    >= H)."""
     F, H = w_ih.shape[1], w_hh.shape[1]
-    nkx, nch = wgmma_dims(F, H)
-    Kx, Hp = nkx * WG_K, nch * 64
+    nch = -(-H // 64)
+    Hp = 64 * nch
     w = w_ih.new_zeros((2, Kx + Hp, 4, Hp), dtype=torch.float32)
     w[:, :F, :, :H] = w_ih.float().reshape(2, F, 4, H)
     w[:, Kx:Kx + H, :, :H] = w_hh.float().reshape(2, H, 4, H)
     # units as (warpgroup, chunk, ug, e); columns as (w, cc, ug, gate, e)
     w = w.reshape(2, Kx + Hp, 4, 2, nch, 4, 8).permute(0, 1, 3, 4, 5, 2, 6)
+    return w.reshape(2, Kx + Hp, 2, nch, 128)
+
+
+def _swizzle(t: torch.Tensor, chunks: int) -> torch.Tensor:
+    """Tiles (..., 128, 8 * chunks) as the K-major images wgmma reads in
+    the swizzle of 16 * chunks-byte rows: the 16-byte chunk c of row n at
+    chunk c ^ (n % 8) (128-byte rows, 8 chunks) or c ^ ((n // 2) % 4)
+    (64-byte rows, 4 chunks). The map is its own inverse, so chunk c of
+    the image is the tile's chunk c ^ ...: a gather."""
+    n = torch.arange(128).view(128, 1)
+    pos = torch.arange(chunks).view(1, chunks) ^ (
+        n % 8 if chunks == 8 else (n // 2) % 4)
+    t = t.reshape(*t.shape[:-1], chunks, 8)
+    idx = pos.view(128, chunks, 1).expand(128, chunks, 8)
+    out = torch.gather(t, -2, idx.expand(t.shape).to(t.device))
+    return out.reshape(*t.shape[:-2], 8 * chunks)
+
+
+@torch.no_grad()
+def pack_weights_wgmma(w_ih: torch.Tensor, w_hh: torch.Tensor
+                       ) -> torch.Tensor:
+    """The streamed design's weights, in the order it streams them: (2,
+    nch * nkb, 2, 128, 64) bf16, per direction, chunk cc and K slab in
+    stream order (the nch h slabs, then the nkx x slabs; wgmma_dims), the
+    two warpgroups' 128 x 64 tiles (16 KB each, one copy), each the
+    128-byte swizzled image of (packed column n, k): element (n, k) at
+    [n, 8 * ((k // 8) ^ (n % 8)) + k % 8]. Slab kb of x holds W_ih rows
+    [64 kb, 64 kb + 64), of h W_hh's, zero past F and H. Warpgroup w's
+    packed column 32 * ug + 8 * gate + e of chunk cc is gate ``gate`` (i,
+    f, g, o) of unit u = 32 * (w * nch + cc) + 8 * ug + e, zero for u >=
+    H. w_ih (2, F, 4H), w_hh (2, H, 4H), any float dtype. A layout
+    transform in plain tensor ops."""
+    F, H = w_ih.shape[1], w_hh.shape[1]
+    nkx, nch = wgmma_dims(F, H)
+    w = _wgmma_columns(w_ih, w_hh, nkx * WG_K)
     w = w.reshape(2, nkx + nch, WG_K, 2, nch, 128)
     order = list(range(nkx, nkx + nch)) + list(range(nkx))
     w = w[:, order]                        # K slabs in stream order
     # (d, cc, kb, w, n, k): one stage is (2, 128, 64)
-    w = w.permute(0, 4, 1, 3, 5, 2).reshape(2, nch, nkx + nch, 2, 128, 8, 8)
-    swz = torch.arange(8).view(8, 1) ^ torch.arange(8).view(1, 8)  # [n%8, c]
-    idx = swz.repeat(16, 1).view(128, 8, 1).expand(128, 8, 8)
-    w = torch.gather(w, 5, idx.expand(w.shape).to(w.device))
+    w = _swizzle(w.permute(0, 4, 1, 3, 5, 2), 8)
     return w.reshape(2, nch * (nkx + nch), 2, 128, 64).to(
         torch.bfloat16).contiguous()
 
 
+@torch.no_grad()
+def pack_weights_resident(w_ih: torch.Tensor, w_hh: torch.Tensor
+                          ) -> torch.Tensor:
+    """The resident design's weights, as each block copies them into its
+    shared memory: (2, 2, nch, RS_KX * 128 + nch * 64 * 128) bf16 (nch =
+    ceil(H / 64), F <= RS_KX): per direction, warpgroup w and chunk cc,
+    W_ih's 128 x RS_KX tile (rows [0, F), zero to RS_KX) in the 64-byte
+    swizzle, element (n, k) at [n, 8 * ((k // 8) ^ ((n // 2) % 4)) + k %
+    8], then W_hh's nch 128 x 64 tiles (rows [64 kb, 64 kb + 64), zero past
+    H) in the 128-byte swizzle, as pack_weights_wgmma's; packed columns
+    as there. w_ih (2, F, 4H), w_hh (2, H, 4H), any float dtype. A layout
+    transform in plain tensor ops."""
+    F, H = w_ih.shape[1], w_hh.shape[1]
+    if F > RS_KX:
+        raise ValueError(f"the resident design takes F <= {RS_KX} (got {F})")
+    nch = -(-H // 64)
+    w = _wgmma_columns(w_ih, w_hh, RS_KX)       # (d, K, w, cc, n)
+    x = _swizzle(w[:, :RS_KX].permute(0, 2, 3, 4, 1), 4)   # (d, w, cc, n, k)
+    h = w[:, RS_KX:].reshape(2, nch, WG_K, 2, nch, 128)
+    h = _swizzle(h.permute(0, 3, 4, 1, 5, 2), 8)   # (d, w, cc, kb, n, k)
+    return torch.cat([x.reshape(2, 2, nch, -1), h.reshape(2, 2, nch, -1)],
+                     -1).to(torch.bfloat16).contiguous()
+
+
+_PACKERS = {"wgmma": pack_weights_wgmma, "resident": pack_weights_resident,
+            "mma": pack_weights}
+
+
 def packed_weights(layer, kind: str) -> torch.Tensor:
     """The packed weights of a layer module (w_ih, w_hh parameters) for
-    the bfloat16 kernel ``kind`` ("wgmma": pack_weights_wgmma; "mma":
-    pack_weights), packed once and cached on the module until a parameter
-    changes: the cache key holds both parameters' version counters (moved
-    by every in-place update, such as an optimizer step) and data
-    pointers."""
+    packing ``kind`` (packed_for's: "wgmma", "resident" or "mma"), packed
+    once and cached on the module until a parameter changes: the cache
+    key holds both parameters' version counters (moved by every in-place
+    update, such as an optimizer step) and data pointers."""
     key = (layer.w_ih._version, layer.w_ih.data_ptr(), layer.w_hh._version,
            layer.w_hh.data_ptr())
     cache = layer.__dict__.setdefault("_k1_packed", {})
     cached = cache.get(kind)
     if cached is None or cached[0] != key:
-        pack = pack_weights_wgmma if kind == "wgmma" else pack_weights
-        cached = (key, pack(layer.w_ih, layer.w_hh))
+        cached = (key, _PACKERS[kind](layer.w_ih, layer.w_hh))
         cache[kind] = cached
     return cached[1]
 
@@ -734,11 +813,12 @@ def layer_bf16_wgmma(xs, w_ih: torch.Tensor, b: torch.Tensor,
                      w_hh: torch.Tensor, hidden_size: int,
                      seq_out: bool = True, packed=None
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """A bfloat16 layer through the wgmma kernel (over ``packed``, its
-    pack_weights_wgmma, made here when not given) on wgmma_plan's
-    clusters, stages and x buffers. Raises where the kernel does not fit
-    (H > 256, or fewer than two stages of its ring). Arguments and result
-    as bilstm_layer_fused's; a CPU tensor takes the plain version."""
+    """A bfloat16 layer through the wgmma kernel on wgmma_plan's design
+    (over ``packed``, the weights packed for it: pack_weights_resident or
+    pack_weights_wgmma, made here when not given). Raises where the
+    kernel does not fit (H > 256, or fewer than two ring stages).
+    Arguments and result as bilstm_layer_fused's; a CPU tensor takes the
+    plain version."""
     H = hidden_size
     checked = _layer_inputs(xs, w_ih, b, w_hh, H)
     if checked is None:
@@ -771,14 +851,19 @@ def layer_bf16_mma(xs, w_ih: torch.Tensor, b: torch.Tensor,
 
 def _launch_wgmma(xs, w_ih, b, w_hh, H, seq_out, packed, plan):
     """One launch of the wgmma kernel on checked bfloat16 inputs, on
-    ``plan``'s (cluster, stages, x buffers)."""
+    ``plan``'s (kind, stages, x buffers)."""
     T, B, Fa = xs[0].shape
     Fb = xs[1].shape[-1] if len(xs) == 2 else 0
     nkx, nch = wgmma_dims(Fa + Fb, H)
-    if packed is None:
-        packed = pack_weights_wgmma(w_ih, w_hh)
-    _check_packed(packed, (2, nch * (nkx + nch), 2, 128, WG_K),
-                  xs[0].device)
+    if plan[0] == WG_RESIDENT:
+        if packed is None:
+            packed = pack_weights_resident(w_ih, w_hh)
+        shape = (2, 2, nch, (RS_XTILE_BYTES + nch * WG_TILE_BYTES) // 2)
+    else:
+        if packed is None:
+            packed = pack_weights_wgmma(w_ih, w_hh)
+        shape = (2, nch * (nkx + nch), 2, 128, WG_K)
+    _check_packed(packed, shape, xs[0].device)
     out_T = T if seq_out else 1
     ys_f = torch.empty((out_T, B, H), dtype=xs[0].dtype, device=xs[0].device)
     ys_b = torch.empty_like(ys_f)

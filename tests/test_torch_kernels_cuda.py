@@ -440,14 +440,15 @@ def test_wgmma_kernel_matches_plain(device, layer, B, seq_out):
 @pytest.mark.parametrize("B", [200, 1016, 4096])
 @pytest.mark.parametrize("layer", ["seq", "comb0", "comb1"])
 def test_wgmma_rows_do_not_depend_on_the_cluster(device, layer, B):
-    """The rows of a launch on clusters of 2 (B > 64) equal, bit for bit,
-    those of one-block launches (B = 64: clusters of 1) on the same rows
-    (the rows and their sums do not depend on how many blocks share each
-    weight stage), and are within the bound of the plain version."""
+    """The rows of a wide launch equal, bit for bit, those of 64-row
+    launches (one block a direction) on the same rows, on the same design
+    (a row's sums do not depend on how many blocks run or on any cluster:
+    the kernel launches none), and are within the bound of the plain
+    version."""
     Fa, Fb, H, seq_out = MAIN_PATH_LAYERS[layer]
     xs, w_ih, b, w_hh = layer_inputs(Fa, Fb, H, B, torch.bfloat16, device)
-    assert fused_lstm.wgmma_plan(Fa + Fb, H, B)[0] == 2
-    assert fused_lstm.wgmma_plan(Fa + Fb, H, 64)[0] == 1
+    assert fused_lstm.wgmma_plan(Fa + Fb, H, B) == \
+        fused_lstm.wgmma_plan(Fa + Fb, H, 64)
     got = fused_lstm.layer_bf16_wgmma(xs, w_ih, b, w_hh, H, seq_out)
     want = bilstm_layer(xs, w_ih, b, w_hh, H, seq_out)
     for r0 in (0, 64):
@@ -458,6 +459,25 @@ def test_wgmma_rows_do_not_depend_on_the_cluster(device, layer, B):
     for g, w in zip(got, want):
         assert (g.float() - w.float()).abs().max().item() <= \
             TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("B", [77, 1016, 4096])
+@pytest.mark.parametrize("layer", ["seq", "signal"])
+def test_streamed_design_matches_plain_at_the_branches(device, layer, B):
+    """The streamed design, forced at the branch shapes the plan gives the
+    resident design (its ring and x buffers at their widths), against the
+    plain version, seq_out both ways."""
+    Fa, Fb, H, _ = MAIN_PATH_LAYERS[layer]
+    assert fused_lstm.wgmma_plan(Fa + Fb, H, B)[0] == fused_lstm.WG_RESIDENT
+    plan = (fused_lstm.WG_STREAMED, fused_lstm.wgmma_stages(Fa + Fb, H), 2)
+    xs, w_ih, b, w_hh = layer_inputs(Fa, Fb, H, B, torch.bfloat16, device)
+    for seq_out in (True, False):
+        got = fused_lstm._launch_wgmma(xs, w_ih, b, w_hh, H, seq_out, None,
+                                       plan)
+        want = bilstm_layer(xs, w_ih, b, w_hh, H, seq_out)
+        for g, w in zip(got, want):
+            assert (g.float() - w.float()).abs().max().item() <= \
+                TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("B", [65, 4096])
@@ -471,21 +491,34 @@ def test_mma_kernel_matches_plain(device, layer, B):
 
 def test_wgmma_kernel_raises_on_what_it_does_not_take(device):
     """A launch the kernel refuses raises; nothing falls back."""
+    S, R = fused_lstm.WG_STREAMED, fused_lstm.WG_RESIDENT
     xs, w_ih, b, w_hh = layer_inputs(16, 0, 128, 64, torch.bfloat16, device)
     before = dict(fused_lstm.launches)
-    # plans the kernel refuses: clusters of 4 (slower, not taken), a ring
-    # of 5 stages, and 4 stages with two x buffers at comb1 (past a
-    # block's shared memory: its plan is 3 stages and one x buffer)
-    for plan in ((4, 2, 1), (1, 5, 1)):
+    # plans the kernel refuses: a design it does not have, a ring of 1 or
+    # 4 tiles, 3 x buffers
+    for plan in ((2, 0, 0), (S, 1, 1), (S, 4, 1), (S, 2, 3)):
         with pytest.raises(RuntimeError):
             fused_lstm._launch_wgmma(xs, w_ih, b, w_hh, 128, True, None,
                                      plan)
+    # at comb1 the plan is 3 ring tiles a warpgroup and one x buffer: two
+    # x buffers outgrow a block's shared memory
     xs2, w_ih2, b2, w_hh2 = layer_inputs(512, 0, 256, 64, torch.bfloat16,
                                          device)
-    assert fused_lstm.wgmma_plan(512, 256, 64) == (1, 3, 1)
-    with pytest.raises(RuntimeError):
+    assert fused_lstm.wgmma_plan(512, 256, 64) == (S, 3, 1)
+    for plan in ((S, 3, 2),):
+        with pytest.raises(RuntimeError):
+            fused_lstm._launch_wgmma(xs2, w_ih2, b2, w_hh2, 256, True, None,
+                                     plan)
+    # the resident design takes F <= 32 and H <= 128 alone
+    with pytest.raises(ValueError):        # its packing refuses F = 512
         fused_lstm._launch_wgmma(xs2, w_ih2, b2, w_hh2, 256, True, None,
-                                 (1, 4, 2))
+                                 (R, 0, 0))
+    xs3, w_ih3, b3, w_hh3 = layer_inputs(16, 0, 256, 64, torch.bfloat16,
+                                         device)
+    with pytest.raises(RuntimeError):      # H = 256: its weights do not fit
+        fused_lstm._launch_wgmma(
+            xs3, w_ih3, b3, w_hh3, 256, True,
+            fused_lstm.pack_weights_resident(w_ih3, w_hh3), (R, 0, 0))
     xs, w_ih, b, w_hh = layer_inputs(16, 0, 512, 64, torch.bfloat16, device)
     with pytest.raises(ValueError):        # H > 256 does not fit
         fused_lstm.layer_bf16_wgmma(xs, w_ih, b, w_hh, 512)
